@@ -1,0 +1,10 @@
+from .ops import (
+    TILE_P,
+    aggregate_tree,
+    launches,
+    quantized_tiered_aggregate,
+    reset_launches,
+    tiered_aggregate,
+    tiered_aggregate_q8,
+)
+from .ref import quantized_tiered_aggregate_ref, tiered_aggregate_ref

@@ -1,0 +1,200 @@
+"""Public wrappers of the fused aggregation — port of
+``repro.kernels.tiered_aggregate.ops``.
+
+``tiered_aggregate`` (B1) and ``quantized_tiered_aggregate`` (B2) choose
+their implementation from the device of the tensor they are given:
+
+* a CUDA tensor launches the hand-written kernel in
+  ``csrc/tiered_aggregate.cu`` on the current stream, or raises — there is
+  no fallback;
+* a CPU tensor runs the plain version in ``ref.py`` (the CPU tests).
+
+Each launch adds one to ``launches[<kernel>]``; the plain version counts
+nothing.  ``aggregate_tree`` applies either to every leaf of a
+client-stacked tree, as ``tiers.synchronize`` does per (tier, level).
+Flags are host-side Python values, so choosing a round's levels never waits
+for the device.
+"""
+from __future__ import annotations
+
+import ctypes
+from pathlib import Path
+from typing import Any, Dict, Optional
+
+import torch
+
+from ..._tree import tree_map
+from ...compress.quantize import q8_quantize
+from .. import build
+from .ref import quantized_tiered_aggregate_ref, tiered_aggregate_ref
+
+TILE_P = 2048  # default scale tile of the q8 wire (the JAX package's TILE_P)
+SOURCE = Path(__file__).resolve().parent / "csrc" / "tiered_aggregate.cu"
+
+launches: Dict[str, int] = {"tiered_aggregate": 0, "tiered_aggregate_q8": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build.load(SOURCE)
+        p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        dense = [p, p, p, i, ll, i, i, i, p]
+        for fn in (lib.tiered_aggregate_f32, lib.tiered_aggregate_bf16):
+            fn.argtypes, fn.restype = dense, i
+        lib.tiered_aggregate_q8.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
+        lib.tiered_aggregate_q8.restype = i
+        _lib = lib
+    return _lib
+
+
+def _on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
+    """True for the kernel, False for the plain version; raises otherwise."""
+    if x.device.type not in ("cuda", "cpu"):
+        raise ValueError(
+            f"tensor on {x.device}: the aggregation runs on cuda (kernel) "
+            "or cpu (plain version)"
+        )
+    for o in others:
+        if o.device != x.device:
+            raise ValueError(f"tensors on {x.device} and {o.device}")
+    return x.device.type == "cuda"
+
+
+def _check_weights(weights: torch.Tensor, N: int) -> None:
+    if weights.shape != (N,) or weights.dtype != torch.float32:
+        raise ValueError(
+            f"weights must be f32 [{N}], got {weights.dtype} {tuple(weights.shape)}"
+        )
+
+
+def _raise_on(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {status}")
+
+
+def tiered_aggregate(
+    x: torch.Tensor, weights: torch.Tensor, do_entity, do_global, num_entities: int
+) -> torch.Tensor:
+    """[N, P] fused two-level aggregation (B1); see ``ref.py`` for semantics.
+
+    x is f32 or bf16 and the output keeps its dtype; the kernel sums in f32.
+    """
+    if x.ndim != 2 or x.shape[0] % num_entities:
+        raise ValueError(
+            f"x must be [N, P] with N divisible by {num_entities}, "
+            f"got {tuple(x.shape)}"
+        )
+    N, P = x.shape
+    _check_weights(weights, N)
+    if not _on_cuda(x, weights):
+        return tiered_aggregate_ref(x, weights, do_entity, do_global, num_entities)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x dtype {x.dtype}: the kernel takes f32 or bf16")
+    if not (x.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("x and weights must be contiguous")
+    lib = _library()
+    fn = lib.tiered_aggregate_f32 if x.dtype == torch.float32 else lib.tiered_aggregate_bf16
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(
+            x.data_ptr(), weights.data_ptr(), out.data_ptr(), N, P, num_entities,
+            int(bool(do_entity)), int(bool(do_global)), stream,
+        )
+    _raise_on(status, "tiered_aggregate")
+    launches["tiered_aggregate"] += 1
+    return out
+
+
+def quantized_tiered_aggregate(
+    q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor,
+    do_entity, do_global, num_entities: int, tile_p: int = TILE_P,
+) -> torch.Tensor:
+    """Fused dequantize → two-level aggregate over the q8 wire (B2).
+
+    q [N, Pp] int8 with Pp a multiple of ``tile_p``, scales [N, Pp/tile_p]
+    f32.  Returns f32 [N, Pp]; the padded tail is the caller's to slice off.
+    """
+    if q.ndim != 2 or q.shape[0] % num_entities or q.shape[1] % tile_p:
+        raise ValueError(
+            f"q must be [N, Pp] with N divisible by {num_entities} and Pp by "
+            f"{tile_p}, got {tuple(q.shape)}"
+        )
+    N, Pp = q.shape
+    _check_weights(weights, N)
+    if scales.shape != (N, Pp // tile_p) or scales.dtype != torch.float32:
+        raise ValueError(
+            f"scales must be f32 [{N}, {Pp // tile_p}], got "
+            f"{scales.dtype} {tuple(scales.shape)}"
+        )
+    if q.dtype != torch.int8:
+        raise ValueError(f"q dtype {q.dtype}: the wire payload is int8")
+    if not _on_cuda(q, scales, weights):
+        return quantized_tiered_aggregate_ref(
+            q, scales, weights, do_entity, do_global, num_entities, tile_p
+        )
+    if not (q.is_contiguous() and scales.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("q, scales and weights must be contiguous")
+    lib = _library()
+    out = torch.empty((N, Pp), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.tiered_aggregate_q8(
+            q.data_ptr(), scales.data_ptr(), weights.data_ptr(), out.data_ptr(),
+            N, Pp, tile_p, num_entities, int(bool(do_entity)), int(bool(do_global)),
+            stream,
+        )
+    _raise_on(status, "tiered_aggregate_q8")
+    launches["tiered_aggregate_q8"] += 1
+    return out
+
+
+def tiered_aggregate_q8(
+    x: torch.Tensor, weights: torch.Tensor, do_entity, do_global,
+    num_entities: int, tile_p: int = TILE_P,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Quantize [N, P] to the q8 wire format, aggregate fused, return f32.
+
+    The codec (``compress.quantize.q8_quantize``) is plain PyTorch, as it is
+    ``jnp`` outside the kernel in the JAX package; ``generator`` switches it
+    to stochastic rounding.
+    """
+    P = x.shape[1]
+    q, scales = q8_quantize(x.float(), tile_p, generator=generator)
+    out = quantized_tiered_aggregate(
+        q, scales, weights, do_entity, do_global, num_entities, tile_p
+    )
+    return out if out.shape[1] == P else out[:, :P].contiguous()
+
+
+def aggregate_tree(
+    tree: Any, weights: torch.Tensor, do_entity, do_global, num_entities: int,
+    tile_p: int = TILE_P, quantized: bool = False,
+) -> Any:
+    """Apply the fused aggregation leaf-wise to a client-stacked tree.
+
+    ``quantized=True`` routes every leaf through the q8 wire; outputs are
+    cast back to the leaf dtype.  ``tile_p`` is the codec's scale tile.
+    """
+
+    def f(x):
+        n = x.shape[0]
+        flat = x.reshape(n, -1).contiguous()  # a no-op on contiguous leaves
+        if quantized:
+            out = tiered_aggregate_q8(
+                flat, weights, do_entity, do_global, num_entities, tile_p
+            ).to(x.dtype)
+        else:
+            out = tiered_aggregate(flat, weights, do_entity, do_global, num_entities)
+        return out.reshape(x.shape)
+
+    return tree_map(f, tree)

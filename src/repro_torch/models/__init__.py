@@ -1,0 +1,3 @@
+from .layers import cross_entropy
+from .vgg import VggModel, VggSpec, build_model
+from .convert import params_from_numpy, params_to_numpy
