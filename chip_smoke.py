@@ -7,17 +7,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. the card, its power limit, torch and CUDA versions (no card: exit 1);
 2. build every CUDA kernel of the package with nvcc, in parallel;
-3. hold each kernel against its plain PyTorch version on the card, at the
-   main path's leaf shapes and at ragged edge shapes;
-4. the port on the card against the port on the CPU: VGG REDUCED, N=4,
-   3 rounds, f32 convolutions (TF32 off);
-5. the main path at full width: VGG-16 / CIFAR-10, N=20 clients, J2=5
-   edges, batch 16, the paper's cuts (3, 8) and intervals (8, 4, 1), 8
-   rounds through ``repro_torch.launch.train.main`` and 8 more with the
-   int8 fed wire; launch counts must equal what the plan implies, and every
-   client replica must equal client 0 after round 8;
-6. kernel, plain-version and bound times at the largest leaf [20, 2359296],
-   and one full-width sync;
+3. hold each kernel against its plain PyTorch version on the card: the
+   aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
+   ragged edge shapes; the flash-attention forward (B4) and its two
+   backward passes (B5) at the JAX package's test cases, the full-width
+   smollm-135m shape at windows 0/128/256/512, the CLI's S=64 and REDUCED
+   qwen2.5's hd 32 / GQA 4:1, bf16, and under ``vmap(grad_and_value)``;
+4. the port on the card against the port on the CPU: VGG REDUCED (N=4, 3
+   rounds, f32 convolutions, TF32 off) and smollm-135m REDUCED (N=4, S=256,
+   3 rounds, at window 0 and 128);
+5. the main paths, each with every launch count set to 0 just before it and
+   read just after, and held to what the plan and the depth imply:
+   VGG-16 / CIFAR-10 at full width (N=20 clients, J2=5 edges, batch 16, the
+   paper's cuts (3, 8) and intervals (8, 4, 1), 8 rounds through
+   ``repro_torch.launch.train.main`` and 8 more with the int8 fed wire);
+   the training CLI on REDUCED smollm-135m (N=8, J2=4, batch 4, S=64, 8
+   rounds); smollm-135m at full width (N=8, J2=4, batch 1, seq 1024, cuts
+   (6, 15), intervals (8, 4, 1), SGD, 8 rounds).  Every client replica must
+   equal client 0 after round 8;
+6. kernel, plain-version, library and bound times: B1/B2 at the largest VGG
+   leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
+   the path's, and window 128; the plain version at window 0); the parts
+   of a full-width round of each model;
 7. one JSON line describing every kernel, then the card, then
    ``{"ok": true, ...}`` as the last line.
 """
@@ -45,7 +56,22 @@ REPLACES = {
     "tiered_aggregate": "src/repro/kernels/tiered_aggregate/tiered_aggregate.py:35",
     "tiered_aggregate_q8": "src/repro/kernels/tiered_aggregate/tiered_aggregate.py:88",
 }
-SOURCE = "src/repro_torch/kernels/tiered_aggregate/csrc/tiered_aggregate.cu"
+REPLACES.update({
+    "swa_attention_fwd": "src/repro/kernels/swa_attention/swa_attention.py:96",
+    "swa_attention_bwd_dq": "src/repro/kernels/swa_attention/swa_attention.py:198",
+    "swa_attention_bwd_dkv": "src/repro/kernels/swa_attention/swa_attention.py:240",
+})
+SOURCES = {
+    "tiered_aggregate": "src/repro_torch/kernels/tiered_aggregate/csrc/tiered_aggregate.cu",
+    "swa_attention": "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
+}
+ATTN = ("swa_attention_fwd", "swa_attention_bwd_dq", "swa_attention_bwd_dkv")
+ATTN_TOL = 2e-5  # tests/test_kernels_swa.py's: rtol = atol (forward); after max-normalising (backward)
+# attention at the full-width smollm-135m path: B = N·batch = 8·1, S, H, K, hd
+MAIN_ATTN = (8, 1024, 9, 3, 64)
+# the full-width smollm-135m batch per client: 2 peaked at 73.6 GB of the
+# card's 80 GB, above the 70 GB line at which the batch is cut to 1
+LM_BATCH = 1
 
 
 def card_line() -> str:
@@ -191,23 +217,31 @@ def card_vs_cpu():
           f"{losses['cpu']} (rtol 1e-4)")
 
 
-def expected_launches(plan, rounds: int, compressed: bool):
-    """(B1, B2) launches the sync mapping implies for VGG (2 leaves a unit)."""
+def tier_leaves(params, plan):
+    """Leaves with elements in each tier's slice of a client-stacked tree:
+    one B1 (or B2) launch each per level that runs."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import tier_subtrees
+
+    return [sum(1 for x in tree_leaves(part) if x.numel())
+            for part in tier_subtrees(params, plan)]
+
+
+def expected_launches(plan, rounds: int, compressed: bool, leaves):
+    """(B1, B2) launches the sync mapping implies, ``leaves[m]`` per tier."""
     b1 = b2 = 0
     for r in range(rounds):
         for m in range(plan.M):
-            lo, hi = plan.tier_bounds(m)
-            leaves = 2 * (hi - lo)
             levels = plan.levels(m)
             entity = len(levels) == 2
             interval = levels[-1][1]
             fed = interval <= 1 or (r + 1) % interval == 0
             wire = compressed and m < plan.M - 1 and plan.entities[m] > 1
             if wire and fed:
-                b1 += leaves * entity
-                b2 += leaves
+                b1 += leaves[m] * entity
+                b2 += leaves[m]
             elif entity or fed:
-                b1 += leaves
+                b1 += leaves[m]
     return b1, b2
 
 
@@ -223,14 +257,14 @@ def main_path(rounds: int = 8):
 
     from repro_torch.compress import Int8Stochastic
     from repro_torch.core import init_state_a
-    from repro_torch.kernels.tiered_aggregate import launches, reset_launches
+    from repro_torch.kernels.tiered_aggregate import launches
     from repro_torch.launch import train
 
     argv = ["--arch", "vgg16-cifar10", "--clients", "20", "--edges", "5",
             "--batch", "16", "--rounds", str(rounds), "--log-every", "1"]
     ckpt = ROOT / "build" / "chip_smoke" / "vgg16-cifar10.npz"
     torch.cuda.reset_peak_memory_stats()
-    reset_launches()
+    reset_all_launches()
     buf = io.StringIO()
     t0 = time.perf_counter()
     with contextlib.redirect_stdout(buf):
@@ -240,7 +274,9 @@ def main_path(rounds: int = 8):
     assert rc == 0, rc
     plain = dict(launches)
     _, _, _, plan, _, _ = train.setup(train.parse_args(argv))
-    want = expected_launches(plan, rounds, compressed=False)
+    # w and b of each unit; VGG has no frontend or head leaves
+    leaves = [2 * (hi - lo) for lo, hi in map(plan.tier_bounds, range(plan.M))]
+    want = expected_launches(plan, rounds, compressed=False, leaves=leaves)
     got = (plain["tiered_aggregate"], plain["tiered_aggregate_q8"])
     assert got == want, (got, want)
     if plan.cuts == (3, 8) and plan.intervals == (8, 4, 1) and rounds == 8:
@@ -258,7 +294,7 @@ def main_path(rounds: int = 8):
     print(json.dumps({"run": "uncompressed", "loss": losses, "round_ms": ms}))
 
     # the same rounds with the int8 codec on the fed wire
-    reset_launches()
+    reset_all_launches()
     args = train.parse_args(argv)
     device, _, model, plan, opt, loader = train.setup(args)
     state = init_state_a(model, plan, opt, torch.Generator().manual_seed(args.seed),
@@ -273,7 +309,7 @@ def main_path(rounds: int = 8):
         losses.append(float(loss))
         ms.append((time.perf_counter() - t) * 1e3)
     comp = (launches["tiered_aggregate"], launches["tiered_aggregate_q8"])
-    want_c = expected_launches(plan, rounds, compressed=True)
+    want_c = expected_launches(plan, rounds, compressed=True, leaves=leaves)
     assert comp == want_c, (comp, want_c)
     if plan.cuts == (3, 8) and plan.intervals == (8, 4, 1) and rounds == 8:
         assert comp == (208, 26), comp
@@ -398,6 +434,430 @@ def vgg_forward_flops(spec, images: int) -> float:
     return total
 
 
+# --------------------------------------------------------------------------- #
+# the dense transformer path: flash attention (B4, B5) and smollm-135m
+# --------------------------------------------------------------------------- #
+
+
+def attention_cases():
+    """(B, S, H, K, hd, window) of every attention check."""
+    cases = [(1, 256, 4, 2, 64, 128), (2, 384, 4, 4, 128, 256), (1, 512, 8, 2, 80, 0),
+             (1, 300, 4, 1, 64, 128), (1, 256, 6, 3, 96, 128),
+             (1, 640, 4, 2, 64, 512)]  # tests/test_kernels_swa.py's CASES
+    cases += [MAIN_ATTN + (w,) for w in (0, 128, 256, 512)]
+    cases += [(32, 64, 3, 3, 64, 0)]   # the CLI: REDUCED smollm, N=8 x batch 4, S=64
+    cases += [(8, 256, 8, 2, 32, 0)]   # REDUCED qwen2.5: hd 32, GQA 4:1
+    return cases
+
+
+def normalised_err(out, ref) -> float:
+    return float((out.float() - ref.float()).abs().max() / (ref.float().abs().max() + 1e-9))
+
+
+def check_attention():
+    """B4 and each B5 pass against its plain version, on the same inputs."""
+    import torch
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.kernels.swa_attention import (
+        launches, reset_launches, swa_attention, swa_attention_bwd_dkv,
+        swa_attention_bwd_dkv_ref, swa_attention_bwd_dq, swa_attention_bwd_dq_ref,
+        swa_attention_fwd, swa_attention_ref,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(2)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(*shape, generator=gen, device=dev).to(dtype)
+
+    errs = dict.fromkeys(ATTN, 0.0)
+    for B, S, H, K, hd, W in attention_cases():
+        q, k, v, do = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd), randn(B, S, H, hd)
+        o, lse = swa_attention_fwd(q, k, v, W)
+        dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W)
+        dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)
+        torch.cuda.synchronize()
+        what = f"B={B} S={S} H={H} K={K} hd={hd} window={W}"
+        ro, rlse = swa_attention_ref(q, k, v, W)
+        torch.testing.assert_close(o, ro, rtol=ATTN_TOL, atol=ATTN_TOL, msg=f"B4 o {what}")
+        torch.testing.assert_close(lse, rlse, rtol=ATTN_TOL, atol=ATTN_TOL, msg=f"B4 lse {what}")
+        rdq, rdelta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W)
+        rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
+        for name, got, ref in (("dq", dq, rdq), ("delta", delta, rdelta), ("dk", dk, rdk),
+                               ("dv", dv, rdv)):
+            e = normalised_err(got, ref)
+            if e > ATTN_TOL:
+                raise AssertionError(f"B5 {name} {what}: max error {e:.3e} of max|ref| "
+                                     f"> {ATTN_TOL}")
+        errs["swa_attention_fwd"] = max(errs["swa_attention_fwd"],
+                                        float((o - ro).abs().max()), float((lse - rlse).abs().max()))
+        errs["swa_attention_bwd_dq"] = max(errs["swa_attention_bwd_dq"],
+                                           float((dq - rdq).abs().max()),
+                                           float((delta - rdelta).abs().max()))
+        errs["swa_attention_bwd_dkv"] = max(errs["swa_attention_bwd_dkv"],
+                                            float((dk - rdk).abs().max()),
+                                            float((dv - rdv).abs().max()))
+        del q, k, v, do, o, lse, dq, delta, dk, dv, ro, rlse, rdq, rdelta, rdk, rdv
+    n_cases = len(attention_cases())
+
+    # bf16 inputs against the f32 plain version, the JAX test's tolerance
+    B, S, H, K, hd, W = 1, 256, 4, 2, 64, 128
+    q, k, v, do = (randn(*s, dtype=torch.bfloat16) for s in
+                   ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
+    o, lse = swa_attention_fwd(q, k, v, W)
+    ro, _ = swa_attention_ref(q.float(), k.float(), v.float(), W)
+    torch.testing.assert_close(o.float(), ro, rtol=0, atol=3e-2, msg="B4 bf16")
+    bf16_err = float((o.float() - ro).abs().max())
+
+    # Engine A's transform: one launch of each kernel for all N clients
+    N, B, S, H, K, hd, W = 4, 2, 256, 9, 3, 64, 128
+    q, k, v, dd = randn(N, B, S, H, hd), randn(N, B, S, K, hd), randn(N, B, S, K, hd), \
+        randn(N, B, S, H, hd)
+
+    def loss(q, k, v, dd):
+        return (swa_attention(q, k, v, W) * dd).sum()
+
+    def loss_plain(q, k, v, dd):
+        return (swa_attention_ref(q, k, v, W)[0] * dd).sum()
+
+    reset_launches()
+    g, val = vmap(grad_and_value(loss, argnums=(0, 1, 2)))(q, k, v, dd)
+    torch.cuda.synchronize()
+    once = dict(launches)
+    if once != dict.fromkeys(ATTN, 1):
+        raise AssertionError(f"vmap over {N} clients made {once} launches, not one each")
+    g_ref, val_ref = vmap(grad_and_value(loss_plain, argnums=(0, 1, 2)))(q, k, v, dd)
+    torch.testing.assert_close(val, val_ref, rtol=1e-5, atol=1e-3, msg="vmap loss")
+    for name, a, b in zip(("dq", "dk", "dv"), g, g_ref):
+        e = normalised_err(a, b)
+        if e > ATTN_TOL:
+            raise AssertionError(f"vmap(grad_and_value) {name}: {e:.3e} > {ATTN_TOL}")
+    reset_launches()
+    print(f"[attention] {n_cases} shapes x (B4, B5 dq, B5 dk/dv) against the plain versions "
+          f"passed (forward rtol=atol {ATTN_TOL}; backward {ATTN_TOL} of max|ref|); bf16 "
+          f"forward within 3e-2 of f32 (max |err| {bf16_err:.3e}); vmap(grad_and_value) "
+          f"over N={N}: one launch of each kernel, grads match; max |err| "
+          + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+    return errs, bf16_err
+
+
+def lm_batches(vocab, N, b, S, rounds, seed=0):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for _ in range(rounds):
+        toks = rng.integers(0, vocab, (N, b, S + 1)).astype(np.int32)
+        out.append({"tokens": toks[..., :-1], "labels": toks[..., 1:]})
+    return out
+
+
+def lm_card_vs_cpu():
+    """REDUCED smollm-135m, 3 rounds, the same init and batches on both
+    devices, at window 0 and 128: both forward bodies through the model."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import default_plan, init_state_a
+    from repro_torch.kernels.swa_attention import launches, reset_launches
+    from repro_torch.launch.train import make_dispatch, to_device
+    from repro_torch.models import SplittableModel
+    from repro_torch.optim import sgd
+
+    N, b, S, rounds = 4, 2, 256, 3
+    for window in (0, 128):
+        spec = get_reduced("smollm-135m").with_window(window)
+        model = SplittableModel(spec)
+        plan = default_plan(spec.n_units, N, cuts=(1, 2), intervals=(2, 2, 1),
+                            entities=(N, 2, 1))
+        opt = sgd(0.05)
+        batches = lm_batches(spec.vocab_size, N, b, S, rounds)
+        losses = {}
+        for name in ("cuda", "cpu"):
+            device = torch.device(name)
+            reset_launches()
+            state = init_state_a(model, plan, opt, torch.Generator().manual_seed(0), device)
+            dispatch = make_dispatch(model, plan, opt)
+            losses[name] = []
+            for r, batch in enumerate(batches):
+                state, loss = dispatch(state, to_device(batch, device), r)
+                losses[name].append(float(loss))
+            if name == "cuda":
+                counts = dict(launches)
+        want = dict.fromkeys(ATTN, spec.n_units * rounds)
+        if counts != want:
+            raise AssertionError(f"window {window}: launches {counts}, expected {want}")
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+        print(f"[card vs cpu] smollm-135m REDUCED window={window} N={N} S={S}: losses cuda "
+              f"{losses['cuda']} cpu {losses['cpu']} (rtol 1e-4); launches {counts}")
+
+
+def reset_all_launches():
+    from repro_torch.kernels.swa_attention import reset_launches as reset_attn
+    from repro_torch.kernels.tiered_aggregate import reset_launches as reset_agg
+
+    reset_agg()
+    reset_attn()
+
+
+def all_launches():
+    from repro_torch.kernels.swa_attention import launches as attn
+    from repro_torch.kernels.tiered_aggregate import launches as agg
+
+    return {**agg, **attn}
+
+
+def lm_expected(plan, params, n_units, rounds):
+    b1, b2 = expected_launches(plan, rounds, compressed=False,
+                               leaves=tier_leaves(params, plan))
+    return {"tiered_aggregate": b1, "tiered_aggregate_q8": b2,
+            **dict.fromkeys(ATTN, n_units * rounds)}
+
+
+def lm_cli(rounds: int = 8):
+    """``python -m repro_torch.launch.train --arch smollm-135m`` on the card:
+    REDUCED at S=64, as the JAX CLI runs it."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import replicate_for_clients
+    from repro_torch.launch import train
+
+    argv = ["--arch", "smollm-135m", "--clients", "8", "--edges", "4", "--batch", "4",
+            "--rounds", str(rounds), "--log-every", "1"]
+    ckpt = ROOT / "build" / "chip_smoke" / "smollm-135m-reduced.npz"
+    reset_all_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv + ["--checkpoint", str(ckpt)])
+    got = all_launches()
+    print(buf.getvalue(), end="")
+    assert rc == 0, rc
+    losses = [float(v) for v in re.findall(r"loss (\S+)", buf.getvalue())]
+    assert len(losses) == rounds and all(math.isfinite(v) for v in losses), losses
+    _, spec, model, plan, _, _ = train.setup(train.parse_args(argv + ["--device", "cpu"]))
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    want = lm_expected(plan, replicate_for_clients(params, plan.num_clients),
+                       spec.n_units, rounds)
+    if got != want:
+        raise AssertionError(f"CLI launches {got}, the plan and depth imply {want}")
+    with np.load(ckpt) as z:
+        assert_replicas_equal(((k, z[k]) for k in z.files if k != "__meta__"), "CLI")
+    ckpt.unlink()
+    print(f"[cli] smollm-135m REDUCED, S=64: {rounds} rounds, finite losses, launches {got} "
+          f"as the plan implies, replicas equal")
+    return got
+
+
+def lm_main_path(rounds: int = 8):
+    """smollm-135m at full width through the CLI's own pieces."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_spec
+    from repro_torch.core import init_state_a
+    from repro_torch.launch import train
+
+    argv = ["--arch", "smollm-135m", "--clients", "8", "--edges", "4",
+            "--batch", str(LM_BATCH), "--rounds", str(rounds)]
+    args = train.parse_args(argv)
+    device, spec, model, plan, opt, loader = train.setup(
+        args, spec=get_spec("smollm-135m"), seq=1024)
+    assert plan.cuts == (6, 15) and plan.intervals == (8, 4, 1), plan
+    state = init_state_a(model, plan, opt, torch.Generator().manual_seed(args.seed), device)
+    want = lm_expected(plan, state.params, spec.n_units, rounds)
+    dispatch = train.make_dispatch(model, plan, opt)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    losses, ms = [], []
+    for r in range(rounds):
+        t = time.perf_counter()
+        batch = train.to_device(loader.next_round(), device)
+        state, loss = dispatch(state, batch, r)
+        losses.append(float(loss))  # waits for the round
+        ms.append((time.perf_counter() - t) * 1e3)
+    got = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if got != want:
+        raise AssertionError(f"smollm-135m launches {got}, the plan and depth imply {want}")
+    assert all(math.isfinite(v) for v in losses), losses
+    for i, x in enumerate(tree_leaves(state.params)):
+        if not bool((x == x[0:1]).all()):
+            raise AssertionError(f"smollm-135m: client replicas of leaf {i} differ after "
+                                 f"round {rounds}")
+    print(f"[main path] smollm-135m full width (N=8, J2=4, batch {LM_BATCH}, seq 1024, cuts "
+          f"{plan.cuts}, intervals {plan.intervals}, {spec.total_param_count()} params): "
+          f"launches {got} as the plan and depth imply; replicas equal; peak device "
+          f"memory {peak / 2**30:.2f} GiB")
+    print(json.dumps({"run": "smollm-135m", "loss": losses, "round_ms": ms,
+                      "peak_bytes": peak}))
+    return got, dict(model=model, plan=plan, opt=opt, state=state, batch=batch, spec=spec)
+
+
+def visible_pairs(S: int, window: int) -> int:
+    """(query, key) pairs the causal / windowed mask lets through, per head."""
+    if window <= 0 or window >= S:
+        return S * (S + 1) // 2
+    return sum(min(p + 1, window) for p in range(S))
+
+
+def attention_work(B, S, H, K, hd, window):
+    """{kernel: (operations, bytes)}: each input read once, each output
+    written once, multiply-adds counted as 2, over the visible pairs."""
+    pairs = visible_pairs(S, window) * B * H
+    qb, kb, rows = 4 * B * S * H * hd, 4 * B * S * K * hd, 4 * B * H * S
+    return {
+        # s = q·k, o += p·v
+        "swa_attention_fwd": (4 * hd * pairs, 2 * qb + 2 * kb + rows),
+        # s, dp = do·v, dq += ds·k; delta = rowsum(o·do)
+        "swa_attention_bwd_dq": (6 * hd * pairs + 2 * B * S * H * hd, 4 * qb + 2 * kb + 2 * rows),
+        # s, dp, dv += p·do, dk += ds·q
+        "swa_attention_bwd_dkv": (8 * hd * pairs, 2 * qb + 4 * kb + 2 * rows),
+    }
+
+
+def attention_timings(card: str):
+    """B4 and both B5 passes at the full-width shape: kernel, plain, bound,
+    and SDPA as the library yardstick (never called by the port)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.swa_attention import (
+        reset_launches, swa_attention_bwd_dkv, swa_attention_bwd_dkv_ref,
+        swa_attention_bwd_dq, swa_attention_bwd_dq_ref, swa_attention_fwd, swa_attention_ref,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    B, S, H, K, hd = MAIN_ATTN
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev)
+    k = torch.randn(B, S, K, hd, generator=gen, device=dev)
+    v = torch.randn(B, S, K, hd, generator=gen, device=dev)
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev)
+    out = {}
+    for W in (0, 128):  # the full-width path's window, and one windowed case
+        o, lse = swa_attention_fwd(q, k, v, W)
+        _, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W)
+        runs = {
+            "swa_attention_fwd": (lambda: swa_attention_ref(q, k, v, W),
+                                  lambda: swa_attention_fwd(q, k, v, W)),
+            "swa_attention_bwd_dq": (lambda: swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W),
+                                     lambda: swa_attention_bwd_dq(q, k, v, o, lse, do, W)),
+            "swa_attention_bwd_dkv": (
+                lambda: swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W),
+                lambda: swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)),
+        }
+        work = attention_work(B, S, H, K, hd, W)
+        for name, (plain, kernel) in runs.items():
+            if W == 0:
+                km, pm = in_turns(plain, kernel)
+            else:
+                km, pm = cuda_ms(kernel), None
+            ops, nbytes = work[name]
+            by_ops = ops / F32_FLOPS_PER_S * 1e3
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            r = dict(ms=km, plain_ms=pm, bound_ms=max(by_ops, by_bytes),
+                     bound_by="operations" if by_ops >= by_bytes else "bytes",
+                     ops=ops, bytes=nbytes)
+            out[(name, W)] = r
+            print(f"[timing] {name} at B={B} S={S} H={H} K={K} hd={hd} window={W}: kernel "
+                  f"{km:.4f} ms" + (f", plain {pm:.4f} ms" if pm is not None else "")
+                  + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops / 1e9:.2f} GFLOP "
+                  f"at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB at 3.35 TB/s, H100 SXM data "
+                  f"sheet) = {100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
+        del o, lse, delta
+
+    # the library yardstick: SDPA on [B, H, S, hd], forward and forward+backward
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+    lib = {}  # window -> (forward ms, forward+backward ms)
+    for W in (0, 128):
+        mask = None
+        if W:
+            pos = torch.arange(S, device=dev)
+            mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - W)
+
+        def fwd(W=W, mask=mask):
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                                      is_causal=W == 0, enable_gqa=True)
+
+        def fwd_bwd(W=W, mask=mask):
+            o = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                               is_causal=W == 0, enable_gqa=True)
+            torch.autograd.grad(o, (qt, kt, vt), dot)
+
+        f_ms, fb_ms = cuda_ms(fwd), cuda_ms(fwd_bwd)
+        lib[W] = (f_ms, fb_ms)
+        print(f"[timing] library yardstick torch.nn.functional.scaled_dot_product_attention "
+              f"(enable_gqa, {'is_causal' if W == 0 else 'boolean window mask'}, f32) at "
+              f"window={W}: forward {f_ms:.4f} ms, forward+backward {fb_ms:.4f} ms; card {card}")
+    reset_launches()
+    for name in ATTN:
+        r = out[(name, 0)]
+        f_ms, fb_ms = lib[0]
+        # the library's backward computes dq, dk and dv together
+        r["library_ms"] = f_ms if name == "swa_attention_fwd" else fb_ms - f_ms
+    return out
+
+
+def lm_forward_flops(spec, sequences: int, seq: int) -> float:
+    """Model FLOPs of one forward pass: the matmuls (2 per multiply-add)
+    and the causal attention over its visible pairs."""
+    d, ff, hd, h, kv = spec.d_model, spec.d_ff, spec.hd, spec.num_heads, spec.num_kv_heads
+    tokens = sequences * seq
+    per_layer = 2.0 * tokens * (d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * ff)
+    per_layer += 4.0 * hd * h * sequences * visible_pairs(seq, spec.window)
+    head = 2.0 * tokens * d * spec.padded_vocab
+    return spec.n_units * per_layer + head
+
+
+def lm_round_parts(card: str, run):
+    """Where a full-width smollm-135m round goes, timed right after the
+    main path, with no other phase's tensors around."""
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.core import synchronize
+    from repro_torch.kernels.swa_attention import reset_launches
+
+    model, plan, opt, state, batch, spec = (run[k] for k in ("model", "plan", "opt", "state",
+                                                             "batch", "spec"))
+    per_client = vmap(grad_and_value(model.loss_fn))
+    parts_ms = {"per-client forward+backward":
+                cuda_ms(lambda: per_client(state.params, batch), iters=3)}
+    grads, _ = per_client(state.params, batch)
+    parts_ms["optimizer"] = cuda_ms(lambda: opt.update(state.params, grads, state.opt_state),
+                                    iters=3)
+    del grads
+    for label, fed in (("sync, ordinary round", (False, False, True)),
+                       ("sync, round 8", (True, True, True))):
+        parts_ms[label] = cuda_ms(
+            lambda fed=fed: synchronize(state.params, plan, 0, fed_round=fed), iters=3)
+    reset_launches()
+    fb = parts_ms["per-client forward+backward"]
+    seqs = batch["tokens"].shape[0] * batch["tokens"].shape[1]
+    flops = 3 * lm_forward_flops(spec, seqs, batch["tokens"].shape[2])
+    rate = flops / (fb * 1e-3)
+    print(f"[timing] smollm-135m full-width round parts (ms): {json.dumps(parts_ms)}; "
+          f"card {card}")
+    print(f"[timing] smollm-135m per-client forward+backward: {flops / 1e12:.2f} TFLOP "
+          f"(analytic model FLOPs, backward = 2x forward, causal attention) at "
+          f"{rate / 1e12:.2f} TFLOP/s = {100 * rate / F32_FLOPS_PER_S:.1f}% of the 67 TFLOP/s "
+          f"f32 peak (TF32 off); card {card}")
+    return parts_ms
+
+
+def attention_share(card: str, spec, parts_ms, attn_times) -> None:
+    fb = parts_ms["per-client forward+backward"]
+    attn = spec.n_units * sum(attn_times[(name, 0)]["ms"] for name in ATTN)
+    print(f"[timing] smollm-135m attention kernels: {attn:.2f} ms of the {fb:.2f} ms "
+          f"forward+backward ({spec.n_units} x (B4 + B5 dq + B5 dk/dv) at their timed "
+          f"speed) = {100 * attn / fb:.1f}%; card {card}")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch is missing beside this script",
@@ -429,23 +889,63 @@ def main() -> int:
           + ", ".join(p.name for p in libs))
 
     errs, bf16_errs = check_kernels(SPEC)
+    attn_errs, attn_bf16_err = check_attention()
     card_vs_cpu()
+    lm_card_vs_cpu()
     path_launches, run = main_path()
     for name, n in path_launches.items():
         if n == 0:
-            raise AssertionError(f"kernel {name} was not launched on the main path")
+            raise AssertionError(f"kernel {name} was not launched on the VGG main path")
+    cli_launches = lm_cli()
+    lm_launches, lm_run = lm_main_path()
+    for name in ("tiered_aggregate",) + ATTN:
+        if lm_launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the smollm-135m path")
+    lm_parts = lm_round_parts(card, lm_run)
     times = timings(card, run)
+    attn_times = attention_timings(card)
+    attention_share(card, lm_run["spec"], lm_parts, attn_times)
 
-    # max_abs_err: the f32 checks, the dtype the main path launches;
-    # max_abs_err_bf16: B1's bf16 instantiation (B2 has none)
+    # max_abs_err: the f32 checks, the dtype the main paths launch;
+    # max_abs_err_bf16: the bf16 instantiation (B2 and B5 are checked in f32 only).
+    # launches: the count on the kernel's main path (VGG for B1/B2, the
+    # full-width smollm-135m for B4/B5); launches_by_path: every path's count
     kernels = [{
-        "name": name, "route": "cuda", "source": SOURCE, "replaces": REPLACES[name],
-        "launches": path_launches[name], "max_abs_err": errs[name],
+        "name": name, "route": "cuda", "source": SOURCES["tiered_aggregate"],
+        "replaces": REPLACES[name],
+        "launches": path_launches[name],
+        "launches_by_path": {"vgg16-cifar10": path_launches[name],
+                             "smollm-135m": lm_launches[name],
+                             "smollm-135m-reduced-cli": cli_launches[name]},
+        "max_abs_err": errs[name],
         "max_abs_err_bf16": bf16_errs[name],
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
         "library_ms": None,
     } for name in ("tiered_aggregate", "tiered_aggregate_q8")]
+    B, S, H, K, hd = MAIN_ATTN
+    # SDPA's backward computes dq, dk and dv in one call: its fair counterpart
+    # is the two B5 passes together
+    b5_pair = {"ms": sum(attn_times[(n, 0)]["ms"] for n in ATTN[1:]),
+               "library_ms": attn_times[(ATTN[1], 0)]["library_ms"]}
+    kernels += [{
+        "name": name, "route": "cuda", "source": SOURCES["swa_attention"],
+        "replaces": REPLACES[name],
+        "launches": lm_launches[name],
+        "launches_by_path": {"smollm-135m": lm_launches[name],
+                             "smollm-135m-reduced-cli": cli_launches[name]},
+        "max_abs_err": attn_errs[name],
+        "max_abs_err_bf16": attn_bf16_err if name == "swa_attention_fwd" else None,
+        "ms": attn_times[(name, 0)]["ms"], "plain_ms": attn_times[(name, 0)]["plain_ms"],
+        "bound_ms": attn_times[(name, 0)]["bound_ms"],
+        "bound_by": attn_times[(name, 0)]["bound_by"],
+        "library_ms": attn_times[(name, 0)]["library_ms"],
+        "library": ("torch.nn.functional.scaled_dot_product_attention, "
+                    + ("forward" if name == "swa_attention_fwd"
+                       else "backward (dq, dk and dv together)")),
+        **({} if name == "swa_attention_fwd" else {"library_ms_pair": b5_pair}),
+        "timed_at": f"B={B} S={S} H={H} K={K} hd={hd} window=0 f32",
+    } for name in ATTN]
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,8 +6,10 @@ package is the reference each part of the port is tested against.  Nothing
 here imports ``jax`` or ``repro``.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU.  The
-aggregation kernels (``kernels/tiered_aggregate``) are hand-written CUDA for
-``sm_90a``, built with ``nvcc`` into ``build/repro_torch/`` on first use.
+aggregation kernels (``kernels/tiered_aggregate``) and the flash-attention
+kernels of the dense transformers (``kernels/swa_attention``) are
+hand-written CUDA for ``sm_90a``, built with ``nvcc`` into
+``build/repro_torch/`` on first use.
 
 Submodules are imported lazily so ``import repro_torch`` stays cheap.
 """

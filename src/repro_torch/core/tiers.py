@@ -22,7 +22,7 @@ from typing import Any, Dict, List, Tuple
 
 import torch
 
-from .._tree import tree_leaves
+from .._tree import tree_leaves, tree_map
 from ..kernels.tiered_aggregate import aggregate_tree
 
 Params = Dict[str, Any]
@@ -117,14 +117,14 @@ class TierPlan:
 
 
 def _slice_units(units: Any, lo: int, hi: int) -> Any:
-    """Slice a unit container to the range [lo, hi).  The port's models keep
-    their units as python lists; stacked unit arrays come with the
-    transformer zoo (ROADMAP A14)."""
+    """Slice a unit container to the range [lo, hi): a python list (VGG), or
+    stacked leaves, sliced on the axis after the client axis (views).  The
+    audio model's two stacks (``{"enc", "dec"}``) come with ROADMAP A14."""
     if isinstance(units, (list, tuple)):
         return list(units)[lo:hi]
-    raise NotImplementedError(
-        "stacked unit containers come with the transformer zoo (ROADMAP A14)"
-    )
+    if isinstance(units, dict) and set(units) == {"enc", "dec"}:
+        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14")
+    return tree_map(lambda x: x[:, lo:hi], units)
 
 
 def tier_subtrees(params: Params, plan: TierPlan) -> List[Params]:
@@ -142,12 +142,16 @@ def tier_subtrees(params: Params, plan: TierPlan) -> List[Params]:
 
 
 def combine_tiers(parts: List[Params], template: Params) -> Params:
-    """Inverse of tier_subtrees (same cut structure)."""
-    if not isinstance(template["units"], (list, tuple)):
-        raise NotImplementedError(
-            "stacked unit containers come with the transformer zoo (ROADMAP A14)"
-        )
-    units = [u for part in parts for u in part["units"]]
+    """Inverse of tier_subtrees (same cut structure).  Stacked leaves are
+    concatenated on the unit axis, which copies them."""
+    units_parts = [p["units"] for p in parts]
+    tu = template["units"]
+    if isinstance(tu, (list, tuple)):
+        units = [u for part in units_parts for u in part]
+    elif isinstance(tu, dict) and set(tu) == {"enc", "dec"}:
+        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14")
+    else:
+        units = tree_map(lambda *xs: torch.cat(xs, dim=1), *units_parts)
     return {"units": units, "frontend": parts[0]["frontend"], "head": parts[-1]["head"]}
 
 

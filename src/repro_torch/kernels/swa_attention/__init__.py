@@ -1,0 +1,16 @@
+from .ops import (
+    HEAD_DIMS,
+    launches,
+    reset_launches,
+    swa_attention,
+    swa_attention_bwd,
+    swa_attention_bwd_dkv,
+    swa_attention_bwd_dq,
+    swa_attention_fwd,
+)
+from .ref import (
+    swa_attention_bwd_dkv_ref,
+    swa_attention_bwd_dq_ref,
+    swa_attention_bwd_ref,
+    swa_attention_ref,
+)

@@ -1,0 +1,268 @@
+"""Public wrapper of the flash-attention kernels — port of
+``repro.kernels.swa_attention.ops``.
+
+``swa_attention(q, k, v, window)`` takes q [B, S, H, hd] and k, v
+[B, S, K, hd] (GQA) and is differentiable.  The forward (B4) and the
+backward (B5: a q-parallel dq pass, then a kv-parallel dk/dv pass) choose
+their implementation from the device of the tensors they are given:
+
+* CUDA tensors launch the hand-written kernels in ``csrc/swa_attention.cu``
+  on the current stream, or raise — there is no fallback;
+* CPU tensors run the plain versions in ``ref.py`` (the CPU tests).
+
+The kernels mask the ragged sequence tail and fold the 1/√hd scale into q
+as they load it, so nothing is padded or rescaled here; a window of at
+least S is full causal attention (window 0), as in the JAX wrapper.
+
+Gradients go through two ``torch.autograd.Function``s in the functorch
+style (``setup_context`` and a ``vmap`` rule), so Engine A's
+``vmap(grad_and_value(loss))`` runs through them.  The backward is itself
+a Function with its own ``vmap`` rule, because autograd calls it under the
+outer ``vmap``.  Both rules fold the vmapped axis into the batch axis B
+and make one launch for all of it: one B4 launch per layer for all
+clients.  Each launch adds one to ``launches[<kernel>]``; the plain
+versions count nothing.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+from pathlib import Path
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from .. import build
+from .ref import (
+    swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref,
+)
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
+HEAD_DIMS = (32, 64, 80, 96, 128)
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+launches: Dict[str, int] = {
+    "swa_attention_fwd": 0, "swa_attention_bwd_dq": 0, "swa_attention_bwd_dkv": 0,
+}
+
+_lib: Optional[ctypes.CDLL] = None
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _library() -> ctypes.CDLL:
+    global _lib
+    if _lib is None:
+        lib = build.load(SOURCE)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        dims = [i, i, i, i, i, i, i, f, p]  # dtype, B, S, H, K, hd, window, scale, stream
+        lib.swa_attention_fwd.argtypes = [p] * 5 + dims
+        lib.swa_attention_bwd_dq.argtypes = [p] * 8 + dims
+        lib.swa_attention_bwd_dkv.argtypes = [p] * 8 + dims
+        for fn in (lib.swa_attention_fwd, lib.swa_attention_bwd_dq,
+                   lib.swa_attention_bwd_dkv):
+            fn.restype = i
+        _lib = lib
+    return _lib
+
+
+def effective_window(window: int, S: int) -> int:
+    """0 (full causal) for window 0 or a window that covers the sequence."""
+    return 0 if (window == 0 or window >= S) else int(window)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
+    """Validate shapes and devices; True for the kernel, False for the plain
+    version."""
+    if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"q must be [B, S, H, hd] and k, v [B, S, K, hd], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, S, H, hd = q.shape
+    if k.shape[:2] != (B, S) or k.shape[3] != hd or k.shape[2] == 0 or H % k.shape[2]:
+        raise ValueError(
+            f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}: need "
+            f"[{B}, {S}, K, {hd}] with H={H} divisible by K"
+        )
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(
+            f"tensor on {q.device}: attention runs on cuda (kernel) or cpu "
+            "(plain version)"
+        )
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"tensors on {q.device}, {k.device} and {v.device}")
+    if q.device.type == "cpu":
+        return False
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the kernel takes {HEAD_DIMS}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel takes f32 or bf16, "
+            "the same for q, k and v"
+        )
+    return True
+
+
+def _raise_on(status: int, name: str) -> None:
+    if status != 0:
+        raise RuntimeError(f"{name} launch failed with CUDA error {status}")
+
+
+def swa_attention_fwd(q, k, v, window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """B4: (o [B, S, H, hd] in q's dtype, lse [B, H, S] f32)."""
+    if not _check(q, k, v):
+        return swa_attention_ref(q, k, v, window)
+    B, S, H, hd = q.shape
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    o = torch.empty_like(q)
+    lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.swa_attention_fwd(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+            *_dims(q, k, window), stream,
+        )
+    _raise_on(status, "swa_attention_fwd")
+    launches["swa_attention_fwd"] += 1
+    return o, lse
+
+
+def _check_bwd(q, lse, *rows):
+    B, S, H, _ = q.shape
+    for t in rows:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"o and do must be {q.dtype} {tuple(q.shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    if lse.shape != (B, H, S) or lse.dtype != torch.float32:
+        raise ValueError(f"lse and delta must be f32 [{B}, {H}, {S}], got "
+                         f"{lse.dtype} {tuple(lse.shape)}")
+
+
+def _dims(q, k, window):
+    B, S, H, hd = q.shape
+    return (_DTYPES[q.dtype], B, S, H, k.shape[2], hd, effective_window(window, S),
+            1.0 / math.sqrt(hd))
+
+
+def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0):
+    """B5's q-parallel pass: (dq in q's dtype, delta = rowsum(o·do) [B, H, S])."""
+    if not _check(q, k, v):
+        return swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window)
+    _check_bwd(q, lse, o, do)
+    q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
+    dq, delta = torch.empty_like(q), torch.empty_like(lse)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.swa_attention_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_dims(q, k, window), stream,
+        )
+    _raise_on(status, "swa_attention_bwd_dq")
+    launches["swa_attention_bwd_dq"] += 1
+    return dq, delta
+
+
+def swa_attention_bwd_dkv(q, k, v, lse, delta, do, window: int = 0):
+    """B5's kv-parallel pass: (dk, dv), each summed over the G query heads of
+    its kv head."""
+    if not _check(q, k, v):
+        return swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window)
+    _check_bwd(q, lse, do)
+    _check_bwd(q, delta)
+    q, k, v, lse, delta, do = (t.contiguous() for t in (q, k, v, lse, delta, do))
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.swa_attention_bwd_dkv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k, window), stream,
+        )
+    _raise_on(status, "swa_attention_bwd_dkv")
+    launches["swa_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+def swa_attention_bwd(q, k, v, o, lse, do, window: int = 0):
+    """B5: (dq, dk, dv) from the forward's o and lse and the output grad:
+    the dq pass, which also writes delta, then the dk/dv pass."""
+    do = do.to(q.dtype)
+    dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, window)
+    dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, window)
+    return dq, dk, dv
+
+
+def _fold(x: torch.Tensor, bdim: Optional[int], n: int) -> torch.Tensor:
+    """A vmapped tensor with its vmapped axis at ``bdim`` (None: not
+    vmapped) -> the axis folded into axis 0, [n·B, ...]."""
+    x = x.expand(n, *x.shape) if bdim is None else x.movedim(bdim, 0)
+    return x.reshape(n * x.shape[1], *x.shape[2:])
+
+
+def _unfold(x: torch.Tensor, n: int) -> torch.Tensor:
+    return x.reshape(n, x.shape[0] // n, *x.shape[1:])
+
+
+class _SwaAttention(torch.autograd.Function):
+    """(o, lse) = B4(q, k, v); lse is not differentiable."""
+
+    @staticmethod
+    def forward(q, k, v, window):
+        return swa_attention_fwd(q, k, v, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        q, k, v, window = inputs
+        o, lse = output
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.window = window
+        ctx.mark_non_differentiable(lse)
+
+    @staticmethod
+    def backward(ctx, do, _dlse):
+        q, k, v, o, lse = ctx.saved_tensors
+        dq, dk, dv = _SwaAttentionBwd.apply(q, k, v, o, lse, do, ctx.window)
+        return dq, dk, dv, None
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, window):
+        n = info.batch_size
+        q, k, v = (_fold(x, d, n) for x, d in zip((q, k, v), in_dims[:3]))
+        o, lse = _SwaAttention.apply(q, k, v, window)
+        return (_unfold(o, n), _unfold(lse, n)), (0, 0)
+
+
+class _SwaAttentionBwd(torch.autograd.Function):
+    """(dq, dk, dv) = B5(q, k, v, o, lse, do); no double backward."""
+
+    @staticmethod
+    def forward(q, k, v, o, lse, do, window):
+        return swa_attention_bwd(q, k, v, o, lse, do, window)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the flash-attention backward has no backward")
+
+    @staticmethod
+    def vmap(info, in_dims, q, k, v, o, lse, do, window):
+        n = info.batch_size
+        args = [_fold(x, d, n) for x, d in zip((q, k, v, o, lse, do), in_dims[:6])]
+        dq, dk, dv = _SwaAttentionBwd.apply(*args, window)
+        return (_unfold(dq, n), _unfold(dk, n), _unfold(dv, n)), (0, 0, 0)
+
+
+def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: int = 0) -> torch.Tensor:
+    """Causal (window 0) or sliding-window GQA attention, [B, S, H, hd]."""
+    o, _ = _SwaAttention.apply(q, k, v, int(window))
+    return o

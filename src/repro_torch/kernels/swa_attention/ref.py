@@ -1,0 +1,86 @@
+"""Plain PyTorch versions of the flash-attention kernels — port of
+``repro.kernels.swa_attention.ref``.
+
+q [B, S, H, hd]; k, v [B, S, K, hd] with H = G·K (query head h reads kv
+head h // G).  A query at position p attends keys in (p − window, p]
+(causal, window inclusive of self); window = 0 means full causal attention.
+
+``swa_attention_ref`` is the JAX oracle with the per-row logsumexp added;
+``swa_attention_bwd_ref`` is the flash backward formula that the kernel's
+backward computes.  The wrappers in ``ops.py`` run these for CPU tensors.
+"""
+from __future__ import annotations
+
+import math
+from typing import Tuple
+
+import torch
+
+
+def _allowed(S: int, window: int, device) -> torch.Tensor:
+    """[S, S] bool: key s visible from query q."""
+    pos = torch.arange(S, device=device)
+    ok = pos[None, :] <= pos[:, None]
+    if window > 0:
+        ok = ok & (pos[None, :] > pos[:, None] - window)
+    return ok
+
+
+def _scores(q, k, window):
+    """(scaled q grouped [B, S, K, G, hd], masked scores [B, K, G, S, S], mask)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = (q.float() / math.sqrt(hd)).reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    ok = _allowed(S, window, q.device)
+    return qg, scores.masked_fill(~ok, -math.inf), ok
+
+
+def swa_attention_ref(q, k, v, window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, S, H, hd] in q's dtype, lse [B, H, S] f32 of the scaled scores)."""
+    B, S, H, hd = q.shape
+    _, scores, _ = _scores(q, k, window)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    lse = torch.logsumexp(scores, dim=-1)  # [B, K, G, S]
+    return out.reshape(B, S, H, hd).to(q.dtype), lse.reshape(B, H, S)
+
+
+def _p_ds(q, k, v, lse, delta, do, window):
+    """(scaled q and do grouped [B, S, K, G, hd], p and ds [B, K, G, S, S])
+    from the forward's lse and delta [B, H, S]."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg, scores, ok = _scores(q, k, window)
+    p = torch.where(ok, torch.exp(scores - lse.reshape(B, K, G, S, 1)), 0.0)
+    dog = do.float().reshape(B, S, K, G, hd)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())
+    return qg, dog, p, p * (dp - delta.reshape(B, K, G, S, 1))
+
+
+def swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window: int = 0):
+    """The q-parallel pass: (dq in q's dtype, delta [B, H, S] f32), with
+    delta = rowsum(o·do) and dq = scale·ds·k."""
+    B, S, H, hd = q.shape
+    delta = (o.float() * do.float()).sum(-1).permute(0, 2, 1)  # [B, H, S]
+    _, _, _, ds = _p_ds(q, k, v, lse, delta, do, window)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()) / math.sqrt(hd)
+    return dq.reshape(B, S, H, hd).to(q.dtype), delta.contiguous()
+
+
+def swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window: int = 0):
+    """The kv-parallel pass: (dk, dv) in k's dtype, each summed over the G
+    query heads of its kv head: dk = dsᵀ·(scale·q), dv = pᵀ·do."""
+    qg, dog, p, ds = _p_ds(q, k, v, lse, delta, do, window)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def swa_attention_bwd_ref(q, k, v, o, lse, do, window: int = 0):
+    """(dq, dk, dv) of ``swa_attention_ref``'s output, from its o and lse:
+    the dq pass (which also yields delta), then the dk/dv pass."""
+    dq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window)
+    dk, dv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window)
+    return dq, dk, dv

@@ -187,8 +187,11 @@ def aggregate_tree(
     """
 
     def f(x):
+        if x.numel() == 0:  # the stacked leaves of a tier that holds no unit
+            return x
         n = x.shape[0]
-        flat = x.reshape(n, -1).contiguous()  # a no-op on contiguous leaves
+        # a no-op on contiguous leaves; a copy of a tier's slice of stacked units
+        flat = x.reshape(n, -1).contiguous()
         if quantized:
             out = tiered_aggregate_q8(
                 flat, weights, do_entity, do_global, num_entities, tile_p

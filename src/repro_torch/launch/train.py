@@ -7,11 +7,17 @@ run through the fused aggregation kernels → checkpoint.
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg16-cifar10 \
         --rounds 100 --non-iid
 
+``--arch vgg16-cifar10`` is the paper's own setting; a dense transformer id
+(``smollm-135m``, ``qwen2-1.5b``, ``qwen2.5-14b``, ``qwen3-32b``) trains its
+REDUCED variant on a synthetic LM stream of 64-token sequences, as the JAX
+CLI does, with every attention on the flash-attention kernels.  The other
+arch ids of the zoo raise ``NotImplementedError`` (ROADMAP A14).
+
 Runs on the first CUDA device; ``--device cpu`` asks for the CPU (the
-aggregation then takes its plain PyTorch version).  Bound-constant
-estimation with the BCD re-solve (``--auto-optimize``), the sharded engine
-(``--shard-*``), async aggregation (``--staleness``) and the transformer
-archs are not ported yet (ROADMAP A8, A13, A11, A14).
+kernels then take their plain PyTorch versions).  Bound-constant estimation
+with the BCD re-solve (``--auto-optimize``), the sharded engine
+(``--shard-*``) and async aggregation (``--staleness``) are not ported yet
+(ROADMAP A8, A13, A11).
 """
 from __future__ import annotations
 
@@ -27,7 +33,7 @@ from .._device import resolve_device
 
 def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", choices=["vgg16-cifar10"], default="vgg16-cifar10")
+    ap.add_argument("--arch", default="vgg16-cifar10")
     ap.add_argument("--rounds", type=int, default=100)
     ap.add_argument("--batch", type=int, default=16)
     ap.add_argument("--clients", type=int, default=20)
@@ -45,25 +51,39 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
-def setup(args: argparse.Namespace):
-    """(device, spec, model, plan, opt, loader) for parsed ``args``."""
-    from ..configs.vgg16_cifar10 import SPEC as spec
+def setup(args: argparse.Namespace, spec=None, seq: Optional[int] = None):
+    """(device, spec, model, plan, opt, loader) for parsed ``args``.
+
+    For an LM arch, ``spec`` (default: the arch's REDUCED config) and
+    ``seq`` (default 64) size the model and the stream, so a full-width run
+    is built from the same pieces."""
+    from ..configs import get_reduced
     from ..core.tiers import default_plan
     from ..data import (
-        image_loader, make_cifar10_like, partition_iid, partition_sort_and_shard,
+        image_loader, lm_loader, make_cifar10_like, make_lm_stream, partition_iid,
+        partition_sort_and_shard,
     )
     from ..models.vgg import build_model
     from ..optim import adam, momentum, sgd
 
     device = resolve_device(args.device)
     opt = {"sgd": sgd, "momentum": momentum, "adam": adam}[args.optimizer](args.lr)
-    ds = make_cifar10_like(4096, seed=args.seed)
+    vgg = args.arch == "vgg16-cifar10"
+    if vgg:
+        from ..configs.vgg16_cifar10 import SPEC as spec
+
+        ds = make_cifar10_like(4096, seed=args.seed)
+        labels = ds.labels
+    else:
+        spec = spec or get_reduced(args.arch)
+        ds = make_lm_stream(2048, seq or 64, spec.vocab_size, seed=args.seed)
+        labels = ds.tokens[:, 0] % 10
     parts = (
-        partition_sort_and_shard(ds.labels, args.clients, 2, args.seed)
+        partition_sort_and_shard(labels, args.clients, 2, args.seed)
         if args.non_iid
-        else partition_iid(len(ds.labels), args.clients, args.seed)
+        else partition_iid(len(labels), args.clients, args.seed)
     )
-    loader = image_loader(ds, parts, args.batch, args.seed)
+    loader = (image_loader if vgg else lm_loader)(ds, parts, args.batch, args.seed)
     model = build_model(spec)
     plan = default_plan(
         spec.n_units, args.clients,

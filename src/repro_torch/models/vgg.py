@@ -153,11 +153,14 @@ class VggModel:
         return torch.mean((torch.argmax(logits, -1) == batch["labels"]).float())
 
 
-def build_model(spec: VggSpec) -> VggModel:
-    """Factory (the port's model zoo holds VGG only so far)."""
-    if not isinstance(spec, VggSpec):
-        raise NotImplementedError(
-            f"{type(spec).__name__}: the transformer zoo is not ported yet "
-            "(ROADMAP A14)"
-        )
-    return VggModel(spec)
+def build_model(spec):
+    """Factory accepting either a ``ModelSpec`` or a ``VggSpec``."""
+    if isinstance(spec, VggSpec):
+        return VggModel(spec)
+    from .model import SplittableModel
+    from .spec import ModelSpec
+
+    if not isinstance(spec, ModelSpec):
+        raise TypeError(f"{type(spec).__module__}.{type(spec).__name__}: "
+                        "build_model takes the port's ModelSpec or VggSpec")
+    return SplittableModel(spec)

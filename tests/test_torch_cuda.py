@@ -9,6 +9,7 @@ The file imports no JAX, so it runs where only PyTorch is installed.
 """
 import pytest
 import torch
+from torch.func import grad_and_value, vmap
 
 from repro_torch.compress.quantize import q8_quantize
 from repro_torch.configs.vgg16_cifar10 import REDUCED
@@ -18,7 +19,10 @@ from repro_torch.kernels.tiered_aggregate import (
     reset_launches, tiered_aggregate, tiered_aggregate_ref,
 )
 from repro_torch.compress import Int8Stochastic
-from repro_torch.models import VggModel
+from repro_torch.configs import get_reduced
+from repro_torch.kernels import swa_attention as swa
+from repro_torch.launch.train import make_dispatch, to_device
+from repro_torch.models import SplittableModel, VggModel
 from repro_torch.optim import sgd
 
 pytestmark = pytest.mark.cuda
@@ -103,3 +107,102 @@ def test_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
         for k in a:
             lsb = float(b[k].abs().max()) / 127 if codec else 1e-6
             torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-5, atol=lsb)
+
+
+# B, S, H, K, hd, window: the JAX package's cases, the CLI's ragged S=64
+# tile and REDUCED qwen2.5's hd 32 with GQA 4:1
+SWA_CASES = [(1, 256, 4, 2, 64, 128), (2, 384, 4, 4, 128, 256), (1, 512, 8, 2, 80, 0),
+             (1, 300, 4, 1, 64, 128), (1, 256, 6, 3, 96, 128), (1, 640, 4, 2, 64, 512),
+             (32, 64, 3, 3, 64, 0), (8, 256, 8, 2, 32, 0)]
+
+
+def _normalised_err(a, b):
+    return float((a.float() - b.float()).abs().max() / (b.float().abs().max() + 1e-9))
+
+
+@pytest.mark.parametrize("case", SWA_CASES, ids=[str(c) for c in SWA_CASES])
+def test_b4_b5_kernels_match_plain(cuda, case):
+    """Forward at rtol = atol 2e-5; each backward pass within 2e-5 of
+    max|ref|, on the same inputs as its plain version."""
+    B, S, H, K, hd, W = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q, do = (torch.randn(B, S, H, hd, generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn(B, S, K, hd, generator=g, device=cuda) for _ in range(2))
+    swa.reset_launches()
+    o, lse = swa.swa_attention_fwd(q, k, v, W)
+    dq, delta = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, W)
+    dk, dv = swa.swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)
+    torch.cuda.synchronize()
+    assert swa.launches == dict.fromkeys(swa.launches, 1)
+    ro, rlse = swa.swa_attention_ref(q, k, v, W)
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
+    rdq, rdelta = swa.swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
+    for a, b in ((dq, rdq), (delta, rdelta), (dk, rdk), (dv, rdv)):
+        assert _normalised_err(a, b) <= 2e-5
+
+
+def test_b4_bf16_forward_within_3e_2(cuda):
+    g = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn(1, 256, 4, 64, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn(1, 256, 2, 64, generator=g, device=cuda).bfloat16() for _ in range(2))
+    o, lse = swa.swa_attention_fwd(q, k, v, 128)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    ref, _ = swa.swa_attention_ref(q.float(), k.float(), v.float(), 128)
+    torch.testing.assert_close(o.float(), ref, rtol=0, atol=3e-2)
+
+
+def test_b4_b5_raise_on_what_the_kernel_does_not_take(cuda):
+    q = torch.randn(1, 64, 4, 48, device=cuda)
+    k = torch.randn(1, 64, 2, 48, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        swa.swa_attention_fwd(q, k, k, 0)
+    q = torch.randn(1, 64, 4, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        swa.swa_attention_fwd(q, q[:, :, :2], q[:, :, :2], 0)
+
+
+def test_vmap_grad_makes_one_launch_of_each_kernel_for_all_clients(cuda):
+    N = 4
+    g = torch.Generator(device=cuda).manual_seed(3)
+    q, dd = (torch.randn(N, 2, 128, 6, 32, generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn(N, 2, 128, 2, 32, generator=g, device=cuda) for _ in range(2))
+
+    def loss(q, k, v, dd):
+        return (swa.swa_attention(q, k, v, 64) * dd).sum()
+
+    def loss_plain(q, k, v, dd):
+        return (swa.swa_attention_ref(q, k, v, 64)[0] * dd).sum()
+
+    swa.reset_launches()
+    grads, val = vmap(grad_and_value(loss, argnums=(0, 1, 2)))(q, k, v, dd)
+    torch.cuda.synchronize()
+    assert swa.launches == dict.fromkeys(swa.launches, 1)
+    ref, val_ref = vmap(grad_and_value(loss_plain, argnums=(0, 1, 2)))(q, k, v, dd)
+    torch.testing.assert_close(val, val_ref, rtol=1e-5, atol=1e-3)
+    for a, b in zip(grads, ref):
+        assert _normalised_err(a, b) <= 2e-5
+
+
+@pytest.mark.parametrize("window", [0, 128])
+def test_reduced_smollm_on_card_matches_cpu(cuda, window):
+    spec = get_reduced("smollm-135m").with_window(window)
+    model = SplittableModel(spec)
+    N, b, S = 4, 2, 256
+    plan = default_plan(spec.n_units, N, cuts=(1, 2), intervals=(2, 2, 1), entities=(N, 2, 1))
+    rng = torch.Generator().manual_seed(0)
+    toks = [torch.randint(0, spec.vocab_size, (N, b, S + 1), generator=rng, dtype=torch.int32)
+            for _ in range(2)]
+    losses = {}
+    for device in (cuda, torch.device("cpu")):
+        state = init_state_a(model, plan, sgd(0.05), torch.Generator().manual_seed(0), device)
+        dispatch = make_dispatch(model, plan, sgd(0.05))
+        losses[device.type] = []
+        for r, t in enumerate(toks):
+            batch = {"tokens": t[..., :-1].numpy(), "labels": t[..., 1:].numpy()}
+            state, loss = dispatch(state, to_device(batch, device), r)
+            losses[device.type].append(float(loss))
+    torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+                               rtol=1e-4, atol=0)

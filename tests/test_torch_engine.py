@@ -197,5 +197,7 @@ def test_train_cli_has_only_the_ported_flags():
     for flag in ("--auto-optimize", "--shard-data", "--staleness"):
         with pytest.raises(SystemExit):
             train.parse_args([flag])
-    with pytest.raises(SystemExit):
-        train.parse_args(["--arch", "smollm-135m"])
+    # --arch takes any id, as the JAX CLI does; the unported ones raise
+    assert train.parse_args(["--arch", "smollm-135m"]).arch == "smollm-135m"
+    with pytest.raises(NotImplementedError, match="A14"):
+        train.setup(train.parse_args(["--arch", "mamba2-1.3b", "--device", "cpu"]))

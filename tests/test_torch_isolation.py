@@ -61,8 +61,13 @@ def test_every_jax_module_of_the_slice_has_its_counterpart():
         "optim/optimizers.py", "compress/quantize.py",
         "kernels/tiered_aggregate/ref.py", "kernels/tiered_aggregate/ops.py",
         "core/tiers.py", "core/engine.py", "checkpoint/npz.py", "launch/train.py",
+        "models/spec.py", "models/model.py", "configs/__init__.py",
+        "configs/smollm_135m.py", "configs/qwen2_1_5b.py", "configs/qwen2_5_14b.py",
+        "configs/qwen3_32b.py", "kernels/swa_attention/ref.py",
+        "kernels/swa_attention/ops.py",
     ]
     for rel in slice_modules:
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (PORT / rel).exists(), rel
     assert (PORT / "kernels/tiered_aggregate/csrc/tiered_aggregate.cu").exists()
+    assert (PORT / "kernels/swa_attention/csrc/swa_attention.cu").exists()

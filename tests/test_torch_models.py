@@ -129,10 +129,21 @@ def test_vgg_per_client_vmap_grads_match_jax():
 
 
 def test_build_model_refuses_transformer_specs():
+    """The dense family is ported; the other families, and the JAX
+    package's own spec objects, are refused."""
+    import dataclasses
+
     from repro.configs import get_reduced
+    from repro_torch.configs import get_reduced as port_get_reduced
+    from repro_torch.models import MoeSpec, SplittableModel
 
     assert isinstance(build_model(REDUCED), VggModel)
+    assert isinstance(build_model(port_get_reduced("smollm-135m")), SplittableModel)
+    moe = dataclasses.replace(port_get_reduced("smollm-135m"), family="moe",
+                              moe=MoeSpec(num_experts=4, top_k=2))
     with pytest.raises(NotImplementedError, match="A14"):
+        build_model(moe)
+    with pytest.raises(TypeError, match="ModelSpec"):
         build_model(get_reduced("smollm-135m"))
 
 

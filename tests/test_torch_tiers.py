@@ -148,3 +148,65 @@ def test_unported_paths_raise_naming_their_roadmap_item():
         ragged_synchronize(tree, plan, [], 0)
     with pytest.raises(NotImplementedError, match="A11"):
         class_tier_members(5, [(1, 3)], [0, 0, 0, 0])
+
+
+def _stacked_units_tree(N, U, seed):
+    """A client-stacked tree with units stacked on axis 1, as the
+    transformer's: {"frontend": {"embed"}, "units": {"attn", "mlp"}, "head"}."""
+    rng = np.random.default_rng(seed)
+
+    def r(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    return {"frontend": {"embed": r(N, 16, 8)},
+            "units": {"attn": {"wq": r(N, U, 8, 12), "norm": r(N, U, 8)},
+                      "mlp": {"w1": r(N, U, 8, 6), "w2": r(N, U, 6, 8)}},
+            "head": {"norm": r(N, 8)}}
+
+
+@pytest.mark.parametrize("cuts", [(1, 3), (0, 5), (2, 2), (5, 5)])
+def test_stacked_tier_subtrees_and_combine_match_jax(cuts):
+    """Tier slices of stacked units are x[:, lo:hi]; combine_tiers
+    concatenates them back on the unit axis."""
+    np_tree = _stacked_units_tree(4, 5, seed=sum(cuts))
+    plan = default_plan(5, 4, cuts=cuts, intervals=(2, 2, 1), entities=(4, 2, 1))
+    parts = tier_subtrees(params_from_numpy(np_tree, CPU), plan)
+    jparts = jax_tier_subtrees(jax.tree.map(jnp.asarray, np_tree), plan)
+    for p, jp in zip(parts, jparts):
+        assert sorted(p) == sorted(jp)
+        for path, leaf in zip(("attn/wq", "attn/norm", "mlp/w1", "mlp/w2"),
+                              (p["units"]["attn"]["wq"], p["units"]["attn"]["norm"],
+                               p["units"]["mlp"]["w1"], p["units"]["mlp"]["w2"])):
+            a, b = path.split("/")
+            np.testing.assert_array_equal(leaf.numpy(), np.asarray(jp["units"][a][b]))
+    back = combine_tiers(parts, params_from_numpy(np_tree, CPU))
+    for a in ("attn", "mlp"):
+        for k, v in np_tree["units"][a].items():
+            np.testing.assert_array_equal(back["units"][a][k].numpy(), v)
+    assert back["frontend"]["embed"] is parts[0]["frontend"]["embed"]
+    assert back["head"]["norm"] is parts[-1]["head"]["norm"]
+
+
+@pytest.mark.parametrize("fed", [False, True])
+@pytest.mark.parametrize("cuts", [(1, 3), (0, 2)])
+def test_synchronize_stacked_tree_matches_jax(fed, cuts):
+    """The sync of a stacked tree: every tier's slice through B1's plain
+    version (one call per leaf), an empty tier left as it is."""
+    N = 8
+    np_tree = _stacked_units_tree(N, 5, seed=7)
+    plan = default_plan(5, N, cuts=cuts, intervals=(2, 2, 1), entities=(N, 2, 1))
+    ref = jax_synchronize(jax.tree.map(jnp.asarray, np_tree), plan, jnp.int32(0),
+                          fed_round=fed)
+    got = synchronize(params_from_numpy(np_tree, CPU), plan, 0, fed_round=fed)
+    g, r = _flat_tree(got), _flat_tree(ref)
+    assert g.keys() == r.keys()
+    for k in r:
+        assert g[k].shape == r[k].shape
+        np.testing.assert_allclose(g[k], r[k], rtol=1e-5, atol=1e-6, err_msg=k)
+
+
+def _flat_tree(tree, prefix=()):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in _flat_tree(sub, prefix + (key,)).items()}
+    return {"/".join(prefix): np.asarray(tree)}
