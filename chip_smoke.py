@@ -9,13 +9,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build every CUDA kernel of the package with nvcc, in parallel;
 3. hold each kernel against its plain PyTorch version on the card: the
    aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
-   ragged edge shapes; the flash-attention forward (B4) and its two
+   ragged edge shapes; the per-class kernels (B3 and its dense twin) at the
+   JAX package's ragged shapes, the largest VGG leaf and a stacked
+   [N, U·E] row, every flag pair and member pattern; the per-class solve
+   (Algorithm 2 with two cut classes) on the card's float64 tables against
+   NumPy; the flash-attention forward (B4) and its two
    backward passes (B5) at the JAX package's test cases, the full-width
    smollm-135m shape at windows 0/128/256/512, the CLI's S=64 and REDUCED
    qwen2.5's hd 32 / GQA 4:1, bf16, and under ``vmap(grad_and_value)``;
 4. the port on the card against the port on the CPU: VGG REDUCED (N=4, 3
-   rounds, f32 convolutions, TF32 off) and smollm-135m REDUCED (N=4, S=256,
-   3 rounds, at window 0 and 128);
+   rounds, f32 convolutions, TF32 off), VGG REDUCED with per-class cuts
+   (N=8, 6 rounds, plain and over the int8 wire) and smollm-135m REDUCED
+   (N=4, S=256, 3 rounds, at window 0 and 128);
 5. the main paths, each with every launch count set to 0 just before it and
    read just after, and held to what the plan and the depth imply:
    VGG-16 / CIFAR-10 at full width (N=20 clients, J2=5 edges, batch 16, the
@@ -24,11 +29,14 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    the training CLI on REDUCED smollm-135m (N=8, J2=4, batch 4, S=64, 8
    rounds); smollm-135m at full width (N=8, J2=4, batch 1, seq 1024, cuts
    (6, 15), intervals (8, 4, 1), SGD, 8 rounds).  Every client replica must
-   equal client 0 after round 8;
-6. kernel, plain-version, library and bound times: B1/B2 at the largest VGG
-   leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
+   equal client 0 after round 8.  Then per-class VGG-16 at full width: the
+   solved class cuts and intervals, N=20, J2=5, batch 16, SGD, 12 rounds
+   plain and 12 over the int8 fed wire, its sync on B3's twin and B3 only;
+   after rounds 6 and 12 the clients that hold a unit in one tier agree;
+6. kernel, plain-version, library and bound times: B1/B2, B3 and its twin
+   at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0); the parts
-   of a full-width round of each model;
+   of a full-width round of each model, the per-class one included;
 7. one JSON line describing every kernel, then the card, then
    ``{"ok": true, ...}`` as the last line.
 """
@@ -55,7 +63,12 @@ Q8_TILE = 256
 REPLACES = {
     "tiered_aggregate": "src/repro/kernels/tiered_aggregate/tiered_aggregate.py:35",
     "tiered_aggregate_q8": "src/repro/kernels/tiered_aggregate/tiered_aggregate.py:88",
+    "ragged_tiered_aggregate_q8": "src/repro/kernels/tiered_aggregate/tiered_aggregate.py:119",
+    # B3's dense twin replaces no TPU kernel: the jnp _ragged_units_mean
+    "ragged_tiered_aggregate": "src/repro/core/tiers.py:456",
 }
+AGG = ("tiered_aggregate", "tiered_aggregate_q8")
+RAGGED = ("ragged_tiered_aggregate", "ragged_tiered_aggregate_q8")
 REPLACES.update({
     "swa_attention_fwd": "src/repro/kernels/swa_attention/swa_attention.py:96",
     "swa_attention_bwd_dq": "src/repro/kernels/swa_attention/swa_attention.py:198",
@@ -279,6 +292,7 @@ def main_path(rounds: int = 8):
     want = expected_launches(plan, rounds, compressed=False, leaves=leaves)
     got = (plain["tiered_aggregate"], plain["tiered_aggregate_q8"])
     assert got == want, (got, want)
+    assert not any(plain[k] for k in RAGGED), f"the dense path launched {plain}"
     if plan.cuts == (3, 8) and plan.intervals == (8, 4, 1) and rounds == 8:
         assert got == (214, 0), got
     losses = [float(v) for v in re.findall(r"loss (\S+)", buf.getvalue())]
@@ -290,7 +304,7 @@ def main_path(rounds: int = 8):
     ckpt.unlink()
     print(f"[main path] uncompressed: {rounds} rounds in {wall:.2f} s "
           f"(checkpoint included), B1 {got[0]} B2 {got[1]} launches "
-          f"(plan implies {want}), replicas equal")
+          f"(plan implies {want}), no twin or B3 launch, replicas equal")
     print(json.dumps({"run": "uncompressed", "loss": losses, "round_ms": ms}))
 
     # the same rounds with the int8 codec on the fed wire
@@ -308,7 +322,9 @@ def main_path(rounds: int = 8):
         state, loss = dispatch(state, batch, r)
         losses.append(float(loss))
         ms.append((time.perf_counter() - t) * 1e3)
-    comp = (launches["tiered_aggregate"], launches["tiered_aggregate_q8"])
+    comp_all = dict(launches)
+    comp = (comp_all["tiered_aggregate"], comp_all["tiered_aggregate_q8"])
+    assert not any(comp_all[k] for k in RAGGED), f"the dense path launched {comp_all}"
     want_c = expected_launches(plan, rounds, compressed=True, leaves=leaves)
     assert comp == want_c, (comp, want_c)
     if plan.cuts == (3, 8) and plan.intervals == (8, 4, 1) and rounds == 8:
@@ -321,11 +337,11 @@ def main_path(rounds: int = 8):
     )
     peak = torch.cuda.max_memory_allocated() / 2**30
     print(f"[main path] int8 fed wire: B1 {comp[0]} B2 {comp[1]} launches "
-          f"(plan implies {want_c}), replicas equal; peak device memory "
+          f"(plan implies {want_c}), no twin or B3 launch, replicas equal; peak "
+          f"device memory "
           f"{peak:.2f} GiB")
     print(json.dumps({"run": "int8", "loss": losses, "round_ms": ms}))
-    counts = {"tiered_aggregate": got[0] + comp[0],
-              "tiered_aggregate_q8": got[1] + comp[1]}
+    counts = {k: plain[k] + comp_all[k] for k in AGG + RAGGED}
     return counts, dict(model=model, plan=plan, opt=opt, state=state, batch=batch)
 
 
@@ -432,6 +448,424 @@ def vgg_forward_flops(spec, images: int) -> float:
         else:
             total += 2.0 * images * cin * cout
     return total
+
+
+# --------------------------------------------------------------------------- #
+# the per-class (mixed-cut) path: B3, its twin, the solve and the training
+# --------------------------------------------------------------------------- #
+
+# (N, J, P, U, tile): the JAX package's ragged-kernel shapes, the largest
+# VGG leaf at the TPU kernel's tile, and a stacked row of smollm-135m's 30
+# units of d = 576 with a [N, U] member
+RAGGED_CASES = [(20, 5, 999, 1, 128), (6, 2, 257, 1, 128), (16, 4, 2048, 1, 256),
+                (20, 5, 9 * 512 * 512, 1, 2048), (8, 4, 30 * 576, 30, 256)]
+HETERO = 8.0  # the slow half's access links, tests/test_classes.py's make_problem
+
+
+def ragged_members(N, J, U, gen, dev):
+    """All ones, alternating, an entity group with no member, none, and for
+    U > 1 a random [N, U] matrix."""
+    import torch
+
+    per = N // J
+    ones = torch.ones(N, U, device=dev)
+    empty = ones.clone()
+    empty[:per] = 0.0
+    out = {"ones": ones,
+           "mixed": (torch.arange(N, device=dev) % 2).float()[:, None].expand(N, U).contiguous(),
+           "empty-group": empty, "none": torch.zeros(N, U, device=dev)}
+    if U > 1:
+        out["random"] = (torch.rand(N, U, generator=gen, device=dev) > 0.5).float()
+    return out
+
+
+def check_ragged_pair(x, q, scales, w, m, de, dg, J, tile, what, errs):
+    """One twin and one B3 launch on the same inputs, each held to its plain
+    version; the twin must also leave every non-member's value as it was."""
+    import torch
+
+    from repro_torch.kernels.tiered_aggregate import (
+        ragged_quantized_tiered_aggregate, ragged_quantized_tiered_aggregate_ref,
+        ragged_tiered_aggregate, ragged_tiered_aggregate_ref,
+    )
+
+    N, P = x.shape
+    U = m.shape[1]
+    out = ragged_tiered_aggregate(x, w, m, de, dg, J)
+    b3 = ragged_quantized_tiered_aggregate(q, scales, w, m, de, dg, J, tile, width=P)
+    torch.cuda.synchronize()
+    e = max_err(out, ragged_tiered_aggregate_ref(x, w, m, de, dg, J), torch.float32,
+                f"twin {what}")
+    errs["ragged_tiered_aggregate"] = max(errs["ragged_tiered_aggregate"], e)
+    keep = (m == 0).repeat_interleave(P // U, dim=1)
+    if not torch.equal(out[keep], x[keep]):
+        raise AssertionError(f"twin {what}: a non-member's value changed")
+    ref = ragged_quantized_tiered_aggregate_ref(q, scales, w, m, de, dg, J, tile, P)
+    e = max_err(b3, ref, torch.float32, f"B3 tile={tile} {what}")
+    errs["ragged_tiered_aggregate_q8"] = max(errs["ragged_tiered_aggregate_q8"], e)
+
+
+def check_ragged_kernels(spec):
+    """B3 and its twin against their plain versions on the same inputs: the
+    edge shapes of RAGGED_CASES, then every VGG-16 leaf width at the shapes
+    the per-class path gives them (N=20, J=5 and 1, fed weights 1, tile
+    Q8_TILE, each class's members, all, none)."""
+    import torch
+
+    from repro_torch.compress.quantize import q8_quantize
+    from repro_torch.kernels.tiered_aggregate import (
+        ragged_tiered_aggregate, ragged_tiered_aggregate_ref,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    flags = ((0, 0), (0, 1), (1, 0), (1, 1))
+    errs = dict.fromkeys(RAGGED, 0.0)
+    bf16_err, n_checks = 0.0, 0
+    for N, J, P, U, tile in RAGGED_CASES:
+        x = torch.randn(N, P, generator=gen, device=dev)
+        w = torch.softmax(torch.randn(N, generator=gen, device=dev), 0)
+        q, scales = q8_quantize(x, tile)
+        xb = x.bfloat16() if P < 10**5 else None
+        for pattern, m in ragged_members(N, J, U, gen, dev).items():
+            for de, dg in flags:
+                what = f"N={N} J={J} P={P} U={U} {pattern} do_entity={de} do_global={dg}"
+                check_ragged_pair(x, q, scales, w, m, de, dg, J, tile, what, errs)
+                n_checks += 2
+                if xb is not None:
+                    ob = ragged_tiered_aggregate(xb, w, m, de, dg, J)
+                    torch.cuda.synchronize()
+                    bf16_err = max(bf16_err, max_err(
+                        ob, ragged_tiered_aggregate_ref(xb, w, m, de, dg, J),
+                        torch.bfloat16, f"twin bf16 {what}"))
+                    n_checks += 1
+        del x, q, scales
+    N = 20
+    odd = (torch.arange(N, device=dev) % 2).float()[:, None]
+    path_members = {"class 0 (odd rows)": odd, "class 1 (even rows)": 1.0 - odd,
+                    "all": torch.ones(N, 1, device=dev), "none": torch.zeros(N, 1, device=dev)}
+    ones = torch.ones(N, device=dev)
+    for P in vgg_leaf_widths(spec):
+        x = torch.randn(N, P, generator=gen, device=dev) * 0.05
+        q, scales = q8_quantize(x, Q8_TILE)
+        for J in (5, 1):
+            for pattern, m in path_members.items():
+                for de, dg in flags:
+                    what = f"path N={N} J={J} P={P} {pattern} do_entity={de} do_global={dg}"
+                    check_ragged_pair(x, q, scales, ones, m, de, dg, J, Q8_TILE, what, errs)
+                    n_checks += 2
+        del x, q, scales
+    print(f"[kernels] {n_checks} checks of B3 and its twin against their plain versions "
+          f"passed, every VGG-16 leaf width at the per-class path's shapes among them "
+          f"(f32 rtol {F32_RTOL} atol {F32_ATOL}, bf16 one ulp beyond that; "
+          f"non-members kept exactly by the twin); max |err| twin f32 "
+          f"{errs['ragged_tiered_aggregate']:.3e} twin bf16 {bf16_err:.3e} "
+          f"B3 {errs['ragged_tiered_aggregate_q8']:.3e}")
+    return errs, {"ragged_tiered_aggregate": bf16_err, "ragged_tiered_aggregate_q8": None}
+
+
+def hetero_problem(core, vgg):
+    """``tests/test_classes.py::make_problem(seed=0, hetero=8.0)``: the
+    paper's three tiers (N=20, J2=5), VGG-16 at batch 16, the odd half of
+    the fleet's access links (activation and model wires) 8x slower."""
+    import dataclasses
+
+    import numpy as np
+
+    N = 20
+    system = core.SystemSpec.paper_three_tier(seed=0)
+    slow = np.ones(N)
+    slow[1::2] = 1.0 / HETERO
+
+    def scaled(tiers):
+        return (tiers[0] * slow,) + tuple(tiers[1:])
+
+    system = dataclasses.replace(
+        system, act_up=scaled(system.act_up), act_down=scaled(system.act_down),
+        model_up=scaled(system.model_up), model_down=scaled(system.model_down))
+    hp = core.synthetic_hyperspec(vgg.n_units, N, beta=3.0, seed=0)
+    floor = core.theorem1_bound(hp, 10**9, [1, 1, 1], (3, 8))
+    return core.HsflProblem(core.build_profile(vgg, batch=16), system, hp, eps=10.0 * floor)
+
+
+def solve_classes(vgg):
+    """Algorithm 2 single-cut, then two cut classes banded by fed uplink,
+    with the torch backend on the card and with NumPy: the same optimum."""
+    from repro_torch import core
+
+    out = {}
+    for backend in ("torch", "numpy"):
+        p = hetero_problem(core, vgg)
+        t = time.perf_counter()
+        single = core.solve_bcd(p, backend=backend)
+        spec = core.CutClassSpec.from_rates(p.system.model_up[0], 2, single.cuts)
+        res = core.solve_bcd_classes(p, spec, backend=backend)
+        ms = (time.perf_counter() - t) * 1e3
+        if backend == "torch" and p.evaluator("torch").backend != "torch":
+            raise AssertionError("the torch backend did not build its tables on the card")
+        out[backend] = (single.cuts, single.intervals, single.theta, res.class_cuts,
+                        tuple(res.intervals), res.theta, tuple(res.spec.class_of), ms)
+    if out["torch"][:7] != out["numpy"][:7]:
+        raise AssertionError(f"torch backend {out['torch']} != numpy {out['numpy']}")
+    cuts, intervals, theta, class_cuts, class_iv, class_theta, class_of, ms = out["torch"]
+    if len(set(class_cuts)) < 2 or not class_theta < theta:
+        raise AssertionError(f"the classes did not split: {class_cuts}, {class_theta} "
+                             f"against {theta}")
+    print(f"[solve] make_problem(seed=0, hetero={HETERO}): single-cut BCD cuts {cuts} "
+          f"intervals {intervals} theta {float(theta)!r}; two classes banded by fed "
+          f"uplink: class cuts {class_cuts} intervals {class_iv} theta "
+          f"{float(class_theta)!r}; "
+          f"equal on the torch backend (card, float64) and NumPy ({ms:.1f} ms and "
+          f"{out['numpy'][7]:.1f} ms)")
+    return {"class_cuts": class_cuts, "intervals": class_iv, "class_of": class_of}
+
+
+def solve_backend_timings(card: str, vgg):
+    """The batched evaluator's tables on NumPy and on the card's float64
+    torch backend, at the paper's three tiers grown from 20 to 10^5 clients:
+    where the card starts to win, which ``batched.AUTO_TORCH_MIN_ELEMS``
+    (lattice rows x clients) reads.  The tables must be equal."""
+    import numpy as np
+
+    from repro_torch import core
+    from repro_torch.core.batched import AUTO_TORCH_MIN_ELEMS, BatchedEvaluator
+
+    rows = []
+    for N in (20, 200, 2000, 20000, 100000):
+        system = core.SystemSpec.paper_three_tier(num_clients=N, num_edges=5, seed=0)
+        hp = core.synthetic_hyperspec(vgg.n_units, N, beta=3.0, seed=0)
+        floor = core.theorem1_bound(hp, 10**9, [1, 1, 1], (3, 8))
+        p = core.HsflProblem(core.build_profile(vgg, batch=16), system, hp,
+                             eps=10.0 * floor)
+        ms, tables = {}, {}
+        for backend in ("numpy", "torch", "torch", "numpy"):  # in turns
+            BatchedEvaluator(p, backend)
+            best = math.inf
+            for _ in range(3):
+                t = time.perf_counter()
+                ev = BatchedEvaluator(p, backend)
+                best = min(best, (time.perf_counter() - t) * 1e3)
+            ms.setdefault(backend, []).append(best)
+            tables[backend] = (ev.split, ev.agg)
+        if not all(np.array_equal(a, b) for a, b in zip(tables["numpy"], tables["torch"])):
+            raise AssertionError(f"N={N}: the torch backend's tables differ from NumPy's")
+        rows.append((ev.lattice.shape[0] * N, N, min(ms["numpy"]), min(ms["torch"])))
+    # the smallest size from which the card wins at every larger size
+    wins = [rows[i][0] for i in range(len(rows)) if all(r[3] < r[2] for r in rows[i:])]
+    print("[timing] batched evaluator tables, ms (NumPy; torch on the card), best of 3 "
+          "after a warm-up, tables equal: "
+          + "; ".join(f"N={N} ({elems} rows x clients) {a:.3f}; {b:.3f}"
+                      for elems, N, a, b in rows)
+          + f". The card wins from {min(wins) if wins else 'none of these'}; auto picks "
+          f"it from {AUTO_TORCH_MIN_ELEMS}; card {card}")
+
+
+def ragged_expected(host, plan, rounds: int, compressed: bool, leaves: int = 2):
+    """(twin, B3) launches the ragged sync implies: per round and tier, one
+    launch per leaf of every unit some client holds in that tier."""
+    twin = b3 = 0
+    for r in range(rounds):
+        for m in range(plan.M):
+            *entity, (_, interval) = plan.levels(m)
+            fed = interval <= 1 or (r + 1) % interval == 0
+            n = leaves * int(host[m].any(axis=0).sum())
+            if compressed and fed and m < plan.M - 1 and plan.entities[m] > 1:
+                twin += n * bool(entity)
+                b3 += n
+            elif entity or fed:
+                twin += n
+    return twin, b3
+
+
+def assert_member_sets_agree(params, host, what: str) -> None:
+    """Every client whose class holds unit u in tier m holds one value."""
+    import numpy as np
+
+    for u, unit in enumerate(params["units"]):
+        for m, table in enumerate(host):
+            rows = np.flatnonzero(table[:, u])
+            for k, x in unit.items():
+                if len(rows) and not bool((x[rows] == x[rows[:1]]).all()):
+                    raise AssertionError(f"{what}: the tier-{m} holders of units/{u}/{k} "
+                                         "differ")
+
+
+def class_path(solved, rounds: int = 12):
+    """Per-class VGG-16 at full width: the solved class cuts and intervals,
+    12 rounds plain and 12 over the int8 fed wire."""
+    import torch
+
+    from repro_torch.compress import Int8Stochastic
+    from repro_torch.core import class_tier_members, default_plan, init_state_a
+    from repro_torch.launch import train
+
+    argv = ["--arch", "vgg16-cifar10", "--clients", "20", "--edges", "5",
+            "--batch", "16", "--rounds", str(rounds)]
+    class_cuts, intervals = solved["class_cuts"], solved["intervals"]
+    counts = dict.fromkeys(AGG + RAGGED, 0)
+    for name, compressor in (("plain", None), ("int8", Int8Stochastic(tile=Q8_TILE))):
+        args = train.parse_args(argv)
+        device, spec, model, _, opt, loader = train.setup(args)
+        plan = default_plan(spec.n_units, args.clients, cuts=class_cuts[0],
+                            intervals=intervals, entities=(args.clients, args.edges, 1))
+        members = class_tier_members(spec.n_units, class_cuts, solved["class_of"])
+        state = init_state_a(model, plan, opt, torch.Generator().manual_seed(args.seed),
+                             device)
+        dispatch = train.make_dispatch(model, plan, opt, compressor=compressor,
+                                       class_members=members)
+        torch.cuda.synchronize()
+        reset_all_launches()
+        losses, ms = [], []
+        for r in range(rounds):
+            t = time.perf_counter()
+            batch = train.to_device(loader.next_round(), device)
+            state, loss = dispatch(state, batch, r)
+            losses.append(float(loss))  # waits for the round
+            ms.append((time.perf_counter() - t) * 1e3)
+            if (r + 1) % 6 == 0:  # lcm of the intervals: every fed level ran
+                assert_member_sets_agree(state.params, members.host,
+                                         f"per-class {name}, round {r + 1}")
+        got = all_launches()
+        want = ragged_expected(members.host, plan, rounds, compressor is not None)
+        if got["tiered_aggregate"] or got["tiered_aggregate_q8"]:
+            raise AssertionError(f"per-class {name}: B1/B2 launched on the units {got}")
+        if (got["ragged_tiered_aggregate"], got["ragged_tiered_aggregate_q8"]) != want:
+            raise AssertionError(f"per-class {name}: launches {got}, the plan implies {want}")
+        if (class_cuts == ((4, 5), (1, 2)) and intervals == (3, 2, 1) and rounds == 12
+                and want != ((384, 56) if compressor else (416, 0))):
+            raise AssertionError(f"per-class {name}: the plan implies {want}, not the "
+                                 "count of the solved schedule")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"per-class {name}: losses {losses}")
+        for k in RAGGED:
+            counts[k] += got[k]
+        print(f"[main path] per-class VGG-16 {name}: class cuts {class_cuts}, intervals "
+              f"{intervals}, N=20, J2=5, batch 16, {rounds} rounds; twin "
+              f"{got['ragged_tiered_aggregate']} B3 {got['ragged_tiered_aggregate_q8']} "
+              f"launches as the plan implies, no B1/B2; finite losses; the holders of "
+              f"every (unit, tier) agree after rounds 6 and 12")
+        print(json.dumps({"run": f"per-class {name}", "loss": losses, "round_ms": ms}))
+    return counts, dict(model=model, plan=plan, opt=opt, state=state, batch=batch,
+                        members=members)
+
+
+def class_card_vs_cpu(rounds: int = 6):
+    """REDUCED VGG with per-class cuts, the same init and batches on the
+    card and the CPU, plain and over the int8 fed wire."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compress import Int8Stochastic
+    from repro_torch.configs.vgg16_cifar10 import REDUCED
+    from repro_torch.core import class_tier_members, default_plan, init_state_a
+    from repro_torch.launch.train import make_dispatch, to_device
+    from repro_torch.models import VggModel
+    from repro_torch.optim import sgd
+
+    N, b = 8, 2
+    class_cuts, class_of = ((3, 4), (1, 2)), [0, 1] * 4
+    model = VggModel(REDUCED)
+    plan = default_plan(REDUCED.n_units, N, cuts=class_cuts[0], intervals=(3, 2, 1),
+                        entities=(N, 4, 1))
+    rng = np.random.default_rng(0)
+    hw = REDUCED.image_size
+    batches = [{"images": rng.normal(size=(N, b, hw, hw, 3)).astype(np.float32),
+                "labels": rng.integers(0, 10, (N, b)).astype(np.int32)}
+               for _ in range(rounds)]
+    opt = sgd(0.05)
+    for name, compressor, rtol in (("plain", None, 1e-4),
+                                   ("int8", Int8Stochastic(tile=128), 1e-3)):
+        losses = {}
+        for dev in ("cuda", "cpu"):
+            device = torch.device(dev)
+            members = class_tier_members(REDUCED.n_units, class_cuts, class_of, device)
+            state = init_state_a(model, plan, opt, torch.Generator().manual_seed(0), device)
+            dispatch = make_dispatch(model, plan, opt, compressor=compressor,
+                                     class_members=members)
+            losses[dev] = []
+            for r, batch in enumerate(batches):
+                state, loss = dispatch(state, to_device(batch, device), r)
+                losses[dev].append(float(loss))
+        np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=rtol)
+        print(f"[card vs cpu] per-class REDUCED VGG {name} (N=8, class cuts {class_cuts}, "
+              f"{rounds} rounds): losses cuda {losses['cuda']} cpu {losses['cpu']} "
+              f"(rtol {rtol})")
+
+
+def ragged_timings(card: str):
+    """B3 and its twin at the largest VGG leaf, as the per-class path calls
+    them: the twin with both levels (J=5), B3 the fed level (J=1, tile 256),
+    both with the path's alternating member vector."""
+    import torch
+
+    from repro_torch.compress.quantize import q8_quantize
+    from repro_torch.kernels.tiered_aggregate import (
+        ragged_quantized_tiered_aggregate, ragged_quantized_tiered_aggregate_ref,
+        ragged_tiered_aggregate, ragged_tiered_aggregate_ref, reset_launches,
+    )
+
+    dev = torch.device("cuda", 0)
+    N, P = 20, 9 * 512 * 512
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x = torch.randn(N, P, generator=gen, device=dev)
+    ones = torch.ones(N, device=dev)
+    m = (torch.arange(N, device=dev) % 2).float()
+    q, scales = q8_quantize(x, Q8_TILE)
+    out = {}
+    k, p = in_turns(lambda: ragged_tiered_aggregate_ref(x, ones, m, 1, 1, 5),
+                    lambda: ragged_tiered_aggregate(x, ones, m, 1, 1, 5))
+    # bytes: x read once, the output written once; operations: m·x
+    # multiply-add in the entity sum and y·(w·m) multiply-add in the fed sum
+    out["ragged_tiered_aggregate"] = dict(ms=k, plain_ms=p, bytes=2 * N * P * 4 + 8 * N,
+                                          ops=4 * N * P)
+    k, p = in_turns(
+        lambda: ragged_quantized_tiered_aggregate_ref(q, scales, ones, m, 0, 1, 1, Q8_TILE),
+        lambda: ragged_quantized_tiered_aggregate(q, scales, ones, m, 0, 1, 1, Q8_TILE))
+    out["ragged_tiered_aggregate_q8"] = dict(
+        ms=k, plain_ms=p, bytes=N * P + 4 * N * P // Q8_TILE + 4 * N * P + 8 * N,
+        ops=3 * N * P)  # dequantizing multiply, y·(w·m) multiply-add
+    for name, r in out.items():
+        by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        by_ops = r["ops"] / F32_FLOPS_PER_S * 1e3
+        r["bound_ms"] = max(by_bytes, by_ops)
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        print(f"[timing] {name} at [{N}, {P}] (alternating members): kernel {r['ms']:.4f} "
+              f"ms, plain {r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB at 3.35 TB/s, H100 SXM data "
+              f"sheet) = {100 * r['bound_ms'] / r['ms']:.1f}% of the bound; library call: "
+              f"none; card {card}")
+    reset_launches()
+    return out
+
+
+def class_round_parts(card: str, run):
+    """Where a full-width per-class round goes, beside the dense sync of
+    the same plan (class 0's cuts for every client)."""
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.compress import Int8Stochastic
+    from repro_torch.core import ragged_synchronize, synchronize
+    from repro_torch.kernels.tiered_aggregate import reset_launches
+
+    model, plan, opt, state, batch, members = (run[k] for k in (
+        "model", "plan", "opt", "state", "batch", "members"))
+    per_client = vmap(grad_and_value(model.loss_fn))
+    parts = {"per-client forward+backward": lambda: per_client(state.params, batch)}
+    grads, _ = per_client(state.params, batch)
+    parts["optimizer"] = lambda: opt.update(state.params, grads, state.opt_state)
+    ordinary, full = (False, False, True), (True, True, True)
+    wire = Int8Stochastic(tile=Q8_TILE)
+    for label, fed, comp in (("ordinary round", ordinary, None), ("round 6", full, None),
+                             ("round 6, int8 wire", full, wire)):
+        parts[f"ragged sync, {label}"] = lambda fed=fed, comp=comp: ragged_synchronize(
+            state.params, plan, members, 0, fed_round=fed, compressor=comp)
+        parts[f"dense sync, {label}"] = lambda fed=fed, comp=comp: synchronize(
+            state.params, plan, 0, fed_round=fed, compressor=comp)
+    parts_ms = {label: cuda_ms(fn, iters=5) for label, fn in parts.items()}
+    reset_launches()
+    print(f"[timing] per-class VGG-16 full-width round parts (ms): {json.dumps(parts_ms)}; "
+          f"card {card}")
+    return parts_ms
 
 
 # --------------------------------------------------------------------------- #
@@ -612,7 +1046,7 @@ def all_launches():
 def lm_expected(plan, params, n_units, rounds):
     b1, b2 = expected_launches(plan, rounds, compressed=False,
                                leaves=tier_leaves(params, plan))
-    return {"tiered_aggregate": b1, "tiered_aggregate_q8": b2,
+    return {"tiered_aggregate": b1, "tiered_aggregate_q8": b2, **dict.fromkeys(RAGGED, 0),
             **dict.fromkeys(ATTN, n_units * rounds)}
 
 
@@ -889,13 +1323,25 @@ def main() -> int:
           + ", ".join(p.name for p in libs))
 
     errs, bf16_errs = check_kernels(SPEC)
+    ragged_errs, ragged_bf16_errs = check_ragged_kernels(SPEC)
+    errs.update(ragged_errs)
+    bf16_errs.update(ragged_bf16_errs)
     attn_errs, attn_bf16_err = check_attention()
+    solved = solve_classes(SPEC)
+    solve_backend_timings(card, SPEC)
     card_vs_cpu()
+    class_card_vs_cpu()
     lm_card_vs_cpu()
     path_launches, run = main_path()
-    for name, n in path_launches.items():
-        if n == 0:
+    for name in AGG:
+        if path_launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the VGG main path")
+    class_launches, class_run = class_path(solved)
+    for name in RAGGED:
+        if class_launches[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the per-class path")
+    class_round_parts(card, class_run)
+    del class_run
     cli_launches = lm_cli()
     lm_launches, lm_run = lm_main_path()
     for name in ("tiered_aggregate",) + ATTN:
@@ -903,6 +1349,7 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on the smollm-135m path")
     lm_parts = lm_round_parts(card, lm_run)
     times = timings(card, run)
+    times.update(ragged_timings(card))
     attn_times = attention_timings(card)
     attention_share(card, lm_run["spec"], lm_parts, attn_times)
 
@@ -922,7 +1369,23 @@ def main() -> int:
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
         "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
         "library_ms": None,
-    } for name in ("tiered_aggregate", "tiered_aggregate_q8")]
+    } for name in AGG]
+    # B3 and its twin: the per-class VGG-16 path (plain and int8 runs)
+    kernels += [{
+        "name": name, "route": "cuda", "source": SOURCES["tiered_aggregate"],
+        "replaces": REPLACES[name],
+        "launches": class_launches[name],
+        "launches_by_path": {"vgg16-cifar10-per-class": class_launches[name],
+                             "vgg16-cifar10": path_launches[name],
+                             "smollm-135m": lm_launches[name]},
+        "max_abs_err": errs[name],
+        "max_abs_err_bf16": bf16_errs[name],
+        "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+        "library_ms": None,
+        **({"port_only": "no TPU kernel: the jnp tiers._ragged_units_mean"}
+           if name == "ragged_tiered_aggregate" else {}),
+    } for name in RAGGED]
     B, S, H, K, hd = MAIN_ATTN
     # SDPA's backward computes dq, dk and dv in one call: its fair counterpart
     # is the two B5 passes together

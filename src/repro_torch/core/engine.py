@@ -21,7 +21,7 @@ from torch.func import grad_and_value, vmap
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves, tree_map
 from ..optim import Optimizer
-from .tiers import TierPlan, synchronize
+from .tiers import TierPlan, ragged_synchronize, synchronize
 
 Params = Dict[str, Any]
 
@@ -71,31 +71,38 @@ def build_train_step_a(
     ``tiers.synchronize``) — the production dispatch is
     ``launch.train.make_dispatch``.
 
-    ``compressor`` (an ``Int8Stochastic``) puts the fed-server model
-    exchange on the int8 wire, key-less, as in the JAX engine; optimizer
-    moments are synchronized full-precision.
+    ``compressor`` (a ``compress`` codec) puts the fed-server model
+    exchange on a lossy wire, key-less, as in the JAX engine: the int8
+    codec fused into the aggregation kernel (B2, or B3 per class), any
+    other codec's ``transform`` per client replica before the f32 mean.
+    Optimizer moments are synchronized full-precision.
 
-    ``with_mask`` (ROADMAP A10), ``class_members`` (A11), ``privacy`` (A11),
-    ``guard`` (A11) and ``with_sync_weights`` (A11, async aggregation) are
-    not ported yet and raise.
+    ``class_members`` (the ``tiers.class_tier_members`` matrices for a
+    per-class cut assignment, DESIGN.md §14) switches every aggregation —
+    params and, under ``sync_opt_state``, the optimizer moments — to
+    ``tiers.ragged_synchronize``: tier m's levels average each unit only
+    over the clients whose class holds it there.
+
+    ``with_mask`` (ROADMAP A10), ``privacy`` (A11), ``guard`` (A11) and
+    ``with_sync_weights`` (A11, async aggregation) are not ported yet and
+    raise.
     """
     for name, value, item in (
-        ("with_mask", with_mask, "A10"), ("class_members", class_members, "A11"),
-        ("privacy", privacy, "A11"), ("guard", guard, "A11"),
-        ("with_sync_weights", with_sync_weights, "A11"),
+        ("with_mask", with_mask, "A10"), ("privacy", privacy, "A11"),
+        ("guard", guard, "A11"), ("with_sync_weights", with_sync_weights, "A11"),
     ):
         if value is not None and value is not False:
             raise NotImplementedError(
                 f"build_train_step_a({name}=...) is ported with ROADMAP {item}"
             )
-    if compressor is not None and not hasattr(compressor, "tile"):
-        raise NotImplementedError(
-            f"{type(compressor).__name__}: only the int8 codec is ported "
-            "(ROADMAP A5b)"
-        )
     per_client = vmap(grad_and_value(model.loss_fn))
 
     def _sync(tree, step, compress=None):
+        if class_members is not None:
+            return ragged_synchronize(
+                tree, plan, class_members, step, fed_round=fed_round,
+                compressor=compress,
+            )
         return synchronize(
             tree, plan, step, fed_round=fed_round, compressor=compress
         )

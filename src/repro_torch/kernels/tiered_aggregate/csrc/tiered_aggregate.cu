@@ -5,6 +5,10 @@
 //   src/repro/kernels/tiered_aggregate/tiered_aggregate.py
 //     B1  _kernel     (launcher tiered_aggregate_pallas)           -> tiered_aggregate_{f32,bf16}
 //     B2  _q8_kernel  (launcher quantized_tiered_aggregate_pallas) -> tiered_aggregate_q8
+//     B3  _ragged_q8_kernel (launcher ragged_quantized_tiered_aggregate_pallas)
+//                                                               -> ragged_tiered_aggregate_q8
+// and, with no TPU kernel of its own, B3's dense twin (the port's counterpart
+// of the jnp ``tiers._ragged_units_mean``)       -> ragged_tiered_aggregate_{f32,bf16}
 //
 // What it computes, on one client-stacked shard x [N, P] (row-major):
 //   y1 = do_entity ? mean over each of the J contiguous client groups : x
@@ -28,6 +32,19 @@
 // summed; with do_global it writes the global sum to all N rows at the end.
 // The TPU kernel's 2048-column tile and its scalar-prefetched flags become
 // the block's column range and plain kernel arguments.
+//
+// B3 and its twin (per-class cuts) add a 0/1 member matrix m [N, U]: column
+// p belongs to unit p / E (E columns per unit; U = 1 is the TPU kernel's
+// [N] member vector), and only members feed and receive either level:
+//   em_g = sum_{i in g} m_i x_i / max(sum_{i in g} m_i, 1)
+//   y1_i = (do_entity && m_i && sum_g > 0) ? em_g : x_i
+//   sw   = sum_i w_i m_i,  gm = sum_i y1_i w_i m_i / (sw > 0 ? sw : 1)
+//   y2_i = (do_global && m_i && sw > 0) ? gm : y1_i
+// Same column-per-thread single pass.  The O(N) side data -- the weights,
+// the member columns of the units the block's 256 columns touch, their
+// per-group member counts and sw -- is staged once per block in shared
+// memory, so the column loop reads only x (or q and its scales) from
+// device memory.  Bytes moved are B1's (twin) and B2's (B3).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -110,6 +127,95 @@ int launch(Load load, const float* w, Out* out, int N, long long P, int J,
   return static_cast<int>(cudaGetLastError());
 }
 
+// Units spanned by one block: its columns [p0, p0 + kThreads) cover at most
+// floor((kThreads - 1) / E) + 2 units of width E.
+__host__ __device__ __forceinline__ long long units_per_block(long long U, long long E) {
+  const long long nu = (kThreads - 1) / E + 2;
+  return nu < U ? nu : U;
+}
+
+template <typename Load, typename Out>
+__global__ void __launch_bounds__(kThreads)
+ragged_tiered_aggregate_kernel(Load load, const float* __restrict__ w,
+                               const float* __restrict__ member, Out* __restrict__ out,
+                               int N, long long P, int J, long long U, long long E,
+                               int do_entity, int do_global) {
+  extern __shared__ float smem[];
+  const int per = N / J;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const long long p_last = (p0 + kThreads < P ? p0 + kThreads : P) - 1;
+  const long long u0 = p0 / E < U - 1 ? p0 / E : U - 1;
+  const long long u_last = p_last / E < U - 1 ? p_last / E : U - 1;
+  const int nu = static_cast<int>(u_last - u0 + 1);
+  float* s_w = smem;              // [N]      fed weights
+  float* s_m = s_w + N;           // [nu][N]  member column of each unit
+  float* s_cnt = s_m + nu * N;    // [nu][J]  members per entity group
+  float* s_sw = s_cnt + nu * J;   // [nu]     sum_i w_i m_i
+  for (int k = threadIdx.x; k < N; k += kThreads) s_w[k] = w[k];
+  for (int k = threadIdx.x; k < nu * N; k += kThreads) {
+    const int uu = k / N, n = k - uu * N;
+    s_m[k] = member[n * U + u0 + uu];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nu * J; k += kThreads) {
+    const int uu = k / J, j = k - uu * J;
+    float c = 0.0f;
+    for (int i = 0; i < per; ++i) c += s_m[uu * N + j * per + i];
+    s_cnt[k] = c;
+  }
+  for (int uu = threadIdx.x; uu < nu; uu += kThreads) {
+    float sw = 0.0f;
+    for (int n = 0; n < N; ++n) sw += s_w[n] * s_m[uu * N + n];
+    s_sw[uu] = sw;
+  }
+  __syncthreads();
+
+  const long long p = p0 + threadIdx.x;
+  if (p >= P) return;
+  const int uu = static_cast<int>((p / E < U - 1 ? p / E : U - 1) - u0);
+  const float* m = s_m + uu * N;
+  const float* cnt = s_cnt + uu * J;
+  const float sw = s_sw[uu];
+  const bool receive = do_global && sw > 0.0f;  // members take gm
+  float gsum = 0.0f;
+  for (int j = 0; j < J; ++j) {
+    const int n0 = j * per;
+    const bool entity = do_entity && cnt[j] > 0.0f;
+    float mean = 0.0f;
+    if (entity) {
+      float s = 0.0f;
+      for (int i = 0; i < per; ++i) s += load(n0 + i, p) * m[n0 + i];
+      mean = s / fmaxf(cnt[j], 1.0f);
+    }
+    for (int i = 0; i < per; ++i) {
+      const int n = n0 + i;
+      const bool is_member = m[n] > 0.0f;
+      const float y = (entity && is_member) ? mean : load(n, p);
+      if (do_global) gsum += y * (s_w[n] * m[n]);
+      if (!(receive && is_member)) out[n * P + p] = from_f32<Out>(y);
+    }
+  }
+  if (receive) {
+    const Out v = from_f32<Out>(gsum / sw);
+    for (int n = 0; n < N; ++n)
+      if (m[n] > 0.0f) out[n * P + p] = v;
+  }
+}
+
+template <typename Load, typename Out>
+int launch_ragged(Load load, const float* w, const float* member, Out* out, int N,
+                  long long P, int J, long long U, long long E, int do_entity,
+                  int do_global, void* stream) {
+  if (P <= 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (P + kThreads - 1) / kThreads;
+  const long long nu = units_per_block(U, E);
+  const size_t shmem = sizeof(float) * static_cast<size_t>(N + nu * (N + J + 1));
+  ragged_tiered_aggregate_kernel<Load, Out><<<static_cast<unsigned>(blocks), kThreads,
+                                              shmem, static_cast<cudaStream_t>(stream)>>>(
+      load, w, member, out, N, P, J, U, E, do_entity, do_global);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -131,6 +237,32 @@ int tiered_aggregate_q8(const int8_t* q, const float* scales, const float* w, fl
                         void* stream) {
   return launch(Q8Load{q, scales, Pp, Pp / tile, tile}, w, out, N, Pp, J, do_entity,
                 do_global, stream);
+}
+
+// B3's twin over a dense [N, P] shard, P = U * E; member is [N, U].
+int ragged_tiered_aggregate_f32(const float* x, const float* w, const float* member,
+                                float* out, int N, long long P, int J, long long U,
+                                long long E, int do_entity, int do_global, void* stream) {
+  return launch_ragged(DenseLoad<float>{x, P}, w, member, out, N, P, J, U, E, do_entity,
+                       do_global, stream);
+}
+
+int ragged_tiered_aggregate_bf16(const void* x, const float* w, const float* member,
+                                 void* out, int N, long long P, int J, long long U,
+                                 long long E, int do_entity, int do_global, void* stream) {
+  return launch_ragged(DenseLoad<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), P}, w,
+                       member, static_cast<__nv_bfloat16*>(out), N, P, J, U, E, do_entity,
+                       do_global, stream);
+}
+
+// B3 over the int8 wire [N, Pp]; the unpadded width is U * E <= Pp, and the
+// padded tail columns take the last unit's member column.
+int ragged_tiered_aggregate_q8(const int8_t* q, const float* scales, const float* w,
+                               const float* member, float* out, int N, long long Pp,
+                               int tile, int J, long long U, long long E, int do_entity,
+                               int do_global, void* stream) {
+  return launch_ragged(Q8Load{q, scales, Pp, Pp / tile, tile}, w, member, out, N, Pp, J, U,
+                       E, do_entity, do_global, stream);
 }
 
 }  // extern "C"

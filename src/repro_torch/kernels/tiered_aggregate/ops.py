@@ -1,8 +1,10 @@
 """Public wrappers of the fused aggregation — port of
 ``repro.kernels.tiered_aggregate.ops``.
 
-``tiered_aggregate`` (B1) and ``quantized_tiered_aggregate`` (B2) choose
-their implementation from the device of the tensor they are given:
+``tiered_aggregate`` (B1), ``quantized_tiered_aggregate`` (B2),
+``ragged_quantized_tiered_aggregate`` (B3, per-class cuts) and B3's dense
+twin ``ragged_tiered_aggregate`` choose their implementation from the
+device of the tensor they are given:
 
 * a CUDA tensor launches the hand-written kernel in
   ``csrc/tiered_aggregate.cu`` on the current stream, or raises — there is
@@ -10,8 +12,10 @@ their implementation from the device of the tensor they are given:
 * a CPU tensor runs the plain version in ``ref.py`` (the CPU tests).
 
 Each launch adds one to ``launches[<kernel>]``; the plain version counts
-nothing.  ``aggregate_tree`` applies either to every leaf of a
-client-stacked tree, as ``tiers.synchronize`` does per (tier, level).
+nothing.  ``aggregate_tree`` applies B1 or B2 to every leaf of a
+client-stacked tree, as ``tiers.synchronize`` does per (tier, level);
+``ragged_aggregate_tree`` applies the twin or B3, as
+``tiers.ragged_synchronize`` does per (unit, tier, level).
 Flags are host-side Python values, so choosing a round's levels never waits
 for the device.
 """
@@ -26,12 +30,20 @@ import torch
 from ..._tree import tree_map
 from ...compress.quantize import q8_quantize
 from .. import build
-from .ref import quantized_tiered_aggregate_ref, tiered_aggregate_ref
+from .ref import (
+    quantized_tiered_aggregate_ref,
+    ragged_quantized_tiered_aggregate_ref,
+    ragged_tiered_aggregate_ref,
+    tiered_aggregate_ref,
+)
 
 TILE_P = 2048  # default scale tile of the q8 wire (the JAX package's TILE_P)
 SOURCE = Path(__file__).resolve().parent / "csrc" / "tiered_aggregate.cu"
 
-launches: Dict[str, int] = {"tiered_aggregate": 0, "tiered_aggregate_q8": 0}
+launches: Dict[str, int] = {
+    "tiered_aggregate": 0, "tiered_aggregate_q8": 0,
+    "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0,
+}
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -51,6 +63,11 @@ def _library() -> ctypes.CDLL:
             fn.argtypes, fn.restype = dense, i
         lib.tiered_aggregate_q8.argtypes = [p, p, p, p, i, ll, i, i, i, i, p]
         lib.tiered_aggregate_q8.restype = i
+        ragged = [p, p, p, p, i, ll, i, ll, ll, i, i, p]
+        for fn in (lib.ragged_tiered_aggregate_f32, lib.ragged_tiered_aggregate_bf16):
+            fn.argtypes, fn.restype = ragged, i
+        lib.ragged_tiered_aggregate_q8.argtypes = [p, p, p, p, p, i, ll, i, i, ll, ll, i, i, p]
+        lib.ragged_tiered_aggregate_q8.restype = i
         _lib = lib
     return _lib
 
@@ -176,6 +193,130 @@ def tiered_aggregate_q8(
     return out if out.shape[1] == P else out[:, :P].contiguous()
 
 
+def _member_matrix(member: torch.Tensor, N: int, width: int) -> torch.Tensor:
+    """``member`` as f32 [N, U] with U dividing ``width`` (the columns)."""
+    if member.dtype != torch.float32 or member.ndim not in (1, 2) or member.shape[0] != N:
+        raise ValueError(
+            f"member must be f32 [{N}] or [{N}, U], got {member.dtype} "
+            f"{tuple(member.shape)}"
+        )
+    m = member.reshape(N, -1)
+    if m.shape[1] == 0 or width % m.shape[1]:
+        raise ValueError(f"{m.shape[1]} member units do not divide {width} columns")
+    return m
+
+
+def ragged_tiered_aggregate(
+    x: torch.Tensor, weights: torch.Tensor, member: torch.Tensor,
+    do_entity, do_global, num_entities: int,
+) -> torch.Tensor:
+    """[N, P] member-gated two-level aggregation (B3's dense twin); see
+    ``ref.ragged_tiered_aggregate_ref`` for semantics.
+
+    ``member`` is f32 0/1 [N], or [N, U] for a shard of U units of P / U
+    columns each.  x is f32 or bf16 and the output keeps its dtype.
+    """
+    if x.ndim != 2 or x.shape[0] % num_entities:
+        raise ValueError(
+            f"x must be [N, P] with N divisible by {num_entities}, "
+            f"got {tuple(x.shape)}"
+        )
+    N, P = x.shape
+    _check_weights(weights, N)
+    m = _member_matrix(member, N, P)
+    if not _on_cuda(x, weights, m):
+        return ragged_tiered_aggregate_ref(x, weights, m, do_entity, do_global, num_entities)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x dtype {x.dtype}: the kernel takes f32 or bf16")
+    if not (x.is_contiguous() and weights.is_contiguous() and m.is_contiguous()):
+        raise ValueError("x, weights and member must be contiguous")
+    U = m.shape[1]
+    lib = _library()
+    fn = (lib.ragged_tiered_aggregate_f32 if x.dtype == torch.float32
+          else lib.ragged_tiered_aggregate_bf16)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(
+            x.data_ptr(), weights.data_ptr(), m.data_ptr(), out.data_ptr(), N, P,
+            num_entities, U, P // U, int(bool(do_entity)), int(bool(do_global)), stream,
+        )
+    _raise_on(status, "ragged_tiered_aggregate")
+    launches["ragged_tiered_aggregate"] += 1
+    return out
+
+
+def ragged_quantized_tiered_aggregate(
+    q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor,
+    member: torch.Tensor, do_entity, do_global, num_entities: int,
+    tile_p: int = TILE_P, width: Optional[int] = None,
+) -> torch.Tensor:
+    """Fused dequantize → member-gated two-level aggregate over the q8 wire
+    (B3).  Returns f32 [N, Pp].
+
+    ``member`` is f32 0/1 [N], or [N, U] over ``width`` (default Pp)
+    unpadded columns, U·E of them; the padded tail takes the last unit's
+    member column.  Non-members receive their dequantized upload, as the
+    TPU kernel writes it: keeping the pre-compression replica is the
+    caller's (``tiers.ragged_synchronize``).
+    """
+    if q.ndim != 2 or q.shape[0] % num_entities or q.shape[1] % tile_p:
+        raise ValueError(
+            f"q must be [N, Pp] with N divisible by {num_entities} and Pp by "
+            f"{tile_p}, got {tuple(q.shape)}"
+        )
+    N, Pp = q.shape
+    width = Pp if width is None else width
+    if not 0 < width <= Pp:
+        raise ValueError(f"width {width} outside (0, {Pp}]")
+    _check_weights(weights, N)
+    m = _member_matrix(member, N, width)
+    if scales.shape != (N, Pp // tile_p) or scales.dtype != torch.float32:
+        raise ValueError(
+            f"scales must be f32 [{N}, {Pp // tile_p}], got "
+            f"{scales.dtype} {tuple(scales.shape)}"
+        )
+    if q.dtype != torch.int8:
+        raise ValueError(f"q dtype {q.dtype}: the wire payload is int8")
+    if not _on_cuda(q, scales, weights, m):
+        return ragged_quantized_tiered_aggregate_ref(
+            q, scales, weights, m, do_entity, do_global, num_entities, tile_p, width
+        )
+    if not all(t.is_contiguous() for t in (q, scales, weights, m)):
+        raise ValueError("q, scales, weights and member must be contiguous")
+    U = m.shape[1]
+    lib = _library()
+    out = torch.empty((N, Pp), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.ragged_tiered_aggregate_q8(
+            q.data_ptr(), scales.data_ptr(), weights.data_ptr(), m.data_ptr(),
+            out.data_ptr(), N, Pp, tile_p, num_entities, U, width // U,
+            int(bool(do_entity)), int(bool(do_global)), stream,
+        )
+    _raise_on(status, "ragged_tiered_aggregate_q8")
+    launches["ragged_tiered_aggregate_q8"] += 1
+    return out
+
+
+def ragged_tiered_aggregate_q8(
+    x: torch.Tensor, weights: torch.Tensor, member: torch.Tensor,
+    do_entity, do_global, num_entities: int, tile_p: int = TILE_P,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Quantize [N, P] to the q8 wire, aggregate member-gated fused (B3),
+    return f32 [N, P] — the port of the JAX ``ops.ragged_tiered_aggregate_q8``.
+    Each client row is tiled whole, as the JAX codec tiles a flattened
+    leaf, so a scale tile may straddle a unit boundary of a [N, U] member.
+    """
+    P = x.shape[1]
+    q, scales = q8_quantize(x.float(), tile_p, generator=generator)
+    out = ragged_quantized_tiered_aggregate(
+        q, scales, weights, member, do_entity, do_global, num_entities, tile_p, width=P
+    )
+    return out if out.shape[1] == P else out[:, :P].contiguous()
+
+
 def aggregate_tree(
     tree: Any, weights: torch.Tensor, do_entity, do_global, num_entities: int,
     tile_p: int = TILE_P, quantized: bool = False,
@@ -198,6 +339,35 @@ def aggregate_tree(
             ).to(x.dtype)
         else:
             out = tiered_aggregate(flat, weights, do_entity, do_global, num_entities)
+        return out.reshape(x.shape)
+
+    return tree_map(f, tree)
+
+
+def ragged_aggregate_tree(
+    tree: Any, weights: torch.Tensor, member: torch.Tensor, do_entity, do_global,
+    num_entities: int, tile_p: int = TILE_P, quantized: bool = False,
+) -> Any:
+    """Apply the member-gated aggregation leaf-wise: one twin launch (or,
+    with ``quantized=True``, one B3 launch over the q8 wire) per leaf.
+
+    ``member`` is [N] for a tree of per-unit leaves [N, ...], or [N, U] for
+    stacked leaves [N, U, ...], each launched whole over its [N, U·E] row.
+    Outputs are cast back to the leaf dtype.
+    """
+
+    def f(x):
+        if x.numel() == 0:
+            return x
+        flat = x.reshape(x.shape[0], -1).contiguous()
+        if quantized:
+            out = ragged_tiered_aggregate_q8(
+                flat, weights, member, do_entity, do_global, num_entities, tile_p
+            ).to(x.dtype)
+        else:
+            out = ragged_tiered_aggregate(
+                flat, weights, member, do_entity, do_global, num_entities
+            )
         return out.reshape(x.shape)
 
     return tree_map(f, tree)

@@ -11,6 +11,10 @@ Semantics (one tier's parameter shard, client-stacked):
     y1 = do_entity ? mean within each of the J contiguous client groups : x
     y2 = do_global ? Σ_n w_n · y1_n  (broadcast back)                  : y1
 
+The ragged (per-class cut) variants add a 0/1 ``member`` [N] — or [N, U]
+over a shard of U units of E = P / U columns each — and only members feed
+and receive either level (``ragged_tiered_aggregate_ref``).
+
 The CPU tests run these, and ``chip_smoke.py`` holds the CUDA kernels
 against them on the card.  Flags are host-side Python values.
 """
@@ -58,3 +62,73 @@ def quantized_tiered_aggregate_ref(
     return tiered_aggregate_ref(
         x.reshape(N, Pp), weights, do_entity, do_global, num_entities
     )
+
+
+def ragged_tiered_aggregate_ref(
+    x: torch.Tensor, weights: torch.Tensor, member: torch.Tensor,
+    do_entity, do_global, num_entities: int,
+) -> torch.Tensor:
+    """Member-gated two-level aggregation of a dense [N, P] shard (B3's
+    twin) — the arithmetic of the JAX ``tiers._ragged_units_mean`` levels
+    and of ``_ragged_q8_kernel`` after its dequantizing load:
+
+        em_g = Σ_{i∈g} m_i·x_i / max(Σ_{i∈g} m_i, 1)
+        y1_i = (do_entity ∧ m_i ∧ Σ_g > 0) ? em_g : x_i
+        sw   = Σ_i w_i·m_i,   gm = Σ_i y1_i·w_i·m_i / (sw > 0 ? sw : 1)
+        y2_i = (do_global ∧ m_i ∧ sw > 0) ? gm : y1_i
+
+    member  [N] or [N, U] 0/1; column p belongs to unit p // (P / U).
+    """
+    N, P = x.shape
+    J = num_entities
+    per = N // J
+    m = member.float().reshape(N, -1)
+    U = m.shape[1]
+    E = P // U
+    x3 = x.float().reshape(N, U, E)
+    m3 = m.reshape(N, U, 1)
+    grouped = x3.reshape(J, per, U, E)
+    mg = m3.reshape(J, per, U, 1)
+    sg = torch.sum(mg, dim=1, keepdim=True)                     # [J, 1, U, 1]
+    emean = torch.sum(grouped * mg, dim=1, keepdim=True) / torch.clamp(sg, min=1.0)
+    y1 = torch.where(
+        bool(do_entity) & (mg > 0.0) & (sg > 0.0), emean, grouped
+    ).reshape(N, U, E)
+    wm = weights.float()[:, None, None] * m3                    # [N, U, 1]
+    sw = torch.sum(wm, dim=0, keepdim=True)                     # [1, U, 1]
+    gmean = torch.sum(y1 * wm, dim=0, keepdim=True) / torch.where(
+        sw > 0.0, sw, torch.ones_like(sw)
+    )
+    y2 = torch.where(bool(do_global) & (m3 > 0.0) & (sw > 0.0), gmean, y1)
+    return y2.reshape(N, P).to(x.dtype).contiguous()
+
+
+def ragged_quantized_tiered_aggregate_ref(
+    q: torch.Tensor, scales: torch.Tensor, weights: torch.Tensor,
+    member: torch.Tensor, do_entity, do_global, num_entities: int,
+    tile_p: int, width: int = None,
+) -> torch.Tensor:
+    """B3: dequantize the int8 wire, then ``ragged_tiered_aggregate_ref`` —
+    a port of ``ref.ragged_quantized_tiered_aggregate_ref``, whose per-tile
+    loop is column-wise and so is taken over the whole payload at once.
+    Returns f32 [N, Pp].
+
+    ``width`` (default Pp) is the unpadded U·E columns a [N, U] member
+    covers; the padded tail takes the last unit's member column, as the
+    kernel does.
+    """
+    N, Pp = q.shape
+    if Pp % tile_p:
+        raise ValueError(f"payload width {Pp} is not a multiple of tile {tile_p}")
+    x = (q.reshape(N, Pp // tile_p, tile_p).float() * scales.float()[..., None]).reshape(N, Pp)
+    width = Pp if width is None else width
+    m = member.reshape(N, -1)
+    out = ragged_tiered_aggregate_ref(
+        x[:, :width], weights, m, do_entity, do_global, num_entities
+    )
+    if width == Pp:
+        return out
+    tail = ragged_tiered_aggregate_ref(
+        x[:, width:], weights, m[:, -1], do_entity, do_global, num_entities
+    )
+    return torch.cat([out, tail], dim=1)

@@ -98,10 +98,12 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def make_dispatch(model, plan, opt, compressor=None) -> Callable:
+def make_dispatch(model, plan, opt, compressor=None, class_members=None) -> Callable:
     """Specialized per-round-type steps (see ``tiers.synchronize``): round r
     runs the step whose fed-server levels are exactly the tiers due at
-    r + 1, as the JAX package's dispatch does."""
+    r + 1, as the JAX package's dispatch does.  ``class_members`` (from
+    ``tiers.class_tier_members``) makes every step a per-class (ragged) one,
+    as ``build_train_step_a(class_members=...)``."""
     from ..core import build_train_step_a
 
     cache = {}
@@ -110,7 +112,8 @@ def make_dispatch(model, plan, opt, compressor=None) -> Callable:
         fed = tuple((r + 1) % I == 0 if I > 1 else True for I in plan.intervals)
         if fed not in cache:
             cache[fed] = build_train_step_a(
-                model, plan, opt, fed_round=fed, compressor=compressor
+                model, plan, opt, fed_round=fed, compressor=compressor,
+                class_members=class_members,
             )
         return cache[fed](state, batch)
 

@@ -64,6 +64,7 @@ class VggSpec:
         )
         return in_dim, self.fc_dims[fi], 1
 
+    # analytic per-unit accounting for the HSFL latency model ------------- #
     def unit_param_count(self, unit: int) -> int:
         ncv = len(self.conv_channels)
         cin, cout, _ = self.unit_io(unit)
@@ -71,8 +72,38 @@ class VggSpec:
             return 9 * cin * cout + cout
         return cin * cout + cout
 
+    def unit_flops_fwd(self, unit: int, batch: int, seq: int = 1) -> float:
+        ncv = len(self.conv_channels)
+        cin, cout, hw = self.unit_io(unit)
+        if unit < ncv:
+            pools_before = sum(1 for p in self.pool_after if p < unit)
+            hw_in = self.image_size // (2**pools_before)
+            return 2.0 * batch * hw_in * hw_in * 9 * cin * cout
+        return 2.0 * batch * cin * cout
+
+    def unit_act_bytes(self, batch: int, seq: int = 1, bytes_per: int = 4) -> int:
+        # conservative: activation at unit boundaries varies; use max conv map
+        return batch * self.image_size * self.image_size * self.conv_channels[0] * bytes_per
+
+    def unit_act_bytes_at(self, unit: int, batch: int, bytes_per: int = 4) -> int:
+        ncv = len(self.conv_channels)
+        if unit < ncv:
+            _, cout, hw = self.unit_io(unit)
+            return batch * hw * hw * cout * bytes_per
+        _, dout, _ = self.unit_io(unit)
+        return batch * dout * bytes_per
+
+    def frontend_param_count(self) -> int:
+        return 0
+
+    def head_param_count(self) -> int:
+        return 0
+
     def total_param_count(self) -> int:
         return sum(self.unit_param_count(u) for u in range(self.n_units))
+
+    def active_param_count(self) -> int:
+        return self.total_param_count()
 
 
 class VggModel:

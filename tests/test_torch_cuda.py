@@ -13,10 +13,14 @@ from torch.func import grad_and_value, vmap
 
 from repro_torch.compress.quantize import q8_quantize
 from repro_torch.configs.vgg16_cifar10 import REDUCED
-from repro_torch.core import default_plan, init_state_a, synchronize
+from repro_torch.core import (
+    class_tier_members, default_plan, init_state_a, ragged_synchronize, synchronize,
+)
 from repro_torch.kernels.tiered_aggregate import (
     launches, quantized_tiered_aggregate, quantized_tiered_aggregate_ref,
-    reset_launches, tiered_aggregate, tiered_aggregate_ref,
+    ragged_quantized_tiered_aggregate, ragged_quantized_tiered_aggregate_ref,
+    ragged_tiered_aggregate, ragged_tiered_aggregate_ref, reset_launches,
+    tiered_aggregate, tiered_aggregate_ref,
 )
 from repro_torch.compress import Int8Stochastic
 from repro_torch.configs import get_reduced
@@ -97,9 +101,11 @@ def test_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
     # round 2 of intervals (2, 2, 1): every tier's fed level runs; tier 0
     # holds 1 unit (2 leaves), tier 1 two units, tier 2 two units
     if codec:
-        assert launches == {"tiered_aggregate": 8, "tiered_aggregate_q8": 6}
+        assert launches == {"tiered_aggregate": 8, "tiered_aggregate_q8": 6,
+                            "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0}
     else:
-        assert launches == {"tiered_aggregate": 10, "tiered_aggregate_q8": 0}
+        assert launches == {"tiered_aggregate": 10, "tiered_aggregate_q8": 0,
+                            "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0}
     cpu = synchronize({"frontend": {}, "units": [{k: v.cpu() for k, v in u.items()}
                                                  for u in params["units"]], "head": {}},
                       plan, 1, compressor=compressor)
@@ -107,6 +113,106 @@ def test_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
         for k in a:
             lsb = float(b[k].abs().max()) / 127 if codec else 1e-6
             torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-5, atol=lsb)
+
+
+def _members(N, J, U, g, device):
+    """All ones, alternating, an entity group with no member, none, and for
+    U > 1 a random [N, U] matrix."""
+    per = N // J
+    empty = torch.ones(N, U, device=device)
+    empty[:per] = 0.0
+    out = [torch.ones(N, U, device=device),
+           (torch.arange(N, device=device) % 2).float()[:, None].expand(N, U).contiguous(),
+           empty, torch.zeros(N, U, device=device)]
+    if U > 1:
+        out.append((torch.rand(N, U, generator=g, device=device) > 0.5).float())
+    return out
+
+
+# (N, J, P, U, tile): the JAX package's ragged shapes, then stacked [N, U·E] rows
+@pytest.mark.parametrize("N,J,P,U,tile", [(20, 5, 999, 1, 128), (6, 2, 257, 1, 128),
+                                          (16, 4, 2048, 1, 256), (8, 4, 64 * 30, 30, 128),
+                                          (20, 5, 7 * 3, 7, 128)])
+def test_b3_and_twin_match_plain(cuda, N, J, P, U, tile):
+    g = torch.Generator(device=cuda).manual_seed(P + U)
+    x = torch.randn(N, P, generator=g, device=cuda)
+    w = torch.softmax(torch.randn(N, generator=g, device=cuda), 0)
+    q, s = q8_quantize(x, tile)
+    for m in _members(N, J, U, g, cuda):
+        for de, dg in FLAGS:
+            out = ragged_tiered_aggregate(x, w, m, de, dg, J)
+            b3 = ragged_quantized_tiered_aggregate(q, s, w, m, de, dg, J, tile, width=P)
+            torch.cuda.synchronize()
+            # f32 sums in another order: a few ulp, as B1/B2
+            torch.testing.assert_close(out, ragged_tiered_aggregate_ref(x, w, m, de, dg, J),
+                                       rtol=1e-5, atol=1e-6)
+            torch.testing.assert_close(
+                b3, ragged_quantized_tiered_aggregate_ref(q, s, w, m, de, dg, J, tile, P),
+                rtol=1e-5, atol=1e-6)
+            keep = m.repeat_interleave(P // U, dim=1) == 0
+            assert torch.equal(out[keep], x[keep])  # the twin keeps non-members exactly
+
+
+@pytest.mark.parametrize("codec", [None, 128])
+def test_ragged_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
+    N = 8
+    plan = default_plan(REDUCED.n_units, N, cuts=(3, 4), intervals=(2, 3, 1),
+                        entities=(N, 4, 1))
+    state = init_state_a(VggModel(REDUCED), plan, sgd(0.1),
+                         torch.Generator().manual_seed(0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(2)
+    params = {"frontend": {}, "head": {}, "units": [
+        {k: v + torch.randn(v.shape, generator=g, device=cuda) for k, v in u.items()}
+        for u in state.params["units"]]}
+    cc, co = [(3, 4), (1, 2)], [0, 1] * 4
+    compressor = Int8Stochastic(codec) if codec else None
+    reset_launches()
+    got = ragged_synchronize(params, plan, class_tier_members(5, cc, co, cuda), 5,
+                             compressor=compressor)
+    torch.cuda.synchronize()
+    # round 6: every fed level.  (unit, tier) pairs some client holds:
+    # tier 0 units 0-2 (fed only: J0 = N), tier 1 units 1 and 3 (entity and
+    # fed), tier 2 units 2-4; 2 leaves each.  The int8 wire moves tier 0's
+    # launches and tier 1's fed mean to B3.
+    if codec:
+        want = {"ragged_tiered_aggregate": 10, "ragged_tiered_aggregate_q8": 10}
+    else:
+        want = {"ragged_tiered_aggregate": 16, "ragged_tiered_aggregate_q8": 0}
+    assert launches == {"tiered_aggregate": 0, "tiered_aggregate_q8": 0, **want}
+    cpu_params = {"frontend": {}, "head": {}, "units": [
+        {k: v.cpu() for k, v in u.items()} for u in params["units"]]}
+    cpu = ragged_synchronize(cpu_params, plan, class_tier_members(5, cc, co, "cpu"), 5,
+                             compressor=compressor)
+    for a, b in zip(got["units"], cpu["units"]):
+        for k in a:
+            lsb = float(b[k].abs().max()) / 127 if codec else 1e-6
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-5, atol=lsb)
+
+
+def test_torch_backend_tables_on_card_bit_equal_numpy(cuda):
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs.vgg16_cifar10 import SPEC
+    from repro_torch.core import (
+        ClassBatchedEvaluator, CutClassSpec, HsflProblem, SystemSpec, build_profile,
+        synthetic_hyperspec, theorem1_bound,
+    )
+
+    system = SystemSpec.paper_three_tier(seed=0)
+    slow = np.ones(20)
+    slow[1::2] = 1 / 8.0
+    system = dataclasses.replace(system, act_up=(system.act_up[0] * slow, system.act_up[1]))
+    hp = synthetic_hyperspec(16, 20, beta=3.0, seed=0)
+    p = HsflProblem(build_profile(SPEC, batch=16), system, hp,
+                    eps=10 * theorem1_bound(hp, 10**9, [1, 1, 1], (3, 8)))
+    ev_t, ev_n = p.evaluator("torch"), p.evaluator("numpy")
+    for name in ("split", "agg", "d", "mem_ok"):
+        np.testing.assert_array_equal(getattr(ev_t, name), getattr(ev_n, name))
+    spec = CutClassSpec.uniform(20, 2, (3, 8))
+    np.testing.assert_array_equal(ClassBatchedEvaluator(p, spec, "torch").split_class,
+                                  ClassBatchedEvaluator(p, spec, "numpy").split_class)
 
 
 # B, S, H, K, hd, window: the JAX package's cases, the CLI's ragged S=64

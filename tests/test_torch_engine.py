@@ -126,9 +126,8 @@ def test_init_state_and_replication():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(with_mask=True), "A10"), (dict(class_members=[]), "A11"),
-    (dict(privacy=object()), "A11"), (dict(guard=object()), "A11"),
-    (dict(with_sync_weights=True), "A11"),
+    (dict(with_mask=True), "A10"), (dict(privacy=object()), "A11"),
+    (dict(guard=object()), "A11"), (dict(with_sync_weights=True), "A11"),
 ])
 def test_unported_engine_options_raise(kw, item):
     plan = default_plan(REDUCED.n_units, N, cuts=CUTS, intervals=INTERVALS,

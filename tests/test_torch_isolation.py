@@ -65,6 +65,9 @@ def test_every_jax_module_of_the_slice_has_its_counterpart():
         "configs/smollm_135m.py", "configs/qwen2_1_5b.py", "configs/qwen2_5_14b.py",
         "configs/qwen3_32b.py", "kernels/swa_attention/ref.py",
         "kernels/swa_attention/ops.py",
+        "compress/base.py", "compress/identity.py", "compress/topk.py",
+        "core/latency.py", "core/convergence.py", "core/problem.py", "core/batched.py",
+        "core/ma_solver.py", "core/ms_solver.py", "core/bcd.py", "core/classes.py",
     ]
     for rel in slice_modules:
         assert (ROOT / "src" / "repro" / rel).exists(), rel
