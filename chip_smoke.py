@@ -6,7 +6,9 @@
 Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. the card, its power limit, torch and CUDA versions (no card: exit 1);
-2. build every CUDA kernel of the package with nvcc, in parallel;
+2. build every CUDA kernel of the package with nvcc, in parallel; print
+   ptxas's registers and spills and cuobjdump's count of tensor-core (HMMA)
+   instructions of the B5 kernels, and fail if one has none;
 3. hold each kernel against its plain PyTorch version on the card: the
    aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
    ragged edge shapes; the per-class kernels (B3 and its dense twin) at the
@@ -16,7 +18,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    NumPy; the flash-attention forward (B4) and its two
    backward passes (B5) at the JAX package's test cases, the full-width
    smollm-135m shape at windows 0/128/256/512, the CLI's S=64 and REDUCED
-   qwen2.5's hd 32 / GQA 4:1, bf16, and under ``vmap(grad_and_value)``;
+   qwen2.5's hd 32 / GQA 4:1, bf16 (the forward and both backward passes),
+   and under ``vmap(grad_and_value)``;
 4. the port on the card against the port on the CPU: VGG REDUCED (N=4, 3
    rounds, f32 convolutions, TF32 off), VGG REDUCED with per-class cuts
    (N=8, 6 rounds, plain and over the int8 wire) and smollm-135m REDUCED
@@ -35,7 +38,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    after rounds 6 and 12 the clients that hold a unit in one tier agree;
 6. kernel, plain-version, library and bound times: B1/B2, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
-   the path's, and window 128; the plain version at window 0); the parts
+   the path's, and window 128; the plain version at window 0; B5's bound is
+   3xTF32 on the tensor cores, with the f32 CUDA-core one beside it); the parts
    of a full-width round of each model, the per-class one included;
 7. one JSON line describing every kernel, then the card, then
    ``{"ok": true, ...}`` as the last line.
@@ -57,6 +61,7 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # CUDA cores, outside the tensor cores
+TF32_FLOPS_PER_S = 495e12  # tensor cores; B5's 3xTF32 takes 3 of these per f32 operation
 
 F32_RTOL, F32_ATOL = 1e-5, 1e-6  # f32 sums taken in another order
 Q8_TILE = 256
@@ -79,6 +84,8 @@ SOURCES = {
     "swa_attention": "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
 }
 ATTN = ("swa_attention_fwd", "swa_attention_bwd_dq", "swa_attention_bwd_dkv")
+KERNEL_FN = {"swa_attention_bwd_dq": "swa_bwd_dq_kernel",
+             "swa_attention_bwd_dkv": "swa_bwd_dkv_kernel"}
 ATTN_TOL = 2e-5  # tests/test_kernels_swa.py's: rtol = atol (forward); after max-normalising (backward)
 # attention at the full-width smollm-135m path: B = N·batch = 8·1, S, H, K, hd
 MAIN_ATTN = (8, 1024, 9, 3, 64)
@@ -192,6 +199,54 @@ def check_kernels(spec):
           f"B1 f32 {errs['tiered_aggregate']:.3e} B1 bf16 {bf16_err:.3e} "
           f"B2 {errs['tiered_aggregate_q8']:.3e}")
     return errs, {"tiered_aggregate": bf16_err, "tiered_aggregate_q8": None}
+
+
+def _b5_kernel(mangled: str):
+    """'swa_bwd_dq_kernel<64, f32>' for a B5 kernel's mangled name, else None."""
+    m = re.search(r"(swa_bwd_d(?:q|kv)_kernel)ILi(\d+)E(f|13__nv_bfloat16)", mangled)
+    return m and f"{m.group(1)}<{m.group(2)}, {'f32' if m.group(3) == 'f' else 'bf16'}>"
+
+
+def b5_build_report(source) -> dict:
+    """ptxas's registers and spills and cuobjdump's count of tensor-core
+    instructions (HMMA) for every B5 kernel of the built library; fails if
+    one has none."""
+    import os
+
+    from repro_torch.kernels import build
+
+    report, key = {}, None
+    for line in build.build_log(source).read_text().splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            key = _b5_kernel(m.group(1))
+        elif key and "Used" in line:
+            report.setdefault(key, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+        elif key and "spill stores" in line:
+            stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line).groups()
+            report.setdefault(key, {}).update(spill_stores=int(stores), spill_loads=int(loads))
+    cuobjdump = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(build.library_path(source))],
+                          capture_output=True, text=True, check=True, timeout=300).stdout
+    for line in sass.splitlines():
+        if "Function :" in line:
+            key = _b5_kernel(line)
+            if key:
+                report.setdefault(key, {})["hmma"] = 0
+        elif key and re.search(r"\bHMMA\b", line):
+            report[key]["hmma"] += 1
+    if len(report) != 20 or any(r.get("hmma", 0) == 0 for r in report.values()):
+        raise AssertionError(f"B5 kernels without tensor-core instructions: {report}")
+    for key in ("swa_bwd_dq_kernel<64, f32>", "swa_bwd_dkv_kernel<64, f32>"):
+        r = report[key]
+        print(f"[build] {key}: {r['registers']} registers, spill stores/loads "
+              f"{r['spill_stores']}/{r['spill_loads']} bytes (ptxas -v), {r['hmma']} HMMA "
+              f"instructions (cuobjdump -sass)")
+    print("[build] every B5 kernel (hd 32-128, f32 and bf16) has HMMA instructions: "
+          + ", ".join(f"{k} {r['hmma']}" for k, r in report.items()))
+    return report
 
 
 def card_vs_cpu():
@@ -942,7 +997,22 @@ def check_attention():
     o, lse = swa_attention_fwd(q, k, v, W)
     ro, _ = swa_attention_ref(q.float(), k.float(), v.float(), W)
     torch.testing.assert_close(o.float(), ro, rtol=0, atol=3e-2, msg="B4 bf16")
-    bf16_err = float((o.float() - ro).abs().max())
+    bf16_errs = {"swa_attention_fwd": float((o.float() - ro).abs().max())}
+    # the bf16 backward against the f32 plain version on the same bf16
+    # inputs: one bf16 ulp beyond the f32 tolerance, as B1's bf16 check
+    dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W)
+    dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, k, v, o, do)]
+    rdq, _ = swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], W)
+    rdk, rdv = swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], W)
+    for name, pairs in (("swa_attention_bwd_dq", ((dq, rdq),)),
+                        ("swa_attention_bwd_dkv", ((dk, rdk), (dv, rdv)))):
+        for got, ref in pairs:
+            err = (got.float() - ref).abs()
+            if bool((err > ATTN_TOL * ref.abs().max() + bf16_ulp(ref)).any()):
+                raise AssertionError(f"{name} bf16: beyond one bf16 ulp of the f32 tolerance")
+            bf16_errs[name] = max(bf16_errs.get(name, 0.0), float(err.max()))
 
     # Engine A's transform: one launch of each kernel for all N clients
     N, B, S, H, K, hd, W = 4, 2, 256, 9, 3, 64, 128
@@ -970,10 +1040,13 @@ def check_attention():
     reset_launches()
     print(f"[attention] {n_cases} shapes x (B4, B5 dq, B5 dk/dv) against the plain versions "
           f"passed (forward rtol=atol {ATTN_TOL}; backward {ATTN_TOL} of max|ref|); bf16 "
-          f"forward within 3e-2 of f32 (max |err| {bf16_err:.3e}); vmap(grad_and_value) "
+          f"forward within 3e-2 of f32 (max |err| {bf16_errs['swa_attention_fwd']:.3e}), bf16 "
+          f"backward within one bf16 ulp of the f32 tolerance (max |err| dq "
+          f"{bf16_errs['swa_attention_bwd_dq']:.3e}, dk/dv "
+          f"{bf16_errs['swa_attention_bwd_dkv']:.3e}); vmap(grad_and_value) "
           f"over N={N}: one launch of each kernel, grads match; max |err| "
           + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
-    return errs, bf16_err
+    return errs, bf16_errs
 
 
 def lm_batches(vocab, N, b, S, rounds, seed=0):
@@ -1196,12 +1269,23 @@ def attention_timings(card: str):
             r = dict(ms=km, plain_ms=pm, bound_ms=max(by_ops, by_bytes),
                      bound_by="operations" if by_ops >= by_bytes else "bytes",
                      ops=ops, bytes=nbytes)
+            if name == "swa_attention_fwd":
+                against = "67 TFLOP/s f32 on the CUDA cores"
+            else:
+                # B5 runs 3xTF32 on the tensor cores: its share is against that bound
+                by_tc = 3 * ops / TF32_FLOPS_PER_S * 1e3
+                r.update(bound_ms_f32_cuda_cores=r["bound_ms"], bound_ms=max(by_tc, by_bytes),
+                         bound_by="operations" if by_tc >= by_bytes else "bytes")
+                against = (f"3xTF32 on the tensor cores, 3 x {ops / 1e9:.2f} GFLOP at 495 "
+                           f"TFLOP/s TF32; against 67 TFLOP/s f32 on the CUDA cores it would be "
+                           f"{r['bound_ms_f32_cuda_cores']:.4f} ms = "
+                           f"{100 * r['bound_ms_f32_cuda_cores'] / km:.1f}%")
             out[(name, W)] = r
             print(f"[timing] {name} at B={B} S={S} H={H} K={K} hd={hd} window={W}: kernel "
                   f"{km:.4f} ms" + (f", plain {pm:.4f} ms" if pm is not None else "")
-                  + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops / 1e9:.2f} GFLOP "
-                  f"at 67 TFLOP/s f32, {nbytes / 1e6:.1f} MB at 3.35 TB/s, H100 SXM data "
-                  f"sheet) = {100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
+                  + f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}: {ops / 1e9:.2f} GFLOP, "
+                  f"{nbytes / 1e6:.1f} MB at 3.35 TB/s, H100 SXM data sheet) = "
+                  f"{100 * r['bound_ms'] / km:.1f}% of the bound ({against}); card {card}")
         del o, lse, delta
 
     # the library yardstick: SDPA on [B, H, S, hd], forward and forward+backward
@@ -1322,11 +1406,14 @@ def main() -> int:
     print(f"[build] {len(libs)} kernel libraries in {time.perf_counter() - t:.1f} s: "
           + ", ".join(p.name for p in libs))
 
+    from repro_torch.kernels.swa_attention.ops import SOURCE as SWA_SOURCE
+
+    b5_build = b5_build_report(SWA_SOURCE)
     errs, bf16_errs = check_kernels(SPEC)
     ragged_errs, ragged_bf16_errs = check_ragged_kernels(SPEC)
     errs.update(ragged_errs)
     bf16_errs.update(ragged_bf16_errs)
-    attn_errs, attn_bf16_err = check_attention()
+    attn_errs, attn_bf16_errs = check_attention()
     solved = solve_classes(SPEC)
     solve_backend_timings(card, SPEC)
     card_vs_cpu()
@@ -1354,7 +1441,7 @@ def main() -> int:
     attention_share(card, lm_run["spec"], lm_parts, attn_times)
 
     # max_abs_err: the f32 checks, the dtype the main paths launch;
-    # max_abs_err_bf16: the bf16 instantiation (B2 and B5 are checked in f32 only).
+    # max_abs_err_bf16: the bf16 instantiation (B2 is checked in f32 only).
     # launches: the count on the kernel's main path (VGG for B1/B2, the
     # full-width smollm-135m for B4/B5); launches_by_path: every path's count
     kernels = [{
@@ -1398,10 +1485,14 @@ def main() -> int:
         "launches_by_path": {"smollm-135m": lm_launches[name],
                              "smollm-135m-reduced-cli": cli_launches[name]},
         "max_abs_err": attn_errs[name],
-        "max_abs_err_bf16": attn_bf16_err if name == "swa_attention_fwd" else None,
+        "max_abs_err_bf16": attn_bf16_errs[name],
         "ms": attn_times[(name, 0)]["ms"], "plain_ms": attn_times[(name, 0)]["plain_ms"],
         "bound_ms": attn_times[(name, 0)]["bound_ms"],
         "bound_by": attn_times[(name, 0)]["bound_by"],
+        **({"bound_against": "f32 on the CUDA cores, 67 TFLOP/s"} if name == ATTN[0] else {
+            "bound_against": "3xTF32 on the tensor cores: 3 x operations at 495 TFLOP/s",
+            "bound_ms_f32_cuda_cores": attn_times[(name, 0)]["bound_ms_f32_cuda_cores"],
+            "build": b5_build[f"{KERNEL_FN[name]}<{hd}, f32>"]}),
         "library_ms": attn_times[(name, 0)]["library_ms"],
         "library": ("torch.nn.functional.scaled_dot_product_attention, "
                     + ("forward" if name == "swa_attention_fwd"

@@ -1,12 +1,15 @@
 """Build the port's CUDA kernels with ``nvcc`` and load them with ``ctypes``.
 
-Every kernel source is one ``csrc/*.cu`` file with a plain C interface.  It
-is compiled for Hopper (``sm_90a``) into a shared library under
-``build/repro_torch/`` at the root of the checkout, named after a hash of
-the source, so an edited source is rebuilt and an unchanged one is loaded
-as it is.  Nothing is compiled when a module is imported: the first launch
-builds its source, or ``build`` builds every source at once, one ``nvcc``
-process per source, all started together.
+Every kernel source is one ``csrc/*.cu`` file with a plain C interface,
+which may include the ``*.cuh`` headers beside it.  It is compiled for
+Hopper (``sm_90a``) into a shared library under ``build/repro_torch/`` at
+the root of the checkout, named after a hash of the source and those
+headers, so an edited source or header is rebuilt and an unchanged one is
+loaded as it is.  ``ptxas``'s report of each kernel's registers, shared
+memory and spills is kept beside the library (``<library>.log``).
+Nothing is compiled when a module is imported: the first launch builds its
+source, or ``build`` builds every source at once, one ``nvcc`` process per
+source, all started together.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PACKAGE_DIR.parents[1] / "build" / "repro_torch"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 _loaded: Dict[Path, ctypes.CDLL] = {}
@@ -49,8 +52,15 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"{source.stem}-{digest}.so"
+    digest = hashlib.sha256(source.read_bytes())
+    for header in sorted(source.parent.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    return BUILD_DIR / f"{source.stem}-{digest.hexdigest()[:16]}.so"
+
+
+def build_log(source: Path) -> Path:
+    """nvcc's output (ptxas's per-kernel report) for ``source``'s library."""
+    return library_path(source).with_suffix(".log")
 
 
 def _start(source: Path):
@@ -75,6 +85,7 @@ def _finish(job, source: Path) -> None:
     try:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on {source}:\n{log}")
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)  # atomic: a reader sees no half-written library
     finally:
         if tmp.exists():

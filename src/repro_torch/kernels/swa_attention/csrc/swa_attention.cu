@@ -21,36 +21,74 @@
 // dq = scale * ds.k, dk = sum over the G query heads of ds^T.(scale*q) and
 // dv = sum over the G heads of p^T.do, in the input dtype.
 //
-// What bounds it: operations.  At the main path's shape (B=16, H=9, K=3,
-// S=1024, hd=64) the causal forward is ~19 GFLOP against ~100 MB of
-// inputs and outputs, ~190 flops a byte, far above the ~20 flops/byte at
-// which the f32 CUDA cores (67 TFLOP/s) overtake HBM (3.35 TB/s).  The
-// products run in plain f32 on the CUDA cores, not TF32 on the tensor
-// cores, so the results hold to the f32 tolerance of the JAX reference.
+// What bounds it: operations.  At the main path's shape (B=8, H=9, K=3,
+// S=1024, hd=64) the causal forward is 9.7 GFLOP and the backward's two
+// passes 14.5 and 19.4, against 50-90 MB of inputs and outputs a pass,
+// far above the ~20 flops/byte at which the f32 CUDA cores (67 TFLOP/s)
+// overtake HBM (3.35 TB/s), and above the ~50 at which 3xTF32 on the
+// tensor cores (495 / 3 = 165 TFLOP/s of f32 work) does.
 //
-// Design.  One block of 256 threads per (batch*head, 64-row q tile) in the
-// forward and the dq pass, one per (batch*kv head, 64-row kv tile) in the
-// dk/dv pass.  The TPU's sequential ("arbitrary") grid axes become loops
-// inside the block, so no block carries anything to another: the forward
-// and dq pass loop over the kv tiles that the causal mask and the window
-// reach (whole tiles above the diagonal or below the window are never
-// visited); the dk/dv pass loops over the G query heads of its kv head and
-// the q tiles that see its keys, and sums them in registers, so it needs no
-// atomics.  Tiles are staged in shared memory as f32 with an odd row pitch
-// (hd + 1, 65), which keeps every access pattern below free of bank
-// conflicts.  Each thread owns a 4 x n register micro-tile of every product
-// (rows ty + 16i, columns tx + 16j), which gives each shared-memory load
-// 4 (a column) or n (a row) multiply-adds, and keeps the online softmax
-// statistics (running max and sum of its four rows) in registers; a row's
-// 16 owners reduce with warp shuffles.  The forward's blocks start with the
-// last q tiles, the ones with the most kv tiles to visit, and the dk/dv
-// pass with the first kv tiles, for the same reason.  The ragged sequence
-// tail is masked in the kernels (rows >= S load as 0 and are not written),
-// so neither S nor hd is padded.  Making it fast (wgmma on the tensor
-// cores in bf16, TMA loads, a pipelined ring of tiles) is later work.
+// B4, the forward: plain f32 on the CUDA cores.  One block of 256 threads
+// per (batch*head, 64-row q tile), the last q tiles (the most kv tiles to
+// visit) first.  The TPU's sequential kv grid axis becomes a loop inside
+// the block over the kv tiles that the causal mask and the window reach.
+// Tiles are staged in shared memory as f32 with an odd row pitch (hd + 1),
+// free of bank conflicts; each thread owns a 4 x n register micro-tile of
+// every product (rows ty + 16i, columns tx + 16j) and the online softmax
+// statistics of its four rows, which a row's 16 owners reduce with warp
+// shuffles.
+//
+// B5, the backward: every product in 3xTF32 on the tensor cores
+// (mma.sync m16n8k8, mma_tf32.cuh): each f32 operand is split into a TF32
+// big and small part and a.b = a_small.b_big + a_big.b_small + a_big.b_big,
+// which holds the f32 tolerance where one TF32 product misses it 10-50x
+// (tests/test_torch_swa_tf32.py).  The scale is folded into q as its
+// fragments are loaded.
+// Blocks of 128 threads (4 warps); tiles staged as f32 with a row pitch of
+// hd + 4, conflict-free for every fragment load.  The scores and p (dp and
+// ds) never leave registers: each warp computes its strip of s (or s^T)
+// as mma accumulators and feeds them straight back as the A operand of
+// the next product, with that product's B operand read in the matching k
+// order.  The tensor cores add with truncation, so the long sums (dq over
+// the kv tiles, dk and dv over G query heads times S rows) add each tile's
+// partial product, summed from 0 on the tensor cores, in f32.
+//   dq pass: a block per (batch*head, 64-row q tile), the heaviest first;
+//   warp w owns rows 16w..16w+15 and walks the kv tiles (32 keys) that the
+//   mask reaches, the next k/v tile in flight (cp.async, double-buffered)
+//   while the current one is multiplied.  delta is read from o and do in
+//   device memory while the first copies fly.
+//   dk/dv pass: a block per (batch*kv head, 32-key kv tile), first kv tiles
+//   (the most q tiles) first.  32-key tiles make twice the blocks of
+//   64-key ones, so the blocks of unequal length (G * (S - k0) / 32 q tiles) even
+//   out over the card; the block walks every (query head, 32-row q tile)
+//   that sees its keys with the next q/do/lse/delta tile in flight.  Warp w
+//   takes keys 16(w % 2).. against rows 16(w / 2).. of each tile and keeps
+//   its dk and dv in registers across the G heads; warps w and w + 2 add
+//   their sums through shared memory in a fixed order at the end, so there
+//   are no atomics and every result repeats bit for bit.  k and v, the A
+//   operands of every q tile, are split into big and small parts once per
+//   block; the other operands are split as their fragments are loaded.
+//   Splitting q and do once per block in the dq pass, or each q/do tile
+//   once in the dk/dv pass, measured slower: the shared memory or the
+//   registers it takes cost a block per SM.
+// What bounds B5 on the card: the issue of the splits (an integer add and
+// mask per part and a subtraction) and of the three mma per product, with
+// 3 blocks of 4 warps per SM (166-168 registers a thread) to hide their
+// latency; chip_ablate_b5.py prices each, PERF.md has the times.
+//
+// Masking: a masked score never enters a sum (p = 0 in the backward; -1e30
+// in the forward, so a fully masked tile yields no NaN, as on the TPU).
+// The ragged sequence tail is masked in the kernels (rows >= S load as 0
+// and are not written), so neither S nor hd is padded.
+
+#include <cstdint>
+#include <initializer_list>
+#include <type_traits>
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
@@ -72,6 +110,7 @@ struct Shape {
   int B, S, H, K, G;
   int window;  // 0: full causal; else keys in (p - window, p]
   float scale;
+  int vec;     // every f32 tensor is 16-byte aligned: B5 stages with cp.async
 };
 
 __device__ __forceinline__ bool allowed(int row, int col, const Shape& sh) {
@@ -222,168 +261,383 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // --------------------------------------------------------------------------
+// B5: 3xTF32 on the tensor cores (mma_tf32.cuh), 128 threads (4 warps) a
+// block, tiles staged through a double-buffered cp.async ring.
+// --------------------------------------------------------------------------
+constexpr int kB5Threads = 128;
+constexpr int kDqRows = 64;  // dq pass: q tile (16 rows a warp) ...
+constexpr int kDqKeys = 32;  // ... and the kv tiles it walks
+constexpr int kDkvKeys = 32;  // dk/dv pass: kv tile (16 keys a warp pair) ...
+constexpr int kDkvRows = 32;  // ... and the q tiles it walks (16 rows a warp)
+
+// Rows [row0, row0 + ROWS) of head `head` of a [B, S, heads, HD] tensor into
+// shared memory [ROWS][HD + 4] as f32; rows >= S are 0.  f32 with 16-byte
+// aligned tensors (sh.vec) goes through cp.async, which the caller commits
+// and waits for; otherwise each element is loaded, converted and stored.
+template <int ROWS, int HD, typename T>
+__device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __restrict__ src,
+                                           int b, int row0, int heads, int head,
+                                           const Shape& sh) {
+  constexpr int LD = HD + 4;
+  if constexpr (std::is_same<T, float>::value) {
+    if (sh.vec) {
+      constexpr int CH = HD / 4;  // 16-byte chunks a row
+      for (int idx = threadIdx.x; idx < ROWS * CH; idx += kB5Threads) {
+        const int r = idx / CH, c = idx - r * CH;
+        const int s = row0 + r;
+        const bool ok = s < sh.S;
+        const long long off =
+            ((static_cast<long long>(b) * sh.S + (ok ? s : 0)) * heads + head) * HD + 4 * c;
+        tf32::cp_async16(dst + r * LD + 4 * c, src + off, ok);
+      }
+      return;
+    }
+  }
+  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kB5Threads) {
+    const int r = idx / HD, d = idx - r * HD;
+    const int s = row0 + r;
+    float val = 0.0f;
+    if (s < sh.S) {
+      val = to_f32(src[((static_cast<long long>(b) * sh.S + s) * heads + head) * HD + d]);
+    }
+    dst[r * LD + d] = val;
+  }
+}
+
+// n values of a [B, H, S] f32 row statistic from position s0, 0 past S.
+__device__ __forceinline__ void stage_stat(float* __restrict__ dst, const float* __restrict__ src,
+                                           int s0, int n, const Shape& sh) {
+  for (int r = threadIdx.x; r < n; r += kB5Threads) {
+    const bool ok = s0 + r < sh.S;
+    tf32::cp_async4(dst + r, src + (ok ? s0 + r : 0), ok);
+  }
+}
+
+// Whether some (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is masked.
+__device__ __forceinline__ bool tile_masked(int r0, int nr, int c0, int nc, const Shape& sh) {
+  if (c0 + nc - 1 > r0 || r0 + nr > sh.S) return true;
+  return sh.window > 0 && c0 <= r0 + nr - 1 - sh.window;
+}
+
+// --------------------------------------------------------------------------
 // B5, q-parallel pass: dq, and delta = rowsum(o * do) for the dk/dv pass.
-// grid (B*H, nq); q tile i = nq - 1 - blockIdx.y.
+// grid (B*H, nq) over 64-row q tiles, i = nq - 1 - blockIdx.y; warp w owns
+// rows 16w..16w+15 of the tile and walks its 32-key kv tiles.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kB5Threads, HD <= 64 ? 3 : 1)
 swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ o, const T* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
                   T* __restrict__ dq, Shape sh) {
-  constexpr int LD = HD + 1, NJ = HD / 16;
+  constexpr int LD = HD + 4, NT = HD / 8, BQ = kDqRows, BK = kDqKeys, NS = BK / 8;
   extern __shared__ float smem[];
-  float* Qs = smem;
-  float* dOs = Qs + kTile * LD;
-  float* Ks = dOs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ss = Vs + kTile * LD;  // [64][kPitch]
+  float* Qs = smem;              // [BQ][LD]
+  float* dOs = Qs + BQ * LD;     // [BQ][LD]
+  float* KVs = dOs + BQ * LD;    // 2 stages x (k [BK][LD], v [BK][LD])
 
   const int i = gridDim.y - 1 - blockIdx.y;
   const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = i * kTile;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = i * BQ, wr = 16 * warp;  // the tile's first row, the warp's
   const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.S;
+  int j_lo = 0;
+  if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
+  const int j_hi = min((sh.S - 1) / BK, (q0 + BQ - 1) / BK);
 
-  load_tile<HD>(Qs, q, b, q0, sh.H, h, sh.scale, sh);
-  load_tile<HD>(dOs, dout, b, q0, sh.H, h, 1.0f, sh);
-  load_tile<HD>(Ks, o, b, q0, sh.H, h, 1.0f, sh);  // o, staged where k goes next
-  __syncthreads();
-  float dl[4], lr[4];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty + 16 * r;
+  auto stage_kv = [&](int j, int stage) {
+    float* Ks = KVs + stage * 2 * BK * LD;
+    stage_rows<BK, HD>(Ks, k, b, j * BK, sh.K, kh, sh);
+    stage_rows<BK, HD>(Ks + BK * LD, v, b, j * BK, sh.K, kh, sh);
+  };
+  stage_rows<BQ, HD>(Qs, q, b, q0, sh.H, h, sh);
+  stage_rows<BQ, HD>(dOs, dout, b, q0, sh.H, h, sh);
+  stage_kv(j_lo, 0);
+  tf32::cp_async_commit();
+
+  // delta of the warp's 16 rows, read from o and do in device memory while
+  // the copies fly; lane (g, t) keeps rows g and g + 8
+  float dl[2] = {0.0f, 0.0f}, lr[2] = {0.0f, 0.0f};
+  for (int r = 0; r < 16; ++r) {
+    const int row = q0 + wr + r;
     float part = 0.0f;
-#pragma unroll
-    for (int c = 0; c < NJ; ++c) {
-      const int e = (ty + 16 * r) * LD + tx + 16 * c;
-      part += Ks[e] * dOs[e];
+    if (row < sh.S) {
+      const long long off = ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD;
+      for (int d = lane; d < HD; d += 32) part += to_f32(o[off + d]) * to_f32(dout[off + d]);
     }
-    dl[r] = row_sum(part);
-    lr[r] = row < sh.S ? lse[row_base + row] : 0.0f;
-    if (tx == 0 && row < sh.S) delta[row_base + row] = dl[r];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
+    if (lane == 0 && row < sh.S) delta[row_base + row] = part;
+    if (r == g) dl[0] = part;
+    if (r == g + 8) dl[1] = part;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + wr + g + 8 * e;
+    if (row < sh.S) lr[e] = lse[row_base + row];
   }
 
-  float acc[4][NJ];
-  zero(acc);
-  for (int j = first_kv_tile(i, sh); j <= i; ++j) {
-    __syncthreads();  // the previous tile's (or delta's) reads are done
-    load_tile<HD>(Ks, k, b, j * kTile, sh.K, kh, 1.0f, sh);
-    load_tile<HD>(Vs, v, b, j * kTile, sh.K, kh, 1.0f, sh);
+  float acc[NT][4];
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int stage = (j - j_lo) & 1;
+    if (j < j_hi) {
+      stage_kv(j + 1, stage ^ 1);
+      tf32::cp_async_commit();
+      tf32::cp_async_wait<1>();
+    } else {
+      tf32::cp_async_wait<0>();
+    }
     __syncthreads();
-    float s[4][4], dp[4][4];
-    zero(s);
-    zero(dp);
-    mma_tile<4, HD, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);    // (scale q) k^T
-    mma_tile<4, HD, LD, 1, 1, LD>(dp, dOs, Vs, ty, tx);  // do v^T
+    const float* Ks = KVs + stage * 2 * BK * LD;
+    const float* Vs = Ks + BK * LD;
+
+    // s = (scale q) k^T and dp = do v^T on the warp's 16 rows x BK keys
+    float s[NS][4], dp[NS][4];
 #pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty + 16 * r;
+    for (int n = 0; n < NS; ++n)
 #pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = allowed(row, j * kTile + tx + 16 * c, sh) ? expf(s[r][c] - lr[r]) : 0.0f;
-        Ss[(ty + 16 * r) * kPitch + tx + 16 * c] = p * (dp[r][c] - dl[r]);
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 8) {
+      uint32_t qb[4], qs[4], ob[4], os[4];
+      tf32::load_a(Qs, LD, wr, kk, sh.scale, qb, qs);
+      tf32::load_a(dOs, LD, wr, kk, 1.0f, ob, os);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t kb[2], ks[2], vb[2], vs[2];
+        tf32::load_b(Ks, LD, 8 * n, kk, 1.0f, kb, ks);
+        tf32::load_b(Vs, LD, 8 * n, kk, 1.0f, vb, vs);
+        tf32::mma3(s[n], qb, qs, kb, ks);
+        tf32::mma3(dp[n], ob, os, vb, vs);
       }
     }
-    __syncthreads();
-    mma_tile<NJ, kTile, kPitch, 1, LD, 1>(acc, Ss, Ks, ty, tx);  // += ds k
+
+    // ds = p * (dp - delta), p = exp(s - lse) where the mask allows
+    const bool masked = tile_masked(q0 + wr, 16, j * BK, BK, sh);
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1;
+        float p = expf(s[n][e] - lr[r]);
+        if (masked && !allowed(q0 + wr + g + 8 * r, j * BK + 8 * n + 2 * t + (e & 1), sh))
+          p = 0.0f;
+        s[n][e] = p * (dp[n][e] - dl[r]);
+      }
+
+    // dq += ds k, the keys as k: the tile's keys are summed on the tensor
+    // cores from 0 and added to dq in f32 (each mma rounds toward zero, so
+    // a long chain of them into one sum drifts)
+    uint32_t db[NS][4], dsm[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) tf32::a_from_c(s[n], db[n], dsm[n]);
+#pragma unroll
+    for (int c = 0; c < NT; c += 2) {  // hd / 8 is even
+      float p0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, p1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t b0[2], s0[2], b1[2], s1[2];
+        tf32::load_b_kperm(Ks, LD, 8 * n, 8 * c, 1.0f, b0, s0);
+        tf32::load_b_kperm(Ks, LD, 8 * n, 8 * c + 8, 1.0f, b1, s1);
+        tf32::mma3(p0, db[n], dsm[n], b0, s0);
+        tf32::mma3(p1, db[n], dsm[n], b1, s1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[c][e] += p0[e];
+        acc[c + 1][e] += p1[e];
+      }
+    }
+    __syncthreads();  // this stage's reads are done before it is refilled
   }
 
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty + 16 * r;
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = q0 + wr + g + 8 * e2;
     if (row >= sh.S) continue;
-    const long long off = ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD;
+    T* out = dq + ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD + 2 * t;
 #pragma unroll
-    for (int c = 0; c < NJ; ++c) dq[off + tx + 16 * c] = from_f32<T>(acc[r][c] * sh.scale);
+    for (int c = 0; c < NT; ++c) {
+      out[8 * c] = from_f32<T>(acc[c][2 * e2] * sh.scale);
+      out[8 * c + 1] = from_f32<T>(acc[c][2 * e2 + 1] * sh.scale);
+    }
   }
 }
 
 // --------------------------------------------------------------------------
 // B5, kv-parallel pass: dk and dv, summed over the G query heads of each kv
-// head in the block.  grid (B*K, nk); kv tile j = blockIdx.y.
+// head in the block.  grid (B*K, nk) over 32-key kv tiles, j = blockIdx.y;
+// the block walks every (query head, 32-row q tile) that sees its keys.
+// Warp w computes keys 16(w % 2).. against rows 16(w / 2).. of each q
+// tile; warps w and w + 2 add their sums in a fixed order at the end.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kB5Threads, HD <= 64 ? 3 : 1)
 swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                    Shape sh) {
-  constexpr int LD = HD + 1, NJ = HD / 16;
+  constexpr int LD = HD + 4, NT = HD / 8, BK = kDkvKeys, BQ = kDkvRows;
   extern __shared__ float smem[];
-  float* Ks = smem;
-  float* Vs = Ks + kTile * LD;
-  float* Qs = Vs + kTile * LD;
-  float* dOs = Qs + kTile * LD;
-  float* Ps = dOs + kTile * LD;   // [64][kPitch]
-  float* Ss = Ps + kTile * kPitch;
-  float* lse_s = Ss + kTile * kPitch;  // [64]
-  float* dl_s = lse_s + kTile;         // [64]
+  float* Ks = smem;              // [BK][LD] k, then its tf32 big parts
+  float* Vs = Ks + BK * LD;      // [BK][LD] v, then its big parts
+  float* Kl = Vs + BK * LD;      // [BK][LD] small parts of k
+  float* Vl = Kl + BK * LD;      // [BK][LD] small parts of v
+  float* QDs = Vl + BK * LD;     // 2 stages x (q [BQ][LD], do [BQ][LD])
+  float* Stat = QDs + 4 * BQ * LD;  // 2 stages x (lse [BQ], delta [BQ])
 
   const int j = blockIdx.y;
-  const int nq = gridDim.y;
   const int b = blockIdx.x / sh.K, kh = blockIdx.x % sh.K;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int k0 = j * kTile;
-  // the last q tile whose rows see a key of this tile
-  int i_hi = nq - 1;
-  if (sh.window > 0) {
-    const int last_row = k0 + kTile - 1 + sh.window - 1;
-    i_hi = min(i_hi, last_row / kTile);
-  }
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int wk = 16 * (warp & 1), wq = 16 * (warp >> 1);  // the warp's keys, rows
+  const int k0 = j * BK;
+  const int nq = (sh.S + BQ - 1) / BQ;
+  const int i_lo = k0 / BQ;
+  int i_hi = nq - 1;  // the last q tile whose rows see a key of this tile
+  if (sh.window > 0) i_hi = min(i_hi, (k0 + BK - 1 + sh.window - 1) / BQ);
+  const int n_i = i_hi - i_lo + 1, n_it = sh.G * n_i;
 
-  load_tile<HD>(Ks, k, b, k0, sh.K, kh, 1.0f, sh);
-  load_tile<HD>(Vs, v, b, k0, sh.K, kh, 1.0f, sh);
-  float dka[4][NJ], dva[4][NJ];
-  zero(dka);
-  zero(dva);
-
-  for (int g = 0; g < sh.G; ++g) {
-    const int h = kh * sh.G + g;
+  auto stage_q = [&](int it, int stage) {
+    const int h = kh * sh.G + it / n_i, q0 = (i_lo + it % n_i) * BQ;
+    float* Qs = QDs + stage * 2 * BQ * LD;
+    stage_rows<BQ, HD>(Qs, q, b, q0, sh.H, h, sh);
+    stage_rows<BQ, HD>(Qs + BQ * LD, dout, b, q0, sh.H, h, sh);
     const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.S;
-    for (int i = j; i <= i_hi; ++i) {
-      const int q0 = i * kTile;
-      __syncthreads();  // the previous tile's reads of Qs, dOs, Ps, Ss are done
-      load_tile<HD>(Qs, q, b, q0, sh.H, h, sh.scale, sh);
-      load_tile<HD>(dOs, dout, b, q0, sh.H, h, 1.0f, sh);
-      if (threadIdx.x < kTile) {
-        const int row = q0 + threadIdx.x;
-        lse_s[threadIdx.x] = row < sh.S ? lse[row_base + row] : 0.0f;
-        dl_s[threadIdx.x] = row < sh.S ? delta[row_base + row] : 0.0f;
-      }
-      __syncthreads();
-      float s[4][4], dp[4][4];
-      zero(s);
-      zero(dp);
-      mma_tile<4, HD, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);    // rows: queries, cols: keys
-      mma_tile<4, HD, LD, 1, 1, LD>(dp, dOs, Vs, ty, tx);
+    stage_stat(Stat + stage * 2 * BQ, lse + row_base, q0, BQ, sh);
+    stage_stat(Stat + stage * 2 * BQ + BQ, delta + row_base, q0, BQ, sh);
+  };
+  stage_rows<BK, HD>(Ks, k, b, k0, sh.K, kh, sh);
+  stage_rows<BK, HD>(Vs, v, b, k0, sh.K, kh, sh);
+  stage_q(0, 0);
+  tf32::cp_async_commit();
+  // k and v are the A operands of every q tile: split them once
+  tf32::cp_async_wait<0>();
+  __syncthreads();
+  tf32::split_tile(Ks, Kl, BK * LD, 1.0f);
+  tf32::split_tile(Vs, Vl, BK * LD, 1.0f);
+
+  float dka[NT][4], dva[NT][4];
 #pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int rr = ty + 16 * r;
+  for (int c = 0; c < NT; ++c)
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int cc = tx + 16 * c;
-          const float p = allowed(q0 + rr, k0 + cc, sh) ? expf(s[r][c] - lse_s[rr]) : 0.0f;
-          Ps[rr * kPitch + cc] = p;
-          Ss[rr * kPitch + cc] = p * (dp[r][c] - dl_s[rr]);
-        }
-      }
-      __syncthreads();
-      mma_tile<NJ, kTile, 1, kPitch, LD, 1>(dva, Ps, dOs, ty, tx);  // += p^T do
-      mma_tile<NJ, kTile, 1, kPitch, LD, 1>(dka, Ss, Qs, ty, tx);   // += ds^T (scale q)
+    for (int e = 0; e < 4; ++e) dka[c][e] = dva[c][e] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int stage = it & 1;
+    if (it + 1 < n_it) {
+      stage_q(it + 1, stage ^ 1);
+      tf32::cp_async_commit();
+      tf32::cp_async_wait<1>();
+    } else {
+      tf32::cp_async_wait<0>();
     }
+    __syncthreads();
+    const int q0 = (i_lo + it % n_i) * BQ;
+    const float* Qs = QDs + stage * 2 * BQ * LD;
+    const float* dOs = Qs + BQ * LD;
+    const float* Ls = Stat + stage * 2 * BQ;
+    const float* Ds = Ls + BQ;
+
+    // s^T = k (scale q)^T and dp^T = v do^T on the warp's 16 keys x 16 rows
+    float st[2][4], dpt[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 8) {
+      uint32_t kb[4], ks[4], vb[4], vs[4];
+      tf32::load_a_split(Ks, Kl, LD, wk, kk, kb, ks);
+      tf32::load_a_split(Vs, Vl, LD, wk, kk, vb, vs);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        uint32_t qb[2], qs[2], ob[2], os[2];
+        tf32::load_b(Qs, LD, wq + 8 * n, kk, sh.scale, qb, qs);
+        tf32::load_b(dOs, LD, wq + 8 * n, kk, 1.0f, ob, os);
+        tf32::mma3(st[n], kb, ks, qb, qs);
+        tf32::mma3(dpt[n], vb, vs, ob, os);
+      }
+    }
+
+    // p^T = exp(s^T - lse) where the mask allows, ds^T = p^T * (dp^T - delta)
+    const bool masked = tile_masked(q0 + wq, 16, k0 + wk, 16, sh);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = wq + 8 * n + 2 * t + (e & 1);  // query, in the tile
+        float p = expf(st[n][e] - Ls[row]);
+        if (masked && !allowed(q0 + row, k0 + wk + g + 8 * (e >> 1), sh)) p = 0.0f;
+        st[n][e] = p;
+        dpt[n][e] = p * (dpt[n][e] - Ds[row]);
+      }
+
+    // dv += p^T do, dk += ds^T (scale q), the rows as k: the warp's 16
+    // rows are summed on the tensor cores from 0 and added to dk and dv in
+    // f32 (each mma rounds toward zero, so a long chain of them drifts)
+    uint32_t pb[2][4], ps[2][4], db[2][4], dsm[2][4];
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      tf32::a_from_c(st[n], pb[n], ps[n]);
+      tf32::a_from_c(dpt[n], db[n], dsm[n]);
+    }
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      float pv[4] = {0.0f, 0.0f, 0.0f, 0.0f}, pk[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        uint32_t ob[2], os[2], qb[2], qs[2];
+        tf32::load_b_kperm(dOs, LD, wq + 8 * n, 8 * c, 1.0f, ob, os);
+        tf32::load_b_kperm(Qs, LD, wq + 8 * n, 8 * c, sh.scale, qb, qs);
+        tf32::mma3(pv, pb[n], ps[n], ob, os);
+        tf32::mma3(pk, db[n], dsm[n], qb, qs);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dva[c][e] += pv[e];
+        dka[c][e] += pk[e];
+      }
+    }
+    __syncthreads();  // this stage's reads are done before it is refilled
   }
 
+  // warps 2 and 3 hand their sums to warps 0 and 1 through shared memory
+  // (the q/do ring is free now), which add them and write dk and dv
+  float* dKs = QDs;              // [BK][LD]
+  float* dVs = QDs + BK * LD;    // [BK][LD]
 #pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int key = k0 + ty + 16 * r;
-    if (key >= sh.S) continue;
-    const long long off = ((static_cast<long long>(b) * sh.S + key) * sh.K + kh) * HD;
+  for (int c = 0; c < NT; ++c)
 #pragma unroll
-    for (int c = 0; c < NJ; ++c) {
-      dk[off + tx + 16 * c] = from_f32<T>(dka[r][c]);
-      dv[off + tx + 16 * c] = from_f32<T>(dva[r][c]);
+    for (int e = 0; e < 4; ++e) {
+      const int at = (wk + g + 8 * (e >> 1)) * LD + 8 * c + 2 * t + (e & 1);
+      if (warp >= 2) {
+        dKs[at] = dka[c][e];
+        dVs[at] = dva[c][e];
+      }
     }
+  __syncthreads();
+  if (warp >= 2) return;
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int key = k0 + wk + g + 8 * e2;
+    if (key >= sh.S) continue;
+    const long long off = ((static_cast<long long>(b) * sh.S + key) * sh.K + kh) * HD + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        const int e = 2 * e2 + e1;
+        const int at = (wk + g + 8 * e2) * LD + 8 * c + 2 * t + e1;
+        dk[off + 8 * c + e1] = from_f32<T>(dka[c][e] + dKs[at]);
+        dv[off + 8 * c + e1] = from_f32<T>(dva[c][e] + dVs[at]);
+      }
   }
 }
 
@@ -392,7 +646,14 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 // --------------------------------------------------------------------------
 
 Shape make_shape(int B, int S, int H, int K, int window, float scale) {
-  return Shape{B, S, H, K, H / K, window, scale};
+  return Shape{B, S, H, K, H / K, window, scale, 0};
+}
+
+// Whether every pointer is 16-byte aligned.
+bool aligned16(std::initializer_list<const void*> ptrs) {
+  for (const void* p : ptrs)
+    if (reinterpret_cast<std::uintptr_t>(p) % 16) return false;
+  return true;
 }
 
 int tiles(int S) { return (S + kTile - 1) / kTile; }
@@ -419,11 +680,11 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const 
 template <int HD, typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, const Shape& sh, cudaStream_t stream) {
-  const size_t smem = (4 * kTile * (HD + 1) + kTile * kPitch) * sizeof(float);
+  const size_t smem = (2 * kDqRows + 4 * kDqKeys) * (HD + 4) * sizeof(float);
   cudaError_t e = allow_smem(swa_bwd_dq_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.H, tiles(sh.S));
-  swa_bwd_dq_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(sh.B * sh.H, (sh.S + kDqRows - 1) / kDqRows);
+  swa_bwd_dq_kernel<HD, T><<<grid, kB5Threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), sh);
@@ -434,11 +695,11 @@ template <int HD, typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
             const float* delta, void* dk, void* dv, const Shape& sh, cudaStream_t stream) {
   const size_t smem =
-      (4 * kTile * (HD + 1) + 2 * kTile * kPitch + 2 * kTile) * sizeof(float);
+      ((4 * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
   cudaError_t e = allow_smem(swa_bwd_dkv_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.K, tiles(sh.S));
-  swa_bwd_dkv_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(sh.B * sh.K, (sh.S + kDkvKeys - 1) / kDkvKeys);
+  swa_bwd_dkv_kernel<HD, T><<<grid, kB5Threads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
   return static_cast<int>(cudaGetLastError());
@@ -484,7 +745,8 @@ int swa_attention_bwd_dq(const void* q, const void* k, const void* v, const void
                          int dtype, int B, int S, int H, int K, int hd, int window,
                          float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  const Shape sh = make_shape(B, S, H, K, window, scale);
+  Shape sh = make_shape(B, S, H, K, window, scale);
+  sh.vec = aligned16({q, k, v, dout});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(bwd_dq, q, k, v, o, dout, lse, delta, dq, sh, st)
 }
@@ -494,7 +756,8 @@ int swa_attention_bwd_dkv(const void* q, const void* k, const void* v, const voi
                           int dtype, int B, int S, int H, int K, int hd, int window,
                           float scale, void* stream) {
   if (B == 0 || S == 0 || K == 0) return 0;
-  const Shape sh = make_shape(B, S, H, K, window, scale);
+  Shape sh = make_shape(B, S, H, K, window, scale);
+  sh.vec = aligned16({q, k, v, dout});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, sh, st)
 }

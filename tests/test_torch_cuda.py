@@ -7,6 +7,8 @@ marker and skip elsewhere.  On the card:
 
 The file imports no JAX, so it runs where only PyTorch is installed.
 """
+import math
+
 import pytest
 import torch
 from torch.func import grad_and_value, vmap
@@ -312,3 +314,88 @@ def test_reduced_smollm_on_card_matches_cpu(cuda, window):
             losses[device.type].append(float(loss))
     torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
                                rtol=1e-4, atol=0)
+
+
+def _b5_inputs(cuda, B, S, H, K, hd, W, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q, do = (torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, S, K, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    o, lse = swa.swa_attention_fwd(q, k, v, W)
+    return q, k, v, o, lse, do
+
+
+@pytest.mark.parametrize("hd", swa.HEAD_DIMS)
+@pytest.mark.parametrize("S", [65, 1000])
+def test_b5_matches_plain_across_head_dims_groups_and_windows(cuda, hd, S):
+    """Both B5 passes within 2e-5 of max|ref| (the f32 tolerance of the JAX
+    backward test) at a ragged S, G = 1, 3, 4 and windows 0, 64, 128, >= S."""
+    for G in (1, 3, 4):
+        for W in (0, 64, 128, S + 7):
+            q, k, v, o, lse, do = _b5_inputs(cuda, 2, S, 2 * G, 2, hd, W, seed=hd + G + W)
+            dq, delta = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, W)
+            dk, dv = swa.swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)
+            torch.cuda.synchronize()
+            rdq, rdelta = swa.swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W)
+            rdk, rdv = swa.swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
+            for name, a, b in (("dq", dq, rdq), ("delta", delta, rdelta), ("dk", dk, rdk),
+                               ("dv", dv, rdv)):
+                err = _normalised_err(a, b)
+                assert err <= 2e-5, f"{name} G={G} window={W}: {err:.3e}"
+
+
+@pytest.mark.parametrize("hd", swa.HEAD_DIMS)
+def test_b5_bf16_within_one_ulp_of_the_f32_tolerance(cuda, hd):
+    """bf16 inputs: each pass's bf16 output within one bf16 ulp of the f32
+    plain version on the same (bf16) inputs, beyond the f32 tolerance."""
+    for W in (0, 128):
+        q, k, v, o, lse, do = _b5_inputs(cuda, 2, 1000, 6, 2, hd, W, torch.bfloat16, seed=hd)
+        dq, delta = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, W)
+        dk, dv = swa.swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)
+        torch.cuda.synchronize()
+        assert dq.dtype == dk.dtype == dv.dtype == torch.bfloat16
+        f = [x.float() for x in (q, k, v, o, do)]
+        rdq, rdelta = swa.swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], W)
+        rdk, rdv = swa.swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], W)
+        assert _normalised_err(delta, rdelta) <= 2e-5
+        for name, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+            _, exp = torch.frexp(b)
+            ulp = torch.ldexp(torch.ones_like(b), exp - 8)
+            bad = (a.float() - b).abs() > 2e-5 * float(b.abs().max()) + ulp
+            assert not bool(bad.any()), f"{name} window={W}: {int(bad.sum())} elements"
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_b5_two_launches_bit_identical(cuda, hd):
+    """No atomics: dq, delta, dk and dv repeat bit for bit."""
+    q, k, v, o, lse, do = _b5_inputs(cuda, 2, 1024, 9, 3, hd, 0)
+    first = swa.swa_attention_bwd(q, k, v, o, lse, do, 0)
+    _, delta = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, 0)
+    second = swa.swa_attention_bwd(q, k, v, o, lse, do, 0)
+    _, delta2 = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(delta, delta2)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_b5_f32_views_off_16_byte_alignment_match_plain(cuda):
+    """f32 tensors that cp.async cannot copy 16 bytes at a time (a view one
+    float into its storage) take the kernels' plain loads, same results."""
+    B, S, H, K, hd, W = 1, 300, 4, 2, 64, 128
+
+    def view(*shape, seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        n = math.prod(shape)
+        return torch.randn(n + 1, generator=g, device=cuda)[1:].view(*shape)
+
+    q, do = view(B, S, H, hd, seed=1), view(B, S, H, hd, seed=2)
+    k, v = view(B, S, K, hd, seed=3), view(B, S, K, hd, seed=4)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    o, lse = swa.swa_attention_fwd(q, k, v, W)
+    dq, delta = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, W)
+    dk, dv = swa.swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)
+    torch.cuda.synchronize()
+    rdq, rdelta = swa.swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
+    for a, b in ((dq, rdq), (delta, rdelta), (dk, rdk), (dv, rdv)):
+        assert _normalised_err(a, b) <= 2e-5

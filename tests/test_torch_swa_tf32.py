@@ -1,0 +1,161 @@
+"""3xTF32, the arithmetic of B5's kernels on the tensor cores, emulated on the
+CPU and held to the f32 tolerance of the JAX package's backward test.
+
+The card's dq and dk/dv passes (``csrc/swa_attention.cu`` on
+``csrc/mma_tf32.cuh``) split every f32 operand x of a product into
+big = tf32(x) and small = tf32(x - big), rounded to nearest with ties away
+(``cvt.rna.tf32.f32``), and take a.b as a_small.b_big + a_big.b_small +
+a_big.b_big.  Here every product of the backward (s = (scale q).k^T,
+dp = do.v^T, dq = scale ds.k, dk = ds^T.(scale q), dv = p^T.do) goes
+through the same split, on the same numpy inputs as the plain versions in
+``ref.py``, at the JAX package's backward cases (``tests/test_kernels_swa.py``)
+and at hd 64 and 128 with windows 0 and 128.  3xTF32 holds ATTN_TOL = 2e-5
+of max|ref|; one TF32 product (a_big.b_big alone) does not.  This file's
+cases measured max|err| / max|ref| for (dq, dk, dv) against the plain f32
+versions, with the products emulated as above:
+
+    case (B, S, H, K, hd, window)   1xTF32                  3xTF32
+    (1, 256, 4, 2, 64, 128)         (8.3, 8.4, 4.6)e-4      (5.9, 8.3, 5.0)e-7
+    (2, 384, 4, 4, 128, 256)        (10.2, 6.9, 5.1)e-4     (9.2, 9.5, 12.3)e-7
+    (1, 512, 8, 2, 80, 0)           (8.7, 5.8, 3.6)e-4      (13.1, 7.9, 7.1)e-7
+    (1, 300, 4, 1, 64, 128)         (6.7, 7.3, 3.3)e-4      (5.5, 4.8, 7.7)e-7
+    (1, 256, 6, 3, 96, 128)         (6.9, 5.9, 6.6)e-4      (11.6, 9.5, 5.3)e-7
+    (1, 640, 4, 2, 64, 512)         (7.2, 8.6, 4.5)e-4      (8.6, 8.2, 14.5)e-7
+    (1, 256, 4, 2, 64, 0)           (6.7, 7.0, 4.1)e-4      (12.3, 14.7, 11.8)e-7
+    (1, 256, 4, 2, 128, 0)          (7.7, 6.6, 3.7)e-4      (8.6, 10.1, 8.8)e-7
+    (1, 256, 4, 2, 128, 128)        (7.1, 6.1, 2.8)e-4      (13.9, 10.1, 6.3)e-7
+
+The 3xTF32 column is the size of the f32 differences between two orders of
+summation; 1xTF32 is 14-51x outside the tolerance.  The emulation sums each
+product's terms in f32 in einsum's order; the tensor cores add with
+truncation instead, which the kernels keep from drifting by summing each
+tile's partial product from 0 and adding it to the running sums in f32
+(checked on the card by ``tests/test_torch_cuda.py``).
+"""
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.kernels.swa_attention import (
+    swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref,
+)
+
+ATTN_TOL = 2e-5  # tests/test_kernels_swa.py: the backward, after max-normalising
+# B, S, H, K, hd, window: the JAX package's cases, then hd 64 / 128 at windows 0 / 128
+CASES = [
+    (1, 256, 4, 2, 64, 128),
+    (2, 384, 4, 4, 128, 256),
+    (1, 512, 8, 2, 80, 0),
+    (1, 300, 4, 1, 64, 128),
+    (1, 256, 6, 3, 96, 128),
+    (1, 640, 4, 2, 64, 512),
+    (1, 256, 4, 2, 64, 0),
+    (1, 256, 4, 2, 128, 0),
+    (1, 256, 4, 2, 128, 128),
+]
+IDS = [str(c) for c in CASES]
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """``cvt.rna.tf32.f32`` on the int32 view: 10 mantissa bits, nearest,
+    ties away from zero (half the dropped unit added to the magnitude, then
+    the 13 low bits cleared)."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & -0x2000).view(torch.float32)
+
+
+def product(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tensor:
+    """einsum(eq, a, b) with a and b rounded to TF32 (terms 1) or split into
+    TF32 big and small parts (terms 3, the small products first)."""
+    a_big, b_big = tf32(a), tf32(b)
+    out = torch.einsum(eq, a_big, b_big)
+    if terms == 3:
+        a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+        out = (torch.einsum(eq, a_small, b_big) + torch.einsum(eq, a_big, b_small)) + out
+    return out
+
+
+def tf32_backward(q, k, v, o, lse, do, window, terms):
+    """(dq, dk, dv) as the kernels compute them, with every product through
+    ``product``: the scale folded into q, delta = rowsum(o·do), p from lse."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    qg = (q * scale).reshape(B, S, K, G, hd)
+    dog = do.reshape(B, S, K, G, hd)
+    pos = torch.arange(S)
+    ok = pos[None, :] <= pos[:, None]
+    if window > 0:
+        ok = ok & (pos[None, :] > pos[:, None] - window)
+    s = product("bqkgh,bskh->bkgqs", qg, k, terms)
+    p = torch.where(ok, torch.exp(s - lse.reshape(B, K, G, S, 1)), 0.0)
+    dp = product("bqkgh,bskh->bkgqs", dog, v, terms)
+    delta = (o * do).sum(-1).permute(0, 2, 1)
+    ds = p * (dp - delta.reshape(B, K, G, S, 1))
+    dq = product("bkgqs,bskh->bqkgh", ds, k, terms).reshape(B, S, H, hd) * scale
+    dk = product("bkgqs,bqkgh->bskh", ds, qg, terms)
+    dv = product("bkgqs,bqkgh->bskh", p, dog, terms)
+    return dq, dk, dv
+
+
+def errors(case, terms):
+    """max|err| / max|ref| of (dq, dk, dv) against the plain f32 versions."""
+    B, S, H, K, hd, W = case
+    rng = np.random.default_rng(sum(case))
+    q, do = (torch.from_numpy(rng.normal(size=(B, S, H, hd)).astype(np.float32))
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, K, hd)).astype(np.float32))
+            for _ in range(2))
+    o, lse = swa_attention_ref(q, k, v, W)
+    rdq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W)
+    rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
+    got = tf32_backward(q, k, v, o, lse, do, W, terms)
+    return [float((a - r).abs().max() / r.abs().max()) for a, r in zip(got, (rdq, rdk, rdv))]
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_3xtf32_backward_holds_the_f32_tolerance(case):
+    errs = errors(case, 3)
+    assert max(errs) <= ATTN_TOL, errs
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_one_tf32_product_misses_the_f32_tolerance(case):
+    """Why the kernels pay three products: one rounds each operand to 11
+    significant bits, more than 5x (14-51x) outside the tolerance."""
+    errs = errors(case, 1)
+    assert min(errs) > 5 * ATTN_TOL, errs
+
+
+def test_tf32_rounds_to_nearest_with_ties_away():
+    one = 1.0
+    ulp = 2.0 ** -10  # of TF32 at 1
+    x = torch.tensor([one + ulp / 2, -(one + ulp / 2), one + ulp / 2 - 2 ** -23,
+                      one + 3 * ulp / 2, 0.0, -0.0, 2.0 ** -126], dtype=torch.float32)
+    want = torch.tensor([one + ulp, -(one + ulp), one, one + 2 * ulp, 0.0, -0.0, 2.0 ** -126],
+                        dtype=torch.float32)
+    assert torch.equal(tf32(x), want)
+    y = torch.from_numpy(np.random.default_rng(0).normal(size=1000).astype(np.float32))
+    big = tf32(y)
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool(((y - big).abs() <= big.abs() * 2.0 ** -11).all())
+    small = tf32(y - big)
+    # big + small carries ~22 significant bits
+    assert bool(((y.double() - big.double() - small.double()).abs()
+                 <= y.abs().double() * 2.0 ** -21).all())
+
+
+def test_library_is_rebuilt_when_a_header_changes(tmp_path):
+    """``csrc/*.cuh`` headers are part of a library's key, beside the .cu."""
+    src = tmp_path / "k.cu"
+    src.write_text('#include "h.cuh"\n')
+    header = tmp_path / "h.cuh"
+    header.write_text("// one\n")
+    first = build.library_path(src)
+    header.write_text("// two\n")
+    assert build.library_path(src) != first
+    assert build.build_log(src) == build.library_path(src).with_suffix(".log")
