@@ -8,7 +8,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. the card, its power limit, torch and CUDA versions (no card: exit 1);
 2. build every CUDA kernel of the package with nvcc, in parallel; print
    ptxas's registers and spills and cuobjdump's count of tensor-core (HMMA)
-   instructions of the B5 kernels, and fail if one has none;
+   instructions of the attention kernels (B4, B5), and fail if one has none;
 3. hold each kernel against its plain PyTorch version on the card: the
    aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
    ragged edge shapes; the per-class kernels (B3 and its dense twin) at the
@@ -38,8 +38,8 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    after rounds 6 and 12 the clients that hold a unit in one tier agree;
 6. kernel, plain-version, library and bound times: B1/B2, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
-   the path's, and window 128; the plain version at window 0; B5's bound is
-   3xTF32 on the tensor cores, with the f32 CUDA-core one beside it); the parts
+   the path's, and window 128; the plain version at window 0; B4's and B5's
+   bound is 3xTF32 on the tensor cores, with the f32 CUDA-core one beside it); the parts
    of a full-width round of each model, the per-class one included;
 7. one JSON line describing every kernel, then the card, then
    ``{"ok": true, ...}`` as the last line.
@@ -61,7 +61,7 @@ ROOT = Path(__file__).resolve().parent
 # NVIDIA H100 SXM data sheet (dense, no sparsity), at its 700 W limit
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12  # CUDA cores, outside the tensor cores
-TF32_FLOPS_PER_S = 495e12  # tensor cores; B5's 3xTF32 takes 3 of these per f32 operation
+TF32_FLOPS_PER_S = 495e12  # tensor cores; B4's and B5's 3xTF32 takes 3 of these per f32 operation
 
 F32_RTOL, F32_ATOL = 1e-5, 1e-6  # f32 sums taken in another order
 Q8_TILE = 256
@@ -84,7 +84,7 @@ SOURCES = {
     "swa_attention": "src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu",
 }
 ATTN = ("swa_attention_fwd", "swa_attention_bwd_dq", "swa_attention_bwd_dkv")
-KERNEL_FN = {"swa_attention_bwd_dq": "swa_bwd_dq_kernel",
+KERNEL_FN = {"swa_attention_fwd": "swa_fwd_kernel", "swa_attention_bwd_dq": "swa_bwd_dq_kernel",
              "swa_attention_bwd_dkv": "swa_bwd_dkv_kernel"}
 ATTN_TOL = 2e-5  # tests/test_kernels_swa.py's: rtol = atol (forward); after max-normalising (backward)
 # attention at the full-width smollm-135m path: B = N·batch = 8·1, S, H, K, hd
@@ -201,16 +201,18 @@ def check_kernels(spec):
     return errs, {"tiered_aggregate": bf16_err, "tiered_aggregate_q8": None}
 
 
-def _b5_kernel(mangled: str):
-    """'swa_bwd_dq_kernel<64, f32>' for a B5 kernel's mangled name, else None."""
-    m = re.search(r"(swa_bwd_d(?:q|kv)_kernel)ILi(\d+)E(f|13__nv_bfloat16)", mangled)
+def _attention_kernel(mangled: str):
+    """'swa_bwd_dq_kernel<64, f32>' for an attention kernel's mangled name
+    (B4's swa_fwd_kernel, B5's swa_bwd_dq_kernel and swa_bwd_dkv_kernel),
+    else None."""
+    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E(f|13__nv_bfloat16)", mangled)
     return m and f"{m.group(1)}<{m.group(2)}, {'f32' if m.group(3) == 'f' else 'bf16'}>"
 
 
-def b5_build_report(source) -> dict:
+def attention_build_report(source) -> dict:
     """ptxas's registers and spills and cuobjdump's count of tensor-core
-    instructions (HMMA) for every B5 kernel of the built library; fails if
-    one has none."""
+    instructions (HMMA) for every attention kernel of the built library (3
+    kernels x 5 head dims x 2 dtypes); fails if one has none."""
     import os
 
     from repro_torch.kernels import build
@@ -219,7 +221,7 @@ def b5_build_report(source) -> dict:
     for line in build.build_log(source).read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            key = _b5_kernel(m.group(1))
+            key = _attention_kernel(m.group(1))
         elif key and "Used" in line:
             report.setdefault(key, {})["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
@@ -232,19 +234,21 @@ def b5_build_report(source) -> dict:
                           capture_output=True, text=True, check=True, timeout=300).stdout
     for line in sass.splitlines():
         if "Function :" in line:
-            key = _b5_kernel(line)
+            key = _attention_kernel(line)
             if key:
                 report.setdefault(key, {})["hmma"] = 0
         elif key and re.search(r"\bHMMA\b", line):
             report[key]["hmma"] += 1
-    if len(report) != 20 or any(r.get("hmma", 0) == 0 for r in report.values()):
-        raise AssertionError(f"B5 kernels without tensor-core instructions: {report}")
-    for key in ("swa_bwd_dq_kernel<64, f32>", "swa_bwd_dkv_kernel<64, f32>"):
+    if len(report) != 30 or any(r.get("hmma", 0) == 0 for r in report.values()):
+        raise AssertionError(f"attention kernels without tensor-core instructions: {report}")
+    for key in ("swa_fwd_kernel<64, f32>", "swa_bwd_dq_kernel<64, f32>",
+                "swa_bwd_dkv_kernel<64, f32>"):
         r = report[key]
         print(f"[build] {key}: {r['registers']} registers, spill stores/loads "
               f"{r['spill_stores']}/{r['spill_loads']} bytes (ptxas -v), {r['hmma']} HMMA "
               f"instructions (cuobjdump -sass)")
-    print("[build] every B5 kernel (hd 32-128, f32 and bf16) has HMMA instructions: "
+    print("[build] every attention kernel (B4 and B5, hd 32-128, f32 and bf16) has HMMA "
+          "instructions: "
           + ", ".join(f"{k} {r['hmma']}" for k, r in report.items()))
     return report
 
@@ -1269,17 +1273,14 @@ def attention_timings(card: str):
             r = dict(ms=km, plain_ms=pm, bound_ms=max(by_ops, by_bytes),
                      bound_by="operations" if by_ops >= by_bytes else "bytes",
                      ops=ops, bytes=nbytes)
-            if name == "swa_attention_fwd":
-                against = "67 TFLOP/s f32 on the CUDA cores"
-            else:
-                # B5 runs 3xTF32 on the tensor cores: its share is against that bound
-                by_tc = 3 * ops / TF32_FLOPS_PER_S * 1e3
-                r.update(bound_ms_f32_cuda_cores=r["bound_ms"], bound_ms=max(by_tc, by_bytes),
-                         bound_by="operations" if by_tc >= by_bytes else "bytes")
-                against = (f"3xTF32 on the tensor cores, 3 x {ops / 1e9:.2f} GFLOP at 495 "
-                           f"TFLOP/s TF32; against 67 TFLOP/s f32 on the CUDA cores it would be "
-                           f"{r['bound_ms_f32_cuda_cores']:.4f} ms = "
-                           f"{100 * r['bound_ms_f32_cuda_cores'] / km:.1f}%")
+            # B4 and B5 run 3xTF32 on the tensor cores: the share is against that bound
+            by_tc = 3 * ops / TF32_FLOPS_PER_S * 1e3
+            r.update(bound_ms_f32_cuda_cores=r["bound_ms"], bound_ms=max(by_tc, by_bytes),
+                     bound_by="operations" if by_tc >= by_bytes else "bytes")
+            against = (f"3xTF32 on the tensor cores, 3 x {ops / 1e9:.2f} GFLOP at 495 "
+                       f"TFLOP/s TF32; against 67 TFLOP/s f32 on the CUDA cores it would be "
+                       f"{r['bound_ms_f32_cuda_cores']:.4f} ms = "
+                       f"{100 * r['bound_ms_f32_cuda_cores'] / km:.1f}%")
             out[(name, W)] = r
             print(f"[timing] {name} at B={B} S={S} H={H} K={K} hd={hd} window={W}: kernel "
                   f"{km:.4f} ms" + (f", plain {pm:.4f} ms" if pm is not None else "")
@@ -1408,7 +1409,7 @@ def main() -> int:
 
     from repro_torch.kernels.swa_attention.ops import SOURCE as SWA_SOURCE
 
-    b5_build = b5_build_report(SWA_SOURCE)
+    attn_build = attention_build_report(SWA_SOURCE)
     errs, bf16_errs = check_kernels(SPEC)
     ragged_errs, ragged_bf16_errs = check_ragged_kernels(SPEC)
     errs.update(ragged_errs)
@@ -1489,10 +1490,9 @@ def main() -> int:
         "ms": attn_times[(name, 0)]["ms"], "plain_ms": attn_times[(name, 0)]["plain_ms"],
         "bound_ms": attn_times[(name, 0)]["bound_ms"],
         "bound_by": attn_times[(name, 0)]["bound_by"],
-        **({"bound_against": "f32 on the CUDA cores, 67 TFLOP/s"} if name == ATTN[0] else {
-            "bound_against": "3xTF32 on the tensor cores: 3 x operations at 495 TFLOP/s",
-            "bound_ms_f32_cuda_cores": attn_times[(name, 0)]["bound_ms_f32_cuda_cores"],
-            "build": b5_build[f"{KERNEL_FN[name]}<{hd}, f32>"]}),
+        "bound_against": "3xTF32 on the tensor cores: 3 x operations at 495 TFLOP/s",
+        "bound_ms_f32_cuda_cores": attn_times[(name, 0)]["bound_ms_f32_cuda_cores"],
+        "build": attn_build[f"{KERNEL_FN[name]}<{hd}, f32>"],
         "library_ms": attn_times[(name, 0)]["library_ms"],
         "library": ("torch.nn.functional.scaled_dot_product_attention, "
                     + ("forward" if name == "swa_attention_fwd"

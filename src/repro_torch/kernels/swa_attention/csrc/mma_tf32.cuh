@@ -77,7 +77,7 @@ __device__ __forceinline__ void cp_async_wait() {
 // what cvt.rna.tf32.f32 gives for a finite x, in two integer instructions
 // on the bits (half of the dropped unit added to the magnitude, then the
 // 13 low bits cleared), where ptxas expands cvt.rna into a longer sequence
-// (chip_ablate_b5.py times both).
+// (chip_ablate_attention.py times both).
 __device__ __forceinline__ uint32_t to_tf32(float x) {
   return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
 }

@@ -24,38 +24,38 @@
 // What bounds it: operations.  At the main path's shape (B=8, H=9, K=3,
 // S=1024, hd=64) the causal forward is 9.7 GFLOP and the backward's two
 // passes 14.5 and 19.4, against 50-90 MB of inputs and outputs a pass,
-// far above the ~20 flops/byte at which the f32 CUDA cores (67 TFLOP/s)
-// overtake HBM (3.35 TB/s), and above the ~50 at which 3xTF32 on the
-// tensor cores (495 / 3 = 165 TFLOP/s of f32 work) does.
+// far above the ~50 flops/byte at which 3xTF32 on the tensor cores
+// (495 / 3 = 165 TFLOP/s of f32 work) overtakes HBM (3.35 TB/s).
 //
-// B4, the forward: plain f32 on the CUDA cores.  One block of 256 threads
-// per (batch*head, 64-row q tile), the last q tiles (the most kv tiles to
-// visit) first.  The TPU's sequential kv grid axis becomes a loop inside
-// the block over the kv tiles that the causal mask and the window reach.
-// Tiles are staged in shared memory as f32 with an odd row pitch (hd + 1),
-// free of bank conflicts; each thread owns a 4 x n register micro-tile of
-// every product (rows ty + 16i, columns tx + 16j) and the online softmax
-// statistics of its four rows, which a row's 16 owners reduce with warp
-// shuffles.
-//
-// B5, the backward: every product in 3xTF32 on the tensor cores
+// Every product of the three kernels runs in 3xTF32 on the tensor cores
 // (mma.sync m16n8k8, mma_tf32.cuh): each f32 operand is split into a TF32
 // big and small part and a.b = a_small.b_big + a_big.b_small + a_big.b_big,
-// which holds the f32 tolerance where one TF32 product misses it 10-50x
+// which holds the f32 tolerance where one TF32 product misses it 8-63x
 // (tests/test_torch_swa_tf32.py).  The scale is folded into q as its
-// fragments are loaded.
-// Blocks of 128 threads (4 warps); tiles staged as f32 with a row pitch of
-// hd + 4, conflict-free for every fragment load.  The scores and p (dp and
-// ds) never leave registers: each warp computes its strip of s (or s^T)
-// as mma accumulators and feeds them straight back as the A operand of
-// the next product, with that product's B operand read in the matching k
-// order.  The tensor cores add with truncation, so the long sums (dq over
-// the kv tiles, dk and dv over G query heads times S rows) add each tile's
-// partial product, summed from 0 on the tensor cores, in f32.
-//   dq pass: a block per (batch*head, 64-row q tile), the heaviest first;
-//   warp w owns rows 16w..16w+15 and walks the kv tiles (32 keys) that the
-//   mask reaches, the next k/v tile in flight (cp.async, double-buffered)
-//   while the current one is multiplied.  delta is read from o and do in
+// fragments are loaded.  Blocks of 128 threads (4 warps); tiles staged as
+// f32 with a row pitch of hd + 4 (hd + 8 for the forward's q and k),
+// conflict-free for every fragment load.
+// The scores and p (dp and ds) never leave registers: each warp computes
+// its strip of s (or s^T) as mma accumulators and feeds them straight back
+// as the A operand of the next product, with that product's B operand read
+// in the matching k order.  The tensor cores add with truncation, so the
+// long sums (o and dq over the kv tiles, dk and dv over G query heads times
+// S rows) add each tile's partial product, summed from 0 on the tensor
+// cores, in f32.  No atomics: every result repeats bit for bit.
+//   forward: a block per (batch*head, 64-row q tile), the heaviest (last)
+//   first, 3 blocks an SM at hd <= 64; warp w owns rows 16w..16w+15 and
+//   walks the kv tiles (32 keys) that the mask reaches, the next k/v tile
+//   in flight (cp.async, double-buffered) while the current one is
+//   multiplied.
+//   The online softmax runs on the C fragments of s, in log2 units (log2(e)
+//   folded into the scale, exp2f): a row's keys in a tile lie in the 4
+//   lanes of a quad, whose max and sum take two shuffles each, and the o
+//   accumulator is rescaled by 2^(m_old - m_new) in registers.  q is split
+//   as its fragments are loaded, once per kv tile, as in the dq pass; q and
+//   k are staged at a pitch of hd + 8, so the fragments of s, their k slots
+//   permuted, load 8 bytes a lane; s sums its small terms in a second
+//   accumulator.
+//   dq pass: the same blocks and kv ring; delta is read from o and do in
 //   device memory while the first copies fly.
 //   dk/dv pass: a block per (batch*kv head, 32-key kv tile), first kv tiles
 //   (the most q tiles) first.  32-key tiles make twice the blocks of
@@ -64,22 +64,22 @@
 //   that sees its keys with the next q/do/lse/delta tile in flight.  Warp w
 //   takes keys 16(w % 2).. against rows 16(w / 2).. of each tile and keeps
 //   its dk and dv in registers across the G heads; warps w and w + 2 add
-//   their sums through shared memory in a fixed order at the end, so there
-//   are no atomics and every result repeats bit for bit.  k and v, the A
-//   operands of every q tile, are split into big and small parts once per
-//   block; the other operands are split as their fragments are loaded.
+//   their sums through shared memory in a fixed order at the end.  k and v,
+//   the A operands of every q tile, are split into big and small parts once
+//   per block; the other operands are split as their fragments are loaded.
 //   Splitting q and do once per block in the dq pass, or each q/do tile
 //   once in the dk/dv pass, measured slower: the shared memory or the
 //   registers it takes cost a block per SM.
-// What bounds B5 on the card: the issue of the splits (an integer add and
-// mask per part and a subtraction) and of the three mma per product, with
-// 3 blocks of 4 warps per SM (166-168 registers a thread) to hide their
-// latency; chip_ablate_b5.py prices each, PERF.md has the times.
+// What bounds them on the card: the issue of the splits (an integer add
+// and mask per part and a subtraction) and of the three mma per product,
+// with 3 blocks of 4 warps per SM at hd 64 to hide their latency;
+// chip_ablate_attention.py prices each and times the forward's
+// alternatives (tile size, blocks an SM, q split once), PERF.md has the
+// times.
 //
-// Masking: a masked score never enters a sum (p = 0 in the backward; -1e30
-// in the forward, so a fully masked tile yields no NaN, as on the TPU).
-// The ragged sequence tail is masked in the kernels (rows >= S load as 0
-// and are not written), so neither S nor hd is padded.
+// Masking: a masked score never enters a sum (p = 0).  The ragged sequence
+// tail is masked in the kernels (rows >= S load as 0 and are not written),
+// so neither S nor hd is padded.
 
 #include <cstdint>
 #include <initializer_list>
@@ -92,10 +92,15 @@
 
 namespace {
 
-constexpr int kTile = 64;      // rows of a q tile and of a kv tile
-constexpr int kPitch = 65;     // row pitch of a [64][64] score tile in shared memory
-constexpr int kThreads = 256;  // 16 x 16 threads, a 4 x n micro-tile each
+constexpr int kThreads = 128;  // 4 warps a block, every kernel
+constexpr int kFwdRows = 64;   // forward: q tile (16 rows a warp) ...
+constexpr int kFwdKeys = 32;   // ... and the kv tiles it walks
+constexpr int kDqRows = 64;    // dq pass: q tile (16 rows a warp) ...
+constexpr int kDqKeys = 32;    // ... and the kv tiles it walks
+constexpr int kDkvKeys = 32;   // dk/dv pass: kv tile (16 keys a warp pair) ...
+constexpr int kDkvRows = 32;   // ... and the q tiles it walks (16 rows a warp)
 constexpr float kNeg = -1e30f;
+constexpr float kLog2e = 1.44269504f, kLn2 = 0.693147181f;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -110,7 +115,7 @@ struct Shape {
   int B, S, H, K, G;
   int window;  // 0: full causal; else keys in (p - window, p]
   float scale;
-  int vec;     // every f32 tensor is 16-byte aligned: B5 stages with cp.async
+  int vec;     // every f32 tensor is 16-byte aligned: tiles stage with cp.async
 };
 
 __device__ __forceinline__ bool allowed(int row, int col, const Shape& sh) {
@@ -119,170 +124,18 @@ __device__ __forceinline__ bool allowed(int row, int col, const Shape& sh) {
   return ok;
 }
 
-// Sum (or max) over the 16 lanes that own one row: lanes 0-15 and 16-31
-// of a warp hold two different rows, and xor offsets below 16 stay inside
-// each half.
-__device__ __forceinline__ float row_sum(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float row_max(float v) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-// Rows [row0, row0 + 64) of head `head` of a [B, S, heads, HD] tensor into
-// shared memory [64][HD + 1] as f32, times `mult`; rows >= S load as 0.
-// Neighbouring threads read neighbouring elements of a row.
-template <int HD, typename T>
-__device__ __forceinline__ void load_tile(float* __restrict__ dst, const T* __restrict__ src,
-                                          int b, int row0, int heads, int head, float mult,
-                                          const Shape& sh) {
-  for (int idx = threadIdx.x; idx < kTile * HD; idx += kThreads) {
-    const int r = idx / HD, d = idx - r * HD;
-    const int s = row0 + r;
-    float val = 0.0f;
-    if (s < sh.S) {
-      const long long off = ((static_cast<long long>(b) * sh.S + s) * heads + head) * HD + d;
-      val = to_f32(src[off]) * mult;
-    }
-    dst[r * (HD + 1) + d] = val;
-  }
-}
-
-// acc[i][j] += sum_k A(ty + 16i, k) * Bm(k, tx + 16j), with the operands in
-// shared memory at A(r, k) = A[r*AR + k*AK] and Bm(k, c) = Bm[k*BK + c*BC].
-// The strides make the transposes: every product of the kernels is one
-// instance.
-template <int NJ, int KD, int AR, int AK, int BK, int BC>
-__device__ __forceinline__ void mma_tile(float (&acc)[4][NJ], const float* __restrict__ A,
-                                         const float* __restrict__ Bm, int ty, int tx) {
-#pragma unroll 4
-  for (int k = 0; k < KD; ++k) {
-    float a[4], b[NJ];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty + 16 * i) * AR + k * AK];
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) b[j] = Bm[k * BK + (tx + 16 * j) * BC];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-}
-
-template <int NI, int NJ>
-__device__ __forceinline__ void zero(float (&acc)[NI][NJ]) {
-#pragma unroll
-  for (int i = 0; i < NI; ++i)
-#pragma unroll
-    for (int j = 0; j < NJ; ++j) acc[i][j] = 0.0f;
-}
-
-// First kv tile that any row of q tile `i` attends to.
-__device__ __forceinline__ int first_kv_tile(int i, const Shape& sh) {
-  if (sh.window <= 0) return 0;
-  const int first_key = i * kTile - sh.window + 1;
-  return first_key > 0 ? first_key / kTile : 0;
-}
-
-// --------------------------------------------------------------------------
-// B4: forward.  grid (B*H, nq); q tile i = nq - 1 - blockIdx.y.
-// --------------------------------------------------------------------------
-template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads)
-swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-               T* __restrict__ o, float* __restrict__ lse, Shape sh) {
-  constexpr int LD = HD + 1, NJ = HD / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kTile * LD;
-  float* Vs = Ks + kTile * LD;
-  float* Ps = Vs + kTile * LD;  // [64][kPitch]
-
-  const int i = gridDim.y - 1 - blockIdx.y;
-  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  const int q0 = i * kTile;
-
-  load_tile<HD>(Qs, q, b, q0, sh.H, h, sh.scale, sh);
-  float m[4], l[4], acc[4][NJ];
-#pragma unroll
-  for (int r = 0; r < 4; ++r) { m[r] = kNeg; l[r] = 0.0f; }
-  zero(acc);
-
-  for (int j = first_kv_tile(i, sh); j <= i; ++j) {
-    __syncthreads();  // the previous tile's reads of Ks, Vs and Ps are done
-    load_tile<HD>(Ks, k, b, j * kTile, sh.K, kh, 1.0f, sh);
-    load_tile<HD>(Vs, v, b, j * kTile, sh.K, kh, 1.0f, sh);
-    __syncthreads();
-    float s[4][4];
-    zero(s);
-    mma_tile<4, HD, LD, 1, 1, LD>(s, Qs, Ks, ty, tx);  // (scale q) k^T
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int row = q0 + ty + 16 * r;
-      float mx = kNeg;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        if (!allowed(row, j * kTile + tx + 16 * c, sh)) s[r][c] = kNeg;
-        mx = fmaxf(mx, s[r][c]);
-      }
-      const float m_new = fmaxf(m[r], row_max(mx));
-      float sum = 0.0f;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const float p = allowed(row, j * kTile + tx + 16 * c, sh) ? expf(s[r][c] - m_new) : 0.0f;
-        Ps[(ty + 16 * r) * kPitch + tx + 16 * c] = p;
-        sum += p;
-      }
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + row_sum(sum);
-      m[r] = m_new;
-#pragma unroll
-      for (int c = 0; c < NJ; ++c) acc[r][c] *= corr;
-    }
-    __syncthreads();
-    mma_tile<NJ, kTile, kPitch, 1, LD, 1>(acc, Ps, Vs, ty, tx);  // += p v
-  }
-
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    const int row = q0 + ty + 16 * r;
-    if (row >= sh.S) continue;
-    const float lr = fmaxf(l[r], 1e-30f);
-    const long long off = ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD;
-#pragma unroll
-    for (int c = 0; c < NJ; ++c) o[off + tx + 16 * c] = from_f32<T>(acc[r][c] / lr);
-    if (tx == 0) lse[(static_cast<long long>(b) * sh.H + h) * sh.S + row] = m[r] + logf(lr);
-  }
-}
-
-// --------------------------------------------------------------------------
-// B5: 3xTF32 on the tensor cores (mma_tf32.cuh), 128 threads (4 warps) a
-// block, tiles staged through a double-buffered cp.async ring.
-// --------------------------------------------------------------------------
-constexpr int kB5Threads = 128;
-constexpr int kDqRows = 64;  // dq pass: q tile (16 rows a warp) ...
-constexpr int kDqKeys = 32;  // ... and the kv tiles it walks
-constexpr int kDkvKeys = 32;  // dk/dv pass: kv tile (16 keys a warp pair) ...
-constexpr int kDkvRows = 32;  // ... and the q tiles it walks (16 rows a warp)
-
 // Rows [row0, row0 + ROWS) of head `head` of a [B, S, heads, HD] tensor into
-// shared memory [ROWS][HD + 4] as f32; rows >= S are 0.  f32 with 16-byte
+// shared memory [ROWS][LD] as f32; rows >= S are 0.  f32 with 16-byte
 // aligned tensors (sh.vec) goes through cp.async, which the caller commits
 // and waits for; otherwise each element is loaded, converted and stored.
-template <int ROWS, int HD, typename T>
+template <int ROWS, int HD, int LD = HD + 4, typename T>
 __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __restrict__ src,
                                            int b, int row0, int heads, int head,
                                            const Shape& sh) {
-  constexpr int LD = HD + 4;
   if constexpr (std::is_same<T, float>::value) {
     if (sh.vec) {
       constexpr int CH = HD / 4;  // 16-byte chunks a row
-      for (int idx = threadIdx.x; idx < ROWS * CH; idx += kB5Threads) {
+      for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
         const int r = idx / CH, c = idx - r * CH;
         const int s = row0 + r;
         const bool ok = s < sh.S;
@@ -293,7 +146,7 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __r
       return;
     }
   }
-  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kB5Threads) {
+  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kThreads) {
     const int r = idx / HD, d = idx - r * HD;
     const int s = row0 + r;
     float val = 0.0f;
@@ -307,7 +160,7 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __r
 // n values of a [B, H, S] f32 row statistic from position s0, 0 past S.
 __device__ __forceinline__ void stage_stat(float* __restrict__ dst, const float* __restrict__ src,
                                            int s0, int n, const Shape& sh) {
-  for (int r = threadIdx.x; r < n; r += kB5Threads) {
+  for (int r = threadIdx.x; r < n; r += kThreads) {
     const bool ok = s0 + r < sh.S;
     tf32::cp_async4(dst + r, src + (ok ? s0 + r : 0), ok);
   }
@@ -319,13 +172,207 @@ __device__ __forceinline__ bool tile_masked(int r0, int nr, int c0, int nc, cons
   return sh.window > 0 && c0 <= r0 + nr - 1 - sh.window;
 }
 
+// Fragments of s = (scale q).k^T, the k slots permuted as a C fragment's
+// (slot t: column 2t, slot t + 4: 2t + 1) in both operands, so a lane reads
+// its two values of a row in one 8-byte load: conflict-free at a row pitch
+// of 8 mod 32 floats (hd + 8).  load_a's and load_b's fragments otherwise.
+__device__ __forceinline__ void load_a_pairs(const float* s, int pitch, int row0, int k0,
+                                             float mult, uint32_t (&big)[4],
+                                             uint32_t (&small)[4]) {
+  const float* p = s + (row0 + tf32::lane_g()) * pitch + k0 + 2 * tf32::lane_t();
+  const float2 lo = *reinterpret_cast<const float2*>(p);
+  const float2 hi = *reinterpret_cast<const float2*>(p + 8 * pitch);
+  tf32::split(mult * lo.x, big[0], small[0]);
+  tf32::split(mult * hi.x, big[1], small[1]);
+  tf32::split(mult * lo.y, big[2], small[2]);
+  tf32::split(mult * hi.y, big[3], small[3]);
+}
+
+__device__ __forceinline__ void load_b_pairs(const float* s, int pitch, int n0, int k0,
+                                             uint32_t (&big)[2], uint32_t (&small)[2]) {
+  const float2 x =
+      *reinterpret_cast<const float2*>(s + (n0 + tf32::lane_g()) * pitch + k0 + 2 * tf32::lane_t());
+  tf32::split(x.x, big[0], small[0]);
+  tf32::split(x.y, big[1], small[1]);
+}
+
+// --------------------------------------------------------------------------
+// B4: forward.  grid (B*H, nq) over 64-row q tiles, i = nq - 1 - blockIdx.y;
+// warp w owns rows 16w..16w+15 of the tile and walks its 32-key kv tiles.
+// --------------------------------------------------------------------------
+template <int HD, typename T>
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
+swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+               T* __restrict__ o, float* __restrict__ lse, Shape sh) {
+  // q and k rows at a pitch of hd + 8 (paired loads), v rows at hd + 4
+  constexpr int LDQ = HD + 8, LD = HD + 4, NT = HD / 8, BQ = kFwdRows, BK = kFwdKeys,
+                NS = BK / 8;
+  extern __shared__ float smem[];
+  float* Qs = smem;              // [BQ][LDQ]
+  float* KVs = Qs + BQ * LDQ;    // 2 stages x (k [BK][LDQ], v [BK][LD])
+
+  const int i = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = i * BQ, wr = 16 * warp;  // the tile's first row, the warp's
+  int j_lo = 0;  // the kv tiles that the tile's rows see
+  if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
+  const int j_hi = min((sh.S - 1) / BK, (q0 + BQ - 1) / BK);
+
+  auto stage_kv = [&](int j, int stage) {
+    float* Ks = KVs + stage * BK * (LDQ + LD);
+    stage_rows<BK, HD, LDQ>(Ks, k, b, j * BK, sh.K, kh, sh);
+    stage_rows<BK, HD>(Ks + BK * LDQ, v, b, j * BK, sh.K, kh, sh);
+  };
+  stage_rows<BQ, HD, LDQ>(Qs, q, b, q0, sh.H, h, sh);
+  stage_kv(j_lo, 0);
+  tf32::cp_async_commit();
+
+  // the scores in log2 units: p = 2^(s - m), lse = ln 2 * m + ln l.  Lane
+  // (g, t) keeps the running max m and sum l of rows g and g + 8 of the
+  // warp's strip, and o's C fragments (acc[c]: columns 8c..8c+7)
+  const float qscale = sh.scale * kLog2e;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f}, acc[NT][4];
+#pragma unroll
+  for (int c = 0; c < NT; ++c)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[c][e] = 0.0f;
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int stage = (j - j_lo) & 1;
+    if (j < j_hi) {
+      stage_kv(j + 1, stage ^ 1);
+      tf32::cp_async_commit();
+      tf32::cp_async_wait<1>();
+    } else {
+      tf32::cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* Ks = KVs + stage * BK * (LDQ + LD);
+    const float* Vs = Ks + BK * LDQ;
+
+    // s = (scale log2(e) q) k^T on the warp's 16 rows x BK keys, in
+    // 3xTF32 with the two small terms summed apart from the big one (two
+    // shorter mma chains), then added in f32
+    float s[NS][4], sl[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = sl[n][e] = 0.0f;
+#pragma unroll
+    for (int kk = 0; kk < HD; kk += 8) {
+      uint32_t qb[4], qs[4];
+      load_a_pairs(Qs, LDQ, wr, kk, qscale, qb, qs);
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t kb[2], ks[2];
+        load_b_pairs(Ks, LDQ, 8 * n, kk, kb, ks);
+        tf32::mma(sl[n], qs, kb);
+        tf32::mma(sl[n], qb, ks);
+        tf32::mma(s[n], qb, kb);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];
+
+    // s[n][e] is (row g + 8(e / 2), key 8n + 2t + e % 2) of the strip; a
+    // masked score becomes -1e30 and its bit of `keep` 0 (p = 0)
+    uint32_t keep = 0xffffffffu;
+    if (tile_masked(q0 + wr, 16, j * BK, BK, sh)) {
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (!allowed(q0 + wr + g + 8 * (e >> 1), j * BK + 8 * n + 2 * t + (e & 1), sh)) {
+            keep &= ~(1u << (4 * n + e));
+            s[n][e] = kNeg;
+          }
+    }
+
+    // online softmax of row g (e = 0, 1) and row g + 8 (e = 2, 3): a
+    // row's keys of the tile lie in the 4 lanes of a quad
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNeg;
+#pragma unroll
+      for (int n = 0; n < NS; ++n) mx = fmaxf(mx, fmaxf(s[n][2 * r], s[n][2 * r + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx);
+      float sum = 0.0f;
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 2 * r; e < 2 * r + 2; ++e) {
+          const float p = (keep >> (4 * n + e)) & 1u ? exp2f(s[n][e] - m_new) : 0.0f;
+          s[n][e] = p;
+          sum += p;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      const float corr = exp2f(m[r] - m_new);
+      l[r] = l[r] * corr + sum;
+      m[r] = m_new;
+#pragma unroll
+      for (int c = 0; c < NT; ++c) {
+        acc[c][2 * r] *= corr;
+        acc[c][2 * r + 1] *= corr;
+      }
+    }
+
+    // o += p v, the keys as k: the tile's keys are summed on the tensor
+    // cores from 0 and added to o in f32 (each mma rounds toward zero, so
+    // a long chain of them into one sum drifts)
+    uint32_t pb[NS][4], ps[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) tf32::a_from_c(s[n], pb[n], ps[n]);
+#pragma unroll
+    for (int c = 0; c < NT; c += 2) {  // hd / 8 is even
+      float p0[4] = {0.0f, 0.0f, 0.0f, 0.0f}, p1[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        uint32_t b0[2], s0[2], b1[2], s1[2];
+        tf32::load_b_kperm(Vs, LD, 8 * n, 8 * c, 1.0f, b0, s0);
+        tf32::load_b_kperm(Vs, LD, 8 * n, 8 * c + 8, 1.0f, b1, s1);
+        tf32::mma3(p0, pb[n], ps[n], b0, s0);
+        tf32::mma3(p1, pb[n], ps[n], b1, s1);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc[c][e] += p0[e];
+        acc[c + 1][e] += p1[e];
+      }
+    }
+    __syncthreads();  // this stage's reads are done before it is refilled
+  }
+
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = q0 + wr + g + 8 * e2;
+    if (row >= sh.S) continue;
+    const float lr = fmaxf(l[e2], 1e-30f);
+    T* out = o + ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD + 2 * t;
+#pragma unroll
+    for (int c = 0; c < NT; ++c) {
+      out[8 * c] = from_f32<T>(acc[c][2 * e2] / lr);
+      out[8 * c + 1] = from_f32<T>(acc[c][2 * e2 + 1] / lr);
+    }
+    if (t == 0) {
+      lse[(static_cast<long long>(b) * sh.H + h) * sh.S + row] = kLn2 * m[e2] + logf(lr);
+    }
+  }
+}
+
 // --------------------------------------------------------------------------
 // B5, q-parallel pass: dq, and delta = rowsum(o * do) for the dk/dv pass.
 // grid (B*H, nq) over 64-row q tiles, i = nq - 1 - blockIdx.y; warp w owns
 // rows 16w..16w+15 of the tile and walks its 32-key kv tiles.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
-__global__ void __launch_bounds__(kB5Threads, HD <= 64 ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
 swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ o, const T* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
@@ -478,7 +525,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 // tile; warps w and w + 2 add their sums in a fixed order at the end.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
-__global__ void __launch_bounds__(kB5Threads, HD <= 64 ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
 swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
@@ -656,8 +703,6 @@ bool aligned16(std::initializer_list<const void*> ptrs) {
   return true;
 }
 
-int tiles(int S) { return (S + kTile - 1) / kTile; }
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -667,10 +712,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int HD, typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
         cudaStream_t stream) {
-  const size_t smem = (3 * kTile * (HD + 1) + kTile * kPitch) * sizeof(float);
+  const size_t smem =
+      ((kFwdRows + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
   cudaError_t e = allow_smem(swa_fwd_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.H, tiles(sh.S));
+  const dim3 grid(sh.B * sh.H, (sh.S + kFwdRows - 1) / kFwdRows);
   swa_fwd_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, sh);
@@ -684,7 +730,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   cudaError_t e = allow_smem(swa_bwd_dq_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(sh.B * sh.H, (sh.S + kDqRows - 1) / kDqRows);
-  swa_bwd_dq_kernel<HD, T><<<grid, kB5Threads, smem, stream>>>(
+  swa_bwd_dq_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
       static_cast<T*>(dq), sh);
@@ -699,7 +745,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
   cudaError_t e = allow_smem(swa_bwd_dkv_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(sh.B * sh.K, (sh.S + kDkvKeys - 1) / kDkvKeys);
-  swa_bwd_dkv_kernel<HD, T><<<grid, kB5Threads, smem, stream>>>(
+  swa_bwd_dkv_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
   return static_cast<int>(cudaGetLastError());
@@ -735,7 +781,8 @@ int swa_attention_fwd(const void* q, const void* k, const void* v, void* o, floa
                       int dtype, int B, int S, int H, int K, int hd, int window, float scale,
                       void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  const Shape sh = make_shape(B, S, H, K, window, scale);
+  Shape sh = make_shape(B, S, H, K, window, scale);
+  sh.vec = aligned16({q, k, v});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(fwd, q, k, v, o, lse, sh, st)
 }

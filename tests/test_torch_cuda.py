@@ -316,6 +316,77 @@ def test_reduced_smollm_on_card_matches_cpu(cuda, window):
                                rtol=1e-4, atol=0)
 
 
+def _qkv(cuda, B, S, H, K, hd, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, S, K, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+def _offset_view(cuda, *shape, seed):
+    """A contiguous f32 tensor one float into its storage: off 16-byte alignment."""
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    return torch.randn(math.prod(shape) + 1, generator=g, device=cuda)[1:].view(*shape)
+
+
+@pytest.mark.parametrize("hd", swa.HEAD_DIMS)
+@pytest.mark.parametrize("S", [65, 1000])
+def test_b4_matches_plain_across_head_dims_groups_and_windows(cuda, hd, S):
+    """o and lse at the forward's rtol = atol 2e-5 (the JAX forward test's)
+    at a ragged S, G = 1, 3, 4 and windows 0, 64, 128, >= S."""
+    for G in (1, 3, 4):
+        for W in (0, 64, 128, S + 7):
+            q, k, v = _qkv(cuda, 2, S, 2 * G, 2, hd, seed=hd + G + W)
+            o, lse = swa.swa_attention_fwd(q, k, v, W)
+            torch.cuda.synchronize()
+            ro, rlse = swa.swa_attention_ref(q, k, v, W)
+            torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5, msg=f"o G={G} window={W}")
+            torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5,
+                                       msg=f"lse G={G} window={W}")
+
+
+@pytest.mark.parametrize("hd", swa.HEAD_DIMS)
+def test_b4_bf16_within_one_ulp_of_the_f32_tolerance(cuda, hd):
+    """bf16 inputs: o within one bf16 ulp of the f32 plain version on the
+    same (bf16) inputs, beyond the f32 tolerance; lse within it."""
+    for W in (0, 128):
+        q, k, v = _qkv(cuda, 2, 1000, 6, 2, hd, torch.bfloat16, seed=hd)
+        o, lse = swa.swa_attention_fwd(q, k, v, W)
+        torch.cuda.synchronize()
+        assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+        ro, rlse = swa.swa_attention_ref(q.float(), k.float(), v.float(), W)
+        torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
+        _, exp = torch.frexp(ro)
+        ulp = torch.ldexp(torch.ones_like(ro), exp - 8)
+        bad = (o.float() - ro).abs() > 2e-5 + 2e-5 * ro.abs() + ulp
+        assert not bool(bad.any()), f"window={W}: {int(bad.sum())} elements"
+
+
+@pytest.mark.parametrize("hd", [64, 128])
+def test_b4_two_launches_bit_identical(cuda, hd):
+    """No atomics: o and lse repeat bit for bit."""
+    q, k, v = _qkv(cuda, 2, 1024, 9, 3, hd)
+    first = swa.swa_attention_fwd(q, k, v, 0)
+    second = swa.swa_attention_fwd(q, k, v, 0)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_b4_f32_views_off_16_byte_alignment_match_plain(cuda):
+    """f32 tensors that cp.async cannot copy 16 bytes at a time take the
+    forward's plain loads, same results."""
+    B, S, H, K, hd, W = 1, 300, 4, 2, 64, 128
+    q = _offset_view(cuda, B, S, H, hd, seed=1)
+    k, v = _offset_view(cuda, B, S, K, hd, seed=3), _offset_view(cuda, B, S, K, hd, seed=4)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    o, lse = swa.swa_attention_fwd(q, k, v, W)
+    torch.cuda.synchronize()
+    ro, rlse = swa.swa_attention_ref(q, k, v, W)
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
+
+
 def _b5_inputs(cuda, B, S, H, K, hd, W, dtype=torch.float32, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     q, do = (torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
@@ -382,14 +453,8 @@ def test_b5_f32_views_off_16_byte_alignment_match_plain(cuda):
     """f32 tensors that cp.async cannot copy 16 bytes at a time (a view one
     float into its storage) take the kernels' plain loads, same results."""
     B, S, H, K, hd, W = 1, 300, 4, 2, 64, 128
-
-    def view(*shape, seed):
-        g = torch.Generator(device=cuda).manual_seed(seed)
-        n = math.prod(shape)
-        return torch.randn(n + 1, generator=g, device=cuda)[1:].view(*shape)
-
-    q, do = view(B, S, H, hd, seed=1), view(B, S, H, hd, seed=2)
-    k, v = view(B, S, K, hd, seed=3), view(B, S, K, hd, seed=4)
+    q, do = _offset_view(cuda, B, S, H, hd, seed=1), _offset_view(cuda, B, S, H, hd, seed=2)
+    k, v = _offset_view(cuda, B, S, K, hd, seed=3), _offset_view(cuda, B, S, K, hd, seed=4)
     assert q.data_ptr() % 16 and q.is_contiguous()
     o, lse = swa.swa_attention_fwd(q, k, v, W)
     dq, delta = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, W)

@@ -23,12 +23,15 @@ for name in names:
 for attr in repro_torch.__all__:
     getattr(repro_torch, attr)
 import chip_smoke
+import chip_ablate_attention
+import chip_profile_lm
 print(len(names))
 """
 
 
 def _port_files():
-    return sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return sorted(PORT.rglob("*.py")) + [
+        ROOT / "chip_smoke.py", ROOT / "chip_ablate_attention.py", ROOT / "chip_profile_lm.py"]
 
 
 def test_every_module_imports_without_jax_triton_or_repro():

@@ -1,20 +1,37 @@
-"""3xTF32, the arithmetic of B5's kernels on the tensor cores, emulated on the
-CPU and held to the f32 tolerance of the JAX package's backward test.
+"""3xTF32, the arithmetic of the attention kernels on the tensor cores,
+emulated on the CPU and held to the f32 tolerances of the JAX package's tests.
 
-The card's dq and dk/dv passes (``csrc/swa_attention.cu`` on
-``csrc/mma_tf32.cuh``) split every f32 operand x of a product into
-big = tf32(x) and small = tf32(x - big), rounded to nearest with ties away
-(``cvt.rna.tf32.f32``), and take a.b as a_small.b_big + a_big.b_small +
-a_big.b_big.  Here every product of the backward (s = (scale q).k^T,
-dp = do.v^T, dq = scale ds.k, dk = ds^T.(scale q), dv = p^T.do) goes
+The card's forward (B4) and its dq and dk/dv passes (B5)
+(``csrc/swa_attention.cu`` on ``csrc/mma_tf32.cuh``) split every f32
+operand x of a product into big = tf32(x) and small = tf32(x - big),
+rounded to nearest with ties away (``cvt.rna.tf32.f32``), and take a.b as
+a_small.b_big + a_big.b_small + a_big.b_big.  Here every product of the
+forward (s = (scale q).k^T and o += p.v, an online softmax over 32-key kv
+tiles, each tile's p.v added to o in f32) and of the backward
+(s, dp = do.v^T, dq = scale ds.k, dk = ds^T.(scale q), dv = p^T.do) goes
 through the same split, on the same numpy inputs as the plain versions in
 ``ref.py``, at the JAX package's backward cases (``tests/test_kernels_swa.py``)
-and at hd 64 and 128 with windows 0 and 128.  3xTF32 holds ATTN_TOL = 2e-5
-of max|ref|; one TF32 product (a_big.b_big alone) does not.  This file's
-cases measured max|err| / max|ref| for (dq, dk, dv) against the plain f32
-versions, with the products emulated as above:
+and at hd 64 and 128 with windows 0 and 128.  The forward's emulation
+follows the kernel's log2 units (log2(e) folded into q's scale, p = 2^(s - m),
+lse = ln(2) m + ln(l)).  3xTF32 holds the tolerances (forward: rtol = atol =
+2e-5; backward: ATTN_TOL = 2e-5 of max|ref|); one TF32 product (a_big.b_big
+alone) does not.  This file's cases measured, with the products emulated as
+above, against the plain f32 versions:
 
-    case (B, S, H, K, hd, window)   1xTF32                  3xTF32
+    case (B, S, H, K, hd, window)   forward: worst |err| / (2e-5 + 2e-5 |ref|), (o, lse)
+                                    1xTF32          3xTF32
+    (1, 256, 4, 2, 64, 128)         (31.8, 27.8)    (0.030, 0.011)
+    (2, 384, 4, 4, 128, 256)        (42.3, 25.8)    (0.048, 0.015)
+    (1, 512, 8, 2, 80, 0)           (62.5, 21.8)    (0.058, 0.015)
+    (1, 300, 4, 1, 64, 128)         (27.7, 8.9)     (0.033, 0.008)
+    (1, 256, 6, 3, 96, 128)         (34.4, 15.3)    (0.036, 0.014)
+    (1, 640, 4, 2, 64, 512)         (30.4, 12.6)    (0.042, 0.014)
+    (1, 256, 4, 2, 64, 0)           (43.5, 16.1)    (0.028, 0.009)
+    (1, 256, 4, 2, 128, 0)          (31.9, 21.5)    (0.040, 0.008)
+    (1, 256, 4, 2, 128, 128)        (38.5, 8.3)     (0.047, 0.010)
+
+    case (B, S, H, K, hd, window)   backward: max|err| / max|ref|, (dq, dk, dv)
+                                    1xTF32                  3xTF32
     (1, 256, 4, 2, 64, 128)         (8.3, 8.4, 4.6)e-4      (5.9, 8.3, 5.0)e-7
     (2, 384, 4, 4, 128, 256)        (10.2, 6.9, 5.1)e-4     (9.2, 9.5, 12.3)e-7
     (1, 512, 8, 2, 80, 0)           (8.7, 5.8, 3.6)e-4      (13.1, 7.9, 7.1)e-7
@@ -25,12 +42,13 @@ versions, with the products emulated as above:
     (1, 256, 4, 2, 128, 0)          (7.7, 6.6, 3.7)e-4      (8.6, 10.1, 8.8)e-7
     (1, 256, 4, 2, 128, 128)        (7.1, 6.1, 2.8)e-4      (13.9, 10.1, 6.3)e-7
 
-The 3xTF32 column is the size of the f32 differences between two orders of
-summation; 1xTF32 is 14-51x outside the tolerance.  The emulation sums each
-product's terms in f32 in einsum's order; the tensor cores add with
-truncation instead, which the kernels keep from drifting by summing each
-tile's partial product from 0 and adding it to the running sums in f32
-(checked on the card by ``tests/test_torch_cuda.py``).
+The 3xTF32 columns are the size of the f32 differences between two orders
+of summation; 1xTF32 is 8-63x outside the forward's tolerance and 14-51x
+outside the backward's.  The emulation sums each product's terms in f32 in
+einsum's order; the tensor cores add with truncation instead, which the
+kernels keep from drifting by summing each tile's partial product from 0
+and adding it to the running sums in f32 (checked on the card by
+``tests/test_torch_cuda.py``).
 """
 import math
 
@@ -44,6 +62,7 @@ from repro_torch.kernels.swa_attention import (
 )
 
 ATTN_TOL = 2e-5  # tests/test_kernels_swa.py: the backward, after max-normalising
+FWD_TOL = 2e-5  # tests/test_kernels_swa.py: the forward, rtol = atol
 # B, S, H, K, hd, window: the JAX package's cases, then hd 64 / 128 at windows 0 / 128
 CASES = [
     (1, 256, 4, 2, 64, 128),
@@ -102,14 +121,62 @@ def tf32_backward(q, k, v, o, lse, do, window, terms):
     return dq, dk, dv
 
 
-def errors(case, terms):
-    """max|err| / max|ref| of (dq, dk, dv) against the plain f32 versions."""
-    B, S, H, K, hd, W = case
+def tf32_forward(q, k, v, window, terms, tile=32):
+    """(o, lse) as the forward kernel computes them: the scores in log2
+    units, s = (scale log2(e) q).k^T through ``product``; an online softmax
+    over ``tile``-key kv tiles, p = 2^(s - m); each tile's p.v through
+    ``product`` on its own, added to o in f32; lse = ln(2) m + ln(l)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qscale = torch.tensor(1.0 / math.sqrt(hd)) * torch.tensor(math.log2(math.e))  # f32
+    qg = (q * qscale).reshape(B, S, K, G, hd)
+    s_all = product("bqkgh,bskh->bkgqs", qg, k, terms)  # each score is its own dot product
+    pos = torch.arange(S)
+    m = torch.full((B, K, G, S), -1e30)
+    l = torch.zeros(B, K, G, S)
+    o = torch.zeros(B, K, G, S, hd)
+    for j0 in range(0, S, tile):
+        cols = pos[j0:j0 + tile]
+        ok = cols[None, :] <= pos[:, None]
+        if window > 0:
+            ok = ok & (cols[None, :] > pos[:, None] - window)
+        s = torch.where(ok, s_all[..., j0:j0 + tile], -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(ok, torch.exp2(s - m_new[..., None]), 0.0)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + product("bkgqs,bskh->bkgqh", p, v[:, j0:j0 + tile], terms)
+        m = m_new
+    o = (o / l[..., None]).permute(0, 3, 1, 2, 4).reshape(B, S, H, hd)
+    return o, (math.log(2.0) * m + torch.log(l)).reshape(B, H, S)
+
+
+def inputs(case):
+    """q, k, v, do from numpy, seeded by the case."""
+    B, S, H, K, hd, _ = case
     rng = np.random.default_rng(sum(case))
     q, do = (torch.from_numpy(rng.normal(size=(B, S, H, hd)).astype(np.float32))
              for _ in range(2))
     k, v = (torch.from_numpy(rng.normal(size=(B, S, K, hd)).astype(np.float32))
             for _ in range(2))
+    return q, k, v, do
+
+
+def forward_errors(case, terms):
+    """Worst |err| / (FWD_TOL + FWD_TOL |ref|) of (o, lse) against the plain
+    f32 version: at most 1 within the forward's tolerance."""
+    q, k, v, _ = inputs(case)
+    ref = swa_attention_ref(q, k, v, case[-1])
+    got = tf32_forward(q, k, v, case[-1], terms)
+    return [float(((a - r).abs() / (FWD_TOL + FWD_TOL * r.abs())).max())
+            for a, r in zip(got, ref)]
+
+
+def errors(case, terms):
+    """max|err| / max|ref| of (dq, dk, dv) against the plain f32 versions."""
+    W = case[-1]
+    q, k, v, do = inputs(case)
     o, lse = swa_attention_ref(q, k, v, W)
     rdq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W)
     rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
@@ -129,6 +196,20 @@ def test_one_tf32_product_misses_the_f32_tolerance(case):
     significant bits, more than 5x (14-51x) outside the tolerance."""
     errs = errors(case, 1)
     assert min(errs) > 5 * ATTN_TOL, errs
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_3xtf32_forward_holds_the_f32_tolerance(case):
+    errs = forward_errors(case, 3)
+    assert max(errs) <= 1.0, errs
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_one_tf32_product_forward_misses_the_f32_tolerance(case):
+    """The forward's o with one TF32 product is more than 5x outside its
+    tolerance (rtol = atol = 2e-5)."""
+    o_err, _ = forward_errors(case, 1)
+    assert o_err > 5.0, o_err
 
 
 def test_tf32_rounds_to_nearest_with_ties_away():
