@@ -11,7 +11,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    instructions of the attention kernels (B4, B5), and fail if one has none;
 3. hold each kernel against its plain PyTorch version on the card: the
    aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
-   ragged edge shapes; the per-class kernels (B3 and its dense twin) at the
+   ragged edge shapes; the participation-masked B1m (f32, bf16, int8 load)
+   at the same shapes under random masks, masks with silent entity groups,
+   all-zero and all-ones masks, every flag pair, silent groups keeping
+   ``keep`` bit for bit; the per-class kernels (B3 and its dense twin) at the
    JAX package's ragged shapes, the largest VGG leaf and a stacked
    [N, U·E] row, every flag pair and member pattern; the per-class solve
    (Algorithm 2 with two cut classes) on the card's float64 tables against
@@ -23,7 +26,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 4. the port on the card against the port on the CPU: VGG REDUCED (N=4, 3
    rounds, f32 convolutions, TF32 off), VGG REDUCED with per-class cuts
    (N=8, 6 rounds, plain and over the int8 wire) and smollm-135m REDUCED
-   (N=4, S=256, 3 rounds, at window 0 and 128);
+   (N=4, S=256, 3 rounds, at window 0 and 128); the bound-constant probe
+   (4 rounds) of REDUCED VGG and REDUCED smollm-135m, every HyperSpec
+   field at rtol 1e-4;
 5. the main paths, each with every launch count set to 0 just before it and
    read just after, and held to what the plan and the depth imply:
    VGG-16 / CIFAR-10 at full width (N=20 clients, J2=5 edges, batch 16, the
@@ -35,8 +40,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    equal client 0 after round 8.  Then per-class VGG-16 at full width: the
    solved class cuts and intervals, N=20, J2=5, batch 16, SGD, 12 rounds
    plain and 12 over the int8 fed wire, its sync on B3's twin and B3 only;
-   after rounds 6 and 12 the clients that hold a unit in one tier agree;
-6. kernel, plain-version, library and bound times: B1/B2, B3 and its twin
+   after rounds 6 and 12 the clients that hold a unit in one tier agree.
+   Then ``launch.train --auto-optimize`` at VGG-16 full width (8 probe
+   rounds, BCD, 8 rounds; B1 as the two plans imply), and the declarative
+   API at full width: ``run(paper_spec())`` solved on the card's tables and
+   on NumPy (equal), and train mode for 8 rounds on ``paper_spec``,
+   ``compressed_spec("int8")`` (B2), ``participation_spec()`` (B1m under
+   the trace's deadline masks) and the participation spec over the int8
+   wire (B1m's int8 load), each tier synced in round 8 equal across
+   clients; the fleet simulator's ``simulate_rounds`` on NumPy and on the
+   card at 20 to 10^6 clients and its lattice pricing at 20 to 10^5, equal
+   with ``==``, timed for ``sim.fleet.AUTO_TORCH_MIN_ELEMS``;
+6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
    bound is 3xTF32 on the tensor cores, with the f32 CUDA-core one beside it); the parts
@@ -64,6 +79,8 @@ F32_FLOPS_PER_S = 67e12  # CUDA cores, outside the tensor cores
 TF32_FLOPS_PER_S = 495e12  # tensor cores; B4's and B5's 3xTF32 takes 3 of these per f32 operation
 
 F32_RTOL, F32_ATOL = 1e-5, 1e-6  # f32 sums taken in another order
+# B1m rounds bf16 once, JAX's level chain twice: three half-ulp roundings
+BF16_MASKED_ULPS = 2
 Q8_TILE = 256
 REPLACES = {
     "tiered_aggregate": "src/repro/kernels/tiered_aggregate/tiered_aggregate.py:35",
@@ -74,6 +91,10 @@ REPLACES = {
 }
 AGG = ("tiered_aggregate", "tiered_aggregate_q8")
 RAGGED = ("ragged_tiered_aggregate", "ragged_tiered_aggregate_q8")
+# B1m replaces no TPU kernel: the jnp tiers._group_mean_masked, dense and
+# over the int8 wire's decoded uploads
+MASKED = ("masked_tiered_aggregate", "masked_tiered_aggregate_q8")
+REPLACES.update(dict.fromkeys(MASKED, "src/repro/core/tiers.py:262"))
 REPLACES.update({
     "swa_attention_fwd": "src/repro/kernels/swa_attention/swa_attention.py:96",
     "swa_attention_bwd_dq": "src/repro/kernels/swa_attention/swa_attention.py:198",
@@ -400,7 +421,8 @@ def main_path(rounds: int = 8):
           f"device memory "
           f"{peak:.2f} GiB")
     print(json.dumps({"run": "int8", "loss": losses, "round_ms": ms}))
-    counts = {k: plain[k] + comp_all[k] for k in AGG + RAGGED}
+    assert not any(plain[k] + comp_all[k] for k in MASKED), "the dense path launched B1m"
+    counts = {k: plain[k] + comp_all[k] for k in AGG + RAGGED + MASKED}
     return counts, dict(model=model, plan=plan, opt=opt, state=state, batch=batch)
 
 
@@ -1124,7 +1146,7 @@ def lm_expected(plan, params, n_units, rounds):
     b1, b2 = expected_launches(plan, rounds, compressed=False,
                                leaves=tier_leaves(params, plan))
     return {"tiered_aggregate": b1, "tiered_aggregate_q8": b2, **dict.fromkeys(RAGGED, 0),
-            **dict.fromkeys(ATTN, n_units * rounds)}
+            **dict.fromkeys(MASKED, 0), **dict.fromkeys(ATTN, n_units * rounds)}
 
 
 def lm_cli(rounds: int = 8):
@@ -1377,6 +1399,451 @@ def attention_share(card: str, spec, parts_ms, attn_times) -> None:
           f"speed) = {100 * attn / fb:.1f}%; card {card}")
 
 
+# --------------------------------------------------------------------------- #
+# partial participation (B1m), the estimator, --auto-optimize, the API, the
+# fleet simulator's backends
+# --------------------------------------------------------------------------- #
+
+MASK_KINDS = ("random", "zero groups", "all zero", "all ones")
+
+
+def participation_mask(kind: str, N: int, J: int, gen, dev):
+    """f32 0/1 [N]: about 60% at random; whole entity groups silent (every
+    other group, the rest at random); none; all."""
+    import torch
+
+    if kind == "all zero":
+        return torch.zeros(N, device=dev)
+    if kind == "all ones":
+        return torch.ones(N, device=dev)
+    m = (torch.rand(N, generator=gen, device=dev) < 0.6).float()
+    if kind == "zero groups":
+        per = N // J
+        for j in range(0, J, 2):
+            m[j * per:(j + 1) * per] = 0.0
+    return m
+
+
+def silent_rows(mask, J: int, de, dg):
+    """[N] bool: the rows a B1m launch must copy from ``keep`` bit for bit."""
+    import torch
+
+    N = mask.shape[0]
+    if dg:
+        return torch.full((N,), bool(mask.sum() == 0), device=mask.device)
+    if de:
+        return (mask.reshape(J, -1).sum(1) == 0).repeat_interleave(N // J)
+    return torch.zeros(N, dtype=torch.bool, device=mask.device)
+
+
+def jax_level_chain(x, mask, keep, de, dg, J):
+    """The JAX package's ``synchronize(mask=)`` levels in x's own dtype: in
+    bf16 the entity mean is rounded before the fed level reads it."""
+    from repro_torch.kernels.tiered_aggregate.ref import _group_mean_masked
+
+    y = x
+    if de:
+        y = _group_mean_masked(y, mask, keep, J)
+    if dg:
+        y = _group_mean_masked(y, mask, y if de else keep, 1)
+    return y
+
+
+def check_masked_kernels(spec):
+    """B1m against its plain version: f32, bf16 and the int8 load; random
+    masks, masks with zero-participant groups, all-zero and all-ones; every
+    flag pair; edge shapes and every VGG-16 leaf width at J=5 and J=1.  The
+    rows of a group without a participant must equal ``keep`` exactly.  In
+    bf16 B1m also stays within BF16_MASKED_ULPS ulps of a column's largest
+    |x| of JAX's level chain, which rounds once more (between the levels)."""
+    import torch
+
+    from repro_torch.compress.quantize import q8_quantize
+    from repro_torch.kernels.tiered_aggregate import (
+        launches, masked_quantized_tiered_aggregate, masked_quantized_tiered_aggregate_ref,
+        masked_tiered_aggregate, masked_tiered_aggregate_ref, reset_launches,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(11)
+    flags = [(de, dg) for de in (0, 1) for dg in (0, 1)]
+    N = 20
+    cases = [(8, 4, 700), (20, 5, 2049), (4, 1, 100), (6, 6, 257)]
+    cases += [(N, J, P) for P in vgg_leaf_widths(spec) for J in (5, 1)]
+    errs = {"masked_tiered_aggregate": 0.0, "masked_tiered_aggregate_q8": 0.0}
+    bf16_err, bf16_ulps = 0.0, 0.0
+    calls = dict.fromkeys(errs, 0)
+    reset_launches()
+    for n, J, P in cases:
+        for kind in MASK_KINDS:
+            mask = participation_mask(kind, n, J, gen, dev)
+            for dtype in (torch.float32, torch.bfloat16):
+                x = torch.randn(n, P, generator=gen, device=dev).to(dtype)
+                keep = torch.randn(n, P, generator=gen, device=dev).to(dtype)
+                for de, dg in flags:
+                    for k in (x, keep):  # keep = x: the clients' own state
+                        out = masked_tiered_aggregate(x, mask, k, de, dg, J)
+                        calls["masked_tiered_aggregate"] += 1
+                        torch.cuda.synchronize()
+                        ref = masked_tiered_aggregate_ref(x, mask, k, de, dg, J)
+                        what = (f"B1m N={n} J={J} P={P} {dtype} mask {kind} "
+                                f"do_entity={de} do_global={dg}")
+                        assert out.dtype == dtype and out.shape == x.shape, what
+                        e = max_err(out, ref, dtype, what)
+                        rows = silent_rows(mask, J, de, dg)
+                        if not torch.equal(out[rows], k[rows]):
+                            raise AssertionError(f"{what}: silent rows are not keep")
+                        if dtype == torch.float32:
+                            errs["masked_tiered_aggregate"] = max(
+                                errs["masked_tiered_aggregate"], e)
+                            continue
+                        bf16_err = max(bf16_err, e)
+                        chain = jax_level_chain(x, mask, k, de, dg, J).float()
+                        ulp = torch.exp2(torch.floor(torch.log2(x.float().abs().amax(0))) - 7)
+                        u = float(((out.float() - chain).abs() / ulp).max())
+                        if u > BF16_MASKED_ULPS:
+                            raise AssertionError(f"{what}: {u} bf16 ulps from JAX's level "
+                                                 f"chain, limit {BF16_MASKED_ULPS}")
+                        bf16_ulps = max(bf16_ulps, u)
+            x = torch.randn(n, P, generator=gen, device=dev) * 0.05
+            keep = torch.randn(n, P, generator=gen, device=dev) * 0.05
+            q, scales = q8_quantize(x, Q8_TILE)
+            for de, dg in flags:
+                out = masked_quantized_tiered_aggregate(q, scales, mask, keep, de, dg, J,
+                                                        Q8_TILE)
+                calls["masked_tiered_aggregate_q8"] += 1
+                torch.cuda.synchronize()
+                ref = masked_quantized_tiered_aggregate_ref(q, scales, mask, keep, de, dg, J,
+                                                            Q8_TILE)
+                what = f"B1m int8 N={n} J={J} P={P} mask {kind} do_entity={de} do_global={dg}"
+                assert out.dtype == torch.float32 and out.shape == (n, P), what
+                e = max_err(out, ref, torch.float32, what)
+                rows = silent_rows(mask, J, de, dg)
+                if not torch.equal(out[rows], keep[rows]):
+                    raise AssertionError(f"{what}: silent rows are not keep")
+                errs["masked_tiered_aggregate_q8"] = max(errs["masked_tiered_aggregate_q8"], e)
+    got = {k: launches[k] for k in calls}
+    if got != calls:
+        raise AssertionError(f"B1m launches {got}, calls {calls}")
+    reset_launches()
+    n_checks = sum(calls.values())
+    print(f"[masked] {n_checks} checks of B1m against its plain version passed "
+          f"({len(cases)} shapes x masks {', '.join(MASK_KINDS)} x every flag pair; f32 "
+          f"rtol {F32_RTOL} atol {F32_ATOL}, bf16 one ulp beyond that; silent groups keep "
+          f"keep bit for bit); max |err| f32 {errs['masked_tiered_aggregate']:.3e} bf16 "
+          f"{bf16_err:.3e} int8 {errs['masked_tiered_aggregate_q8']:.3e}; bf16 within "
+          f"{bf16_ulps:g} ulps of JAX's level chain (limit {BF16_MASKED_ULPS}); launches {got}")
+    return errs, {"masked_tiered_aggregate": bf16_err, "masked_tiered_aggregate_q8": None}
+
+
+def masked_timings(card: str):
+    """B1m at the largest VGG leaf [20, 2359296], as the participation path
+    calls it: both levels fused (J=5) with a 60% mask; the int8 load on the
+    fed level (J=1, tile 256)."""
+    import torch
+
+    from repro_torch.compress.quantize import q8_quantize
+    from repro_torch.kernels.tiered_aggregate import (
+        masked_quantized_tiered_aggregate, masked_quantized_tiered_aggregate_ref,
+        masked_tiered_aggregate, masked_tiered_aggregate_ref, reset_launches,
+    )
+
+    dev = torch.device("cuda", 0)
+    N, P = 20, 9 * 512 * 512
+    gen = torch.Generator(device=dev).manual_seed(6)
+    x = torch.randn(N, P, generator=gen, device=dev)
+    mask = participation_mask("random", N, 5, gen, dev)
+    q, scales = q8_quantize(x, Q8_TILE)
+    out = {}
+    k, p = in_turns(lambda: masked_tiered_aggregate_ref(x, mask, x, 1, 1, 5),
+                    lambda: masked_tiered_aggregate(x, mask, x, 1, 1, 5))
+    # bytes: x read once, the output written once (keep is read only where
+    # no client participated: not in this run); operations: w·x multiply-add
+    out["masked_tiered_aggregate"] = dict(ms=k, plain_ms=p, bytes=2 * N * P * 4 + 4 * N,
+                                          ops=2 * N * P)
+    k, p = in_turns(
+        lambda: masked_quantized_tiered_aggregate_ref(q, scales, mask, x, 0, 1, 1, Q8_TILE),
+        lambda: masked_quantized_tiered_aggregate(q, scales, mask, x, 0, 1, 1, Q8_TILE))
+    out["masked_tiered_aggregate_q8"] = dict(
+        ms=k, plain_ms=p, bytes=N * P + 4 * N * P // Q8_TILE + 4 * N * P + 4 * N,
+        ops=3 * N * P)  # dequantizing multiply, w·x multiply-add
+    for name, r in out.items():
+        by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        by_ops = r["ops"] / F32_FLOPS_PER_S * 1e3
+        r["bound_ms"] = max(by_bytes, by_ops)
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        print(f"[timing] {name} at [{N}, {P}] ({int(mask.sum())} of {N} participate): "
+              f"kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}, {r['bytes'] / 1e6:.1f} MB at 3.35 "
+              f"TB/s, H100 SXM data sheet) = {100 * r['bound_ms'] / r['ms']:.1f}% of the "
+              f"bound; library call: none; card {card}")
+    reset_launches()
+    return out
+
+
+def estimator_card_vs_cpu():
+    """The bound-constant probe (4 rounds) of REDUCED VGG and REDUCED
+    smollm-135m on the card and on the CPU, from one init: every HyperSpec
+    field at rtol 1e-4."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.configs.vgg16_cifar10 import REDUCED
+    from repro_torch.core import default_plan, estimate_from_probe
+    from repro_torch.models import SplittableModel, VggModel
+    from repro_torch.optim import sgd
+
+    N, b, rounds = 4, 2, 4
+    rng = np.random.default_rng(3)
+    hw = REDUCED.image_size
+    vgg_batches = [{"images": rng.normal(size=(N, b, hw, hw, 3)).astype(np.float32),
+                    "labels": rng.integers(0, 10, (N, b)).astype(np.int32)}
+                   for _ in range(rounds)]
+    lm = get_reduced("smollm-135m")
+    runs = {"vgg16-cifar10 REDUCED": (VggModel(REDUCED), REDUCED.n_units, vgg_batches),
+            "smollm-135m REDUCED": (SplittableModel(lm), lm.n_units,
+                                    lm_batches(lm.vocab_size, N, b, 64, rounds))}
+    for name, (model, n_units, batches) in runs.items():
+        plan = default_plan(n_units, N, entities=(N, 2, 1))
+        hp = {dev: estimate_from_probe(model, plan, sgd(0.05), batches,
+                                       torch.Generator().manual_seed(0), 0.05, dev)
+              for dev in ("cuda", "cpu")}
+        for f in ("beta", "theta0", "sigma2", "G2"):
+            np.testing.assert_allclose(getattr(hp["cuda"], f), getattr(hp["cpu"], f),
+                                       rtol=1e-4, err_msg=f"{name} {f}")
+        print(f"[estimator] {name} N={N}, {rounds} probe rounds: beta "
+              f"{hp['cuda'].beta:.6g} (cpu {hp['cpu'].beta:.6g}), theta0 "
+              f"{hp['cuda'].theta0:.6g}, sum G2 {hp['cuda'].G2.sum():.6g}, sum sigma2 "
+              f"{hp['cuda'].sigma2.sum():.6g}; every field within rtol 1e-4 of the CPU's")
+
+
+def auto_optimize_cli(probe_rounds: int = 8, rounds: int = 8):
+    """``repro_torch.launch.train --auto-optimize`` at VGG-16 full width: the
+    probe runs the initial plan, then BCD's plan trains; B1's launches are
+    what the two plans imply."""
+    import torch
+
+    from repro_torch.core import default_plan
+    from repro_torch.launch import train
+
+    argv = ["--arch", "vgg16-cifar10", "--clients", "20", "--edges", "5", "--batch", "16",
+            "--auto-optimize", "--probe-rounds", str(probe_rounds), "--rounds", str(rounds),
+            "--log-every", "1"]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    wall = time.perf_counter() - t0
+    got = all_launches()
+    text = buf.getvalue()
+    print(text, end="")
+    assert rc == 0, rc
+    bcd = re.search(r"\[bcd\] cuts=\(([\d, ]+)\) intervals=\(([\d, ]+)\)", text)
+    assert bcd, "no [bcd] line"
+    cuts = tuple(int(v) for v in bcd.group(1).split(","))
+    intervals = tuple(int(v) for v in bcd.group(2).split(","))
+    _, spec, _, plan0, _, _ = train.setup(train.parse_args(argv + ["--device", "cpu"]))
+    plan1 = default_plan(spec.n_units, 20, cuts=cuts, intervals=intervals,
+                         entities=(20, 5, 1))
+    leaves = lambda p: [2 * (hi - lo) for lo, hi in map(p.tier_bounds, range(p.M))]  # noqa: E731
+    want = [a + b for a, b in zip(expected_launches(plan0, probe_rounds, False, leaves(plan0)),
+                                  expected_launches(plan1, rounds, False, leaves(plan1)))]
+    if (got["tiered_aggregate"], got["tiered_aggregate_q8"]) != tuple(want):
+        raise AssertionError(f"--auto-optimize launches {got}, the probe's plan and "
+                             f"BCD's imply B1, B2 = {want}")
+    if any(v for k, v in got.items() if k not in AGG):
+        raise AssertionError(f"--auto-optimize launched other kernels: {got}")
+    losses = [float(v) for v in re.findall(r"loss (\S+)", text)]
+    ms = [float(v) for v in re.findall(r"\((\S+) ms/round", text)]
+    assert len(losses) == rounds and all(math.isfinite(v) for v in losses), losses
+    print(f"[cli auto-optimize] VGG-16 full width, N=20, J2=5, batch 16: {probe_rounds} "
+          f"probe rounds on cuts {plan0.cuts} intervals {plan0.intervals}, then BCD's cuts "
+          f"{cuts} intervals {intervals} for {rounds} rounds in {wall:.2f} s; B1 launches "
+          f"{got['tiered_aggregate']} as the two plans imply")
+    print(json.dumps({"run": "cli-auto-optimize", "cuts": cuts, "intervals": intervals,
+                      "loss": losses, "round_ms": ms}))
+    return got
+
+
+def api_train(api, spec, label: str):
+    """``api.run(spec)`` in train mode on the card, counting launches; the
+    engine step is wrapped to keep the last state and time each round."""
+    import torch
+
+    run_mod = sys.modules["repro_torch.api.run"]
+    make_step = run_mod._make_step
+    seen = {"t": []}
+
+    def hooked(*args, **kwargs):
+        step = make_step(*args, **kwargs)
+
+        def wrapped(*a):
+            seen["t"].append(time.perf_counter())
+            seen["state"], loss = step(*a)
+            return seen["state"], loss
+
+        return wrapped
+
+    run_mod._make_step = hooked
+    torch.cuda.synchronize()
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        res = api.run(spec)
+        wall = time.perf_counter() - t0
+    finally:
+        run_mod._make_step = make_step
+    got = all_launches()
+    losses = res.train["losses"]
+    assert len(losses) == spec.run.rounds and all(math.isfinite(v) for v in losses), losses
+    ms = [(b - a) * 1e3 for a, b in zip(seen["t"], seen["t"][1:])]
+    print(f"[api] {label}: cuts {res.cuts} intervals {res.intervals}, {spec.run.rounds} "
+          f"rounds in {wall:.2f} s (solve included), final loss {losses[-1]:.4f}")
+    print(json.dumps({"run": f"api {label}", "cuts": res.cuts, "intervals": res.intervals,
+                      "loss": losses, "round_ms": ms}))
+    return res, got, seen["state"]
+
+
+def api_paths(rounds: int = 8):
+    """The declarative API at VGG-16 full width: the solve on the card's
+    tables and on NumPy; train mode plain, over the int8 wire, and under
+    the straggler deadline's participation masks (plain and int8)."""
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import tier_subtrees
+    from repro_torch.core.tiers import TierPlan
+
+    card_solve = api.run(api.paper_spec().replace(solver=api.SolverCfg(backend="jax")))
+    host_solve = api.run(api.paper_spec().replace(solver=api.SolverCfg(backend="numpy")))
+    if (card_solve.cuts, card_solve.intervals, card_solve.theta) != (
+            host_solve.cuts, host_solve.intervals, host_solve.theta):
+        raise AssertionError(f"solve on the card {card_solve} differs from NumPy's {host_solve}")
+    print(f"[api] run(paper_spec()) solve: cuts {card_solve.cuts} intervals "
+          f"{card_solve.intervals} theta {card_solve.theta!r} on the card's float64 tables "
+          f"(solver backend 'jax') and on NumPy, equal")
+
+    # lr 5e-4, the training CLI's for VGG-16: RunCfg's default 0.1 (the
+    # REDUCED quickstart's) diverges at full VGG-16 width within 6 rounds
+    train_run = api.RunCfg(mode="train", rounds=rounds, lr=5e-4)
+    specs = {
+        "paper-sec7 train": api.paper_spec(mode="train").replace(run=train_run),
+        "compressed-int8 train": api.compressed_spec("int8").replace(run=train_run),
+        "participation train": api.participation_spec().replace(run=train_run),
+        "participation int8 train": api.participation_spec().replace(
+            run=train_run, compression=api.CompressionCfg(codec="int8")),
+    }
+    counts = {}
+    for label, spec in specs.items():
+        res, got, state = api_train(api, spec, label)
+        built = api.build(spec)
+        plan = TierPlan(n_units=built.model_spec.n_units, num_clients=built.system.num_clients,
+                        cuts=res.cuts, intervals=res.intervals, entities=built.system.entities)
+        leaves = [2 * (hi - lo) for lo, hi in map(plan.tier_bounds, range(plan.M))]
+        b1, b2 = expected_launches(plan, rounds, spec.compression is not None, leaves)
+        masked = spec.participation is not None
+        keys = MASKED if masked else AGG
+        want = {k: 0 for k in got}
+        want[keys[0]], want[keys[1]] = b1, b2
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, the plan implies {want}")
+        if masked:
+            pr = sys.modules["repro_torch.api.run"]._participation_masks(built, res.cuts)
+            used = pr[np.arange(rounds) % pr.shape[0]]
+            print(f"[api] {label}: the trace's masks let {int(used.sum())} of "
+                  f"{used.size} client-rounds through (deadline "
+                  f"{built.participation.deadline:.6g} s); B1m {b1} + int8 {b2} launches, "
+                  "no B1/B2")
+            if used.all():
+                raise AssertionError(f"{label}: every client made every deadline")
+        # every client row of each tier synced in the last round equals row 0
+        for m, part in enumerate(tier_subtrees(state.params, plan)):
+            interval = plan.levels(m)[-1][1]
+            if interval > 1 and rounds % interval:
+                continue
+            for x in tree_leaves(part):
+                if x.numel() and not bool((x == x[0:1]).all()):
+                    raise AssertionError(f"{label}: tier {m} replicas differ after round "
+                                         f"{rounds}")
+        for k, v in got.items():
+            counts.setdefault(label, {})[k] = v
+    return counts
+
+
+def sim_backends(card: str):
+    """The fleet simulator on NumPy and on the card's float64 tensors:
+    ``simulate_rounds`` on straggler-tail at 20 to 10^6 clients, the
+    whole-lattice pricing (with and without a deadline) at 20 to 10^5;
+    results equal with ``==``; times for ``fleet.AUTO_TORCH_MIN_ELEMS``."""
+    import numpy as np
+
+    from repro_torch.configs.vgg16_cifar10 import SPEC
+    from repro_torch.core import SystemSpec, build_profile
+    from repro_torch.core.batched import cut_lattice
+    from repro_torch.sim import (
+        deadline_for_rate, make_trace, simulate_lattice_rounds, simulate_rounds,
+    )
+    from repro_torch.sim.fleet import AUTO_TORCH_MIN_ELEMS
+
+    cuts, intervals = (3, 8), (2, 4, 1)
+    prof = build_profile(SPEC, batch=16)
+    lattice = cut_lattice(SPEC.n_units, 3)
+
+    def in_turns_host(fn_numpy, fn_torch):
+        out, ms = {}, {"numpy": [], "torch": []}
+        for be, fn in (("numpy", fn_numpy), ("torch", fn_torch), ("torch", fn_torch),
+                       ("numpy", fn_numpy)):
+            t = time.perf_counter()
+            out[be] = fn()
+            ms[be].append((time.perf_counter() - t) * 1e3)
+        return out, min(ms["numpy"]), min(ms["torch"])
+
+    rows = {"simulate_rounds": [], "lattice": []}
+    for N in (20, 1_000, 10_000, 100_000, 1_000_000):
+        system = SystemSpec.paper_three_tier(num_clients=N, num_edges=5 if N == 20 else N // 200,
+                                             seed=0)
+        trace = make_trace("straggler-tail", prof, system, rounds=4, seed=0)
+        simulate_rounds(trace, cuts, intervals, backend="numpy")  # draws every round once
+        simulate_rounds(trace, cuts, intervals, backend="torch")
+        res, a, b = in_turns_host(
+            lambda: simulate_rounds(trace, cuts, intervals, backend="numpy"),
+            lambda: simulate_rounds(trace, cuts, intervals, backend="torch"))
+        for f in ("split", "agg", "fired", "total", "participants"):
+            if not np.array_equal(getattr(res["numpy"], f), getattr(res["torch"], f)):
+                raise AssertionError(f"N={N}: simulate_rounds {f} differs between backends")
+        rows["simulate_rounds"].append((N, N, a, b))
+        if N <= 100_000:
+            deadline = deadline_for_rate(trace, cuts, 0.75)
+            r = 2 if N == 100_000 else 4
+            for dl in (None, deadline):
+                res, a, b = in_turns_host(
+                    lambda: simulate_lattice_rounds(trace, lattice, rounds=r, backend="numpy",
+                                                    deadline=dl),
+                    lambda: simulate_lattice_rounds(trace, lattice, rounds=r, backend="torch",
+                                                    deadline=dl))
+                if not all(np.array_equal(x, y) for x, y in zip(res["numpy"], res["torch"])):
+                    raise AssertionError(f"N={N}: lattice pricing (deadline {dl}) differs")
+            rows["lattice"].append((lattice.shape[0] * N, N, a / r, b / r))
+    out = {}
+    for name, rs in rows.items():
+        wins = [rs[i][0] for i in range(len(rs)) if all(x[3] < x[2] for x in rs[i:])]
+        out[name] = {"rows": rs, "card_wins_from": min(wins) if wins else None}
+        unit = "ms a round" if name == "lattice" else "ms for 4 rounds"
+        print(f"[sim] {name} ({unit}; NumPy; torch on the card), best of 2 in turns, equal "
+              "with ==: " + "; ".join(f"N={N} ({e} elems) {a:.3f}; {b:.3f}"
+                                      for e, N, a, b in rs)
+              + f". The card wins from {out[name]['card_wins_from'] or 'none of these'}"
+              f"; card {card}")
+    print(f"[sim] auto picks the card from {AUTO_TORCH_MIN_ELEMS} elems (clients x lattice "
+          "rows) in the lattice pricing and NumPy for a round's [N] chain")
+    print(json.dumps({"sim_backends": out}))
+    return out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch is missing beside this script",
@@ -1414,12 +1881,14 @@ def main() -> int:
     ragged_errs, ragged_bf16_errs = check_ragged_kernels(SPEC)
     errs.update(ragged_errs)
     bf16_errs.update(ragged_bf16_errs)
+    masked_errs, masked_bf16_errs = check_masked_kernels(SPEC)
     attn_errs, attn_bf16_errs = check_attention()
     solved = solve_classes(SPEC)
     solve_backend_timings(card, SPEC)
     card_vs_cpu()
     class_card_vs_cpu()
     lm_card_vs_cpu()
+    estimator_card_vs_cpu()
     path_launches, run = main_path()
     for name in AGG:
         if path_launches[name] == 0:
@@ -1436,8 +1905,18 @@ def main() -> int:
         if lm_launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the smollm-135m path")
     lm_parts = lm_round_parts(card, lm_run)
+    del lm_run["state"], lm_run["batch"]
+    auto_launches = auto_optimize_cli()
+    api_launches = api_paths()
+    masked_launches = {name: api_launches[path][name] for name, path in
+                       zip(MASKED, ("participation train", "participation int8 train"))}
+    for name, n in masked_launches.items():
+        if n == 0:
+            raise AssertionError(f"kernel {name} was not launched on the participation path")
+    sim_backends(card)
     times = timings(card, run)
     times.update(ragged_timings(card))
+    times.update(masked_timings(card))
     attn_times = attention_timings(card)
     attention_share(card, lm_run["spec"], lm_parts, attn_times)
 
@@ -1451,7 +1930,9 @@ def main() -> int:
         "launches": path_launches[name],
         "launches_by_path": {"vgg16-cifar10": path_launches[name],
                              "smollm-135m": lm_launches[name],
-                             "smollm-135m-reduced-cli": cli_launches[name]},
+                             "smollm-135m-reduced-cli": cli_launches[name],
+                             "cli-auto-optimize": auto_launches[name],
+                             **{path: api_launches[path][name] for path in api_launches}},
         "max_abs_err": errs[name],
         "max_abs_err_bf16": bf16_errs[name],
         "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
@@ -1474,6 +1955,23 @@ def main() -> int:
         **({"port_only": "no TPU kernel: the jnp tiers._ragged_units_mean"}
            if name == "ragged_tiered_aggregate" else {}),
     } for name in RAGGED]
+    # B1m: the participation path (API train on participation_spec, and
+    # with the int8 wire); the other paths launch it no time
+    kernels += [{
+        "name": name, "route": "cuda", "source": SOURCES["tiered_aggregate"],
+        "replaces": REPLACES[name],
+        "launches": masked_launches[name],
+        "launches_by_path": {**{path: api_launches[path][name] for path in api_launches},
+                             "vgg16-cifar10": path_launches[name],
+                             "cli-auto-optimize": auto_launches[name],
+                             "smollm-135m": lm_launches[name]},
+        "max_abs_err": masked_errs[name],
+        "max_abs_err_bf16": masked_bf16_errs[name],
+        "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+        "library_ms": None,
+        "port_only": "no TPU kernel: the jnp tiers._group_mean_masked",
+    } for name in MASKED]
     B, S, H, K, hd = MAIN_ATTN
     # SDPA's backward computes dq, dk and dv in one call: its fair counterpart
     # is the two B5 passes together

@@ -16,6 +16,7 @@ Submodules are imported lazily so ``import repro_torch`` stays cheap.
 from importlib import import_module
 
 _SUBMODULES = (
+    "api",
     "checkpoint",
     "compress",
     "configs",
@@ -25,6 +26,7 @@ _SUBMODULES = (
     "launch",
     "models",
     "optim",
+    "sim",
 )
 
 __all__ = list(_SUBMODULES)

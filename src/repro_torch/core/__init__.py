@@ -1,8 +1,8 @@
 # The paper's primary contribution: the HSFL framework (Engine A), its
 # convergence theory (Theorem 1 / Corollary 1), and the MA+MS system
 # optimizer (Proposition 1, Dinkelbach, Algorithm 2 BCD), with per-class
-# cuts — port of ``repro.core``.  The estimator (ROADMAP A8's tail) and
-# Engine B (A12) are not ported yet.
+# cuts, and the bound-constant estimator — port of ``repro.core``.  Engine B
+# (ROADMAP A12) is not ported yet.
 from .convergence import (
     HyperSpec,
     ParticipationSpec,
@@ -43,3 +43,4 @@ from .engine import (
     replicate_for_clients,
     unreplicate,
 )
+from .estimator import HyperEstimator, estimate_from_probe

@@ -83,6 +83,13 @@ def resolve_backend(backend: str, work_elems: Optional[int] = None) -> str:
     return backend
 
 
+def spec_backend(name: str) -> str:
+    """The port's backend for a name an ``ExperimentSpec`` carries:
+    ``"jax"``, the JAX package's device backend, is ``torch`` (the card);
+    every other name is returned as it is."""
+    return "torch" if name == "jax" else name
+
+
 def torch_device(backend: str) -> Optional[torch.device]:
     """The device of a resolved ``torch`` backend; None for ``numpy``."""
     name, _, device = backend.partition(":")

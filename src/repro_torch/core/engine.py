@@ -55,6 +55,29 @@ def init_state_a(
     return TrainState(params=params, opt_state=opt.init(params), step=0)
 
 
+def _masked_select(new, old, w: torch.Tensor):
+    """Per-client select: participants take the updated leaf, absentees keep
+    the old one.  Only client-stacked leaves (leading axis N) are masked;
+    scalar bookkeeping leaves (e.g. adam's step counter) pass through."""
+
+    def f(n, o):
+        if n.ndim == 0 or n.shape[0] != w.shape[0]:
+            return n
+        return torch.where(w.reshape((-1,) + (1,) * (n.ndim - 1)) > 0.0, n, o)
+
+    return tree_map(f, new, old)
+
+
+def masked_mean_loss(losses: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Participation-weighted round loss Σ w_i·loss_i / Σ w_i (0.0 for a
+    zero-participant round — the round is a no-op, DESIGN.md §12)."""
+    total = torch.sum(w)
+    return torch.where(
+        total > 0.0, torch.sum(losses * w) / torch.clamp(total, min=1.0),
+        torch.zeros((), dtype=losses.dtype, device=losses.device),
+    )
+
+
 def build_train_step_a(
     model, plan: TierPlan, opt: Optimizer, *, sync_opt_state: bool = False,
     fed_round=None, compressor=None, with_mask: bool = False,
@@ -83,12 +106,21 @@ def build_train_step_a(
     ``tiers.ragged_synchronize``: tier m's levels average each unit only
     over the clients whose class holds it there.
 
-    ``with_mask`` (ROADMAP A10), ``privacy`` (A11), ``guard`` (A11) and
-    ``with_sync_weights`` (A11, async aggregation) are not ported yet and
-    raise.
+    ``with_mask=True`` returns ``step(state, batch, mask)`` instead: the
+    [N] participation mask (1 = the client made the round's deadline)
+    restricts the local update to participants — absentees keep their
+    params and optimizer moments untouched — and every aggregation level
+    averages participants only, on B1m (``tiers.synchronize`` mask
+    semantics, DESIGN.md §12).  The reported loss is the
+    participation-weighted mean; an all-zero mask leaves the state exactly
+    as it was and reports 0.0.  Per-class cuts under a mask are ported
+    with ROADMAP A11 (``ragged_synchronize(mask=)``).
+
+    ``privacy`` (A11), ``guard`` (A11) and ``with_sync_weights`` (A11,
+    async aggregation) are not ported yet and raise.
     """
     for name, value, item in (
-        ("with_mask", with_mask, "A10"), ("privacy", privacy, "A11"),
+        ("privacy", privacy, "A11"),
         ("guard", guard, "A11"), ("with_sync_weights", with_sync_weights, "A11"),
     ):
         if value is not None and value is not False:
@@ -97,30 +129,39 @@ def build_train_step_a(
             )
     per_client = vmap(grad_and_value(model.loss_fn))
 
-    def _sync(tree, step, compress=None):
+    def _sync(tree, step, compress=None, mask=None):
         if class_members is not None:
             return ragged_synchronize(
                 tree, plan, class_members, step, fed_round=fed_round,
-                compressor=compress,
+                compressor=compress, mask=mask,
             )
         return synchronize(
-            tree, plan, step, fed_round=fed_round, compressor=compress
+            tree, plan, step, fed_round=fed_round, compressor=compress, mask=mask
         )
 
-    def step(state: TrainState, batch: Params) -> Tuple[TrainState, torch.Tensor]:
+    def _step(state: TrainState, batch: Params, mask) -> Tuple[TrainState, torch.Tensor]:
         grads, losses = per_client(state.params, batch)
         new_params, new_opt = opt.update(state.params, grads, state.opt_state)
-        loss = torch.mean(losses)
-        new_params = _sync(new_params, state.step, compress=compressor)
+        if mask is None:
+            loss = torch.mean(losses)
+        else:
+            w = mask.to(device=losses.device, dtype=torch.float32)
+            new_params = _masked_select(new_params, state.params, w)
+            new_opt = _masked_select(new_opt, state.opt_state, w)
+            loss = masked_mean_loss(losses, w)
+            mask = w
+        new_params = _sync(new_params, state.step, compress=compressor, mask=mask)
         if sync_opt_state and tree_leaves(new_opt):
             # momentum/adam moments are client-stacked like params: apply the
             # same schedule so replicas stay consistent after aggregation.
             if opt.name == "momentum":
-                new_opt = _sync(new_opt, state.step)
+                new_opt = _sync(new_opt, state.step, mask=mask)
             elif opt.name == "adam":
                 new_opt = dict(new_opt)
-                new_opt["m"] = _sync(new_opt["m"], state.step)
-                new_opt["v"] = _sync(new_opt["v"], state.step)
+                new_opt["m"] = _sync(new_opt["m"], state.step, mask=mask)
+                new_opt["v"] = _sync(new_opt["v"], state.step, mask=mask)
         return TrainState(new_params, new_opt, state.step + 1), loss
 
-    return step
+    if with_mask:
+        return _step
+    return lambda state, batch: _step(state, batch, None)

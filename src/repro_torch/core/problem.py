@@ -19,8 +19,7 @@ constraint C5 holds.
 
 The latency terms T_S / T_{m,A} default to the nominal point estimates of
 Eqs. (17)–(18); an optional ``latency_model`` (any object with
-``split_T(cuts)`` / ``agg_T(cuts, m)`` — the JAX package's ``sim.robust``;
-the fleet simulator is ported with ROADMAP A10) swaps in
+``split_T(cuts)`` / ``agg_T(cuts, m)`` — see ``repro_torch.sim.robust``) swaps in
 empirical per-round quantiles from a fleet-simulation trace, so the same
 solvers optimize against heterogeneous / straggler / churn regimes.
 

@@ -14,9 +14,9 @@ Synchronization operates on client-stacked parameter trees (axis 0 = client).
 Unlike the JAX package, whose ``synchronize`` and ``ragged_synchronize``
 take plain group means, every level here goes through the fused
 aggregation kernels (``kernels.tiered_aggregate``): B1/B2 for the dense
-levels, one launch per leaf per tier and round, and B3's twin / B3 for the
-per-class (ragged) unit levels, one launch per (unit leaf, tier) that some
-client holds.
+levels, one launch per leaf per tier and round, B1m for the
+participation-masked levels, and B3's twin / B3 for the per-class (ragged)
+unit levels, one launch per (unit leaf, tier) that some client holds.
 """
 from __future__ import annotations
 
@@ -29,7 +29,9 @@ import torch
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves, tree_map
 from ..compress.quantize import Int8Stochastic
-from ..kernels.tiered_aggregate import aggregate_tree, ragged_aggregate_tree
+from ..kernels.tiered_aggregate import (
+    aggregate_tree, masked_aggregate_tree, ragged_aggregate_tree,
+)
 
 Params = Dict[str, Any]
 
@@ -228,6 +230,26 @@ def _tier_levels(tree, aggregate, groups: int, do_global: bool, compressor, memb
     return tree
 
 
+def _masked_tier_levels(tree, mask: torch.Tensor, groups: int, do_global: bool,
+                        compressor):
+    """One tier's participation-masked levels (B1m), in the JAX
+    ``synchronize(mask=)`` order: the entity and fed means fused into one
+    launch per leaf; over a compressed fed wire the entity level first,
+    then the fed mean of the uploads, where a silent group keeps the
+    *pre-compression* entity result (the JAX ``keep=original``)."""
+    if compressor is not None and do_global:
+        if groups:
+            tree = masked_aggregate_tree(tree, mask, True, False, groups)
+        if _fused_q8(compressor):
+            return masked_aggregate_tree(tree, mask, False, True, 1, keep=tree,
+                                         tile_p=compressor.tile, quantized=True)
+        uploads = tree_map(lambda x: _per_client(compressor, x), tree)
+        return masked_aggregate_tree(uploads, mask, False, True, 1, keep=tree)
+    if groups or do_global:
+        return masked_aggregate_tree(tree, mask, bool(groups), do_global, groups or 1)
+    return tree
+
+
 def synchronize(
     params: Params,
     plan: TierPlan,
@@ -263,11 +285,19 @@ def synchronize(
     compressed fed level, the entity level first, then the fed mean over
     the uploads (the fused dequantize + fed mean B2 for the int8 codec).
 
-    ``mask`` (partial participation, ROADMAP A10) and ``guard`` (fault
-    quarantine, ROADMAP A11) are not ported yet.
+    ``mask`` ([N] bool/float on the params' device, 1 = the client
+    participated this round) switches every level to the
+    participation-weighted mean of the JAX ``_group_mean_masked`` on B1m
+    (DESIGN.md §12): participants are averaged with weight 1/|group
+    participants|, the aggregate is broadcast to every member, and a
+    zero-participant group keeps its last synced params — over a compressed
+    fed wire, its pre-compression ones.  An all-zero mask returns every
+    leaf bit for bit.  The fused levels compute Σ w·x / Σ w, which equals
+    the JAX package's level-by-level means to f32 rounding; an all-ones
+    mask equals the unmasked path to the same rounding (B1 sums x/N).
+
+    ``guard`` (fault quarantine, ROADMAP A11) is not ported yet.
     """
-    if mask is not None:
-        raise NotImplementedError("masked sync is ported with ROADMAP A10")
     if guard is not None:
         raise NotImplementedError("guarded sync is ported with ROADMAP A11")
     N = plan.num_clients
@@ -280,8 +310,15 @@ def synchronize(
     def dense(tree, *flags, **wire):
         return aggregate_tree(tree, weights, *flags, **wire)
 
+    if mask is not None:
+        mask = mask.to(device=leaves[0].device, dtype=torch.float32).contiguous()
     for m, part in enumerate(parts):
         wire = compressor if _compressed(plan, m, compressor) else None
+        if mask is not None:
+            out_parts.append(_masked_tier_levels(
+                part, mask, _entity_groups(plan, m), _fed_do(plan, m, step, fed_round), wire
+            ))
+            continue
         out_parts.append(_tier_levels(
             part, dense, _entity_groups(plan, m), _fed_do(plan, m, step, fed_round), wire
         ))
@@ -379,10 +416,11 @@ def ragged_synchronize(
     member.  With identical classes the result equals ``synchronize`` to
     f32 rounding (B1 sums w·y with w = 1/N; the twin divides Σ y by N).
 
-    ``mask`` (ROADMAP A10) and ``guard`` (A11) are not ported yet.
+    ``mask`` and ``guard`` (the fault path's masked ragged sync, ROADMAP
+    A11) are not ported yet.
     """
     if mask is not None:
-        raise NotImplementedError("masked sync is ported with ROADMAP A10")
+        raise NotImplementedError("masked ragged sync is ported with ROADMAP A11")
     if guard is not None:
         raise NotImplementedError("guarded sync is ported with ROADMAP A11")
     units = params["units"]

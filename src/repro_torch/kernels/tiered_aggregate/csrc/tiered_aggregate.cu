@@ -9,6 +9,8 @@
 //                                                               -> ragged_tiered_aggregate_q8
 // and, with no TPU kernel of its own, B3's dense twin (the port's counterpart
 // of the jnp ``tiers._ragged_units_mean``)       -> ragged_tiered_aggregate_{f32,bf16}
+// and B1m, the participation-masked two-level mean (the port's counterpart of
+// the jnp ``tiers._group_mean_masked``)           -> masked_tiered_aggregate_{f32,bf16,q8}
 //
 // What it computes, on one client-stacked shard x [N, P] (row-major):
 //   y1 = do_entity ? mean over each of the J contiguous client groups : x
@@ -45,6 +47,19 @@
 // per-group member counts and sw -- is staged once per block in shared
 // memory, so the column loop reads only x (or q and its scales) from
 // device memory.  Bytes moved are B1's (twin) and B2's (B3).
+//
+// B1m (partial participation) weights each client by its 0/1 mask w [N] and
+// broadcasts to every row, participant or not; a group with no participant
+// keeps its rows of `keep` [N, P]:
+//   s_g = sum_{i in g} w_i,   t_g = sum_{i in g} w_i x_i
+//   entity only: y_i = s_g > 0 ? t_g / s_g : keep_i
+//   with the fed level: S = sum_g s_g, T = sum_g t_g, y_i = S > 0 ? T / S : keep_i
+// (the JAX package applies the two levels one after the other; the fused
+// T / S equals its sum of participant-weighted entity means to f32 rounding).
+// The mask, the s_g and S are staged in shared memory once a block; the
+// column loop reads x (or q and its scales) once, and keep only in the rows
+// it is written to.  Over the int8 wire the payload's row pitch is Pp while
+// keep and out have the unpadded width P.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -216,6 +231,78 @@ int launch_ragged(Load load, const float* w, const float* member, Out* out, int 
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename Load, typename Out>
+__global__ void __launch_bounds__(kThreads)
+masked_tiered_aggregate_kernel(Load load, const float* __restrict__ mask,
+                               const Out* __restrict__ keep, Out* __restrict__ out, int N,
+                               long long P, int J, int do_entity, int do_global) {
+  extern __shared__ float smem[];
+  const int per = N / J;
+  float* s_w = smem;         // [N]  participation mask
+  float* s_cnt = s_w + N;    // [J]  participants per entity group
+  float* s_all = s_cnt + J;  // [1]  participants in all
+  for (int k = threadIdx.x; k < N; k += kThreads) s_w[k] = mask[k];
+  __syncthreads();
+  for (int j = threadIdx.x; j < J; j += kThreads) {
+    float c = 0.0f;
+    for (int i = 0; i < per; ++i) c += s_w[j * per + i];
+    s_cnt[j] = c;
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    float c = 0.0f;
+    for (int j = 0; j < J; ++j) c += s_cnt[j];
+    s_all[0] = c;
+  }
+  __syncthreads();
+
+  const long long p = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
+  if (p >= P) return;
+  if (do_global) {
+    const float total = s_all[0];
+    if (total > 0.0f) {
+      float t = 0.0f;
+      for (int j = 0; j < J; ++j) {
+        const int n0 = j * per;
+        float tg = 0.0f;
+        for (int i = 0; i < per; ++i) tg += s_w[n0 + i] * load(n0 + i, p);
+        t += tg;
+      }
+      const Out v = from_f32<Out>(t / total);
+      for (int n = 0; n < N; ++n) out[n * P + p] = v;
+    } else {
+      for (int n = 0; n < N; ++n) out[n * P + p] = keep[n * P + p];
+    }
+  } else if (do_entity) {
+    for (int j = 0; j < J; ++j) {
+      const int n0 = j * per;
+      const float c = s_cnt[j];
+      if (c > 0.0f) {
+        float tg = 0.0f;
+        for (int i = 0; i < per; ++i) tg += s_w[n0 + i] * load(n0 + i, p);
+        const Out v = from_f32<Out>(tg / c);
+        for (int i = 0; i < per; ++i) out[(n0 + i) * P + p] = v;
+      } else {
+        for (int i = 0; i < per; ++i) out[(n0 + i) * P + p] = keep[(n0 + i) * P + p];
+      }
+    }
+  } else {
+    for (int n = 0; n < N; ++n) out[n * P + p] = from_f32<Out>(load(n, p));
+  }
+}
+
+template <typename Load, typename Out>
+int launch_masked(Load load, const float* mask, const Out* keep, Out* out, int N,
+                  long long P, int J, int do_entity, int do_global, void* stream) {
+  if (P <= 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (P + kThreads - 1) / kThreads;
+  const size_t shmem = sizeof(float) * static_cast<size_t>(N + J + 1);
+  masked_tiered_aggregate_kernel<Load, Out><<<static_cast<unsigned>(blocks), kThreads,
+                                              shmem, static_cast<cudaStream_t>(stream)>>>(
+      load, mask, keep, out, N, P, J, do_entity, do_global);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -263,6 +350,34 @@ int ragged_tiered_aggregate_q8(const int8_t* q, const float* scales, const float
                                int do_global, void* stream) {
   return launch_ragged(Q8Load{q, scales, Pp, Pp / tile, tile}, w, member, out, N, Pp, J, U,
                        E, do_entity, do_global, stream);
+}
+
+// B1m over a dense [N, P] shard; keep is [N, P] of x's type (x itself
+// where the input is the clients' current state).
+int masked_tiered_aggregate_f32(const float* x, const float* mask, const float* keep,
+                                float* out, int N, long long P, int J, int do_entity,
+                                int do_global, void* stream) {
+  return launch_masked(DenseLoad<float>{x, P}, mask, keep, out, N, P, J, do_entity,
+                       do_global, stream);
+}
+
+int masked_tiered_aggregate_bf16(const void* x, const float* mask, const void* keep,
+                                 void* out, int N, long long P, int J, int do_entity,
+                                 int do_global, void* stream) {
+  return launch_masked(DenseLoad<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), P},
+                       mask, static_cast<const __nv_bfloat16*>(keep),
+                       static_cast<__nv_bfloat16*>(out), N, P, J, do_entity, do_global,
+                       stream);
+}
+
+// B1m over the int8 wire [N, Pp] (row pitch Pp); keep and out are f32 [N, P],
+// P <= Pp the unpadded width.
+int masked_tiered_aggregate_q8(const int8_t* q, const float* scales, const float* mask,
+                               const float* keep, float* out, int N, long long Pp, int tile,
+                               long long P, int J, int do_entity, int do_global,
+                               void* stream) {
+  return launch_masked(Q8Load{q, scales, Pp, Pp / tile, tile}, mask, keep, out, N, P, J,
+                       do_entity, do_global, stream);
 }
 
 }  // extern "C"

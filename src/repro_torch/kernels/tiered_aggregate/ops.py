@@ -2,9 +2,11 @@
 ``repro.kernels.tiered_aggregate.ops``.
 
 ``tiered_aggregate`` (B1), ``quantized_tiered_aggregate`` (B2),
-``ragged_quantized_tiered_aggregate`` (B3, per-class cuts) and B3's dense
-twin ``ragged_tiered_aggregate`` choose their implementation from the
-device of the tensor they are given:
+``ragged_quantized_tiered_aggregate`` (B3, per-class cuts), B3's dense
+twin ``ragged_tiered_aggregate`` and the participation-masked
+``masked_tiered_aggregate`` / ``masked_quantized_tiered_aggregate`` (B1m,
+dense and over the int8 wire) choose their implementation from the device
+of the tensor they are given:
 
 * a CUDA tensor launches the hand-written kernel in
   ``csrc/tiered_aggregate.cu`` on the current stream, or raises — there is
@@ -15,7 +17,8 @@ Each launch adds one to ``launches[<kernel>]``; the plain version counts
 nothing.  ``aggregate_tree`` applies B1 or B2 to every leaf of a
 client-stacked tree, as ``tiers.synchronize`` does per (tier, level);
 ``ragged_aggregate_tree`` applies the twin or B3, as
-``tiers.ragged_synchronize`` does per (unit, tier, level).
+``tiers.ragged_synchronize`` does per (unit, tier, level);
+``masked_aggregate_tree`` applies B1m, as ``tiers.synchronize(mask=)`` does.
 Flags are host-side Python values, so choosing a round's levels never waits
 for the device.
 """
@@ -31,6 +34,8 @@ from ..._tree import tree_map
 from ...compress.quantize import q8_quantize
 from .. import build
 from .ref import (
+    masked_quantized_tiered_aggregate_ref,
+    masked_tiered_aggregate_ref,
     quantized_tiered_aggregate_ref,
     ragged_quantized_tiered_aggregate_ref,
     ragged_tiered_aggregate_ref,
@@ -43,6 +48,7 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "tiered_aggregate.cu"
 launches: Dict[str, int] = {
     "tiered_aggregate": 0, "tiered_aggregate_q8": 0,
     "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0,
+    "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -68,6 +74,11 @@ def _library() -> ctypes.CDLL:
             fn.argtypes, fn.restype = ragged, i
         lib.ragged_tiered_aggregate_q8.argtypes = [p, p, p, p, p, i, ll, i, i, ll, ll, i, i, p]
         lib.ragged_tiered_aggregate_q8.restype = i
+        masked = [p, p, p, p, i, ll, i, i, i, p]
+        for fn in (lib.masked_tiered_aggregate_f32, lib.masked_tiered_aggregate_bf16):
+            fn.argtypes, fn.restype = masked, i
+        lib.masked_tiered_aggregate_q8.argtypes = [p, p, p, p, p, i, ll, i, ll, i, i, i, p]
+        lib.masked_tiered_aggregate_q8.restype = i
         _lib = lib
     return _lib
 
@@ -317,6 +328,117 @@ def ragged_tiered_aggregate_q8(
     return out if out.shape[1] == P else out[:, :P].contiguous()
 
 
+def _check_mask(mask: torch.Tensor, N: int) -> None:
+    if mask.shape != (N,) or mask.dtype != torch.float32:
+        raise ValueError(f"mask must be f32 [{N}], got {mask.dtype} {tuple(mask.shape)}")
+
+
+def masked_tiered_aggregate(
+    x: torch.Tensor, mask: torch.Tensor, keep: torch.Tensor,
+    do_entity, do_global, num_entities: int,
+) -> torch.Tensor:
+    """[N, P] participation-masked two-level aggregation (B1m); see
+    ``ref.masked_tiered_aggregate_ref`` for semantics.
+
+    ``mask`` is f32 0/1 [N]; ``keep`` [N, P] of x's dtype holds what a
+    group with no participant keeps (x itself for the clients' current
+    state).  x is f32 or bf16 and the output keeps its dtype; the kernel
+    sums in f32 and fuses the two levels into T / S.
+    """
+    if x.ndim != 2 or x.shape[0] % num_entities:
+        raise ValueError(
+            f"x must be [N, P] with N divisible by {num_entities}, "
+            f"got {tuple(x.shape)}"
+        )
+    N, P = x.shape
+    _check_mask(mask, N)
+    if keep.shape != x.shape or keep.dtype != x.dtype:
+        raise ValueError(
+            f"keep must be {x.dtype} {tuple(x.shape)}, got {keep.dtype} {tuple(keep.shape)}"
+        )
+    if not _on_cuda(x, mask, keep):
+        return masked_tiered_aggregate_ref(x, mask, keep, do_entity, do_global, num_entities)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x dtype {x.dtype}: the kernel takes f32 or bf16")
+    if not (x.is_contiguous() and mask.is_contiguous() and keep.is_contiguous()):
+        raise ValueError("x, mask and keep must be contiguous")
+    lib = _library()
+    fn = (lib.masked_tiered_aggregate_f32 if x.dtype == torch.float32
+          else lib.masked_tiered_aggregate_bf16)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(
+            x.data_ptr(), mask.data_ptr(), keep.data_ptr(), out.data_ptr(), N, P,
+            num_entities, int(bool(do_entity)), int(bool(do_global)), stream,
+        )
+    _raise_on(status, "masked_tiered_aggregate")
+    launches["masked_tiered_aggregate"] += 1
+    return out
+
+
+def masked_quantized_tiered_aggregate(
+    q: torch.Tensor, scales: torch.Tensor, mask: torch.Tensor, keep: torch.Tensor,
+    do_entity, do_global, num_entities: int, tile_p: int = TILE_P,
+) -> torch.Tensor:
+    """Fused dequantize → participation-masked aggregate over the q8 wire
+    (B1m with the int8 load).  q [N, Pp] int8, scales [N, Pp/tile_p] f32,
+    ``keep`` f32 [N, P] with P <= Pp the unpadded width — the
+    pre-compression tree a silent group keeps.  Returns f32 [N, P]."""
+    if q.ndim != 2 or q.shape[0] % num_entities or q.shape[1] % tile_p:
+        raise ValueError(
+            f"q must be [N, Pp] with N divisible by {num_entities} and Pp by "
+            f"{tile_p}, got {tuple(q.shape)}"
+        )
+    N, Pp = q.shape
+    _check_mask(mask, N)
+    if scales.shape != (N, Pp // tile_p) or scales.dtype != torch.float32:
+        raise ValueError(
+            f"scales must be f32 [{N}, {Pp // tile_p}], got "
+            f"{scales.dtype} {tuple(scales.shape)}"
+        )
+    if q.dtype != torch.int8:
+        raise ValueError(f"q dtype {q.dtype}: the wire payload is int8")
+    if keep.ndim != 2 or keep.shape[0] != N or not 0 < keep.shape[1] <= Pp \
+            or keep.dtype != torch.float32:
+        raise ValueError(
+            f"keep must be f32 [{N}, P <= {Pp}], got {keep.dtype} {tuple(keep.shape)}"
+        )
+    if not _on_cuda(q, scales, mask, keep):
+        return masked_quantized_tiered_aggregate_ref(
+            q, scales, mask, keep, do_entity, do_global, num_entities, tile_p
+        )
+    if not all(t.is_contiguous() for t in (q, scales, mask, keep)):
+        raise ValueError("q, scales, mask and keep must be contiguous")
+    P = keep.shape[1]
+    lib = _library()
+    out = torch.empty((N, P), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.masked_tiered_aggregate_q8(
+            q.data_ptr(), scales.data_ptr(), mask.data_ptr(), keep.data_ptr(),
+            out.data_ptr(), N, Pp, tile_p, P, num_entities, int(bool(do_entity)),
+            int(bool(do_global)), stream,
+        )
+    _raise_on(status, "masked_tiered_aggregate_q8")
+    launches["masked_tiered_aggregate_q8"] += 1
+    return out
+
+
+def masked_tiered_aggregate_q8(
+    x: torch.Tensor, mask: torch.Tensor, keep: torch.Tensor, do_entity, do_global,
+    num_entities: int, tile_p: int = TILE_P,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Quantize [N, P] to the q8 wire, aggregate participation-masked fused
+    (B1m), return f32 [N, P]; ``keep`` (f32 [N, P]) is what a group with no
+    participant keeps."""
+    q, scales = q8_quantize(x.float(), tile_p, generator=generator)
+    return masked_quantized_tiered_aggregate(
+        q, scales, mask, keep, do_entity, do_global, num_entities, tile_p
+    )
+
+
 def aggregate_tree(
     tree: Any, weights: torch.Tensor, do_entity, do_global, num_entities: int,
     tile_p: int = TILE_P, quantized: bool = False,
@@ -371,3 +493,32 @@ def ragged_aggregate_tree(
         return out.reshape(x.shape)
 
     return tree_map(f, tree)
+
+
+def masked_aggregate_tree(
+    tree: Any, mask: torch.Tensor, do_entity, do_global, num_entities: int,
+    keep: Any = None, tile_p: int = TILE_P, quantized: bool = False,
+) -> Any:
+    """Apply the participation-masked aggregation (B1m) leaf-wise: one
+    launch per leaf.  ``keep`` (a tree like ``tree``, default ``tree``
+    itself) holds what a group with no participant keeps; with
+    ``quantized=True`` every leaf goes over the q8 wire and ``keep`` is the
+    pre-compression tree.  Outputs are cast back to the leaf dtype."""
+
+    def f(x, k):
+        if x.numel() == 0:
+            return x
+        n = x.shape[0]
+        flat = x.reshape(n, -1).contiguous()
+        kflat = flat if k is x else k.reshape(n, -1).contiguous()
+        if quantized:
+            out = masked_tiered_aggregate_q8(
+                flat, mask, kflat.float(), do_entity, do_global, num_entities, tile_p
+            ).to(x.dtype)
+        else:
+            out = masked_tiered_aggregate(
+                flat, mask, kflat.to(x.dtype), do_entity, do_global, num_entities
+            )
+        return out.reshape(x.shape)
+
+    return tree_map(f, tree, tree if keep is None else keep)

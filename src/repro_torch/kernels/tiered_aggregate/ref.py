@@ -13,7 +13,10 @@ Semantics (one tier's parameter shard, client-stacked):
 
 The ragged (per-class cut) variants add a 0/1 ``member`` [N] — or [N, U]
 over a shard of U units of E = P / U columns each — and only members feed
-and receive either level (``ragged_tiered_aggregate_ref``).
+and receive either level (``ragged_tiered_aggregate_ref``).  The masked
+variant (partial participation) weights each client by its 0/1 ``mask``
+[N], broadcasts to every row, and lets a group with no participant keep
+its rows of ``keep`` (``masked_tiered_aggregate_ref``).
 
 The CPU tests run these, and ``chip_smoke.py`` holds the CUDA kernels
 against them on the card.  Flags are host-side Python values.
@@ -132,3 +135,59 @@ def ragged_quantized_tiered_aggregate_ref(
         x[:, width:], weights, m[:, -1], do_entity, do_global, num_entities
     )
     return torch.cat([out, tail], dim=1)
+
+
+def _group_mean_masked(x: torch.Tensor, mask: torch.Tensor, keep: torch.Tensor,
+                       groups: int) -> torch.Tensor:
+    """One participation-weighted level over [N, P] — the arithmetic of the
+    JAX ``tiers._group_mean_masked``: f32 sums of w·x per group, divided by
+    max(Σ w, 1), broadcast to every member; zero-participant groups keep."""
+    N, P = x.shape
+    per = N // groups
+    g = x.reshape(groups, per, P)
+    gk = keep.reshape(groups, per, P)
+    wg = mask.float().reshape(groups, per)
+    s = torch.sum(wg, dim=1).reshape(groups, 1, 1)
+    tot = torch.sum(g * wg[..., None].to(g.dtype), dim=1, keepdim=True, dtype=torch.float32)
+    m = (tot / torch.clamp(s, min=1.0)).to(x.dtype)
+    return torch.where(s > 0.0, m.expand(g.shape), gk).reshape(N, P)
+
+
+def masked_tiered_aggregate_ref(
+    x: torch.Tensor, mask: torch.Tensor, keep: torch.Tensor,
+    do_entity, do_global, num_entities: int,
+) -> torch.Tensor:
+    """Participation-masked two-level aggregation (B1m's plain version),
+    level by level as the JAX ``synchronize(mask=)`` applies them:
+
+        entity (J groups):  y_i = s_g > 0 ? Σ_{g} w·x / s_g : keep_i
+        fed (one group):    y_i = S > 0 ? Σ w·y / S : keep'_i
+
+    with keep' = the entity level's output (which is ``keep`` wherever S = 0,
+    the only place the fed level reads it).  x and keep are [N, P] of one
+    dtype, mask is [N] 0/1.  The levels run in f32 and the output is cast
+    to x's dtype once, as the kernel and B1's plain version do.  For bf16
+    the JAX package rounds between the levels too; the two agree within two
+    bf16 ulps of a column's largest |x| (``tests/test_torch_participation``
+    holds this version to JAX's chain at that bound)."""
+    y, keep = x.float(), keep.float()
+    if do_entity:
+        y = _group_mean_masked(y, mask, keep, num_entities)
+    if do_global:
+        y = _group_mean_masked(y, mask, y if do_entity else keep, 1)
+    return y.to(x.dtype).contiguous()
+
+
+def masked_quantized_tiered_aggregate_ref(
+    q: torch.Tensor, scales: torch.Tensor, mask: torch.Tensor, keep: torch.Tensor,
+    do_entity, do_global, num_entities: int, tile_p: int,
+) -> torch.Tensor:
+    """B1m over the int8 wire: dequantize q [N, Pp], then the masked levels
+    over its first P = keep.shape[1] columns; returns f32 [N, P]."""
+    N, Pp = q.shape
+    if Pp % tile_p:
+        raise ValueError(f"payload width {Pp} is not a multiple of tile {tile_p}")
+    x = (q.reshape(N, Pp // tile_p, tile_p).float() * scales.float()[..., None]).reshape(N, Pp)
+    return masked_tiered_aggregate_ref(
+        x[:, :keep.shape[1]], mask, keep.float(), do_entity, do_global, num_entities
+    )

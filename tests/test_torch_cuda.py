@@ -19,7 +19,9 @@ from repro_torch.core import (
     class_tier_members, default_plan, init_state_a, ragged_synchronize, synchronize,
 )
 from repro_torch.kernels.tiered_aggregate import (
-    launches, quantized_tiered_aggregate, quantized_tiered_aggregate_ref,
+    launches, masked_quantized_tiered_aggregate, masked_quantized_tiered_aggregate_ref,
+    masked_tiered_aggregate, masked_tiered_aggregate_ref,
+    quantized_tiered_aggregate, quantized_tiered_aggregate_ref,
     ragged_quantized_tiered_aggregate, ragged_quantized_tiered_aggregate_ref,
     ragged_tiered_aggregate, ragged_tiered_aggregate_ref, reset_launches,
     tiered_aggregate, tiered_aggregate_ref,
@@ -104,10 +106,12 @@ def test_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
     # holds 1 unit (2 leaves), tier 1 two units, tier 2 two units
     if codec:
         assert launches == {"tiered_aggregate": 8, "tiered_aggregate_q8": 6,
-                            "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0}
+                            "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0,
+                            "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0}
     else:
         assert launches == {"tiered_aggregate": 10, "tiered_aggregate_q8": 0,
-                            "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0}
+                            "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0,
+                            "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0}
     cpu = synchronize({"frontend": {}, "units": [{k: v.cpu() for k, v in u.items()}
                                                  for u in params["units"]], "head": {}},
                       plan, 1, compressor=compressor)
@@ -115,6 +119,128 @@ def test_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
         for k in a:
             lsb = float(b[k].abs().max()) / 127 if codec else 1e-6
             torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-5, atol=lsb)
+
+
+def _mask(kind, N, J, g, device):
+    if kind == "all zero":
+        return torch.zeros(N, device=device)
+    if kind == "all ones":
+        return torch.ones(N, device=device)
+    m = (torch.rand(N, generator=g, device=device) < 0.6).float()
+    if kind == "zero groups":
+        m[: N // J] = 0.0
+    return m
+
+
+def _silent(mask, J, de, dg):
+    N = mask.shape[0]
+    if dg:
+        return torch.full((N,), bool(mask.sum() == 0), device=mask.device)
+    if de:
+        return (mask.reshape(J, -1).sum(1) == 0).repeat_interleave(N // J)
+    return torch.zeros(N, dtype=torch.bool, device=mask.device)
+
+
+MASK_KINDS = ["random", "zero groups", "all zero", "all ones"]
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("N,J,P", [(8, 4, 700), (20, 5, 2049), (4, 1, 100), (6, 6, 257)])
+def test_b1m_kernel_matches_plain(cuda, kind, N, J, P):
+    """f32 at the dense sync's tolerance, bf16 one ulp beyond it; the rows
+    of a group without a participant are ``keep`` bit for bit."""
+    g = torch.Generator(device=cuda).manual_seed(P)
+    mask = _mask(kind, N, J, g, cuda)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn(N, P, generator=g, device=cuda).to(dtype)
+        keep = torch.randn(N, P, generator=g, device=cuda).to(dtype)
+        for de, dg in FLAGS:
+            for k in (x, keep):
+                reset_launches()
+                out = masked_tiered_aggregate(x, mask, k, de, dg, J)
+                torch.cuda.synchronize()
+                assert launches["masked_tiered_aggregate"] == 1
+                ref = masked_tiered_aggregate_ref(x, mask, k, de, dg, J)
+                assert out.dtype == dtype
+                o, r = out.float(), ref.float()
+                tol = 1e-6 + 1e-5 * r.abs()
+                if dtype == torch.bfloat16:
+                    _, exp = torch.frexp(r)
+                    tol = tol + torch.ldexp(torch.ones_like(r), exp - 8)
+                assert bool(((o - r).abs() <= tol).all()), (kind, dtype, de, dg)
+                rows = _silent(mask, J, de, dg)
+                assert torch.equal(out[rows], k[rows])
+
+
+@pytest.mark.parametrize("kind", MASK_KINDS)
+@pytest.mark.parametrize("N,J,P,tile", [(20, 5, 1728, 256), (20, 1, 512, 256),
+                                        (6, 2, 1000, 128)])
+def test_b1m_int8_load_matches_plain(cuda, kind, N, J, P, tile):
+    g = torch.Generator(device=cuda).manual_seed(P + 1)
+    mask = _mask(kind, N, J, g, cuda)
+    x = torch.randn(N, P, generator=g, device=cuda)
+    keep = torch.randn(N, P, generator=g, device=cuda)
+    q, s = q8_quantize(x, tile)
+    for de, dg in FLAGS:
+        out = masked_quantized_tiered_aggregate(q, s, mask, keep, de, dg, J, tile)
+        torch.cuda.synchronize()
+        assert out.shape == (N, P)
+        torch.testing.assert_close(
+            out, masked_quantized_tiered_aggregate_ref(q, s, mask, keep, de, dg, J, tile),
+            rtol=1e-5, atol=1e-6)
+        rows = _silent(mask, J, de, dg)
+        assert torch.equal(out[rows], keep[rows])
+
+
+@pytest.mark.parametrize("codec", [None, 128])
+@pytest.mark.parametrize("kind", ["random", "zero groups", "all zero"])
+def test_masked_sync_on_card_matches_cpu_and_counts_launches(cuda, codec, kind):
+    plan = default_plan(REDUCED.n_units, 4, cuts=(1, 3), intervals=(2, 2, 1),
+                        entities=(4, 2, 1))
+    state = init_state_a(VggModel(REDUCED), plan, sgd(0.1),
+                         torch.Generator().manual_seed(0), cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    params = {"frontend": {}, "head": {}, "units": [
+        {k: v + torch.randn(v.shape, generator=g, device=cuda) for k, v in u.items()}
+        for u in state.params["units"]]}
+    mask = _mask(kind, 4, 2, g, cuda)
+    compressor = Int8Stochastic(codec) if codec else None
+    reset_launches()
+    got = synchronize(params, plan, 1, compressor=compressor, mask=mask)
+    torch.cuda.synchronize()
+    # as the unmasked sync's launches, each on B1m
+    want = {"masked_tiered_aggregate": 8, "masked_tiered_aggregate_q8": 6} if codec else {
+        "masked_tiered_aggregate": 10, "masked_tiered_aggregate_q8": 0}
+    assert launches == {"tiered_aggregate": 0, "tiered_aggregate_q8": 0,
+                        "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0, **want}
+    cpu = synchronize({"frontend": {}, "head": {}, "units": [
+        {k: v.cpu() for k, v in u.items()} for u in params["units"]]}, plan, 1,
+        compressor=compressor, mask=mask.cpu())
+    for a, b, c in zip(got["units"], cpu["units"], params["units"]):
+        for k in a:
+            if kind == "all zero":
+                assert torch.equal(a[k], c[k])
+            lsb = float(b[k].abs().max()) / 127 if codec else 1e-6
+            torch.testing.assert_close(a[k].cpu(), b[k], rtol=1e-5, atol=lsb)
+
+
+def test_masked_step_all_zero_is_an_exact_no_op_on_card(cuda):
+    plan = default_plan(REDUCED.n_units, 4, cuts=(1, 3), intervals=(2, 2, 1),
+                        entities=(4, 2, 1))
+    model, opt = VggModel(REDUCED), sgd(0.1)
+    state = init_state_a(model, plan, opt, torch.Generator().manual_seed(0), cuda)
+    dispatch = make_dispatch(model, plan, opt, compressor=Int8Stochastic(128))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    hw = REDUCED.image_size
+    for r in range(2):
+        batch = {"images": torch.randn(4, 2, hw, hw, 3, generator=g, device=cuda),
+                 "labels": torch.randint(0, 10, (4, 2), generator=g, device=cuda,
+                                         dtype=torch.int32)}
+        new, loss = dispatch(state, batch, r, torch.zeros(4, device=cuda))
+        assert float(loss) == 0.0
+        for a, b in zip(new.params["units"], state.params["units"]):
+            assert all(torch.equal(a[k], b[k]) for k in a)
+        state = new
 
 
 def _members(N, J, U, g, device):
@@ -180,7 +306,8 @@ def test_ragged_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
         want = {"ragged_tiered_aggregate": 10, "ragged_tiered_aggregate_q8": 10}
     else:
         want = {"ragged_tiered_aggregate": 16, "ragged_tiered_aggregate_q8": 0}
-    assert launches == {"tiered_aggregate": 0, "tiered_aggregate_q8": 0, **want}
+    assert launches == {"tiered_aggregate": 0, "tiered_aggregate_q8": 0,
+                        "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0, **want}
     cpu_params = {"frontend": {}, "head": {}, "units": [
         {k: v.cpu() for k, v in u.items()} for u in params["units"]]}
     cpu = ragged_synchronize(cpu_params, plan, class_tier_members(5, cc, co, "cpu"), 5,

@@ -126,7 +126,7 @@ def test_init_state_and_replication():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(with_mask=True), "A10"), (dict(privacy=object()), "A11"),
+    (dict(privacy=object()), "A11"),
     (dict(guard=object()), "A11"), (dict(with_sync_weights=True), "A11"),
 ])
 def test_unported_engine_options_raise(kw, item):
@@ -193,9 +193,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(entry):
 def test_train_cli_has_only_the_ported_flags():
     args = train.parse_args([])
     assert args.device == "cuda" and args.arch == "vgg16-cifar10"
-    for flag in ("--auto-optimize", "--shard-data", "--staleness"):
+    for flag in ("--shard-data", "--staleness"):
         with pytest.raises(SystemExit):
             train.parse_args([flag])
+    args = train.parse_args(["--auto-optimize"])
+    assert args.auto_optimize and args.probe_rounds == 8 and args.eps_scale == 4.0
     # --arch takes any id, as the JAX CLI does; the unported ones raise
     assert train.parse_args(["--arch", "smollm-135m"]).arch == "smollm-135m"
     with pytest.raises(NotImplementedError, match="A14"):

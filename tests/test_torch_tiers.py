@@ -136,18 +136,17 @@ def test_sync_kernel_mapping_counts_no_plain_launches():
                 compressor=Int8Stochastic(128))
     assert ops.launches == dict.fromkeys(ops.launches, 0)
     assert set(ops.launches) == {"tiered_aggregate", "tiered_aggregate_q8",
-                                 "ragged_tiered_aggregate", "ragged_tiered_aggregate_q8"}
+                                 "ragged_tiered_aggregate", "ragged_tiered_aggregate_q8",
+                                 "masked_tiered_aggregate", "masked_tiered_aggregate_q8"}
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
     plan = default_plan(5, 4, cuts=(1, 3), intervals=(2, 2, 1), entities=(4, 2, 1))
     tree = params_from_numpy(_stacked_tree(4, 2), CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
-        synchronize(tree, plan, 0, mask=torch.ones(4))
     with pytest.raises(NotImplementedError, match="A11"):
         synchronize(tree, plan, 0, guard=object())
     members = class_tier_members(5, [(1, 3)], [0, 0, 0, 0], CPU)
-    with pytest.raises(NotImplementedError, match="A10"):
+    with pytest.raises(NotImplementedError, match="A11"):
         ragged_synchronize(tree, plan, members, 0, mask=torch.ones(4))
     with pytest.raises(NotImplementedError, match="A11"):
         ragged_synchronize(tree, plan, members, 0, guard=object())
