@@ -51,17 +51,40 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    clients; the fleet simulator's ``simulate_rounds`` on NumPy and on the
    card at 20 to 10^6 clients and its lattice pricing at 20 to 10^5, equal
    with ``==``, timed for ``sim.fleet.AUTO_TORCH_MIN_ELEMS``;
+   then costs and robustness: B3m (the masked per-class mean) against its
+   plain version at every VGG-16 leaf width and a stacked smollm-135m row
+   (the per-class plan's members, all, none; all-ones, all-zero, 7-of-20 and
+   silent-group masks; every flag pair; f32, bf16 within two ulps of JAX's
+   level chain, the int8 load); the fault storm through ``api.run`` at full
+   width — smollm-135m (N=8, J2=4, batch 1, seq 1024, cuts (6, 15),
+   intervals (8, 4, 1)) and VGG-16 with bitflip and scale corruption, 8
+   rounds at the ``fault-storm`` preset's rates, a checkpoint every 4
+   rounds, the engine crashing at round 5 and resuming — every loss and
+   param finite after every step, every tier whose fed level ran holding one
+   value, B1m's launches as the plan and the step counters imply, smollm's
+   peak memory at most 70 GB; the ``fault-storm`` preset itself; per-class
+   VGG-16 under crashes and nan corruption with the guard on, 12 rounds
+   plain and over the int8 wire, B3m's launches as the plan implies; the
+   ``privacy-energy`` preset in train mode (DP, and DP then B2), its
+   energy-priced solve on the card against NumPy, the DP wire repeating from
+   one seed, z = 0 against the CPU; ``launch.train --staleness 2`` at VGG-16
+   full width, 12 rounds and the drain, and staleness 0 against the
+   synchronous dispatch bit for bit;
 6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
    bound is 3xTF32 on the tensor cores, with the f32 CUDA-core one beside it); the parts
-   of a full-width round of each model, the per-class one included;
+   of a full-width round of each model, the per-class one included; B3m and
+   its int8 load at [20, 2359296], guard_health at both models' full
+   width, the DP transform, and the new paths' round times beside their
+   twins without faults, DP or staleness;
 7. one JSON line describing every kernel, then the card, then
    ``{"ok": true, ...}`` as the last line.
 """
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import io
 import json
 import math
@@ -95,6 +118,12 @@ RAGGED = ("ragged_tiered_aggregate", "ragged_tiered_aggregate_q8")
 # over the int8 wire's decoded uploads
 MASKED = ("masked_tiered_aggregate", "masked_tiered_aggregate_q8")
 REPLACES.update(dict.fromkeys(MASKED, "src/repro/core/tiers.py:262"))
+# B3m replaces no TPU kernel: the jnp tiers._ragged_units_mean under a mask
+# (the fault guard's or participation's), dense and over the int8 wire
+MASKED_RAGGED = ("masked_ragged_tiered_aggregate", "masked_ragged_tiered_aggregate_q8")
+REPLACES.update(dict.fromkeys(MASKED_RAGGED, "src/repro/core/tiers.py:456"))
+# round times (ms) of each path, by label, for the new paths' comparison
+ROUND_MS = {}
 REPLACES.update({
     "swa_attention_fwd": "src/repro/kernels/swa_attention/swa_attention.py:96",
     "swa_attention_bwd_dq": "src/repro/kernels/swa_attention/swa_attention.py:198",
@@ -386,6 +415,7 @@ def main_path(rounds: int = 8):
           f"(checkpoint included), B1 {got[0]} B2 {got[1]} launches "
           f"(plan implies {want}), no twin or B3 launch, replicas equal")
     print(json.dumps({"run": "uncompressed", "loss": losses, "round_ms": ms}))
+    ROUND_MS["VGG-16 CLI (3, 8), (8, 4, 1)"] = ms
 
     # the same rounds with the int8 codec on the fed wire
     reset_all_launches()
@@ -422,7 +452,7 @@ def main_path(rounds: int = 8):
           f"{peak:.2f} GiB")
     print(json.dumps({"run": "int8", "loss": losses, "round_ms": ms}))
     assert not any(plain[k] + comp_all[k] for k in MASKED), "the dense path launched B1m"
-    counts = {k: plain[k] + comp_all[k] for k in AGG + RAGGED + MASKED}
+    counts = {k: plain[k] + comp_all[k] for k in AGG + RAGGED + MASKED + MASKED_RAGGED}
     return counts, dict(model=model, plan=plan, opt=opt, state=state, batch=batch)
 
 
@@ -826,6 +856,7 @@ def class_path(solved, rounds: int = 12):
               f"launches as the plan implies, no B1/B2; finite losses; the holders of "
               f"every (unit, tier) agree after rounds 6 and 12")
         print(json.dumps({"run": f"per-class {name}", "loss": losses, "round_ms": ms}))
+        ROUND_MS[f"per-class {name}"] = ms
     return counts, dict(model=model, plan=plan, opt=opt, state=state, batch=batch,
                         members=members)
 
@@ -1146,7 +1177,8 @@ def lm_expected(plan, params, n_units, rounds):
     b1, b2 = expected_launches(plan, rounds, compressed=False,
                                leaves=tier_leaves(params, plan))
     return {"tiered_aggregate": b1, "tiered_aggregate_q8": b2, **dict.fromkeys(RAGGED, 0),
-            **dict.fromkeys(MASKED, 0), **dict.fromkeys(ATTN, n_units * rounds)}
+            **dict.fromkeys(MASKED, 0), **dict.fromkeys(MASKED_RAGGED, 0),
+            **dict.fromkeys(ATTN, n_units * rounds)}
 
 
 def lm_cli(rounds: int = 8):
@@ -1227,6 +1259,7 @@ def lm_main_path(rounds: int = 8):
           f"memory {peak / 2**30:.2f} GiB")
     print(json.dumps({"run": "smollm-135m", "loss": losses, "round_ms": ms,
                       "peak_bytes": peak}))
+    ROUND_MS["smollm-135m"] = ms
     return got, dict(model=model, plan=plan, opt=opt, state=state, batch=batch, spec=spec)
 
 
@@ -1704,6 +1737,7 @@ def api_train(api, spec, label: str):
           f"rounds in {wall:.2f} s (solve included), final loss {losses[-1]:.4f}")
     print(json.dumps({"run": f"api {label}", "cuts": res.cuts, "intervals": res.intervals,
                       "loss": losses, "round_ms": ms}))
+    ROUND_MS[f"api {label}"] = ms
     return res, got, seen["state"]
 
 
@@ -1844,6 +1878,698 @@ def sim_backends(card: str):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# costs and robustness: B3m, the fault storm (guard, crashes, outage, engine
+# crash), the DP fed wire with energy pricing, bounded-staleness async
+# --------------------------------------------------------------------------- #
+
+B3M_MASKS = ("all-ones", "all-zero", "7-of-20", "silent entity group")
+
+
+def b3m_mask(kind: str, N: int, J: int, gen, dev):
+    """f32 0/1 [N]: everyone; no one; 7 clients at random; the first entity
+    group silent and the rest present."""
+    import torch
+
+    if kind == "all-ones":
+        return torch.ones(N, device=dev)
+    if kind == "all-zero":
+        return torch.zeros(N, device=dev)
+    if kind == "7-of-20":
+        m = torch.zeros(N, device=dev)
+        m[torch.randperm(N, generator=gen, device=dev)[:min(7, N - 1)]] = 1.0
+        return m
+    m = torch.ones(N, device=dev)
+    m[:N // J] = 0.0
+    return m
+
+
+def b3m_receivers(mask, member, P: int, J: int, de, dg):
+    """[N, P] bool: the elements a B3m launch writes a mean to; every other
+    element must equal ``keep`` bit for bit (or x, with neither level)."""
+    N = mask.shape[0]
+    m = member.reshape(N, -1)
+    cw = m * mask[:, None]
+    if dg:
+        got = (m > 0) & (cw.sum(0, keepdim=True) > 0)
+    elif de:
+        got = (m > 0) & (cw.reshape(J, N // J, -1).sum(1) > 0).repeat_interleave(N // J, 0)
+    else:
+        got = m < 0
+    return got.repeat_interleave(P // m.shape[1], dim=1)
+
+
+def jax_ragged_chain(x, mask, member, keep, de, dg, J):
+    """The JAX package's ``ragged_synchronize(mask=)`` unit levels in x's
+    own dtype: each level's f32 mean is rounded to x's dtype."""
+    from repro_torch.kernels.tiered_aggregate.ref import _ragged_level_masked
+
+    N, P = x.shape
+    m = member.float().reshape(N, -1)
+    U = m.shape[1]
+    m3 = m.reshape(N, U, 1)
+    cw = m3 * mask.reshape(N, 1, 1)
+    y, k = x.float().reshape(N, U, -1), keep.float().reshape(N, U, -1)
+    if de:
+        y = _ragged_level_masked(y, k, m3, cw, J).to(x.dtype).float()
+    if dg:
+        y = _ragged_level_masked(y, y if de else k, m3, cw, 1).to(x.dtype).float()
+    return y.reshape(N, P)
+
+
+def check_masked_ragged_kernels(spec):
+    """B3m against its plain version at every VGG-16 leaf width (N=20, J=5
+    and J=1) and at a stacked [N, U·E] row of smollm-135m's 30 units with a
+    random [N, U] member: the solved per-class plan's class members, all, none; masks
+    all-ones, all-zero, 7 of 20, one silent entity group; every flag pair;
+    f32, bf16 (also within BF16_MASKED_ULPS ulps of a column's largest |x|
+    of JAX's level chain, which rounds between the levels) and the int8
+    load.  Every element that receives no mean equals ``keep`` bit for
+    bit; an all-zero mask returns ``keep``."""
+    import torch
+
+    from repro_torch.compress.quantize import q8_quantize
+    from repro_torch.kernels.tiered_aggregate import (
+        launches, masked_ragged_quantized_tiered_aggregate,
+        masked_ragged_quantized_tiered_aggregate_ref, masked_ragged_tiered_aggregate,
+        masked_ragged_tiered_aggregate_ref, reset_launches,
+    )
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    flags = [(de, dg) for de in (0, 1) for dg in (0, 1)]
+    N = 20
+    odd = (torch.arange(N, device=dev) % 2).float()[:, None]
+    class_members = {"class 0 (odd rows)": odd, "class 1 (even rows)": 1.0 - odd,
+                     "all": torch.ones(N, 1, device=dev), "none": torch.zeros(N, 1, device=dev)}
+    cases = [(N, J, P, class_members) for P in vgg_leaf_widths(spec) for J in (5, 1)]
+    stacked = {"random [N, U]": (torch.rand(8, 30, generator=gen, device=dev) > 0.5).float(),
+               "all": torch.ones(8, 30, device=dev)}
+    cases.append((8, 4, 30 * 576, stacked))
+    errs = dict.fromkeys(MASKED_RAGGED, 0.0)
+    bf16_err = bf16_ulps = 0.0
+    calls = dict.fromkeys(MASKED_RAGGED, 0)
+    reset_launches()
+    for n, J, P, members in cases:
+        x = torch.randn(n, P, generator=gen, device=dev)
+        keep = torch.randn(n, P, generator=gen, device=dev)
+        xb, kb = x.bfloat16(), keep.bfloat16()
+        q, scales = q8_quantize(x, Q8_TILE)
+        colmax_ulp = torch.exp2(torch.floor(torch.log2(xb.float().abs().amax(0))) - 7)
+        for kind in B3M_MASKS:
+            mask = b3m_mask(kind, n, J, gen, dev)
+            for pattern, m in members.items():
+                for de, dg in flags:
+                    what = (f"B3m N={n} J={J} P={P} member {pattern} mask {kind} "
+                            f"do_entity={de} do_global={dg}")
+                    rows = ~b3m_receivers(mask, m, P, J, de, dg)
+                    out = masked_ragged_tiered_aggregate(x, mask, m, keep, de, dg, J)
+                    ob = masked_ragged_tiered_aggregate(xb, mask, m, kb, de, dg, J)
+                    oq = masked_ragged_quantized_tiered_aggregate(q, scales, mask, m, keep, de,
+                                                                  dg, J, Q8_TILE)
+                    for k in calls:
+                        calls[k] += 2 if k == MASKED_RAGGED[0] else 1
+                    torch.cuda.synchronize()
+                    e = max_err(out, masked_ragged_tiered_aggregate_ref(x, mask, m, keep, de,
+                                                                        dg, J),
+                                torch.float32, what)
+                    errs[MASKED_RAGGED[0]] = max(errs[MASKED_RAGGED[0]], e)
+                    bf16_err = max(bf16_err, max_err(
+                        ob, masked_ragged_tiered_aggregate_ref(xb, mask, m, kb, de, dg, J),
+                        torch.bfloat16, f"{what} bf16"))
+                    u = float(((ob.float() - jax_ragged_chain(xb, mask, m, kb, de, dg, J)).abs()
+                               / colmax_ulp).max())
+                    if u > BF16_MASKED_ULPS:
+                        raise AssertionError(f"{what}: {u} bf16 ulps from JAX's level chain, "
+                                             f"limit {BF16_MASKED_ULPS}")
+                    bf16_ulps = max(bf16_ulps, u)
+                    e = max_err(oq, masked_ragged_quantized_tiered_aggregate_ref(
+                        q, scales, mask, m, keep, de, dg, J, Q8_TILE), torch.float32,
+                        f"{what} int8")
+                    errs[MASKED_RAGGED[1]] = max(errs[MASKED_RAGGED[1]], e)
+                    if de or dg:
+                        for o, k, t in ((out, keep, "f32"), (ob, kb, "bf16"), (oq, keep, "int8")):
+                            if not torch.equal(o[rows], k[rows]):
+                                raise AssertionError(f"{what} {t}: an element that receives "
+                                                     "no mean is not keep")
+                        if kind == "all-zero" and not torch.equal(out, keep):
+                            raise AssertionError(f"{what}: an all-zero mask is not keep")
+        del x, keep, xb, kb, q, scales
+    got = {k: launches[k] for k in calls}
+    if got != calls:
+        raise AssertionError(f"B3m launches {got}, calls {calls}")
+    reset_launches()
+    print(f"[kernels] {sum(calls.values())} checks of B3m against its plain version passed "
+          f"({len(cases)} shapes: every VGG-16 leaf width at J=5 and J=1, a stacked "
+          f"smollm-135m row; members x masks {', '.join(B3M_MASKS)} x every flag pair x "
+          f"f32, bf16, int8; f32 rtol {F32_RTOL} atol {F32_ATOL}, bf16 one ulp beyond that; "
+          f"elements receiving no mean keep keep bit for bit); max |err| f32 "
+          f"{errs[MASKED_RAGGED[0]]:.3e} bf16 {bf16_err:.3e} int8 "
+          f"{errs[MASKED_RAGGED[1]]:.3e}; bf16 within {bf16_ulps:g} ulps of JAX's level chain "
+          f"(limit {BF16_MASKED_ULPS}); launches {got}")
+    return errs, {MASKED_RAGGED[0]: bf16_err, MASKED_RAGGED[1]: None}
+
+
+def masked_expected(plan, steps, leaves):
+    """B1m launches of the guarded (or masked) dense sync over the rounds a
+    step ran, given each step's input counter: one fused launch per leaf of
+    every tier whose entity or fed level runs."""
+    n = 0
+    for s in steps:
+        for m in range(plan.M):
+            levels = plan.levels(m)
+            interval = levels[-1][1]
+            if len(levels) == 2 or interval <= 1 or (s + 1) % interval == 0:
+                n += leaves[m]
+    return n
+
+
+def fed_ran(plan, s: int, m: int) -> bool:
+    interval = plan.levels(m)[-1][1]
+    return interval <= 1 or (s + 1) % interval == 0
+
+
+def api_fault_run(api, spec, label: str):
+    """``api.run(spec)`` in train mode on the card under a faults section.
+    The engine step is wrapped to record each step's input counter, time it
+    to the next one (less the checks' own time), and check after every step
+    that every param is finite and that every tier whose fed level ran holds
+    one value."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import tier_subtrees
+    from repro_torch.models.vgg import VggSpec
+
+    built = api.build(spec)
+    run_mod = sys.modules["repro_torch.api.run"]
+    make_step = run_mod._make_step
+    seen = {"t": [], "steps": [], "check_s": []}
+
+    def hooked(b, model, plan, opt, with_mask):
+        step = make_step(b, model, plan, opt, with_mask)
+        seen["plan"] = plan
+
+        def wrapped(state, *a):
+            seen["t"].append(time.perf_counter())
+            seen["steps"].append(state.step)
+            out, loss = step(state, *a)
+            torch.cuda.synchronize()
+            t_check = time.perf_counter()
+            for i, x in enumerate(tree_leaves(out.params)):
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"{label}: leaf {i} not finite after step "
+                                         f"{state.step}")
+            for m, part in enumerate(tier_subtrees(out.params, plan)):
+                if fed_ran(plan, state.step, m):
+                    for x in tree_leaves(part):
+                        if x.numel() and not bool((x == x[0:1]).all()):
+                            raise AssertionError(f"{label}: tier {m} replicas differ after "
+                                                 f"step {state.step}")
+            seen["state"] = out
+            seen["check_s"].append(time.perf_counter() - t_check)
+            return out, loss
+
+        return wrapped
+
+    run_mod._make_step = hooked
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        res = api.run(spec, built=built)
+        wall = time.perf_counter() - t0
+    finally:
+        run_mod._make_step = make_step
+    got = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    losses = res.train["losses"]
+    if len(losses) != spec.run.rounds or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    plan = seen["plan"]
+    leaves = tier_leaves(seen["state"].params, plan)
+    want = {k: 0 for k in got}
+    want["masked_tiered_aggregate"] = masked_expected(plan, seen["steps"], leaves)
+    if not isinstance(built.model_spec, VggSpec):  # B4 and B5 on every layer
+        want.update(dict.fromkeys(ATTN, built.model_spec.n_units * len(seen["steps"])))
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, the plan and steps imply {want}")
+    ms = [(b - a - c) * 1e3 for a, b, c in zip(seen["t"], seen["t"][1:], seen["check_s"])]
+    fr = res.train["faults"]
+    print(f"[faults] {label}: cuts {res.cuts} intervals {res.intervals}, "
+          f"{spec.run.rounds} rounds in {wall:.2f} s (build, checkpoints and resume "
+          f"included); step counters {seen['steps']}; faulty client-rounds "
+          f"{fr['n_faulty_total']} in {fr['faulty_rounds']} rounds, checkpoints "
+          f"{fr['checkpoints']}, resumed at round {fr['recovered_round']}; every loss and "
+          f"param finite, every tier whose fed level ran holds one value; B1m "
+          f"{got['masked_tiered_aggregate']} launches as the plan and steps imply, no "
+          f"B1/B2; peak device memory {peak / 1e9:.2f} GB")
+    print(json.dumps({"run": f"faults {label}", "loss": losses, "round_ms": ms,
+                      "peak_bytes": peak, "faults": fr}))
+    ROUND_MS[f"faults {label}"] = ms
+    return res, got, seen["state"], ms, peak
+
+
+def guard_ms(params, N: int):
+    """guard_health's time on a client-stacked tree: the health alone, with
+    the sanitized copy, and its two row reductions over every leaf."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.tiers import GuardSpec, guard_health
+
+    g = GuardSpec()
+    rows = [x.reshape(N, -1) for x in tree_leaves(params) if x.ndim and x.shape[0] == N]
+    return {
+        "health": cuda_ms(lambda: guard_health(params, N, g, sanitize=False), iters=5),
+        "health+sanitize": cuda_ms(lambda: guard_health(params, N, g), iters=5),
+        "aminmax pass": cuda_ms(lambda: [torch.aminmax(f, dim=1) for f in rows], iters=5),
+        "2-norm pass": cuda_ms(lambda: [torch.linalg.vector_norm(f, dim=1) for f in rows],
+                               iters=5),
+    }
+
+
+def fault_storm_paths(card: str):
+    """The fault storm at full width through ``api.run``: smollm-135m (the
+    storm preset's arch; B4/B5 on every layer), VGG-16 with bitflip and
+    scale corruption, then the ``fault-storm`` preset as the JAX package
+    defines it.  Every run 8 rounds at the preset's rates with
+    checkpoint_every 4 and the engine crashing at round 5 (except the
+    preset, 40 rounds)."""
+    import torch
+
+    from repro_torch import api
+
+    ckpt = ROOT / "build" / "chip_smoke" / "faults"
+    faults = dict(rounds=8, checkpoint_every=4, engine_crash_round=5)
+    storm = api.fault_storm_spec(**faults)
+    storm = storm.replace(faults=dataclasses.replace(storm.faults, checkpoint_dir=str(ckpt)))
+    lm = storm.replace(
+        model=api.ModelCfg(arch="smollm-135m", variant="full", batch=LM_BATCH, seq=1024),
+        solver=api.SolverCfg(kind="fixed", cuts=(6, 15), intervals=(8, 4, 1)),
+        run=api.RunCfg(mode="train", rounds=8, lr=5e-4, dataset_size=64))
+    assert storm.faults.outage_start == 2 and storm.faults.outage_len == 1
+    counts, out = {}, {}
+    res, got, state, ms, peak = api_fault_run(api, lm, "smollm-135m full width")
+    if peak > 70e9:
+        raise AssertionError(f"smollm-135m fault storm peaked at {peak / 1e9:.2f} GB > 70 GB")
+    counts["smollm-135m-fault-storm"] = got
+    # the guard's cost at full width: the step's health check (no sanitized
+    # copy) and the sync's (health + the sanitized tree), both each round
+    gm = guard_ms(state.params, 8)
+    med = sorted(ms)[len(ms) // 2]
+    share = (gm["health"] + gm["health+sanitize"]) / med
+    print(f"[timing] guard_health at smollm-135m full width (8 x 134.5 M f32), ms: "
+          f"{json.dumps(gm)}; the two calls of a round are {100 * share:.1f}% of the "
+          f"{med:.1f} ms median storm round; card {card}")
+    out["smollm"] = dict(round_ms=ms, peak=peak, guard_ms=gm, share=share)
+    del state
+    vgg = storm.replace(
+        model=api.ModelCfg(arch="vgg16-cifar10", variant="full", batch=16),
+        system=api.SystemCfg(preset="paper-three-tier", num_clients=20, num_edges=5),
+        solver=api.SolverCfg(kind="fixed", cuts=(3, 8), intervals=(8, 4, 1)),
+        run=api.RunCfg(mode="train", rounds=8, lr=5e-4, dataset_size=4096))
+    for mode in ("bitflip", "scale"):
+        spec = vgg.replace(faults=dataclasses.replace(vgg.faults, corrupt_mode=mode))
+        _, got, state, ms, _ = api_fault_run(api, spec, f"VGG-16 full width, {mode}")
+        counts[f"vgg16-cifar10-fault-storm-{mode}"] = got
+        out[f"vgg-{mode}"] = dict(round_ms=ms)
+    gm = guard_ms(state.params, 20)
+    print(f"[timing] guard_health at VGG-16 full width (20 x 15.0 M f32), ms: "
+          f"{json.dumps(gm)}; card {card}")
+    out["vgg-guard_ms"] = gm
+    del state
+    preset = api.fault_storm_spec()
+    _, got, _, ms, _ = api_fault_run(api, preset, "fault-storm preset (REDUCED smollm-135m, "
+                                                  "4 layers, N=8, 40 rounds)")
+    counts["fault-storm-preset"] = got
+    out["preset"] = dict(round_ms=ms)
+    import shutil
+
+    shutil.rmtree(ckpt, ignore_errors=True)
+    return counts, out
+
+
+def round_time_comparison(card: str) -> None:
+    """Median round times of the new paths beside their unguarded twins."""
+    def med(label):
+        v = sorted(ROUND_MS.get(label, [])[1:] or ROUND_MS.get(label, [float("nan")]))
+        return v[len(v) // 2]
+
+    pairs = [("faults smollm-135m full width", "smollm-135m"),
+             ("faults VGG-16 full width, bitflip", "VGG-16 CLI (3, 8), (8, 4, 1)"),
+             ("faults VGG-16 full width, scale", "VGG-16 CLI (3, 8), (8, 4, 1)"),
+             ("per-class storm plain", "per-class plain"),
+             ("per-class storm int8", "per-class int8"),
+             ("api privacy-energy train", "api paper-sec7 train"),
+             ("api privacy-energy int8 train", "api compressed-int8 train"),
+             ("async staleness 2", "VGG-16 CLI (3, 8), (8, 4, 1)")]
+    print("[timing] median round ms (rounds 2 on), new path vs its twin without faults, "
+          "DP or staleness: " + json.dumps({a: [med(a), b, med(b)] for a, b in pairs})
+          + f"; card {card}")
+
+
+def class_fault_storm(solved, rounds: int = 12):
+    """Per-class VGG-16 at full width under the storm's crash and ``nan``
+    corruption rates, the guard on: the solved class cuts and intervals,
+    12 rounds plain and 12 over the int8 fed wire, the unit levels on B3m
+    only; after rounds 6 and 12 the holders of every (unit, tier) agree."""
+    import numpy as np
+    import torch
+
+    from repro_torch.compress import Int8Stochastic
+    from repro_torch.core import TrainState, class_tier_members, default_plan, init_state_a
+    from repro_torch.core.tiers import GuardSpec
+    from repro_torch.faults import FaultSpec, apply_corruption, expand_faults
+    from repro_torch.launch import train
+
+    argv = ["--arch", "vgg16-cifar10", "--clients", "20", "--edges", "5",
+            "--batch", "16", "--rounds", str(rounds)]
+    class_cuts, intervals = solved["class_cuts"], solved["intervals"]
+    fs = FaultSpec(seed=0, crash_rate=0.08, corrupt_rate=0.08, corrupt_mode="nan")
+    counts = dict.fromkeys(MASKED_RAGGED, 0)
+    by_run, ms_by = {}, {}
+    for name, compressor in (("plain", None), ("int8", Int8Stochastic(tile=Q8_TILE))):
+        args = train.parse_args(argv)
+        device, spec, model, _, opt, loader = train.setup(args)
+        N = args.clients
+        plan = default_plan(spec.n_units, N, cuts=class_cuts[0], intervals=intervals,
+                            entities=(N, args.edges, 1))
+        members = class_tier_members(spec.n_units, class_cuts, solved["class_of"])
+        state = init_state_a(model, plan, opt, torch.Generator().manual_seed(args.seed),
+                             device)
+        dispatch = train.make_dispatch(model, plan, opt, compressor=compressor,
+                                       class_members=members, guard=GuardSpec())
+        torch.cuda.synchronize()
+        reset_all_launches()
+        losses, ms, n_faulty = [], [], 0
+        for r in range(rounds):
+            t = time.perf_counter()
+            rf = expand_faults(fs, r, N)
+            n_faulty += rf.n_faulty
+            if rf.corrupt.any():
+                state = TrainState(apply_corruption(state.params, rf.corrupt, fs),
+                                   state.opt_state, state.step)
+            mask = torch.as_tensor(~rf.crashed, dtype=torch.float32, device=device)
+            batch = train.to_device(loader.next_round(), device)
+            state, loss = dispatch(state, batch, r, mask)
+            losses.append(float(loss))  # waits for the round
+            ms.append((time.perf_counter() - t) * 1e3)
+            if (r + 1) % 6 == 0:
+                assert_member_sets_agree(state.params, members.host,
+                                         f"per-class storm {name}, round {r + 1}")
+        got = all_launches()
+        twin, b3 = ragged_expected(members.host, plan, rounds, compressor is not None)
+        want = {k: 0 for k in got}
+        want.update({MASKED_RAGGED[0]: twin, MASKED_RAGGED[1]: b3})
+        if got != want:
+            raise AssertionError(f"per-class storm {name}: launches {got}, the plan "
+                                 f"implies {want}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"per-class storm {name}: losses {losses}")
+        if not all(bool(torch.isfinite(x).all()) for u in state.params["units"]
+                   for x in u.values()):
+            raise AssertionError(f"per-class storm {name}: a param is not finite")
+        for k in MASKED_RAGGED:
+            counts[k] += got[k]
+        by_run[f"vgg16-cifar10-per-class-fault-storm-{name}"] = got
+        ms_by[name] = ms
+        print(f"[faults] per-class VGG-16 {name}: class cuts {class_cuts}, intervals "
+              f"{intervals}, N=20, J2=5, batch 16, {rounds} rounds, crash 0.08 and nan "
+              f"corruption 0.08 ({n_faulty} faulty client-rounds), guard on: B3m "
+              f"{got[MASKED_RAGGED[0]]} + int8 load {got[MASKED_RAGGED[1]]} launches as "
+              f"the plan implies, nothing else; finite losses and params; the holders of "
+              f"every (unit, tier) agree after rounds 6 and 12")
+        print(json.dumps({"run": f"per-class fault storm {name}", "loss": losses,
+                          "round_ms": ms}))
+        ROUND_MS[f"per-class storm {name}"] = ms
+        del state
+    assert np.isfinite(sum(counts.values()))
+    return counts, by_run, ms_by
+
+
+def privacy_paths(card: str, rounds: int = 8):
+    """``privacy_energy_spec`` through ``api.run`` at VGG-16 full width, 8
+    rounds (DP z = 8, C = 1e-4 on the fed wire; energy pricing), and the same
+    over the int8 wire (DP, then B2); the energy-priced solve on the card
+    against NumPy; DP on the card reproducible from one seed; z = 0 on the
+    card against the CPU on REDUCED VGG."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs.vgg16_cifar10 import REDUCED
+    from repro_torch.core import (
+        build_train_step_a, default_plan, init_state_a, synchronize, tier_subtrees,
+    )
+    from repro_torch.core.tiers import FedWire, TierPlan
+    from repro_torch.models import VggModel
+    from repro_torch.optim import sgd
+    from repro_torch.privacy import DPMechanism
+
+    train_run = api.RunCfg(mode="train", rounds=rounds, lr=5e-4)
+    budgets = dict(epsilon_budget=3e4, budget_j_per_round=25.0)
+    card_solve = api.run(api.privacy_energy_spec(**budgets).replace(
+        solver=api.SolverCfg(backend="jax")))
+    host_solve = api.run(api.privacy_energy_spec(**budgets).replace(
+        solver=api.SolverCfg(backend="numpy")))
+    if (card_solve.cuts, card_solve.intervals, card_solve.theta, card_solve.energy,
+            card_solve.privacy) != (host_solve.cuts, host_solve.intervals, host_solve.theta,
+                                    host_solve.energy, host_solve.privacy):
+        raise AssertionError(f"energy-priced solve on the card {card_solve} differs from "
+                             f"NumPy's {host_solve}")
+    print(f"[privacy] run(privacy_energy_spec(epsilon_budget=3e4, budget_j_per_round=25)) "
+          f"solve: cuts {card_solve.cuts} intervals {card_solve.intervals} theta "
+          f"{card_solve.theta!r}, round energy {card_solve.energy['round_energy_j']!r} J, "
+          f"max rounds {card_solve.privacy['max_rounds']}: the card's tables equal NumPy's")
+    specs = {"privacy-energy train": api.privacy_energy_spec().replace(run=train_run),
+             "privacy-energy int8 train": api.privacy_energy_spec().replace(
+                 run=train_run, compression=api.CompressionCfg(codec="int8"))}
+    counts, ms_by = {}, {}
+    for label, spec in specs.items():
+        res, got, state = api_train(api, spec, label)
+        built = api.build(spec)
+        plan = TierPlan(n_units=built.model_spec.n_units, num_clients=built.system.num_clients,
+                        cuts=res.cuts, intervals=res.intervals, entities=built.system.entities)
+        leaves = [2 * (hi - lo) for lo, hi in map(plan.tier_bounds, range(plan.M))]
+        b1, b2 = expected_launches(plan, rounds, True, leaves)
+        want = {k: 0 for k in got}
+        if spec.compression is None:
+            want["tiered_aggregate"] = b1 + b2  # the DP'd fed mean on B1
+        else:
+            want["tiered_aggregate"], want["tiered_aggregate_q8"] = b1, b2
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, the plan implies {want}")
+        for m, part in enumerate(tier_subtrees(state.params, plan)):
+            if fed_ran(plan, rounds - 1, m):
+                for x in tree_leaves(part):
+                    if x.numel() and not bool((x == x[0:1]).all()):
+                        raise AssertionError(f"{label}: tier {m} replicas differ after "
+                                             f"round {rounds}")
+        if res.train["privacy"]["epsilon_spent"] is None:
+            raise AssertionError(f"{label}: no epsilon in {res.train['privacy']}")
+        print(f"[privacy] {label}: z {res.train['privacy']['noise_multiplier']} C "
+              f"{res.train['privacy']['clip']}, epsilon after {rounds} rounds "
+              f"{res.train['privacy']['epsilon_spent']:.6g}; round energy "
+              f"{res.energy['round_energy_j']!r} J; launches B1 {got['tiered_aggregate']} "
+              f"B2 {got['tiered_aggregate_q8']} as the plan implies; every tier synced in "
+              f"round {rounds} holds one value")
+        counts[label] = got
+        # DP on the card: one seed, one (round, leaf), the same draw bit for bit
+        mech = built.dp_mechanism
+        twice = [synchronize(state.params, plan, 7, compressor=FedWire(mech, 7,
+                                                                        built.compressor))
+                 for _ in range(2)]
+        if not all(torch.equal(a, b) for a, b in zip(*map(tree_leaves, twice))):
+            raise AssertionError(f"{label}: the DP sync does not repeat from one seed")
+        other = synchronize(state.params, plan, 7, compressor=FedWire(
+            DPMechanism(mech.clip, mech.noise_multiplier, seed=mech.seed + 1), 7,
+            built.compressor))
+        if all(torch.equal(a, b) for a, b in zip(tree_leaves(twice[0]), tree_leaves(other))):
+            raise AssertionError(f"{label}: another seed drew the same noise")
+        del state, twice, other
+    print("[privacy] the DP fed wire on the card repeats bit for bit from one seed and "
+          "draws other noise from another")
+    # z = 0 (clip only): the card against the CPU on REDUCED VGG
+    N, b = 4, 2
+    rng = np.random.default_rng(9)
+    hw = REDUCED.image_size
+    batches = [{"images": rng.normal(size=(N, b, hw, hw, 3)).astype(np.float32),
+                "labels": rng.integers(0, 10, (N, b)).astype(np.int32)} for _ in range(3)]
+    plan = default_plan(REDUCED.n_units, N, cuts=(1, 3), intervals=(1, 1, 1),
+                        entities=(N, 2, 1))
+    model, opt = VggModel(REDUCED), sgd(0.01)
+    losses = {}
+    for dev in ("cuda", "cpu"):
+        device = torch.device(dev)
+        state = init_state_a(model, plan, opt, torch.Generator().manual_seed(0), device)
+        step = build_train_step_a(model, plan, opt,
+                                  privacy=DPMechanism(clip=1.0, noise_multiplier=0.0))
+        losses[dev] = []
+        for batch in batches:
+            state, loss = step(state, {k: torch.from_numpy(v).to(device)
+                                       for k, v in batch.items()})
+            losses[dev].append(float(loss))
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+    print(f"[card vs cpu] REDUCED VGG with the DP wire at z = 0 (clip 1.0), N=4, 3 rounds: "
+          f"losses cuda {losses['cuda']} cpu {losses['cpu']} (rtol 1e-4)")
+    return counts
+
+
+def async_expected(plan, rounds: int, s, leaves):
+    """B1 launches of the async dispatch: the in-step levels with the async
+    tiers' fed levels off, then one launch per leaf of tier m for each
+    deferred fed level applied (due rounds, then the drain)."""
+    b1, pending = 0, []
+    for r in range(rounds):
+        for m in range(plan.M):
+            levels = plan.levels(m)
+            fed = fed_ran(plan, r, m) and not s[m]
+            if len(levels) == 2 or fed:
+                b1 += leaves[m]
+        pending += [(r + s[m], m) for m in range(plan.M - 1)
+                    if s[m] and (r + 1) % plan.intervals[m] == 0]
+        b1 += sum(leaves[m] for due, m in pending if due <= r)
+        pending = [p for p in pending if p[0] > r]
+    return b1 + sum(leaves[m] for _, m in pending)
+
+
+def async_paths(rounds: int = 12):
+    """``launch.train --staleness 2`` at VGG-16 full width, 12 rounds and
+    the drain; then staleness 0 against the synchronous dispatch, bit for
+    bit on the card (4 rounds, cuDNN's deterministic algorithms)."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import init_state_a
+    from repro_torch.core.async_agg import make_async_trainer, normalize_staleness
+    from repro_torch.launch import train
+
+    argv = ["--arch", "vgg16-cifar10", "--clients", "20", "--edges", "5", "--batch", "16",
+            "--rounds", str(rounds), "--log-every", "1"]
+    torch.cuda.synchronize()
+    reset_all_launches()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv + ["--staleness", "2"])
+    wall = time.perf_counter() - t0
+    got = all_launches()
+    text = buf.getvalue()
+    print(text, end="")
+    assert rc == 0 and "[async staleness=2]" in text, rc
+    _, _, _, plan, _, _ = train.setup(train.parse_args(argv + ["--device", "cpu"]))
+    s = normalize_staleness(2, plan)
+    leaves = [2 * (hi - lo) for lo, hi in map(plan.tier_bounds, range(plan.M))]
+    want = {k: 0 for k in got}
+    want["tiered_aggregate"] = async_expected(plan, rounds, s, leaves)
+    if got != want:
+        raise AssertionError(f"--staleness 2 launches {got}, the schedule implies {want}")
+    losses = [float(v) for v in re.findall(r"loss (\S+)", text)]
+    ms = [float(v) for v in re.findall(r"\((\S+) ms/round", text)]
+    assert len(losses) == rounds and all(math.isfinite(v) for v in losses), losses
+    print(f"[async] launch.train --staleness 2 at VGG-16 full width (N=20, J2=5, batch 16, "
+          f"cuts {plan.cuts}, intervals {plan.intervals}, staleness {s}): {rounds} rounds "
+          f"and the drain in {wall:.2f} s; B1 {got['tiered_aggregate']} launches as the "
+          f"deferred schedule implies; finite losses")
+    print(json.dumps({"run": "async staleness 2", "loss": losses, "round_ms": ms}))
+    ROUND_MS["async staleness 2"] = ms
+    # staleness 0 is the synchronous dispatch, bit for bit
+    args = train.parse_args(argv)
+    device, _, model, plan, opt, loader = train.setup(args)
+    batches = [train.to_device(loader.next_round(), device) for _ in range(4)]
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        runs = {}
+        for name in ("async staleness 0", "synchronous dispatch"):
+            state = init_state_a(model, plan, opt, torch.Generator().manual_seed(0), device)
+            if name == "synchronous dispatch":
+                step = train.make_dispatch(model, plan, opt)
+            else:
+                trainer = make_async_trainer(model, plan, opt, staleness=0)
+                step = trainer.run_round
+            losses = []
+            for r, batch in enumerate(batches):
+                state, loss = step(state, batch, r)
+                losses.append(float(loss))
+            runs[name] = (losses, state)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    (la, sa), (lb, sb) = runs.values()
+    if la != lb or not all(torch.equal(a, b) for a, b in zip(tree_leaves(sa.params),
+                                                             tree_leaves(sb.params))):
+        raise AssertionError("staleness 0 differs from the synchronous dispatch on the card")
+    print(f"[async] staleness 0 equals the synchronous dispatch bit for bit on the card "
+          f"(VGG-16 full width, 4 rounds, losses {la})")
+    return got, ms
+
+
+def robustness_timings(card: str):
+    """B3m at the largest VGG leaf [20, 2359296] as the per-class storm
+    calls it (both levels fused, J=5, every client a member, 7 of 20
+    present), its int8 load on the fed level (J=1, tile 256), and the
+    per-class plan's alternating members; the DP transform at that leaf."""
+    import torch
+
+    from repro_torch.compress.quantize import q8_quantize
+    from repro_torch.kernels.tiered_aggregate import (
+        masked_ragged_quantized_tiered_aggregate, masked_ragged_quantized_tiered_aggregate_ref,
+        masked_ragged_tiered_aggregate, masked_ragged_tiered_aggregate_ref, reset_launches,
+    )
+    from repro_torch.privacy import DPMechanism
+
+    dev = torch.device("cuda", 0)
+    N, P = 20, 9 * 512 * 512
+    gen = torch.Generator(device=dev).manual_seed(21)
+    x = torch.randn(N, P, generator=gen, device=dev)
+    mask = b3m_mask("7-of-20", N, 5, gen, dev)
+    everyone = torch.ones(N, 1, device=dev)
+    alternating = (torch.arange(N, device=dev) % 2).float()[:, None]
+    q, scales = q8_quantize(x, Q8_TILE)
+    out = {}
+    k, p = in_turns(lambda: masked_ragged_tiered_aggregate_ref(x, mask, everyone, x, 1, 1, 5),
+                    lambda: masked_ragged_tiered_aggregate(x, mask, everyone, x, 1, 1, 5))
+    # bytes: x read once, the output written once (keep is read only by the
+    # rows that receive no mean: none here); operations: cw·x multiply-add
+    out[MASKED_RAGGED[0]] = dict(ms=k, plain_ms=p, bytes=2 * N * P * 4 + 8 * N,
+                                 ops=2 * N * P, what="every client a member, 7 of 20 present")
+    k, p = in_turns(
+        lambda: masked_ragged_quantized_tiered_aggregate_ref(q, scales, mask, everyone, x, 0,
+                                                             1, 1, Q8_TILE),
+        lambda: masked_ragged_quantized_tiered_aggregate(q, scales, mask, everyone, x, 0, 1,
+                                                         1, Q8_TILE))
+    out[MASKED_RAGGED[1]] = dict(
+        ms=k, plain_ms=p, bytes=N * P + 4 * N * P // Q8_TILE + 4 * N * P + 8 * N,
+        ops=3 * N * P, what="every client a member, 7 of 20 present, fed level")
+    k, p = in_turns(
+        lambda: masked_ragged_tiered_aggregate_ref(x, mask, alternating, x, 1, 1, 5),
+        lambda: masked_ragged_tiered_aggregate(x, mask, alternating, x, 1, 1, 5))
+    # the non-members' 10 rows read keep once more
+    alt = dict(ms=k, plain_ms=p, bytes=2 * N * P * 4 + 10 * P * 4 + 8 * N, ops=2 * N * P,
+               what="alternating members (the per-class plan's classes), 7 of 20 present")
+    for name, r in list(out.items()) + [("masked_ragged_tiered_aggregate (alternating)", alt)]:
+        by_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        by_ops = r["ops"] / F32_FLOPS_PER_S * 1e3
+        r["bound_ms"] = max(by_bytes, by_ops)
+        r["bound_by"] = "bytes" if by_bytes >= by_ops else "operations"
+        print(f"[timing] {name} at [{N}, {P}] ({r['what']}): kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}, "
+              f"{r['bytes'] / 1e6:.1f} MB at 3.35 TB/s, H100 SXM data sheet) = "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of the bound; library call: none; "
+              f"card {card}")
+    mech = DPMechanism(clip=1e-4, noise_multiplier=8.0)
+    dp_ms = cuda_ms(lambda: mech.transform(x, 3, salt=1))
+    clip_ms = cuda_ms(lambda: DPMechanism(clip=1e-4, noise_multiplier=0.0).transform(x, 3))
+    print(f"[timing] DP transform at [{N}, {P}] f32: clip and noise {dp_ms:.4f} ms, clip "
+          f"only {clip_ms:.4f} ms; card {card}")
+    reset_launches()
+    del x, q, scales
+    return out, {"dp_transform_ms": dp_ms, "dp_clip_only_ms": clip_ms}
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch is missing beside this script",
@@ -1882,6 +2608,7 @@ def main() -> int:
     errs.update(ragged_errs)
     bf16_errs.update(ragged_bf16_errs)
     masked_errs, masked_bf16_errs = check_masked_kernels(SPEC)
+    mr_errs, mr_bf16_errs = check_masked_ragged_kernels(SPEC)
     attn_errs, attn_bf16_errs = check_attention()
     solved = solve_classes(SPEC)
     solve_backend_timings(card, SPEC)
@@ -1914,9 +2641,19 @@ def main() -> int:
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the participation path")
     sim_backends(card)
+    storm_counts, _ = fault_storm_paths(card)
+    class_storm, class_storm_by_run, _ = class_fault_storm(solved)
+    for name in MASKED_RAGGED:
+        if class_storm[name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on the per-class storm")
+    privacy_counts = privacy_paths(card)
+    async_launches, _ = async_paths()
     times = timings(card, run)
     times.update(ragged_timings(card))
     times.update(masked_timings(card))
+    robust_times, _ = robustness_timings(card)
+    times.update(robust_times)
+    round_time_comparison(card)
     attn_times = attention_timings(card)
     attention_share(card, lm_run["spec"], lm_parts, attn_times)
 
@@ -1972,6 +2709,27 @@ def main() -> int:
         "library_ms": None,
         "port_only": "no TPU kernel: the jnp tiers._group_mean_masked",
     } for name in MASKED]
+    new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
+                 "async-staleness-2": async_launches}
+    for row in kernels:
+        row["launches_by_path"].update(
+            {path: got[row["name"]] for path, got in new_paths.items()})
+    # B3m: the per-class fault storm (plain and over the int8 wire)
+    kernels += [{
+        "name": name, "route": "cuda", "source": SOURCES["tiered_aggregate"],
+        "replaces": REPLACES[name],
+        "launches": class_storm[name],
+        "launches_by_path": {"vgg16-cifar10": path_launches[name],
+                             "smollm-135m": lm_launches[name],
+                             "vgg16-cifar10-per-class": class_launches.get(name, 0),
+                             **{path: got[name] for path, got in new_paths.items()}},
+        "max_abs_err": mr_errs[name],
+        "max_abs_err_bf16": mr_bf16_errs[name],
+        "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+        "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+        "library_ms": None,
+        "port_only": "no TPU kernel: the jnp tiers._ragged_units_mean under a mask",
+    } for name in MASKED_RAGGED]
     B, S, H, K, hd = MAIN_ATTN
     # SDPA's backward computes dq, dk and dv in one call: its fair counterpart
     # is the two B5 passes together

@@ -18,8 +18,11 @@ re-prices the trace over the same wire.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Optional, Tuple
+
+import numpy as np
 
 from ..compress.base import CompressionSpec
 from ..core.convergence import (
@@ -206,16 +209,8 @@ def _check_port_capabilities(spec: ExperimentSpec) -> None:
     """What the port runs of a spec the JAX package accepts: every section
     and option whose modules are not ported raises here, before any state
     is allocated."""
-    for name, modules in (("privacy", "the privacy module"),
-                          ("energy", "the energy module"),
-                          ("faults", "the faults module")):
-        if getattr(spec, name) is not None:
-            raise _unported(f"a {name} section", modules, "A11")
     if spec.run.mode == "control":
-        raise _unported('mode="control"', "the control module", "A11")
-    st = spec.run.staleness
-    if st if isinstance(st, int) else any(v > 0 for v in st):
-        raise _unported("staleness > 0", "core.async_agg", "A11")
+        raise _unported('mode="control"', "the control loop", "A11b")
     if spec.run.engine != "a":
         raise _unported(f"engine={spec.run.engine!r}", "Engine B", "A12")
     if spec.run.sharding is not None:
@@ -286,8 +281,75 @@ def build(spec: ExperimentSpec) -> BuiltExperiment:
     if compression is not None:
         base = base.with_compression(compression)
 
-    # privacy, energy and faults also land on the base problem in the JAX
-    # package; check_port_capabilities refuses those sections (ROADMAP A11)
+    # privacy and energy also land on the base problem, so trace pricing
+    # (dataclasses.replace) carries them into the robust problem unchanged.
+    privacy_spec = None
+    dp_mechanism = None
+    if spec.privacy is not None:
+        from ..privacy import DPMechanism, PrivacySpec
+
+        pv = spec.privacy
+        # σ²-inflation dimension: total trainable parameter count — every
+        # noised coordinate contributes, so this keeps Theorem 1 an
+        # envelope of the noised run (DESIGN.md §15).
+        dim = max(
+            1,
+            int(
+                (
+                    float(np.sum(profile.param_bytes))
+                    + profile.frontend_param_bytes
+                    + profile.head_param_bytes
+                )
+                // 4
+            ),
+        )
+        privacy_spec = PrivacySpec(
+            noise_multiplier=pv.noise_multiplier,
+            clip=pv.clip,
+            delta=pv.delta,
+            epsilon_budget=pv.epsilon_budget,
+            dim=dim,
+        )
+        base = base.with_privacy(privacy_spec)
+        if pv.noise_multiplier > 0.0:
+            # z = 0 constructs NO mechanism: the engine graph stays
+            # bit-identical to the spec without a privacy section.
+            dp_mechanism = DPMechanism(
+                clip=pv.clip,
+                noise_multiplier=pv.noise_multiplier,
+                seed=spec.run.seed,
+            )
+
+    energy_spec = None
+    if spec.energy is not None:
+        from ..energy import EnergySpec
+
+        ec = spec.energy
+        M = system.M
+
+        def tiers(value, n: int) -> Tuple[float, ...]:
+            if isinstance(value, tuple):
+                return value
+            return (float(value),) * n
+
+        energy_spec = EnergySpec(
+            compute_j_per_flop=tiers(ec.compute_j_per_flop, M),
+            act_j_per_byte=tiers(ec.act_j_per_byte, M - 1),
+            model_j_per_byte=tiers(ec.model_j_per_byte, M - 1),
+            budget_j_per_round=ec.budget_j_per_round,
+        ).validate_for(M)
+        base = base.with_energy(energy_spec)
+
+    fault_spec = None
+    guard_spec = None
+    if spec.faults is not None:
+        fault_spec = spec.faults.to_fault_spec()
+        guard_spec = spec.faults.to_guard_spec()
+        # retry pricing (the expected-attempts factor on every link
+        # payload) lands on the base problem before any trace pricing,
+        # mirroring compression; with_faults validates the outage block
+        # against the concrete topology.
+        base = base.with_faults(fault_spec)
 
     trace = None
     problem = base
@@ -299,6 +361,13 @@ def build(spec: ExperimentSpec) -> BuiltExperiment:
         trace = make_trace(
             sc.name, profile, system, rounds=sc.rounds, seed=sc.seed, **sc.params
         )
+        if fault_spec is not None:
+            # layer the fault draws on the scenario's rounds BEFORE trace
+            # pricing, so quantiles / deadline expectations describe the
+            # faulty fleet; a null spec returns the trace object unchanged
+            from ..faults import faulty_trace
+
+            trace = faulty_trace(trace, fault_spec)
         if spec.participation is not None:
             # deadline policy: expectation pricing of the deadline-capped
             # round + 1/q_m bound inflation, composed in one step so the
@@ -331,6 +400,23 @@ def build(spec: ExperimentSpec) -> BuiltExperiment:
             "policy is priced against a fleet trace (add scenario=, e.g. "
             'ScenarioCfg(name="straggler-tail"))'
         )
+
+    if fault_spec is not None and not fault_spec.is_null:
+        # detected faults ARE partial participation: deflate the effective
+        # q_m the Theorem-1 bound sees by the per-tier entity survival of
+        # the spec's own realized fault masks (DESIGN.md §16).  Composes
+        # multiplicatively with a deadline policy's q_m.
+        from ..faults import deflate_participation
+
+        horizon = (
+            spec.scenario.rounds if spec.scenario is not None
+            else max(1, spec.run.rounds)
+        )
+        participation = deflate_participation(
+            problem.participation, fault_spec,
+            system.num_clients, system.entities, horizon,
+        )
+        problem = dataclasses.replace(problem, participation=participation)
 
     class_spec = None
     if spec.classes is not None:
@@ -372,4 +458,9 @@ def build(spec: ExperimentSpec) -> BuiltExperiment:
         problem=problem,
         participation=participation,
         class_spec=class_spec,
+        privacy=privacy_spec,
+        dp_mechanism=dp_mechanism,
+        energy=energy_spec,
+        faults=fault_spec,
+        guard=guard_spec,
     )

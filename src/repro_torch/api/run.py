@@ -6,12 +6,13 @@ port of ``repro.api.run``.
 * ``mode="simulate"`` — same solve (typically against trace quantiles),
   then replay the schedule through the fleet simulator and report the
   per-round latency profile (p50/p95/worst, participants).
-* ``mode="train"``    — real Engine-A/B split training with the schedule
-  (solved or fixed), the spec's codec on the fed-server wire, and the
-  Theorem-1 bound for the schedule actually trained.
+* ``mode="train"``    — real Engine-A split training with the schedule
+  (solved or fixed), the spec's codec (and DP) on the fed-server wire,
+  under the spec's faults and bounded staleness, and the Theorem-1 bound
+  for the schedule actually trained.
 
 ``mode="control"`` (the online adaptive controller) is ported with ROADMAP
-A11; ``build.check_capabilities`` refuses it.  Training runs Engine A on
+A11b; ``build.check_capabilities`` refuses it.  Training runs Engine A on
 ``run(..., device=)``: the first CUDA device unless the caller asks for
 another, and never the CPU in place of a missing card.  A solver backend of
 ``"jax"`` (the JAX package's device backend, which spec files carry) runs
@@ -257,9 +258,15 @@ def _participation_masks(built: BuiltExperiment, cuts) -> Optional[np.ndarray]:
 def _make_step(built: BuiltExperiment, model, plan, opt, with_mask: bool):
     """Engine-A step for one tier plan, its fed levels read from the round
     counter on the host (``fed_round=None``)."""
-    return build_train_step_a(
-        model, plan, opt, compressor=built.compressor, with_mask=with_mask,
+    kwargs = dict(
+        compressor=built.compressor, with_mask=with_mask,
+        privacy=built.dp_mechanism,
     )
+    if built.guard is not None and built.faults is not None and not built.faults.is_null:
+        # live faults: every sync runs behind the non-finite/norm guard; a
+        # null spec builds the exact clean step instead
+        kwargs["guard"] = built.guard
+    return build_train_step_a(model, plan, opt, **kwargs)
 
 
 def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, Any]:
@@ -268,15 +275,35 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
     ``torch.Generator`` seeded with ``run.seed``.  Under a participation
     policy each round's deadline mask (``sim.participation_masks`` at the
     trained cuts, replayed cyclically) drives the masked step, whose syncs
-    run on B1m."""
+    run on B1m.
+
+    With a faults section the loop becomes the fault-tolerant variant
+    (DESIGN.md §16): each round's seeded fault draws (NumPy streams on the
+    host) corrupt the marked clients' replicas *before* the step (the guard
+    quarantines them inside it), crashed clients drop out of the round
+    mask — one [N] mask tensor moved to the device a round — a cell outage
+    re-routes its clients' tier sync to sibling cells after the step, and
+    the atomic checkpoint cadence + simulated engine crash exercise
+    ``resume_with_migration`` recovery mid-run.  With staleness > 0 the
+    bounded-staleness ``AsyncTrainer`` drives the rounds and drains its
+    in-flight fed levels at the end.
+    """
+    import os
+    import tempfile
+
     import torch
 
+    from ..core.async_agg import make_async_trainer, normalize_staleness
     from ..core.convergence import theorem1_bound
+    from ..core.engine import TrainState
     from ..core.tiers import TierPlan
 
     device = resolve_device(device)
     spec = built.spec
     rc = spec.run
+    fc = spec.faults
+    fs = built.faults
+    inject = fs is not None and not fs.is_null
     model, loader, opt, N = _training_setup(built)
     plan = TierPlan(
         n_units=built.model_spec.n_units,
@@ -285,35 +312,123 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
         intervals=tuple(intervals),
         entities=built.system.entities,
     )
-    masks = _participation_masks(built, cuts)
-    with_mask = masks is not None
-    state = init_state_a(
-        model, plan, opt, torch.Generator().manual_seed(rc.seed), device
-    )
-    # staleness > 0 is refused by check_capabilities (ROADMAP A11): the
-    # schedule is the synchronous one
-    st = rc.staleness
-    if not isinstance(st, int) and len(st) != plan.M:
-        raise ValueError(
-            f"need {plan.M} per-tier staleness bounds, got {len(st)}: {st!r}"
-        )
-    s_eff = (0,) * plan.M
-    step = _make_step(built, model, plan, opt, with_mask)
 
+    def init():
+        return init_state_a(
+            model, plan, opt, torch.Generator().manual_seed(rc.seed), device
+        )
+
+    masks = _participation_masks(built, cuts)
+    with_mask = masks is not None or inject
+    state = init()
+
+    s_eff = normalize_staleness(rc.staleness, plan)
+    use_async = any(s_eff)
+    trainer, step = None, None
+    if use_async:
+        trainer = make_async_trainer(
+            model, plan, opt, staleness=rc.staleness,
+            compressor=built.compressor, with_mask=with_mask,
+            guard=built.guard if built.guard is not None and inject else None,
+        )
+    else:
+        step = _make_step(built, model, plan, opt, with_mask)
+
+    members = None
+    if inject:
+        from ..faults import (
+            apply_corruption,
+            assignment_members,
+            expand_faults,
+            outage_assignment,
+            reroute_entity_sync,
+        )
+
+        if fs.has_outage:
+            J = built.system.entities[fs.outage_tier]
+            members = torch.as_tensor(
+                assignment_members(outage_assignment(N, J, fs.outage_cells), J),
+                device=device,
+            )
+
+    ckpt_path = None
+    n_ckpts = 0
+    recovered_round = None
+    if fc is not None and fc.checkpoint_every > 0:
+        from ..checkpoint import save_checkpoint
+
+        d = fc.checkpoint_dir or tempfile.mkdtemp(prefix="repro-ckpt-")
+        ckpt_path = os.path.join(d, "engine.npz")
+
+    n_faulty_total = 0
+    faulty_rounds = 0
     losses = []
     for r in range(rc.rounds):
         batch = {k: torch.from_numpy(v).to(device)
                  for k, v in loader.next_round().items()}
+        mrow = None
+        if masks is not None:
+            mrow = np.asarray(masks[r % masks.shape[0]], dtype=bool)
+        if inject:
+            rf = expand_faults(fs, r, N)
+            if rf.corrupt.any():
+                state = TrainState(
+                    apply_corruption(state.params, rf.corrupt, fs),
+                    state.opt_state,
+                    state.step,
+                )
+            base_m = np.ones(N, dtype=bool) if mrow is None else mrow
+            mrow = base_m & ~rf.crashed
+            if not mrow.any():
+                raise ValueError(
+                    f"round {r}: every client crashed or missed the "
+                    "deadline — an all-faulty round has no aggregate; "
+                    "lower crash_rate or loosen the deadline"
+                )
+            if rf.faulty.any():
+                faulty_rounds += 1
+                n_faulty_total += rf.n_faulty
         if with_mask:
-            mrow = torch.as_tensor(
-                masks[r % masks.shape[0]], dtype=torch.float32, device=device
-            )
-            state, loss = step(state, batch, mrow)
+            m_arr = torch.as_tensor(mrow, dtype=torch.float32, device=device)
+            if trainer is not None:
+                state, loss = trainer.run_round(state, batch, r, m_arr)
+            else:
+                state, loss = step(state, batch, m_arr)
+        elif trainer is not None:
+            state, loss = trainer.run_round(state, batch, r)
         else:
             state, loss = step(state, batch)
+        if inject and rf.cell_out and members is not None:
+            # dead cells' clients adopt their sibling cell's tier mean
+            state = TrainState(
+                reroute_entity_sync(state.params, plan, fs.outage_tier, members),
+                state.opt_state,
+                state.step,
+            )
         losses.append(float(loss))
+        if ckpt_path is not None and (r + 1) % fc.checkpoint_every == 0:
+            save_checkpoint(
+                ckpt_path, state, step=r + 1,
+                meta={"cuts": list(cuts), "intervals": list(intervals)},
+            )
+            n_ckpts += 1
+        if fc is not None and fc.engine_crash_round == r:
+            from ..control import resume_with_migration
+
+            if n_ckpts == 0:
+                raise ValueError(
+                    f"engine crashed at round {r} before the first "
+                    f"checkpoint (checkpoint_every={fc.checkpoint_every}) "
+                    "— nothing to resume from"
+                )
+            state, _, _ = resume_with_migration(ckpt_path, init(), plan)
+            recovered_round = r
         if rc.log_every and ((r + 1) % rc.log_every == 0 or r == 0):
             print(f"round {r+1:5d}  loss {losses[-1]:.4f}")
+
+    if trainer is not None:
+        # fold any still in-flight aggregations in before reporting
+        state = trainer.drain(state)
 
     omega = 0.0 if built.compression is None else built.compression.omega
     bound = theorem1_bound(
@@ -329,9 +444,31 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
         "final_loss": losses[-1] if losses else None,
         "losses": losses,
         "thm1_bound": float(bound),
-        "async": False,
+        "async": bool(use_async),
         "staleness": [int(v) for v in s_eff],
     }
+    if fc is not None:
+        out["faults"] = {
+            "n_faulty_total": int(n_faulty_total),
+            "faulty_rounds": int(faulty_rounds),
+            "fault_rate": float(n_faulty_total) / float(N * max(1, rc.rounds)),
+            "checkpoints": int(n_ckpts),
+            "recovered_round": recovered_round,
+            "deflated_q": (
+                None if built.participation is None
+                else [float(v) for v in built.participation.q]
+            ),
+            "retry_mult": fs.retry_mult if fs is not None else None,
+        }
+    if built.privacy is not None:
+        q1 = float(built.problem.q[0])
+        out["privacy"] = {
+            "noise_multiplier": built.privacy.noise_multiplier,
+            "clip": built.privacy.clip,
+            "dp_sigma2": built.problem.dp_sigma2,
+            "epsilon_spent": built.privacy.accountant(q1).epsilon(rc.rounds),
+            "delta": built.privacy.delta,
+        }
     if masks is not None:
         out["mean_participation"] = float(
             np.mean(masks[np.arange(rc.rounds) % masks.shape[0]])
@@ -356,7 +493,37 @@ def evaluate_schedule(
     R = p.rounds(intervals, cuts)
     total = float(p.total_T(intervals, cuts, R)) if R is not None else None
 
-    # privacy and energy reports: their sections are refused (ROADMAP A11)
+    privacy = None
+    if built.privacy is not None:
+        q1 = float(p.q[0])
+        acc = built.privacy.accountant(q1)
+        r_max = built.privacy.max_rounds(q1)
+        privacy = {
+            "noise_multiplier": built.privacy.noise_multiplier,
+            "clip": built.privacy.clip,
+            "delta": built.privacy.delta,
+            "dp_sigma2": p.dp_sigma2,
+            "epsilon_budget": built.privacy.epsilon_budget,
+            "max_rounds": r_max,
+            # ε actually spent by the schedule's R-to-target rounds
+            "epsilon_at_schedule": (
+                None if R is None or not np.isfinite(R)
+                else acc.epsilon(int(np.ceil(R)))
+            ),
+        }
+    energy = None
+    if built.energy is not None:
+        e = p.round_energy(intervals, cuts)
+        energy = {
+            "round_energy_j": e,
+            "budget_j_per_round": built.energy.budget_j_per_round,
+            "feasible": p.energy_feasible(intervals, cuts),
+            # total campaign energy to the ε target, when R is finite
+            "total_energy_j": (
+                None if R is None or not np.isfinite(R) else float(e * R)
+            ),
+        }
+
     return ExperimentResult(
         mode=mode,
         cuts=tuple(int(c) for c in cuts),
@@ -365,6 +532,8 @@ def evaluate_schedule(
         rounds_to_eps=float(R) if R is not None else None,
         total_latency=total,
         latency=_latency_breakdown(built, cuts, intervals),
+        privacy=privacy,
+        energy=energy,
         provenance=jsonify(built.spec.to_dict()),
     )
 

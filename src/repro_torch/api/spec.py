@@ -1,8 +1,8 @@
 """The declarative experiment specification (DESIGN.md §10) — port of
 ``repro.api.spec``.  The dataclasses and their JSON are the JAX package's,
-field for field, so one spec file drives either package; the sections and
-options whose modules are not ported yet are refused by
-``build.check_capabilities``, naming their ROADMAP item.
+field for field, so one spec file drives either package; the options whose
+modules are not ported yet are refused by ``build.check_capabilities``,
+naming their ROADMAP item.
 
 One serializable dataclass tree — ``ExperimentSpec`` — describes everything
 this repo can do with the paper's pipeline: which model profile to price
@@ -446,9 +446,8 @@ class FaultsCfg:
         object.__setattr__(
             self, "outage_cells", _int_tuple(self.outage_cells) or ()
         )
-        # the JAX package delegates fault-field validation to its
-        # FaultSpec and GuardSpec here; those come with ROADMAP A11, and
-        # until then build.check_capabilities refuses a faults section
+        self.to_fault_spec()       # delegate fault-field validation
+        self.to_guard_spec()       # ... and the guard threshold's
         if self.checkpoint_every < 0:
             raise ValueError(
                 f"faults.checkpoint_every must be >= 0: {self.checkpoint_every}"
@@ -466,12 +465,29 @@ class FaultsCfg:
                 )
 
     def to_fault_spec(self):
-        """The analytic/injection ``FaultSpec`` this declares (ROADMAP A11)."""
-        raise NotImplementedError("the faults module is ported with ROADMAP A11")
+        """The analytic/injection ``repro_torch.faults.FaultSpec`` this declares."""
+        from ..faults import FaultSpec
+
+        return FaultSpec(
+            seed=self.seed,
+            crash_rate=self.crash_rate,
+            crash_stage=self.crash_stage,
+            corrupt_rate=self.corrupt_rate,
+            corrupt_mode=self.corrupt_mode,
+            corrupt_scale=self.corrupt_scale,
+            link_fail_rate=self.link_fail_rate,
+            link_retries=self.link_retries,
+            outage_cells=self.outage_cells,
+            outage_tier=self.outage_tier,
+            outage_start=self.outage_start,
+            outage_len=self.outage_len,
+        )
 
     def to_guard_spec(self):
-        """The ``GuardSpec`` the engine's guarded syncs use (ROADMAP A11)."""
-        raise NotImplementedError("guarded sync is ported with ROADMAP A11")
+        """The ``core.tiers.GuardSpec`` the engine's guarded syncs use."""
+        from ..core.tiers import GuardSpec
+
+        return GuardSpec(norm_factor=self.guard_norm_factor)
 
     @classmethod
     def from_dict(cls, d: Mapping[str, Any]) -> "FaultsCfg":

@@ -5,11 +5,15 @@ Layout (the JAX package's, so a checkpoint written by either package loads
 in the other): one ``.npz`` holding every leaf under its '/'-joined key path
 (``units/0/w``) plus a JSON entry ``__meta__`` (step, tier plan, arbitrary
 user dict).  Empty containers (VGG's ``frontend`` / ``head``) hold no leaf
-and write no key.  Restores exactly: structure is rebuilt from the key
-paths against a template tree, so dtype/shape mismatches fail loudly.
+and write no key.  A whole training state (a dataclass such as
+``core.engine.TrainState``) is written as the JAX package writes its pytree
+node: its fields under ``0``, ``1``, ``2`` (params, optimizer state, step).
+Restores exactly: structure is rebuilt from the key paths against a
+template tree, so dtype/shape mismatches fail loudly.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import os
 import tempfile
@@ -26,6 +30,9 @@ def _walk(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
         for k, v in tree.items():
             yield from _walk(v, prefix + (str(k),))
+    elif dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        for i, f in enumerate(dataclasses.fields(tree)):
+            yield from _walk(getattr(tree, f.name), prefix + (str(i),))
     elif isinstance(tree, (list, tuple)):
         for i, v in enumerate(tree):
             yield from _walk(v, prefix + (str(i),))
@@ -34,7 +41,7 @@ def _walk(tree: Any, prefix: Tuple[str, ...] = ()) -> Iterator[Tuple[str, Any]]:
 
 
 def _flatten(tree: Any) -> Dict[str, np.ndarray]:
-    return dict(_walk(params_to_numpy(tree)))
+    return {k: params_to_numpy(v) for k, v in _walk(tree)}
 
 
 def save_checkpoint(
@@ -127,6 +134,9 @@ def load_checkpoint(
         def restore(tree, prefix):
             if isinstance(tree, dict):
                 return {k: restore(v, prefix + (str(k),)) for k, v in tree.items()}
+            if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+                return type(tree)(*(restore(getattr(tree, f.name), prefix + (str(i),))
+                                    for i, f in enumerate(dataclasses.fields(tree))))
             if isinstance(tree, (list, tuple)):
                 return type(tree)(
                     restore(v, prefix + (str(i),)) for i, v in enumerate(tree)
@@ -137,6 +147,8 @@ def load_checkpoint(
             if key not in z:
                 raise KeyError(f"checkpoint missing leaf {key!r}")
             arr = z[key]
+            if isinstance(tree, int):  # a host-side counter (TrainState.step)
+                return int(arr)
             if arr.shape != tuple(tree.shape):
                 hint = (
                     f" (checkpoint metadata says cuts={tuple(saved_cuts)}; a "

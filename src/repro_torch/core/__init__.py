@@ -1,7 +1,8 @@
 # The paper's primary contribution: the HSFL framework (Engine A), its
 # convergence theory (Theorem 1 / Corollary 1), and the MA+MS system
 # optimizer (Proposition 1, Dinkelbach, Algorithm 2 BCD), with per-class
-# cuts, and the bound-constant estimator — port of ``repro.core``.  Engine B
+# cuts, the bound-constant estimator, the fault guard and bounded-staleness
+# async aggregation (``async_agg``) — port of ``repro.core``.  Engine B
 # (ROADMAP A12) is not ported yet.
 from .convergence import (
     HyperSpec,
@@ -28,6 +29,7 @@ from .classes import (
     solve_ms_classes,
 )
 from .tiers import (
+    GuardSpec,
     TierPlan,
     class_tier_members,
     combine_tiers,

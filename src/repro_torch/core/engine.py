@@ -21,7 +21,7 @@ from torch.func import grad_and_value, vmap
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves, tree_map
 from ..optim import Optimizer
-from .tiers import TierPlan, ragged_synchronize, synchronize
+from .tiers import FedWire, TierPlan, guard_health, ragged_synchronize, synchronize
 
 Params = Dict[str, Any]
 
@@ -83,11 +83,12 @@ def build_train_step_a(
     fed_round=None, compressor=None, with_mask: bool = False,
     class_members=None, privacy=None, guard=None,
     with_sync_weights: bool = False,
-) -> Callable[[TrainState, Params], Tuple[TrainState, torch.Tensor]]:
+) -> Callable[..., Tuple]:
     """Engine-A step: vmapped per-client update + hierarchical aggregation.
 
     batch leaves have a leading client axis [N, b, ...].  Returns
-    ``step(state, batch) -> (new_state, mean loss)``.
+    ``step(state, batch) -> (new_state, mean loss)`` (with a third output
+    under ``with_sync_weights``).
 
     ``fed_round``: None reads the round counter each step; False/True or a
     per-tier tuple fixes which fed-server levels run (see
@@ -113,54 +114,97 @@ def build_train_step_a(
     averages participants only, on B1m (``tiers.synchronize`` mask
     semantics, DESIGN.md §12).  The reported loss is the
     participation-weighted mean; an all-zero mask leaves the state exactly
-    as it was and reports 0.0.  Per-class cuts under a mask are ported
-    with ROADMAP A11 (``ragged_synchronize(mask=)``).
+    as it was and reports 0.0.  Per-class cuts under a mask run
+    ``tiers.ragged_synchronize(mask=)``, its unit levels on B3m.
 
-    ``privacy`` (A11), ``guard`` (A11) and ``with_sync_weights`` (A11,
-    async aggregation) are not ported yet and raise.
+    ``privacy`` (a ``privacy.DPMechanism``) puts the *same* fed-server
+    params wire under client-level DP: each uploaded replica is per-client
+    L2-clipped and Gaussian-noised *before* the codec sees it and before
+    the Eq. 4 mean (``tiers.FedWire``); the noise is seeded from (seed,
+    leaf, round).  Optimizer-moment syncs, local entity syncs and the
+    single-entity top tier stay untouched — only the wire the (ε, δ)
+    accountant meters is noised.
+
+    ``guard`` (a ``tiers.GuardSpec``) arms fault tolerance (DESIGN.md §16):
+    each step quarantines clients whose update is non-finite or a norm
+    blow-up — their local update rolls back and every aggregation runs the
+    guarded masked path (B1m, or B3m per class), which sanitizes corrupt
+    replicas before any arithmetic and heals them with the group broadcast
+    at zero weight.  The health stays on the device; the step reads nothing
+    on the host.  On an all-healthy round the reported loss is exactly
+    ``mean(losses)`` and the state is the all-ones mask's step, bit for
+    bit.
+
+    ``with_sync_weights=True`` makes the step additionally return the
+    effective per-client sync weights [N] (participation mask × guard
+    health × finite loss; all-ones when neither masking nor a guard is
+    armed) — the weights every aggregation level used this round, which
+    the async runner (``core.async_agg``) captures at snapshot time.
     """
-    for name, value, item in (
-        ("privacy", privacy, "A11"),
-        ("guard", guard, "A11"), ("with_sync_weights", with_sync_weights, "A11"),
-    ):
-        if value is not None and value is not False:
-            raise NotImplementedError(
-                f"build_train_step_a({name}=...) is ported with ROADMAP {item}"
-            )
     per_client = vmap(grad_and_value(model.loss_fn))
+
+    def _fed_wire(step):
+        # the round's fed-upload transform: DP (clip + noise), then the codec
+        return compressor if privacy is None else FedWire(privacy, step, compressor)
 
     def _sync(tree, step, compress=None, mask=None):
         if class_members is not None:
             return ragged_synchronize(
                 tree, plan, class_members, step, fed_round=fed_round,
-                compressor=compress, mask=mask,
+                compressor=compress, mask=mask, guard=guard,
             )
         return synchronize(
-            tree, plan, step, fed_round=fed_round, compressor=compress, mask=mask
+            tree, plan, step, fed_round=fed_round, compressor=compress, mask=mask,
+            guard=guard,
         )
 
-    def _step(state: TrainState, batch: Params, mask) -> Tuple[TrainState, torch.Tensor]:
+    def _step(state: TrainState, batch: Params, mask):
         grads, losses = per_client(state.params, batch)
         new_params, new_opt = opt.update(state.params, grads, state.opt_state)
-        if mask is None:
+        if guard is not None:
+            # quarantine clients whose update went non-finite or blew up in
+            # norm: their local update rolls back (the guarded syncs below
+            # sanitize and heal them), and the loss is the health-weighted
+            # mean over finite losses only
+            health, _ = guard_health(new_params, plan.num_clients, guard, sanitize=False)
+            lfin = torch.isfinite(losses)
+            health = health * lfin.float()
+            w = health if mask is None else mask.to(health.device, torch.float32) * health
+            new_params = _masked_select(new_params, state.params, w)
+            new_opt = _masked_select(new_opt, state.opt_state, w)
+            lsafe = torch.where(lfin, losses, torch.zeros((), dtype=losses.dtype,
+                                                          device=losses.device))
+            loss = masked_mean_loss(lsafe, w)
+            if mask is None:
+                # an all-healthy unmasked round reports the exact plain mean
+                loss = torch.where(torch.all(w >= 1.0), torch.mean(lsafe), loss)
+            sync_mask = w
+        elif mask is None:
             loss = torch.mean(losses)
+            sync_mask = None
         else:
             w = mask.to(device=losses.device, dtype=torch.float32)
             new_params = _masked_select(new_params, state.params, w)
             new_opt = _masked_select(new_opt, state.opt_state, w)
             loss = masked_mean_loss(losses, w)
-            mask = w
-        new_params = _sync(new_params, state.step, compress=compressor, mask=mask)
+            sync_mask = w
+        new_params = _sync(new_params, state.step, compress=_fed_wire(state.step),
+                           mask=sync_mask)
         if sync_opt_state and tree_leaves(new_opt):
             # momentum/adam moments are client-stacked like params: apply the
             # same schedule so replicas stay consistent after aggregation.
             if opt.name == "momentum":
-                new_opt = _sync(new_opt, state.step, mask=mask)
+                new_opt = _sync(new_opt, state.step, mask=sync_mask)
             elif opt.name == "adam":
                 new_opt = dict(new_opt)
-                new_opt["m"] = _sync(new_opt["m"], state.step, mask=mask)
-                new_opt["v"] = _sync(new_opt["v"], state.step, mask=mask)
-        return TrainState(new_params, new_opt, state.step + 1), loss
+                new_opt["m"] = _sync(new_opt["m"], state.step, mask=sync_mask)
+                new_opt["v"] = _sync(new_opt["v"], state.step, mask=sync_mask)
+        new_state = TrainState(new_params, new_opt, state.step + 1)
+        if with_sync_weights:
+            ww = (torch.ones((plan.num_clients,), dtype=torch.float32, device=losses.device)
+                  if sync_mask is None else sync_mask)
+            return new_state, loss, ww
+        return new_state, loss
 
     if with_mask:
         return _step

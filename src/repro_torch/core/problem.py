@@ -29,17 +29,13 @@ latency numerator (Eqs. 12–16), ω shrinks the denominator headroom c
 (Theorem 1's σ² → (1+ω)σ²).  When a trace-based ``latency_model`` is
 attached it must price the same ratios itself (``robust_problem`` wires
 this up); ω always enters through ``constants()`` here.
-
-The privacy, energy and fault regimes (``with_privacy``, ``with_energy``,
-``with_faults``) are ported with ROADMAP A11: a problem that carries one
-raises ``NotImplementedError`` when it is built, so the energy branches
-below (which import the unported ``energy`` module lazily) never run.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
 from typing import (
+    TYPE_CHECKING,
     Iterator,
     List,
     Optional,
@@ -67,6 +63,11 @@ from .latency import (
     split_latency,
 )
 
+if TYPE_CHECKING:  # pragma: no cover - type hints only (no import cycle)
+    from ..energy import EnergySpec
+    from ..faults import FaultSpec
+    from ..privacy import PrivacySpec
+
 INFEASIBLE = float("inf")
 
 
@@ -90,13 +91,6 @@ class HsflProblem:
     privacy: Optional["PrivacySpec"] = None
     energy: Optional["EnergySpec"] = None
     faults: Optional["FaultSpec"] = None
-
-    def __post_init__(self):
-        for name in ("privacy", "energy", "faults"):
-            if getattr(self, name) is not None:
-                raise NotImplementedError(
-                    f"HsflProblem({name}=...) is ported with ROADMAP A11"
-                )
 
     @property
     def M(self) -> int:

@@ -15,8 +15,9 @@ Unlike the JAX package, whose ``synchronize`` and ``ragged_synchronize``
 take plain group means, every level here goes through the fused
 aggregation kernels (``kernels.tiered_aggregate``): B1/B2 for the dense
 levels, one launch per leaf per tier and round, B1m for the
-participation-masked levels, and B3's twin / B3 for the per-class (ragged)
-unit levels, one launch per (unit leaf, tier) that some client holds.
+participation-masked and guarded levels, B3's twin / B3 for the per-class
+(ragged) unit levels, one launch per (unit leaf, tier) that some client
+holds, and B3m for the per-class unit levels under a mask or the guard.
 """
 from __future__ import annotations
 
@@ -30,10 +31,92 @@ from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves, tree_map
 from ..compress.quantize import Int8Stochastic
 from ..kernels.tiered_aggregate import (
-    aggregate_tree, masked_aggregate_tree, ragged_aggregate_tree,
+    aggregate_tree, masked_aggregate_tree, masked_ragged_aggregate_tree,
+    ragged_aggregate_tree,
 )
 
 Params = Dict[str, Any]
+
+
+@dataclass(frozen=True)
+class GuardSpec:
+    """Aggregation guard: quarantine corrupt uploads (DESIGN.md §16).
+
+    A client is *unhealthy* this round when any client-stacked leaf row
+    carries a non-finite value, or when its sanitized squared parameter
+    norm exceeds ``norm_factor`` × the fleet median (the blow-up check
+    that catches finite corruption — scaled uploads, exponent bitflips).
+    The guard converts an unhealthy client into a zero-participant via
+    the §12 mask machinery: it contributes nothing to any level's mean
+    but still *receives* the participating group's broadcast, which is
+    what heals it.  Limitation: the median reference assumes fewer than
+    half the fleet blows up the same way at once.
+    """
+
+    norm_factor: float = 1e4
+
+    def __post_init__(self):
+        import math
+
+        if self.norm_factor <= 1.0 or not math.isfinite(self.norm_factor):
+            raise ValueError(
+                f"norm_factor must be finite and > 1: {self.norm_factor}"
+            )
+
+
+def _stacked(x, N: int) -> bool:
+    return isinstance(x, torch.Tensor) and x.ndim > 0 and x.shape[0] == N
+
+
+def _median(v: torch.Tensor) -> torch.Tensor:
+    """``jnp.median``: for an even count the mean of the two middle values,
+    (lo + hi) · 0.5 in v's dtype (``torch.median`` returns the lower)."""
+    s = torch.sort(v).values
+    n = v.shape[0]
+    return (s[(n - 1) // 2] + s[n // 2]) * 0.5
+
+
+def guard_health(
+    tree: Params, num_clients: int, guard: GuardSpec, *, sanitize: bool = True
+):
+    """(health mask [N] float32, sanitized tree) for a client-stacked tree.
+
+    Sanitization zeroes non-finite rows *before* any arithmetic touches
+    them, so the guard itself never produces a NaN/Inf — on an all-healthy
+    round every ``where`` selects the original values and the returned
+    tree is bit-identical to the input.  Leaves without a leading client
+    axis (scalar bookkeeping) pass through unchecked.  The health stays on
+    the device: nothing here reads it on the host.  ``sanitize=False``
+    returns ``(health, None)`` without the sanitized copy.
+
+    Each client-stacked leaf is read twice and copies nothing: a row is
+    finite iff its min and max are (``torch.aminmax`` propagates NaN), and
+    its squared norm is the square of its 2-norm, both row reductions.  A
+    client with a non-finite row in any leaf has the squared norm of its
+    sanitized rows, 0, as in JAX.
+    """
+    N = num_clients
+    stacked = [x for x in tree_leaves(tree) if _stacked(x, N) and x.numel()]
+    device = stacked[0].device if stacked else torch.device("cpu")
+    finite = torch.ones((N,), dtype=torch.bool, device=device)
+    raw2 = torch.zeros((N,), dtype=torch.float32, device=device)
+    for x in stacked:
+        f = x.reshape(N, -1)
+        lo, hi = torch.aminmax(f, dim=1)
+        finite &= torch.isfinite(lo) & torch.isfinite(hi)
+        raw2 = raw2 + torch.linalg.vector_norm(f, dim=1, dtype=torch.float32) ** 2
+    norm2 = torch.where(finite, raw2, torch.zeros((), dtype=torch.float32, device=device))
+    med = _median(norm2)
+    blowup = norm2 > guard.norm_factor * torch.clamp(med, min=1e-30)
+    health = (finite & ~blowup).float()
+
+    def clean(x):
+        if not _stacked(x, N):
+            return x
+        ok = finite.reshape((N,) + (1,) * (x.ndim - 1))
+        return torch.where(ok, x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+    return health, (tree_map(clean, tree) if sanitize else None)
 
 
 @dataclass(frozen=True)
@@ -176,6 +259,36 @@ def _per_client(compressor, x: torch.Tensor) -> torch.Tensor:
     return torch.stack([compressor.transform(x[i]) for i in range(x.shape[0])])
 
 
+class FedWire:
+    """The fed-server uplink of one round under client-level DP (DESIGN.md
+    §15): each uploaded replica goes through ``privacy.transform`` (clip,
+    then noise), then the codec — the JAX engine's composed leaf function,
+    kept as an object so the fused int8 kernels still get the codec's scale
+    tile.  The leaf counter that salts the noise counts leaves in the
+    order the sync visits them (tiers ascending, each tree in
+    ``_tree.tree_leaves`` order), so one seed reproduces a run."""
+
+    def __init__(self, privacy, step: int, codec=None):
+        self.privacy, self.step, self.codec = privacy, int(step), codec
+        self._salt = 0
+
+    def noise(self, tree):
+        def f(x):
+            if x.numel() == 0:
+                return x
+            salt, self._salt = self._salt, self._salt + 1
+            return self.privacy.transform(x, self.step, salt=salt)
+
+        return tree_map(f, tree)
+
+
+def _uplink(wire, tree):
+    """(what the clients upload, the codec it then crosses)."""
+    if isinstance(wire, FedWire):
+        return wire.noise(tree), wire.codec
+    return tree, wire
+
+
 def _fused_q8(compressor) -> bool:
     """The int8 codec runs fused into the aggregation (B2, B3); any other
     codec runs its ``transform`` first and the f32 kernels take the mean."""
@@ -212,15 +325,19 @@ def _tier_levels(tree, aggregate, groups: int, do_global: bool, compressor, memb
     The entity mean and the fed mean run fused, one launch per leaf; over a
     compressed fed wire the entity level runs first, then the fed mean of
     the uploads (fused with the int8 codec; after any other codec's round
-    trip).  With a ``member``, the clients outside it keep their
-    pre-compression replica (the JAX ``keep`` tree)."""
+    trip; under DP, after the ``FedWire``'s clip and noise).  With a
+    ``member``, the clients outside it keep their pre-compression replica
+    (the JAX ``keep`` tree)."""
     if compressor is not None and do_global:
         if groups:
             tree = aggregate(tree, True, False, groups)
-        if _fused_q8(compressor):
-            out = aggregate(tree, False, True, 1, tile_p=compressor.tile, quantized=True)
+        uploads, codec = _uplink(compressor, tree)
+        if codec is None:
+            out = aggregate(uploads, False, True, 1)
+        elif _fused_q8(codec):
+            out = aggregate(uploads, False, True, 1, tile_p=codec.tile, quantized=True)
         else:
-            out = aggregate(tree_map(lambda x: _per_client(compressor, x), tree),
+            out = aggregate(tree_map(lambda x: _per_client(codec, x), uploads),
                             False, True, 1)
         if member is None:
             return out
@@ -231,22 +348,31 @@ def _tier_levels(tree, aggregate, groups: int, do_global: bool, compressor, memb
 
 
 def _masked_tier_levels(tree, mask: torch.Tensor, groups: int, do_global: bool,
-                        compressor):
-    """One tier's participation-masked levels (B1m), in the JAX
+                        compressor, member=None):
+    """One tier's participation-masked levels, in the JAX
     ``synchronize(mask=)`` order: the entity and fed means fused into one
     launch per leaf; over a compressed fed wire the entity level first,
     then the fed mean of the uploads, where a silent group keeps the
-    *pre-compression* entity result (the JAX ``keep=original``)."""
+    *pre-compression* entity result (the JAX ``keep=original``).  Without a
+    ``member`` the launches are B1m's; with one ([N] or [N, U], the
+    per-class unit levels) B3m's, and only members receive."""
+    def agg(t, *flags, **kw):
+        if member is None:
+            return masked_aggregate_tree(t, mask, *flags, **kw)
+        return masked_ragged_aggregate_tree(t, mask, member, *flags, **kw)
+
     if compressor is not None and do_global:
         if groups:
-            tree = masked_aggregate_tree(tree, mask, True, False, groups)
-        if _fused_q8(compressor):
-            return masked_aggregate_tree(tree, mask, False, True, 1, keep=tree,
-                                         tile_p=compressor.tile, quantized=True)
-        uploads = tree_map(lambda x: _per_client(compressor, x), tree)
-        return masked_aggregate_tree(uploads, mask, False, True, 1, keep=tree)
+            tree = agg(tree, True, False, groups)
+        uploads, codec = _uplink(compressor, tree)
+        if codec is not None and _fused_q8(codec):
+            return agg(uploads, False, True, 1, keep=tree, tile_p=codec.tile,
+                       quantized=True)
+        if codec is not None:
+            uploads = tree_map(lambda x: _per_client(codec, x), uploads)
+        return agg(uploads, False, True, 1, keep=tree)
     if groups or do_global:
-        return masked_aggregate_tree(tree, mask, bool(groups), do_global, groups or 1)
+        return agg(tree, bool(groups), do_global, groups or 1)
     return tree
 
 
@@ -296,10 +422,23 @@ def synchronize(
     the JAX package's level-by-level means to f32 rounding; an all-ones
     mask equals the unmasked path to the same rounding (B1 sums x/N).
 
-    ``guard`` (fault quarantine, ROADMAP A11) is not ported yet.
+    ``compressor`` may also be a ``FedWire``: the fed uploads are then
+    clipped and noised (DP) before its codec, and a silent group keeps its
+    pre-DP, pre-compression tree.
+
+    ``guard`` (a ``GuardSpec``) turns on the corrupt-upload quarantine of
+    DESIGN.md §16: client health (finite check + norm blow-up) is computed
+    once on the incoming tree, non-finite rows are sanitized to zero, and
+    the health mask multiplies into ``mask`` — an unhealthy client becomes
+    a zero-participant (excluded from every mean, healed by the
+    participating group's broadcast).  Every level then runs on B1m, also
+    on an all-healthy round, where the sanitized tree is the input bit for
+    bit and the result is the all-ones mask's.  Nothing is read on the
+    host.
     """
     if guard is not None:
-        raise NotImplementedError("guarded sync is ported with ROADMAP A11")
+        health, params = guard_health(params, plan.num_clients, guard)
+        mask = health if mask is None else mask.to(health.device, torch.float32) * health
     N = plan.num_clients
     parts = tier_subtrees(params, plan)
     if fed_round is not None and not isinstance(fed_round, (tuple, list)):
@@ -307,6 +446,7 @@ def synchronize(
     leaves = tree_leaves(params)
     weights = torch.full((N,), 1.0 / N, dtype=torch.float32, device=leaves[0].device)
     out_parts: List[Params] = []
+
     def dense(tree, *flags, **wire):
         return aggregate_tree(tree, weights, *flags, **wire)
 
@@ -416,13 +556,17 @@ def ragged_synchronize(
     member.  With identical classes the result equals ``synchronize`` to
     f32 rounding (B1 sums w·y with w = 1/N; the twin divides Σ y by N).
 
-    ``mask`` and ``guard`` (the fault path's masked ragged sync, ROADMAP
-    A11) are not ported yet.
+    ``mask`` ([N], 1 = participated) switches the unit levels to B3m — each
+    unit averaged over its members weighted by the mask, received by its
+    members, a silent group keeping its (pre-compression) replicas, the
+    JAX ``_ragged_units_mean(..., mask)`` arithmetic fused over both levels
+    — and the frontend and head to B1m, as ``synchronize(mask=)``.
+    ``guard`` computes health once on the unsliced tree, sanitizes it, and
+    folds the health into ``mask``, as in ``synchronize``.
     """
-    if mask is not None:
-        raise NotImplementedError("masked ragged sync is ported with ROADMAP A11")
     if guard is not None:
-        raise NotImplementedError("guarded sync is ported with ROADMAP A11")
+        health, params = guard_health(params, plan.num_clients, guard)
+        mask = health if mask is None else mask.to(health.device, torch.float32) * health
     units = params["units"]
     if isinstance(units, dict) and set(units) == {"enc", "dec"}:
         raise NotImplementedError(
@@ -450,6 +594,21 @@ def ragged_synchronize(
         return lambda tree, *flags, **wire: ragged_aggregate_tree(
             tree, ones, member, *flags, **wire)
 
+    if mask is None:
+        def unit_levels(tree, member, *levels):
+            return _tier_levels(tree, ragged(member), *levels, member=member)
+
+        def whole_levels(tree, *levels):
+            return _tier_levels(tree, dense, *levels)
+    else:
+        mask = mask.to(device=device, dtype=torch.float32).contiguous()
+
+        def unit_levels(tree, member, *levels):
+            return _masked_tier_levels(tree, mask, *levels, member=member)
+
+        def whole_levels(tree, *levels):
+            return _masked_tier_levels(tree, mask, *levels)
+
     listed = isinstance(units, (list, tuple))
     out = dict(params)
     units = list(units) if listed else units
@@ -459,14 +618,13 @@ def ragged_synchronize(
         held = members.host[m].any(axis=0)  # [U]: some client holds u in tier m
         if listed:
             for u in np.flatnonzero(held):
-                col = members.columns[m][u]
-                units[u] = _tier_levels(units[u], ragged(col), *levels, member=col)
+                units[u] = unit_levels(units[u], members.columns[m][u], *levels)
         elif held.any():
-            units = _tier_levels(units, ragged(members[m]), *levels, member=members[m])
+            units = unit_levels(units, members[m], *levels)
         if m == 0:
-            out["frontend"] = _tier_levels(out["frontend"], dense, *levels)
+            out["frontend"] = whole_levels(out["frontend"], *levels)
         if m == plan.M - 1:
-            out["head"] = _tier_levels(out["head"], dense, *levels)
+            out["head"] = whole_levels(out["head"], *levels)
     out["units"] = units
     return out
 

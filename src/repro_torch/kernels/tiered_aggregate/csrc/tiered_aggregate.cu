@@ -11,6 +11,8 @@
 // of the jnp ``tiers._ragged_units_mean``)       -> ragged_tiered_aggregate_{f32,bf16}
 // and B1m, the participation-masked two-level mean (the port's counterpart of
 // the jnp ``tiers._group_mean_masked``)           -> masked_tiered_aggregate_{f32,bf16,q8}
+// and B3m, the masked per-class two-level mean (the port's counterpart of the
+// jnp ``tiers._ragged_units_mean`` with a mask)  -> masked_ragged_tiered_aggregate_{f32,bf16,q8}
 //
 // What it computes, on one client-stacked shard x [N, P] (row-major):
 //   y1 = do_entity ? mean over each of the J contiguous client groups : x
@@ -60,6 +62,18 @@
 // column loop reads x (or q and its scales) once, and keep only in the rows
 // it is written to.  Over the int8 wire the payload's row pitch is Pp while
 // keep and out have the unpadded width P.
+//
+// B3m (per-class cuts under a participation mask or the fault guard) weights
+// each client by cw = m * w, its member column times its mask, and lets only
+// members receive; every other row keeps `keep` [N, P]:
+//   s_g = sum_{i in g} cw_i,   t_g = sum_{i in g} cw_i x_i
+//   entity only: y_i = (m_i && s_g > 0) ? t_g / s_g : keep_i
+//   with the fed level: S = sum_g s_g, T = sum_g t_g, y_i = (m_i && S > 0) ? T / S : keep_i
+// B3's twin cannot express this: there one vector is both the weight and the
+// receive gate.  The member and cw columns of the units a block's columns
+// touch, their per-group sums and S are staged in shared memory as in the
+// ragged kernel; P = U * E exactly (over the int8 wire P is the unpadded
+// width and the payload's row pitch is Pp).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -303,6 +317,100 @@ int launch_masked(Load load, const float* mask, const Out* keep, Out* out, int N
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename Load, typename Out>
+__global__ void __launch_bounds__(kThreads)
+masked_ragged_tiered_aggregate_kernel(Load load, const float* __restrict__ mask,
+                                      const float* __restrict__ member,
+                                      const Out* __restrict__ keep, Out* __restrict__ out,
+                                      int N, long long P, int J, long long U, long long E,
+                                      int do_entity, int do_global) {
+  extern __shared__ float smem[];
+  const int per = N / J;
+  const long long p0 = static_cast<long long>(blockIdx.x) * kThreads;
+  const long long p_last = (p0 + kThreads < P ? p0 + kThreads : P) - 1;
+  const long long u0 = p0 / E;
+  const int nu = static_cast<int>(p_last / E - u0 + 1);
+  float* s_m = smem;              // [nu][N]  member column of each unit
+  float* s_cw = s_m + nu * N;     // [nu][N]  member x mask
+  float* s_cnt = s_cw + nu * N;   // [nu][J]  sum of cw per entity group
+  float* s_all = s_cnt + nu * J;  // [nu]     sum of cw over all N
+  for (int k = threadIdx.x; k < nu * N; k += kThreads) {
+    const int uu = k / N, n = k - uu * N;
+    const float m = member[n * U + u0 + uu];
+    s_m[k] = m;
+    s_cw[k] = m * mask[n];
+  }
+  __syncthreads();
+  for (int k = threadIdx.x; k < nu * J; k += kThreads) {
+    const int uu = k / J, j = k - uu * J;
+    float c = 0.0f;
+    for (int i = 0; i < per; ++i) c += s_cw[uu * N + j * per + i];
+    s_cnt[k] = c;
+  }
+  __syncthreads();
+  for (int uu = threadIdx.x; uu < nu; uu += kThreads) {
+    float c = 0.0f;
+    for (int j = 0; j < J; ++j) c += s_cnt[uu * J + j];
+    s_all[uu] = c;
+  }
+  __syncthreads();
+
+  const long long p = p0 + threadIdx.x;
+  if (p >= P) return;
+  const int uu = static_cast<int>(p / E - u0);
+  const float* m = s_m + uu * N;
+  const float* cw = s_cw + uu * N;
+  const float* cnt = s_cnt + uu * J;
+  if (do_global) {
+    const float total = s_all[uu];
+    if (total > 0.0f) {
+      float t = 0.0f;
+      for (int j = 0; j < J; ++j) {
+        const int n0 = j * per;
+        float tg = 0.0f;
+        for (int i = 0; i < per; ++i) tg += cw[n0 + i] * load(n0 + i, p);
+        t += tg;
+      }
+      const Out v = from_f32<Out>(t / total);
+      for (int n = 0; n < N; ++n) out[n * P + p] = m[n] > 0.0f ? v : keep[n * P + p];
+    } else {
+      for (int n = 0; n < N; ++n) out[n * P + p] = keep[n * P + p];
+    }
+  } else if (do_entity) {
+    for (int j = 0; j < J; ++j) {
+      const int n0 = j * per;
+      const float c = cnt[j];
+      if (c > 0.0f) {
+        float tg = 0.0f;
+        for (int i = 0; i < per; ++i) tg += cw[n0 + i] * load(n0 + i, p);
+        const Out v = from_f32<Out>(tg / c);
+        for (int i = 0; i < per; ++i) {
+          const int n = n0 + i;
+          out[n * P + p] = m[n] > 0.0f ? v : keep[n * P + p];
+        }
+      } else {
+        for (int i = 0; i < per; ++i) out[(n0 + i) * P + p] = keep[(n0 + i) * P + p];
+      }
+    }
+  } else {
+    for (int n = 0; n < N; ++n) out[n * P + p] = from_f32<Out>(load(n, p));
+  }
+}
+
+template <typename Load, typename Out>
+int launch_masked_ragged(Load load, const float* mask, const float* member, const Out* keep,
+                         Out* out, int N, long long P, int J, long long U, long long E,
+                         int do_entity, int do_global, void* stream) {
+  if (P <= 0) return static_cast<int>(cudaSuccess);
+  const long long blocks = (P + kThreads - 1) / kThreads;
+  const long long nu = units_per_block(U, E);
+  const size_t shmem = sizeof(float) * static_cast<size_t>(nu * (2 * N + J + 1));
+  masked_ragged_tiered_aggregate_kernel<Load, Out>
+      <<<static_cast<unsigned>(blocks), kThreads, shmem, static_cast<cudaStream_t>(stream)>>>(
+          load, mask, member, keep, out, N, P, J, U, E, do_entity, do_global);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
@@ -378,6 +486,36 @@ int masked_tiered_aggregate_q8(const int8_t* q, const float* scales, const float
                                void* stream) {
   return launch_masked(Q8Load{q, scales, Pp, Pp / tile, tile}, mask, keep, out, N, P, J,
                        do_entity, do_global, stream);
+}
+
+// B3m over a dense [N, P] shard, P = U * E; member is [N, U], keep [N, P] of
+// x's type (x itself for the clients' current state).
+int masked_ragged_tiered_aggregate_f32(const float* x, const float* mask, const float* member,
+                                       const float* keep, float* out, int N, long long P,
+                                       int J, long long U, long long E, int do_entity,
+                                       int do_global, void* stream) {
+  return launch_masked_ragged(DenseLoad<float>{x, P}, mask, member, keep, out, N, P, J, U, E,
+                              do_entity, do_global, stream);
+}
+
+int masked_ragged_tiered_aggregate_bf16(const void* x, const float* mask, const float* member,
+                                        const void* keep, void* out, int N, long long P, int J,
+                                        long long U, long long E, int do_entity, int do_global,
+                                        void* stream) {
+  return launch_masked_ragged(
+      DenseLoad<__nv_bfloat16>{static_cast<const __nv_bfloat16*>(x), P}, mask, member,
+      static_cast<const __nv_bfloat16*>(keep), static_cast<__nv_bfloat16*>(out), N, P, J, U, E,
+      do_entity, do_global, stream);
+}
+
+// B3m over the int8 wire [N, Pp] (row pitch Pp); keep and out are f32 [N, P],
+// P = U * E <= Pp the unpadded width.
+int masked_ragged_tiered_aggregate_q8(const int8_t* q, const float* scales, const float* mask,
+                                      const float* member, const float* keep, float* out, int N,
+                                      long long Pp, int tile, long long P, int J, long long U,
+                                      long long E, int do_entity, int do_global, void* stream) {
+  return launch_masked_ragged(Q8Load{q, scales, Pp, Pp / tile, tile}, mask, member, keep, out,
+                              N, P, J, U, E, do_entity, do_global, stream);
 }
 
 }  // extern "C"

@@ -5,8 +5,10 @@
 ``ragged_quantized_tiered_aggregate`` (B3, per-class cuts), B3's dense
 twin ``ragged_tiered_aggregate`` and the participation-masked
 ``masked_tiered_aggregate`` / ``masked_quantized_tiered_aggregate`` (B1m,
-dense and over the int8 wire) choose their implementation from the device
-of the tensor they are given:
+dense and over the int8 wire) and the masked per-class
+``masked_ragged_tiered_aggregate`` / ``masked_ragged_quantized_tiered_aggregate``
+(B3m) choose their implementation from the device of the tensor they are
+given:
 
 * a CUDA tensor launches the hand-written kernel in
   ``csrc/tiered_aggregate.cu`` on the current stream, or raises — there is
@@ -18,7 +20,9 @@ nothing.  ``aggregate_tree`` applies B1 or B2 to every leaf of a
 client-stacked tree, as ``tiers.synchronize`` does per (tier, level);
 ``ragged_aggregate_tree`` applies the twin or B3, as
 ``tiers.ragged_synchronize`` does per (unit, tier, level);
-``masked_aggregate_tree`` applies B1m, as ``tiers.synchronize(mask=)`` does.
+``masked_aggregate_tree`` applies B1m, as ``tiers.synchronize(mask=)`` does;
+``masked_ragged_aggregate_tree`` applies B3m, as
+``tiers.ragged_synchronize(mask=)`` does per (unit, tier, level).
 Flags are host-side Python values, so choosing a round's levels never waits
 for the device.
 """
@@ -35,6 +39,8 @@ from ...compress.quantize import q8_quantize
 from .. import build
 from .ref import (
     masked_quantized_tiered_aggregate_ref,
+    masked_ragged_quantized_tiered_aggregate_ref,
+    masked_ragged_tiered_aggregate_ref,
     masked_tiered_aggregate_ref,
     quantized_tiered_aggregate_ref,
     ragged_quantized_tiered_aggregate_ref,
@@ -49,6 +55,7 @@ launches: Dict[str, int] = {
     "tiered_aggregate": 0, "tiered_aggregate_q8": 0,
     "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0,
     "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0,
+    "masked_ragged_tiered_aggregate": 0, "masked_ragged_tiered_aggregate_q8": 0,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -79,6 +86,13 @@ def _library() -> ctypes.CDLL:
             fn.argtypes, fn.restype = masked, i
         lib.masked_tiered_aggregate_q8.argtypes = [p, p, p, p, p, i, ll, i, ll, i, i, i, p]
         lib.masked_tiered_aggregate_q8.restype = i
+        masked_ragged = [p, p, p, p, p, i, ll, i, ll, ll, i, i, p]
+        for fn in (lib.masked_ragged_tiered_aggregate_f32,
+                   lib.masked_ragged_tiered_aggregate_bf16):
+            fn.argtypes, fn.restype = masked_ragged, i
+        lib.masked_ragged_tiered_aggregate_q8.argtypes = [
+            p, p, p, p, p, p, i, ll, i, ll, i, ll, ll, i, i, p]
+        lib.masked_ragged_tiered_aggregate_q8.restype = i
         _lib = lib
     return _lib
 
@@ -439,6 +453,121 @@ def masked_tiered_aggregate_q8(
     )
 
 
+def masked_ragged_tiered_aggregate(
+    x: torch.Tensor, mask: torch.Tensor, member: torch.Tensor, keep: torch.Tensor,
+    do_entity, do_global, num_entities: int,
+) -> torch.Tensor:
+    """[N, P] member-gated, participation-masked two-level aggregation
+    (B3m); see ``ref.masked_ragged_tiered_aggregate_ref`` for semantics.
+
+    ``mask`` is f32 0/1 [N] (the weight, with the member column),
+    ``member`` f32 0/1 [N] or [N, U] over U units of P / U columns (the
+    receive gate), ``keep`` [N, P] of x's dtype what every row that does
+    not receive keeps.  x is f32 or bf16 and the output keeps its dtype;
+    the kernel sums in f32 and fuses the two levels into T / S.
+    """
+    if x.ndim != 2 or x.shape[0] % num_entities:
+        raise ValueError(
+            f"x must be [N, P] with N divisible by {num_entities}, "
+            f"got {tuple(x.shape)}"
+        )
+    N, P = x.shape
+    _check_mask(mask, N)
+    m = _member_matrix(member, N, P)
+    if keep.shape != x.shape or keep.dtype != x.dtype:
+        raise ValueError(
+            f"keep must be {x.dtype} {tuple(x.shape)}, got {keep.dtype} {tuple(keep.shape)}"
+        )
+    if not _on_cuda(x, mask, m, keep):
+        return masked_ragged_tiered_aggregate_ref(
+            x, mask, m, keep, do_entity, do_global, num_entities)
+    if x.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x dtype {x.dtype}: the kernel takes f32 or bf16")
+    if not all(t.is_contiguous() for t in (x, mask, m, keep)):
+        raise ValueError("x, mask, member and keep must be contiguous")
+    U = m.shape[1]
+    lib = _library()
+    fn = (lib.masked_ragged_tiered_aggregate_f32 if x.dtype == torch.float32
+          else lib.masked_ragged_tiered_aggregate_bf16)
+    out = torch.empty_like(x)
+    with torch.cuda.device(x.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = fn(
+            x.data_ptr(), mask.data_ptr(), m.data_ptr(), keep.data_ptr(), out.data_ptr(),
+            N, P, num_entities, U, P // U, int(bool(do_entity)), int(bool(do_global)),
+            stream,
+        )
+    _raise_on(status, "masked_ragged_tiered_aggregate")
+    launches["masked_ragged_tiered_aggregate"] += 1
+    return out
+
+
+def masked_ragged_quantized_tiered_aggregate(
+    q: torch.Tensor, scales: torch.Tensor, mask: torch.Tensor, member: torch.Tensor,
+    keep: torch.Tensor, do_entity, do_global, num_entities: int, tile_p: int = TILE_P,
+) -> torch.Tensor:
+    """Fused dequantize → member-gated, participation-masked aggregate over
+    the q8 wire (B3m with the int8 load).  q [N, Pp] int8, scales
+    [N, Pp/tile_p] f32, ``member`` [N] or [N, U] over the unpadded width
+    P = keep.shape[1], ``keep`` f32 [N, P] — the pre-compression tree every
+    row that does not receive keeps.  Returns f32 [N, P]."""
+    if q.ndim != 2 or q.shape[0] % num_entities or q.shape[1] % tile_p:
+        raise ValueError(
+            f"q must be [N, Pp] with N divisible by {num_entities} and Pp by "
+            f"{tile_p}, got {tuple(q.shape)}"
+        )
+    N, Pp = q.shape
+    _check_mask(mask, N)
+    if scales.shape != (N, Pp // tile_p) or scales.dtype != torch.float32:
+        raise ValueError(
+            f"scales must be f32 [{N}, {Pp // tile_p}], got "
+            f"{scales.dtype} {tuple(scales.shape)}"
+        )
+    if q.dtype != torch.int8:
+        raise ValueError(f"q dtype {q.dtype}: the wire payload is int8")
+    if keep.ndim != 2 or keep.shape[0] != N or not 0 < keep.shape[1] <= Pp \
+            or keep.dtype != torch.float32:
+        raise ValueError(
+            f"keep must be f32 [{N}, P <= {Pp}], got {keep.dtype} {tuple(keep.shape)}"
+        )
+    P = keep.shape[1]
+    m = _member_matrix(member, N, P)
+    if not _on_cuda(q, scales, mask, m, keep):
+        return masked_ragged_quantized_tiered_aggregate_ref(
+            q, scales, mask, m, keep, do_entity, do_global, num_entities, tile_p
+        )
+    if not all(t.is_contiguous() for t in (q, scales, mask, m, keep)):
+        raise ValueError("q, scales, mask, member and keep must be contiguous")
+    U = m.shape[1]
+    lib = _library()
+    out = torch.empty((N, P), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.masked_ragged_tiered_aggregate_q8(
+            q.data_ptr(), scales.data_ptr(), mask.data_ptr(), m.data_ptr(),
+            keep.data_ptr(), out.data_ptr(), N, Pp, tile_p, P, num_entities, U, P // U,
+            int(bool(do_entity)), int(bool(do_global)), stream,
+        )
+    _raise_on(status, "masked_ragged_tiered_aggregate_q8")
+    launches["masked_ragged_tiered_aggregate_q8"] += 1
+    return out
+
+
+def masked_ragged_tiered_aggregate_q8(
+    x: torch.Tensor, mask: torch.Tensor, member: torch.Tensor, keep: torch.Tensor,
+    do_entity, do_global, num_entities: int, tile_p: int = TILE_P,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """Quantize [N, P] to the q8 wire, aggregate member-gated and
+    participation-masked fused (B3m), return f32 [N, P]; ``keep`` (f32
+    [N, P]) is what every row that does not receive keeps.  Each client row
+    is tiled whole, as the JAX codec tiles a flattened leaf."""
+    q, scales = q8_quantize(x.float(), tile_p, generator=generator)
+    return masked_ragged_quantized_tiered_aggregate(
+        q, scales, mask, member, keep, do_entity, do_global, num_entities, tile_p
+    )
+
+
 def aggregate_tree(
     tree: Any, weights: torch.Tensor, do_entity, do_global, num_entities: int,
     tile_p: int = TILE_P, quantized: bool = False,
@@ -519,6 +648,36 @@ def masked_aggregate_tree(
             out = masked_tiered_aggregate(
                 flat, mask, kflat.to(x.dtype), do_entity, do_global, num_entities
             )
+        return out.reshape(x.shape)
+
+    return tree_map(f, tree, tree if keep is None else keep)
+
+
+def masked_ragged_aggregate_tree(
+    tree: Any, mask: torch.Tensor, member: torch.Tensor, do_entity, do_global,
+    num_entities: int, keep: Any = None, tile_p: int = TILE_P, quantized: bool = False,
+) -> Any:
+    """Apply the member-gated, participation-masked aggregation (B3m)
+    leaf-wise: one launch per leaf.  ``member`` is [N] for a tree of
+    per-unit leaves [N, ...], or [N, U] for stacked leaves [N, U, ...];
+    ``keep`` (a tree like ``tree``, default ``tree`` itself) holds what
+    every row that does not receive keeps — with ``quantized=True`` every
+    leaf goes over the q8 wire and ``keep`` is the pre-compression tree.
+    Outputs are cast back to the leaf dtype."""
+
+    def f(x, k):
+        if x.numel() == 0:
+            return x
+        n = x.shape[0]
+        flat = x.reshape(n, -1).contiguous()
+        kflat = flat if k is x else k.reshape(n, -1).contiguous()
+        if quantized:
+            out = masked_ragged_tiered_aggregate_q8(
+                flat, mask, member, kflat.float(), do_entity, do_global, num_entities,
+                tile_p).to(x.dtype)
+        else:
+            out = masked_ragged_tiered_aggregate(
+                flat, mask, member, kflat.to(x.dtype), do_entity, do_global, num_entities)
         return out.reshape(x.shape)
 
     return tree_map(f, tree, tree if keep is None else keep)

@@ -16,7 +16,9 @@ over a shard of U units of E = P / U columns each — and only members feed
 and receive either level (``ragged_tiered_aggregate_ref``).  The masked
 variant (partial participation) weights each client by its 0/1 ``mask``
 [N], broadcasts to every row, and lets a group with no participant keep
-its rows of ``keep`` (``masked_tiered_aggregate_ref``).
+its rows of ``keep`` (``masked_tiered_aggregate_ref``); the masked ragged
+variant weights each client by ``member × mask`` and lets only members
+receive (``masked_ragged_tiered_aggregate_ref``).
 
 The CPU tests run these, and ``chip_smoke.py`` holds the CUDA kernels
 against them on the card.  Flags are host-side Python values.
@@ -190,4 +192,66 @@ def masked_quantized_tiered_aggregate_ref(
     x = (q.reshape(N, Pp // tile_p, tile_p).float() * scales.float()[..., None]).reshape(N, Pp)
     return masked_tiered_aggregate_ref(
         x[:, :keep.shape[1]], mask, keep.float(), do_entity, do_global, num_entities
+    )
+
+
+def _ragged_level_masked(y: torch.Tensor, keep: torch.Tensor, member: torch.Tensor,
+                         cw: torch.Tensor, groups: int) -> torch.Tensor:
+    """One member-gated, participation-weighted level over [N, U, E] — the
+    arithmetic of the JAX ``tiers._ragged_units_mean`` with a mask: f32 sums
+    of cw·y per group and unit, divided by max(Σ cw, 1), received by the
+    members of groups with Σ cw > 0; every other row takes ``keep``."""
+    N, U, E = y.shape
+    per = N // groups
+    g = y.reshape(groups, per, U, E)
+    gk = keep.reshape(groups, per, U, E)
+    wg = cw.reshape(groups, per, U, 1)
+    mg = member.reshape(groups, per, U, 1)
+    s = torch.sum(wg, dim=1, keepdim=True)                       # [G, 1, U, 1]
+    tot = torch.sum(g * wg, dim=1, keepdim=True)
+    mean = tot / torch.clamp(s, min=1.0)
+    return torch.where((mg > 0.0) & (s > 0.0), mean, gk).reshape(N, U, E)
+
+
+def masked_ragged_tiered_aggregate_ref(
+    x: torch.Tensor, mask: torch.Tensor, member: torch.Tensor, keep: torch.Tensor,
+    do_entity, do_global, num_entities: int,
+) -> torch.Tensor:
+    """Member-gated, participation-masked two-level aggregation (B3m's plain
+    version), level by level as the JAX ``ragged_synchronize(mask=)``
+    applies ``_ragged_units_mean``, with cw = member × mask:
+
+        entity (J groups):  y_i = (m_i ∧ s_g > 0) ? Σ_g cw·x / s_g : keep_i
+        fed (one group):    y_i = (m_i ∧ S > 0)   ? Σ cw·y / S     : keep'_i
+
+    with keep' the entity level's output.  x and keep are [N, P] of one
+    dtype, ``mask`` [N] 0/1 and ``member`` [N] or [N, U] 0/1 (column p
+    belongs to unit p // (P / U)).  The levels run in f32 and the output is
+    cast to x's dtype once, as the kernel does; the JAX package rounds a
+    bf16 leaf between the levels too."""
+    N, P = x.shape
+    m = member.float().reshape(N, -1)
+    U = m.shape[1]
+    m3 = m.reshape(N, U, 1)
+    cw = m3 * mask.float().reshape(N, 1, 1)
+    y, k = x.float().reshape(N, U, P // U), keep.float().reshape(N, U, P // U)
+    if do_entity:
+        y = _ragged_level_masked(y, k, m3, cw, num_entities)
+    if do_global:
+        y = _ragged_level_masked(y, y if do_entity else k, m3, cw, 1)
+    return y.reshape(N, P).to(x.dtype).contiguous()
+
+
+def masked_ragged_quantized_tiered_aggregate_ref(
+    q: torch.Tensor, scales: torch.Tensor, mask: torch.Tensor, member: torch.Tensor,
+    keep: torch.Tensor, do_entity, do_global, num_entities: int, tile_p: int,
+) -> torch.Tensor:
+    """B3m over the int8 wire: dequantize q [N, Pp], then the masked ragged
+    levels over its first P = keep.shape[1] columns; returns f32 [N, P]."""
+    N, Pp = q.shape
+    if Pp % tile_p:
+        raise ValueError(f"payload width {Pp} is not a multiple of tile {tile_p}")
+    x = (q.reshape(N, Pp // tile_p, tile_p).float() * scales.float()[..., None]).reshape(N, Pp)
+    return masked_ragged_tiered_aggregate_ref(
+        x[:, :keep.shape[1]], mask, member, keep.float(), do_entity, do_global, num_entities
     )

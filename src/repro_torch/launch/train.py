@@ -20,10 +20,15 @@ prices the model on the paper's three-tier system, sets ε to
 ``--eps-scale`` × the I=1 bound floor, and lets ``solve_bcd`` pick the cuts
 and intervals the run then trains with, from the initial state again.
 
+``--staleness S`` (one value for every deferrable tier, or one per tier)
+trains on the bounded-staleness schedule of ``core.async_agg``: a due
+tier's fed level is snapshotted and folded back S rounds later, and the
+in-flight ones are drained after the last round; 0 is the synchronous
+dispatch.
+
 Runs on the first CUDA device; ``--device cpu`` asks for the CPU (the
 kernels then take their plain PyTorch versions).  The sharded engine
-(``--shard-*``) and async aggregation (``--staleness``) are not ported yet
-(ROADMAP A13, A11).
+(``--shard-*``) is not ported yet (ROADMAP A13).
 """
 from __future__ import annotations
 
@@ -58,6 +63,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--checkpoint", default=None)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--staleness", type=int, nargs="*", default=None,
+                    metavar="S",
+                    help="bounded-staleness async aggregation: one value "
+                         "(applies to every deferrable tier) or one per "
+                         "tier; 0 is the synchronous schedule "
+                         "(core.async_agg)")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; cpu on request)")
     return ap.parse_args(argv)
@@ -110,13 +121,15 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
-def make_dispatch(model, plan, opt, compressor=None, class_members=None) -> Callable:
+def make_dispatch(model, plan, opt, compressor=None, class_members=None,
+                  guard=None) -> Callable:
     """Specialized per-round-type steps (see ``tiers.synchronize``): round r
     runs the step whose fed-server levels are exactly the tiers due at
     r + 1, as the JAX package's dispatch does.  ``class_members`` (from
     ``tiers.class_tier_members``) makes every step a per-class (ragged) one,
-    as ``build_train_step_a(class_members=...)``.  ``dispatch(state, batch,
-    r, mask)`` with an [N] participation mask runs the masked step
+    as ``build_train_step_a(class_members=...)``; ``guard`` (a
+    ``tiers.GuardSpec``) arms the step's fault quarantine.  ``dispatch(state,
+    batch, r, mask)`` with an [N] participation mask runs the masked step
     (``build_train_step_a(with_mask=True)``)."""
     from ..core import build_train_step_a
 
@@ -129,6 +142,7 @@ def make_dispatch(model, plan, opt, compressor=None, class_members=None) -> Call
             cache[key] = build_train_step_a(
                 model, plan, opt, fed_round=fed, compressor=compressor,
                 class_members=class_members, with_mask=mask is not None,
+                guard=guard,
             )
         if mask is None:
             return cache[key](state, batch)
@@ -190,9 +204,22 @@ def main(argv=None) -> int:
     )
     if args.auto_optimize:
         plan = auto_optimize(args, spec, model, plan, opt, loader, state, device)
+    staleness = 0
+    if args.staleness:
+        staleness = (
+            args.staleness[0] if len(args.staleness) == 1 else tuple(args.staleness)
+        )
     print(f"[train] arch={spec.name} units={spec.n_units} plan cuts={plan.cuts} "
-          f"I={plan.intervals} N={args.clients} J2={args.edges} device={device}")
-    dispatch = make_dispatch(model, plan, opt)
+          f"I={plan.intervals} N={args.clients} J2={args.edges} device={device}"
+          + (f"  [async staleness={staleness}]" if staleness else ""))
+    trainer = None
+    if staleness:
+        from ..core.async_agg import make_async_trainer
+
+        trainer = make_async_trainer(model, plan, opt, staleness=staleness)
+        dispatch = trainer.run_round
+    else:
+        dispatch = make_dispatch(model, plan, opt)
     t0 = t_log = time.time()
     r_log = 0
     for r in range(args.rounds):
@@ -205,6 +232,8 @@ def main(argv=None) -> int:
                   f"({(now - t_log) * 1e3 / (r + 1 - r_log):.1f} ms/round since "
                   f"last log, {(now - t0) / (r + 1):.2f}s/round)")
             t_log, r_log = now, r + 1
+    if trainer is not None:
+        state = trainer.drain(state)  # fold the in-flight async syncs in
 
     if args.checkpoint:
         from ..checkpoint import save_checkpoint

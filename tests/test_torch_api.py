@@ -2,6 +2,7 @@
 against the JAX package's: one spec JSON drives both; solve and simulate
 results equal field for field; train-mode losses agree from a carried-over
 init; sections whose modules are not ported are refused naming their item."""
+import dataclasses
 import json
 import sys
 
@@ -33,6 +34,13 @@ SOLVED = {
     "ma": lambda: J.paper_spec().replace(solver=J.SolverCfg(kind="ma", cuts=(3, 8))),
     "ms": lambda: J.paper_spec().replace(
         solver=J.SolverCfg(kind="ms", intervals=(4, 2, 1))),
+    "privacy-energy": lambda: J.privacy_energy_spec(),
+    "privacy-energy-budgets": lambda: J.privacy_energy_spec(
+        epsilon_budget=3e4, budget_j_per_round=25.0),
+    "fault-storm": lambda: J.fault_storm_spec().replace(run=J.RunCfg(mode="solve")),
+    "faults-nominal": lambda: J.paper_spec().replace(
+        faults=J.FaultsCfg(crash_rate=0.1, corrupt_rate=0.05, link_fail_rate=0.2,
+                           outage_cells=(1,), outage_tier=1, outage_len=2)),
 }
 
 
@@ -59,7 +67,7 @@ def test_registries_are_the_jax_ones():
 
 
 @pytest.mark.parametrize("name", ["paper", "robust", "participation", "compressed",
-                                  "four-tier"])
+                                  "four-tier", "privacy-energy", "fault-storm"])
 def test_build_problem_tables_equal_jax(name):
     """``build(...).problem``: the whole-lattice split / agg / memory tables,
     ε and the hyper constants equal JAX's with ``==``."""
@@ -73,6 +81,16 @@ def test_build_problem_tables_equal_jax(name):
     if jb.participation is not None:
         assert tb.participation.q == jb.participation.q
         assert tb.participation.deadline == jb.participation.deadline
+    assert tb.problem.dp_sigma2 == jb.problem.dp_sigma2
+    assert tb.problem.d_min() == jb.problem.d_min()
+    assert tb.problem.retry_mult == jb.problem.retry_mult
+    for f in ("privacy", "energy", "faults"):
+        j, t = getattr(jb, f), getattr(tb, f)
+        assert (t is None) == (j is None), f
+        if j is not None:
+            assert t.to_dict() == j.to_dict() if hasattr(j, "to_dict") else vars(t) == vars(j)
+    assert (tb.dp_mechanism is None) == (jb.dp_mechanism is None)
+    assert (tb.guard is None) == (jb.guard is None)
 
 
 @pytest.mark.parametrize("name", list(SOLVED))
@@ -163,18 +181,34 @@ def test_jax_backend_names_read_as_the_card():
 
 
 UNPORTED = {
-    "privacy": (lambda s: s.replace(privacy=J.PrivacyCfg(noise_multiplier=1.0)), "A11"),
-    "energy": (lambda s: s.replace(energy=J.EnergyCfg()), "A11"),
-    "faults": (lambda s: s.replace(faults=J.FaultsCfg(crash_rate=0.1)), "A11"),
     "control": (lambda s: s.replace(run=J.RunCfg(mode="control"),
-                                    scenario=J.ScenarioCfg(name="flaky-wan")), "A11"),
-    "staleness": (lambda s: s.replace(run=J.RunCfg(mode="train", staleness=1)), "A11"),
+                                    scenario=J.ScenarioCfg(name="flaky-wan")), "A11b"),
     "engine-b": (lambda s: s.replace(run=J.RunCfg(mode="train", engine="b")), "A12"),
     "sharding": (lambda s: s.replace(run=J.RunCfg(mode="train", sharding=JShardingCfg())),
                  "A13"),
     "arch": (lambda s: s.replace(model=J.ModelCfg(arch="mamba2-1.3b", variant="reduced")),
              "A14"),
 }
+
+
+PORTED = {
+    "privacy": lambda s: s.replace(privacy=J.PrivacyCfg(noise_multiplier=1.0)),
+    "energy": lambda s: s.replace(energy=J.EnergyCfg()),
+    "faults": lambda s: s.replace(faults=J.FaultsCfg(crash_rate=0.1)),
+    "staleness": lambda s: s.replace(run=J.RunCfg(mode="train", staleness=1)),
+    "fault-storm": lambda s: J.fault_storm_spec(),
+    "privacy-energy": lambda s: J.privacy_energy_spec(),
+}
+
+
+@pytest.mark.parametrize("name", list(PORTED))
+def test_ported_sections_pass_the_capability_check(name):
+    """Privacy, energy, faults and staleness > 0 build in the port as in
+    the JAX package: the capability check lets them through."""
+    js = PORTED[name](J.paper_spec())
+    J.build(js)
+    check_capabilities(_port(js))
+    T.build(_port(js))
 
 
 @pytest.mark.parametrize("name", list(UNPORTED))
@@ -208,3 +242,55 @@ def test_result_dataclass_and_json_are_the_jax_ones():
     assert T.ExperimentResult.from_dict(res.to_dict()) == res
     assert list(res.to_dict()) == list(J.run(J.paper_spec()).to_dict())
     json.dumps(res.to_dict())
+
+
+def _carried(p0):
+    def carried(model, plan, opt, generator, device=None):
+        params = replicate_for_clients(params_from_numpy(p0, device), plan.num_clients)
+        return TrainState(params, opt.init(params), 0)
+
+    return carried
+
+
+TRAIN_EXTRA = {
+    "fault-storm": lambda: J.fault_storm_spec(
+        rounds=6, corrupt_rate=0.2, checkpoint_every=2, engine_crash_round=3).replace(
+        model=J.ModelCfg(arch="smollm-135m", variant="reduced", num_layers=4, batch=2,
+                         seq=32),
+        run=J.RunCfg(mode="train", rounds=6, dataset_size=64, lr=0.1)),
+    "privacy-zero-noise": lambda: _train_spec(J.privacy_energy_spec(noise_multiplier=0.0)),
+    "staleness": lambda: _train_spec(J.paper_spec()).replace(
+        run=J.RunCfg(mode="train", rounds=3, dataset_size=64, lr=0.1, staleness=1)),
+}
+
+
+@pytest.mark.parametrize("name", list(TRAIN_EXTRA))
+def test_fault_privacy_async_train_modes_match_jax(name, monkeypatch, tmp_path):
+    """Train mode under the fault storm (corruption before the step, the
+    guard, crashed clients masked, the cell outage rerouted, the engine
+    crash resumed from a checkpoint), with a z = 0 privacy section and
+    energy pricing, and at staleness 1: losses at rtol 1e-4 from the
+    carried JAX init, every other result field (the fault and privacy
+    sections included) equal."""
+    js = TRAIN_EXTRA[name]()
+    if js.faults is not None and js.faults.checkpoint_every:
+        js = js.replace(faults=dataclasses.replace(js.faults, checkpoint_dir=str(tmp_path)))
+    ref = J.run(js)
+    p0 = params_to_numpy(jax_build_model(jax_resolve_model(js.model)).init_params(
+        jax.random.PRNGKey(js.run.seed)))
+    monkeypatch.setattr(sys.modules["repro_torch.api.run"], "init_state_a", _carried(p0))
+    got = T.run(_port(js), device="cpu")
+    assert np.all(np.isfinite(got.train["losses"]))
+    np.testing.assert_allclose(got.train["losses"], ref.train["losses"], rtol=1e-4)
+    a, b = got.to_dict(), ref.to_dict()
+    assert a.keys() == b.keys() and a["train"].keys() == b["train"].keys()
+    for k in b:
+        if k != "train":
+            assert a[k] == b[k], k
+    for k in b["train"]:
+        if k not in ("losses", "first_loss", "final_loss"):
+            assert a["train"][k] == b["train"][k], k
+    if name == "fault-storm":
+        assert a["train"]["faults"]["recovered_round"] == 3
+        assert a["train"]["faults"]["checkpoints"] == 3
+        assert a["train"]["faults"]["n_faulty_total"] > 0

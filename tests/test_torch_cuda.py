@@ -107,11 +107,13 @@ def test_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
     if codec:
         assert launches == {"tiered_aggregate": 8, "tiered_aggregate_q8": 6,
                             "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0,
-                            "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0}
+                            "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0,
+                            "masked_ragged_tiered_aggregate": 0, "masked_ragged_tiered_aggregate_q8": 0}
     else:
         assert launches == {"tiered_aggregate": 10, "tiered_aggregate_q8": 0,
                             "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0,
-                            "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0}
+                            "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0,
+                            "masked_ragged_tiered_aggregate": 0, "masked_ragged_tiered_aggregate_q8": 0}
     cpu = synchronize({"frontend": {}, "units": [{k: v.cpu() for k, v in u.items()}
                                                  for u in params["units"]], "head": {}},
                       plan, 1, compressor=compressor)
@@ -212,7 +214,8 @@ def test_masked_sync_on_card_matches_cpu_and_counts_launches(cuda, codec, kind):
     want = {"masked_tiered_aggregate": 8, "masked_tiered_aggregate_q8": 6} if codec else {
         "masked_tiered_aggregate": 10, "masked_tiered_aggregate_q8": 0}
     assert launches == {"tiered_aggregate": 0, "tiered_aggregate_q8": 0,
-                        "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0, **want}
+                        "ragged_tiered_aggregate": 0, "ragged_tiered_aggregate_q8": 0,
+                        "masked_ragged_tiered_aggregate": 0, "masked_ragged_tiered_aggregate_q8": 0, **want}
     cpu = synchronize({"frontend": {}, "head": {}, "units": [
         {k: v.cpu() for k, v in u.items()} for u in params["units"]]}, plan, 1,
         compressor=compressor, mask=mask.cpu())
@@ -307,7 +310,8 @@ def test_ragged_sync_on_card_matches_cpu_and_counts_launches(cuda, codec):
     else:
         want = {"ragged_tiered_aggregate": 16, "ragged_tiered_aggregate_q8": 0}
     assert launches == {"tiered_aggregate": 0, "tiered_aggregate_q8": 0,
-                        "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0, **want}
+                        "masked_tiered_aggregate": 0, "masked_tiered_aggregate_q8": 0,
+                        "masked_ragged_tiered_aggregate": 0, "masked_ragged_tiered_aggregate_q8": 0, **want}
     cpu_params = {"frontend": {}, "head": {}, "units": [
         {k: v.cpu() for k, v in u.items()} for u in params["units"]]}
     cpu = ragged_synchronize(cpu_params, plan, class_tier_members(5, cc, co, "cpu"), 5,
@@ -591,3 +595,187 @@ def test_b5_f32_views_off_16_byte_alignment_match_plain(cuda):
     rdk, rdv = swa.swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
     for a, b in ((dq, rdq), (delta, rdelta), (dk, rdk), (dv, rdv)):
         assert _normalised_err(a, b) <= 2e-5
+
+
+# --------------------------------------------------------------------------- #
+# costs and robustness: B3m, the guarded step, DP, async
+# --------------------------------------------------------------------------- #
+
+
+def _b3m_members(N, U, device):
+    odd = (torch.arange(N, device=device) % 2).float()[:, None].expand(N, U).contiguous()
+    return {"odd": odd, "even": 1.0 - odd, "all": torch.ones(N, U, device=device),
+            "none": torch.zeros(N, U, device=device)}
+
+
+def _b3m_mask(kind, N, J, g, device):
+    if kind == "all-ones":
+        return torch.ones(N, device=device)
+    if kind == "all-zero":
+        return torch.zeros(N, device=device)
+    if kind == "7-of-N":
+        m = torch.zeros(N, device=device)
+        m[torch.randperm(N, generator=g, device=device)[:min(7, N - 1)]] = 1.0
+        return m
+    m = torch.ones(N, device=device)
+    m[:N // J] = 0.0
+    return m
+
+
+@pytest.mark.parametrize("kind", ["all-ones", "all-zero", "7-of-N", "silent group"])
+@pytest.mark.parametrize("N,J,P,U", [(20, 5, 2049, 1), (20, 1, 1728, 1), (8, 4, 30 * 64, 30),
+                                     (6, 3, 257, 1)])
+def test_b3m_kernel_matches_plain(cuda, kind, N, J, P, U):
+    """B3m: f32 at the dense sync's tolerance, bf16 one ulp beyond it, the
+    int8 load at f32's; each launch counted once; an all-zero mask returns
+    ``keep`` bit for bit, and so does every non-member element."""
+    from repro_torch.kernels.tiered_aggregate import (
+        masked_ragged_quantized_tiered_aggregate, masked_ragged_quantized_tiered_aggregate_ref,
+        masked_ragged_tiered_aggregate, masked_ragged_tiered_aggregate_ref,
+    )
+
+    g = torch.Generator(device=cuda).manual_seed(P + U)
+    mask = _b3m_mask(kind, N, J, g, cuda)
+    x = torch.randn(N, P, generator=g, device=cuda)
+    keep = torch.randn(N, P, generator=g, device=cuda)
+    q, s = q8_quantize(x, 128)
+    for name, m in _b3m_members(N, U, cuda).items():
+        nonmember = (m == 0).repeat_interleave(P // U, dim=1)
+        for de, dg in FLAGS:
+            for dtype in (torch.float32, torch.bfloat16):
+                xx, kk = x.to(dtype), keep.to(dtype)
+                reset_launches()
+                out = masked_ragged_tiered_aggregate(xx, mask, m, kk, de, dg, J)
+                torch.cuda.synchronize()
+                assert launches["masked_ragged_tiered_aggregate"] == 1
+                r = masked_ragged_tiered_aggregate_ref(xx, mask, m, kk, de, dg, J).float()
+                tol = 1e-6 + 1e-5 * r.abs()
+                if dtype == torch.bfloat16:
+                    _, exp = torch.frexp(r)
+                    tol = tol + torch.ldexp(torch.ones_like(r), exp - 8)
+                assert bool(((out.float() - r).abs() <= tol).all()), (name, de, dg, dtype)
+                if de or dg:
+                    assert torch.equal(out[nonmember], kk[nonmember])
+                    if kind == "all-zero":
+                        assert torch.equal(out, kk)
+            oq = masked_ragged_quantized_tiered_aggregate(q, s, mask, m, keep, de, dg, J, 128)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(oq, masked_ragged_quantized_tiered_aggregate_ref(
+                q, s, mask, m, keep, de, dg, J, 128), rtol=1e-5, atol=1e-6)
+
+
+def _reduced_vgg_batches(N, rounds, seed=0):
+    """numpy batches, as the loader hands them to ``to_device``."""
+    g = torch.Generator().manual_seed(seed)
+    hw = REDUCED.image_size
+    return [{"images": torch.randn(N, 2, hw, hw, 3, generator=g).numpy(),
+             "labels": torch.randint(0, 10, (N, 2), generator=g, dtype=torch.int32).numpy()}
+            for _ in range(rounds)]
+
+
+@pytest.mark.parametrize("per_class", [False, True], ids=["dense", "per-class"])
+@pytest.mark.parametrize("codec", [None, 128], ids=["plain", "int8"])
+def test_guarded_step_on_card_matches_cpu(cuda, per_class, codec):
+    """Engine A with the guard, nan corruption injected before rounds 1 and
+    3, a crashed client masked in round 2: the card's losses within rtol
+    1e-4 of the CPU's (1e-3 over the int8 wire); every param finite; the
+    syncs on B1m, per class on B3m."""
+    from repro_torch.core import TrainState
+    from repro_torch.core.tiers import GuardSpec
+    from repro_torch.faults import FaultSpec, apply_corruption
+
+    N = 4
+    plan = default_plan(REDUCED.n_units, N, cuts=(1, 3), intervals=(2, 2, 1),
+                        entities=(N, 2, 1))
+    model, opt = VggModel(REDUCED), sgd(0.01)
+    spec = FaultSpec(corrupt_rate=0.5, corrupt_mode="nan")
+    corrupt = [[0, 1, 0, 0], [0, 0, 0, 0], [1, 0, 0, 0], [0, 0, 0, 0]]
+    masks = [[1, 1, 1, 1], [1, 1, 0, 1], [1, 1, 1, 1], [1, 1, 1, 1]]
+    losses = {}
+    for dev in (cuda, torch.device("cpu")):
+        members = class_tier_members(REDUCED.n_units, [(1, 3), (2, 4)], [0, 1] * 2, dev) \
+            if per_class else None
+        state = init_state_a(model, plan, opt, torch.Generator().manual_seed(0), dev)
+        dispatch = make_dispatch(model, plan, opt, class_members=members, guard=GuardSpec(),
+                                 compressor=Int8Stochastic(codec) if codec else None)
+        reset_launches()
+        losses[dev.type] = []
+        for r, batch in enumerate(_reduced_vgg_batches(N, 4)):
+            import numpy as np
+
+            state = TrainState(apply_corruption(state.params, np.array(corrupt[r], bool),
+                                                spec), state.opt_state, state.step)
+            state, loss = dispatch(state, to_device(batch, dev), r,
+                                   torch.tensor(masks[r], dtype=torch.float32, device=dev))
+            losses[dev.type].append(float(loss))
+        if dev.type == "cuda":
+            key = "masked_ragged_tiered_aggregate" if per_class else "masked_tiered_aggregate"
+            assert launches[key] > 0
+            assert launches["tiered_aggregate"] == launches["ragged_tiered_aggregate"] == 0
+            for u in state.params["units"]:
+                assert all(bool(torch.isfinite(v).all()) for v in u.values())
+    assert all(math.isfinite(v) for v in losses["cuda"])
+    torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+                               rtol=1e-3 if codec else 1e-4, atol=0)
+
+
+def test_dp_noise_reproducible_on_one_cuda_generator_seed(cuda):
+    """One (seed, round, leaf): the same draw on the card bit for bit;
+    another round, leaf or seed: another; the noise has std z·C; a full
+    fed round leaves every client with one value."""
+    from repro_torch.core import TrainState, build_train_step_a
+    from repro_torch.privacy import DPMechanism
+
+    x = torch.full((4, 250_000), 1e-9, device=cuda)
+    mech = DPMechanism(clip=0.5, noise_multiplier=2.0, seed=3)
+    a = mech.transform(x, 5, salt=2)
+    assert torch.equal(a, mech.transform(x, 5, salt=2))
+    for other in (mech.transform(x, 6, salt=2), mech.transform(x, 5, salt=3),
+                  DPMechanism(clip=0.5, noise_multiplier=2.0, seed=4).transform(x, 5, salt=2)):
+        assert not torch.equal(a, other)
+    assert abs(float((a - x).double().std()) / 1.0 - 1.0) < 0.01
+    plan = default_plan(REDUCED.n_units, 4, cuts=(1, 3), intervals=(1, 1, 1),
+                        entities=(4, 2, 1))
+    model, opt = VggModel(REDUCED), sgd(0.01)
+    state = init_state_a(model, plan, opt, torch.Generator().manual_seed(0), cuda)
+    step = build_train_step_a(model, plan, opt, privacy=DPMechanism(1.0, 1.0, seed=7))
+    batch = to_device(_reduced_vgg_batches(4, 1)[0], cuda)
+    one, _ = step(state, batch)
+    two, _ = step(TrainState(state.params, state.opt_state, 0), batch)
+    for u1, u2 in zip(one.params["units"], two.params["units"]):
+        for k in u1:
+            assert torch.equal(u1[k], u1[k][:1].expand_as(u1[k]))
+            torch.testing.assert_close(u1[k], u2[k], rtol=1e-5, atol=1e-6)
+
+
+def test_fault_storm_and_async_api_runs_on_card_match_cpu(cuda):
+    """``api.run`` on the card against the CPU from one init: the fault
+    storm (REDUCED smollm-135m, 6 rounds, an engine crash resumed from a
+    checkpoint) and staleness 1 on REDUCED VGG — losses within rtol 1e-4,
+    every other train field equal."""
+    import tempfile
+
+    from repro_torch import api
+
+    with tempfile.TemporaryDirectory() as d:
+        storm = api.fault_storm_spec(rounds=6, corrupt_rate=0.2, checkpoint_every=2,
+                                     engine_crash_round=3)
+        storm = storm.replace(
+            model=api.ModelCfg(arch="smollm-135m", variant="reduced", num_layers=4, batch=2,
+                               seq=32),
+            run=api.RunCfg(mode="train", rounds=6, dataset_size=64, lr=0.1),
+            faults=__import__("dataclasses").replace(storm.faults, checkpoint_dir=d))
+        stale = api.paper_spec().replace(
+            model=api.ModelCfg(arch="smollm-135m", variant="reduced", num_layers=4, batch=2,
+                               seq=32),
+            system=api.SystemCfg(num_clients=4, num_edges=2),
+            solver=api.SolverCfg(kind="fixed", cuts=(1, 3), intervals=(2, 2, 1)),
+            run=api.RunCfg(mode="train", rounds=4, dataset_size=64, lr=0.01, staleness=1))
+        for spec in (storm, stale):
+            on_card, on_cpu = api.run(spec), api.run(spec, device="cpu")
+            a, b = on_card.train, on_cpu.train
+            torch.testing.assert_close(torch.tensor(a["losses"]), torch.tensor(b["losses"]),
+                                       rtol=1e-4, atol=0)
+            for k in b:
+                if k not in ("losses", "first_loss", "final_loss"):
+                    assert a[k] == b[k], k

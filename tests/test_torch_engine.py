@@ -125,17 +125,6 @@ def test_init_state_and_replication():
                                   np.asarray(ref["units"][1]["w"]))
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(privacy=object()), "A11"),
-    (dict(guard=object()), "A11"), (dict(with_sync_weights=True), "A11"),
-])
-def test_unported_engine_options_raise(kw, item):
-    plan = default_plan(REDUCED.n_units, N, cuts=CUTS, intervals=INTERVALS,
-                        entities=ENTITIES)
-    with pytest.raises(NotImplementedError, match=item):
-        build_train_step_a(VggModel(REDUCED), plan, sgd(0.1), **kw)
-
-
 def test_train_main_runs_on_cpu_and_checkpoint_loads_in_jax(tmp_path, capsys):
     """The entry point on request of the CPU, at full VGG-16 width with two
     clients; its checkpoint restores in the JAX package."""
@@ -193,9 +182,10 @@ def test_entry_points_refuse_to_fall_back_to_cpu(entry):
 def test_train_cli_has_only_the_ported_flags():
     args = train.parse_args([])
     assert args.device == "cuda" and args.arch == "vgg16-cifar10"
-    for flag in ("--shard-data", "--staleness"):
-        with pytest.raises(SystemExit):
-            train.parse_args([flag])
+    with pytest.raises(SystemExit):  # the sharded engine is not ported (A13)
+        train.parse_args(["--shard-data"])
+    assert train.parse_args(["--staleness", "2"]).staleness == [2]
+    assert train.parse_args(["--staleness", "1", "0", "0"]).staleness == [1, 0, 0]
     args = train.parse_args(["--auto-optimize"])
     assert args.auto_optimize and args.probe_rounds == 8 and args.eps_scale == 4.0
     # --arch takes any id, as the JAX CLI does; the unported ones raise

@@ -282,18 +282,3 @@ def test_all_ones_mask_equals_unmasked_at_the_ragged_collapse_tolerance():
     for k, v in _flat(params_to_numpy(plain[-1].params)).items():
         np.testing.assert_allclose(_flat(params_to_numpy(masked[-1].params))[k], v,
                                    rtol=RTOL, atol=ATOL, err_msg=k)
-
-
-def test_masked_ragged_sync_raises_naming_a11():
-    from repro_torch.core import class_tier_members
-
-    plan = default_plan(REDUCED.n_units, N, cuts=CUTS, intervals=INTERVALS, entities=ENTITIES)
-    members = class_tier_members(REDUCED.n_units, [CUTS], [0] * N, CPU)
-    step = build_train_step_a(VggModel(REDUCED), plan, sgd(0.1), with_mask=True,
-                              class_members=members)
-    params = VggModel(REDUCED).init_params(torch.Generator().manual_seed(0), CPU)
-    from repro_torch.core import replicate_for_clients
-
-    params = replicate_for_clients(params, N)
-    with pytest.raises(NotImplementedError, match="A11"):
-        step(TrainState(params, (), 0), train.to_device(_batches()[0], CPU), torch.ones(N))

@@ -423,10 +423,6 @@ def test_ragged_synchronize_refusals():
     tree = params_from_numpy(_vgg_tree(N, seed=2), CPU)
     with pytest.raises(ValueError, match="one member matrix per tier"):
         ragged_synchronize(tree, plan, tm[:2], 0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ragged_synchronize(tree, plan, tm, 0, mask=torch.ones(N))
-    with pytest.raises(NotImplementedError, match="A11"):
-        ragged_synchronize(tree, plan, tm, 0, guard=object())
     audio = {"frontend": {}, "units": {"enc": {}, "dec": {}}, "head": {}}
     with pytest.raises(NotImplementedError, match="enc/dec"):
         ragged_synchronize(audio, plan, tm, 0)

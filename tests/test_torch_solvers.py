@@ -265,14 +265,3 @@ def test_torch_backend_runs_on_the_card_unless_named():
         resolve_backend("torch")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         _paper_problem("torch").evaluator("torch")
-
-
-def test_unported_regimes_raise_naming_a11():
-    p = _paper_problem("torch")
-    for name in ("privacy", "energy", "faults"):
-        with pytest.raises(NotImplementedError, match="A11"):
-            dataclasses.replace(p, **{name: object()})
-    with pytest.raises(NotImplementedError, match="A11"):
-        p.with_privacy(object())
-    assert p.with_privacy(None).privacy is None
-    assert p.round_energy([1, 1, 1], (3, 8)) is None and p.d_min() == 0.0

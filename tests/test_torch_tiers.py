@@ -12,10 +12,7 @@ from repro.core.tiers import (
     synchronize as jax_synchronize, tier_subtrees as jax_tier_subtrees,
 )
 from repro_torch.compress import Int8Stochastic
-from repro_torch.core import (
-    TierPlan, class_tier_members, combine_tiers, default_plan,
-    ragged_synchronize, synchronize, tier_subtrees,
-)
+from repro_torch.core import TierPlan, combine_tiers, default_plan, synchronize, tier_subtrees
 from repro_torch.kernels.tiered_aggregate import ops
 from repro_torch.models import params_from_numpy
 
@@ -137,19 +134,20 @@ def test_sync_kernel_mapping_counts_no_plain_launches():
     assert ops.launches == dict.fromkeys(ops.launches, 0)
     assert set(ops.launches) == {"tiered_aggregate", "tiered_aggregate_q8",
                                  "ragged_tiered_aggregate", "ragged_tiered_aggregate_q8",
-                                 "masked_tiered_aggregate", "masked_tiered_aggregate_q8"}
+                                 "masked_tiered_aggregate", "masked_tiered_aggregate_q8",
+                                 "masked_ragged_tiered_aggregate",
+                                 "masked_ragged_tiered_aggregate_q8"}
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
+    """The audio model's two unit stacks come with ROADMAP A14: slicing them
+    into tiers raises, masked or not."""
     plan = default_plan(5, 4, cuts=(1, 3), intervals=(2, 2, 1), entities=(4, 2, 1))
-    tree = params_from_numpy(_stacked_tree(4, 2), CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        synchronize(tree, plan, 0, guard=object())
-    members = class_tier_members(5, [(1, 3)], [0, 0, 0, 0], CPU)
-    with pytest.raises(NotImplementedError, match="A11"):
-        ragged_synchronize(tree, plan, members, 0, mask=torch.ones(4))
-    with pytest.raises(NotImplementedError, match="A11"):
-        ragged_synchronize(tree, plan, members, 0, guard=object())
+    audio = {"frontend": {}, "units": {"enc": {}, "dec": {}}, "head": {}}
+    with pytest.raises(NotImplementedError, match="A14"):
+        synchronize(audio, plan, 0)
+    with pytest.raises(NotImplementedError, match="A14"):
+        synchronize(audio, plan, 0, mask=torch.ones(4))
 
 
 def _stacked_units_tree(N, U, seed):
