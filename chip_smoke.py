@@ -69,7 +69,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    energy-priced solve on the card against NumPy, the DP wire repeating from
    one seed, z = 0 against the CPU; ``launch.train --staleness 2`` at VGG-16
    full width, 12 rounds and the drain, and staleness 0 against the
-   synchronous dispatch bit for bit;
+   synchronous dispatch bit for bit; then the online control loop through
+   ``api.run(mode="control")`` at full width (``control_specs``): VGG-16
+   under flaky-wan with a participation deadline (16 rounds, every sync on
+   B1m, four switches) and smollm-135m under flaky-wan (8 rounds, B1 and
+   B4/B5, two switches) -- the decisions equal a host ``Controller``'s on
+   NumPy and on ``torch`` fed the run's observations, B1m / B1 / B4 / B5
+   launch as each segment's plan implies with each migration's B1, each
+   migration equals its plain version on a CPU copy and keeps every tier's
+   client mean, every loss and param finite, every tier whose fed level ran
+   holds one value, smollm's peak at most 70 GB; each beside the same spec
+   in ``mode="train"``, with the migrations' ms and the re-solves' host
+   time;
 6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
@@ -2507,6 +2518,241 @@ def async_paths(rounds: int = 12):
     return got, ms
 
 
+def control_specs(api):
+    """The two control configurations (PERF.md §4).  The decisions are host
+    NumPy and do not depend on the training: VGG-16 switches at rounds 3,
+    6, 9 and 12 (three of them move the cuts), smollm-135m at rounds 2 (to
+    cuts (1, 2)) and 5 (``tests/test_torch_control.py`` pins VGG-16's
+    decisions to the JAX package's)."""
+    vgg = api.paper_spec(eps_scale=20.0).replace(
+        name="control-vgg16",
+        scenario=api.ScenarioCfg(name="flaky-wan", rounds=16, seed=0, quantile=0.5),
+        participation=api.ParticipationCfg(target_rate=0.9),
+        solver=api.SolverCfg(kind="fixed", cuts=(3, 8), intervals=(2, 2, 1)),
+        run=api.RunCfg(mode="control", rounds=16, lr=5e-4),
+        control=api.ControlCfg(window=4, min_window=4, cooldown=2, rel_tol=0.1))
+    lm = api.paper_spec().replace(
+        name="control-smollm-135m",
+        model=api.ModelCfg(arch="smollm-135m", variant="full", batch=LM_BATCH, seq=1024),
+        system=api.SystemCfg(preset="paper-three-tier", num_clients=8, num_edges=4),
+        scenario=api.ScenarioCfg(name="flaky-wan", rounds=16, seed=0, quantile=0.5),
+        solver=api.SolverCfg(kind="fixed", cuts=(6, 15), intervals=(8, 4, 1)),
+        run=api.RunCfg(mode="control", rounds=8, lr=5e-4, dataset_size=64),
+        control=api.ControlCfg(window=4, min_window=3, cooldown=2, rel_tol=0.25))
+    return vgg, lm
+
+
+def decision_key(d):
+    """A control decision less its wall clock."""
+    return (d.round_index, d.trigger, d.old_cuts, d.old_intervals, d.new_cuts,
+            d.new_intervals, d.switched, dataclasses.asdict(d.drift))
+
+
+def control_run(api, spec, label: str):
+    """``api.run(spec)`` in control mode on the card.  The engine step, the
+    state migration and the controller are wrapped: each step's input
+    counter and plan are kept, every param is checked finite after every
+    step and every tier whose fed level ran to hold one value; each
+    migration is timed alone, its B1 launches counted, its result held to
+    the plain version on a CPU copy and each new tier's client mean to the
+    pre-switch one (f32 tolerance); every observation is kept, and a host
+    ``Controller`` on ``backend="numpy"`` and one on ``"torch"`` fed them
+    must decide as the run did.  (The re-solve prices the lattice from the
+    window's NumPy tables on either backend; ``"torch"`` resolves the card
+    and builds nothing else there.)"""
+    import torch
+
+    from repro_torch import control as ctl_mod
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.core import TrainState, tier_subtrees
+    from repro_torch.models.vgg import VggSpec
+
+    built = api.build(spec)
+    N = built.system.num_clients
+    run_mod = sys.modules["repro_torch.api.run"]
+    make_step, migrate, controller = run_mod._make_step, ctl_mod.migrate_state, ctl_mod.Controller
+    seen = {"t": [], "steps": [], "plans": [], "check_s": [], "obs": [], "migrations": []}
+
+    def hooked(b, model, plan, opt, with_mask):
+        step = make_step(b, model, plan, opt, with_mask)
+
+        def wrapped(state, *a):
+            seen["t"].append(time.perf_counter())
+            seen["steps"].append(state.step)
+            seen["plans"].append(plan)
+            out, loss = step(state, *a)
+            torch.cuda.synchronize()
+            t_check = time.perf_counter()
+            for i, x in enumerate(tree_leaves(out.params)):
+                if not bool(torch.isfinite(x).all()):
+                    raise AssertionError(f"{label}: leaf {i} not finite after step "
+                                         f"{state.step}")
+            for m, part in enumerate(tier_subtrees(out.params, plan)):
+                if fed_ran(plan, state.step, m):
+                    for x in tree_leaves(part):
+                        if x.numel() and not bool((x == x[0:1]).all()):
+                            raise AssertionError(f"{label}: tier {m} replicas differ after "
+                                                 f"step {state.step}")
+            seen["state"] = out
+            seen["check_s"].append(time.perf_counter() - t_check)
+            return out, loss
+
+        return wrapped
+
+    def migrating(state, new_plan, opt, **kw):
+        torch.cuda.synchronize()
+        before = all_launches()
+        t0 = time.perf_counter()
+        out = migrate(state, new_plan, opt, **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        after = all_launches()
+        t_check = time.perf_counter()
+        on_cpu = lambda t: tree_map(lambda x: x.cpu() if torch.is_tensor(x) else x, t)  # noqa: E731
+        old = TrainState(on_cpu(state.params), on_cpu(state.opt_state), state.step)
+        plain = migrate(old, new_plan, opt, **kw)
+        got = on_cpu(out.params)
+        err = 0.0
+        for a, b in zip(tree_leaves(got), tree_leaves(plain.params)):
+            torch.testing.assert_close(a, b, rtol=F32_RTOL, atol=F32_ATOL)
+            if a.numel():
+                err = max(err, float((a - b).abs().max()))
+        for m, (new, pre) in enumerate(zip(tier_subtrees(got, new_plan),
+                                           tier_subtrees(old.params, new_plan))):
+            for a, b in zip(tree_leaves(new), tree_leaves(pre)):
+                if a.numel():
+                    torch.testing.assert_close(a.mean(0), b.mean(0), rtol=F32_RTOL,
+                                               atol=F32_ATOL)
+        del old, plain, got
+        seen["migrations"].append(dict(
+            plan=new_plan, ms=ms, max_abs_err=err,
+            launches={k: after[k] - before[k] for k in after if after[k] != before[k]}))
+        seen["check_s"][-1] += time.perf_counter() - t_check
+        return out
+
+    class Recording(controller):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            seen["controller"] = self
+
+        def observe(self, obs):
+            seen["obs"].append(obs)
+            super().observe(obs)
+
+    run_mod._make_step, ctl_mod.migrate_state, ctl_mod.Controller = (
+        hooked, migrating, Recording)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    try:
+        t0 = time.perf_counter()
+        res = api.run(spec, built=built)
+        wall = time.perf_counter() - t0
+    finally:
+        run_mod._make_step, ctl_mod.migrate_state, ctl_mod.Controller = (
+            make_step, migrate, controller)
+    got = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    c = res.control
+    losses = c["losses"]
+    if len(losses) != spec.run.rounds or not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    ran = seen["controller"]
+    if ran.n_switches < 1 or not any(d.new_cuts != d.old_cuts for d in ran.decisions):
+        raise AssertionError(f"{label}: no switch of the cuts: {c['switch_log']}")
+    cc = spec.control
+    host = {}
+    for backend in ("numpy", "torch"):
+        h = controller(built.problem, c["initial_cuts"], c["initial_intervals"],
+                       window=cc.window, check_every=cc.check_every, rel_tol=cc.rel_tol,
+                       cooldown=cc.cooldown, min_window=cc.min_window, quantile=cc.quantile,
+                       warm_start=cc.warm_start, backend=backend,
+                       max_switches=cc.max_switches, fault_tol=cc.fault_tol)
+        for r, obs in enumerate(seen["obs"]):
+            h.observe(obs)
+            h.maybe_replan(r)
+        if [decision_key(d) for d in h.decisions] != [decision_key(d) for d in ran.decisions]:
+            raise AssertionError(f"{label}: a host Controller on {backend} decides "
+                                 f"{[d.describe() for d in h.decisions]}, the run "
+                                 f"{[d.describe() for d in ran.decisions]}")
+        host[backend] = h.resolve_quantiles((0.5, 0.95))
+
+    # launches: each step's sync as its segment's plan implies (B1m under
+    # masks, else B1), B4/B5 on every layer of a transformer, and each
+    # migration's entity means, one B1 launch per leaf of a tier with J < N
+    params = seen["state"].params
+    masked = built.participation is not None
+    want = {k: 0 for k in got}
+    sync = MASKED[0] if masked else AGG[0]
+    for s, plan in zip(seen["steps"], seen["plans"]):
+        want[sync] += masked_expected(plan, [s], tier_leaves(params, plan))
+    if not isinstance(built.model_spec, VggSpec):
+        want.update(dict.fromkeys(ATTN, built.model_spec.n_units * len(seen["steps"])))
+    for mig in seen["migrations"]:
+        plan = mig["plan"]
+        n = sum(k for m, k in enumerate(tier_leaves(params, plan)) if plan.entities[m] < N)
+        if mig["launches"] != {AGG[0]: n}:
+            raise AssertionError(f"{label}: a migration launched {mig['launches']}, its plan "
+                                 f"implies B1 {n}")
+        want[AGG[0]] += n
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, the segments' plans imply {want}")
+    ms = [(b - a - k) * 1e3 for a, b, k in zip(seen["t"], seen["t"][1:], seen["check_s"])]
+    switch_rounds = [s["round"] for s in c["switches"]]
+    mig_ms = [m["ms"] for m in seen["migrations"]]
+    print(f"[control] {label}: {spec.run.rounds} rounds in {wall:.2f} s; switches "
+          + "; ".join(c["switch_log"])
+          + f"; segments {[(s['rounds'], s['cuts'], s['intervals']) for s in c['segments']]}; "
+          f"piecewise bound {c['piecewise_bound']!r} (static {c['static_bound']!r}); the "
+          f"decisions equal a host Controller's on numpy and on torch "
+          f"fed the same {len(seen['obs'])} observations; launches {got} as the segments' "
+          f"plans imply (migrations: {[m['launches'] for m in seen['migrations']]}); every "
+          f"migration equals the plain version on a CPU copy (max |err| "
+          f"{max(m['max_abs_err'] for m in seen['migrations']):.3g}) and keeps each tier's "
+          f"client mean; every loss and param finite, every tier whose fed level ran holds "
+          f"one value; peak device memory {peak / 1e9:.2f} GB")
+    print(f"[control] {label}: migration ms {[round(v, 3) for v in mig_ms]}; re-solve host "
+          f"time (not device time) p50/p95 s: the run {c['resolve_p50_s']:.6f} / "
+          f"{c['resolve_p95_s']:.6f}, host numpy {host['numpy'][0]:.6f} / "
+          f"{host['numpy'][1]:.6f}, host torch backend {host['torch'][0]:.6f} / "
+          f"{host['torch'][1]:.6f}")
+    print(json.dumps({"run": f"control {label}", "loss": losses, "round_ms": ms,
+                      "switch_rounds": switch_rounds, "migration_ms": mig_ms,
+                      "peak_bytes": peak, "resolve_host_s": {
+                          "run": [c["resolve_p50_s"], c["resolve_p95_s"]], **host}}))
+    ROUND_MS[f"control {label}"] = ms
+    return got, dict(round_ms=ms, migration_ms=mig_ms, switch_rounds=switch_rounds,
+                     peak=peak, resolve=host)
+
+
+def control_paths(card: str):
+    """``api.run(mode="control")`` at full width: VGG-16 under flaky-wan
+    with the participation deadline (every sync on B1m, each switch's
+    migration on B1), then smollm-135m under flaky-wan without one (B1 and
+    B4/B5); each beside the same spec in ``mode="train"``."""
+    from repro_torch import api
+
+    vgg, lm = control_specs(api)
+    counts, out = {}, {}
+    for label, spec, key in (("VGG-16 full width", vgg, "control-vgg16"),
+                             ("smollm-135m full width", lm, "control-smollm-135m")):
+        got, out[key] = control_run(api, spec, label)
+        if key == "control-smollm-135m" and out[key]["peak"] > 70e9:
+            raise AssertionError(f"smollm-135m under control peaked at "
+                                 f"{out[key]['peak'] / 1e9:.2f} GB > 70 GB")
+        counts[key] = got
+        twin = spec.replace(run=dataclasses.replace(spec.run, mode="train"))
+        api_train(api, twin, f"control twin {label}")
+    med = lambda v: sorted(v[1:])[len(v[1:]) // 2]  # noqa: E731
+    print("[timing] median round ms (rounds 2 on) under control vs the same spec in "
+          "mode=train: " + json.dumps({
+              label: [med(ROUND_MS[f"control {label}"]),
+                      med(ROUND_MS[f"api control twin {label}"])]
+              for label in ("VGG-16 full width", "smollm-135m full width")})
+          + f"; card {card}")
+    return counts, out
+
+
 def robustness_timings(card: str):
     """B3m at the largest VGG leaf [20, 2359296] as the per-class storm
     calls it (both levels fused, J=5, every client a member, 7 of 20
@@ -2648,6 +2894,12 @@ def main() -> int:
             raise AssertionError(f"kernel {name} was not launched on the per-class storm")
     privacy_counts = privacy_paths(card)
     async_launches, _ = async_paths()
+    control_counts, _ = control_paths(card)
+    for path, names in (("control-vgg16", (MASKED[0], AGG[0])),
+                        ("control-smollm-135m", (AGG[0],) + ATTN)):
+        for name in names:
+            if control_counts[path][name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on {path}")
     times = timings(card, run)
     times.update(ragged_timings(card))
     times.update(masked_timings(card))
@@ -2710,7 +2962,7 @@ def main() -> int:
         "port_only": "no TPU kernel: the jnp tiers._group_mean_masked",
     } for name in MASKED]
     new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
-                 "async-staleness-2": async_launches}
+                 "async-staleness-2": async_launches, **control_counts}
     for row in kernels:
         row["launches_by_path"].update(
             {path: got[row["name"]] for path, got in new_paths.items()})
@@ -2740,7 +2992,8 @@ def main() -> int:
         "replaces": REPLACES[name],
         "launches": lm_launches[name],
         "launches_by_path": {"smollm-135m": lm_launches[name],
-                             "smollm-135m-reduced-cli": cli_launches[name]},
+                             "smollm-135m-reduced-cli": cli_launches[name],
+                             **{path: got[name] for path, got in new_paths.items()}},
         "max_abs_err": attn_errs[name],
         "max_abs_err_bf16": attn_bf16_errs[name],
         "ms": attn_times[(name, 0)]["ms"], "plain_ms": attn_times[(name, 0)]["plain_ms"],

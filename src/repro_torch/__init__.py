@@ -20,6 +20,7 @@ _SUBMODULES = (
     "checkpoint",
     "compress",
     "configs",
+    "control",
     "core",
     "data",
     "kernels",

@@ -209,8 +209,6 @@ def _check_port_capabilities(spec: ExperimentSpec) -> None:
     """What the port runs of a spec the JAX package accepts: every section
     and option whose modules are not ported raises here, before any state
     is allocated."""
-    if spec.run.mode == "control":
-        raise _unported('mode="control"', "the control loop", "A11b")
     if spec.run.engine != "a":
         raise _unported(f"engine={spec.run.engine!r}", "Engine B", "A12")
     if spec.run.sharding is not None:

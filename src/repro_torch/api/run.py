@@ -10,11 +10,15 @@ port of ``repro.api.run``.
   (solved or fixed), the spec's codec (and DP) on the fed-server wire,
   under the spec's faults and bounded staleness, and the Theorem-1 bound
   for the schedule actually trained.
+* ``mode="control"``  — the train loop under the online adaptive
+  controller (``repro_torch.control``): round telemetry feeds a
+  sliding-window system estimate, drift triggers warm-started re-solves,
+  Engine-A state migrates across switches, and the Theorem-1 bound is
+  composed piecewise over the schedule segments.
 
-``mode="control"`` (the online adaptive controller) is ported with ROADMAP
-A11b; ``build.check_capabilities`` refuses it.  Training runs Engine A on
-``run(..., device=)``: the first CUDA device unless the caller asks for
-another, and never the CPU in place of a missing card.  A solver backend of
+Training and control run Engine A on ``run(..., device=)``: the first CUDA
+device unless the caller asks for another, and never the CPU in place of a
+missing card.  A solver backend of
 ``"jax"`` (the JAX package's device backend, which spec files carry) runs
 the port's ``torch`` tables on the card (``core.batched.spec_backend``).
 
@@ -191,9 +195,9 @@ def _simulate(built: BuiltExperiment, cuts, intervals) -> Dict[str, Any]:
 
 
 def _training_setup(built: BuiltExperiment):
-    """Data / model / optimizer assembly for train mode (and, in the JAX
-    package, the control loop, which rebuilds the plan and step on every
-    schedule switch): returns ``(model, loader, opt, N)``.
+    """Data / model / optimizer assembly for train mode and the control
+    loop (which rebuilds the plan and step on every schedule switch):
+    returns ``(model, loader, opt, N)``.
     """
     from ..data import (
         image_loader,
@@ -477,6 +481,231 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
     return out
 
 
+def _control(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, Any]:
+    """Engine-A training under the online adaptive controller (DESIGN.md
+    §13), on ``device`` as ``_train`` trains.
+
+    Each round the engine trains under the current schedule, the round's
+    telemetry is observed from the fleet trace and folded into the
+    controller's window, and a drift-triggered warm re-solve may switch
+    the schedule — at which point the tier plan is rebuilt, the engine
+    state (params + optimizer moments) is migrated without loss (one B1
+    launch per leaf of each tier with entities), the step rebuilt, and
+    participation masks re-sampled at the new cuts.  The fault draws and
+    the masks stay on the host; one ``[N]`` mask moves to the device a
+    round, and the loss of each round is the loop's only device read.  The
+    Theorem-1 bound is kept piecewise across the segments and collapses
+    bit-exactly to the static bound when no switch fires.
+    """
+    import torch
+
+    from ..control import (
+        BoundSegment,
+        Controller,
+        migrate_state,
+        observe_round,
+        piecewise_bound,
+    )
+    from ..core.convergence import theorem1_bound
+    from ..core.engine import TrainState
+    from ..core.tiers import TierPlan
+    from .spec import ControlCfg
+
+    device = resolve_device(device)
+    spec = built.spec
+    rc = spec.run
+    cc = spec.control if spec.control is not None else ControlCfg()
+    trace = built.trace
+    model, loader, opt, N = _training_setup(built)
+    cuts = tuple(int(c) for c in cuts)
+    intervals = tuple(int(i) for i in intervals)
+    init_cuts, init_intervals = cuts, intervals
+
+    def make_plan(c, i):
+        return TierPlan(
+            n_units=built.model_spec.n_units,
+            num_clients=N,
+            cuts=tuple(c),
+            intervals=tuple(i),
+            entities=built.system.entities,
+        )
+
+    plan = make_plan(cuts, intervals)
+    masks = _participation_masks(built, cuts)
+    fs = built.faults
+    inject = fs is not None and not fs.is_null
+    members = None
+    if inject:
+        from ..faults import (
+            apply_corruption,
+            assignment_members,
+            expand_faults,
+            outage_assignment,
+            reroute_entity_sync,
+        )
+
+        if fs.has_outage:
+            J = built.system.entities[fs.outage_tier]
+            members = torch.as_tensor(
+                assignment_members(outage_assignment(N, J, fs.outage_cells), J),
+                device=device,
+            )
+    with_mask = masks is not None or inject
+    state = init_state_a(
+        model, plan, opt, torch.Generator().manual_seed(rc.seed), device
+    )
+    step = _make_step(built, model, plan, opt, with_mask)
+
+    controller = Controller(
+        built.problem,
+        cuts,
+        intervals,
+        window=cc.window,
+        check_every=cc.check_every,
+        rel_tol=cc.rel_tol,
+        cooldown=cc.cooldown,
+        min_window=cc.min_window,
+        quantile=cc.quantile,
+        warm_start=cc.warm_start,
+        backend=cc.backend,
+        max_switches=cc.max_switches,
+        fault_tol=cc.fault_tol,
+    )
+
+    omega = 0.0 if built.compression is None else built.compression.omega
+    segments = []
+    seg_rounds = 0
+    losses = []
+    n_faulty_total = 0
+    for r in range(rc.rounds):
+        rr = r % trace.rounds
+        batch = {k: torch.from_numpy(v).to(device)
+                 for k, v in loader.next_round().items()}
+        mrow = None
+        if masks is not None:
+            mrow = np.asarray(masks[r % masks.shape[0]], dtype=bool)
+        n_faulty = 0
+        if inject:
+            rf = expand_faults(fs, rr, N)
+            if rf.corrupt.any():
+                state = TrainState(
+                    apply_corruption(state.params, rf.corrupt, fs),
+                    state.opt_state,
+                    state.step,
+                )
+            base_m = np.ones(N, dtype=bool) if mrow is None else mrow
+            mrow = base_m & ~rf.crashed
+            if not mrow.any():
+                raise ValueError(
+                    f"round {r}: every client crashed or missed the "
+                    "deadline — an all-faulty round has no aggregate"
+                )
+            n_faulty = rf.n_faulty
+            n_faulty_total += n_faulty
+        if with_mask:
+            m_arr = torch.as_tensor(mrow, dtype=torch.float32, device=device)
+            state, loss = step(state, batch, m_arr)
+        else:
+            state, loss = step(state, batch)
+        if inject and rf.cell_out and members is not None:
+            state = TrainState(
+                reroute_entity_sync(state.params, plan, fs.outage_tier, members),
+                state.opt_state,
+                state.step,
+            )
+        losses.append(float(loss))
+        seg_rounds += 1
+        if rc.log_every and ((r + 1) % rc.log_every == 0 or r == 0):
+            print(f"round {r+1:5d}  loss {losses[-1]:.4f}  "
+                  f"cuts {cuts} I{intervals}")
+
+        obs = observe_round(
+            trace, rr, cuts,
+            mask=None if mrow is None else np.asarray(mrow, dtype=bool),
+            loss=losses[-1],
+            n_faulty=n_faulty,
+        )
+        controller.observe(obs)
+        dec = controller.maybe_replan(r)
+        if dec is not None and dec.switched:
+            segments.append(
+                BoundSegment(
+                    seg_rounds, intervals, cuts,
+                    omega=omega, participation=built.participation,
+                    dp_sigma2=built.problem.dp_sigma2,
+                )
+            )
+            seg_rounds = 0
+            old_plan = plan
+            cuts, intervals = dec.new_cuts, dec.new_intervals
+            plan = make_plan(cuts, intervals)
+            state = migrate_state(
+                state, plan, opt, engine=rc.engine, model=model,
+                old_plan=old_plan,
+            )
+            step = _make_step(built, model, plan, opt, with_mask)
+            if with_mask:
+                masks = _participation_masks(built, cuts)
+            if rc.log_every:
+                print("  " + dec.describe())
+    if seg_rounds:
+        segments.append(
+            BoundSegment(
+                seg_rounds, intervals, cuts,
+                omega=omega, participation=built.participation,
+                dp_sigma2=built.problem.dp_sigma2,
+            )
+        )
+
+    bound = piecewise_bound(built.hyper, segments) if segments else None
+    static_bound = theorem1_bound(
+        built.hyper, max(1, rc.rounds), init_intervals, init_cuts,
+        omega=omega, participation=built.participation,
+        dp_sigma2=built.problem.dp_sigma2,
+    )
+    p50, p95 = controller.resolve_quantiles((0.5, 0.95))
+    return {
+        "engine": rc.engine,
+        "rounds": rc.rounds,
+        "first_loss": losses[0] if losses else None,
+        "final_loss": losses[-1] if losses else None,
+        "losses": losses,
+        "initial_cuts": list(init_cuts),
+        "initial_intervals": list(init_intervals),
+        "final_cuts": list(cuts),
+        "final_intervals": list(intervals),
+        "n_switches": controller.n_switches,
+        "n_resolves": len(controller.resolve_seconds),
+        "switches": [
+            {
+                "round": d.round_index,
+                "trigger": d.trigger,
+                "old_cuts": list(d.old_cuts),
+                "old_intervals": list(d.old_intervals),
+                "new_cuts": list(d.new_cuts),
+                "new_intervals": list(d.new_intervals),
+                "solve_ms": 1e3 * d.solve_seconds,
+            }
+            for d in controller.decisions
+            if d.switched
+        ],
+        "switch_log": [
+            d.describe() for d in controller.decisions if d.switched
+        ],
+        "segments": [
+            {"rounds": s.rounds, "cuts": list(s.cuts),
+             "intervals": list(s.intervals)}
+            for s in segments
+        ],
+        "piecewise_bound": None if bound is None else float(bound),
+        "static_bound": float(static_bound),
+        "resolve_p50_s": p50,
+        "resolve_p95_s": p95,
+        "n_faulty_total": int(n_faulty_total),
+        "windowed_fault_rate": float(controller.fault_rate()),
+    }
+
+
 def evaluate_schedule(
     built: BuiltExperiment,
     cuts,
@@ -546,8 +775,8 @@ def run(
 
     Callers that already hold the ``build(spec)`` output pass it as
     ``built`` to avoid re-resolving registries / re-drawing the system.
-    ``device`` is where train mode trains (default: the first CUDA device,
-    raising when there is none; ``"cpu"`` on request).
+    ``device`` is where train and control modes train (default: the first
+    CUDA device, raising when there is none; ``"cpu"`` on request).
     """
     import dataclasses
 
@@ -570,5 +799,9 @@ def run(
     elif spec.run.mode == "train":
         result = dataclasses.replace(
             result, train=_train(built, cuts, intervals, device)
+        )
+    elif spec.run.mode == "control":
+        result = dataclasses.replace(
+            result, control=_control(built, cuts, intervals, device)
         )
     return result

@@ -228,7 +228,7 @@ class ControlCfg:
     """Online adaptive control knobs (``run.mode="control"``, DESIGN.md §13).
 
     The controller watches a sliding window of observed round telemetry,
-    re-prices the system online (``repro.control.WindowedLatency`` +
+    re-prices the system online (``control.WindowedLatency`` +
     windowed participation), and re-solves BCD warm-started when the
     window drifts ``rel_tol`` away from the prices the current schedule
     was solved for.  ``cooldown`` rounds must pass between re-solves;

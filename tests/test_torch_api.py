@@ -181,9 +181,10 @@ def test_jax_backend_names_read_as_the_card():
 
 
 UNPORTED = {
-    "control": (lambda s: s.replace(run=J.RunCfg(mode="control"),
-                                    scenario=J.ScenarioCfg(name="flaky-wan")), "A11b"),
     "engine-b": (lambda s: s.replace(run=J.RunCfg(mode="train", engine="b")), "A12"),
+    "control-engine-b": (lambda s: s.replace(run=J.RunCfg(mode="control", engine="b"),
+                                             scenario=J.ScenarioCfg(name="flaky-wan")),
+                         "A12"),
     "sharding": (lambda s: s.replace(run=J.RunCfg(mode="train", sharding=JShardingCfg())),
                  "A13"),
     "arch": (lambda s: s.replace(model=J.ModelCfg(arch="mamba2-1.3b", variant="reduced")),

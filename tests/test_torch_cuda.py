@@ -779,3 +779,44 @@ def test_fault_storm_and_async_api_runs_on_card_match_cpu(cuda):
             for k in b:
                 if k not in ("losses", "first_loss", "final_loss"):
                     assert a[k] == b[k], k
+
+
+def test_control_mode_on_card_matches_cpu(cuda, monkeypatch):
+    """``api.run(mode="control")`` on the card against the CPU from one
+    init: REDUCED smollm-135m (4 layers, B4/B5, its syncs on B1) under
+    flaky-wan, and REDUCED VGG at 32x32 images under flaky-wan with a
+    participation deadline (B1m), each switching at least once — the
+    decisions, segments and bounds equal, losses within rtol 1e-4."""
+    import dataclasses
+
+    import repro_torch.configs.vgg16_cifar10 as vgg_config
+    from repro_torch import api
+
+    monkeypatch.setattr(vgg_config, "REDUCED",
+                        dataclasses.replace(vgg_config.REDUCED, image_size=32))
+    ctl = api.ControlCfg(window=4, min_window=2, cooldown=1, rel_tol=0.1, backend="numpy")
+    lm = api.paper_spec().replace(
+        model=api.ModelCfg(arch="smollm-135m", variant="reduced", num_layers=4, batch=2,
+                           seq=32),
+        system=api.SystemCfg(num_clients=4, num_edges=2),
+        scenario=api.ScenarioCfg(name="flaky-wan", rounds=16, quantile=0.5),
+        solver=api.SolverCfg(kind="bcd", backend="numpy"),
+        run=api.RunCfg(mode="control", rounds=4, dataset_size=64, lr=0.01, log_every=0),
+        control=ctl)
+    vgg = lm.replace(
+        model=api.ModelCfg(arch="vgg16-cifar10", variant="reduced", batch=2),
+        participation=api.ParticipationCfg(target_rate=0.75),
+        solver=api.SolverCfg(kind="fixed", cuts=(1, 3), intervals=(2, 2, 1)))
+    for spec in (lm, vgg):
+        on_card, on_cpu = api.run(spec).control, api.run(spec, device="cpu").control
+        assert on_cpu["n_switches"] >= 1
+        torch.testing.assert_close(torch.tensor(on_card["losses"]),
+                                   torch.tensor(on_cpu["losses"]), rtol=1e-4, atol=0)
+        for k in on_cpu:
+            if k == "switches":
+                strip = [{f: v for f, v in s.items() if f != "solve_ms"} for s in on_cpu[k]]
+                assert strip == [{f: v for f, v in s.items() if f != "solve_ms"}
+                                 for s in on_card[k]]
+            elif k not in ("losses", "first_loss", "final_loss", "switch_log",
+                           "resolve_p50_s", "resolve_p95_s"):
+                assert on_card[k] == on_cpu[k], k

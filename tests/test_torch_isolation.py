@@ -79,6 +79,8 @@ def test_every_jax_module_of_the_slice_has_its_counterpart():
         "energy/__init__.py", "energy/pricing.py", "faults/__init__.py", "faults/spec.py",
         "faults/accounting.py", "faults/inject.py", "faults/reroute.py",
         "core/async_agg.py", "control/__init__.py", "control/migrate.py",
+        "control/drift.py", "control/telemetry.py", "control/window.py", "control/bound.py",
+        "control/controller.py", "control/replay.py",
     ]
     for rel in slice_modules:
         assert (ROOT / "src" / "repro" / rel).exists(), rel
@@ -99,15 +101,21 @@ from repro_torch.control import migrate_state_a, resume_with_migration
 from repro_torch.core.tiers import GuardSpec, guard_health
 from repro_torch.kernels.tiered_aggregate import masked_ragged_tiered_aggregate
 import repro_torch.control as control
-assert not hasattr(control, "Controller")  # the control loop waits for ROADMAP A11b
+assert hasattr(control, "Controller")
+from repro_torch.control.drift import DriftReport, detect_drift
+from repro_torch.control.telemetry import RoundObservation, observe_round, reconstruct_state
+from repro_torch.control.window import WindowedLatency
+from repro_torch.control.bound import BoundSegment, piecewise_bound
+from repro_torch.control.controller import ControlDecision, Controller
+from repro_torch.control.replay import ReplayResult, replay
 print("ok")
 """
 
 
 def test_the_costs_and_robustness_modules_import_alone():
-    """privacy/, energy/, faults/, core/async_agg.py and control/migrate.py
-    import with jax, triton and repro blocked; control exports only the
-    ported migration."""
+    """privacy/, energy/, faults/, core/async_agg.py and every control/
+    module (the migration and the control loop) import with jax, triton
+    and repro blocked; control exports its ``Controller``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _PROBE_SLICE], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)
