@@ -80,7 +80,16 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    client mean, every loss and param finite, every tier whose fed level ran
    holds one value, smollm's peak at most 70 GB; each beside the same spec
    in ``mode="train"``, with the migrations' ms and the re-solves' host
-   time;
+   time; then Engine B, the split-placement engine, through
+   ``api.run(engine="b")`` at smollm-135m's full width (``engine_b_specs``:
+   plain, over the int8 wire, under flaky-wan's participation deadline, and
+   the control spec), each beside its ``engine="a"`` twin from one init --
+   the fed means on B1 / B2 / B1m as the plan implies, B4 and both B5
+   passes once per layer a round, losses within rtol 1e-4 of the twin's,
+   ``engine_b_to_full`` within atol 1e-5 / rtol 1e-4 of its params (the
+   int8 wire at atol 2e-3), the control decisions equal, every migration
+   against its plain version and the client means, every loss and param
+   finite, peak at most 70 GB, round medians beside the twin's;
 6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
@@ -2548,18 +2557,54 @@ def decision_key(d):
             d.new_intervals, d.switched, dataclasses.asdict(d.drift))
 
 
-def control_run(api, spec, label: str):
-    """``api.run(spec)`` in control mode on the card.  The engine step, the
-    state migration and the controller are wrapped: each step's input
-    counter and plan are kept, every param is checked finite after every
-    step and every tier whose fed level ran to hold one value; each
-    migration is timed alone, its B1 launches counted, its result held to
-    the plain version on a CPU copy and each new tier's client mean to the
-    pre-switch one (f32 tolerance); every observation is kept, and a host
-    ``Controller`` on ``backend="numpy"`` and one on ``"torch"`` fed them
-    must decide as the run did.  (The re-solve prices the lattice from the
-    window's NumPy tables on either backend; ``"torch"`` resolves the card
-    and builds nothing else there.)"""
+def tier_parts(params, plan):
+    """Each tier's leaves: Engine B's tier stacks as they are, Engine A's
+    client-stacked tree sliced by the plan."""
+    from repro_torch.core import tier_subtrees
+
+    return params if isinstance(params, list) else tier_subtrees(params, plan)
+
+
+def full_view(params, plan):
+    """The client-stacked tree: Engine B's tiers repeated over their
+    clients (``engine_b_to_full``), Engine A's params as they are."""
+    from repro_torch.core.engine import engine_b_to_full
+
+    return engine_b_to_full(None, plan, params) if isinstance(params, list) else params
+
+
+def one_row(params):
+    """One client row of the whole model (for counting each tier's leaves
+    under any plan)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.core import combine_tiers
+
+    if not isinstance(params, list):
+        return tree_map(lambda x: x[:1], params)
+    return combine_tiers([tree_map(lambda x: x[:1], p) for p in params],
+                         {"units": params[0]["units"]})
+
+
+def engine_b_fed(plan, s: int, leaves) -> int:
+    """Engine B's fed-mean launches in the step with input counter ``s``:
+    one per leaf of each tier with several entities whose I_m is due."""
+    return sum(leaves[m] for m in range(plan.M)
+               if plan.entities[m] > 1 and (s + 1) % plan.intervals[m] == 0)
+
+
+def control_run(api, spec, label: str, tag: str = "control", keep_state: bool = False):
+    """``api.run(spec)`` in control mode on the card, on the spec's engine.
+    The engine step, the state migration and the controller are wrapped:
+    each step's input counter and plan are kept, every param is checked
+    finite after every step and every tier whose fed level ran to hold one
+    value; each migration is timed alone, its B1 launches counted, its
+    result held to the plain version on a CPU copy and each new tier's
+    client mean to the pre-switch one (f32 tolerance); every observation is
+    kept, and a host ``Controller`` on ``backend="numpy"`` and one on
+    ``"torch"`` fed them must decide as the run did.  (The re-solve prices
+    the lattice from the window's NumPy tables on either backend;
+    ``"torch"`` resolves the card and builds nothing else there.)
+    ``keep_state`` returns the last state too."""
     import torch
 
     from repro_torch import control as ctl_mod
@@ -2587,7 +2632,7 @@ def control_run(api, spec, label: str):
                 if not bool(torch.isfinite(x).all()):
                     raise AssertionError(f"{label}: leaf {i} not finite after step "
                                          f"{state.step}")
-            for m, part in enumerate(tier_subtrees(out.params, plan)):
+            for m, part in enumerate(tier_parts(out.params, plan)):
                 if fed_ran(plan, state.step, m):
                     for x in tree_leaves(part):
                         if x.numel() and not bool((x == x[0:1]).all()):
@@ -2617,8 +2662,10 @@ def control_run(api, spec, label: str):
             torch.testing.assert_close(a, b, rtol=F32_RTOL, atol=F32_ATOL)
             if a.numel():
                 err = max(err, float((a - b).abs().max()))
-        for m, (new, pre) in enumerate(zip(tier_subtrees(got, new_plan),
-                                           tier_subtrees(old.params, new_plan))):
+        old_plan = kw.get("old_plan")
+        for m, (new, pre) in enumerate(zip(
+                tier_subtrees(full_view(got, new_plan), new_plan),
+                tier_subtrees(full_view(old.params, old_plan), new_plan))):
             for a, b in zip(tree_leaves(new), tree_leaves(pre)):
                 if a.numel():
                     torch.testing.assert_close(a.mean(0), b.mean(0), rtol=F32_RTOL,
@@ -2678,14 +2725,18 @@ def control_run(api, spec, label: str):
         host[backend] = h.resolve_quantiles((0.5, 0.95))
 
     # launches: each step's sync as its segment's plan implies (B1m under
-    # masks, else B1), B4/B5 on every layer of a transformer, and each
-    # migration's entity means, one B1 launch per leaf of a tier with J < N
-    params = seen["state"].params
+    # masks, else B1; Engine B's fed means only), B4/B5 on every layer of a
+    # transformer, and each migration's entity means, one B1 launch per
+    # leaf of a tier with J < N
+    params = one_row(seen["state"].params)
     masked = built.participation is not None
     want = {k: 0 for k in got}
     sync = MASKED[0] if masked else AGG[0]
     for s, plan in zip(seen["steps"], seen["plans"]):
-        want[sync] += masked_expected(plan, [s], tier_leaves(params, plan))
+        if spec.run.engine == "b":
+            want[sync] += engine_b_fed(plan, s, tier_leaves(params, plan))
+        else:
+            want[sync] += masked_expected(plan, [s], tier_leaves(params, plan))
     if not isinstance(built.model_spec, VggSpec):
         want.update(dict.fromkeys(ATTN, built.model_spec.n_units * len(seen["steps"])))
     for mig in seen["migrations"]:
@@ -2700,7 +2751,7 @@ def control_run(api, spec, label: str):
     ms = [(b - a - k) * 1e3 for a, b, k in zip(seen["t"], seen["t"][1:], seen["check_s"])]
     switch_rounds = [s["round"] for s in c["switches"]]
     mig_ms = [m["ms"] for m in seen["migrations"]]
-    print(f"[control] {label}: {spec.run.rounds} rounds in {wall:.2f} s; switches "
+    print(f"[{tag}] {label}: {spec.run.rounds} rounds in {wall:.2f} s; switches "
           + "; ".join(c["switch_log"])
           + f"; segments {[(s['rounds'], s['cuts'], s['intervals']) for s in c['segments']]}; "
           f"piecewise bound {c['piecewise_bound']!r} (static {c['static_bound']!r}); the "
@@ -2711,18 +2762,23 @@ def control_run(api, spec, label: str):
           f"{max(m['max_abs_err'] for m in seen['migrations']):.3g}) and keeps each tier's "
           f"client mean; every loss and param finite, every tier whose fed level ran holds "
           f"one value; peak device memory {peak / 1e9:.2f} GB")
-    print(f"[control] {label}: migration ms {[round(v, 3) for v in mig_ms]}; re-solve host "
+    print(f"[{tag}] {label}: migration ms {[round(v, 3) for v in mig_ms]}; re-solve host "
           f"time (not device time) p50/p95 s: the run {c['resolve_p50_s']:.6f} / "
           f"{c['resolve_p95_s']:.6f}, host numpy {host['numpy'][0]:.6f} / "
           f"{host['numpy'][1]:.6f}, host torch backend {host['torch'][0]:.6f} / "
           f"{host['torch'][1]:.6f}")
-    print(json.dumps({"run": f"control {label}", "loss": losses, "round_ms": ms,
+    print(json.dumps({"run": f"{tag} {label}", "loss": losses, "round_ms": ms,
                       "switch_rounds": switch_rounds, "migration_ms": mig_ms,
                       "peak_bytes": peak, "resolve_host_s": {
                           "run": [c["resolve_p50_s"], c["resolve_p95_s"]], **host}}))
-    ROUND_MS[f"control {label}"] = ms
-    return got, dict(round_ms=ms, migration_ms=mig_ms, switch_rounds=switch_rounds,
-                     peak=peak, resolve=host)
+    ROUND_MS[f"{tag} {label}"] = ms
+    out = dict(round_ms=ms, migration_ms=mig_ms, switch_rounds=switch_rounds, peak=peak,
+               resolve=host, losses=losses, decisions=[decision_key(d) for d in ran.decisions],
+               migration_err=[m["max_abs_err"] for m in seen["migrations"]],
+               plan=seen["plans"][-1])
+    if keep_state:
+        out["state"] = seen["state"]
+    return got, out
 
 
 def control_paths(card: str):
@@ -2749,6 +2805,145 @@ def control_paths(card: str):
               label: [med(ROUND_MS[f"control {label}"]),
                       med(ROUND_MS[f"api control twin {label}"])]
               for label in ("VGG-16 full width", "smollm-135m full width")})
+          + f"; card {card}")
+    return counts, out
+
+
+# Engine B against its Engine-A twin at full width: losses at rtol 1e-4,
+# the client-stacked params at atol 1e-5 / rtol 1e-4 (TF32 off); over the
+# int8 wire an f32 difference can flip one quantized value by one step (a
+# tile's absmax / 127), so those params are held at JAX's own int8 A == B
+# allowance, atol 2e-3, with the count beyond the f32 tolerance printed
+ENGINE_B_LOSS_RTOL, ENGINE_B_ATOL, ENGINE_B_RTOL, ENGINE_B_Q8_ATOL = 1e-4, 1e-5, 1e-4, 2e-3
+
+
+def engine_b_specs(api):
+    """PR 12's smollm-135m cell (PERF.md §4) through ``api.run(engine="b")``:
+    plain (the fed means on B1), over the int8 wire (B2), under flaky-wan
+    with the 0.75 participation deadline (B1m, weighted by the entities'
+    participant counts), and the ``[control]`` phase's smollm-135m spec in
+    ``mode="control"`` (``migrate_state_b`` at each switch, on B1)."""
+    _, lm = control_specs(api)
+    train = lm.replace(name="engine-b-smollm-135m", scenario=None, control=None,
+                       run=api.RunCfg(mode="train", rounds=8, lr=5e-4, dataset_size=64,
+                                      engine="b"))
+    return {
+        "engine-b-smollm-135m": train,
+        "engine-b-smollm-135m-int8": train.replace(
+            name="engine-b-smollm-135m-int8", compression=api.CompressionCfg(codec="int8")),
+        "engine-b-smollm-135m-masked": train.replace(
+            name="engine-b-smollm-135m-masked",
+            scenario=api.ScenarioCfg(name="flaky-wan", rounds=16, seed=0, quantile=0.5),
+            participation=api.ParticipationCfg(target_rate=0.75)),
+        "engine-b-control-smollm-135m": lm.replace(
+            name="engine-b-control-smollm-135m",
+            run=dataclasses.replace(lm.run, engine="b")),
+    }
+
+
+def engine_b_pair(api, key: str, spec, card: str):
+    """One Engine-B run at full width beside its Engine-A twin from the same
+    init (the API's seed): the twin first, its last params moved to the host
+    and its state freed; then Engine B, its peak device memory alone.  Train
+    mode: B's launches as the plan implies (the fed means, B4/B5 on every
+    layer); control mode: ``control_run``'s checks, and B's decisions equal
+    A's.  Losses and the client-stacked params (``engine_b_to_full``)
+    against A's; every loss and param finite; peak at most 70 GB."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.core.engine import engine_b_to_full
+    from repro_torch.core.tiers import TierPlan
+
+    host = lambda t: tree_map(lambda x: x.cpu(), t)  # noqa: E731
+    twin = spec.replace(run=dataclasses.replace(spec.run, engine="a"))
+    control = spec.run.mode == "control"
+    if control:
+        _, a = control_run(api, twin, f"{key} twin A", tag="engine-b", keep_state=True)
+        a_losses, a_params = a["losses"], host(a.pop("state").params)
+    else:
+        res, _, state = api_train(api, twin, f"{key} twin A")
+        a_losses, a_params = res.train["losses"], host(state.params)
+        del state
+    torch.cuda.empty_cache()
+    if control:
+        got, b = control_run(api, spec, key, tag="engine-b", keep_state=True)
+        if b["decisions"] != a["decisions"]:
+            raise AssertionError(f"{key}: Engine B decided {b['decisions']}, A "
+                                 f"{a['decisions']}")
+        losses, state, plan, peak = b["losses"], b.pop("state"), b["plan"], b["peak"]
+    else:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        res, got, state = api_train(api, spec, key)
+        peak = torch.cuda.max_memory_allocated()
+        built = api.build(spec)
+        plan = TierPlan(n_units=built.model_spec.n_units, num_clients=built.system.num_clients,
+                        cuts=res.cuts, intervals=res.intervals, entities=built.system.entities)
+        leaves = tier_leaves(one_row(state.params), plan)
+        sync = AGG[1] if spec.compression is not None else (
+            MASKED[0] if spec.participation is not None else AGG[0])
+        want = {k: 0 for k in got}
+        want[sync] = sum(engine_b_fed(plan, s, leaves) for s in range(spec.run.rounds))
+        want.update(dict.fromkeys(ATTN, built.model_spec.n_units * spec.run.rounds))
+        if got != want:
+            raise AssertionError(f"{key}: launches {got}, the plan and depth imply {want}")
+        losses = res.train["losses"]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{key}: losses {losses}")
+    loss_err = float(np.max(np.abs(np.subtract(losses, a_losses)) / np.abs(a_losses)))
+    np.testing.assert_allclose(losses, a_losses, rtol=ENGINE_B_LOSS_RTOL)
+    q8 = spec.compression is not None
+    full = engine_b_to_full(None, plan, state.params)
+    err, beyond, total = 0.0, 0, 0
+    for i, (x, y) in enumerate(zip(tree_leaves(full), tree_leaves(a_params))):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{key}: leaf {i} not finite")
+        y = y.to(x.device)
+        d = (x - y).abs()
+        beyond += int((d > ENGINE_B_ATOL + ENGINE_B_RTOL * y.abs()).sum())
+        total += x.numel()
+        if x.numel():
+            err = max(err, float(d.max()))
+        torch.testing.assert_close(x, y, rtol=ENGINE_B_RTOL,
+                                   atol=ENGINE_B_Q8_ATOL if q8 else ENGINE_B_ATOL)
+    del full, state, a_params
+    torch.cuda.empty_cache()
+    if peak > 70e9:
+        raise AssertionError(f"{key}: Engine B peaked at {peak / 1e9:.2f} GB > 70 GB")
+    prefix = "engine-b" if control else "api"
+    med = lambda v: sorted(v[1:])[len(v[1:]) // 2]  # noqa: E731
+    ms_b, ms_a = med(ROUND_MS[f"{prefix} {key}"]), med(ROUND_MS[f"{prefix} {key} twin A"])
+    print(f"[engine-b] {key}: cuts {plan.cuts} intervals {plan.intervals}; launches {got} as "
+          f"the plan and depth imply; losses within {loss_err:.3g} relative of Engine A's "
+          f"(rtol {ENGINE_B_LOSS_RTOL}); params max |B - A| {err:.3g}, {beyond} of {total} "
+          f"beyond atol {ENGINE_B_ATOL} + rtol {ENGINE_B_RTOL}"
+          + (f" (held at atol {ENGINE_B_Q8_ATOL}: the int8 wire)" if q8 else "")
+          + f"; every loss and param finite; median round ms B {ms_b:.2f}, A {ms_a:.2f}; "
+          f"peak device memory B {peak / 1e9:.2f} GB; card {card}")
+    return got, dict(round_ms_b=ms_b, round_ms_a=ms_a, peak=peak, loss_err=loss_err,
+                     param_err=err, beyond=beyond)
+
+
+def engine_b_paths(card: str):
+    """The ``[engine-b]`` phase: the four ``engine_b_specs`` runs, each
+    beside its Engine-A twin; B1, B2, B1m and B4/B5 must each be launched."""
+    from repro_torch import api
+
+    counts, out = {}, {}
+    for key, spec in engine_b_specs(api).items():
+        counts[key], out[key] = engine_b_pair(api, key, spec, card)
+    for key, names in (("engine-b-smollm-135m", (AGG[0],) + ATTN),
+                       ("engine-b-smollm-135m-int8", (AGG[1],)),
+                       ("engine-b-smollm-135m-masked", (MASKED[0],)),
+                       ("engine-b-control-smollm-135m", (AGG[0],) + ATTN)):
+        for name in names:
+            if counts[key][name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on {key}")
+    print("[timing] Engine B at full width, median round ms (rounds 2 on) B vs its A twin "
+          "and B's peak GB: " + json.dumps({
+              k: [v["round_ms_b"], v["round_ms_a"], v["peak"] / 1e9] for k, v in out.items()})
           + f"; card {card}")
     return counts, out
 
@@ -2900,6 +3095,7 @@ def main() -> int:
         for name in names:
             if control_counts[path][name] == 0:
                 raise AssertionError(f"kernel {name} was not launched on {path}")
+    engine_b_counts, _ = engine_b_paths(card)
     times = timings(card, run)
     times.update(ragged_timings(card))
     times.update(masked_timings(card))
@@ -2962,7 +3158,7 @@ def main() -> int:
         "port_only": "no TPU kernel: the jnp tiers._group_mean_masked",
     } for name in MASKED]
     new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
-                 "async-staleness-2": async_launches, **control_counts}
+                 "async-staleness-2": async_launches, **control_counts, **engine_b_counts}
     for row in kernels:
         row["launches_by_path"].update(
             {path: got[row["name"]] for path, got in new_paths.items()})

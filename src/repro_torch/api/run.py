@@ -6,17 +6,19 @@ port of ``repro.api.run``.
 * ``mode="simulate"`` — same solve (typically against trace quantiles),
   then replay the schedule through the fleet simulator and report the
   per-round latency profile (p50/p95/worst, participants).
-* ``mode="train"``    — real Engine-A split training with the schedule
+* ``mode="train"``    — real Engine-A/B split training with the schedule
   (solved or fixed), the spec's codec (and DP) on the fed-server wire,
   under the spec's faults and bounded staleness, and the Theorem-1 bound
   for the schedule actually trained.
 * ``mode="control"``  — the train loop under the online adaptive
   controller (``repro_torch.control``): round telemetry feeds a
   sliding-window system estimate, drift triggers warm-started re-solves,
-  Engine-A state migrates across switches, and the Theorem-1 bound is
+  engine state migrates across switches, and the Theorem-1 bound is
   composed piecewise over the schedule segments.
 
-Training and control run Engine A on ``run(..., device=)``: the first CUDA
+Training and control run the spec's engine (``run.engine``: ``"a"``, the
+sync-groups engine, or ``"b"``, the split-placement engine of
+``core.engine``) on ``run(..., device=)``: the first CUDA
 device unless the caller asks for another, and never the CPU in place of a
 missing card.  A solver backend of
 ``"jax"`` (the JAX package's device backend, which spec files carry) runs
@@ -34,7 +36,9 @@ import numpy as np
 from .._device import DeviceLike, resolve_device
 from ..core.batched import spec_backend
 from ..core.bcd import solve_bcd
-from ..core.engine import build_train_step_a, init_state_a
+from ..core.engine import (
+    build_train_step_a, build_train_step_b, init_state_a, init_state_b,
+)
 from ..core.ma_solver import solve_ma
 from ..core.ms_solver import solve_ms
 from .build import BuiltExperiment, build
@@ -260,12 +264,15 @@ def _participation_masks(built: BuiltExperiment, cuts) -> Optional[np.ndarray]:
 
 
 def _make_step(built: BuiltExperiment, model, plan, opt, with_mask: bool):
-    """Engine-A step for one tier plan, its fed levels read from the round
-    counter on the host (``fed_round=None``)."""
+    """The spec's engine step for one tier plan, its fed levels read from
+    the round counter on the host (``fed_round=None``).  Engine B takes no
+    guard: the capability check refuses faults on it."""
     kwargs = dict(
         compressor=built.compressor, with_mask=with_mask,
         privacy=built.dp_mechanism,
     )
+    if built.spec.run.engine == "b":
+        return build_train_step_b(model, plan, opt, **kwargs)
     if built.guard is not None and built.faults is not None and not built.faults.is_null:
         # live faults: every sync runs behind the non-finite/norm guard; a
         # null spec builds the exact clean step instead
@@ -275,7 +282,8 @@ def _make_step(built: BuiltExperiment, model, plan, opt, with_mask: bool):
 
 def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, Any]:
     """Real split training of the spec's model under the schedule, on
-    ``device``; the initial state is ``init_state_a``'s from a
+    ``device``; the initial state is ``init_state_a``'s (``init_state_b``'s
+    for Engine B) from a
     ``torch.Generator`` seeded with ``run.seed``.  Under a participation
     policy each round's deadline mask (``sim.participation_masks`` at the
     trained cuts, replayed cyclically) drives the masked step, whose syncs
@@ -318,9 +326,8 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
     )
 
     def init():
-        return init_state_a(
-            model, plan, opt, torch.Generator().manual_seed(rc.seed), device
-        )
+        make = init_state_a if rc.engine == "a" else init_state_b
+        return make(model, plan, opt, torch.Generator().manual_seed(rc.seed), device)
 
     masks = _participation_masks(built, cuts)
     with_mask = masks is not None or inject
@@ -482,7 +489,7 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
 
 
 def _control(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, Any]:
-    """Engine-A training under the online adaptive controller (DESIGN.md
+    """Training under the online adaptive controller (DESIGN.md
     §13), on ``device`` as ``_train`` trains.
 
     Each round the engine trains under the current schedule, the round's
@@ -490,7 +497,8 @@ def _control(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, 
     controller's window, and a drift-triggered warm re-solve may switch
     the schedule — at which point the tier plan is rebuilt, the engine
     state (params + optimizer moments) is migrated without loss (one B1
-    launch per leaf of each tier with entities), the step rebuilt, and
+    launch per leaf of each tier whose entities pool clients), the step
+    rebuilt, and
     participation masks re-sampled at the new cuts.  The fault draws and
     the masks stay on the host; one ``[N]`` mask moves to the device a
     round, and the loss of each round is the loop's only device read.  The
@@ -551,9 +559,8 @@ def _control(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, 
                 device=device,
             )
     with_mask = masks is not None or inject
-    state = init_state_a(
-        model, plan, opt, torch.Generator().manual_seed(rc.seed), device
-    )
+    init = init_state_a if rc.engine == "a" else init_state_b
+    state = init(model, plan, opt, torch.Generator().manual_seed(rc.seed), device)
     step = _make_step(built, model, plan, opt, with_mask)
 
     controller = Controller(

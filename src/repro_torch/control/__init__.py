@@ -12,9 +12,9 @@ segments.  ``replay`` replays the whole loop analytically over a trace
 for time-to-ε comparisons.
 
 Everything but ``migrate`` is NumPy float64, as in the JAX package, and
-equals it with ``==``.  ``migrate`` moves Engine-A state on the device
-(B1); Engine B's ``migrate_params_b`` / ``migrate_state_b`` raise until
-Engine B is ported (ROADMAP A12).
+equals it with ``==``.  ``migrate`` moves engine state on the device:
+Engine A's client-stacked tree and Engine B's tier stacks, both through
+B1's entity means.
 """
 from .bound import (
     BoundSegment,

@@ -1,5 +1,5 @@
 """Engine state migration when the schedule moves mid-run — port of
-``repro.control.migrate`` (Engine A; Engine B comes with ROADMAP A12).
+``repro.control.migrate``.
 
 A control switch changes the cut vector, which changes which tier — and
 therefore which aggregation entity — owns each unit.  Training state must
@@ -20,6 +20,8 @@ be re-partitioned without losing optimizer moments:
   entity repeat), re-slices the unit ranges under the new plan, and
   reduces each new tier back to its entity stack by the client-weighted
   mean — coarsening averages the old entity copies, refining replicates.
+  In the port the client mean is B1's entity level followed by a pick of
+  each group's first row.
 
 Both directions preserve the global client-mean iterate (means of means
 over uniform groups), which is what lets the piecewise Theorem-1 bound
@@ -35,7 +37,7 @@ from typing import Any, Optional, Tuple
 import torch
 
 from .._tree import tree_leaves, tree_map
-from ..core.engine import TrainState
+from ..core.engine import TrainState, engine_b_to_full
 from ..core.tiers import TierPlan, combine_tiers, tier_subtrees
 from ..kernels.tiered_aggregate import aggregate_tree
 from ..optim import Optimizer
@@ -95,27 +97,36 @@ def migrate_state_a(
 
 def _entity_stack(part: Params, J: int, N: int) -> Params:
     """Reduce a client-stacked tier subtree to its [J, ...] entity stack by
-    the client-mean (float32, mirroring ``tiers._group_mean``)."""
+    the float32 client-mean (the JAX ``_entity_stack``): B1's entity level,
+    then each group's first row.  A tier with one client per entity keeps
+    its rows as they are."""
     per = N // J
-
-    def f(x):
-        g = x.reshape(J, per, *x.shape[1:])
-        return torch.mean(g, dim=1, dtype=torch.float32).to(x.dtype)
-
-    return tree_map(f, part)
+    if per > 1:
+        part = _group_mean(part, J, N)
+    return tree_map(lambda x: x[::per].contiguous(), part)
 
 
 def migrate_params_b(model, tier_params, old_plan: TierPlan, new_plan: TierPlan):
-    """Re-partition Engine-B tier stacks: Engine B is ported with ROADMAP A12."""
-    raise NotImplementedError("migrate_params_b: Engine B is ported with ROADMAP A12")
+    """Re-partition Engine-B tier stacks from ``old_plan`` to ``new_plan``."""
+    full = engine_b_to_full(model, old_plan, tier_params)
+    parts = tier_subtrees(full, new_plan)
+    return [
+        _entity_stack(part, new_plan.entities[m], new_plan.num_clients)
+        for m, part in enumerate(parts)
+    ]
 
 
 def migrate_state_b(
     state: TrainState, model, old_plan: TierPlan, new_plan: TierPlan,
     opt: Optimizer,
 ) -> TrainState:
-    """Engine-B state under a new tier plan: ported with ROADMAP A12."""
-    raise NotImplementedError("migrate_state_b: Engine B is ported with ROADMAP A12")
+    """Engine-B state under a new tier plan (re-sliced entity stacks)."""
+    fn = lambda t: migrate_params_b(model, t, old_plan, new_plan)  # noqa: E731
+    return TrainState(
+        params=fn(state.params),
+        opt_state=_migrate_opt(state.opt_state, opt, fn),
+        step=state.step,
+    )
 
 
 def migrate_state(
@@ -129,9 +140,9 @@ def migrate_state(
     """Engine-dispatching migration (the controller's switch hook)."""
     if engine == "a":
         return migrate_state_a(state, new_plan, opt)
-    raise NotImplementedError(
-        f"migrate_state(engine={engine!r}): Engine B is ported with ROADMAP A12"
-    )
+    if old_plan is None or model is None:
+        raise ValueError("engine-b migration needs model and old_plan")
+    return migrate_state_b(state, model, old_plan, new_plan, opt)
 
 
 def resume_with_migration(

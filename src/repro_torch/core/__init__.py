@@ -2,8 +2,8 @@
 # convergence theory (Theorem 1 / Corollary 1), and the MA+MS system
 # optimizer (Proposition 1, Dinkelbach, Algorithm 2 BCD), with per-class
 # cuts, the bound-constant estimator, the fault guard and bounded-staleness
-# async aggregation (``async_agg``) — port of ``repro.core``.  Engine B
-# (ROADMAP A12) is not ported yet.
+# async aggregation (``async_agg``), and Engine B, the split-placement
+# engine that proves Engine A exact — port of ``repro.core``.
 from .convergence import (
     HyperSpec,
     ParticipationSpec,
@@ -41,7 +41,9 @@ from .tiers import (
 from .engine import (
     TrainState,
     build_train_step_a,
+    build_train_step_b,
     init_state_a,
+    init_state_b,
     replicate_for_clients,
     unreplicate,
 )

@@ -1,14 +1,20 @@
-"""HSFL execution engine A — port of ``repro.core.engine``.
+"""HSFL execution engines — port of ``repro.core.engine``.
 
-Engine A ("sync-groups"): every tier's parameters are stacked per client on
-axis 0, and the hierarchy is realized as the multi-timescale aggregation
-schedule of ``tiers.synchronize``.  It implements Algorithm 1 of the paper
-(per-client SGD on replicas + Eq. 3 entity sync + Eq. 4 fed-server
-aggregation at I_m).  Engine B, the split-placement proof engine, is not
-ported yet (ROADMAP A12).
+Engine A ("sync-groups", production): every tier's parameters are stacked
+per client on axis 0, and the hierarchy is realized as the multi-timescale
+aggregation schedule of ``tiers.synchronize``.  It implements Algorithm 1
+of the paper (per-client SGD on replicas + Eq. 3 entity sync + Eq. 4
+fed-server aggregation at I_m).
 
-The engine is functional over client-stacked parameter trees, as in JAX: the
-per-client update is ``torch.func.vmap(torch.func.grad_and_value(loss))``.
+Engine B ("split placement", the proof engine): each tier-m entity holds
+one sub-model (no per-client replicas above tier 1) and activations flow up
+the tiers, the literal split-learning dataflow.  Engine A == Engine B (same
+losses and parameters) is the correctness proof of the sync-group
+formulation.
+
+Both engines are functional over parameter trees, as in JAX: Engine A's
+per-client update is ``torch.func.vmap(torch.func.grad_and_value(loss))``,
+Engine B's one ``grad_and_value`` around inner ``vmap``s.
 """
 from __future__ import annotations
 
@@ -21,7 +27,11 @@ from torch.func import grad_and_value, vmap
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves, tree_map
 from ..optim import Optimizer
-from .tiers import FedWire, TierPlan, guard_health, ragged_synchronize, synchronize
+from ..kernels.tiered_aggregate import aggregate_tree
+from .tiers import (
+    FedWire, TierPlan, _compressed, _masked_tier_levels, _tier_levels, combine_tiers,
+    guard_health, ragged_synchronize, synchronize, tier_subtrees,
+)
 
 Params = Dict[str, Any]
 
@@ -209,3 +219,205 @@ def build_train_step_a(
     if with_mask:
         return _step
     return lambda state, batch: _step(state, batch, None)
+
+
+# --------------------------------------------------------------------------- #
+# Engine B — split placement (the proof engine)
+# --------------------------------------------------------------------------- #
+
+
+def init_state_b(
+    model, plan: TierPlan, opt: Optimizer, generator: torch.Generator,
+    device: Optional[DeviceLike] = None,
+) -> TrainState:
+    """Params: a list of per-tier trees, tier m stacked over its J_m
+    entities — one ``init_params`` draw, cut by ``tier_subtrees``, on
+    ``device`` (default: the first CUDA device, raising when there is
+    none)."""
+    p0 = model.init_params(generator, resolve_device(device))
+    N = plan.num_clients
+    full = tree_map(lambda x: x[None].expand((N,) + tuple(x.shape)), p0)
+    tier_params = [
+        tree_map(lambda x, per=N // plan.entities[m]: x[::per].contiguous(), part)
+        for m, part in enumerate(tier_subtrees(full, plan))
+    ]
+    return TrainState(params=tier_params, opt_state=opt.init(tier_params), step=0)
+
+
+def _fed_mean_b(tree, J: int, w: Optional[torch.Tensor], compressor):
+    """Eq. 4 across the J entity rows of one tier's ``[J, ...]`` leaves: the
+    fed level of ``tiers.synchronize`` over the entity stack, one kernel
+    launch per leaf — B1 with weights 1/J, or under a mask B1m weighted by
+    the entities' participant counts ``w`` ([J]), a silent round keeping
+    the pre-codec rows.  Over a compressed wire each entity's upload goes
+    through the codec first (fused into B2, or B1m's int8 load, for the
+    int8 codec)."""
+    if w is not None:
+        return _masked_tier_levels(tree, w, 0, True, compressor)
+    weights = torch.full((J,), 1.0 / J, dtype=torch.float32,
+                         device=tree_leaves(tree)[0].device)
+    return _tier_levels(tree, lambda t, *flags, **wire: aggregate_tree(t, weights, *flags, **wire),
+                        0, True, compressor)
+
+
+def build_train_step_b(
+    model, plan: TierPlan, opt: Optimizer, *, compressor=None,
+    with_mask: bool = False, class_members=None, privacy=None,
+) -> Callable[..., Tuple[TrainState, torch.Tensor]]:
+    """Engine-B step: literal split execution.
+
+    Forward: tier 1 ``torch.func.vmap``-ed over the N clients; the
+    activations regrouped into J_m entity batches of ``per·b`` rows for
+    each middle tier, vmapped over its entities; the single top-tier model
+    on the flattened global batch.  The attention kernels fold a vmapped
+    axis into their batch axis, so each layer launches B4 (and each B5
+    pass) once a round.  Backward: one ``grad_and_value`` through the
+    composed function; per-tier gradients rescaled to implement
+    per-client SGD + Eq. 3 exactly.  Tied logits use tier 1's per-client
+    embedding, as the JAX engine does (a batched product outside any
+    kernel; the padded vocabulary columns are not masked there either).
+
+    ``compressor`` compresses each entity's model upload before the Eq. 4
+    fed-server mean, placed as ``tiers.synchronize`` places it (tiers
+    below the top with more than one entity).
+
+    ``with_mask=True`` returns ``step(state, batch, mask)``: the global
+    objective becomes the participation-weighted mean Σ w_i·loss_i / Σ w_i,
+    each tier-m entity's gradient is rescaled by Σw / Σ_{i∈j} w_i (zero
+    for a zero-participant entity) and the Eq. 4 mean weights entities by
+    their participant counts, on B1m.
+
+    The fed levels are chosen on the host from the int round counter;
+    every fed mean is a kernel launch per leaf (``_fed_mean_b``).  Only
+    the dense transformer family runs here: ``VggModel.apply_units`` reads
+    absolute unit indices, which the tiers' local slices do not carry —
+    the JAX package's step fails on VGG too (ROADMAP §C).
+    """
+    N, M = plan.num_clients, plan.M
+    spec = model.spec
+    if class_members is not None:
+        raise NotImplementedError(
+            "Engine B physically places each tier's units on its hosts — a "
+            "per-class cut assignment has no single placement (clients "
+            "disagree on which units are client-side).  Use Engine A with "
+            "class_members (ragged sync-groups), the production path for "
+            "DESIGN.md §14."
+        )
+    if privacy is not None:
+        raise NotImplementedError(
+            "Engine B does not support DP-noised uploads: its fed wire "
+            "carries one model per *entity*, so per-client clipping (the "
+            "unit the (ε, δ) accountant meters) has no faithful placement. "
+            "Use Engine A with privacy (the production DP path), or run "
+            "Engine B noiseless (privacy=None)."
+        )
+    if with_mask and getattr(spec, "moe", None) is not None:
+        raise NotImplementedError(
+            "masked Engine B does not support MoE specs: the aux-loss "
+            "regroup means are participation-unweighted (use Engine A for "
+            "masked MoE training)"
+        )
+    if getattr(spec, "family", None) == "vgg":
+        raise NotImplementedError(
+            "Engine B runs the transformer family: VggModel.apply_units reads "
+            "absolute unit indices (conv or dense by index), and Engine B "
+            "applies each tier's slice with tier-local indices; the JAX "
+            "package's Engine-B step fails on VGG the same way (TypeError in "
+            "its convolution).  Use Engine A for VGG."
+        )
+    from ..models import layers as L
+
+    def tier_apply(m):
+        lo, hi = plan.tier_bounds(m)
+        return lambda p, c: model.apply_units(p["units"], c, 0, hi - lo)
+
+    def global_loss(tier_params, batch, w):
+        carry = vmap(lambda p, b: tier_apply(0)(p, model.frontend_apply(p["frontend"], b)))(
+            tier_params[0], batch)  # leaves [N, b, ...], the aux scalar [N]
+        for m in range(1, M - 1):
+            J = plan.entities[m]
+            per = N // J
+            # scalars (the aux) carry *means*: regroup averages over an
+            # entity's clients and split_back replicates the mean
+            carry_e = tree_map(
+                lambda x: (x.reshape(J, per * x.shape[1], *x.shape[2:]) if x.ndim >= 2
+                           else x.reshape(J, per).mean(1)), carry)
+            carry_e = vmap(tier_apply(m))(tier_params[m], carry_e)
+            carry = tree_map(
+                lambda x: (x.reshape(N, x.shape[1] // per, *x.shape[2:]) if x.ndim >= 2
+                           else x.repeat_interleave(per)), carry_e)
+        carry_g = tree_map(
+            lambda x: x.reshape(N * x.shape[1], *x.shape[2:]) if x.ndim >= 2 else x.mean() * N,
+            carry)
+        pM = tree_map(lambda x: x[0], tier_params[M - 1])
+        carry_g = tier_apply(M - 1)(pM, carry_g)
+        if spec.tie_embeddings:
+            h = L.rms_norm(carry_g["h"], pM["head"]["norm"], spec.norm_eps)
+            hn = h.reshape(N, h.shape[0] // N, *h.shape[1:])
+            emb = tier_params[0]["frontend"]["embed"]  # [N, V, d]
+            logits = torch.einsum("nbsd,nvd->nbsv", hn, emb.to(hn.dtype))
+            logits = logits.reshape(h.shape[0], h.shape[1], -1)
+        else:
+            logits = model.head_apply({"head": pM["head"], "frontend": None}, carry_g)
+        labels = batch["labels"].reshape(-1, batch["labels"].shape[-1])
+        lmask = (labels >= 0).float()
+        if w is None:
+            return L.cross_entropy(logits, torch.clamp(labels, min=0), lmask)
+        # per-client CE, then the participation-weighted mean: clients
+        # enter the objective as in Engine A's vmapped loss
+        per_client = vmap(lambda lo, la, mk: L.cross_entropy(lo, torch.clamp(la, min=0), mk))(
+            *(t.reshape(N, -1, *t.shape[1:]) for t in (logits, labels, lmask)))
+        return masked_mean_loss(per_client, w)
+
+    grad_loss = grad_and_value(global_loss)
+
+    def _step(state: TrainState, batch: Params, mask):
+        w = None
+        if mask is not None:
+            device = tree_leaves(state.params)[0].device
+            w = mask.to(device=device, dtype=torch.float32).contiguous()
+        grads, loss = grad_loss(state.params, batch, w)
+        # per-client SGD: tier m's entity model moves by the mean of its
+        # clients' gradients = (N / N_m^j)·dL/dw_m; under a mask the mean
+        # runs over the entity's participants (zero for a silent entity)
+        scaled, counts = [], []
+        for m, g in enumerate(grads):
+            J = plan.entities[m]
+            if w is None:
+                scaled.append(tree_map(lambda x, J=J: x * J, g))
+                counts.append(None)
+                continue
+            wj = w.reshape(J, N // J).sum(dim=1)  # [J] participant counts
+            sc = torch.where(wj > 0.0, torch.sum(w) / torch.clamp(wj, min=1.0),
+                             torch.zeros((), device=w.device))
+            scaled.append(tree_map(
+                lambda x, sc=sc: x * sc.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype), g))
+            counts.append(wj)
+        new_params, new_opt = opt.update(state.params, scaled, state.opt_state)
+        out = []
+        for m, p in enumerate(new_params):
+            interval = int(plan.intervals[m])
+            J = plan.entities[m]
+            if J > 1 and interval >= 1 and (state.step + 1) % interval == 0:
+                wire = compressor if _compressed(plan, m, compressor) else None
+                p = _fed_mean_b(p, J, counts[m], wire)
+            out.append(p)
+        return TrainState(out, new_opt, state.step + 1), loss
+
+    if with_mask:
+        return _step
+    return lambda state, batch: _step(state, batch, None)
+
+
+def engine_b_to_full(model, plan: TierPlan, tier_params) -> Params:
+    """Materialize Engine-B tier params back into a client-stacked tree:
+    each tier's entity rows repeated over their clients, then
+    ``combine_tiers``."""
+    parts = [
+        tree_map(lambda x, per=plan.num_clients // plan.entities[m]:
+                 x.repeat_interleave(per, dim=0), p)
+        for m, p in enumerate(tier_params)
+    ]
+    template = {"units": parts[0]["units"], "frontend": parts[0]["frontend"],
+                "head": parts[-1]["head"]}
+    return combine_tiers(parts, template)

@@ -50,8 +50,9 @@
 // memory, so the column loop reads only x (or q and its scales) from
 // device memory.  Bytes moved are B1's (twin) and B2's (B3).
 //
-// B1m (partial participation) weights each client by its 0/1 mask w [N] and
-// broadcasts to every row, participant or not; a group with no participant
+// B1m (partial participation) weights each row by its non-negative weight
+// w [N] (a 0/1 mask, or Engine B's entity participant counts) and
+// broadcasts to every row, participant or not; a group of zero total weight
 // keeps its rows of `keep` [N, P]:
 //   s_g = sum_{i in g} w_i,   t_g = sum_{i in g} w_i x_i
 //   entity only: y_i = s_g > 0 ? t_g / s_g : keep_i
@@ -252,7 +253,7 @@ masked_tiered_aggregate_kernel(Load load, const float* __restrict__ mask,
                                long long P, int J, int do_entity, int do_global) {
   extern __shared__ float smem[];
   const int per = N / J;
-  float* s_w = smem;         // [N]  participation mask
+  float* s_w = smem;         // [N]  row weights (participation)
   float* s_cnt = s_w + N;    // [J]  participants per entity group
   float* s_all = s_cnt + J;  // [1]  participants in all
   for (int k = threadIdx.x; k < N; k += kThreads) s_w[k] = mask[k];

@@ -354,8 +354,10 @@ def masked_tiered_aggregate(
     """[N, P] participation-masked two-level aggregation (B1m); see
     ``ref.masked_tiered_aggregate_ref`` for semantics.
 
-    ``mask`` is f32 0/1 [N]; ``keep`` [N, P] of x's dtype holds what a
-    group with no participant keeps (x itself for the clients' current
+    ``mask`` is a non-negative f32 weight vector [N] — 0/1 participation,
+    or Engine B's entity participant counts — and each row enters the
+    means weighted by its value; ``keep`` [N, P] of x's dtype holds what a
+    group of zero total weight keeps (x itself for the clients' current
     state).  x is f32 or bf16 and the output keeps its dtype; the kernel
     sums in f32 and fuses the two levels into T / S.
     """

@@ -14,9 +14,10 @@ Semantics (one tier's parameter shard, client-stacked):
 The ragged (per-class cut) variants add a 0/1 ``member`` [N] — or [N, U]
 over a shard of U units of E = P / U columns each — and only members feed
 and receive either level (``ragged_tiered_aggregate_ref``).  The masked
-variant (partial participation) weights each client by its 0/1 ``mask``
-[N], broadcasts to every row, and lets a group with no participant keep
-its rows of ``keep`` (``masked_tiered_aggregate_ref``); the masked ragged
+variant (partial participation) weights each row by its non-negative
+``mask`` [N] (0/1 participation, or Engine B's entity participant counts),
+broadcasts to every row, and lets a group of zero total weight keep its
+rows of ``keep`` (``masked_tiered_aggregate_ref``); the masked ragged
 variant weights each client by ``member × mask`` and lets only members
 receive (``masked_ragged_tiered_aggregate_ref``).
 
@@ -167,7 +168,10 @@ def masked_tiered_aggregate_ref(
 
     with keep' = the entity level's output (which is ``keep`` wherever S = 0,
     the only place the fed level reads it).  x and keep are [N, P] of one
-    dtype, mask is [N] 0/1.  The levels run in f32 and the output is cast
+    dtype; ``mask`` is a non-negative weight vector [N]: 0/1 participation,
+    or the entity participant counts of Engine B's fed mean, where
+    Σ w·x / Σ w is the JAX ``wm`` (counts are >= 1 wherever S > 0, so its
+    max(S, 1) is S).  The levels run in f32 and the output is cast
     to x's dtype once, as the kernel and B1's plain version do.  For bf16
     the JAX package rounds between the levels too; the two agree within two
     bf16 ulps of a column's largest |x| (``tests/test_torch_participation``

@@ -4,7 +4,8 @@ The JAX package and the port draw different random numbers from one seed,
 so every parity test initialises the model once, in the JAX package, turns
 the tree into numpy arrays and hands it to the port through
 ``params_from_numpy``.  Trees are nested dicts, lists and tuples; the
-structure (including empty ``frontend`` / ``head`` dicts) is kept as it is.
+structure (including empty ``frontend`` / ``head`` dicts) is kept as it is,
+so Engine B's state — a list of per-tier trees — crosses as one tree.
 """
 from __future__ import annotations
 

@@ -1,7 +1,8 @@
 """The port's declarative API (``ExperimentSpec`` → ``build`` → ``run``)
 against the JAX package's: one spec JSON drives both; solve and simulate
 results equal field for field; train-mode losses agree from a carried-over
-init; sections whose modules are not ported are refused naming their item."""
+init, also on Engine B (train and control modes); sections whose modules are
+not ported are refused naming their item."""
 import dataclasses
 import json
 import sys
@@ -14,10 +15,11 @@ import torch
 from repro import api as J
 from repro.api.registry import resolve_model as jax_resolve_model
 from repro.api.spec import ShardingCfg as JShardingCfg
+from repro.models.model import SplittableModel as jax_split_model
 from repro.models.vgg import build_model as jax_build_model
 from repro_torch import api as T
 from repro_torch.api.build import check_capabilities
-from repro_torch.core import TrainState, replicate_for_clients
+from repro_torch.core import TrainState, init_state_b, replicate_for_clients
 from repro_torch.models import params_from_numpy, params_to_numpy
 
 PRESETS = sorted(J.EXPERIMENTS)
@@ -181,10 +183,6 @@ def test_jax_backend_names_read_as_the_card():
 
 
 UNPORTED = {
-    "engine-b": (lambda s: s.replace(run=J.RunCfg(mode="train", engine="b")), "A12"),
-    "control-engine-b": (lambda s: s.replace(run=J.RunCfg(mode="control", engine="b"),
-                                             scenario=J.ScenarioCfg(name="flaky-wan")),
-                         "A12"),
     "sharding": (lambda s: s.replace(run=J.RunCfg(mode="train", sharding=JShardingCfg())),
                  "A13"),
     "arch": (lambda s: s.replace(model=J.ModelCfg(arch="mamba2-1.3b", variant="reduced")),
@@ -223,6 +221,79 @@ def test_unported_sections_raise_naming_their_item(name):
     assert str(err.value).startswith("unsupported spec combination: ")
     with pytest.raises(NotImplementedError, match=item):
         T.run(ts)
+
+
+ENGINE_B = {
+    "engine-b": (lambda s: s.replace(run=J.RunCfg(mode="train", engine="b")),
+                 lambda: _train_spec(J.paper_spec()).replace(
+                     run=J.RunCfg(mode="train", rounds=3, dataset_size=64, lr=0.1,
+                                  engine="b"))),
+    "control-engine-b": (lambda s: s.replace(run=J.RunCfg(mode="control", engine="b"),
+                                             scenario=J.ScenarioCfg(name="flaky-wan")),
+                         lambda: _control_b_spec()),
+}
+
+
+def _control_b_spec():
+    """REDUCED smollm-135m with 5 layers, N=4, J2=2, batch 2, seq 16, 4
+    rounds under flaky-wan with the 0.75 participation deadline: both
+    packages switch the cuts (2, 3) -> (1, 2) at round 1 (the migration)
+    and the intervals at round 3, every step masked."""
+    return J.paper_spec().replace(
+        name="control-engine-b",
+        model=J.ModelCfg(arch="smollm-135m", variant="reduced", num_layers=5, batch=2,
+                         seq=16),
+        system=J.SystemCfg(preset="paper-three-tier", num_clients=4, num_edges=2),
+        scenario=J.ScenarioCfg(name="flaky-wan", rounds=16, seed=0, quantile=0.5),
+        participation=J.ParticipationCfg(target_rate=0.75),
+        solver=J.SolverCfg(kind="fixed", cuts=(2, 3), intervals=(2, 2, 1)),
+        run=J.RunCfg(mode="control", rounds=4, lr=0.1, dataset_size=64, log_every=0,
+                     engine="b"),
+        control=J.ControlCfg(window=4, min_window=2, cooldown=1, rel_tol=0.1,
+                             backend="numpy"))
+
+
+@pytest.mark.parametrize("name", list(ENGINE_B))
+def test_engine_b_specs_build_and_run_as_in_jax(name, monkeypatch):
+    """``engine="b"`` passes the capability check and builds as in the JAX
+    package (train and control modes); on REDUCED smollm-135m from the
+    carried JAX init it runs as JAX's: losses rtol 1e-4, every other result
+    field equal (decisions, segments and bounds ``==`` in control mode, less
+    the re-solves' wall clock), ``"engine": "b"`` reported."""
+    edit, reduced = ENGINE_B[name]
+    js = edit(J.paper_spec())
+    J.build(js)
+    check_capabilities(_port(js))
+    T.build(_port(js))
+    js = reduced()
+    p0 = params_to_numpy(jax_split_model(jax_resolve_model(js.model)).init_params(
+        jax.random.PRNGKey(js.run.seed)))
+
+    class Carried:
+        def init_params(self, generator, device=None):
+            return params_from_numpy(p0, device)
+
+    monkeypatch.setattr(sys.modules["repro_torch.api.run"], "init_state_b",
+                        lambda model, plan, opt, generator, device=None:
+                        init_state_b(Carried(), plan, opt, generator, device))
+    ref = J.run(js)
+    got = T.run(_port(js), device="cpu")
+    mode = js.run.mode
+    a, b = getattr(got, mode), getattr(ref, mode)
+    assert a.keys() == b.keys() and a["engine"] == b["engine"] == "b"
+    assert np.all(np.isfinite(a["losses"]))
+    np.testing.assert_allclose(a["losses"], b["losses"], rtol=1e-4)
+    clock = ("solve_ms", "resolve_p50_s", "resolve_p95_s", "switch_log")
+    strip = lambda ss: [{k: v for k, v in s.items() if k not in clock} for s in ss]  # noqa: E731
+    for k in b:
+        if k in ("switches", "segments"):
+            assert strip(a[k]) == strip(b[k]), k
+        elif k not in ("losses", "first_loss", "final_loss") + clock:
+            assert a[k] == b[k], k
+    if mode == "control":
+        assert any(s["old_cuts"] != s["new_cuts"] for s in b["switches"])
+    for k in ("theta", "cuts", "intervals", "latency", "provenance"):
+        assert got.to_dict()[k] == ref.to_dict()[k], k
 
 
 def test_capability_combinations_fail_as_in_jax():

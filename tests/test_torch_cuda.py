@@ -820,3 +820,57 @@ def test_control_mode_on_card_matches_cpu(cuda, monkeypatch):
             elif k not in ("losses", "first_loss", "final_loss", "switch_log",
                            "resolve_p50_s", "resolve_p95_s"):
                 assert on_card[k] == on_cpu[k], k
+
+
+@pytest.mark.parametrize("masked", [False, True], ids=["plain", "masked"])
+def test_engine_b_on_card_matches_cpu(cuda, masked):
+    """Engine B on REDUCED smollm-135m (4 layers, N=8, J2=4, cuts (1, 3),
+    intervals (2, 2, 1), 4 rounds; masked: a silent entity in round 1, a
+    silent round 2) on the card against the CPU from one init: losses
+    within rtol 1e-4; B4 and each B5 pass once per layer a round; the fed
+    means one B1 (masked: B1m) launch per leaf of each tier due, weighted
+    by the entities' participant counts under the mask; integer weights
+    on B1m's kernel against its plain version."""
+    import dataclasses
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import build_train_step_b, init_state_b
+
+    N, b, S = 8, 2, 32
+    spec = dataclasses.replace(get_reduced("smollm-135m"), num_layers=4)
+    model = SplittableModel(spec)
+    plan = default_plan(spec.n_units, N, cuts=(1, 3), intervals=(2, 2, 1),
+                        entities=(N, 4, 1))
+    g = torch.Generator().manual_seed(5)
+    toks = torch.randint(0, spec.vocab_size, (4, N, b, S + 1), generator=g)
+    masks = torch.tensor([[1, 1, 0, 1, 1, 0, 1, 1], [0, 0, 1, 1, 1, 0, 1, 1],
+                          [0] * 8, [1] * 8], dtype=torch.float32)
+    losses = {}
+    for dev in (cuda, torch.device("cpu")):
+        state = init_state_b(model, plan, sgd(0.05), torch.Generator().manual_seed(0), dev)
+        leaves = [len(tree_leaves(p)) for p in state.params]
+        step = build_train_step_b(model, plan, sgd(0.05), with_mask=masked)
+        reset_launches()
+        swa.reset_launches()
+        losses[dev.type] = []
+        for r in range(4):
+            batch = {"tokens": toks[r, ..., :-1].to(dev), "labels": toks[r, ..., 1:].to(dev)}
+            args = (masks[r].to(dev),) if masked else ()
+            state, loss = step(state, batch, *args)
+            losses[dev.type].append(float(loss))
+        if dev.type == "cuda":
+            fed = 2 * (leaves[0] + leaves[1])  # rounds 2 and 4: tiers 0 and 1
+            key = "masked_tiered_aggregate" if masked else "tiered_aggregate"
+            assert {k: v for k, v in launches.items() if v} == {key: fed}
+            assert dict(swa.launches) == dict.fromkeys(swa.launches, spec.n_units * 4)
+            assert all(bool(torch.isfinite(x).all()) for x in tree_leaves(state.params))
+    assert all(math.isfinite(v) for v in losses["cuda"])
+    torch.testing.assert_close(torch.tensor(losses["cuda"]), torch.tensor(losses["cpu"]),
+                               rtol=1e-4, atol=0)
+    x = torch.randn(4, 3000, device=cuda)
+    keep = torch.randn(4, 3000, device=cuda)
+    for counts in ((2, 0, 1, 2), (0, 0, 0, 0), (3, 5, 0, 8)):
+        w = torch.tensor(counts, dtype=torch.float32, device=cuda)
+        out = masked_tiered_aggregate(x, w, keep, False, True, 1)
+        torch.testing.assert_close(out, masked_tiered_aggregate_ref(x, w, keep, False, True, 1),
+                                   rtol=1e-5, atol=1e-6)

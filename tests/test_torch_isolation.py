@@ -108,14 +108,22 @@ from repro_torch.control.window import WindowedLatency
 from repro_torch.control.bound import BoundSegment, piecewise_bound
 from repro_torch.control.controller import ControlDecision, Controller
 from repro_torch.control.replay import ReplayResult, replay
+from repro_torch.core import build_train_step_b, init_state_b
+from repro_torch.core.engine import engine_b_to_full
+from repro_torch.control.migrate import migrate_params_b, migrate_state_b
+from repro_torch.api.run import _make_step
+from repro_torch.api.build import check_capabilities
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.kernels.tiered_aggregate import masked_tiered_aggregate_ref
 print("ok")
 """
 
 
 def test_the_costs_and_robustness_modules_import_alone():
-    """privacy/, energy/, faults/, core/async_agg.py and every control/
-    module (the migration and the control loop) import with jax, triton
-    and repro blocked; control exports its ``Controller``."""
+    """privacy/, energy/, faults/, core/async_agg.py, every control/
+    module (the migration and the control loop) and Engine B (the engine,
+    its migration, the API's step choice, B1m's weights) import with jax,
+    triton and repro blocked; control exports its ``Controller``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _PROBE_SLICE], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)

@@ -3,7 +3,8 @@ JAX package's: ``migrate_params_a`` / ``migrate_state_a`` at rtol 1e-6 (one
 B1 entity-level launch per leaf against JAX's group mean), the client mean
 kept, idempotence, the optimizer moments carried; ``resume_with_migration``
 from a checkpoint either package wrote, params or a whole ``TrainState``;
-Engine B's migration raises naming ROADMAP A12."""
+Engine B's migration (``migrate_params_b`` / ``migrate_state_b``) against
+JAX's."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -13,10 +14,11 @@ import torch
 from repro.checkpoint import save_checkpoint as jax_save
 from repro.control.migrate import (
     _entity_stack as jax_entity_stack, migrate_params_a as jax_migrate,
-    migrate_state_a as jax_migrate_state, resume_with_migration as jax_resume,
+    migrate_params_b as jax_migrate_b_params, migrate_state_a as jax_migrate_state,
+    migrate_state_b as jax_migrate_state_b, resume_with_migration as jax_resume,
 )
-from repro.core.engine import TrainState as JaxState
-from repro.core.tiers import default_plan as jax_default_plan
+from repro.core.engine import TrainState as JaxState, engine_b_to_full as jax_engine_b_to_full
+from repro.core.tiers import default_plan as jax_default_plan, tier_subtrees as jax_tier_subtrees
 from repro.optim import adam as jadam, momentum as jmomentum, sgd as jsgd
 from repro_torch._tree import tree_leaves
 from repro_torch.checkpoint import save_checkpoint
@@ -25,6 +27,7 @@ from repro_torch.control import (
 )
 from repro_torch.control.migrate import _entity_stack, migrate_params_b, migrate_state_b
 from repro_torch.core import TrainState, default_plan
+from repro_torch.core.engine import engine_b_to_full
 from repro_torch.models import params_from_numpy, params_to_numpy
 from repro_torch.optim import adam, momentum, sgd
 
@@ -102,14 +105,49 @@ def test_migrate_state_a_carries_optimizer_moments_as_jax(opt_name):
     assert migrate_state(TrainState(out.params, to, 7), tp, topt).step == 7
 
 
-def test_engine_b_migration_raises_naming_a12():
-    _, tp = _plans((2, 3))
-    state = TrainState(params_from_numpy(_np_tree(0), CPU), (), 0)
-    for call in (lambda: migrate_params_b(None, [], tp, tp),
-                 lambda: migrate_state_b(state, None, tp, tp, sgd(0.1)),
-                 lambda: migrate_state(state, tp, sgd(0.1), engine="b")):
-        with pytest.raises(NotImplementedError, match="A12"):
-            call()
+@pytest.mark.parametrize("cuts", [(1, 4), (0, 6), (3, 3)])
+def test_engine_b_migration_matches_jax(cuts):
+    """Engine-B tier stacks (cut (2, 3): tier 0 per client, tier 1 two
+    entities, tier 2 one) migrated to ``cuts``: ``migrate_params_b``,
+    ``migrate_state_b`` (momentum carried) and ``migrate_state(engine="b")``
+    equal JAX's at rtol 1e-6, the client mean of the materialized model is
+    kept, and the dispatcher needs the model and the old plan."""
+    tree = _np_tree(10)
+    jp_old, tp_old = _plans((2, 3))
+    jp_new, tp_new = _plans(cuts)
+    # each tier's entity rows: the first client row of each entity group
+    tiers = [jax.tree.map(lambda x, per=N // jp_old.entities[m]: x[::per], part)
+             for m, part in enumerate(jax_tier_subtrees(tree, jp_old))]
+    moments = [jax.tree.map(lambda x: 0.5 * x, t) for t in tiers]
+    ref = jax_migrate_b_params(None, jax.tree.map(jnp.asarray, tiers), jp_old, jp_new)
+    ref_state = jax_migrate_state_b(
+        JaxState(jax.tree.map(jnp.asarray, tiers), jax.tree.map(jnp.asarray, moments), 3),
+        None, jp_old, jp_new, jmomentum(1e-2))
+    got = migrate_params_b(None, params_from_numpy(tiers, CPU), tp_old, tp_new)
+    state = TrainState(params_from_numpy(tiers, CPU), params_from_numpy(moments, CPU), 3)
+    got_state = migrate_state_b(state, None, tp_old, tp_new, momentum(1e-2))
+    via = migrate_state(state, tp_new, momentum(1e-2), engine="b", model=object(),
+                        old_plan=tp_old)
+    for out, want in ((got, ref), (got_state.params, ref_state.params),
+                      (got_state.opt_state, ref_state.opt_state), (via.params, ref)):
+        x, y = jax.tree.leaves(params_to_numpy(out)), jax.tree.leaves(want)
+        assert len(x) == len(y)
+        for a, b in zip(x, y):
+            assert a.shape == np.asarray(b).shape
+            np.testing.assert_allclose(a, np.asarray(b), rtol=1e-6, atol=1e-7)
+    assert got_state.step == 3
+    full = engine_b_to_full(None, tp_new, got)
+    for k, v in _by_key(_jax_full(tiers, jp_old)).items():
+        np.testing.assert_allclose(_by_key(full)[k].mean(0).numpy(), v.mean(0), rtol=1e-5,
+                                   atol=1e-6)
+    with pytest.raises(ValueError, match="engine-b migration needs model and old_plan"):
+        migrate_state(state, tp_new, sgd(0.1), engine="b")
+
+
+def _jax_full(tiers, plan):
+    """JAX's client-stacked view of Engine-B tier stacks."""
+    return jax.tree.map(np.asarray, jax_engine_b_to_full(None, plan,
+                                                         jax.tree.map(jnp.asarray, tiers)))
 
 
 def test_entity_stack_matches_jax():
