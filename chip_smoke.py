@@ -3011,6 +3011,378 @@ def robustness_timings(card: str):
     return out, {"dp_transform_ms": dp_ms, "dp_clip_only_ms": clip_ms}
 
 
+# --------------------------------------------------------------------------- #
+# [sharded]: Engine A's client axis over torch.distributed ranks
+# --------------------------------------------------------------------------- #
+
+SHARD_CASES = ("plain", "int8", "mask", "guard+mask")
+# sharded against the unsharded card run, at the port's Engine-A tolerance
+# on the card (int8: one quantization step on params).  The reference's
+# sharded rtol 2e-5 on losses holds on the CPU tests' REDUCED cell; at
+# VGG-16's full width the f32 summation order of the spanning levels alone
+# (params within 1.5e-6) moved the plain run's losses by 2.95e-5 relative
+# over 8 rounds with cuDNN deterministic (NVIDIA H100 80GB HBM3, 700 W)
+SHARD_LOSS_RTOL, SHARD_ATOL, SHARD_RTOL, SHARD_Q8_ATOL = 1e-4, 1e-5, 1e-4, 2e-3
+SHARD_NAN_ROUND, SHARD_NAN_CLIENT = 3, 7
+
+
+def sharded_expected(plan, D: int, rounds: int, compressed: bool, masked: bool,
+                     leaves) -> dict:
+    """(B1, B2, B1m, B1m int8) launches one rank makes, as
+    ``core.sharded`` lowers each level: device-local levels launch what the
+    unsharded sync launches with groups / D; a one-group level that spans
+    launches B1 (B2 over the int8 wire) for its partial sums, with or
+    without a mask; a spanning level of G > 1 groups is a matmul."""
+    n = dict.fromkeys(("b1", "b2", "b1m", "b1m_q8"), 0)
+    for r in range(rounds):
+        for m in range(plan.M):
+            levels = plan.levels(m)
+            g = levels[0][0] if len(levels) == 2 else 0
+            interval = levels[-1][1]
+            fed = interval <= 1 or (r + 1) % interval == 0
+            wire = compressed and m < plan.M - 1 and plan.entities[m] > 1
+            L = leaves[m]
+            local, local_q8 = ("b1m", "b1m_q8") if masked else ("b1", "b2")
+            if g % D == 0 and (not fed or D == 1):
+                if wire and fed:
+                    n[local] += L * bool(g)
+                    n[local_q8] += L
+                elif g or fed:
+                    n[local] += L
+                continue
+            if g and g % D == 0:
+                n[local] += L
+            elif g == 1:
+                n["b1"] += L
+            if fed:
+                n["b2" if wire else "b1"] += L
+    return n
+
+
+def shard_masks(N: int, rounds: int, J: int):
+    """Round masks: client i sits out round r when i ≡ r (mod 3), and in
+    round 2 the first entity group is silent as a whole."""
+    import numpy as np
+
+    masks = np.stack([(np.arange(N) % 3 != r % 3) for r in range(rounds)]).astype(np.float32)
+    masks[2, :N // J] = 0.0
+    return masks
+
+
+def shard_cell(argv, device):
+    """(model, plan, opt, loader) of the VGG-16 main path's cell on ``device``."""
+    from repro_torch.launch import train
+
+    args = train.parse_args(argv + ["--device", str(device)])
+    _, _, model, plan, opt, loader = train.setup(args)
+    return model, plan, opt, loader, args
+
+
+def shard_case_kwargs(case: str):
+    from repro_torch.compress import Int8Stochastic
+    from repro_torch.core.tiers import GuardSpec
+
+    return {"plain": {}, "int8": {"compressor": Int8Stochastic(tile=Q8_TILE)},
+            "mask": {"with_mask": True},
+            "guard+mask": {"with_mask": True, "guard": GuardSpec()}}[case]
+
+
+def shard_run(case: str, argv, rounds: int, mesh=None):
+    """One case of the cell over ``rounds`` rounds, unsharded or on this
+    rank's shard of ``mesh``: (losses, params, round ms, collective ms a
+    round).  The guard case puts a NaN into client 7's first weight before
+    round 3."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import build_train_step_a, init_state_a
+    from repro_torch.core import sharded as sh
+    from repro_torch.core.sharded import (
+        build_sharded_train_step_a, init_sharded_state_a, local_rows,
+    )
+    from repro_torch.launch.mesh import mesh_device
+
+    device = mesh_device(mesh) if mesh is not None else torch.device("cuda", 0)
+    model, plan, opt, loader, args = shard_cell(argv, device)
+    kw = shard_case_kwargs(case)
+    gen = torch.Generator().manual_seed(args.seed)
+    N, base = plan.num_clients, 0
+    if mesh is None:
+        state = init_state_a(model, plan, opt, gen, device)
+        build = lambda f: build_train_step_a(model, plan, opt, fed_round=f, **kw)
+    else:
+        state = init_sharded_state_a(model, plan, opt, gen, mesh)
+        build = lambda f: build_sharded_train_step_a(model, plan, opt, mesh, fed_round=f,
+                                                     **kw)
+        base = sh._client_base(mesh, ("data",), N // sh.num_client_shards(mesh, "data"))
+    masks = shard_masks(N, rounds, plan.entities[1])
+    # the collectives, timed on the host clock around a device sync
+    coll = {"ms": 0.0}
+    saved = sh._all_reduce, sh._all_gather
+
+    def timed(fn):
+        def call(*a):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            coll["ms"] += (time.perf_counter() - t) * 1e3
+            return out
+        return call
+
+    if mesh is not None:
+        sh._all_reduce, sh._all_gather = timed(saved[0]), timed(saved[1])
+    steps, losses, ms = {}, [], []
+    try:
+        for r in range(rounds):
+            batch = loader.next_round()
+            if mesh is not None:
+                batch = local_rows(batch, mesh, ("data",), N)
+            batch = {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                     for k, v in batch.items()}
+            if case == "guard+mask" and r == SHARD_NAN_ROUND:
+                row = SHARD_NAN_CLIENT - base
+                w = state.params["units"][0]["w"]
+                if 0 <= row < w.shape[0]:
+                    w[row].view(-1)[0] = float("nan")
+            f = tuple((r + 1) % I == 0 if I > 1 else True for I in plan.intervals)
+            if f not in steps:
+                steps[f] = build(f)
+            extra = (torch.from_numpy(masks[r]).to(device),) if kw.get("with_mask") else ()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            state, loss = steps[f](state, batch, *extra)
+            losses.append(float(loss))
+            ms.append((time.perf_counter() - t) * 1e3)
+    finally:
+        sh._all_reduce, sh._all_gather = saved
+    return losses, state.params, ms, coll["ms"] / rounds, plan
+
+
+def shard_rank(root: str, argv, rounds: int):
+    """One rank of the 2-rank gloo rehearsal on the shared card: every case
+    on this rank's 10 clients, its rows held against the unsharded card
+    run's row 0 (every tier syncs in round 8, so the reference's rows are
+    equal); returns every rank's report to rank 0."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(data=dist.get_world_size(), model=1, device="cuda",
+                           backend="gloo")
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    # as the reference run: cuDNN's default convolution backward does not
+    # repeat itself bit for bit, which would hide the sharding's own error
+    torch.backends.cudnn.deterministic = True
+    report = {"rank": dist.get_rank(), "cases": {}}
+    for case in SHARD_CASES:
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        losses, params, ms, coll_ms, plan = shard_run(case, argv, rounds, mesh)
+        counts = dict(all_launches())
+        ref = torch.load(Path(root) / f"ref-{case}.pt")
+        worst = viol = 0.0
+        atol = SHARD_Q8_ATOL if case == "int8" else SHARD_ATOL
+        for x, r0 in zip(tree_leaves(params), ref["row0"]):
+            err = (x.float() - r0.to(x.device)[None]).abs()
+            worst = max(worst, float(err.max()))
+            viol = max(viol, float((err - atol - SHARD_RTOL * r0.to(x.device).abs()).max()))
+        report["cases"][case] = {
+            "losses": losses, "round_ms": ms, "collective_ms": coll_ms,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "launches": {k: counts[k] for k in AGG + MASKED},
+            "max_param_err": worst, "violation": viol,
+            "finite": all(bool(torch.isfinite(x).all()) for x in tree_leaves(params)),
+        }
+        del params
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, report)
+    return out
+
+
+def sharded_one_rank(argv, rounds: int):
+    """(a): one NCCL rank at full width — the CLI with ``--shard-data 1`` and
+    ``api.run`` with ``ShardingCfg(data=1)``, plain and over the int8 wire,
+    each equal to its unsharded run bit for bit, launching B1 (and B2) as
+    the main path does."""
+    import numpy as np
+    import torch
+
+    from repro_torch import api
+    from repro_torch.api.spec import ShardingCfg
+    from repro_torch.launch import train
+
+    out_dir = ROOT / "build" / "chip_smoke"
+    texts, counts = {}, {}
+    # cuDNN's default convolution backward may sum in a varying order, so
+    # the unsharded CLI does not repeat itself bit for bit: said here, then
+    # every run of (a) takes cuDNN's deterministic algorithms
+    again = []
+    for _ in range(2):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            assert train.main(argv) == 0
+        again.append([ln.split("(")[0] for ln in buf.getvalue().splitlines()
+                      if ln.startswith("round")])
+    print(f"[sharded] (a) the unsharded CLI run twice with cuDNN's default algorithms: "
+          f"losses {'repeat' if again[0] == again[1] else 'differ: ' + str(again)}")
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        return _sharded_one_rank(argv, rounds, out_dir, texts, counts)
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+
+
+def _sharded_one_rank(argv, rounds: int, out_dir, texts, counts):
+    import numpy as np
+
+    from repro_torch import api
+    from repro_torch.api.spec import ShardingCfg
+    from repro_torch.launch import train
+
+    for label, extra in (("unsharded", []), ("shard-data 1", ["--shard-data", "1"])):
+        reset_all_launches()
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = train.main(argv + extra + ["--checkpoint", str(out_dir / f"{label}.npz")])
+        assert rc == 0, (label, rc)
+        counts[label] = dict(all_launches())
+        texts[label] = [ln.split("(")[0] for ln in buf.getvalue().splitlines()
+                        if ln.startswith("round")]
+    assert "[sharded over ('data',) (1 ranks, nccl)]" in buf.getvalue(), buf.getvalue()
+    if texts["shard-data 1"] != texts["unsharded"] or len(texts["unsharded"]) != rounds:
+        raise AssertionError(f"[sharded] --shard-data 1 losses {texts}")
+    with np.load(out_dir / "unsharded.npz") as a, np.load(out_dir / "shard-data 1.npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for k in a.files:
+            if not np.array_equal(a[k], b[k]):
+                raise AssertionError(f"[sharded] --shard-data 1 checkpoint {k} differs")
+    for label in texts:
+        (out_dir / f"{label}.npz").unlink()
+    b1 = counts["shard-data 1"]["tiered_aggregate"]
+    assert (b1, counts["shard-data 1"]["tiered_aggregate_q8"]) == (214, 0), counts
+    assert counts["shard-data 1"] == counts["unsharded"], counts
+    print(f"[sharded] (a) one NCCL rank, CLI --shard-data 1 (cuDNN deterministic): "
+          f"{rounds} losses and the checkpoint equal the unsharded CLI's bit for bit; B1 "
+          f"{b1} launches, B2 0")
+    train_run = api.RunCfg(mode="train", rounds=rounds, lr=5e-4)
+    fixed = api.SolverCfg(kind="fixed", cuts=(3, 8), intervals=(8, 4, 1))
+    api_counts = {}
+    for label, spec, want in (
+            ("plain", api.paper_spec(mode="train"), (214, 0)),
+            ("int8", api.compressed_spec("int8"), (208, 26))):
+        spec = spec.replace(solver=fixed, run=train_run)
+        ref = api.run(spec).train
+        reset_all_launches()
+        got = api.run(spec.replace(run=dataclasses.replace(
+            train_run, sharding=ShardingCfg(data=1)))).train
+        n = all_launches()
+        api_counts[label] = dict(n)
+        if got["losses"] != ref["losses"]:
+            raise AssertionError(f"[sharded] api {label}: {got['losses']} != {ref['losses']}")
+        assert (n["tiered_aggregate"], n["tiered_aggregate_q8"]) == want, (label, n)
+        assert got["sharding"] == {"data": 1, "model": 1, "pods": 0, "client_shards": 1}
+        print(f"[sharded] (a) one NCCL rank, api.run {label} with ShardingCfg(data=1) "
+              f"(cuDNN deterministic): "
+              f"{rounds} losses equal the unsharded run's bit for bit; B1 "
+              f"{n['tiered_aggregate']} B2 {n['tiered_aggregate_q8']} launches "
+              f"(the main path's {want})")
+    return counts["shard-data 1"], api_counts
+
+
+def sharded_paths(card: str, rounds: int = 8):
+    """The ``[sharded]`` phase: (a) one NCCL rank, bit for bit; (b) a
+    rehearsal of two ranks on the one card over gloo, the collectives
+    staged through the host — not a multi-GPU measurement."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch.mesh import run_on_ranks
+
+    argv = ["--arch", "vgg16-cifar10", "--clients", "20", "--edges", "5",
+            "--batch", "16", "--rounds", str(rounds), "--log-every", "1"]
+    t0 = time.perf_counter()
+    cli_counts, api_counts = sharded_one_rank(argv, rounds)
+    t_a = time.perf_counter() - t0
+
+    # (b): the unsharded card run of each case is the reference, with
+    # cuDNN's deterministic algorithms as the ranks take them
+    root = ROOT / "build" / "chip_smoke" / "sharded"
+    root.mkdir(parents=True, exist_ok=True)
+    refs = {}
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    for case in SHARD_CASES:
+        losses, params, ms, _, plan = shard_run(case, argv, rounds)
+        leaves = tree_leaves(params)
+        for x in leaves:  # every tier synced in round 8: one value per leaf
+            if not bool((x == x[0:1]).all()):
+                raise AssertionError(f"[sharded] unsharded {case}: replicas differ")
+        torch.save({"row0": [x[0].cpu() for x in leaves]}, root / f"ref-{case}.pt")
+        refs[case] = {"losses": losses, "round_ms": ms}
+        del params, leaves
+    torch.backends.cudnn.deterministic = deterministic
+    torch.cuda.empty_cache()
+    D = 2
+    leaves = [2 * (hi - lo) for lo, hi in map(plan.tier_bounds, range(plan.M))]
+    t1 = time.perf_counter()
+    reports = run_on_ranks(shard_rank, D, device="cuda", backend="gloo",
+                           store_dir=str(root), args=(str(root), argv, rounds))
+    t_b = time.perf_counter() - t1
+    shutil.rmtree(root, ignore_errors=True)
+    per_rank = {}
+    for rep in reports:
+        for case, got in rep["cases"].items():
+            want = sharded_expected(plan, D, rounds, case == "int8", "mask" in case, leaves)
+            n = got["launches"]
+            have = {"b1": n[AGG[0]], "b2": n[AGG[1]], "b1m": n[MASKED[0]],
+                    "b1m_q8": n[MASKED[1]]}
+            if have != want:
+                raise AssertionError(f"[sharded] rank {rep['rank']} {case}: launches "
+                                     f"{have}, the plan implies {want}")
+            ref = refs[case]["losses"]
+            lerrs = [abs(a - b) / max(abs(b), 1e-30) for a, b in zip(got["losses"], ref)]
+            lerr = max(lerrs)
+            if not (got["finite"] and lerr <= SHARD_LOSS_RTOL and got["violation"] <= 0.0):
+                raise AssertionError(
+                    f"[sharded] rank {rep['rank']} {case}: losses rel err {lerr:.3g} "
+                    f"(limit {SHARD_LOSS_RTOL}), params max err {got['max_param_err']:.3g} "
+                    f"(tolerance exceeded by {got['violation']:.3g}), finite "
+                    f"{got['finite']}")
+            med = float(np.median(got["round_ms"][1:]))
+            ref_med = float(np.median(refs[case]["round_ms"][1:]))
+            print(f"[sharded] (b) rehearsal, 2 gloo ranks sharing the card (collectives "
+                  f"through the host; not a multi-GPU measurement), rank {rep['rank']} "
+                  f"{case}: losses rel err {lerr:.3g} (by round "
+                  f"{', '.join(f'{e:.2g}' for e in lerrs)}), params max abs err "
+                  f"{got['max_param_err']:.3g}; launches B1 {have['b1']} B2 {have['b2']} "
+                  f"B1m {have['b1m']} B1m-int8 {have['b1m_q8']} (predicted {want}); median "
+                  f"round {med:.2f} ms (unsharded card run {ref_med:.2f} ms), collectives "
+                  f"{got['collective_ms']:.2f} ms a round, peak {got['peak_gb']:.2f} GB; "
+                  f"card {card}")
+            per_rank.setdefault(case, {})[rep["rank"]] = have
+    print(f"[sharded] phase: (a) {t_a:.1f} s, (b) {t_b:.1f} s for {len(SHARD_CASES)} cases "
+          f"x {rounds} rounds on {D} ranks (spawn included)")
+    counts = {"sharded-cli-1-rank": cli_counts}
+    for label, n in api_counts.items():
+        counts[f"sharded-api-1-rank-{label}"] = n
+    for case, ranks in per_rank.items():
+        counts[f"sharded-2-ranks-gloo-{case}"] = {
+            **dict.fromkeys(all_launches(), 0),
+            AGG[0]: sum(v["b1"] for v in ranks.values()),
+            AGG[1]: sum(v["b2"] for v in ranks.values()),
+            MASKED[0]: sum(v["b1m"] for v in ranks.values()),
+            MASKED[1]: sum(v["b1m_q8"] for v in ranks.values())}
+    return counts
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch is missing beside this script",
@@ -3096,6 +3468,12 @@ def main() -> int:
             if control_counts[path][name] == 0:
                 raise AssertionError(f"kernel {name} was not launched on {path}")
     engine_b_counts, _ = engine_b_paths(card)
+    sharded_counts = sharded_paths(card)
+    for path, name in (("sharded-cli-1-rank", AGG[0]), ("sharded-api-1-rank-int8", AGG[1]),
+                       ("sharded-2-ranks-gloo-plain", AGG[0]),
+                       ("sharded-2-ranks-gloo-int8", AGG[1])):
+        if sharded_counts[path][name] == 0:
+            raise AssertionError(f"kernel {name} was not launched on {path}")
     times = timings(card, run)
     times.update(ragged_timings(card))
     times.update(masked_timings(card))
@@ -3158,7 +3536,8 @@ def main() -> int:
         "port_only": "no TPU kernel: the jnp tiers._group_mean_masked",
     } for name in MASKED]
     new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
-                 "async-staleness-2": async_launches, **control_counts, **engine_b_counts}
+                 "async-staleness-2": async_launches, **control_counts, **engine_b_counts,
+                 **sharded_counts}
     for row in kernels:
         row["launches_by_path"].update(
             {path: got[row["name"]] for path, got in new_paths.items()})

@@ -209,8 +209,6 @@ def _check_port_capabilities(spec: ExperimentSpec) -> None:
     """What the port runs of a spec the JAX package accepts: every section
     and option whose modules are not ported raises here, before any state
     is allocated."""
-    if spec.run.sharding is not None:
-        raise _unported("a sharding section", "core.sharded and launch.mesh", "A13")
     if spec.model.arch != "vgg16-cifar10" and spec.model.arch not in PORTED_ARCH_IDS:
         raise _unported(f"arch {spec.model.arch!r}",
                         "its model family's layers", "A14")

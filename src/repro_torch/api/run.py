@@ -24,6 +24,12 @@ missing card.  A solver backend of
 ``"jax"`` (the JAX package's device backend, which spec files carry) runs
 the port's ``torch`` tables on the card (``core.batched.spec_backend``).
 
+A ``run.sharding`` section trains the sharded Engine A (``core.sharded``)
+over data·model·max(pods, 1) ranks of ``torch.distributed`` that
+``launch.mesh.run_on_ranks`` provides — an initialized ``torchrun`` world,
+a one-rank group in process, or spawned ranks on a ``FileStore`` — NCCL on
+the card, gloo on the CPU; the result is rank 0's.
+
 Every mode returns the same ``ExperimentResult``; ``provenance`` is the
 resolved spec, so the artifact alone reproduces the run.
 """
@@ -310,8 +316,18 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
     from ..core.engine import TrainState
     from ..core.tiers import TierPlan
 
-    device = resolve_device(device)
     spec = built.spec
+    # sharded execution (DESIGN.md §17) — capability-checked at build time
+    # (engine A, no privacy/classes/faults/control); this runs on every rank
+    mesh, client_axes = None, ("data",)
+    if spec.run.sharding is not None:
+        from ..launch.mesh import make_debug_mesh, mesh_device
+
+        sh = spec.run.sharding
+        mesh = make_debug_mesh(data=sh.data, model=sh.model, pods=sh.pods, device=device)
+        client_axes = ("pod", "data") if sh.pods else ("data",)
+        device = mesh_device(mesh)
+    device = resolve_device(device)
     rc = spec.run
     fc = spec.faults
     fs = built.faults
@@ -326,8 +342,13 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
     )
 
     def init():
+        generator = torch.Generator().manual_seed(rc.seed)
+        if mesh is not None:
+            from ..core.sharded import init_sharded_state_a
+
+            return init_sharded_state_a(model, plan, opt, generator, mesh, client_axes)
         make = init_state_a if rc.engine == "a" else init_state_b
-        return make(model, plan, opt, torch.Generator().manual_seed(rc.seed), device)
+        return make(model, plan, opt, generator, device)
 
     masks = _participation_masks(built, cuts)
     with_mask = masks is not None or inject
@@ -341,6 +362,14 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
             model, plan, opt, staleness=rc.staleness,
             compressor=built.compressor, with_mask=with_mask,
             guard=built.guard if built.guard is not None and inject else None,
+            mesh=mesh, client_axes=client_axes,
+        )
+    elif mesh is not None:
+        from ..core.sharded import build_sharded_train_step_a
+
+        step = build_sharded_train_step_a(
+            model, plan, opt, mesh, client_axes=client_axes,
+            compressor=built.compressor, with_mask=with_mask,
         )
     else:
         step = _make_step(built, model, plan, opt, with_mask)
@@ -375,8 +404,13 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
     faulty_rounds = 0
     losses = []
     for r in range(rc.rounds):
-        batch = {k: torch.from_numpy(v).to(device)
-                 for k, v in loader.next_round().items()}
+        batch = loader.next_round()
+        if mesh is not None:
+            # every rank draws the global batch and keeps its client rows
+            from ..core.sharded import local_rows
+
+            batch = local_rows(batch, mesh, client_axes, N)
+        batch = {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
         mrow = None
         if masks is not None:
             mrow = np.asarray(masks[r % masks.shape[0]], dtype=bool)
@@ -458,6 +492,15 @@ def _train(built: BuiltExperiment, cuts, intervals, device=None) -> Dict[str, An
         "async": bool(use_async),
         "staleness": [int(v) for v in s_eff],
     }
+    if mesh is not None:
+        from ..core.sharded import num_client_shards
+
+        out["sharding"] = {
+            "data": spec.run.sharding.data,
+            "model": spec.run.sharding.model,
+            "pods": spec.run.sharding.pods,
+            "client_shards": num_client_shards(mesh, client_axes),
+        }
     if fc is not None:
         out["faults"] = {
             "n_faulty_total": int(n_faulty_total),
@@ -803,6 +846,13 @@ def run(
         result = dataclasses.replace(
             result, sim=_simulate(built, cuts, intervals)
         )
+    elif spec.run.mode == "train" and spec.run.sharding is not None:
+        from ..launch.mesh import run_on_ranks
+
+        sh = spec.run.sharding
+        train = run_on_ranks(_train, sh.data * sh.model * max(sh.pods, 1), device=device,
+                             args=(built, cuts, intervals, device))
+        result = dataclasses.replace(result, train=train)
     elif spec.run.mode == "train":
         result = dataclasses.replace(
             result, train=_train(built, cuts, intervals, device)

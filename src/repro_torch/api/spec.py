@@ -540,13 +540,13 @@ class ShardingCfg:
     """Mesh geometry for the sharded Engine-A step (DESIGN.md §17).
 
     The client-stacked parameter axis shards over ``data`` (or
-    ``pod × data`` when ``pods`` > 0) and trailing weight dims get
-    Megatron TP over ``model`` — exactly ``launch.sharding``'s layout
-    contract.  The mesh needs data·model·max(pods, 1) devices; on a CPU
-    host that means ``--xla_force_host_platform_device_count`` set
-    before jax initializes (``launch.mesh.make_debug_mesh`` checks and
-    says so).  ``data=1, model=1, pods=0`` is a valid degenerate mesh
-    (useful for exercising the sharded code path on one device).
+    ``pod × data`` when ``pods`` > 0); the training step is replicated
+    over ``model`` — ``launch.sharding``'s training layout.  The mesh
+    needs data·model·max(pods, 1) ranks of ``torch.distributed``, which
+    ``run`` takes from an initialized world or starts itself
+    (``launch.mesh.run_on_ranks``; ``make_debug_mesh`` refuses a world of
+    another size).  ``data=1, model=1, pods=0`` is a valid degenerate mesh
+    (the sharded code path on one rank).
     """
 
     data: int = 2
@@ -577,7 +577,7 @@ class RunCfg:
     ``control`` section).  Training knobs are ignored by solve/simulate.
 
     ``sharding`` (a ``ShardingCfg``) runs the Engine-A step sharded over
-    a device mesh (DESIGN.md §17); Engine A only.  ``staleness`` — one
+    the ranks of a device mesh (DESIGN.md §17); Engine A only.  ``staleness`` — one
     bound or per-tier bounds s_m ≥ 0 — switches training to the async
     bounded-staleness aggregation mode: tier m's fed-server sync
     computed at round r applies at round r + s_m, overlapping client

@@ -2,8 +2,9 @@
 # convergence theory (Theorem 1 / Corollary 1), and the MA+MS system
 # optimizer (Proposition 1, Dinkelbach, Algorithm 2 BCD), with per-class
 # cuts, the bound-constant estimator, the fault guard and bounded-staleness
-# async aggregation (``async_agg``), and Engine B, the split-placement
-# engine that proves Engine A exact — port of ``repro.core``.
+# async aggregation (``async_agg``), Engine B, the split-placement
+# engine that proves Engine A exact, and Engine A sharded over the ranks of
+# ``torch.distributed`` (``sharded``) — port of ``repro.core``.
 from .convergence import (
     HyperSpec,
     ParticipationSpec,
@@ -48,3 +49,10 @@ from .engine import (
     unreplicate,
 )
 from .estimator import HyperEstimator, estimate_from_probe
+from .sharded import (
+    build_sharded_train_step_a,
+    init_sharded_state_a,
+    num_client_shards,
+    sharded_guard_health,
+    sharded_synchronize,
+)

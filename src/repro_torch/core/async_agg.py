@@ -32,8 +32,9 @@ all-zero staleness IS the synchronous production dispatch.
 In the port a fed level runs on the aggregation kernels as in
 ``tiers.synchronize``: B1 (``do_entity=0, do_global=1``), B2 over the int8
 wire, B1m (and its int8 load) under a mask with the snapshot as ``keep``.
-The sharded engine (``mesh=``, ``client_axes=``) is not ported yet
-(ROADMAP A13).
+Over a mesh (``mesh=``, ``client_axes=``) the steps are the sharded
+engine's (``core.sharded``) and the deferred fed level spans the client
+shards as ``sharded_synchronize``'s does.
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ from .._tree import tree_leaves, tree_map
 from ..kernels.tiered_aggregate import aggregate_tree
 from ..optim import Optimizer
 from .engine import TrainState, build_train_step_a
+from .sharded import build_sharded_train_step_a, num_client_shards, sharded_fed_level
 from .tiers import (
     GuardSpec,
     TierPlan,
@@ -107,6 +109,8 @@ def fed_level_apply(
     snapshot: Optional[Params] = None,
     compressor=None,
     mask=None,
+    mesh=None,
+    client_axes=("data",),
 ) -> Params:
     """Apply ONLY tier m's fed-server level (Eq. 4) to a client-stacked tree.
 
@@ -126,6 +130,10 @@ def fed_level_apply(
     mean is taken over the *snapshot's* tier-m replicas and local
     progress since the snapshot (params − snapshot on the tier slice)
     is added back on top.  ``snapshot=None`` is the fresh in-step apply.
+
+    With a ``mesh`` the tree is this rank's client shard (and ``mask`` its
+    rows): over several shards the level spans them, lowered as in
+    ``sharded.sharded_synchronize``; over one it is the launch above.
     """
     if m >= plan.M - 1:
         raise ValueError(
@@ -137,7 +145,10 @@ def fed_level_apply(
         else tier_subtrees(snapshot, plan)[m]
     )
     wire = compressor if compressor is not None and plan.entities[m] > 1 else None
-    if mask is not None:
+    if mesh is not None and num_client_shards(mesh, client_axes) > 1:
+        agg = sharded_fed_level(src, plan, mesh=mesh, client_axes=client_axes,
+                                compressor=wire, mask=mask)
+    elif mask is not None:
         mask = mask.to(dtype=torch.float32).contiguous()
         agg = _masked_tier_levels(src, mask, 0, True, wire)
     else:
@@ -193,8 +204,11 @@ class AsyncTrainer:
         compressor=None,
         with_mask: bool = False,
         guard: Optional[GuardSpec] = None,
+        mesh=None,
+        client_axes=("data",),
     ):
         self.plan = plan
+        self._mesh, self._client_axes = mesh, client_axes
         self.s = normalize_staleness(staleness, plan)
         self.async_tiers = [
             m for m in range(plan.M - 1) if self.s[m] > 0
@@ -227,6 +241,7 @@ class AsyncTrainer:
         return fed_level_apply(
             params, self.plan, p.tier, snapshot=p.snapshot,
             compressor=self._compressor, mask=p.weights,
+            mesh=self._mesh, client_axes=self._client_axes,
         )
 
     # -- one round ---------------------------------------------------------- #
@@ -279,23 +294,24 @@ def make_async_trainer(
     mesh=None,
     client_axes=("data",),
 ) -> AsyncTrainer:
-    """AsyncTrainer over the single-process engine.  The sharded engine
-    (``mesh=``, ``client_axes=``) is not ported yet (ROADMAP A13)."""
-    if mesh is not None or tuple(client_axes) != ("data",):
-        raise NotImplementedError(
-            "make_async_trainer(mesh=..., client_axes=...): the sharded engine is "
-            "ported with ROADMAP A13"
-        )
-
-    def builder(fed):
-        return build_train_step_a(
-            model, plan, opt, fed_round=fed, compressor=compressor,
-            with_mask=with_mask, guard=guard, with_sync_weights=True,
-        )
-
+    """AsyncTrainer over the single-process engine, or the sharded engine
+    when ``mesh`` is given (``core.sharded``)."""
+    if mesh is None:
+        def builder(fed):
+            return build_train_step_a(
+                model, plan, opt, fed_round=fed, compressor=compressor,
+                with_mask=with_mask, guard=guard, with_sync_weights=True,
+            )
+    else:
+        def builder(fed):
+            return build_sharded_train_step_a(
+                model, plan, opt, mesh, client_axes=client_axes,
+                fed_round=fed, compressor=compressor, with_mask=with_mask,
+                guard=guard, with_sync_weights=True,
+            )
     return AsyncTrainer(
         plan, builder, staleness=staleness, compressor=compressor,
-        with_mask=with_mask, guard=guard,
+        with_mask=with_mask, guard=guard, mesh=mesh, client_axes=client_axes,
     )
 
 

@@ -126,12 +126,34 @@ class HyperEstimator:
             self._loss_hist = deque(maxlen=self.window)  # float
 
     # ------------------------------------------------------------------ #
-    def observe(self, params: Params, grads: Params, loss: float) -> None:
-        """Feed one probe round: client-stacked params/grads + mean loss."""
-        sq = _host(_unit_sq_norms(grads, self.n_units))  # [N, U] f32
+    def observe(self, params: Params, grads: Params, loss: float, *, mesh=None,
+                client_axes=("data",)) -> None:
+        """Feed one probe round: client-stacked params/grads + mean loss.
+
+        With a ``mesh`` (the sharded engine, ``core.sharded``) ``params``
+        and ``grads`` are this rank's client shard: the ``[n_local, U]``
+        per-client norms are all-gathered, the gradient sums and the
+        squared parameter step all-reduced over the client shards, so every
+        rank accumulates the same statistics (and its BCD picks the same
+        plan); ``loss`` is the global mean loss."""
+        sh = None
+        if mesh is not None:
+            from .sharded import _all_gather, _all_reduce, client_shards
+
+            sh = client_shards(mesh, client_axes)
+        sq = _unit_sq_norms(grads, self.n_units)  # [N, U] f32
+        if sh is not None:
+            sq = _all_gather(sq, sh)
+        sq = _host(sq)
         g2_round = sq.mean(axis=0)
         self._g2_sum += g2_round
-        mean_grad = tree_map(lambda g: torch.mean(g.float(), dim=0, keepdim=True), grads)
+        if sh is None:
+            mean_grad = tree_map(lambda g: torch.mean(g.float(), dim=0, keepdim=True), grads)
+        else:
+            n = self.num_clients
+            mean_grad = tree_map(
+                lambda g: _all_reduce(torch.sum(g.float(), dim=0, keepdim=True), sh) / n,
+                grads)
         # Var_n[g] per unit = E_n ||g_n||² − ||ḡ||² (per-unit decomposition)
         mean_sq = _host(_unit_sq_norms(mean_grad, self.n_units))[0]
         var_round = np.maximum(g2_round - mean_sq, 0.0)
@@ -140,8 +162,11 @@ class HyperEstimator:
         if self._prev_mean_grad is not None:
             dg = tree_map(lambda a, b: a - b, mean_grad, self._prev_mean_grad)
             dw = tree_map(lambda a, b: a - b, params, self._prev_params)
+            dw2 = _global_sq_norm(dw)
+            if sh is not None:
+                dw2 = _all_reduce(dw2.reshape(1), sh)[0]
             num = float(torch.sqrt(_global_sq_norm(dg)))
-            den = float(torch.sqrt(_global_sq_norm(dw)))
+            den = float(torch.sqrt(dw2))
             if den > 1e-12:
                 ratio = num / den
                 self._beta = max(self._beta, ratio)

@@ -26,9 +26,17 @@ tier's fed level is snapshotted and folded back S rounds later, and the
 in-flight ones are drained after the last round; 0 is the synchronous
 dispatch.
 
-Runs on the first CUDA device; ``--device cpu`` asks for the CPU (the
-kernels then take their plain PyTorch versions).  The sharded engine
-(``--shard-*``) is not ported yet (ROADMAP A13).
+``--shard-data D`` (and ``--shard-pods P``) trains the sharded engine
+(``core.sharded``): the client axis splits over D (× P) ranks of
+``torch.distributed``, NCCL on the card and gloo on the CPU, which
+``launch.mesh.run_on_ranks`` starts (or takes from ``torchrun``) on a
+``FileStore`` — no network address.  Every rank draws the global batch and
+keeps its client rows; rank 0 prints, and writes the checkpoint of the
+gathered state, the file the unsharded run writes.
+
+Runs on the first CUDA device (rank r of a sharded run on ``cuda:r``);
+``--device cpu`` asks for the CPU (the kernels then take their plain
+PyTorch versions).
 """
 from __future__ import annotations
 
@@ -69,6 +77,12 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
                          "(applies to every deferrable tier) or one per "
                          "tier; 0 is the synchronous schedule "
                          "(core.async_agg)")
+    ap.add_argument("--shard-data", type=int, default=0, metavar="D",
+                    help="shard the client-stacked axis over D ranks "
+                         "(core.sharded; NCCL on the card, gloo on the CPU)")
+    ap.add_argument("--shard-pods", type=int, default=0, metavar="P",
+                    help="additionally shard clients over P pods "
+                         "(client axes become (pod, data))")
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; cpu on request)")
     return ap.parse_args(argv)
@@ -121,6 +135,25 @@ def to_device(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, t
     return {k: torch.from_numpy(v).to(device) for k, v in batch.items()}
 
 
+def next_batch(loader, device, mesh=None, client_axes=("data",), num_clients=0):
+    """The round's batch on ``device``; with a ``mesh``, this rank's client
+    rows of the global batch every rank draws."""
+    batch = loader.next_round()
+    if mesh is not None:
+        from ..core.sharded import local_rows
+
+        batch = local_rows(batch, mesh, client_axes, num_clients)
+    return to_device(batch, device)
+
+
+def say(*a, **kw) -> None:
+    """print, on rank 0 of a sharded run only."""
+    import torch.distributed as dist
+
+    if not (dist.is_available() and dist.is_initialized()) or dist.get_rank() == 0:
+        print(*a, **kw)
+
+
 def make_dispatch(model, plan, opt, compressor=None, class_members=None,
                   guard=None) -> Callable:
     """Specialized per-round-type steps (see ``tiers.synchronize``): round r
@@ -151,12 +184,16 @@ def make_dispatch(model, plan, opt, compressor=None, class_members=None,
     return dispatch
 
 
-def auto_optimize(args, spec, model, plan, opt, loader, state, device):
+def auto_optimize(args, spec, model, plan, opt, loader, state, device, mesh=None,
+                  client_axes=("data",)):
     """Probe, estimate, solve (Algorithm 1 + 2): ``--probe-rounds`` Engine-A
     rounds from ``state`` feed the bound-constant estimator; ``solve_bcd``
     then picks (μ, I) on the paper's three-tier system at ε =
     ``--eps-scale`` × the I=1 floor.  Returns the re-planned ``TierPlan``;
-    ``state`` is left as it was, so training starts from the initial state."""
+    ``state`` is left as it was, so training starts from the initial state.
+    With a ``mesh`` the probe runs the sharded step on this rank's shard and
+    the estimator gathers over the client shards, so every rank solves the
+    same problem and picks the same plan."""
     from torch.func import grad_and_value, vmap
 
     from ..core import HsflProblem, SystemSpec, build_profile, build_train_step_a, solve_bcd
@@ -164,15 +201,25 @@ def auto_optimize(args, spec, model, plan, opt, loader, state, device):
     from ..core.estimator import HyperEstimator
     from ..core.tiers import default_plan
 
-    print(f"[probe] estimating bound constants over {args.probe_rounds} rounds")
+    say(f"[probe] estimating bound constants over {args.probe_rounds} rounds")
     est = HyperEstimator(plan.n_units, args.clients, args.lr)
     grad_fn = vmap(grad_and_value(model.loss_fn))
-    step = build_train_step_a(model, plan, opt)
+    if mesh is None:
+        step = build_train_step_a(model, plan, opt)
+    else:
+        from ..core.sharded import build_sharded_train_step_a
+
+        step = build_sharded_train_step_a(model, plan, opt, mesh, client_axes=client_axes)
     pstate = state
     for _ in range(args.probe_rounds):
-        batch = to_device(loader.next_round(), device)
+        batch = next_batch(loader, device, mesh, client_axes, args.clients)
         grads, losses = grad_fn(pstate.params, batch)
-        est.observe(pstate.params, grads, float(torch.mean(losses)))
+        if mesh is not None:
+            from ..core.sharded import gather_clients
+
+            losses = gather_clients(losses, mesh, client_axes, losses.shape[0])
+        est.observe(pstate.params, grads, float(torch.mean(losses)), mesh=mesh,
+                    client_axes=client_axes)
         pstate, _ = step(pstate, batch)
     hp = est.hyperspec()
     prof = build_profile(spec, args.batch, seq=64 if args.arch != "vgg16-cifar10" else 1)
@@ -180,7 +227,7 @@ def auto_optimize(args, spec, model, plan, opt, loader, state, device):
     floor = theorem1_bound(hp, 10**9, [1] * plan.M, plan.cuts)
     prob = HsflProblem(prof, system, hp, eps=args.eps_scale * floor)
     res = solve_bcd(prob)
-    print(f"[bcd] cuts={res.cuts} intervals={res.intervals} "
+    say(f"[bcd] cuts={res.cuts} intervals={res.intervals} "
           f"theta={res.theta:.4g} R={res.rounds:.0f} T={res.total_latency:.1f}s")
     return default_plan(
         spec.n_units, args.clients, cuts=res.cuts,
@@ -190,6 +237,17 @@ def auto_optimize(args, spec, model, plan, opt, loader, state, device):
 
 def main(argv=None) -> int:
     args = parse_args(argv)
+    if args.shard_data:
+        from .mesh import run_on_ranks
+
+        world = args.shard_data * max(args.shard_pods, 1)
+        return run_on_ranks(train, world, device=args.device, args=(args,))
+    return train(args)
+
+
+def train(args: argparse.Namespace) -> int:
+    """The run of parsed ``args``, on one process or, with ``--shard-data``,
+    on each rank of an initialized world."""
     # f32 convolutions and matmuls run in full f32, not TF32, so the card
     # computes what the JAX reference computes; relaxing this is a
     # performance decision for a later change.
@@ -199,38 +257,60 @@ def main(argv=None) -> int:
     from ..core import init_state_a
 
     device, spec, model, plan, opt, loader = setup(args)
-    state = init_state_a(
-        model, plan, opt, torch.Generator().manual_seed(args.seed), device
-    )
+    mesh, client_axes = None, ("data",)
+    generator = torch.Generator().manual_seed(args.seed)
+    if args.shard_data:
+        from ..core.sharded import init_sharded_state_a
+        from .mesh import client_axes as mesh_client_axes, make_debug_mesh, mesh_device
+
+        mesh = make_debug_mesh(data=args.shard_data, model=1, pods=args.shard_pods,
+                               device=args.device)
+        client_axes = mesh_client_axes(bool(args.shard_pods))
+        device = mesh_device(mesh)
+        state = init_sharded_state_a(model, plan, opt, generator, mesh, client_axes)
+    else:
+        state = init_state_a(model, plan, opt, generator, device)
     if args.auto_optimize:
-        plan = auto_optimize(args, spec, model, plan, opt, loader, state, device)
+        plan = auto_optimize(args, spec, model, plan, opt, loader, state, device, mesh,
+                             client_axes)
     staleness = 0
     if args.staleness:
         staleness = (
             args.staleness[0] if len(args.staleness) == 1 else tuple(args.staleness)
         )
-    print(f"[train] arch={spec.name} units={spec.n_units} plan cuts={plan.cuts} "
-          f"I={plan.intervals} N={args.clients} J2={args.edges} device={device}"
-          + (f"  [async staleness={staleness}]" if staleness else ""))
-    trainer = None
+    mode = []
+    if mesh is not None:
+        import torch.distributed as dist
+
+        mode.append(f"sharded over {client_axes} ({dist.get_world_size()} ranks, "
+                    f"{dist.get_backend()})")
     if staleness:
+        mode.append(f"async staleness={staleness}")
+    say(f"[train] arch={spec.name} units={spec.n_units} plan cuts={plan.cuts} "
+        f"I={plan.intervals} N={args.clients} J2={args.edges} device={device}"
+        + (f"  [{', '.join(mode)}]" if mode else ""))
+    trainer = None
+    if mesh is not None or staleness:
+        # the async trainer with all-zero staleness is the synchronous
+        # dispatch; it also hosts the sharded steps
         from ..core.async_agg import make_async_trainer
 
-        trainer = make_async_trainer(model, plan, opt, staleness=staleness)
+        trainer = make_async_trainer(model, plan, opt, staleness=staleness, mesh=mesh,
+                                     client_axes=client_axes)
         dispatch = trainer.run_round
     else:
         dispatch = make_dispatch(model, plan, opt)
     t0 = t_log = time.time()
     r_log = 0
     for r in range(args.rounds):
-        batch = to_device(loader.next_round(), device)
+        batch = next_batch(loader, device, mesh, client_axes, args.clients)
         state, loss = dispatch(state, batch, r)
         if (r + 1) % args.log_every == 0 or r == 0:
             loss = float(loss)  # waits for the round to finish on the device
             now = time.time()
-            print(f"round {r+1:5d}  loss {loss:.4f}  "
-                  f"({(now - t_log) * 1e3 / (r + 1 - r_log):.1f} ms/round since "
-                  f"last log, {(now - t0) / (r + 1):.2f}s/round)")
+            say(f"round {r+1:5d}  loss {loss:.4f}  "
+                f"({(now - t_log) * 1e3 / (r + 1 - r_log):.1f} ms/round since "
+                f"last log, {(now - t0) / (r + 1):.2f}s/round)")
             t_log, r_log = now, r + 1
     if trainer is not None:
         state = trainer.drain(state)  # fold the in-flight async syncs in
@@ -238,8 +318,19 @@ def main(argv=None) -> int:
     if args.checkpoint:
         from ..checkpoint import save_checkpoint
 
+        params = state.params
+        if mesh is not None:
+            # rank 0 writes the gathered state: the unsharded run's file
+            import torch.distributed as dist
+
+            from ..core.sharded import gather_clients, num_client_shards
+
+            params = gather_clients(params, mesh, client_axes,
+                                    args.clients // num_client_shards(mesh, client_axes))
+            if dist.get_rank() != 0:
+                return 0
         save_checkpoint(
-            args.checkpoint, state.params, step=state.step,
+            args.checkpoint, params, step=state.step,
             meta={"cuts": list(plan.cuts), "intervals": list(plan.intervals)},
         )
         print(f"saved checkpoint -> {args.checkpoint}")

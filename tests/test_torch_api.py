@@ -3,6 +3,7 @@ against the JAX package's: one spec JSON drives both; solve and simulate
 results equal field for field; train-mode losses agree from a carried-over
 init, also on Engine B (train and control modes); sections whose modules are
 not ported are refused naming their item."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import dataclasses
 import json
 import sys
@@ -183,8 +184,6 @@ def test_jax_backend_names_read_as_the_card():
 
 
 UNPORTED = {
-    "sharding": (lambda s: s.replace(run=J.RunCfg(mode="train", sharding=JShardingCfg())),
-                 "A13"),
     "arch": (lambda s: s.replace(model=J.ModelCfg(arch="mamba2-1.3b", variant="reduced")),
              "A14"),
 }
@@ -195,6 +194,7 @@ PORTED = {
     "energy": lambda s: s.replace(energy=J.EnergyCfg()),
     "faults": lambda s: s.replace(faults=J.FaultsCfg(crash_rate=0.1)),
     "staleness": lambda s: s.replace(run=J.RunCfg(mode="train", staleness=1)),
+    "sharding": lambda s: s.replace(run=J.RunCfg(mode="train", sharding=JShardingCfg())),
     "fault-storm": lambda s: J.fault_storm_spec(),
     "privacy-energy": lambda s: J.privacy_energy_spec(),
 }
@@ -202,8 +202,9 @@ PORTED = {
 
 @pytest.mark.parametrize("name", list(PORTED))
 def test_ported_sections_pass_the_capability_check(name):
-    """Privacy, energy, faults and staleness > 0 build in the port as in
-    the JAX package: the capability check lets them through."""
+    """Privacy, energy, faults, staleness > 0 and a sharding section build
+    in the port as in the JAX package: the capability check lets them
+    through."""
     js = PORTED[name](J.paper_spec())
     J.build(js)
     check_capabilities(_port(js))
@@ -366,3 +367,133 @@ def test_fault_privacy_async_train_modes_match_jax(name, monkeypatch, tmp_path):
         assert a["train"]["faults"]["recovered_round"] == 3
         assert a["train"]["faults"]["checkpoints"] == 3
         assert a["train"]["faults"]["n_faulty_total"] > 0
+
+
+SHARDING_REFUSED = {
+    "engine-b": lambda s: s.replace(run=dataclasses.replace(s.run, engine="b")),
+    "privacy": lambda s: s.replace(privacy=J.PrivacyCfg(noise_multiplier=1.0)),
+    "classes": lambda s: J.hetcuts_spec().replace(run=s.run),
+    "faults": lambda s: s.replace(faults=J.FaultsCfg(crash_rate=0.1)),
+    "control": lambda s: s.replace(scenario=J.ScenarioCfg(name="flaky-wan"),
+                                   run=dataclasses.replace(s.run, mode="control")),
+}
+
+
+@pytest.mark.parametrize("name", list(SHARDING_REFUSED))
+def test_sharding_refusals_equal_jax(name):
+    """A sharding section with Engine B, DP noise, per-class cuts, faults or
+    control mode is refused at build time with JAX's message."""
+    js = SHARDING_REFUSED[name](_train_spec(J.paper_spec()).replace(
+        run=J.RunCfg(mode="train", rounds=3, dataset_size=64, lr=0.1,
+                     sharding=JShardingCfg(data=2))))
+    with pytest.raises(ValueError) as ref:
+        J.build(js)
+    with pytest.raises(ValueError) as got:
+        T.build(_port(js))
+    assert str(got.value) == str(ref.value)
+    assert "sharding" in str(got.value) or "engine" in str(got.value)
+
+
+JAX_SHARDED_RUN = """
+import os, sys, json
+os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=2"
+from repro import api as J
+spec = J.ExperimentSpec.from_dict(json.loads(sys.argv[1]))
+print("RESULT" + json.dumps(J.run(spec).train["sharding"]))
+"""
+
+
+def _sharded_spec():
+    """The REDUCED smollm train spec with ``ShardingCfg(data=2)``."""
+    base = _train_spec(J.paper_spec())
+    return base.replace(run=dataclasses.replace(base.run, sharding=JShardingCfg(data=2)))
+
+
+@pytest.fixture(scope="module")
+def sharded_entry_points(tmp_path_factory):
+    """``--shard-data 2`` and ``api.run`` with a sharding section on 2 gloo
+    ranks spawned once, while JAX's ``api.run`` of the same spec runs over
+    2 forced host devices in a subprocess."""
+    import os
+    import subprocess
+
+    import torch_sharded_cases as C
+    from repro_torch.launch.mesh import run_on_ranks
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join([os.path.join(here, "..", "src"), here])
+    spec = _sharded_spec()
+    jax_run = subprocess.Popen(
+        [sys.executable, "-c", JAX_SHARDED_RUN, json.dumps(spec.to_dict())], env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    ckpt = str(tmp_path_factory.mktemp("sharded") / "ckpt.npz")
+    try:
+        port = run_on_ranks(C.rank_entry_points, 2, device="cpu",
+                            args=(ckpt, _port(spec).to_dict()))
+        out, err = jax_run.communicate(timeout=300)
+    finally:
+        jax_run.kill()
+    assert jax_run.returncode == 0, err[-3000:]
+    jax_sharding = json.loads(out.split("RESULT")[1])
+    return port, jax_sharding, ckpt
+
+
+def _cli_losses(text):
+    return [float(line.split("loss")[1].split()[0])
+            for line in text.splitlines() if line.startswith("round")]
+
+
+def test_shard_data_cli_matches_the_unsharded_cli(sharded_entry_points, tmp_path, monkeypatch):
+    """``--shard-data 2 --device cpu`` on REDUCED VGG (N=4, J2=2, 3 rounds,
+    intervals 2 2): tier 1's entity groups are device-local, the fed levels
+    span the two ranks.  Losses equal the unsharded CLI's at rtol 2e-5, the
+    first bit for bit; rank 0's checkpoint is the gathered state, within
+    rtol 2e-5 / atol 2e-6 of the unsharded run's; ``--auto-optimize`` over
+    the shards picks the unsharded CLI's plan."""
+    import torch_sharded_cases as C
+
+    (rc, text), ckpt = sharded_entry_points[0]["train"], sharded_entry_points[2]
+    assert rc == 0 and "[sharded over ('data',) (2 ranks, gloo)]" in text
+    assert "saved checkpoint" in text
+    from repro_torch.configs import vgg16_cifar10 as vgg_config
+
+    monkeypatch.setattr(vgg_config, "SPEC",
+                        dataclasses.replace(vgg_config.REDUCED, image_size=32))
+    ref_ckpt = str(tmp_path / "ref.npz")
+    rc0, ref = C.cli_output(C.CLI_ARGV + ["--checkpoint", ref_ckpt])
+    got_l, ref_l = _cli_losses(text), _cli_losses(ref)
+    assert rc0 == 0 and len(got_l) == 3 and got_l[0] == ref_l[0]
+    np.testing.assert_allclose(got_l, ref_l, rtol=2e-5)
+    a, b = np.load(ckpt), np.load(ref_ckpt)
+    assert sorted(a.files) == sorted(b.files)
+    for k in b.files:
+        np.testing.assert_allclose(a[k], b[k], rtol=2e-5, atol=2e-6, err_msg=k)
+    (rc, auto) = sharded_entry_points[0]["auto"]
+    _, ref_auto = C.cli_output(C.CLI_ARGV + ["--rounds", "0", "--auto-optimize",
+                                             "--probe-rounds", "2"])
+    pick = [line for line in auto.splitlines() if line.startswith("[bcd]")]
+    ref_pick = [line for line in ref_auto.splitlines() if line.startswith("[bcd]")]
+    assert rc == 0 and len(pick) == 1 and pick == ref_pick, (pick, ref_pick)
+
+
+def test_api_run_with_a_sharding_section(sharded_entry_points):
+    """``api.run`` with ``ShardingCfg(data=2)`` on 2 ranks: losses equal the
+    unsharded port run's at rtol 2e-5 (the first bit for bit), every other
+    result field equal, and the ``"sharding"`` entry equals JAX's field by
+    field."""
+    got, jax_sharding, _ = sharded_entry_points
+    got = got["api"]
+    spec = _port(_sharded_spec())
+    ref = T.run(spec.replace(run=dataclasses.replace(spec.run, sharding=None)),
+                device="cpu").to_dict()
+    assert got["train"]["sharding"] == jax_sharding
+    assert jax_sharding == {"data": 2, "model": 1, "pods": 0, "client_shards": 2}
+    np.testing.assert_allclose(got["train"]["losses"], ref["train"]["losses"], rtol=2e-5)
+    assert got["train"]["losses"][0] == ref["train"]["losses"][0]
+    for k in ref["train"]:
+        if k not in ("losses", "first_loss", "final_loss"):
+            assert got["train"][k] == ref["train"][k], k
+    for k in ref:
+        if k not in ("train", "provenance"):
+            assert got[k] == ref[k], k

@@ -5,6 +5,7 @@ int8 wire, stale) at rtol 1e-5 / atol 1e-6 on B1's, B2's and B1m's plain
 versions; the trainer's queue; Engine A at staleness 1 against JAX's losses
 from a carried init; staleness 0 against the synchronous dispatch bit for
 bit; ``launch.train --staleness``."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -150,16 +151,30 @@ def test_trainer_drain_and_fed_tuple():
     assert ta.AsyncTrainer(plan, _fake_builder, staleness=0)._fed_tuple(1) == (True, True, True)
 
 
-def test_round_time_equals_jax_and_sharding_is_refused():
+def test_round_time_equals_jax_and_sharding_is_refused(monkeypatch):
     for args in ((2.0, [4.0, 1.0, 0.0], (2, 4, 1), (0, 0, 0)),
                  (2.0, [4.0, 1.0, 0.0], (2, 4, 1), (1, 1, 0)),
                  (2.0, [4.0, 1.0, 0.0], (2, 4, 1), (2, 1, 0)),
                  (0.37, [1.3, 0.2, 0.0], (3, 5, 1), (2, 0, 0))):
         assert ta.async_round_time(*args) == ja.async_round_time(*args)
+    # the sharded engine is ported (ROADMAP A13): a mesh is no longer
+    # refused, it builds the sharded steps and routes the deferred fed
+    # levels over the mesh (tests/test_torch_sharded.py runs them)
     _, plan = make_plans()
-    for kw in (dict(mesh=object()), dict(client_axes=("pod", "data"))):
-        with pytest.raises(NotImplementedError, match="A13"):
-            ta.make_async_trainer(VggModel(REDUCED), plan, sgd(0.1), staleness=1, **kw)
+    mesh = object()
+    built = {}
+
+    def fake_build(model, plan_, opt, mesh_, **kw):
+        built.update(mesh=mesh_, **kw)
+        return _fake_builder(kw["fed_round"])
+
+    monkeypatch.setattr(ta, "build_sharded_train_step_a", fake_build)
+    tr = ta.make_async_trainer(VggModel(REDUCED), plan, sgd(0.1), staleness=1,
+                               mesh=mesh, client_axes=("pod", "data"))
+    tr._get_step((False, False, True))
+    assert built["mesh"] is mesh and built["client_axes"] == ("pod", "data")
+    assert built["with_sync_weights"] and built["fed_round"] == (False, False, True)
+    assert tr._mesh is mesh and tr._client_axes == ("pod", "data")
 
 
 EN, EB = 4, 2

@@ -1,4 +1,5 @@
 """Checkpoints pass between the two packages, leaf for leaf."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import numpy as np
 import pytest

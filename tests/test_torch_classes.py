@@ -2,6 +2,7 @@
 package: the spec and its constructors, the scalar oracle, the product
 evaluator on both backends, and ``solve_ms_classes`` / ``solve_ma_classes``
 / ``solve_bcd_classes``, all NumPy float64 compared with ``==``."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import dataclasses
 
 import numpy as np

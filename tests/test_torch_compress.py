@@ -1,6 +1,7 @@
 """The port's compression modules (``compress/base.py``, ``identity.py``,
 ``topk.py``) against the JAX package's, on the same numpy inputs, and the
 sync over any codec."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -10,6 +10,7 @@ carried through NumPy: its decisions, segments and bounds equal JAX's, its
 losses agree to rtol 1e-4 and every migrated state and the final params to
 atol 1e-5.
 """
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import dataclasses
 import json
 import sys

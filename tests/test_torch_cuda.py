@@ -7,6 +7,7 @@ marker and skip elsewhere.  On the card:
 
 The file imports no JAX, so it runs where only PyTorch is installed.
 """
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import math
 
 import pytest
@@ -874,3 +875,63 @@ def test_engine_b_on_card_matches_cpu(cuda, masked):
         out = masked_tiered_aggregate(x, w, keep, False, True, 1)
         torch.testing.assert_close(out, masked_tiered_aggregate_ref(x, w, keep, False, True, 1),
                                    rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ["plain", "int8", "guard+mask"])
+def test_one_nccl_rank_is_the_unsharded_engine_on_card(cuda, case):
+    """The sharded engine on a one-rank NCCL world (``run_on_ranks``, a
+    FileStore in a temporary directory): REDUCED VGG (N=4, J2=2, cuts (1, 3),
+    intervals (2, 2, 1), 4 rounds) equals the unsharded engine on the card
+    bit for bit — losses, params and B1 / B2 / B1m launches."""
+    from repro_torch.core.tiers import GuardSpec
+    from repro_torch.launch.mesh import run_on_ranks
+
+    N, J, R = 4, 2, 4
+    kw = {"plain": {}, "int8": {"compressor": Int8Stochastic(tile=256)},
+          "guard+mask": {"with_mask": True, "guard": GuardSpec()}}[case]
+    ref = _one_rank_run(None, case, N, J, R, kw)
+    got = run_on_ranks(_one_rank_run, 1, device="cuda", args=("mesh", case, N, J, R, kw))
+    assert got["backend"] == "nccl"
+    assert got["losses"] == ref["losses"]
+    assert got["launches"] == ref["launches"] and any(got["launches"].values())
+    for a, b in zip(got["params"], ref["params"]):
+        assert torch.equal(a, b)
+
+
+def _one_rank_run(mesh_kind, case, N, J, R, kw):
+    import torch.distributed as dist
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import build_train_step_a
+    from repro_torch.core.sharded import build_sharded_train_step_a, init_sharded_state_a
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    dev = torch.device("cuda", 0)
+    model, opt = VggModel(REDUCED), sgd(0.05)
+    plan = default_plan(REDUCED.n_units, N, cuts=(1, 3), intervals=(2, 2, 1),
+                        entities=(N, J, 1))
+    gen = torch.Generator().manual_seed(0)
+    if mesh_kind is None:
+        state = init_state_a(model, plan, opt, gen, dev)
+        build = lambda f: build_train_step_a(model, plan, opt, fed_round=f, **kw)
+    else:
+        mesh = make_debug_mesh(data=1, model=1, device="cuda")
+        state = init_sharded_state_a(model, plan, opt, gen, mesh)
+        build = lambda f: build_sharded_train_step_a(model, plan, opt, mesh, fed_round=f,
+                                                     **kw)
+    g = torch.Generator().manual_seed(1)
+    reset_launches()
+    steps, losses = {}, []
+    for r in range(R):
+        batch = {"images": torch.randn(N, 2, REDUCED.image_size, REDUCED.image_size, 3,
+                                       generator=g).to(dev),
+                 "labels": torch.randint(0, 10, (N, 2), generator=g).to(dev)}
+        f = tuple((r + 1) % I == 0 if I > 1 else True for I in plan.intervals)
+        if f not in steps:
+            steps[f] = build(f)
+        mask = (torch.arange(N) % 3 != r % 3).float().to(dev)
+        state, loss = steps[f](state, batch, *((mask,) if kw.get("with_mask") else ()))
+        losses.append(float(loss))
+    return {"losses": losses, "launches": dict(launches),
+            "params": [x.cpu() for x in tree_leaves(state.params)],
+            "backend": dist.get_backend() if dist.is_initialized() else None}

@@ -3,6 +3,7 @@
 round energy and budget mask, the per-class energy and the BCD / MA optima
 under a binding budget all equal JAX's with ``==`` — on NumPy and on the
 port's float64 tensors on the CPU (``torch:cpu``)."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import itertools
 
 import numpy as np

@@ -1,5 +1,6 @@
 """The slice end to end: the port's Engine A and training entry point
 against the JAX package's, from one carried-over init and the same batches."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -182,8 +183,11 @@ def test_entry_points_refuse_to_fall_back_to_cpu(entry):
 def test_train_cli_has_only_the_ported_flags():
     args = train.parse_args([])
     assert args.device == "cuda" and args.arch == "vgg16-cifar10"
-    with pytest.raises(SystemExit):  # the sharded engine is not ported (A13)
+    with pytest.raises(SystemExit):  # --shard-data takes the shard count
         train.parse_args(["--shard-data"])
+    args = train.parse_args(["--shard-data", "2", "--shard-pods", "2"])
+    assert args.shard_data == 2 and args.shard_pods == 2
+    assert train.parse_args([]).shard_data == 0
     assert train.parse_args(["--staleness", "2"]).staleness == [2]
     assert train.parse_args(["--staleness", "1", "0", "0"]).staleness == [1, 0, 0]
     args = train.parse_args(["--auto-optimize"])

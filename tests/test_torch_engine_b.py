@@ -7,6 +7,7 @@ Engine A equals its Engine B.  Also ``engine_b_to_full``, the Engine-B
 migration, the refusals, B1m's plain version under integer weights, the
 launches a step makes.  ``api.run(engine="b")`` in train and control
 modes against JAX's: ``tests/test_torch_api.py``."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import dataclasses
 import functools
 import types

@@ -1,5 +1,6 @@
 """The port's bound-constant estimator and the training CLI's
 ``--auto-optimize`` against the JAX package's, on the same arrays."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import dataclasses
 import sys
 

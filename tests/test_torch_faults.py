@@ -12,6 +12,7 @@ package's ``repro.faults`` and ``tiers.guard_health`` / ``synchronize(guard=)``:
   over 4 REDUCED rounds; an all-healthy guard is the all-ones mask's step
   bit for bit, its loss the unguarded one exactly.
 """
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import json
 
 import jax

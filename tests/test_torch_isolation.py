@@ -1,5 +1,6 @@
 """The port stands alone: it imports neither JAX, nor Triton, nor the JAX
 package, and every module imports with those blocked."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import os
 import re
 import subprocess
@@ -81,6 +82,7 @@ def test_every_jax_module_of_the_slice_has_its_counterpart():
         "core/async_agg.py", "control/__init__.py", "control/migrate.py",
         "control/drift.py", "control/telemetry.py", "control/window.py", "control/bound.py",
         "control/controller.py", "control/replay.py",
+        "core/sharded.py", "launch/mesh.py", "launch/sharding.py",
     ]
     for rel in slice_modules:
         assert (ROOT / "src" / "repro" / rel).exists(), rel
@@ -115,6 +117,14 @@ from repro_torch.api.run import _make_step
 from repro_torch.api.build import check_capabilities
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.kernels.tiered_aggregate import masked_tiered_aggregate_ref
+from repro_torch.core.sharded import (
+    build_sharded_train_step_a, init_sharded_state_a, sharded_guard_health,
+    sharded_synchronize,
+)
+from repro_torch.core import build_sharded_train_step_a as exported
+from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh, run_on_ranks
+from repro_torch.launch.sharding import PartitionSpec, param_pspecs, to_placements
+from repro_torch.launch import make_debug_mesh as exported_mesh
 print("ok")
 """
 

@@ -6,6 +6,7 @@ the CPU the port's wrappers run their plain PyTorch versions; the CUDA
 kernels themselves are held against those on the card
 (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -5,6 +5,7 @@ kept, idempotence, the optimizer moments carried; ``resume_with_migration``
 from a checkpoint either package wrote, params or a whole ``TrainState``;
 Engine B's migration (``migrate_params_b`` / ``migrate_state_b``) against
 JAX's."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -1,5 +1,6 @@
 """The port's VGG model, loss, optimizers, data and parameter carriers
 against the JAX package on the same numpy inputs."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ version and Engine A's ``with_mask`` step, against the JAX package's
 ``synchronize(mask=)`` and masked step, and the port's own contracts
 (all-zero mask a no-op bit for bit; all-ones mask == unmasked at the
 ragged-collapse tolerance)."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

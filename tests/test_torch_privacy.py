@@ -4,6 +4,7 @@ z = 0 at f32 tolerance; its noise (torch cannot draw ``jax.random``'s
 numbers) held on its statistics and its reproducibility; the ε budget
 through BCD equal with ``==``; Engine A's DP fed wire at z = 0 against JAX's
 losses, and at z > 0 reproducible from one seed."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import math
 
 import jax

@@ -5,6 +5,7 @@ Engine A with ``class_members``, from the same numpy inputs on both sides.
 On the CPU the wrappers run their plain versions; the CUDA kernels are held
 against those on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``).
 """
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

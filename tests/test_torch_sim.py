@@ -3,6 +3,7 @@ NumPy and on float64 tensors, robust pricing) against the JAX package's
 NumPy paths, compared with ``==``.  The JAX package's own ``"jax"`` fleet
 backend fails on this tree (no ``enable_x64`` in its jax), so the port's
 device backend is held to JAX's NumPy backend."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import dataclasses
 
 import numpy as np

@@ -4,6 +4,7 @@ and the MA/MS/BCD solvers.  These are NumPy float64 ported verbatim, so
 every table and every optimum is compared with ``==``.  The port's
 ``torch`` backend is held to the NumPy backends of both packages (the JAX
 package's own ``jax`` float64 backend does not run on this jax build)."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import dataclasses
 
 import numpy as np

@@ -3,6 +3,7 @@ wrappers run their plain versions, against the JAX package's Pallas kernel
 (interpret mode) and its oracle, on the same numpy inputs.  The autograd
 Functions that carry the kernels on the card run here too, under
 ``vmap(grad_and_value)`` as Engine A calls them."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

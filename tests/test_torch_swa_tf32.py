@@ -50,6 +50,7 @@ kernels keep from drifting by summing each tile's partial product from 0
 and adding it to the running sums in f32 (checked on the card by
 ``tests/test_torch_cuda.py``).
 """
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import math
 
 import numpy as np

@@ -1,5 +1,6 @@
 """The port's tier plan and kernel-backed ``synchronize`` against the JAX
 package's ``repro.core.tiers``."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -3,6 +3,7 @@ their analytic counts, the layers, ``SplittableModel`` and Engine A, from
 one JAX init carried over as numpy and the same batches.  The port's
 attention runs the flash-attention Functions (their plain versions on the
 CPU); the JAX model runs ``_sdpa``."""
+import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import dataclasses
 
 import jax
