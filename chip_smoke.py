@@ -89,7 +89,21 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    ``engine_b_to_full`` within atol 1e-5 / rtol 1e-4 of its params (the
    int8 wire at atol 2e-3), the control decisions equal, every migration
    against its plain version and the client means, every loss and param
-   finite, peak at most 70 GB, round medians beside the twin's;
+   finite, peak at most 70 GB, round medians beside the twin's; then the
+   ``[zoo]`` phase (``zoo_paths``): granite-moe-1b-a400m at full width and
+   depth through ``api.run(engine="b")`` (N=4, J2=2, batch 1, seq 512,
+   cuts (4, 12), intervals (8, 4, 1), 8 rounds, plain and over the int8
+   wire) and mamba2-1.3b likewise (cuts (4, 24)) -- launches as the plan
+   and depth imply (B4/B5 once per attention layer a round, none for
+   mamba2), every param finite, peak at most 70 GB, one MoE layer's
+   dispatch and expert products timed; granite at half depth through
+   Engine B beside its Engine-A twin (4 rounds, one init; losses rtol
+   5e-4, params atol 1e-5 / rtol 1e-4 but for at most 1e-6 of the
+   elements, each within 1e-4: routing near-ties), with the round-1
+   routings that differ between the two engines' router products counted;
+   mamba2-1.3b's init gradient norm at 4, 16 and 48 blocks; REDUCED
+   granite and mamba2 through the CLI and REDUCED jamba through
+   ``api.run`` on the card against the CPU (losses rtol 1e-4);
 6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
@@ -1013,6 +1027,10 @@ def attention_cases():
     cases += [MAIN_ATTN + (w,) for w in (0, 128, 256, 512)]
     cases += [(32, 64, 3, 3, 64, 0)]   # the CLI: REDUCED smollm, N=8 x batch 4, S=64
     cases += [(8, 256, 8, 2, 32, 0)]   # REDUCED qwen2.5: hd 32, GQA 4:1
+    # [zoo]: Engine B folds the clients into the batch, so every tier of
+    # full-width granite-moe-1b-a400m (N=4 x batch 1, S=512, GQA 2:1, hd 64)
+    # and REDUCED granite / jamba (N=8 x batch 2, S=64, hd 32)
+    cases += [(4, 512, 16, 8, 64, 0), (16, 64, 4, 2, 32, 0)]
     return cases
 
 
@@ -2815,6 +2833,16 @@ def control_paths(card: str):
 # tile's absmax / 127), so those params are held at JAX's own int8 A == B
 # allowance, atol 2e-3, with the count beyond the f32 tolerance printed
 ENGINE_B_LOSS_RTOL, ENGINE_B_ATOL, ENGINE_B_RTOL, ENGINE_B_Q8_ATOL = 1e-4, 1e-5, 1e-4, 2e-3
+# a MoE twin: a token whose k-th and (k+1)-th gates nearly tie may take
+# another expert in each engine (their router products have other shapes,
+# so they round apart: 2 of 196 608 routings at granite's round 1); its
+# experts' and embedding row's updates then differ by up to lr x one
+# token's gradient.  Those elements (at most 1e-6 of all: 2 973 of granite's
+# half-depth 2.97 G, where 2 flips put 347 beyond the f32 tolerance, up to
+# 3.13e-5) are held at 1e-4; the losses at 5e-4: one flipped token moves a
+# round's mean loss by up to its own loss change / the round's tokens
+# (8.37e-5 relative at granite's half-depth round 4, from 2 flips at round 1)
+ENGINE_B_FLIP_ATOL, ENGINE_B_FLIP_SHARE, ENGINE_B_FLIP_LOSS_RTOL = 1e-4, 1e-6, 5e-4
 
 
 def engine_b_specs(api):
@@ -2841,14 +2869,19 @@ def engine_b_specs(api):
     }
 
 
-def engine_b_pair(api, key: str, spec, card: str):
+def engine_b_pair(api, key: str, spec, card: str, route_flips: bool = False):
     """One Engine-B run at full width beside its Engine-A twin from the same
     init (the API's seed): the twin first, its last params moved to the host
     and its state freed; then Engine B, its peak device memory alone.  Train
     mode: B's launches as the plan implies (the fed means, B4/B5 on every
     layer); control mode: ``control_run``'s checks, and B's decisions equal
     A's.  Losses and the client-stacked params (``engine_b_to_full``)
-    against A's; every loss and param finite; peak at most 70 GB."""
+    against A's; every loss and param finite; peak at most 70 GB.
+    ``route_flips`` (a MoE arch): a near-tie routed differently by the two
+    engines' router products moves the loss and the params its token
+    reaches: the losses are held at ``ENGINE_B_FLIP_LOSS_RTOL``, and at
+    most ``ENGINE_B_FLIP_SHARE`` of the elements may pass the f32
+    tolerance, each within ``ENGINE_B_FLIP_ATOL``."""
     import numpy as np
     import torch
 
@@ -2893,7 +2926,8 @@ def engine_b_pair(api, key: str, spec, card: str):
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"{key}: losses {losses}")
     loss_err = float(np.max(np.abs(np.subtract(losses, a_losses)) / np.abs(a_losses)))
-    np.testing.assert_allclose(losses, a_losses, rtol=ENGINE_B_LOSS_RTOL)
+    loss_rtol = ENGINE_B_FLIP_LOSS_RTOL if route_flips else ENGINE_B_LOSS_RTOL
+    np.testing.assert_allclose(losses, a_losses, rtol=loss_rtol)
     q8 = spec.compression is not None
     full = engine_b_to_full(None, plan, state.params)
     err, beyond, total = 0.0, 0, 0
@@ -2906,8 +2940,11 @@ def engine_b_pair(api, key: str, spec, card: str):
         total += x.numel()
         if x.numel():
             err = max(err, float(d.max()))
-        torch.testing.assert_close(x, y, rtol=ENGINE_B_RTOL,
-                                   atol=ENGINE_B_Q8_ATOL if q8 else ENGINE_B_ATOL)
+        atol = ENGINE_B_Q8_ATOL if q8 else ENGINE_B_FLIP_ATOL if route_flips else ENGINE_B_ATOL
+        torch.testing.assert_close(x, y, rtol=ENGINE_B_RTOL, atol=atol)
+    if route_flips and beyond > ENGINE_B_FLIP_SHARE * total:
+        raise AssertionError(f"{key}: {beyond} of {total} elements beyond the f32 tolerance, "
+                             f"more than {ENGINE_B_FLIP_SHARE} of them")
     del full, state, a_params
     torch.cuda.empty_cache()
     if peak > 70e9:
@@ -2917,9 +2954,11 @@ def engine_b_pair(api, key: str, spec, card: str):
     ms_b, ms_a = med(ROUND_MS[f"{prefix} {key}"]), med(ROUND_MS[f"{prefix} {key} twin A"])
     print(f"[engine-b] {key}: cuts {plan.cuts} intervals {plan.intervals}; launches {got} as "
           f"the plan and depth imply; losses within {loss_err:.3g} relative of Engine A's "
-          f"(rtol {ENGINE_B_LOSS_RTOL}); params max |B - A| {err:.3g}, {beyond} of {total} "
+          f"(rtol {loss_rtol}); params max |B - A| {err:.3g}, {beyond} of {total} "
           f"beyond atol {ENGINE_B_ATOL} + rtol {ENGINE_B_RTOL}"
           + (f" (held at atol {ENGINE_B_Q8_ATOL}: the int8 wire)" if q8 else "")
+          + (f" (held at atol {ENGINE_B_FLIP_ATOL} on at most {ENGINE_B_FLIP_SHARE} of the "
+             f"elements: routing near-ties)" if route_flips else "")
           + f"; every loss and param finite; median round ms B {ms_b:.2f}, A {ms_a:.2f}; "
           f"peak device memory B {peak / 1e9:.2f} GB; card {card}")
     return got, dict(round_ms_b=ms_b, round_ms_a=ms_a, peak=peak, loss_err=loss_err,
@@ -3383,6 +3422,371 @@ def sharded_paths(card: str, rounds: int = 8):
     return counts
 
 
+# --------------------------------------------------------------------------- #
+# [zoo]: the MoE, SSM and hybrid families
+# --------------------------------------------------------------------------- #
+
+ZOO_MOE, ZOO_SSM, ZOO_HYBRID = "granite-moe-1b-a400m", "mamba2-1.3b", "jamba-1.5-large-398b"
+ZOO_SEQ = 512
+# SGD learning rates that do not diverge in 8 rounds: granite at 5e-4;
+# mamba2 at 1e-6 (48 blocks at 1e-5 went 11.22 -> 48.64 in 8 rounds on the
+# card): its init's gradient grows with depth, in JAX and the port alike
+# (tests/test_torch_ssm.py, d 32: |grad| ~5.7 at 4 blocks, ~2.7e4 at 48,
+# where neither package's f32 gradient stays near the float64 one), and
+# ``zoo_depth_gradients`` reads that growth at full width
+ZOO_LR = {ZOO_MOE: 5e-4, ZOO_SSM: 1e-6}
+# the full-width cells through Engine B: arch, num_layers (None: the
+# config's), cuts, rounds, codecs
+ZOO_CELLS = {
+    "zoo-granite-moe-1b-a400m": (ZOO_MOE, None, (4, 12), 8, (None, "int8")),
+    "zoo-mamba2-1.3b": (ZOO_SSM, None, (4, 24), 8, (None,)),
+}
+# Engine B against its Engine-A twin: granite at half depth, cuts (2, 6)
+ZOO_TWIN = ("zoo-granite-half-depth", ZOO_MOE, 12, (2, 6), 4)
+ZOO_PEAK_LIMIT = 70e9
+ZOO_CARD_RTOL = 1e-4
+
+
+def zoo_spec(api, name, arch, num_layers, cuts, rounds, codec=None):
+    """A full-width zoo cell through ``api.run(engine="b")``: N=4 clients,
+    J2=2 edges, batch 1, seq 512, intervals (8, 4, 1), SGD at the arch's
+    ``ZOO_LR``."""
+    spec = api.paper_spec().replace(
+        name=name,
+        model=api.ModelCfg(arch=arch, variant="full", batch=1, seq=ZOO_SEQ,
+                           num_layers=num_layers),
+        system=api.SystemCfg(preset="paper-three-tier", num_clients=4, num_edges=2),
+        solver=api.SolverCfg(kind="fixed", cuts=cuts, intervals=(8, 4, 1)),
+        run=api.RunCfg(mode="train", rounds=rounds, lr=ZOO_LR[arch], dataset_size=64,
+                       engine="b"))
+    if codec is not None:
+        spec = spec.replace(name=f"{name}-{codec}", compression=api.CompressionCfg(codec=codec))
+    return spec
+
+
+def zoo_attention_layers(model_spec) -> int:
+    """Attention layers a forward runs: one a unit (one a hybrid super-block),
+    none in the SSM family."""
+    return 0 if model_spec.family == "ssm" else model_spec.n_units
+
+
+def zoo_moe_timing(spec, params, x, groups: int):
+    """CUDA-event ms of one MoE layer's forward+backward on ``x`` at
+    ``groups`` dispatch groups, and of its expert products alone on
+    buffers of the dispatch's shape [G, E, cap, d]; the difference is the
+    dispatch (router, top-k, ranks, the scatter into the buffers, the
+    combine)."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    E, K = spec.moe.num_experts, spec.moe.top_k
+    G = groups
+    cap = int(max(1, math.ceil(x.shape[0] * x.shape[1] // G * K / E * spec.moe.capacity_factor)))
+    p = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+    xx = x.detach().clone().requires_grad_(True)
+    ein = torch.randn((G, E, cap, spec.d_model), device=x.device, requires_grad=True)
+
+    def whole():
+        out, aux = L.moe(p, xx, spec, groups=G)
+        (out.square().sum() + aux).backward()
+
+    def experts():
+        h = torch.einsum("gecd,edf->gecf", ein, p["w1"])
+        g = torch.einsum("gecd,edf->gecf", ein, p["w3"])
+        out = torch.einsum("gecf,efd->gecd", torch.nn.functional.silu(h) * g, p["w2"])
+        out.square().sum().backward()
+
+    return cuda_ms(whole, iters=10), cuda_ms(experts, iters=10)
+
+
+def zoo_cell(api, key, arch, num_layers, cuts, rounds, codec, card):
+    """One full-width cell through ``api.run(engine="b")``: launches as the
+    plan and depth imply (the fed means on B1, or B2 over the int8 wire, by
+    ``engine_b_fed``; B4 and both B5 passes once per attention layer a
+    round), every loss and param finite, the parameters Engine B holds,
+    peak device memory at most 70 GB, the round-time median; for the MoE
+    arch, one layer's MoE forward+backward at the top tier's shape timed
+    with CUDA events, its dispatch apart from its expert products."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core.tiers import TierPlan
+
+    spec = zoo_spec(api, key, arch, num_layers, cuts, rounds, codec)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    res, got, state = api_train(api, spec, spec.name)
+    peak = torch.cuda.max_memory_allocated()
+    built = api.build(spec)
+    ms = built.model_spec
+    plan = TierPlan(n_units=ms.n_units, num_clients=built.system.num_clients, cuts=res.cuts,
+                    intervals=res.intervals, entities=built.system.entities)
+    leaves = tier_leaves(one_row(state.params), plan)
+    want = {k: 0 for k in got}
+    want[AGG[1] if codec else AGG[0]] = sum(engine_b_fed(plan, s, leaves)
+                                            for s in range(rounds))
+    want.update(dict.fromkeys(ATTN, zoo_attention_layers(ms) * rounds))
+    if got != want:
+        raise AssertionError(f"{spec.name}: launches {got}, the plan and depth imply {want}")
+    held = 0
+    for i, x in enumerate(tree_leaves(state.params)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{spec.name}: leaf {i} not finite")
+        held += x.numel()
+    if peak > ZOO_PEAK_LIMIT:
+        raise AssertionError(f"{spec.name}: peaked at {peak / 1e9:.2f} GB > 70 GB")
+    med = lambda v: sorted(v[1:])[len(v[1:]) // 2]  # noqa: E731
+    round_ms = med(ROUND_MS[f"api {spec.name}"])
+    out = dict(round_ms=round_ms, peak=peak, held=held, losses=res.train["losses"])
+    line = (f"[zoo] {spec.name}: {ms.num_layers} layers, d {ms.d_model}, "
+            f"{ms.total_param_count()} params; Engine B holds {held} ({held * 4 / 1e9:.2f} GB "
+            f"f32); cuts {plan.cuts} intervals {plan.intervals}; launches {got} as the plan "
+            f"and depth imply; losses {[round(v, 4) for v in res.train['losses']]}; every "
+            f"param finite; median round {round_ms:.2f} ms (rounds 2 on); peak device memory "
+            f"{peak / 1e9:.2f} GB")
+    if ms.moe is not None and codec is None:
+        N = built.system.num_clients
+        top = {k: v[0, 0] for k, v in state.params[-1]["units"]["moe"].items()}
+        del state
+        torch.cuda.empty_cache()
+        x = torch.randn((N * spec.model.batch, ZOO_SEQ, ms.d_model), device=top["w1"].device,
+                        generator=torch.Generator(top["w1"].device).manual_seed(0))
+        layer_ms, expert_ms = zoo_moe_timing(ms, top, x, N)
+        out.update(moe_layer_ms=layer_ms, moe_expert_ms=expert_ms)
+        line += (f"; one MoE layer fwd+bwd at the top tier's shape ({N} groups of "
+                 f"{spec.model.batch * ZOO_SEQ} tokens) {layer_ms:.3f} ms, its expert products "
+                 f"{expert_ms:.3f} ms, the dispatch {layer_ms - expert_ms:.3f} ms; x "
+                 f"{ms.n_units} layers = {100 * ms.n_units * layer_ms / round_ms:.1f}% of the "
+                 f"round (dispatch {100 * ms.n_units * (layer_ms - expert_ms) / round_ms:.1f}%)")
+    else:
+        del state
+    torch.cuda.empty_cache()
+    print(line + f"; card {card}")
+    return got, out
+
+
+def zoo_routing_flips(api, spec):
+    """The (token, k) routings whose expert differs between the two engines'
+    router products at round 1.  The round-1 global batch runs through the
+    init model with every client's tokens in a group of their own
+    (``moe_groups = N``, as Engine B's top tier), each layer's MoE input
+    recorded; each layer's top-k is then taken on those inputs as Engine B
+    routes them (one [N, b·S, d] x [d, E] product) and as Engine A does
+    (``vmap`` over the N clients' replicas of the router).  Returns
+    (differing pairs, pairs, the smallest k-th/(k+1)-th gate margin)."""
+    import torch
+    from torch.func import vmap
+
+    from repro_torch._device import resolve_device
+    from repro_torch.models import layers as L
+
+    run_mod = sys.modules["repro_torch.api.run"]
+    built = api.build(spec)
+    model, loader, _, N = run_mod._training_setup(built)
+    ms = built.model_spec
+    dev = resolve_device()
+    params = model.init_params(torch.Generator().manual_seed(spec.run.seed), dev)
+    toks = torch.from_numpy(loader.next_round()["tokens"]).to(dev)
+    b, S = toks.shape[1], toks.shape[2]
+    inputs, real = [], L.moe
+
+    def record(p, x, s, groups=1):
+        inputs.append((p["router"], x))
+        return real(p, x, s, groups=groups)
+
+    L.moe, model.moe_groups = record, N
+    try:
+        with torch.no_grad():
+            carry = model.frontend_apply(params["frontend"], {"tokens": toks.reshape(N * b, S)})
+            model.apply_units(params["units"], carry, 0, ms.n_units)
+    finally:
+        L.moe, model.moe_groups = real, 1
+    del params
+    flips, margin, K, E = 0, math.inf, ms.moe.top_k, ms.moe.num_experts
+    with torch.no_grad():
+        for router, x in inputs:
+            probs, _, ids_b = L.moe_route({"router": router}, x.reshape(N, b * S, -1), ms)
+            reps = router[None].expand(N, *router.shape).contiguous()
+            ids_a = vmap(lambda r, xc: L.moe_route({"router": r}, xc.reshape(1, b * S, -1),
+                                                   ms)[2][0])(reps, x.reshape(N, b, S, -1))
+            hot = lambda ids: torch.zeros(N, b * S, E, device=dev).scatter_(-1, ids, 1.0)  # noqa: E731
+            flips += int((hot(ids_a) * (1.0 - hot(ids_b))).sum())
+            top = torch.topk(probs, K + 1, dim=-1).values
+            margin = min(margin, float((top[..., K - 1] - top[..., K]).min()))
+    return flips, len(inputs) * N * b * S * K, margin
+
+
+def zoo_cli_card_vs_cpu(arch: str, rounds: int = 3):
+    """``python -m repro_torch.launch.train --arch <id>`` (REDUCED, S=64, N=8,
+    J2=4, batch 2) on the card and with ``--device cpu``: the same init and
+    batches, each round's loss read from the dispatch, rtol 1e-4; the
+    card's launches as the plan and depth imply."""
+    import numpy as np
+    import torch
+
+    from repro_torch.core import replicate_for_clients
+    from repro_torch.launch import train
+
+    argv = ["--arch", arch, "--clients", "8", "--edges", "4", "--batch", "2",
+            "--rounds", str(rounds), "--log-every", "1"]
+    real, losses = train.make_dispatch, {}
+    for dev in ("cuda", "cpu"):
+        rec = losses[dev] = []
+
+        def hooked(*a, **k):
+            dispatch = real(*a, **k)
+
+            def wrapped(state, batch, r, mask=None):
+                state, loss = dispatch(state, batch, r, mask)
+                rec.append(float(loss))
+                return state, loss
+
+            return wrapped
+
+        train.make_dispatch = hooked
+        reset_all_launches()
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc = train.main(argv + ["--device", dev])
+        finally:
+            train.make_dispatch = real
+        assert rc == 0, rc
+        if dev == "cuda":
+            got = all_launches()
+    _, spec, model, plan, _, _ = train.setup(train.parse_args(argv + ["--device", "cpu"]))
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    want = lm_expected(plan, replicate_for_clients(params, plan.num_clients),
+                       spec.n_units, rounds)
+    want.update(dict.fromkeys(ATTN, zoo_attention_layers(spec) * rounds))
+    if got != want:
+        raise AssertionError(f"{arch} CLI launches {got}, the plan and depth imply {want}")
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=ZOO_CARD_RTOL)
+    err = float(np.max(np.abs(np.subtract(losses["cuda"], losses["cpu"])) /
+                       np.abs(losses["cpu"])))
+    print(f"[zoo] {arch} REDUCED through the CLI (Engine A, N=8, J2=4, batch 2, S=64, "
+          f"{rounds} rounds): losses cuda {losses['cuda']} cpu {losses['cpu']}, within "
+          f"{err:.3g} relative (rtol {ZOO_CARD_RTOL}); launches {got} as the plan implies")
+    return got
+
+
+def zoo_api_card_vs_cpu(api, arch: str = ZOO_HYBRID, rounds: int = 3):
+    """``api.run`` on Engine A, REDUCED (2 super-blocks for jamba), N=8,
+    J2=4, batch 2, seq 64, on the card and on the CPU: losses rtol 1e-4;
+    the card's launches as the plan and depth imply."""
+    import numpy as np
+
+    from repro_torch.core.tiers import TierPlan
+
+    spec = api.paper_spec().replace(
+        name=f"zoo-{arch}-reduced",
+        model=api.ModelCfg(arch=arch, variant="reduced", batch=2, seq=64),
+        system=api.SystemCfg(num_clients=8, num_edges=4),
+        solver=api.SolverCfg(kind="fixed", cuts=(1, 1), intervals=(2, 2, 1)),
+        run=api.RunCfg(mode="train", rounds=rounds, dataset_size=64, lr=0.1))
+    res, got, state = api_train(api, spec, spec.name)
+    cpu = api.run(spec, device="cpu")
+    built = api.build(spec)
+    ms = built.model_spec
+    plan = TierPlan(n_units=ms.n_units, num_clients=built.system.num_clients, cuts=res.cuts,
+                    intervals=res.intervals, entities=built.system.entities)
+    want = lm_expected(plan, state.params, ms.n_units, rounds)
+    want.update(dict.fromkeys(ATTN, zoo_attention_layers(ms) * rounds))
+    if got != want:
+        raise AssertionError(f"{spec.name}: launches {got}, the plan and depth imply {want}")
+    a, c = res.train["losses"], cpu.train["losses"]
+    np.testing.assert_allclose(a, c, rtol=ZOO_CARD_RTOL)
+    err = float(np.max(np.abs(np.subtract(a, c)) / np.abs(c)))
+    print(f"[zoo] {arch} REDUCED through api.run (Engine A, N=8, J2=4, batch 2, S=64, "
+          f"{rounds} rounds): losses cuda {a} cpu {c}, within {err:.3g} relative (rtol "
+          f"{ZOO_CARD_RTOL}); launches {got} as the plan implies")
+    return got
+
+
+def zoo_depth_gradients(card: str, depths=(4, 16, 48)):
+    """mamba2-1.3b at full width at init: one batch's (1 x 512 tokens) loss
+    gradient norm through the first 4, 16 and all 48 blocks of one init, the
+    step lr x |grad| that SGD takes at ``ZOO_LR`` and at 1e-5.  The CPU
+    tests hold the port's growth with depth against JAX's at d 32
+    (``tests/test_torch_ssm.py``); here it is read at the cell's width.
+    Every gradient finite."""
+    import torch
+
+    from repro_torch._device import resolve_device
+    from repro_torch._tree import tree_leaves, tree_map
+    from repro_torch.configs import get_spec
+    from repro_torch.models import SplittableModel
+
+    dev = resolve_device()
+    full = get_spec(ZOO_SSM)
+    params = SplittableModel(full).init_params(torch.Generator().manual_seed(0), dev)
+    toks = torch.randint(0, full.vocab_size, (1, ZOO_SEQ + 1), device=dev,
+                         generator=torch.Generator(dev).manual_seed(0))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    norms = {}
+    for n in depths:
+        model = SplittableModel(dataclasses.replace(full, num_layers=n))
+        p = tree_map(lambda x: x.detach().requires_grad_(True),
+                     {**params, "units": tree_map(lambda x: x[:n], params["units"])})
+        loss = model.loss_fn(p, batch)
+        grads = torch.autograd.grad(loss, tree_leaves(p))
+        if not all(bool(torch.isfinite(g).all()) for g in grads):
+            raise AssertionError(f"{ZOO_SSM} at {n} blocks: a gradient is not finite")
+        norms[n] = float(torch.sqrt(sum(g.double().square().sum() for g in grads)))
+        del loss, grads, p
+        torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    lr = ZOO_LR[ZOO_SSM]
+    print(f"[zoo] {ZOO_SSM} full width at init, one batch of {ZOO_SEQ} tokens: |grad| "
+          + ", ".join(f"{n} blocks {v:.6g}" for n, v in norms.items())
+          + f"; SGD's step lr x |grad| at {max(depths)} blocks {lr * norms[max(depths)]:.4g} "
+          f"(lr {lr}), {1e-5 * norms[max(depths)]:.4g} at 1e-5; card {card}")
+    return norms
+
+
+def zoo_paths(card: str):
+    """The ``[zoo]`` phase: granite-moe-1b-a400m at full width and depth
+    through Engine B, plain and over the int8 wire; its half-depth Engine-A
+    twin check with the routing flips at round 1; mamba2-1.3b at full width
+    and depth through Engine B; REDUCED granite and mamba2 through the CLI
+    and REDUCED jamba through ``api.run`` on the card against the CPU."""
+    from repro_torch import api
+
+    counts, out = {}, {}
+    t0 = time.perf_counter()
+    for key, (arch, layers, cuts, rounds, codecs) in ZOO_CELLS.items():
+        for codec in codecs:
+            name = key if codec is None else f"{key}-{codec}"
+            counts[name], out[name] = zoo_cell(api, key, arch, layers, cuts, rounds, codec,
+                                               card)
+    key, arch, layers, cuts, rounds = ZOO_TWIN
+    spec = zoo_spec(api, key, arch, layers, cuts, rounds)
+    flips, pairs, margin = zoo_routing_flips(api, spec)
+    print(f"[zoo] {key}: at round 1, {flips} of {pairs} (token, k) routings "
+          f"({100 * flips / pairs:.4f}%) differ between Engine B's router product and "
+          f"Engine A's on the same inputs; smallest k-th/(k+1)-th gate margin {margin:.3g}")
+    counts[key], out[key] = engine_b_pair(api, key, spec, card, route_flips=True)
+    out[key].update(route_flips=flips, route_pairs=pairs, route_margin=margin)
+    out["zoo-mamba2-depth-gradients"] = zoo_depth_gradients(card)
+    for a in (ZOO_MOE, ZOO_SSM):
+        counts[f"zoo-cli-{a}-reduced"] = zoo_cli_card_vs_cpu(a)
+    counts[f"zoo-{ZOO_HYBRID}-reduced"] = zoo_api_card_vs_cpu(api)
+    for path, names in (("zoo-granite-moe-1b-a400m", (AGG[0],) + ATTN),
+                        ("zoo-granite-moe-1b-a400m-int8", (AGG[1],) + ATTN),
+                        ("zoo-mamba2-1.3b", (AGG[0],)),
+                        (f"zoo-{ZOO_HYBRID}-reduced", (AGG[0],) + ATTN)):
+        for name in names:
+            if counts[path][name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on {path}")
+    print("[timing] [zoo] full width through Engine B, median round ms (rounds 2 on) and "
+          "peak GB: " + json.dumps({k: [v["round_ms"], v["peak"] / 1e9] for k, v in out.items()
+                                    if "round_ms" in v})
+          + f"; phase {time.perf_counter() - t0:.1f} s; card {card}")
+    return counts, out
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch is missing beside this script",
@@ -3468,6 +3872,7 @@ def main() -> int:
             if control_counts[path][name] == 0:
                 raise AssertionError(f"kernel {name} was not launched on {path}")
     engine_b_counts, _ = engine_b_paths(card)
+    zoo_counts, _ = zoo_paths(card)
     sharded_counts = sharded_paths(card)
     for path, name in (("sharded-cli-1-rank", AGG[0]), ("sharded-api-1-rank-int8", AGG[1]),
                        ("sharded-2-ranks-gloo-plain", AGG[0]),
@@ -3537,7 +3942,7 @@ def main() -> int:
     } for name in MASKED]
     new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
                  "async-staleness-2": async_launches, **control_counts, **engine_b_counts,
-                 **sharded_counts}
+                 **zoo_counts, **sharded_counts}
     for row in kernels:
         row["launches_by_path"].update(
             {path: got[row["name"]] for path, got in new_paths.items()})

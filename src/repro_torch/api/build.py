@@ -32,7 +32,7 @@ from ..core.convergence import (
     theorem1_bound,
 )
 from ..core.latency import LayerProfile, SystemSpec, build_profile
-from ..configs import PORTED_ARCH_IDS
+from ..configs import PORTED_ARCH_IDS, UNPORTED_ARCH_ITEMS
 from ..core.problem import HsflProblem
 from .registry import resolve_codec, resolve_model, resolve_system
 from .spec import CompressionCfg, ExperimentSpec
@@ -209,9 +209,10 @@ def _check_port_capabilities(spec: ExperimentSpec) -> None:
     """What the port runs of a spec the JAX package accepts: every section
     and option whose modules are not ported raises here, before any state
     is allocated."""
-    if spec.model.arch != "vgg16-cifar10" and spec.model.arch not in PORTED_ARCH_IDS:
-        raise _unported(f"arch {spec.model.arch!r}",
-                        "its model family's layers", "A14")
+    arch = spec.model.arch
+    if arch != "vgg16-cifar10" and arch not in PORTED_ARCH_IDS:
+        raise _unported(f"arch {arch!r}", "its model family's layers",
+                        UNPORTED_ARCH_ITEMS.get(arch, "A14"))
 
 
 def build(spec: ExperimentSpec) -> BuiltExperiment:

@@ -1,11 +1,11 @@
 """Architecture registry: ``--arch <id>`` resolution — port of
 ``repro.configs``.
 
-The dense transformer configs and VGG-16 are ported, each copied from its
-JAX counterpart.  The other ids of the zoo are registered under the same
-names and raise ``NotImplementedError`` naming ROADMAP A14: the MoE, SSM
-and hybrid families, ``paligemma-3b`` (its prefix-LM mask is not causal)
-and ``whisper-large-v3`` (encoder-decoder).
+The dense, MoE, SSM and hybrid transformer configs and VGG-16 are ported,
+each copied from its JAX counterpart.  The other ids of the zoo are
+registered under the same names and raise ``NotImplementedError`` naming
+their ROADMAP item: ``paligemma-3b`` (A14.4: its prefix-LM mask is not
+causal) and ``whisper-large-v3`` (A14.5: encoder-decoder).
 """
 from __future__ import annotations
 
@@ -28,8 +28,18 @@ _MODULES: Dict[str, str] = {
 
 ARCH_IDS: List[str] = [k for k in _MODULES if k != "vgg16-cifar10"]
 
-# the dense family, trained through the flash-attention kernels
-PORTED_ARCH_IDS: List[str] = ["qwen2.5-14b", "qwen3-32b", "qwen2-1.5b", "smollm-135m"]
+# the dense, MoE, SSM and hybrid families; every attention layer runs the
+# flash-attention kernels
+PORTED_ARCH_IDS: List[str] = [
+    "qwen2.5-14b", "qwen3-32b", "qwen2-1.5b", "smollm-135m",
+    "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "jamba-1.5-large-398b",
+]
+# the families still to port, by ROADMAP item, and the archs that wait on them
+UNPORTED_FAMILY_ITEMS: Dict[str, str] = {"vlm": "A14.4", "audio": "A14.5"}
+UNPORTED_ARCH_ITEMS: Dict[str, str] = {
+    arch: UNPORTED_FAMILY_ITEMS[family]
+    for arch, family in (("paligemma-3b", "vlm"), ("whisper-large-v3", "audio"))
+}
 
 
 def _mod(name: str):
@@ -37,8 +47,8 @@ def _mod(name: str):
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
     if name != "vgg16-cifar10" and name not in PORTED_ARCH_IDS:
         raise NotImplementedError(
-            f"{name}: only the dense transformer configs are ported so far; "
-            "the MoE, SSM, hybrid, VLM and audio archs come with ROADMAP A14"
+            f"{name}: the dense, MoE, SSM and hybrid configs are ported so far; "
+            f"this arch comes with ROADMAP {UNPORTED_ARCH_ITEMS[name]}"
         )
     return import_module(f".{_MODULES[name]}", __package__)
 

@@ -14,7 +14,8 @@ formulation.
 
 Both engines are functional over parameter trees, as in JAX: Engine A's
 per-client update is ``torch.func.vmap(torch.func.grad_and_value(loss))``,
-Engine B's one ``grad_and_value`` around inner ``vmap``s.
+Engine B's one ``torch.autograd.grad`` around inner ``vmap``s (which keeps
+less of the forward alive than ``torch.func.grad`` does).
 """
 from __future__ import annotations
 
@@ -271,7 +272,7 @@ def build_train_step_b(
     each middle tier, vmapped over its entities; the single top-tier model
     on the flattened global batch.  The attention kernels fold a vmapped
     axis into their batch axis, so each layer launches B4 (and each B5
-    pass) once a round.  Backward: one ``grad_and_value`` through the
+    pass) once a round.  Backward: one ``torch.autograd.grad`` through the
     composed function; per-tier gradients rescaled to implement
     per-client SGD + Eq. 3 exactly.  Tied logits use tier 1's per-client
     embedding, as the JAX engine does (a batched product outside any
@@ -288,10 +289,16 @@ def build_train_step_b(
     their participant counts, on B1m.
 
     The fed levels are chosen on the host from the int round counter;
-    every fed mean is a kernel launch per leaf (``_fed_mean_b``).  Only
-    the dense transformer family runs here: ``VggModel.apply_units`` reads
-    absolute unit indices, which the tiers' local slices do not carry —
-    the JAX package's step fails on VGG too (ROADMAP §C).
+    every fed mean is a kernel launch per leaf (``_fed_mean_b``).  The
+    dense, MoE, SSM and hybrid transformer families run here; a MoE layer
+    dispatches each client's tokens in a group of their own
+    (``model.moe_groups``: 1 on tier 1, ``per`` on a middle tier, N on
+    the top), so capacity is per client as in Engine A, and the loss adds
+    ``0.01·(aux below the top / N + the top tier's aux)``, Engine A's
+    ``0.01·aux`` of the client mean.  VGG is refused:
+    ``VggModel.apply_units`` reads absolute unit indices, which the tiers'
+    local slices do not carry — the JAX package's step fails on VGG too
+    (ROADMAP §C).
     """
     N, M = plan.num_clients, plan.M
     spec = model.spec
@@ -332,6 +339,10 @@ def build_train_step_b(
         return lambda p, c: model.apply_units(p["units"], c, 0, hi - lo)
 
     def global_loss(tier_params, batch, w):
+        # MoE capacity is per client: an entity that pools k clients'
+        # tokens dispatches them in k groups, so they do not compete for
+        # each other's expert slots
+        model.moe_groups = 1  # tier 1 is vmapped per client
         carry = vmap(lambda p, b: tier_apply(0)(p, model.frontend_apply(p["frontend"], b)))(
             tier_params[0], batch)  # leaves [N, b, ...], the aux scalar [N]
         for m in range(1, M - 1):
@@ -342,6 +353,7 @@ def build_train_step_b(
             carry_e = tree_map(
                 lambda x: (x.reshape(J, per * x.shape[1], *x.shape[2:]) if x.ndim >= 2
                            else x.reshape(J, per).mean(1)), carry)
+            model.moe_groups = per  # each entity batch pools ``per`` clients
             carry_e = vmap(tier_apply(m))(tier_params[m], carry_e)
             carry = tree_map(
                 lambda x: (x.reshape(N, x.shape[1] // per, *x.shape[2:]) if x.ndim >= 2
@@ -350,6 +362,8 @@ def build_train_step_b(
             lambda x: x.reshape(N * x.shape[1], *x.shape[2:]) if x.ndim >= 2 else x.mean() * N,
             carry)
         pM = tree_map(lambda x: x[0], tier_params[M - 1])
+        model.moe_groups = N  # the cloud batch pools all N clients
+        aux_pre = carry_g["aux"]
         carry_g = tier_apply(M - 1)(pM, carry_g)
         if spec.tie_embeddings:
             h = L.rms_norm(carry_g["h"], pM["head"]["norm"], spec.norm_eps)
@@ -362,14 +376,36 @@ def build_train_step_b(
         labels = batch["labels"].reshape(-1, batch["labels"].shape[-1])
         lmask = (labels >= 0).float()
         if w is None:
-            return L.cross_entropy(logits, torch.clamp(labels, min=0), lmask)
+            loss = L.cross_entropy(logits, torch.clamp(labels, min=0), lmask)
+            if spec.moe is not None:
+                # the aux below the top tier arrives as its client mean
+                # times N (the scalar flatten), so it is divided back; the
+                # top tier's own aux is every client's in Engine A and
+                # enters at full weight
+                loss = loss + 0.01 * (aux_pre / N + (carry_g["aux"] - aux_pre))
+            return loss
         # per-client CE, then the participation-weighted mean: clients
         # enter the objective as in Engine A's vmapped loss
         per_client = vmap(lambda lo, la, mk: L.cross_entropy(lo, torch.clamp(la, min=0), mk))(
             *(t.reshape(N, -1, *t.shape[1:]) for t in (logits, labels, lmask)))
         return masked_mean_loss(per_client, w)
 
-    grad_loss = grad_and_value(global_loss)
+    def grad_loss(tier_params, batch, w):
+        # reverse-mode autograd around the tiers' vmaps: torch.func.grad
+        # keeps 2-3x the activations of torch.autograd here (a Mamba block
+        # at 2048 tokens: ~2.2 GB against ~0.9 GB)
+        leaves = tree_leaves(tier_params)
+        live = [x.detach().requires_grad_(True) for x in leaves]
+        it = iter(live)
+        params = tree_map(lambda _: next(it), tier_params)
+        try:
+            with torch.enable_grad():
+                loss = global_loss(params, batch, w)
+                grads = torch.autograd.grad(loss, live, allow_unused=True)
+        finally:
+            model.moe_groups = 1
+        it = iter(torch.zeros_like(x) if g is None else g for x, g in zip(live, grads))
+        return tree_map(lambda _: next(it), tier_params), loss.detach()
 
     def _step(state: TrainState, batch: Params, mask):
         w = None

@@ -52,7 +52,7 @@ def _unit_sq_norms(tree: Params, n_units: int) -> torch.Tensor:
         per = [sum(_sq_sum(x, 1) for x in tree_leaves(u)) for u in units]
         sq = torch.stack(per, dim=1)  # [N, U]
     elif isinstance(units, dict) and set(units) == {"enc", "dec"}:
-        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14")
+        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14.5")
     else:
         tot = None
         for x in tree_leaves(units):

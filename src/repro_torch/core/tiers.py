@@ -214,7 +214,7 @@ def _slice_units(units: Any, lo: int, hi: int) -> Any:
     if isinstance(units, (list, tuple)):
         return list(units)[lo:hi]
     if isinstance(units, dict) and set(units) == {"enc", "dec"}:
-        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14")
+        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14.5")
     return tree_map(lambda x: x[:, lo:hi], units)
 
 
@@ -240,7 +240,7 @@ def combine_tiers(parts: List[Params], template: Params) -> Params:
     if isinstance(tu, (list, tuple)):
         units = [u for part in units_parts for u in part]
     elif isinstance(tu, dict) and set(tu) == {"enc", "dec"}:
-        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14")
+        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14.5")
     else:
         units = tree_map(lambda *xs: torch.cat(xs, dim=1), *units_parts)
     return {"units": units, "frontend": parts[0]["frontend"], "head": parts[-1]["head"]}

@@ -8,11 +8,14 @@ BCD (Algorithm 2) re-optimization of (I, μ) → checkpoint.
     PYTHONPATH=src python -m repro_torch.launch.train --arch vgg16-cifar10 \
         --rounds 100 --non-iid --auto-optimize
 
-``--arch vgg16-cifar10`` is the paper's own setting; a dense transformer id
-(``smollm-135m``, ``qwen2-1.5b``, ``qwen2.5-14b``, ``qwen3-32b``) trains its
-REDUCED variant on a synthetic LM stream of 64-token sequences, as the JAX
-CLI does, with every attention on the flash-attention kernels.  The other
-arch ids of the zoo raise ``NotImplementedError`` (ROADMAP A14).
+``--arch vgg16-cifar10`` is the paper's own setting; a transformer id of
+the dense (``smollm-135m``, ``qwen2-1.5b``, ``qwen2.5-14b``,
+``qwen3-32b``), MoE (``granite-moe-1b-a400m``, ``phi3.5-moe-42b-a6.6b``),
+SSM (``mamba2-1.3b``) or hybrid (``jamba-1.5-large-398b``) family trains
+its REDUCED variant on a synthetic LM stream of 64-token sequences, as the
+JAX CLI does, with every attention on the flash-attention kernels.  The
+VLM and audio ids (``paligemma-3b``, ``whisper-large-v3``) raise
+``NotImplementedError`` naming ROADMAP A14.4 and A14.5.
 
 ``--auto-optimize`` runs ``--probe-rounds`` probe rounds from the initial
 state, estimates the Theorem-1 constants from them (``core.estimator``),

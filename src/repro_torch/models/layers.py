@@ -1,4 +1,4 @@
-"""Neural-net primitives — port of ``repro.models.layers``, the dense subset.
+"""Neural-net primitives — port of ``repro.models.layers``.
 
 Pure functions over parameter dicts (no module framework: the HSFL engine
 slices, stacks and aggregates raw parameter trees).  Initializers draw from
@@ -8,12 +8,16 @@ an explicit ``torch.Generator``.  Shapes follow the JAX package's
 Self-attention runs through the flash-attention kernels
 (``kernels.swa_attention``) at every sequence length and at the spec's
 window; the JAX package's ``_sdpa`` / ``_blockwise_sdpa`` split computes the
-same function and has no counterpart here.  The QKV, output and MLP
-products stay ``torch.matmul``, as the JAX package leaves them to XLA.
+same function and has no counterpart here.  The QKV, output, MLP, router,
+expert and Mamba projections stay ``torch.matmul`` / ``torch.einsum``, as
+the JAX package leaves them to XLA; so do the MoE dispatch (``moe``: top-k
+routing with capacity, an index scatter into per-group expert buffers and
+a gather or scatter-add combine) and Mamba2's chunked SSD scan
+(``ssd_scan``), which the JAX package runs in ``jnp`` too.
 
-Not ported yet (ROADMAP A14): the KV cache and decode path (serving), the
-cross-attention ``kv_override`` (audio), ``prefix_len > 0`` (the VLM's
-prefix-LM mask), bidirectional attention, ``moe`` and ``mamba_block``.
+Not ported yet (ROADMAP A14.3–A14.5): the KV and Mamba caches of the decode
+path (serving), the cross-attention ``kv_override`` (audio),
+``prefix_len > 0`` (the VLM's prefix-LM mask) and bidirectional attention.
 """
 from __future__ import annotations
 
@@ -79,7 +83,7 @@ def cross_entropy(
 
 def init_attention(gen: torch.Generator, spec: ModelSpec, cross: bool = False) -> Params:
     if cross:
-        raise NotImplementedError("cross-attention (audio) is ported with ROADMAP A14")
+        raise NotImplementedError("cross-attention (audio) is ported with ROADMAP A14.5")
     d, hd = spec.d_model, spec.hd
     h, k = spec.num_heads, spec.num_kv_heads
     p: Params = {
@@ -115,13 +119,13 @@ def attention(
     within ``spec.window``.
     """
     if cache is not None:
-        raise NotImplementedError("the KV cache and decode path come with serving (ROADMAP A14)")
+        raise NotImplementedError("the KV cache and decode path come with serving (ROADMAP A14.3)")
     if kv_override is not None:
-        raise NotImplementedError("cross-attention (audio) is ported with ROADMAP A14")
+        raise NotImplementedError("cross-attention (audio) is ported with ROADMAP A14.5")
     if prefix_len > 0:
-        raise NotImplementedError("the prefix-LM mask (VLM) is ported with ROADMAP A14")
+        raise NotImplementedError("the prefix-LM mask (VLM) is ported with ROADMAP A14.4")
     if not causal:
-        raise NotImplementedError("bidirectional attention (audio encoder) is ported with ROADMAP A14")
+        raise NotImplementedError("bidirectional attention (audio encoder) is ported with ROADMAP A14.5")
     B, S, d = x.shape
     h, k_heads, hd = spec.num_heads, spec.num_kv_heads, spec.hd
     positions = torch.arange(S, device=x.device)
@@ -174,11 +178,245 @@ def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x @ params["w1"], approximate="tanh") @ params["w2"]
 
 
-def moe(*args, **kwargs):
-    """Top-k MoE with capacity — ported with ROADMAP A14 (the MoE family)."""
-    raise NotImplementedError("moe is ported with ROADMAP A14 (the MoE family)")
 
 
-def mamba_block(*args, **kwargs):
-    """Mamba2 SSD block — ported with ROADMAP A14 (the SSM and hybrid families)."""
-    raise NotImplementedError("mamba_block is ported with ROADMAP A14 (SSM and hybrid)")
+# --------------------------------------------------------------------------- #
+# MoE (top-k routing with capacity)
+# --------------------------------------------------------------------------- #
+
+
+def init_moe(gen: torch.Generator, spec: ModelSpec) -> Params:
+    d, ff = spec.d_model, spec.d_ff
+    E = spec.moe.num_experts
+    return {
+        "router": _dense_init(gen, (d, E), spec.pdtype, scale=0.02),
+        "w1": _dense_init(gen, (E, d, ff), spec.pdtype),
+        "w3": _dense_init(gen, (E, d, ff), spec.pdtype),
+        "w2": _dense_init(gen, (E, ff, d), spec.pdtype),
+        "norm": torch.zeros((d,), dtype=spec.pdtype),
+    }
+
+
+def moe_route(params: Params, xg: torch.Tensor, spec: ModelSpec):
+    """Router of ``moe`` on grouped tokens ``xg`` [G, Tg, d]: (the softmax
+    probabilities [G, Tg, E], the top-k gate values renormalised over the k
+    [G, Tg, K], the expert ids [G, Tg, K], descending by gate)."""
+    logits = (xg @ params["router"]).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, expert_ids = torch.topk(probs, spec.moe.top_k, dim=-1)
+    gate_vals = gate_vals / torch.clamp(torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
+    return probs, gate_vals, expert_ids
+
+
+def moe(params: Params, x: torch.Tensor, spec: ModelSpec,
+        groups: int = 1) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Scatter-based top-k MoE with capacity; returns (output, the Switch
+    load-balancing aux loss).
+
+    The tokens are reshaped [G, T/G] (``groups``, when it divides T) with a
+    per-group capacity ``cap``.  Each (token, k) takes the rank of its
+    expert's one-hot within the group's (token, k) order; ranks at or past
+    ``cap`` go to the spill slot ``cap`` of a ``cap + 1`` buffer, which the
+    experts never read.  The dispatch writes every kept (token, k) into its
+    own slot, so a plain ``index_put`` reproduces the JAX scatter (the spill
+    slot's duplicate writes are dropped with it).  With one group the
+    combine gathers each (token, k) slot back; with several it scatter-adds
+    the gate-weighted expert rows into a [Tg + 1, d] buffer per group,
+    whose last row takes the empty slots (Engine B's per-entity dispatch).
+    On the card that scatter-add is atomic, so its sums are not
+    bit-repeatable.  The JAX ``constraint=`` hook pins GSPMD shardings and
+    has no counterpart here.
+    """
+    ms = spec.moe
+    B, S, d = x.shape
+    T = B * S
+    E, K = ms.num_experts, ms.top_k
+    G = groups if T % groups == 0 else 1
+    Tg = T // G
+    xg = x.reshape(G, Tg, d)
+    probs, gate_vals, expert_ids = moe_route(params, xg, spec)
+
+    cap = int(max(1, math.ceil(Tg * K / E * ms.capacity_factor)))
+    experts = torch.arange(E, device=x.device)
+    oh_flat = (expert_ids[..., None] == experts).long().reshape(G, Tg * K, E)
+    pos = torch.cumsum(oh_flat, dim=1) - oh_flat  # rank within expert (per group)
+    pos = torch.sum(pos * oh_flat, dim=-1).reshape(G, Tg, K)
+    slot = torch.where(pos < cap, pos, torch.full_like(pos, cap))  # overflow -> spill
+
+    eid = expert_ids.reshape(G, Tg * K)
+    sid = slot.reshape(G, Tg * K)
+    gid = torch.arange(G, device=x.device)[:, None].expand(G, Tg * K)
+    xrep = torch.repeat_interleave(xg, K, dim=1)  # [G, Tg*K, d]
+    buf = torch.zeros((G, E, cap + 1, d), dtype=x.dtype, device=x.device)
+    ein = buf.index_put((gid, eid, sid), xrep)[:, :, :cap]  # [G, E, cap, d]
+
+    h = torch.einsum("gecd,edf->gecf", ein, params["w1"])
+    g = torch.einsum("gecd,edf->gecf", ein, params["w3"])
+    h = F.silu(h) * g
+    eout = torch.einsum("gecf,efd->gecd", h, params["w2"])  # [G, E, cap, d]
+
+    if G > 1:
+        # combine by scatter-add in expert space: each slot's gate-weighted
+        # row lands on its token; empty slots carry token id Tg (the drop row)
+        gbuf = torch.zeros((G, E, cap + 1), dtype=torch.float32, device=x.device)
+        gbuf = gbuf.index_put((gid, eid, sid), gate_vals.reshape(G, Tg * K))
+        tok = torch.arange(Tg, device=x.device).repeat_interleave(K)
+        tbuf = torch.full((G, E, cap + 1), Tg, dtype=torch.long, device=x.device)
+        tbuf = tbuf.index_put((gid, eid, sid), tok.expand(G, Tg * K))
+        weighted = eout * gbuf[:, :, :cap, None].to(eout.dtype)
+        out = torch.zeros((G, Tg + 1, d), dtype=x.dtype, device=x.device)
+        gslot = torch.arange(G, device=x.device)[:, None].expand(G, E * cap)
+        out = out.index_put((gslot, tbuf[:, :, :cap].reshape(G, E * cap)),
+                            weighted.reshape(G, E * cap, d), accumulate=True)
+        out = out[:, :Tg]
+    else:
+        # combine: gather each (token, k) slot back; the spill slot reads 0
+        eout_p = F.pad(eout, (0, 0, 0, 1))
+        got = eout_p[gid, eid, sid].reshape(G, Tg, K, d)
+        out = torch.sum(got * gate_vals[..., None].to(got.dtype), dim=2)
+
+    # Switch-style load balancing, per dispatch group, then averaged
+    me = torch.mean(probs, dim=1)  # [G, E]
+    ce = torch.mean((expert_ids[..., 0, None] == experts).float(), dim=1)
+    aux = E * torch.mean(torch.sum(me * ce, dim=-1))
+    return out.reshape(B, S, d), aux
+
+
+# --------------------------------------------------------------------------- #
+# Mamba2 (SSD — state space duality, arXiv:2405.21060)
+# --------------------------------------------------------------------------- #
+
+
+def init_mamba(gen: torch.Generator, spec: ModelSpec) -> Params:
+    ss = spec.ssm
+    d = spec.d_model
+    di = ss.expand * d
+    nh = di // ss.head_dim
+    n = ss.state_dim
+    in_dim = 2 * di + 2 * n + nh  # z, x, B, C, dt
+    return {
+        "in_proj": _dense_init(gen, (d, in_dim), spec.pdtype),
+        "conv_w": _dense_init(gen, (ss.conv_width, di), spec.pdtype, scale=0.5),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, nh, dtype=torch.float32)).to(spec.pdtype),
+        "D": torch.ones((nh,), dtype=spec.pdtype),
+        "dt_bias": torch.zeros((nh,), dtype=spec.pdtype),
+        "gate_norm": torch.zeros((di,), dtype=spec.pdtype),
+        "out_proj": _dense_init(gen, (di, d), spec.pdtype),
+        "norm": torch.zeros((d,), dtype=spec.pdtype),
+    }
+
+
+def _segsum(x: torch.Tensor) -> torch.Tensor:
+    """x [..., T] -> lower-triangular cumulative segment sums [..., T, T]
+    (−inf above the diagonal)."""
+    T = x.shape[-1]
+    cs = torch.cumsum(x, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    tril = torch.tril(torch.ones((T, T), dtype=torch.bool, device=x.device))
+    return torch.where(tril, diff, torch.full_like(diff, -math.inf))
+
+
+def ssd_scan(
+    x: torch.Tensor,  # [B, S, H, P] (already dt-discretized input)
+    A: torch.Tensor,  # [B, S, H]    (dt * A, negative)
+    Bm: torch.Tensor,  # [B, S, N]
+    Cm: torch.Tensor,  # [B, S, N]
+    chunk: int,
+    init_state: Optional[torch.Tensor] = None,  # [B, H, P, N]
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked SSD (dual form). Returns (y [B,S,H,P], final_state [B,H,P,N]).
+
+    The JAX package's three- and four-operand einsums are contracted pairwise
+    here, so no intermediate grows past the [B, H, nc, l, l] decay matrix
+    (``torch.einsum`` contracts left to right without ``opt_einsum``)."""
+    B, S, H, P = x.shape
+    N = Bm.shape[-1]
+    # the operands' common dtype, as jnp.einsum promotes them
+    ct = torch.promote_types(torch.promote_types(x.dtype, A.dtype),
+                             torch.promote_types(Bm.dtype, Cm.dtype))
+    x, A, Bm, Cm = (t.to(ct) for t in (x, A, Bm, Cm))
+    pad = (-S) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        A = F.pad(A, (0, 0, 0, pad))
+        Bm = F.pad(Bm, (0, 0, 0, pad))
+        Cm = F.pad(Cm, (0, 0, 0, pad))
+    Sp = x.shape[1]
+    nc = Sp // chunk
+    xc = x.reshape(B, nc, chunk, H, P)
+    Ac = A.reshape(B, nc, chunk, H).permute(0, 3, 1, 2)  # [B,H,nc,l]
+    Bc = Bm.reshape(B, nc, chunk, N)
+    Cc = Cm.reshape(B, nc, chunk, N)
+
+    A_cumsum = torch.cumsum(Ac, dim=-1)  # [B,H,nc,l]
+    L = torch.exp(_segsum(Ac))  # [B,H,nc,l,l]
+    # 1. intra-chunk (diagonal block) outputs
+    CB = torch.einsum("bcln,bcsn->bcls", Cc, Bc)
+    Y_diag = torch.einsum("bhcls,bcshp->bclhp", CB[:, None] * L, xc)
+    # 2. chunk-final states
+    decay_states = torch.exp(A_cumsum[..., -1:] - A_cumsum)  # [B,H,nc,l]
+    xd = xc * decay_states.permute(0, 2, 3, 1)[..., None]  # [B,nc,l,H,P]
+    states = torch.einsum("bcln,bclhp->bchpn", Bc, xd)
+    # 3. inter-chunk recurrence
+    if init_state is None:
+        init_state = torch.zeros((B, H, P, N), dtype=states.dtype, device=states.device)
+    states = torch.cat([init_state[:, None].to(states.dtype), states], dim=1)
+    chunk_decay = A_cumsum[..., -1]  # [B,H,nc]
+    decay_chunk = torch.exp(_segsum(F.pad(chunk_decay, (1, 0))))  # [B,H,nc+1,nc+1]
+    new_states = torch.einsum("bhzc,bchpn->bzhpn", decay_chunk, states)
+    states_in = new_states[:, :-1]  # state entering each chunk
+    final_state = new_states[:, -1]
+    # 4. state -> output contribution
+    state_decay_out = torch.exp(A_cumsum)  # [B,H,nc,l]
+    Y_off = torch.einsum("bcln,bchpn->bclhp", Cc, states_in)
+    Y_off = Y_off * state_decay_out.permute(0, 2, 3, 1)[..., None]
+    Y = (Y_diag + Y_off).reshape(B, Sp, H, P)
+    return Y[:, :S], final_state
+
+
+def mamba_block(
+    params: Params,
+    x: torch.Tensor,  # [B, S, d]
+    spec: ModelSpec,
+    cache: Optional[Params] = None,
+) -> Tuple[torch.Tensor, Optional[Params]]:
+    """Mamba2 block (pre-norm and residual by the caller): in-projection,
+    the causal depthwise convolution, the SSD scan, the gated RMS norm and
+    the out-projection.  Training and prefill only: the decode cache
+    (``cache=``) comes with serving."""
+    if cache is not None:
+        raise NotImplementedError(
+            "the Mamba decode cache comes with serving (ROADMAP A14.3)")
+    ss = spec.ssm
+    d = spec.d_model
+    di = ss.expand * d
+    nh = di // ss.head_dim
+    n = ss.state_dim
+    B, S, _ = x.shape
+
+    zxbcdt = x @ params["in_proj"]
+    z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, n, n, nh], dim=-1)
+    # dt and A in f32 at least (f64 stays f64); jax.nn.softplus is logaddexp(x, 0)
+    f32 = torch.promote_types(x.dtype, torch.float32)
+    dt = dt.to(f32) + params["dt_bias"].to(f32)
+    dt = torch.logaddexp(dt, torch.zeros_like(dt))  # [B,S,H]
+    A = -torch.exp(params["A_log"].to(f32))  # [H]
+
+    # causal depthwise conv over xs
+    W = ss.conv_width
+    xpad = F.pad(xs, (0, 0, W - 1, 0))
+    xconv = sum(xpad[:, i : i + S] * params["conv_w"][i] for i in range(W))
+    xconv = F.silu(xconv)
+    xh = xconv.reshape(B, S, nh, ss.head_dim)
+    x_dt = xh * dt[..., None].to(xh.dtype)
+    y, _ = ssd_scan(x_dt, dt * A, Bm, Cm, ss.chunk)
+    y = y + xh * params["D"].to(xh.dtype)[None, None, :, None]
+
+    y = y.reshape(B, S, di)
+    y = rms_norm(y * F.silu(z), params["gate_norm"], spec.norm_eps)
+    return y @ params["out_proj"], None
+
+
+def init_mamba_cache(spec: ModelSpec, batch: int) -> Params:
+    """The Mamba decode cache — comes with serving."""
+    raise NotImplementedError("the Mamba decode cache comes with serving (ROADMAP A14.3)")

@@ -1,5 +1,6 @@
 """SplittableModel: the frontend / units / head protocol over the model zoo
-— port of ``repro.models.model`` for the dense family.
+— port of ``repro.models.model`` for the dense, MoE, SSM and hybrid
+families.
 
 The HSFL engine relies only on:
   * ``init_params(gen, device)`` -> {"frontend": .., "units": <stacked [U, ...]>, "head": ..}
@@ -7,14 +8,22 @@ The HSFL engine relies only on:
   * unit parameters stacked on axis 0, so a cut range is a slice.
 
 The tree is the JAX package's, leaf for leaf (``units/attn/wq`` is
-[U, d, H·hd]), so parameters and checkpoints pass between the packages
-unchanged.  A Python loop over the units takes the place of ``lax.scan``.
+[U, d, H·hd]; a hybrid unit's Mamba, MoE and MLP sub-layers are stacked
+once more inside it, ``units/mamba/in_proj`` [U, attn_period − 1, d, ·]),
+so parameters and checkpoints pass between the packages unchanged.  A
+Python loop over the units takes the place of ``lax.scan``.
 
-Not ported yet (ROADMAP A14): the MoE, SSM, hybrid, VLM and audio
-families, decoding with its caches, and ``spec.remat``
-(``torch.utils.checkpoint`` does not compose with ``torch.func``).  The
-sharding hooks of the JAX class (``carry_constraint``, ``moe_constraint``)
-belong to the sharded engine and are not ported.
+``moe_groups`` is the MoE dispatch's group count: 1 for one client's
+tokens, set per tier by Engine B to the clients an entity pools (each
+client's tokens then compete for expert capacity only among themselves).
+The MoE families add ``0.01 · aux`` (the Switch load-balancing loss summed
+over the layers) to the token loss.
+
+Not ported yet (ROADMAP A14.3–A14.6): decoding with its caches, the VLM
+(A14.4) and audio (A14.5) families, and ``spec.remat`` (A14.6:
+``torch.utils.checkpoint`` does not compose with ``torch.func``).  The
+GSPMD hooks of the JAX class (``carry_constraint``, ``moe_constraint``) pin
+XLA shardings and have no counterpart here.
 """
 from __future__ import annotations
 
@@ -24,6 +33,7 @@ import torch
 
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_map
+from ..configs import UNPORTED_FAMILY_ITEMS
 from . import layers as L
 from .spec import ModelSpec
 
@@ -40,26 +50,49 @@ def _unstack(units: Any, lo: int, hi: int) -> List[Any]:
     return list(units[lo:hi].unbind(0))
 
 
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
+
+
+def _stack(trees: List[Params]) -> Params:
+    return tree_map(lambda *xs: torch.stack(xs), trees[0], *trees[1:])
+
+
 class SplittableModel:
     def __init__(self, spec: ModelSpec):
-        if spec.family != "dense":
+        if spec.family not in FAMILIES:
+            item = UNPORTED_FAMILY_ITEMS.get(spec.family, "A14")
             raise NotImplementedError(
-                f"{spec.name}: the {spec.family} family is ported with ROADMAP A14; "
-                "the port runs the dense family"
+                f"{spec.name}: the {spec.family} family is ported with ROADMAP {item}; "
+                f"the port runs the {', '.join(FAMILIES)} families"
             )
         if spec.remat:
             raise NotImplementedError(
-                "spec.remat: unit rematerialisation is ported with ROADMAP A14 "
+                "spec.remat: unit rematerialisation is ported with ROADMAP A14.6 "
                 "(torch.utils.checkpoint does not compose with torch.func)"
             )
         self.spec = spec
+        # the MoE dispatch's group count (Engine B sets it per tier)
+        self.moe_groups = 1
 
     # ------------------------------------------------------------------ #
     # init
     # ------------------------------------------------------------------ #
     def _init_unit(self, gen: torch.Generator) -> Params:
         spec = self.spec
-        return {"attn": L.init_attention(gen, spec), "mlp": L.init_mlp(gen, spec)}
+        if spec.family == "dense":
+            return {"attn": L.init_attention(gen, spec), "mlp": L.init_mlp(gen, spec)}
+        if spec.family == "moe":
+            return {"attn": L.init_attention(gen, spec), "moe": L.init_moe(gen, spec)}
+        if spec.family == "ssm":
+            return {"mamba": L.init_mamba(gen, spec)}
+        per = spec.attn_period  # hybrid: one attention, per − 1 Mamba sub-layers
+        n_moe = per // spec.moe_period
+        return {
+            "attn": L.init_attention(gen, spec),
+            "mamba": _stack([L.init_mamba(gen, spec) for _ in range(per - 1)]),
+            "moe": _stack([L.init_moe(gen, spec) for _ in range(n_moe)]),
+            "mlp": _stack([L.init_mlp(gen, spec) for _ in range(per - n_moe)]),
+        }
 
     def init_params(
         self, generator: torch.Generator, device: Optional[DeviceLike] = None
@@ -73,8 +106,7 @@ class SplittableModel:
         frontend: Params = {
             "embed": (torch.randn((V, d), generator=generator) * 0.02).to(spec.pdtype)
         }
-        units = [self._init_unit(generator) for _ in range(spec.n_units)]
-        stacked = tree_map(lambda *xs: torch.stack(xs), units[0], *units[1:])
+        stacked = _stack([self._init_unit(generator) for _ in range(spec.n_units)])
         head: Params = {"norm": torch.zeros((d,), dtype=spec.pdtype)}
         if not spec.tie_embeddings:
             head["unembed"] = L._dense_init(generator, (d, V), spec.pdtype, scale=0.02)
@@ -84,22 +116,62 @@ class SplittableModel:
     # ------------------------------------------------------------------ #
     # unit application (training)
     # ------------------------------------------------------------------ #
+    def _attention(self, p: Params, h: torch.Tensor) -> torch.Tensor:
+        a, _ = L.attention(p, L.rms_norm(h, p["norm"], self.spec.norm_eps), self.spec)
+        return a
+
+    def _moe(self, p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        return L.moe(p, L.rms_norm(h, p["norm"], self.spec.norm_eps), self.spec,
+                     groups=self.moe_groups)
+
+    def _mamba(self, p: Params, h: torch.Tensor) -> torch.Tensor:
+        o, _ = L.mamba_block(p, L.rms_norm(h, p["norm"], self.spec.norm_eps), self.spec)
+        return o
+
+    def _mlp(self, p: Params, h: torch.Tensor) -> torch.Tensor:
+        return L.mlp(p, L.rms_norm(h, p["norm"], self.spec.norm_eps))
+
     def _apply_one_unit(self, up: Params, carry: Params) -> Params:
         spec = self.spec
-        eps = spec.norm_eps
-        h = carry["h"]
-        a, _ = L.attention(up["attn"], L.rms_norm(h, up["attn"]["norm"], eps), spec)
-        h = h + a
-        o = L.mlp(up["mlp"], L.rms_norm(h, up["mlp"]["norm"], eps))
+        fam = spec.family
+        h, aux = carry["h"], carry["aux"]
+        if fam in ("dense", "moe"):
+            h = h + self._attention(up["attn"], h)
+            if fam == "moe":
+                o, al = self._moe(up["moe"], h)
+                aux = aux + al
+            else:
+                o = self._mlp(up["mlp"], h)
+            h = h + o
+        elif fam == "ssm":
+            h = h + self._mamba(up["mamba"], h)
+        else:  # hybrid: attention, then Mamba; MoE on every moe_period-th sub-layer
+            per = spec.attn_period
+            n_moe = per // spec.moe_period
+            mambas = _unstack(up["mamba"], 0, per - 1)
+            moes = _unstack(up["moe"], 0, n_moe)
+            mlps = _unstack(up["mlp"], 0, per - n_moe)
+            for j in range(per):
+                if j == 0:
+                    h = h + self._attention(up["attn"], h)
+                else:
+                    h = h + self._mamba(mambas.pop(0), h)
+                if j % spec.moe_period == 1:
+                    o, al = self._moe(moes.pop(0), h)
+                    aux = aux + al
+                else:
+                    o = self._mlp(mlps.pop(0), h)
+                h = h + o
         out = dict(carry)
-        out["h"] = h + o
+        out["h"] = h
+        out["aux"] = aux
         return out
 
     def apply_units(self, units: Params, carry: Params, lo: int, hi: int,
                     prefix_len: int = 0) -> Params:
         """Run units [lo, hi) on the carry; unit params are stacked on axis 0."""
         if prefix_len > 0:
-            raise NotImplementedError("the prefix-LM mask (VLM) is ported with ROADMAP A14")
+            raise NotImplementedError("the prefix-LM mask (VLM) is ported with ROADMAP A14.4")
         if lo >= hi:
             return carry
         for up in _unstack(units, lo, hi):
@@ -137,7 +209,10 @@ class SplittableModel:
         return self.head_apply(params, carry), carry["aux"]
 
     def loss_fn(self, params: Params, batch: Params) -> torch.Tensor:
-        logits, _ = self.forward(params, batch)
+        logits, aux = self.forward(params, batch)
         labels = batch["labels"]
         mask = (labels >= 0).float()
-        return L.cross_entropy(logits, torch.clamp(labels, min=0), mask)
+        loss = L.cross_entropy(logits, torch.clamp(labels, min=0), mask)
+        if self.spec.moe is not None:
+            loss = loss + 0.01 * aux
+        return loss

@@ -194,5 +194,5 @@ def test_train_cli_has_only_the_ported_flags():
     assert args.auto_optimize and args.probe_rounds == 8 and args.eps_scale == 4.0
     # --arch takes any id, as the JAX CLI does; the unported ones raise
     assert train.parse_args(["--arch", "smollm-135m"]).arch == "smollm-135m"
-    with pytest.raises(NotImplementedError, match="A14"):
-        train.setup(train.parse_args(["--arch", "mamba2-1.3b", "--device", "cpu"]))
+    with pytest.raises(NotImplementedError, match="A14.5"):
+        train.setup(train.parse_args(["--arch", "whisper-large-v3", "--device", "cpu"]))

@@ -83,6 +83,8 @@ def test_every_jax_module_of_the_slice_has_its_counterpart():
         "control/drift.py", "control/telemetry.py", "control/window.py", "control/bound.py",
         "control/controller.py", "control/replay.py",
         "core/sharded.py", "launch/mesh.py", "launch/sharding.py",
+        "configs/granite_moe_1b_a400m.py", "configs/phi3_5_moe_42b_a6_6b.py",
+        "configs/mamba2_1_3b.py", "configs/jamba_1_5_large_398b.py",
     ]
     for rel in slice_modules:
         assert (ROOT / "src" / "repro" / rel).exists(), rel
@@ -125,15 +127,21 @@ from repro_torch.core import build_sharded_train_step_a as exported
 from repro_torch.launch.mesh import make_debug_mesh, make_production_mesh, run_on_ranks
 from repro_torch.launch.sharding import PartitionSpec, param_pspecs, to_placements
 from repro_torch.launch import make_debug_mesh as exported_mesh
+from repro_torch.models.layers import init_mamba, init_moe, mamba_block, moe, moe_route, ssd_scan
+from repro_torch.configs import get_reduced, get_spec
+for arch in ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b",
+             "jamba-1.5-large-398b"):
+    get_spec(arch), get_reduced(arch)
 print("ok")
 """
 
 
 def test_the_costs_and_robustness_modules_import_alone():
     """privacy/, energy/, faults/, core/async_agg.py, every control/
-    module (the migration and the control loop) and Engine B (the engine,
-    its migration, the API's step choice, B1m's weights) import with jax,
-    triton and repro blocked; control exports its ``Controller``."""
+    module (the migration and the control loop), Engine B (the engine,
+    its migration, the API's step choice, B1m's weights), the sharded
+    engine, and the MoE / Mamba layers and the four zoo configs import with
+    jax, triton and repro blocked; control exports its ``Controller``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _PROBE_SLICE], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)

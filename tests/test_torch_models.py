@@ -130,8 +130,8 @@ def test_vgg_per_client_vmap_grads_match_jax():
 
 
 def test_build_model_refuses_transformer_specs():
-    """The dense family is ported; the other families, and the JAX
-    package's own spec objects, are refused."""
+    """The dense, MoE, SSM and hybrid families are ported; the VLM and
+    audio families, and the JAX package's own spec objects, are refused."""
     import dataclasses
 
     from repro.configs import get_reduced
@@ -142,8 +142,10 @@ def test_build_model_refuses_transformer_specs():
     assert isinstance(build_model(port_get_reduced("smollm-135m")), SplittableModel)
     moe = dataclasses.replace(port_get_reduced("smollm-135m"), family="moe",
                               moe=MoeSpec(num_experts=4, top_k=2))
-    with pytest.raises(NotImplementedError, match="A14"):
-        build_model(moe)
+    assert isinstance(build_model(moe), SplittableModel)
+    vlm = dataclasses.replace(port_get_reduced("smollm-135m"), family="vlm", prefix_len=4)
+    with pytest.raises(NotImplementedError, match="A14.4"):
+        build_model(vlm)
     with pytest.raises(TypeError, match="ModelSpec"):
         build_model(get_reduced("smollm-135m"))
 

@@ -91,7 +91,14 @@ def p0():
 
 
 @pytest.fixture(scope="module")
-def spawned(p0, tmp_path_factory):
+def p0_moe():
+    """JAX's REDUCED granite-moe-1b-a400m init (``PRNGKey(0)``) as NumPy."""
+    return params_to_numpy(JaxModel(jax_reduced(C.MOE_ARCH)).init_params(
+        jax.random.PRNGKey(0)))
+
+
+@pytest.fixture(scope="module")
+def spawned(p0, p0_moe, tmp_path_factory):
     """The JAX package's sharded sync and guard on 4 forced host devices
     (a subprocess) while every port case runs on 4 gloo ranks, each
     started once."""
@@ -101,7 +108,7 @@ def spawned(p0, tmp_path_factory):
     jax_ref = subprocess.Popen([sys.executable, "-c", JAX_SCRIPT, path], env=env,
                                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     try:
-        port = run_on_ranks(C.rank_cases, 4, device="cpu", args=(p0,))
+        port = run_on_ranks(C.rank_cases, 4, device="cpu", args=(p0, p0_moe))
         out, err = jax_ref.communicate(timeout=300)
     finally:
         jax_ref.kill()
@@ -276,3 +283,12 @@ def test_other_meshes_match_the_unsharded_engine(mesh, ranks, unsharded):
     (sl, sp), (ul, up) = ranks[mesh], unsharded["mask"]
     np.testing.assert_allclose(sl, ul, rtol=RTOL)
     _close(sp, up, RTOL, ATOL, mesh)
+
+
+def test_moe_engine_at_two_shards_matches_the_unsharded_engine(ranks, p0_moe):
+    """REDUCED granite (MoE, each client's tokens dispatched in a group of
+    their own) over D = 2 client shards of a (data=2, model=2) mesh: losses
+    and params at the sharded tolerance of the unsharded port's run."""
+    (sl, sp), (ul, up) = ranks["moe"], C.run_engine("plain", p0_moe, arch=C.MOE_ARCH)
+    np.testing.assert_allclose(sl, ul, rtol=RTOL)
+    _close(sp, up, RTOL, ATOL, "moe")

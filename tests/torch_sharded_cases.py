@@ -52,6 +52,8 @@ PLAN = dict(cuts=(1, 2), intervals=(2, 2, 1), entities=(N, 2, 1))
 # tier 1's four entities live two to a rank at D = 4: device-local
 LOCAL_PLAN = dict(cuts=(1, 2), intervals=(2, 2, 1), entities=(N, 4, 1))
 ENGINE_CASES = ("plain", "mask", "int8", "guard+mask")
+# REDUCED granite (MoE): each client's dispatch stays local (one group)
+MOE_ARCH = "granite-moe-1b-a400m"
 
 
 def engine_batches(vocab: int, rounds: int = ROUNDS, seed: int = 0):
@@ -98,10 +100,11 @@ def engine_kwargs(case: str):
 
 
 def run_engine(case: str, p0, plan_kw=PLAN, rounds: int = ROUNDS, mesh=None,
-               client_axes=("data",)):
-    """(losses, full params as NumPy) of ``rounds`` Engine-A rounds from the
-    carried init, dispatched per round type as ``launch.train`` does;
-    sharded over ``mesh``'s ``client_axes`` when one is given."""
+               client_axes=("data",), arch: str = ARCH):
+    """(losses, full params as NumPy) of ``rounds`` Engine-A rounds of
+    ``arch`` from the carried init, dispatched per round type as
+    ``launch.train`` does; sharded over ``mesh``'s ``client_axes`` when one
+    is given."""
     import torch
 
     from repro_torch.configs import get_reduced
@@ -114,7 +117,7 @@ def run_engine(case: str, p0, plan_kw=PLAN, rounds: int = ROUNDS, mesh=None,
     from repro_torch.optim import sgd
 
     cpu = torch.device("cpu")
-    spec = get_reduced(ARCH)
+    spec = get_reduced(arch)
     model, opt = SplittableModel(spec), sgd(LR)
     plan = default_plan(spec.n_units, N, **plan_kw)
     kw = engine_kwargs(case)
@@ -209,9 +212,10 @@ def run_sync_case(case: str, step: int, mesh=None):
     return params_to_numpy(out), None if health is None else health.numpy()
 
 
-def rank_cases(p0):
+def rank_cases(p0, p0_moe):
     """Every case of ``tests/test_torch_sharded.py`` on this rank of a
-    gloo world of D ranks (a ``data``×1 mesh); rank 0 returns the results."""
+    gloo world of D ranks (a ``data``×1 mesh); rank 0 returns the results.
+    ``p0_moe`` is the MoE case's init (``MOE_ARCH``)."""
     import torch.distributed as dist
 
     from repro_torch.launch.mesh import make_debug_mesh
@@ -232,6 +236,10 @@ def rank_cases(p0):
                            client_axes=("pod", "data")),
         "model": run_engine("mask", p0, mesh=make_debug_mesh(data=2, model=2,
                                                              device="cpu")),
+        # MoE at D = 2 client shards (each shard's two model ranks hold copies)
+        "moe": run_engine("plain", p0_moe, mesh=make_debug_mesh(data=2, model=2,
+                                                                device="cpu"),
+                          arch=MOE_ARCH),
     }
     return out if dist.get_rank() == 0 else None
 
