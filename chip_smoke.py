@@ -9,6 +9,7 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build every CUDA kernel of the package with nvcc, in parallel; print
    ptxas's registers and spills and cuobjdump's count of tensor-core (HMMA)
    instructions of the attention kernels (B4, B5), and fail if one has none;
+   B4d's registers and spills;
 3. hold each kernel against its plain PyTorch version on the card: the
    aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
    ragged edge shapes; the participation-masked B1m (f32, bf16, int8 load)
@@ -104,6 +105,22 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    mamba2-1.3b's init gradient norm at 4, 16 and 48 blocks; REDUCED
    granite and mamba2 through the CLI and REDUCED jamba through
    ``api.run`` on the card against the CPU (losses rtol 1e-4);
+   then the ``[serve]`` phase (``serve_paths``): decode attention (B4d)
+   against its plain version at the serve cells' shapes, every ported
+   arch's REDUCED heads and a long cache (partly filled, wrapped, all
+   masked; windows 0 and 32; f32 and bf16); the full-width smollm-135m
+   that the main path trained, saved client-stacked with
+   ``save_checkpoint``, every row equal, restored through
+   ``launch.serve.load_serving_params`` and served by
+   ``launch.serve.generate`` (batch 8, prompt 64, gen 64, cache 128; B4d
+   30 layers x 128 steps); qwen2-1.5b (random, full width and depth),
+   granite-moe-1b-a400m and mamba2-1.3b at full width, each served at that
+   shape -- every decode held to its forward on the tokens it fed
+   (teacher forcing, max-normalised 1e-4; granite at capacity E/k with its
+   routing flips counted; mamba2 against the float64 forward, at most
+   twice as far as the f32 forward), smollm-135m under a window of 32 over
+   96 steps (the ring wraps) against the windowed forward, REDUCED jamba
+   on the card against the CPU, and the serve CLI (REDUCED smollm-135m);
 6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
@@ -111,7 +128,10 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    of a full-width round of each model, the per-class one included; B3m and
    its int8 load at [20, 2359296], guard_health at both models' full
    width, the DP transform, and the new paths' round times beside their
-   twins without faults, DP or staleness;
+   twins without faults, DP or staleness; B4d at the serve shape [8, 128,
+   9, 3, 64] and a long cache [8, 8192, 12, 2, 128] beside its plain
+   version, its bytes bound and SDPA; ms a decode step, tok/s and peak
+   memory of each serve cell;
 7. one JSON line describing every kernel, then the card, then
    ``{"ok": true, ...}`` as the last line.
 """
@@ -3787,6 +3807,599 @@ def zoo_paths(card: str):
     return counts, out
 
 
+# --------------------------------------------------------------------------- #
+# [serve]: decoding at full width (ROADMAP A14.3)
+# --------------------------------------------------------------------------- #
+
+DECODE = "swa_decode"
+SOURCES[DECODE] = "src/repro_torch/kernels/swa_attention/csrc/swa_decode.cu"
+# B4d replaces no TPU kernel: the jnp _sdpa of attention's cache branch
+REPLACES[DECODE] = "src/repro/models/layers.py:280"
+# the serve cells: batch 8, prompt 64, gen 64, cache-len 128
+SERVE_B, SERVE_P, SERVE_G, SERVE_C = 8, 64, 64, 128
+# teacher-forced decode logits against the forward on the same tokens,
+# max-normalised: max |decode - forward| <= SERVE_TF_TOL * max |forward|
+SERVE_TF_TOL = 1e-4
+# smollm-135m's ring on the card: window 32, cache 32, 96 steps
+SERVE_RING = (32, 32, 96)
+# mamba2-1.3b's 48 blocks at init: f32 evaluations land far from the float64
+# one (ROADMAP §C), so its decode is held to at most twice the f32 forward's
+# distance from the float64 forward
+SERVE_F64_FACTOR = 2.0
+# a routing flip between decode and forward must be a near-tie: the
+# forward's k-th/(k+1)-th gate margin under this
+SERVE_FLIP_MARGIN = 1e-5
+# B4d timed at the smollm-135m serve shape (its main path) and a long cache
+DECODE_TIMED = {"serve": (8, 128, 9, 3, 64), "long cache": (8, 8192, 12, 2, 128)}
+SERVE_CKPT = ROOT / "build" / "chip_smoke" / "smollm-135m-trained.npz"
+
+
+def serve_device():
+    """The device of the ``[serve]`` phase: the card."""
+    import torch
+
+    return torch.device("cuda", 0)
+
+
+def card_init(model, seed: int):
+    """``model.init_params`` with its random draws made on the card from a
+    CUDA generator (the card as the default device): the port's own init,
+    without drawing 1.5 B numbers on one host thread."""
+    import torch
+
+    dev = serve_device()
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    with dev:
+        return model.init_params(gen, dev)
+
+
+def decode_shapes():
+    """(B, C, H, K, hd) of every B4d check: the three serve cells, the ring,
+    each ported attention arch's REDUCED heads, and the long cache."""
+    from repro_torch.configs import PORTED_ARCH_IDS, get_reduced, get_spec
+
+    shapes = [(SERVE_B, SERVE_C, s.num_heads, s.num_kv_heads, s.hd)
+              for s in map(get_spec, ("smollm-135m", "qwen2-1.5b", ZOO_MOE))]
+    shapes.append((SERVE_B, SERVE_RING[1], 9, 3, 64))
+    shapes += [(8, 64, s.num_heads, s.num_kv_heads, s.hd) for s in map(get_reduced, PORTED_ARCH_IDS)
+               if s.family != "ssm"]
+    shapes.append(DECODE_TIMED["long cache"])
+    return sorted(set(shapes))
+
+
+def slot_positions(kind: str, C: int, q_pos: int, dev):
+    """cache_pos of C slots read at position q_pos: partly filled (0..q_pos,
+    the rest -1), a wrapped ring (slot p % C holds p), or all ahead of the
+    query (every slot masked)."""
+    import torch
+
+    if kind == "partly filled":
+        pos = torch.where(torch.arange(C) <= q_pos, torch.arange(C), -1)
+    elif kind == "wrapped":
+        pos = torch.roll(torch.arange(q_pos + 1 - C, q_pos + 1), (q_pos + 1) % C)
+    else:
+        pos = torch.arange(C) + q_pos + 1
+    return pos.to(device=dev, dtype=torch.int32)
+
+
+def decode_build_report(source) -> dict:
+    """ptxas's registers and spills of each B4d instantiation (5 head dims x
+    f32, bf16)."""
+    from repro_torch.kernels import build
+
+    report, key = {}, None
+    for line in build.build_log(source).read_text().splitlines():
+        m = re.search(r"Compiling entry function '\S*swa_decode_kernelILi(\d+)E(f|13__nv_bfloat16)",
+                      line)
+        if m:
+            key = f"swa_decode_kernel<{m.group(1)}, {'f32' if m.group(2) == 'f' else 'bf16'}>"
+        elif key and "Used" in line:
+            report.setdefault(key, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+        elif key and "spill stores" in line:
+            stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                                      line).groups()
+            report.setdefault(key, {}).update(spill_stores=int(stores), spill_loads=int(loads))
+    if len(report) != 10:
+        raise AssertionError(f"B4d: {len(report)} kernel instantiations in the build log")
+    print("[build] B4d (swa_decode_kernel) registers / spill stores: "
+          + ", ".join(f"{k} {r['registers']} / {r['spill_stores']} B" for k, r in report.items()))
+    return report
+
+
+def check_decode_attention():
+    """B4d against its plain version on the card, on the same inputs: every
+    shape of ``decode_shapes``, a partly filled cache, a wrapped ring and an
+    all-masked row, windows 0 and 32, f32 (rtol = atol ATTN_TOL) and bf16
+    (within one bf16 ulp beyond it, against the f32 plain version on the
+    same bf16 inputs); an all-masked row is NaN in both."""
+    import torch
+
+    from repro_torch.kernels.swa_attention import reset_launches, swa_decode, swa_decode_ref
+
+    dev = serve_device()
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs, n = {"f32": 0.0, "bf16": 0.0}, 0
+    for B, C, H, K, hd in decode_shapes():
+        for kind, q_pos in (("partly filled", C // 2), ("wrapped", 2 * C + 5),
+                            ("all masked", C // 2)):
+            for W in (0, 32):
+                for dtype in (torch.float32, torch.bfloat16):
+                    q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
+                    k, v = (torch.randn(B, C, K, hd, generator=gen, device=dev).to(dtype)
+                            for _ in range(2))
+                    pos = slot_positions(kind, C, q_pos, dev)
+                    qp = torch.tensor([q_pos], dtype=torch.int32, device=dev)
+                    o = swa_decode(q, k, v, pos, qp, W)
+                    torch.cuda.synchronize()
+                    ref = swa_decode_ref(q.float(), k.float(), v.float(), pos, qp, W)
+                    what = f"B4d B={B} C={C} H={H} K={K} hd={hd} {kind} window={W} {dtype}"
+                    if kind == "all masked":
+                        if not (bool(torch.isnan(o).all()) and bool(torch.isnan(ref).all())):
+                            raise AssertionError(f"{what}: not NaN as the plain version")
+                        continue
+                    err = (o.float() - ref).abs()
+                    tol = ATTN_TOL + ATTN_TOL * ref.abs()
+                    if dtype == torch.bfloat16:
+                        tol = tol + bf16_ulp(ref)
+                    if not bool((err <= tol).all()):
+                        raise AssertionError(f"{what}: {int((err > tol).sum())} elements beyond "
+                                             f"the tolerance, max |err| {float(err.max()):.3e}")
+                    key = "f32" if dtype == torch.float32 else "bf16"
+                    errs[key] = max(errs[key], float(err.max()))
+                    n += 1
+    reset_launches()
+    print(f"[serve] B4d against its plain version: {len(decode_shapes())} shapes x (partly "
+          f"filled, wrapped, all masked) x windows (0, 32) x (f32, bf16), {n} compared and "
+          f"the all-masked rows NaN in both; f32 within rtol=atol {ATTN_TOL} (max |err| "
+          f"{errs['f32']:.3e}), bf16 within one bf16 ulp beyond it (max |err| "
+          f"{errs['bf16']:.3e})")
+    return errs
+
+
+def norm_err(got, ref, V: int) -> float:
+    """max |got - ref| / max |ref| over the first V logits."""
+    ref = ref[..., :V].double()
+    return float((got[..., :V].double() - ref).abs().max() / ref.abs().max())
+
+
+def forward_logits(model, params, tokens):
+    import torch
+
+    with torch.no_grad():
+        logits, _ = model.forward(params, {"tokens": tokens})
+    return logits.float()
+
+
+def teacher_forced(model, params, tokens, cache_len: int):
+    """Every decode step's logits [B, S, padded_vocab] over ``tokens``."""
+    import torch
+
+    caches = model.init_caches(tokens.shape[0], cache_len, tokens.device)
+    out = []
+    with torch.no_grad():
+        for i in range(tokens.shape[1]):
+            logits, _ = model.decode_step(params, tokens[:, i : i + 1], caches, i)
+            out.append(logits.float())
+    return torch.stack(out, dim=1)
+
+
+def serve_prompt(vocab: int, seed: int = 23):
+    import torch
+
+    return torch.randint(0, vocab, (SERVE_B, SERVE_P), generator=torch.Generator().manual_seed(seed),
+                         dtype=torch.int32).to(serve_device())
+
+
+def attention_layers(spec) -> int:
+    """Attention layers a decode step runs: one a unit, none for SSM."""
+    return 0 if spec.family == "ssm" else spec.n_units
+
+
+def serve_generate(label: str, model, params, prompt, card: str):
+    """``launch.serve.generate`` at the serve shape (prompt 64, gen 64,
+    cache 128, greedy), its logits kept, after a 4-step warm-up (the
+    first use of each kernel and matmul shape): B4d's launches counted
+    from 0 and held to attention layers x steps, ms a decode step (CUDA
+    events), tok/s and peak device memory."""
+    import torch
+
+    from repro_torch.kernels.swa_attention import decode_launches
+    from repro_torch.launch.serve import generate
+
+    generate(model, params, prompt[:, :2], 2, 4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_all_launches()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    run = generate(model, params, prompt, SERVE_G, SERVE_C, keep_logits=True)
+    end.record()
+    torch.cuda.synchronize()
+    steps = SERVE_P + SERVE_G
+    got = decode_launches[DECODE]
+    want = attention_layers(model.spec) * steps
+    if got != want:
+        raise AssertionError(f"{label}: {got} B4d launches, {attention_layers(model.spec)} "
+                             f"attention layers x {steps} steps make {want}")
+    if not bool(torch.isfinite(run.logits[..., : model.spec.vocab_size]).all()):
+        raise AssertionError(f"{label}: non-finite logits")
+    ms = start.elapsed_time(end)
+    res = {"ms_per_step": ms / steps, "tok_s": SERVE_B * steps / (ms / 1e3),
+           "peak": torch.cuda.max_memory_allocated(), "launches": got}
+    print(f"[serve] {label}: batch {SERVE_B}, prompt {SERVE_P}, gen {SERVE_G}, cache "
+          f"{SERVE_C}: {res['ms_per_step']:.3f} ms a decode step (CUDA events, logits kept), "
+          f"{res['tok_s']:.1f} tok/s, peak {res['peak'] / 1e9:.2f} GB; B4d {got} launches "
+          f"= {attention_layers(model.spec)} layers x {steps} steps; card {card}")
+    return run, res
+
+
+def check_teacher_forced(label: str, model, params, run) -> float:
+    """The run's decode logits against the forward on the tokens it fed."""
+    e = norm_err(run.logits, forward_logits(model, params, run.fed), model.spec.vocab_size)
+    if not e <= SERVE_TF_TOL:
+        raise AssertionError(f"{label}: teacher-forced decode {e:.3e} (max-normalised) from "
+                             f"the forward, above {SERVE_TF_TOL}")
+    print(f"[serve] {label}: teacher-forced decode within {e:.3e} of the forward's logits "
+          f"(max-normalised; tolerance {SERVE_TF_TOL}) at all {run.fed.shape[1]} positions")
+    return e
+
+
+def save_trained_lm(lm_run) -> Path:
+    """The full-width smollm-135m state that ``lm_main_path`` trained,
+    client-stacked, through the port's ``save_checkpoint``."""
+    from repro_torch.checkpoint import save_checkpoint
+
+    t = time.perf_counter()
+    plan = lm_run["plan"]
+    save_checkpoint(str(SERVE_CKPT), lm_run["state"].params, step=lm_run["state"].step,
+                    meta={"cuts": list(plan.cuts), "intervals": list(plan.intervals)})
+    print(f"[serve] saved the trained smollm-135m state ({plan.num_clients} client rows) to "
+          f"{SERVE_CKPT.relative_to(ROOT)} in {time.perf_counter() - t:.1f} s")
+    return SERVE_CKPT
+
+
+def serve_trained_smollm(ckpt: Path, card: str):
+    """The smollm-135m that the main path trained, restored from its
+    client-stacked checkpoint through ``load_serving_params`` (every client
+    row equal first), served, and held to its forward."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.serve import load_serving_params
+    from repro_torch.models import SplittableModel
+
+    spec = get_spec("smollm-135m")
+    model = SplittableModel(spec)
+    with np.load(ckpt) as z:
+        names = [k for k in z.files if k != "__meta__"]
+        rows = {z[k].shape[0] for k in names}
+        assert_replicas_equal(((k, z[k]) for k in names), "the trained smollm-135m checkpoint")
+        wq0 = torch.from_numpy(z["units/attn/wq"][0])
+    params = load_serving_params(str(ckpt), card_init(model, 99))
+    if not torch.equal(params["units"]["attn"]["wq"].cpu(), wq0):
+        raise AssertionError("load_serving_params did not restore row 0 of the checkpoint")
+    print(f"[serve] smollm-135m: {len(names)} leaves of {rows} client rows, every row equal; "
+          f"row 0 restored through load_serving_params")
+    run, res = serve_generate("smollm-135m (trained by the main path)", model, params,
+                              serve_prompt(spec.vocab_size), card)
+    res["tf_err"] = check_teacher_forced("smollm-135m", model, params, run)
+    ckpt.unlink()
+    return model, params, res
+
+
+def serve_ring(model, params, card: str):
+    """smollm-135m under a window of 32 with a 32-slot cache over 96 steps:
+    the ring wraps twice on the card, and the decode equals the windowed
+    forward (B4 at window 32) at every position."""
+    import torch
+
+    from repro_torch.kernels.swa_attention import decode_launches
+    from repro_torch.models import SplittableModel
+
+    W, C, S = SERVE_RING
+    mw = SplittableModel(model.spec.with_window(W))
+    toks = torch.randint(0, mw.spec.vocab_size, (SERVE_B, S),
+                         generator=torch.Generator().manual_seed(31)).to(serve_device())
+    reset_all_launches()
+    dec = teacher_forced(mw, params, toks, C)
+    torch.cuda.synchronize()
+    got = decode_launches[DECODE]
+    if got != mw.spec.n_units * S:
+        raise AssertionError(f"ring: {got} B4d launches, not {mw.spec.n_units * S}")
+    e = norm_err(dec, forward_logits(mw, params, toks), mw.spec.vocab_size)
+    if not (e <= SERVE_TF_TOL and bool(torch.isfinite(dec).all())):
+        raise AssertionError(f"ring: decode {e:.3e} from the windowed forward")
+    print(f"[serve] smollm-135m window {W}, cache {C}, {S} steps (the ring wraps at 32 and "
+          f"64): decode within {e:.3e} of the windowed forward (max-normalised; tolerance "
+          f"{SERVE_TF_TOL}), finite; B4d {got} launches; card {card}")
+    return {"tf_err": e, "launches": got}
+
+
+def serve_qwen(card: str):
+    """qwen2-1.5b, the JAX CLI's default arch, at full width and depth with
+    random weights: served, and held to its forward."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import SplittableModel
+
+    spec = get_spec("qwen2-1.5b")
+    model = SplittableModel(spec)
+    params = card_init(model, 15)
+    run, res = serve_generate(f"qwen2-1.5b ({spec.total_param_count()} params, random)",
+                              model, params, serve_prompt(spec.vocab_size), card)
+    res["tf_err"] = check_teacher_forced("qwen2-1.5b", model, params, run)
+    del params, run
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_granite(card: str):
+    """granite-moe-1b-a400m at full width: served at its capacity (B4d 24 a
+    step); then teacher forcing at capacity E/k, where neither the decode
+    batch's 8 tokens nor the forward's 1024 drop a (token, k) pair (at 1.25
+    the two compete for different capacities, in JAX as here).  The
+    routings of decode and forward are compared token by token: a flip
+    must be a near-tie (the forward's k-th/(k+1)-th gate margin under
+    SERVE_FLIP_MARGIN), and each row is compared before its first flip."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.serve import generate
+    from repro_torch.models import SplittableModel
+    from repro_torch.models import layers as L
+
+    spec = get_spec(ZOO_MOE)
+    model = SplittableModel(spec)
+    params = card_init(model, 16)
+    prompt = serve_prompt(spec.vocab_size)
+    _, res = serve_generate(f"granite-moe-1b-a400m ({spec.total_param_count()} params, "
+                            f"random, capacity {spec.moe.capacity_factor})", model, params,
+                            prompt, card)
+    E, K = spec.moe.num_experts, spec.moe.top_k
+    nodrop = SplittableModel(dataclasses.replace(
+        spec, moe=dataclasses.replace(spec.moe, capacity_factor=E / K)))
+    real, calls = L.moe_route, []
+
+    def recording(p, xg, s):
+        probs, gates, ids = real(p, xg, s)
+        srt = torch.sort(probs, dim=-1, descending=True).values
+        calls.append((torch.sort(ids, dim=-1).values, srt[..., K - 1] - srt[..., K]))
+        return probs, gates, ids
+
+    L.moe_route = recording
+    try:
+        run = generate(nodrop, params, prompt, SERVE_G, SERVE_C, keep_logits=True)
+        n_dec = len(calls)
+        fwd = forward_logits(nodrop, params, run.fed)
+    finally:
+        L.moe_route = real
+    U, S = spec.n_units, run.fed.shape[1]
+    if n_dec != U * S or len(calls) != U * S + U:
+        raise AssertionError(f"granite: {n_dec} decode and {len(calls) - n_dec} forward "
+                             f"router calls, not {U * S} and {U}")
+    dec_ids = torch.stack([torch.stack([calls[i * U + u][0][0] for u in range(U)])
+                           for i in range(S)])  # [S, U, B, K]
+    fwd_ids = torch.stack([calls[n_dec + u][0][0] for u in range(U)])  # [U, B*S, K]
+    fwd_margin = torch.stack([calls[n_dec + u][1][0] for u in range(U)])  # [U, B*S]
+    fwd_ids = fwd_ids.reshape(U, SERVE_B, S, K).permute(2, 0, 1, 3)  # [S, U, B, K]
+    fwd_margin = fwd_margin.reshape(U, SERVE_B, S).permute(2, 0, 1)
+    flip = (dec_ids != fwd_ids).any(-1)  # [S, U, B]
+    flips = int(flip.sum())
+    if flips and float(fwd_margin[flip].max()) >= SERVE_FLIP_MARGIN:
+        raise AssertionError(f"granite: a routing flip at margin {float(fwd_margin[flip].max())}")
+    first = torch.full((SERVE_B,), S, dtype=torch.long, device=flip.device)
+    for b in range(SERVE_B):
+        at = torch.nonzero(flip[:, :, b].any(1)).flatten()
+        if at.numel():
+            first[b] = at[0]
+    keep = torch.arange(S, device=flip.device)[None, :] < first[:, None]  # [B, S]
+    V = spec.vocab_size
+    diff = (run.logits[..., :V] - fwd[..., :V]).abs().amax(-1)
+    e = float(diff[keep].max() / fwd[..., :V][keep].abs().max())
+    share = float(keep.float().mean())
+    if not (e <= SERVE_TF_TOL and share >= 0.5):
+        raise AssertionError(f"granite: teacher-forced decode {e:.3e} from the forward on "
+                             f"{100 * share:.1f}% of the positions")
+    print(f"[serve] granite-moe-1b-a400m at capacity E/k = {E / K:g}: {flips} of "
+          f"{U * S * SERVE_B} (token, layer) routings differ between decode and forward"
+          + (f" (largest forward margin {float(fwd_margin[flip].max()):.3g})" if flips else "")
+          + f"; teacher-forced decode within {e:.3e} of the forward (max-normalised; tolerance "
+          f"{SERVE_TF_TOL}) on {100 * share:.1f}% of the (row, position) pairs, each row "
+          f"before its first flip; card {card}")
+    res.update(tf_err=e, route_flips=flips, tf_share=share)
+    del params, run, fwd
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_mamba(card: str):
+    """mamba2-1.3b at full width (48 blocks, no attention: no B4d launch):
+    served; its decode logits against the forward's in float64, at most
+    SERVE_F64_FACTOR times as far from them as the f32 forward is (or
+    within SERVE_TF_TOL of the f32 forward); and its first 2 blocks
+    alone, teacher-forced, within SERVE_TF_TOL of their forward."""
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_spec
+    from repro_torch.models import SplittableModel
+
+    spec = get_spec(ZOO_SSM)
+    model = SplittableModel(spec)
+    params = card_init(model, 17)
+    run, res = serve_generate(f"mamba2-1.3b ({spec.total_param_count()} params, random)",
+                              model, params, serve_prompt(spec.vocab_size), card)
+    V = spec.vocab_size
+    fwd = forward_logits(model, params, run.fed)
+    f64 = forward_logits(SplittableModel(spec.with_dtypes("float64", "float64")),
+                         tree_map(lambda x: x.double(), params), run.fed)
+    d_dec, d_fwd, d_df = norm_err(run.logits, f64, V), norm_err(fwd, f64, V), \
+        norm_err(run.logits, fwd, V)
+    if not (d_dec <= SERVE_F64_FACTOR * d_fwd or d_df <= SERVE_TF_TOL):
+        raise AssertionError(f"mamba2: decode {d_dec:.3e} from the float64 forward, the f32 "
+                             f"forward {d_fwd:.3e}")
+    del params, run, fwd, f64
+    torch.cuda.empty_cache()
+    spec2 = dataclasses.replace(spec, num_layers=2)
+    m2 = SplittableModel(spec2)
+    p2 = card_init(m2, 18)
+    toks = serve_prompt(V, seed=24)
+    e2 = norm_err(teacher_forced(m2, p2, toks, SERVE_P), forward_logits(m2, p2, toks), V)
+    if not e2 <= SERVE_TF_TOL:
+        raise AssertionError(f"mamba2 2 blocks: teacher-forced decode {e2:.3e} from the forward")
+    print(f"[serve] mamba2-1.3b: teacher-forced decode {d_dec:.3e} from the float64 forward "
+          f"where the f32 forward is {d_fwd:.3e} (limit {SERVE_F64_FACTOR:g}x), {d_df:.3e} "
+          f"from the f32 forward (max-normalised); its first 2 blocks alone within {e2:.3e} of "
+          f"their forward (tolerance {SERVE_TF_TOL}); card {card}")
+    res.update(tf_err=d_df, f64_err_decode=d_dec, f64_err_forward=d_fwd, tf_err_2_blocks=e2)
+    torch.cuda.empty_cache()
+    return res
+
+
+def serve_jamba_card_vs_cpu(card: str, steps: int = 16):
+    """REDUCED jamba-1.5-large-398b, one init on both devices, 16 teacher-
+    forced decode steps on the card and on the CPU: logits within
+    ZOO_CARD_RTOL (max-normalised); B4d once per super-block a step."""
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.swa_attention import decode_launches
+    from repro_torch.models import SplittableModel
+
+    spec = get_reduced(ZOO_HYBRID)
+    model = SplittableModel(spec)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, spec.vocab_size, (2, steps), generator=torch.Generator().manual_seed(1))
+    reset_all_launches()
+    card_logits = teacher_forced(model, tree_map(lambda x: x.to(serve_device()), params), toks.to(serve_device()), steps)
+    torch.cuda.synchronize()
+    got = decode_launches[DECODE]
+    cpu_logits = teacher_forced(model, params, toks, steps)
+    e = norm_err(card_logits.cpu(), cpu_logits, spec.vocab_size)
+    if got != spec.n_units * steps or not e <= ZOO_CARD_RTOL:
+        raise AssertionError(f"jamba REDUCED: {got} B4d launches, card {e:.3e} from the CPU")
+    print(f"[serve] {ZOO_HYBRID} REDUCED ({spec.n_units} super-blocks): {steps} decode steps "
+          f"on the card within {e:.3e} of the CPU (max-normalised; tolerance {ZOO_CARD_RTOL}); "
+          f"B4d {got} launches; card {card}")
+    return {"card_vs_cpu": e, "launches": got}
+
+
+def serve_cli(card: str):
+    """``python -m repro_torch.launch.serve --arch smollm-135m`` (REDUCED, as
+    the JAX CLI) in this process: exit 0, its ``[serve]`` line, B4d once per
+    layer a step."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.kernels.swa_attention import decode_launches
+    from repro_torch.launch import serve
+
+    P, G = 16, 32
+    argv = ["--arch", "smollm-135m", "--batch", str(SERVE_B), "--prompt-len", str(P),
+            "--gen", str(G), "--cache-len", "64"]
+    reset_all_launches()
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = serve.main(argv)
+    got = decode_launches[DECODE]
+    line = next((l for l in buf.getvalue().splitlines() if l.startswith("[serve] arch=")), None)
+    want = get_reduced("smollm-135m").n_units * (P + G)
+    if rc != 0 or line is None or got != want:
+        raise AssertionError(f"serve CLI: rc {rc}, line {line!r}, {got} B4d launches (not {want})")
+    print(f"[serve] CLI {' '.join(argv)}: exit 0, '{line}'; B4d {got} launches; card {card}")
+    return {"launches": got}
+
+
+def decode_work(B, C, H, K, hd, visible: int):
+    """(operations, bytes) of decode attention: s = q.k and o += p.v over the
+    visible slots (2 flops a multiply-add); q, k, v, cache_pos and q_pos read
+    once, o written once, f32."""
+    ops = 4 * hd * B * H * visible
+    nbytes = 4 * (2 * B * H * hd + 2 * B * C * K * hd + C + 1)
+    return ops, nbytes
+
+
+def decode_timings(card: str):
+    """B4d at the serve shape and a long cache (every slot filled and
+    visible): kernel and plain ms in turns, the bound, and SDPA with the
+    mask as a bias (enable_gqa) as the library yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.swa_attention import reset_launches, swa_decode, swa_decode_ref
+    from repro_torch.kernels.swa_attention.ref import mask_bias
+
+    dev = serve_device()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    out = {}
+    for label, (B, C, H, K, hd) in DECODE_TIMED.items():
+        q = torch.randn(B, 1, H, hd, generator=gen, device=dev)
+        k, v = (torch.randn(B, C, K, hd, generator=gen, device=dev) for _ in range(2))
+        pos = torch.arange(C, dtype=torch.int32, device=dev)
+        qp = torch.tensor([C - 1], dtype=torch.int32, device=dev)
+        km, pm = in_turns(lambda: swa_decode_ref(q, k, v, pos, qp),
+                          lambda: swa_decode(q, k, v, pos, qp))
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        bias = mask_bias(qp.long(), pos.long(), True, 0, 0, (pos >= 0)[None].expand(B, C))
+        bias = bias[:, None]  # [B, 1, 1, C]
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, enable_gqa=True)
+
+        torch.testing.assert_close(library().transpose(1, 2), swa_decode(q, k, v, pos, qp),
+                                   rtol=ATTN_TOL, atol=ATTN_TOL)
+        lm = cuda_ms(library)
+        ops, nbytes = decode_work(B, C, H, K, hd, C)
+        by_ops, by_bytes = ops / F32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+        r = dict(ms=km, plain_ms=pm, bound_ms=max(by_ops, by_bytes),
+                 bound_by="operations" if by_ops >= by_bytes else "bytes", library_ms=lm,
+                 ops=ops, bytes=nbytes, shape=[B, C, H, K, hd])
+        out[label] = r
+        print(f"[timing] B4d swa_decode at the {label} shape B={B} C={C} H={H} K={K} hd={hd} "
+              f"(f32, every slot visible): kernel {km:.4f} ms, plain {pm:.4f} ms, library "
+              f"(scaled_dot_product_attention, float mask bias, enable_gqa) {lm:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, "
+              f"{ops / 1e6:.1f} MFLOP at 67 TFLOP/s f32; H100 SXM data sheet) = "
+              f"{100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
+    reset_launches()
+    return out
+
+
+def serve_paths(card: str, ckpt: Path):
+    """The ``[serve]`` phase: B4d against its plain version; the trained
+    smollm-135m served from its checkpoint, its ring under a window;
+    qwen2-1.5b, granite-moe-1b-a400m and mamba2-1.3b at full width; REDUCED
+    jamba on the card against the CPU; the serve CLI; B4d's times."""
+    import torch
+
+    t0 = time.perf_counter()
+    errs = check_decode_attention()
+    out, counts = {}, {}
+    model, params, out["serve-smollm-135m"] = serve_trained_smollm(ckpt, card)
+    out["serve-smollm-135m-ring"] = serve_ring(model, params, card)
+    del model, params
+    torch.cuda.empty_cache()
+    out["serve-qwen2-1.5b"] = serve_qwen(card)
+    out["serve-granite-moe-1b-a400m"] = serve_granite(card)
+    out["serve-mamba2-1.3b"] = serve_mamba(card)
+    out[f"serve-{ZOO_HYBRID}-reduced"] = serve_jamba_card_vs_cpu(card)
+    out["serve-cli-smollm-135m-reduced"] = serve_cli(card)
+    for path, r in out.items():
+        counts[path] = r["launches"]
+    for path in ("serve-smollm-135m", "serve-qwen2-1.5b", "serve-granite-moe-1b-a400m"):
+        if counts[path] == 0:
+            raise AssertionError(f"kernel {DECODE} was not launched on {path}")
+    times = decode_timings(card)
+    print("[timing] [serve] ms a decode step, tok/s and peak GB at batch 8, prompt 64, gen 64: "
+          + json.dumps({k: [round(v["ms_per_step"], 4), round(v["tok_s"], 1),
+                            round(v["peak"] / 1e9, 3)] for k, v in out.items()
+                        if "ms_per_step" in v})
+          + f"; phase {time.perf_counter() - t0:.1f} s; card {card}")
+    return counts, out, errs, times
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch is missing beside this script",
@@ -3817,9 +4430,10 @@ def main() -> int:
     print(f"[build] {len(libs)} kernel libraries in {time.perf_counter() - t:.1f} s: "
           + ", ".join(p.name for p in libs))
 
-    from repro_torch.kernels.swa_attention.ops import SOURCE as SWA_SOURCE
+    from repro_torch.kernels.swa_attention.ops import DECODE_SOURCE, SOURCE as SWA_SOURCE
 
     attn_build = attention_build_report(SWA_SOURCE)
+    decode_build = decode_build_report(DECODE_SOURCE)
     errs, bf16_errs = check_kernels(SPEC)
     ragged_errs, ragged_bf16_errs = check_ragged_kernels(SPEC)
     errs.update(ragged_errs)
@@ -3849,6 +4463,7 @@ def main() -> int:
         if lm_launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the smollm-135m path")
     lm_parts = lm_round_parts(card, lm_run)
+    serve_ckpt = save_trained_lm(lm_run)
     del lm_run["state"], lm_run["batch"]
     auto_launches = auto_optimize_cli()
     api_launches = api_paths()
@@ -3879,6 +4494,7 @@ def main() -> int:
                        ("sharded-2-ranks-gloo-int8", AGG[1])):
         if sharded_counts[path][name] == 0:
             raise AssertionError(f"kernel {name} was not launched on {path}")
+    serve_counts, _, decode_errs, decode_times = serve_paths(card, serve_ckpt)
     times = timings(card, run)
     times.update(ragged_timings(card))
     times.update(masked_timings(card))
@@ -3989,6 +4605,24 @@ def main() -> int:
         **({} if name == "swa_attention_fwd" else {"library_ms_pair": b5_pair}),
         "timed_at": f"B={B} S={S} H={H} K={K} hd={hd} window=0 f32",
     } for name in ATTN]
+    # B4d: decode attention, on the [serve] paths; its main path is the
+    # trained smollm-135m served at batch 8, prompt 64, gen 64
+    B, C, H, K, hd = DECODE_TIMED["serve"]
+    t = decode_times["serve"]
+    kernels.append({
+        "name": DECODE, "route": "cuda", "source": SOURCES[DECODE], "replaces": REPLACES[DECODE],
+        "launches": serve_counts["serve-smollm-135m"],
+        "launches_by_path": serve_counts,
+        "max_abs_err": decode_errs["f32"], "max_abs_err_bf16": decode_errs["bf16"],
+        "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+        "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        "library": ("torch.nn.functional.scaled_dot_product_attention (float mask bias, "
+                    "enable_gqa, f32)"),
+        "timed_at": f"B={B} C={C} H={H} K={K} hd={hd} f32, every slot visible",
+        "long_cache": decode_times["long cache"],
+        "build": decode_build[f"swa_decode_kernel<{hd}, f32>"],
+        "port_only": "no TPU kernel: the jnp _sdpa of attention's cache branch",
+    })
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,6 @@
 from .ops import (
     HEAD_DIMS,
+    decode_launches,
     launches,
     reset_launches,
     swa_attention,
@@ -7,10 +8,12 @@ from .ops import (
     swa_attention_bwd_dkv,
     swa_attention_bwd_dq,
     swa_attention_fwd,
+    swa_decode,
 )
 from .ref import (
     swa_attention_bwd_dkv_ref,
     swa_attention_bwd_dq_ref,
     swa_attention_bwd_ref,
     swa_attention_ref,
+    swa_decode_ref,
 )

@@ -22,6 +22,14 @@ outer ``vmap``.  Both rules fold the vmapped axis into the batch axis B
 and make one launch for all of it: one B4 launch per layer for all
 clients.  Each launch adds one to ``launches[<kernel>]``; the plain
 versions count nothing.
+
+``swa_decode(q, k, v, cache_pos, q_pos, window)`` is decode attention (B4d,
+``csrc/swa_decode.cu``): one query token [B, 1, H, hd] against a KV cache
+[B, C, K, hd] whose slots hold the positions ``cache_pos`` [C].  It has no
+backward, so no ``autograd.Function``: it raises when q requires grad.  On
+a CUDA tensor it launches B4d or raises; on a CPU tensor it runs
+``swa_decode_ref``.  Its launches count in ``decode_launches``, apart from
+the training kernels' ``launches``; ``reset_launches`` sets both to 0.
 """
 from __future__ import annotations
 
@@ -34,23 +42,28 @@ import torch
 
 from .. import build
 from .ref import (
-    swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref,
+    swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref, swa_decode_ref,
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
+DECODE_SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_decode.cu"
 HEAD_DIMS = (32, 64, 80, 96, 128)
+DECODE_MAX_GROUP = 16  # query heads a kv head that B4d takes
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches: Dict[str, int] = {
     "swa_attention_fwd": 0, "swa_attention_bwd_dq": 0, "swa_attention_bwd_dkv": 0,
 }
+decode_launches: Dict[str, int] = {"swa_decode": 0}
 
 _lib: Optional[ctypes.CDLL] = None
+_decode_lib: Optional[ctypes.CDLL] = None
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, decode_launches):
+        for k in counts:
+            counts[k] = 0
 
 
 def _library() -> ctypes.CDLL:
@@ -67,6 +80,18 @@ def _library() -> ctypes.CDLL:
             fn.restype = i
         _lib = lib
     return _lib
+
+
+def _decode_library() -> ctypes.CDLL:
+    global _decode_lib
+    if _decode_lib is None:
+        lib = build.load(DECODE_SOURCE)
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        # q, k, v, cache_pos, q_pos, o; dtype, B, C, H, K, hd, window, scale, stream
+        lib.swa_decode.argtypes = [p] * 6 + [i] * 7 + [f, p]
+        lib.swa_decode.restype = i
+        _decode_lib = lib
+    return _decode_lib
 
 
 def effective_window(window: int, S: int) -> int:
@@ -265,4 +290,73 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window: int = 0) -> torch.Tensor:
     """Causal (window 0) or sliding-window GQA attention, [B, S, H, hd]."""
     o, _ = _SwaAttention.apply(q, k, v, int(window))
+    return o
+
+
+def _check_decode(q, k, v, cache_pos, q_pos) -> bool:
+    """Validate decode attention's inputs; True for the kernel, False for the
+    plain version."""
+    if q.ndim != 4 or q.shape[1] != 1 or k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"q must be [B, 1, H, hd] and k, v [B, C, K, hd], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    B, _, H, hd = q.shape
+    C, K = k.shape[1], k.shape[2]
+    if k.shape[0] != B or k.shape[3] != hd or K == 0 or H % K or C == 0:
+        raise ValueError(
+            f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}: need "
+            f"[{B}, C >= 1, K, {hd}] with H={H} divisible by K"
+        )
+    if cache_pos.shape != (C,) or q_pos.shape != (1,):
+        raise ValueError(f"cache_pos must be [{C}] and q_pos [1], got "
+                         f"{tuple(cache_pos.shape)}, {tuple(q_pos.shape)}")
+    if q.requires_grad:
+        raise ValueError("decode attention has no backward: q must not require grad")
+    if q.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"tensor on {q.device}: decode attention runs on cuda (kernel) "
+                         "or cpu (plain version)")
+    if any(t.device != q.device for t in (k, v, cache_pos, q_pos)):
+        raise ValueError(f"tensors on {q.device}, {k.device}, {v.device}, "
+                         f"{cache_pos.device} and {q_pos.device}")
+    if q.device.type == "cpu":
+        return False
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"head dim {hd}: the kernel takes {HEAD_DIMS}")
+    if H // K > DECODE_MAX_GROUP:
+        raise ValueError(f"{H // K} query heads a kv head: the kernel takes at most "
+                         f"{DECODE_MAX_GROUP}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(
+            f"dtypes {q.dtype}, {k.dtype}, {v.dtype}: the kernel takes f32 or bf16, "
+            "the same for q, k and v"
+        )
+    return True
+
+
+def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_pos: torch.Tensor,
+               q_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
+    """B4d: decode attention of q [B, 1, H, hd] at position ``q_pos`` ([1])
+    against the cache k, v [B, C, K, hd] holding positions ``cache_pos``
+    ([C], -1 unfilled); o [B, 1, H, hd] in q's dtype.  A slot is visible
+    when 0 <= p <= q_pos and, for ``window`` > 0, p > q_pos - window; a row
+    with no visible slot is NaN."""
+    if not _check_decode(q, k, v, cache_pos, q_pos):
+        return swa_decode_ref(q, k, v, cache_pos, q_pos, window)
+    B, _, H, hd = q.shape
+    C, K = k.shape[1], k.shape[2]
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    cache_pos = cache_pos.to(torch.int32).contiguous()
+    q_pos = q_pos.to(torch.int32).contiguous()
+    o = torch.empty_like(q)
+    lib = _decode_library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        status = lib.swa_decode(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_pos.data_ptr(), q_pos.data_ptr(),
+            o.data_ptr(), _DTYPES[q.dtype], B, C, H, K, hd, max(int(window), 0),
+            1.0 / math.sqrt(hd), stream,
+        )
+    _raise_on(status, "swa_decode")
+    decode_launches["swa_decode"] += 1
     return o

@@ -7,12 +7,16 @@ head h // G).  A query at position p attends keys in (p − window, p]
 
 ``swa_attention_ref`` is the JAX oracle with the per-row logsumexp added;
 ``swa_attention_bwd_ref`` is the flash backward formula that the kernel's
-backward computes.  The wrappers in ``ops.py`` run these for CPU tensors.
+backward computes.  ``swa_decode_ref`` is decode attention (B4d's plain
+version): one query position against a KV cache, the JAX package's
+``_sdpa`` under ``_mask_bias`` (``src/repro/models/layers.py:93``, :120),
+which ``mask_bias`` and ``sdpa`` mirror.  The wrappers in ``ops.py`` run
+these for CPU tensors.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -84,3 +88,49 @@ def swa_attention_bwd_ref(q, k, v, o, lse, do, window: int = 0):
     dq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window)
     dk, dv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window)
     return dq, dk, dv
+
+
+def mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: int,
+              prefix_len: int = 0, k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Additive mask [Sq, Sk] (or [B, Sq, Sk] with ``k_valid`` [B, Sk]): 0
+    where a key is visible, -inf where it is not; negative key positions are
+    unfilled cache slots."""
+    qp = q_pos[:, None]
+    kp = k_pos[None, :]
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
+    if causal:
+        ok = kp <= qp
+        if prefix_len > 0:
+            ok = ok | (kp < prefix_len)
+    if window > 0:
+        ok = ok & (kp > qp - window)
+    ok = ok & (kp >= 0)
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    bias = torch.where(ok, zero, -math.inf)
+    if k_valid is not None:
+        bias = bias[None] + torch.where(k_valid, zero, -math.inf)[:, None, :]
+    return bias
+
+
+def sdpa(q, k, v, bias):
+    """q [B, Sq, H, hd]; k, v [B, Sk, K, hd]; bias [Sq, Sk] or [B, Sq, Sk]:
+    the scores in f32, the softmax weights in v's dtype, as JAX's ``_sdpa``."""
+    B, Sq, H, hd = q.shape
+    K = k.shape[2]
+    qg = q.reshape(B, Sq, K, H // K, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k).float() / math.sqrt(hd)
+    b = bias[None, None, None] if bias.ndim == 2 else bias[:, None, None]
+    w = torch.softmax(scores + b, dim=-1).to(v.dtype)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v)
+    return out.reshape(B, Sq, H, hd)
+
+
+def swa_decode_ref(q, k, v, cache_pos, q_pos, window: int = 0) -> torch.Tensor:
+    """Decode attention: q [B, 1, H, hd] at position ``q_pos`` ([1] int)
+    against the cache k, v [B, C, K, hd] whose slot c holds position
+    ``cache_pos[c]`` (-1: unfilled).  A row with no visible slot is NaN,
+    as the reference's softmax gives."""
+    B, C = k.shape[:2]
+    k_valid = (cache_pos >= 0)[None, :].expand(B, C)
+    bias = mask_bias(q_pos.long(), cache_pos.long(), True, window, 0, k_valid)
+    return sdpa(q, k, v, bias)

@@ -1,6 +1,7 @@
 """Entry points and the layout of a run: the training CLI (``train``), the
-meshes and ranks of ``torch.distributed`` (``mesh``) and the layout rules
-of parameters, batches and caches over them (``sharding``)."""
+decode driver (``serve``), the meshes and ranks of ``torch.distributed``
+(``mesh``) and the layout rules of parameters, batches and caches over
+them (``sharding``)."""
 from .mesh import (
     client_axes,
     make_debug_mesh,

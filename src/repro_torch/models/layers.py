@@ -15,9 +15,19 @@ routing with capacity, an index scatter into per-group expert buffers and
 a gather or scatter-add combine) and Mamba2's chunked SSD scan
 (``ssd_scan``), which the JAX package runs in ``jnp`` too.
 
-Not ported yet (ROADMAP A14.3–A14.5): the KV and Mamba caches of the decode
-path (serving), the cross-attention ``kv_override`` (audio),
-``prefix_len > 0`` (the VLM's prefix-LM mask) and bidirectional attention.
+Decoding (serving) keeps a KV cache per attention layer (``init_attn_cache``)
+and a conv and SSM state per Mamba block (``init_mamba_cache``).  One token
+a step goes through ``attention(..., positions=, cache=)``, whose decode
+attention runs on B4d (``kernels.swa_attention.swa_decode``), and through
+``mamba_block(..., cache=)``, one step of the SSD recurrence in torch ops
+as the JAX package runs it in ``jnp``.  The attention cache is written in
+place (see ``attention``); under a sliding window it is a ring of
+``window`` slots that wraps, where the JAX package's decode stops writing
+once the ring is full (ROADMAP §C).
+
+Not ported yet (ROADMAP A14.4–A14.5): the cross-attention ``kv_override``
+(audio), ``prefix_len > 0`` (the VLM's prefix-LM mask) and bidirectional
+attention.
 """
 from __future__ import annotations
 
@@ -27,7 +37,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from ..kernels.swa_attention import swa_attention
+from .._device import DeviceLike, resolve_device
+from ..kernels.swa_attention import swa_attention, swa_decode
 from .spec import ModelSpec
 
 Params = Dict[str, Any]
@@ -108,6 +119,7 @@ def attention(
     x: torch.Tensor,  # [B, S, d]
     spec: ModelSpec,
     *,
+    positions: Optional[torch.Tensor] = None,  # [S] int (decode: [1])
     causal: bool = True,
     prefix_len: int = 0,
     cache: Optional[Params] = None,
@@ -115,11 +127,20 @@ def attention(
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Causal GQA self-attention sub-layer (pre-norm + residual by the caller).
 
-    Rope positions are 0..S-1 and the mask is causal over them, optionally
-    within ``spec.window``.
+    Training and prefill (``cache=None``): rope positions are 0..S-1 and the
+    mask is causal over them, optionally within ``spec.window``, on the
+    flash-attention kernels; ``positions`` must be None (0..S-1).
+
+    Decode (``cache=`` from ``init_attn_cache``, S = 1): the token is roped
+    at ``positions`` (default [0], as in JAX), its k and v go into slot
+    ``index`` of the cache (``index % C`` under a window whose ring holds
+    the whole window, C = window), and the query attends every filled slot
+    that the causal and window mask lets through, on B4d.  A cache without
+    a window (or shorter than its window) that is full raises
+    ``ValueError``.  The cache's k, v and positions are written **in
+    place**; the returned cache holds those tensors and ``index + 1``, and
+    the cache passed in must not be used again.
     """
-    if cache is not None:
-        raise NotImplementedError("the KV cache and decode path come with serving (ROADMAP A14.3)")
     if kv_override is not None:
         raise NotImplementedError("cross-attention (audio) is ported with ROADMAP A14.5")
     if prefix_len > 0:
@@ -128,7 +149,16 @@ def attention(
         raise NotImplementedError("bidirectional attention (audio encoder) is ported with ROADMAP A14.5")
     B, S, d = x.shape
     h, k_heads, hd = spec.num_heads, spec.num_kv_heads, spec.hd
-    positions = torch.arange(S, device=x.device)
+    if cache is None:
+        if positions is not None:
+            raise ValueError("positions other than 0..S-1 need a cache: the training path's "
+                             "kernels take the positions 0..S-1 (pass positions=None)")
+        positions = torch.arange(S, device=x.device)
+    else:
+        if S != 1:
+            raise ValueError(f"the decode path takes one token a step, got S={S}")
+        if positions is None:
+            positions = torch.zeros((1,), dtype=torch.int32, device=x.device)
 
     q = x @ params["wq"]
     if "bq" in params:
@@ -148,8 +178,56 @@ def attention(
     q = rope(q, positions, spec.rope_theta)
     kx = rope(kx, positions, spec.rope_theta)
 
-    out = swa_attention(q, kx, vx, spec.window)
-    return out.reshape(B, S, h * hd) @ params["wo"], None
+    if cache is None:
+        out = swa_attention(q, kx, vx, spec.window)
+        return out.reshape(B, S, h * hd) @ params["wo"], None
+
+    ck, cv, cpos = cache["k"], cache["v"], cache["positions"]
+    idx = int(cache["index"])  # host bookkeeping: reads no device value
+    slot = _cache_slot(idx, ck.shape[1], spec.window)
+    ck[:, slot] = kx[:, 0].to(ck.dtype)
+    cv[:, slot] = vx[:, 0].to(cv.dtype)
+    cpos[slot] = idx
+    new_cache = {"k": ck, "v": cv, "positions": cpos, "index": cache["index"] + 1}
+    out = swa_decode(q, ck, cv, cpos, positions, spec.window)
+    return out.reshape(B, S, h * hd) @ params["wo"], new_cache
+
+
+def _cache_slot(idx: int, C: int, window: int) -> int:
+    """The cache slot of absolute position ``idx`` in a cache of C slots.
+
+    A windowed cache whose C slots hold the whole window (C = window) is a
+    ring: position idx goes to slot idx % C, over the slot that fell out of
+    the window.  (The JAX package wraps only when ``window < C``, which its
+    ``init_attn_cache`` never makes, so past C its writes are dropped and
+    from position 2·window − 1 every slot is masked: NaN.)  Any other cache
+    holds positions 0..C-1 and raises past them."""
+    if window and C >= window:
+        return idx % C
+    if idx >= C:
+        raise ValueError(
+            f"position {idx} does not fit the KV cache of length {C}"
+            + (f" (shorter than the window {window})" if window else "")
+            + ": make the cache longer (cache_len)")
+    return idx
+
+
+def init_attn_cache(spec: ModelSpec, batch: int, cache_len: int,
+                    device: Optional[DeviceLike] = None) -> Params:
+    """One attention layer's KV cache: k, v [batch, C, K, hd] in the compute
+    dtype and ``positions`` [C] int32 (-1: unfilled) on ``device`` (default:
+    the first CUDA device), and ``index`` (int32, the next position to
+    write) on the host, so that placing a token reads nothing from the
+    card.  C = min(cache_len, window) under a window, else cache_len."""
+    device = resolve_device(device)
+    C = min(cache_len, spec.window) if spec.window else cache_len
+    shape = (batch, C, spec.num_kv_heads, spec.hd)
+    return {
+        "k": torch.zeros(shape, dtype=spec.cdtype, device=device),
+        "v": torch.zeros(shape, dtype=spec.cdtype, device=device),
+        "positions": torch.full((C,), -1, dtype=torch.int32, device=device),
+        "index": torch.zeros((), dtype=torch.int32),
+    }
 
 
 # --------------------------------------------------------------------------- #
@@ -378,15 +456,14 @@ def mamba_block(
     params: Params,
     x: torch.Tensor,  # [B, S, d]
     spec: ModelSpec,
-    cache: Optional[Params] = None,
+    cache: Optional[Params] = None,  # {"conv": [B, W-1, di], "state": [B, H, P, N]}
 ) -> Tuple[torch.Tensor, Optional[Params]]:
     """Mamba2 block (pre-norm and residual by the caller): in-projection,
     the causal depthwise convolution, the SSD scan, the gated RMS norm and
-    the out-projection.  Training and prefill only: the decode cache
-    (``cache=``) comes with serving."""
-    if cache is not None:
-        raise NotImplementedError(
-            "the Mamba decode cache comes with serving (ROADMAP A14.3)")
+    the out-projection.  With ``cache`` (decode, S = 1) the convolution runs
+    over the cached last W − 1 inputs and the scan is one step of the
+    recurrence on the f32 state; the new cache is returned (new tensors:
+    the one passed in is not written)."""
     ss = spec.ssm
     d = spec.d_model
     di = ss.expand * d
@@ -402,21 +479,48 @@ def mamba_block(
     dt = torch.logaddexp(dt, torch.zeros_like(dt))  # [B,S,H]
     A = -torch.exp(params["A_log"].to(f32))  # [H]
 
-    # causal depthwise conv over xs
     W = ss.conv_width
-    xpad = F.pad(xs, (0, 0, W - 1, 0))
-    xconv = sum(xpad[:, i : i + S] * params["conv_w"][i] for i in range(W))
-    xconv = F.silu(xconv)
-    xh = xconv.reshape(B, S, nh, ss.head_dim)
-    x_dt = xh * dt[..., None].to(xh.dtype)
-    y, _ = ssd_scan(x_dt, dt * A, Bm, Cm, ss.chunk)
-    y = y + xh * params["D"].to(xh.dtype)[None, None, :, None]
+    new_cache = None
+    if cache is None:
+        # causal depthwise conv over xs
+        xpad = F.pad(xs, (0, 0, W - 1, 0))
+        xconv = sum(xpad[:, i : i + S] * params["conv_w"][i] for i in range(W))
+        xconv = F.silu(xconv)
+        xh = xconv.reshape(B, S, nh, ss.head_dim)
+        x_dt = xh * dt[..., None].to(xh.dtype)
+        y, _ = ssd_scan(x_dt, dt * A, Bm, Cm, ss.chunk)
+        y = y + xh * params["D"].to(xh.dtype)[None, None, :, None]
+    else:
+        if S != 1:
+            raise ValueError(f"the decode path takes one token a step, got S={S}")
+        xcat = torch.cat([cache["conv"], xs], dim=1)  # [B, W, di]
+        xconv = sum(xcat[:, i : i + 1] * params["conv_w"][i] for i in range(W))
+        xconv = F.silu(xconv)
+        xh = xconv.reshape(B, 1, nh, ss.head_dim)
+        dA = torch.exp(dt[:, 0] * A)  # [B,H]
+        inp = (xh[:, 0] * dt[:, 0, :, None]).to(f32)  # [B,H,P]
+        st = cache["state"] * dA[..., None, None] \
+            + inp[..., None] * Bm[:, 0, None, None, :].to(f32)
+        y0 = torch.einsum("bhpn,bn->bhp", st, Cm[:, 0].to(f32))
+        y = (y0[:, None] + xh * params["D"][None, None, :, None]).to(xs.dtype)
+        new_cache = {"conv": xcat[:, 1:], "state": st}
 
     y = y.reshape(B, S, di)
     y = rms_norm(y * F.silu(z), params["gate_norm"], spec.norm_eps)
-    return y @ params["out_proj"], None
+    return y @ params["out_proj"], new_cache
 
 
-def init_mamba_cache(spec: ModelSpec, batch: int) -> Params:
-    """The Mamba decode cache — comes with serving."""
-    raise NotImplementedError("the Mamba decode cache comes with serving (ROADMAP A14.3)")
+def init_mamba_cache(spec: ModelSpec, batch: int,
+                     device: Optional[DeviceLike] = None) -> Params:
+    """One Mamba block's decode cache on ``device`` (default: the first CUDA
+    device): the last W − 1 conv inputs [batch, W−1, di] in the compute dtype
+    and the SSM state [batch, H, P, N] in f32."""
+    device = resolve_device(device)
+    ss = spec.ssm
+    di = ss.expand * spec.d_model
+    nh = di // ss.head_dim
+    return {
+        "conv": torch.zeros((batch, ss.conv_width - 1, di), dtype=spec.cdtype, device=device),
+        "state": torch.zeros((batch, nh, ss.head_dim, ss.state_dim), dtype=torch.float32,
+                             device=device),
+    }

@@ -19,9 +19,13 @@ client's tokens then compete for expert capacity only among themselves).
 The MoE families add ``0.01 · aux`` (the Switch load-balancing loss summed
 over the layers) to the token loss.
 
-Not ported yet (ROADMAP A14.3–A14.6): decoding with its caches, the VLM
-(A14.4) and audio (A14.5) families, and ``spec.remat`` (A14.6:
-``torch.utils.checkpoint`` does not compose with ``torch.func``).  The
+Decoding (``init_caches``, ``decode_step``) keeps one cache per unit,
+stacked on axis 0 as the units are (a hybrid super-block's one attention
+cache and ``attn_period − 1`` Mamba caches), and writes it in place.
+
+Not ported yet (ROADMAP A14.4–A14.6): the VLM (A14.4) and audio (A14.5)
+families, and ``spec.remat`` (A14.6: ``torch.utils.checkpoint`` does not
+compose with ``torch.func``).  The
 GSPMD hooks of the JAX class (``carry_constraint``, ``moe_constraint``) pin
 XLA shardings and have no counterpart here.
 """
@@ -216,3 +220,106 @@ class SplittableModel:
         if self.spec.moe is not None:
             loss = loss + 0.01 * aux
         return loss
+
+    # ------------------------------------------------------------------ #
+    # decode (serve_step)
+    # ------------------------------------------------------------------ #
+    def init_caches(self, batch: int, cache_len: int,
+                    device: Optional[DeviceLike] = None) -> Params:
+        """Every unit's decode cache, stacked on axis 0 (the JAX tree, leaf
+        for leaf): ``{"attn": ...}`` (dense, moe), ``{"mamba": ...}`` (ssm),
+        both for a hybrid super-block, its Mamba caches stacked once more
+        [U, attn_period − 1, ...].  On ``device`` (default: the first CUDA
+        device), but each ``index`` on the host (``L.init_attn_cache``)."""
+        spec = self.spec
+        device = resolve_device(device)
+
+        def stacked(tree: Params, n: int) -> Params:
+            return tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)).contiguous(), tree)
+
+        unit: Params = {}
+        if spec.family in ("dense", "moe", "hybrid"):
+            unit["attn"] = L.init_attn_cache(spec, batch, cache_len, device)
+        if spec.family == "ssm":
+            unit["mamba"] = L.init_mamba_cache(spec, batch, device)
+        if spec.family == "hybrid":
+            unit["mamba"] = stacked(L.init_mamba_cache(spec, batch, device),
+                                    spec.attn_period - 1)
+        return stacked(unit, spec.n_units)
+
+    def _decode_unit(self, up: Params, cache: Params, carry: Params,
+                     pos: torch.Tensor) -> Tuple[Params, Params]:
+        """One unit of ``decode_step``: (carry, the unit's new caches)."""
+        spec = self.spec
+        eps = spec.norm_eps
+        fam = spec.family
+        h = carry["h"]
+
+        def attn(p, c, h):
+            return L.attention(p, L.rms_norm(h, p["norm"], eps), spec, positions=pos, cache=c)
+
+        def mamba(p, c, h):
+            return L.mamba_block(p, L.rms_norm(h, p["norm"], eps), spec, cache=c)
+
+        if fam in ("dense", "moe"):
+            a, nc = attn(up["attn"], cache["attn"], h)
+            h = h + a
+            h = h + (self._moe(up["moe"], h)[0] if fam == "moe" else self._mlp(up["mlp"], h))
+            new = {"attn": nc}
+        elif fam == "ssm":
+            o, nc = mamba(up["mamba"], cache["mamba"], h)
+            h = h + o
+            new = {"mamba": nc}
+        else:  # hybrid: attention, then Mamba; MoE on every moe_period-th sub-layer
+            per = spec.attn_period
+            n_moe = per // spec.moe_period
+            mambas = _unstack(up["mamba"], 0, per - 1)
+            mcaches = [tree_map(lambda x: x[i], cache["mamba"]) for i in range(per - 1)]
+            moes = _unstack(up["moe"], 0, n_moe)
+            mlps = _unstack(up["mlp"], 0, per - n_moe)
+            new_m = []
+            for j in range(per):
+                if j == 0:
+                    a, nca = attn(up["attn"], cache["attn"], h)
+                    h = h + a
+                else:
+                    o, ncm = mamba(mambas.pop(0), mcaches.pop(0), h)
+                    h = h + o
+                    new_m.append(ncm)
+                if j % spec.moe_period == 1:
+                    h = h + self._moe(moes.pop(0), h)[0]
+                else:
+                    h = h + self._mlp(mlps.pop(0), h)
+            new = {"attn": nca, "mamba": _stack(new_m)}
+        out = dict(carry)
+        out["h"] = h
+        return out, new
+
+    def decode_step(self, params: Params, tokens: torch.Tensor, caches: Params,
+                    pos_index) -> Tuple[torch.Tensor, Params]:
+        """One decode step: tokens [B, 1] int at position ``pos_index`` (a
+        host int; a 0-dim tensor is read once) -> (logits [B, padded_vocab],
+        the caches).  The caches are written **in place** and returned: the
+        ones passed in hold the new state, and a test that needs the old
+        one copies it first."""
+        spec = self.spec
+        h = params["frontend"]["embed"][tokens.long()].to(spec.cdtype)  # [B, 1, d]
+        carry = {"h": h, "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+        pos = torch.full((1,), int(pos_index), dtype=torch.int32, device=h.device)
+        units = _unstack(params["units"], 0, spec.n_units)
+        for u, up in enumerate(units):
+            view = tree_map(lambda x: x[u], caches)
+            carry, new = self._decode_unit(up, view, carry, pos)
+            _write_back(view, new)
+        logits = self.head_apply(params, carry)
+        return logits[:, 0], caches
+
+
+def _write_back(view: Params, new: Params) -> None:
+    """Copy a unit's new cache leaves into its views of the stacked caches
+    (a leaf already written in place is the view's own tensor)."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            _write_back(view[k], v)
+        elif v is not view[k]:
+            view[k].copy_(v)

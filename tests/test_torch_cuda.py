@@ -14,6 +14,8 @@ import pytest
 import torch
 from torch.func import grad_and_value, vmap
 
+from repro_torch._tree import tree_map
+
 from repro_torch.compress.quantize import q8_quantize
 from repro_torch.configs.vgg16_cifar10 import REDUCED
 from repro_torch.core import (
@@ -935,3 +937,136 @@ def _one_rank_run(mesh_kind, case, N, J, R, kw):
     return {"losses": losses, "launches": dict(launches),
             "params": [x.cpu() for x in tree_leaves(state.params)],
             "backend": dist.get_backend() if dist.is_initialized() else None}
+
+
+# --------------------------------------------------------------------------- #
+# B4d: decode attention
+# --------------------------------------------------------------------------- #
+
+
+def _slots(kind, C, q_pos, device):
+    """cache_pos of a cache of C slots read at position q_pos."""
+    if kind == "partly filled":
+        pos = torch.where(torch.arange(C) <= q_pos, torch.arange(C), -1)
+    elif kind == "wrapped":  # a ring after q_pos + 1 tokens: slot p % C holds p
+        pos = torch.roll(torch.arange(q_pos + 1 - C, q_pos + 1), (q_pos + 1) % C)
+    elif kind == "all masked":  # every slot ahead of the query
+        pos = torch.arange(C) + q_pos + 1
+    else:
+        raise ValueError(kind)
+    return pos.to(device=device, dtype=torch.int32)
+
+
+def _decode_inputs(cuda, B, C, H, K, hd, dtype=torch.float32, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    q = torch.randn(B, 1, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, C, K, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+DECODE_FILLS = [("partly filled", 70), ("wrapped", 300), ("all masked", 40)]
+
+
+@pytest.mark.parametrize("hd", swa.HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 2, 3, 6, 16])
+def test_b4d_matches_plain_across_head_dims_groups_windows_and_fills(cuda, hd, G):
+    """f32 at ATTN_TOL rtol = atol 2e-5; an all-masked row NaN as the plain
+    version's; C = 128 (a few tiles and a ragged one at 100)."""
+    for C in (100, 128):
+        for kind, q_pos in DECODE_FILLS:
+            for W in (0, 16, C + 5):
+                q, k, v = _decode_inputs(cuda, 3, C, 2 * G, 2, hd, seed=hd + G + W + C)
+                pos = _slots(kind, C, q_pos, cuda)
+                qp = torch.tensor([q_pos], dtype=torch.int32, device=cuda)
+                swa.reset_launches()
+                o = swa.swa_decode(q, k, v, pos, qp, W)
+                torch.cuda.synchronize()
+                assert swa.decode_launches == {"swa_decode": 1}
+                ref = swa.swa_decode_ref(q, k, v, pos, qp, W)
+                torch.testing.assert_close(o, ref, rtol=2e-5, atol=2e-5, equal_nan=True,
+                                           msg=f"C={C} {kind} window={W}")
+                assert bool(torch.isnan(o).all()) == (kind == "all masked")
+
+
+@pytest.mark.parametrize("hd", swa.HEAD_DIMS)
+def test_b4d_bf16_within_one_ulp_of_the_f32_tolerance(cuda, hd):
+    """bf16 inputs: o within one bf16 ulp of the f32 plain version on the
+    same (bf16) inputs, beyond the f32 tolerance."""
+    q, k, v = _decode_inputs(cuda, 4, 200, 6, 2, hd, torch.bfloat16, seed=hd)
+    pos = _slots("wrapped", 200, 450, cuda)
+    qp = torch.tensor([450], dtype=torch.int32, device=cuda)
+    for W in (0, 64):
+        o = swa.swa_decode(q, k, v, pos, qp, W)
+        torch.cuda.synchronize()
+        assert o.dtype == torch.bfloat16
+        ro = swa.swa_decode_ref(q.float(), k.float(), v.float(), pos, qp, W)
+        _, exp = torch.frexp(ro)
+        ulp = torch.ldexp(torch.ones_like(ro), exp - 8)
+        bad = (o.float() - ro).abs() > 2e-5 + 2e-5 * ro.abs() + ulp
+        assert not bool(bad.any()), f"window={W}: {int(bad.sum())} elements"
+
+
+# (B, C, H, K, hd): the serve cells (smollm-135m, qwen2-1.5b, granite-moe-1b-a400m
+# at batch 8, cache 128), REDUCED smollm and qwen2.5, and a long cache
+DECODE_SHAPES = [(8, 128, 9, 3, 64), (8, 128, 12, 2, 128), (8, 128, 16, 8, 64),
+                 (2, 16, 3, 3, 64), (2, 16, 8, 2, 32), (2, 4096, 12, 2, 128)]
+
+
+@pytest.mark.parametrize("shape", DECODE_SHAPES, ids=[str(s) for s in DECODE_SHAPES])
+def test_b4d_at_the_serve_shapes_repeats_bit_for_bit(cuda, shape):
+    B, C, H, K, hd = shape
+    q, k, v = _decode_inputs(cuda, B, C, H, K, hd, seed=C)
+    pos = _slots("partly filled", C, C - 1, cuda)
+    qp = torch.tensor([C - 1], dtype=torch.int32, device=cuda)
+    o1, o2 = swa.swa_decode(q, k, v, pos, qp), swa.swa_decode(q, k, v, pos, qp)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2)
+    torch.testing.assert_close(o1, swa.swa_decode_ref(q, k, v, pos, qp), rtol=2e-5, atol=2e-5)
+
+
+def test_b4d_raises_on_what_the_kernel_does_not_take(cuda):
+    pos = torch.arange(8, dtype=torch.int32, device=cuda)
+    qp = torch.tensor([7], dtype=torch.int32, device=cuda)
+    q, k, v = _decode_inputs(cuda, 1, 8, 4, 2, 48)
+    with pytest.raises(ValueError, match="head dim"):
+        swa.swa_decode(q, k, v, pos, qp)
+    q, k, v = _decode_inputs(cuda, 1, 8, 4, 2, 64, torch.float16)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        swa.swa_decode(q, k, v, pos, qp)
+    q, k, v = _decode_inputs(cuda, 1, 8, 34, 2, 64)
+    with pytest.raises(ValueError, match="at most 16"):
+        swa.swa_decode(q, k, v, pos, qp)
+    q, k, v = _decode_inputs(cuda, 1, 8, 4, 2, 64)
+    with pytest.raises(ValueError, match="no backward"):
+        swa.swa_decode(q.requires_grad_(), k, v, pos, qp)
+
+
+@pytest.mark.parametrize("arch,window", [("smollm-135m", 0), ("smollm-135m", 4),
+                                         ("qwen2-1.5b", 0), ("granite-moe-1b-a400m", 0),
+                                         ("mamba2-1.3b", 0), ("jamba-1.5-large-398b", 0)])
+def test_decode_step_on_card_matches_cpu_and_counts_launches(cuda, arch, window):
+    """REDUCED: 10 decode steps (a window of 4 wraps its ring twice) on the
+    card against the CPU, logits at a max-normalised 2e-5; B4d launches once
+    per attention layer a step, and no B4/B5."""
+    spec = get_reduced(arch).with_window(window)
+    model = SplittableModel(spec)
+    params = model.init_params(torch.Generator().manual_seed(0), "cpu")
+    toks = torch.randint(0, spec.vocab_size, (2, 10), generator=torch.Generator().manual_seed(1))
+    logits = {}
+    for device in (cuda, torch.device("cpu")):
+        p = tree_map(lambda x: x.to(device), params)
+        caches = model.init_caches(2, 10, device)
+        swa.reset_launches()
+        out = []
+        for i in range(10):
+            step, caches = model.decode_step(p, toks[:, i : i + 1].to(device), caches, i)
+            out.append(step.float().cpu())
+        torch.cuda.synchronize()
+        if device.type == "cuda":
+            layers = 0 if spec.family == "ssm" else spec.n_units
+            assert swa.decode_launches == {"swa_decode": 10 * layers}
+            assert swa.launches == dict.fromkeys(swa.launches, 0)
+        logits[device.type] = torch.stack(out)
+    ref = logits["cpu"][..., : spec.vocab_size]
+    err = (logits["cuda"][..., : spec.vocab_size] - ref).abs().max()
+    assert float(err) <= 2e-5 * float(ref.abs().max())

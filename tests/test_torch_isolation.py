@@ -85,12 +85,14 @@ def test_every_jax_module_of_the_slice_has_its_counterpart():
         "core/sharded.py", "launch/mesh.py", "launch/sharding.py",
         "configs/granite_moe_1b_a400m.py", "configs/phi3_5_moe_42b_a6_6b.py",
         "configs/mamba2_1_3b.py", "configs/jamba_1_5_large_398b.py",
+        "launch/serve.py",
     ]
     for rel in slice_modules:
         assert (ROOT / "src" / "repro" / rel).exists(), rel
         assert (PORT / rel).exists(), rel
     assert (PORT / "kernels/tiered_aggregate/csrc/tiered_aggregate.cu").exists()
     assert (PORT / "kernels/swa_attention/csrc/swa_attention.cu").exists()
+    assert (PORT / "kernels/swa_attention/csrc/swa_decode.cu").exists()
 
 
 _PROBE_SLICE = """
@@ -132,6 +134,11 @@ from repro_torch.configs import get_reduced, get_spec
 for arch in ("granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b",
              "jamba-1.5-large-398b"):
     get_spec(arch), get_reduced(arch)
+from repro_torch.launch.serve import generate, load_serving_params, main
+from repro_torch.kernels.swa_attention import decode_launches, swa_decode, swa_decode_ref
+from repro_torch.kernels.swa_attention.ops import DECODE_SOURCE
+from repro_torch.models.layers import init_attn_cache, init_mamba_cache
+assert DECODE_SOURCE.name == "swa_decode.cu" and decode_launches == {"swa_decode": 0}
 print("ok")
 """
 
@@ -140,8 +147,9 @@ def test_the_costs_and_robustness_modules_import_alone():
     """privacy/, energy/, faults/, core/async_agg.py, every control/
     module (the migration and the control loop), Engine B (the engine,
     its migration, the API's step choice, B1m's weights), the sharded
-    engine, and the MoE / Mamba layers and the four zoo configs import with
-    jax, triton and repro blocked; control exports its ``Controller``."""
+    engine, the MoE / Mamba layers and the four zoo configs, and serving
+    (``launch/serve.py``, the caches, B4d's wrapper) import with jax,
+    triton and repro blocked; control exports its ``Controller``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     res = subprocess.run([sys.executable, "-c", _PROBE_SLICE], capture_output=True,
                          text=True, env=env, cwd=ROOT, timeout=120)

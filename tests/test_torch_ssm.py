@@ -209,13 +209,16 @@ def test_mamba_init_is_the_jax_tree():
 
 
 def test_the_decode_cache_raises_naming_a14_3():
+    """A14.3 is ported: the Mamba decode cache builds and steps (held
+    against JAX in tests/test_torch_decode.py); what it still refuses is
+    more than one token a step."""
     spec = get_reduced("mamba2-1.3b")
     p = L.init_mamba(torch.Generator().manual_seed(0), spec)
-    x = torch.zeros(1, 1, spec.d_model)
-    with pytest.raises(NotImplementedError, match="A14.3"):
-        L.mamba_block(p, x, spec, cache={"conv": x, "state": x})
-    with pytest.raises(NotImplementedError, match="A14.3"):
-        L.init_mamba_cache(spec, 1)
+    cache = L.init_mamba_cache(spec, 1, CPU)
+    y, new = L.mamba_block(p, torch.zeros(1, 1, spec.d_model), spec, cache=cache)
+    assert y.shape == (1, 1, spec.d_model) and new["state"].shape == cache["state"].shape
+    with pytest.raises(ValueError, match="one token a step"):
+        L.mamba_block(p, torch.zeros(1, 2, spec.d_model), spec, cache=cache)
     assert dataclasses.is_dataclass(spec.ssm)
 
 

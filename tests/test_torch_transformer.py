@@ -175,15 +175,15 @@ def test_unported_layer_paths_raise_naming_a14():
     p = SplittableModel(spec).init_params(torch.Generator().manual_seed(0), CPU)
     attn = {k: v[0] for k, v in p["units"]["attn"].items()}
     x = torch.zeros(1, 4, spec.d_model)
-    for kw in (dict(cache={}), dict(prefix_len=2), dict(kv_override=(x, x)),
-               dict(causal=False)):
+    for kw in (dict(prefix_len=2), dict(kv_override=(x, x)), dict(causal=False)):
         with pytest.raises(NotImplementedError, match="A14"):
             L.attention(attn, x, spec, **kw)
-    mspec = tconfigs.get_reduced("mamba2-1.3b")
-    mamba = L.init_mamba(torch.Generator().manual_seed(0), mspec)
-    xm = torch.zeros(1, 1, mspec.d_model)
-    with pytest.raises(NotImplementedError, match="A14.3"):
-        L.mamba_block(mamba, xm, mspec, cache={"conv": xm, "state": xm})
+    # the decode cache (A14.3) is ported: it takes one token a step, and
+    # positions other than 0..S-1 only with a cache
+    with pytest.raises(ValueError, match="one token a step"):
+        L.attention(attn, x, spec, cache=L.init_attn_cache(spec, 1, 8, CPU))
+    with pytest.raises(ValueError, match="need a cache"):
+        L.attention(attn, x, spec, positions=torch.arange(4) + 1)
     with pytest.raises(NotImplementedError, match="A14.6"):
         SplittableModel(dataclasses.replace(spec, remat=True))
     for family, item in (("vlm", "A14.4"), ("audio", "A14.5")):
