@@ -525,6 +525,23 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def graph_ms(fn, iters: int = 20) -> float:
+    """ms a call of ``fn`` replayed from a CUDA graph of ``iters`` calls: the
+    card's time alone, without the host's time to issue each call."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(iters):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    return cuda_ms(g.replay, 10) / iters
+
+
 def in_turns(plain, kernel):
     """(kernel ms, plain ms), timed plain, kernel, kernel, plain."""
     p1, k1, k2, p2 = cuda_ms(plain), cuda_ms(kernel), cuda_ms(kernel), cuda_ms(plain)
@@ -3829,8 +3846,21 @@ SERVE_F64_FACTOR = 2.0
 # a routing flip between decode and forward must be a near-tie: the
 # forward's k-th/(k+1)-th gate margin under this
 SERVE_FLIP_MARGIN = 1e-5
-# B4d timed at the smollm-135m serve shape (its main path) and a long cache
-DECODE_TIMED = {"serve": (8, 128, 9, 3, 64), "long cache": (8, 8192, 12, 2, 128)}
+# B4d timed at the smollm-135m serve shape (its main path), qwen2-1.5b's
+# heads at a long cache (f32 and bf16, full and filled to q_pos 1023: an
+# eighth of its tiles visible) and at C 1024, where the split count changes:
+# label -> ((B, C, H, K, hd), dtype, q_pos of a partly filled cache or None
+# for every slot filled and visible)
+DECODE_TIMED = {
+    "serve": ((8, 128, 9, 3, 64), "f32", None),
+    "long cache": ((8, 8192, 12, 2, 128), "f32", None),
+    "long cache bf16": ((8, 8192, 12, 2, 128), "bf16", None),
+    "long cache filled to 1023": ((8, 8192, 12, 2, 128), "f32", 1023),
+    "C 1024": ((8, 1024, 12, 2, 128), "f32", None),
+}
+# qwen2-1.5b served from a full long cache: batch 8, slots 0..8191 filled,
+# then 4 warm-up and 64 timed decode steps (8192 + 68 slots)
+SERVE_LONG_B, SERVE_LONG_FILLED, SERVE_LONG_WARM, SERVE_LONG_TIMED = 8, 8192, 4, 64
 SERVE_CKPT = ROOT / "build" / "chip_smoke" / "smollm-135m-trained.npz"
 
 
@@ -3863,7 +3893,7 @@ def decode_shapes():
     shapes.append((SERVE_B, SERVE_RING[1], 9, 3, 64))
     shapes += [(8, 64, s.num_heads, s.num_kv_heads, s.hd) for s in map(get_reduced, PORTED_ARCH_IDS)
                if s.family != "ssm"]
-    shapes.append(DECODE_TIMED["long cache"])
+    shapes += [shape for shape, _, _ in DECODE_TIMED.values()]
     return sorted(set(shapes))
 
 
@@ -3882,17 +3912,30 @@ def slot_positions(kind: str, C: int, q_pos: int, dev):
     return pos.to(device=dev, dtype=torch.int32)
 
 
+def decode_heads_a_warp(G: int) -> int:
+    """The query heads a warp of B4d's split kernel takes (its HPW)."""
+    return 1 if G <= 4 else 2
+
+
 def decode_build_report(source) -> dict:
-    """ptxas's registers and spills of each B4d instantiation (5 head dims x
-    f32, bf16)."""
+    """ptxas's registers and spills of each B4d instantiation: the split
+    kernel (5 head dims x 1 or 2 query heads a warp x f32, bf16) and the
+    merge kernel (f32, bf16); fails on a spill."""
     from repro_torch.kernels import build
+
+    def dt(mangled: str) -> str:
+        return "f32" if mangled == "f" else "bf16"
 
     report, key = {}, None
     for line in build.build_log(source).read_text().splitlines():
-        m = re.search(r"Compiling entry function '\S*swa_decode_kernelILi(\d+)E(f|13__nv_bfloat16)",
-                      line)
+        m = re.search(r"Compiling entry function '\S*swa_decode_kernelILi(\d+)ELi(\d+)E"
+                      r"(f|13__nv_bfloat16)", line)
+        m2 = re.search(r"Compiling entry function '\S*swa_decode_merge_kernelI"
+                       r"(f|13__nv_bfloat16)E", line)
         if m:
-            key = f"swa_decode_kernel<{m.group(1)}, {'f32' if m.group(2) == 'f' else 'bf16'}>"
+            key = f"swa_decode_kernel<{m.group(1)}, {m.group(2)}, {dt(m.group(3))}>"
+        elif m2:
+            key = f"swa_decode_merge_kernel<{dt(m2.group(1))}>"
         elif key and "Used" in line:
             report.setdefault(key, {})["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
@@ -3900,10 +3943,14 @@ def decode_build_report(source) -> dict:
             stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                       line).groups()
             report.setdefault(key, {}).update(spill_stores=int(stores), spill_loads=int(loads))
-    if len(report) != 10:
-        raise AssertionError(f"B4d: {len(report)} kernel instantiations in the build log")
-    print("[build] B4d (swa_decode_kernel) registers / spill stores: "
-          + ", ".join(f"{k} {r['registers']} / {r['spill_stores']} B" for k, r in report.items()))
+    if len(report) != 22:
+        raise AssertionError(f"B4d: {len(report)} kernel instantiations in the build log, not 22")
+    print("[build] B4d (swa_decode_kernel, swa_decode_merge_kernel) registers / spill stores: "
+          + ", ".join(f"{k} {r['registers']} / {r['spill_stores']} B" for k, r in report.items())
+          + "; a call launches the split kernel, then the merge kernel when S > 1")
+    spilled = [k for k, r in report.items() if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"B4d: ptxas spills in {spilled}")
     return report
 
 
@@ -4119,7 +4166,8 @@ def serve_ring(model, params, card: str):
 
 def serve_qwen(card: str):
     """qwen2-1.5b, the JAX CLI's default arch, at full width and depth with
-    random weights: served, and held to its forward."""
+    random weights: served, and held to its forward; then the same weights
+    decode from a full long cache (``serve_long_cache``)."""
     import torch
 
     from repro_torch.configs import get_spec
@@ -4131,7 +4179,100 @@ def serve_qwen(card: str):
     run, res = serve_generate(f"qwen2-1.5b ({spec.total_param_count()} params, random)",
                               model, params, serve_prompt(spec.vocab_size), card)
     res["tf_err"] = check_teacher_forced("qwen2-1.5b", model, params, run)
-    del params, run
+    del run
+    torch.cuda.empty_cache()
+    long = serve_long_cache(model, params, card)
+    del params
+    torch.cuda.empty_cache()
+    return res, long
+
+
+def serve_long_cache(model, params, card: str):
+    """A timing cell: the model decodes at batch 8 from a full cache of
+    8192 slots (a quarter of the 32 768 tokens qwen2-1.5b's config allows).
+    Slots 0..8191 of every layer's k and v are filled in place with seeded
+    normal values at the scale of the model's own k and v (their std per
+    layer after one decode step on a one-slot cache), positions 0..8191,
+    each index 8192.  The first of 4 warm-up steps (positions 8192..8195)
+    is held, within SERVE_TF_TOL max-normalised, to the same step on a copy
+    of the caches with ``layers.swa_decode`` replaced by ``swa_decode_ref``
+    for that step alone (the replacement lives here, never in the program);
+    then 64 steps (8196..8259) are timed with CUDA events, B4d's launches
+    counted from 0 (one a layer a step), and B4d's share of a step read as
+    launches x its events-timed ms on the last step's cache."""
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.kernels.swa_attention import decode_launches, swa_decode, swa_decode_ref
+    from repro_torch.models import layers
+
+    B, F, W, T = SERVE_LONG_B, SERVE_LONG_FILLED, SERVE_LONG_WARM, SERVE_LONG_TIMED
+    spec, dev = model.spec, serve_device()
+    n_layers = attention_layers(spec)
+    toks = torch.randint(0, spec.vocab_size, (B, 1 + W + T),
+                         generator=torch.Generator().manual_seed(41), dtype=torch.int32).to(dev)
+    with torch.no_grad():
+        probe = model.init_caches(B, 1, dev)
+        model.decode_step(params, toks[:, :1], probe, 0)
+        k_std = probe["attn"]["k"].float().flatten(1).std(dim=1).tolist()
+        v_std = probe["attn"]["v"].float().flatten(1).std(dim=1).tolist()
+        del probe
+        caches = model.init_caches(B, F + W + T, dev)
+        a = caches["attn"]
+        gen = torch.Generator(device=dev).manual_seed(43)
+        for u in range(n_layers):
+            a["k"][u, :, :F].normal_(generator=gen).mul_(k_std[u])
+            a["v"][u, :, :F].normal_(generator=gen).mul_(v_std[u])
+        a["positions"][:, :F] = torch.arange(F, dtype=torch.int32, device=dev)
+        a["index"].fill_(F)
+        copy = tree_map(lambda x: x.clone(), caches)
+        logits, _ = model.decode_step(params, toks[:, 1:2], caches, F)
+        kernel = layers.swa_decode
+        layers.swa_decode = swa_decode_ref
+        try:
+            ref, _ = model.decode_step(params, toks[:, 1:2], copy, F)
+        finally:
+            layers.swa_decode = kernel
+        del copy
+        torch.cuda.empty_cache()
+        e = norm_err(logits.float(), ref.float(), spec.vocab_size)
+        if not (e <= SERVE_TF_TOL and bool(torch.isfinite(logits[:, : spec.vocab_size]).all())):
+            raise AssertionError(f"long cache: the first step's logits {e:.3e} (max-normalised) "
+                                 f"from the plain-version step, above {SERVE_TF_TOL}")
+        for i in range(1, W):
+            model.decode_step(params, toks[:, 1 + i : 2 + i], caches, F + i)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_all_launches()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(W, W + T):
+            logits, _ = model.decode_step(params, toks[:, 1 + i : 2 + i], caches, F + i)
+        end.record()
+        torch.cuda.synchronize()
+    got = decode_launches[DECODE]
+    if got != n_layers * T:
+        raise AssertionError(f"long cache: {got} B4d launches, {n_layers} layers x {T} steps "
+                             f"make {n_layers * T}")
+    if not bool(torch.isfinite(logits[:, : spec.vocab_size]).all()):
+        raise AssertionError("long cache: non-finite logits")
+    ms = start.elapsed_time(end) / T
+    peak = torch.cuda.max_memory_allocated()
+    q = torch.randn(B, 1, spec.num_heads, spec.hd, generator=torch.Generator(device=dev)
+                    .manual_seed(47), device=dev).to(spec.cdtype)
+    qp = torch.tensor([F + W + T - 1], dtype=torch.int32, device=dev)
+    b4d_ms = cuda_ms(lambda: swa_decode(q, a["k"][0], a["v"][0], a["positions"][0], qp))
+    res = {"ms_per_step": ms, "tok_s": B / (ms / 1e3), "peak": peak, "launches": got,
+           "first_step_err": e, "b4d_ms": b4d_ms, "b4d_share": n_layers * b4d_ms / ms,
+           "cache": [B, F + W + T, spec.num_kv_heads, spec.hd]}
+    print(f"[serve] {spec.name} from a full long cache: batch {B}, slots 0..{F - 1} filled, "
+          f"cache {F + W + T}, {T} timed steps after {W}: {ms:.3f} ms a decode step (CUDA "
+          f"events), {res['tok_s']:.1f} tok/s, peak {peak / 1e9:.2f} GB; B4d {got} launches = "
+          f"{n_layers} layers x {T} steps, {b4d_ms:.4f} ms a launch on the last step's cache, "
+          f"{n_layers} x that = {100 * res['b4d_share']:.1f}% of a step; the first step within "
+          f"{e:.3e} of the plain-version step (max-normalised; tolerance {SERVE_TF_TOL}); "
+          f"card {card}")
+    del caches, a
     torch.cuda.empty_cache()
     return res
 
@@ -4312,57 +4453,116 @@ def serve_cli(card: str):
     return {"launches": got}
 
 
-def decode_work(B, C, H, K, hd, visible: int):
+def decode_work(B, C, H, K, hd, visible: int, read_slots: int, elt: int = 4):
     """(operations, bytes) of decode attention: s = q.k and o += p.v over the
-    visible slots (2 flops a multiply-add); q, k, v, cache_pos and q_pos read
-    once, o written once, f32."""
+    visible slots (2 flops a multiply-add); q read and o written once in
+    the input dtype (``elt`` bytes), k and v of the ``read_slots`` (the
+    slots of the tiles that hold a visible slot: B4d skips the others), and
+    cache_pos and q_pos once."""
     ops = 4 * hd * B * H * visible
-    nbytes = 4 * (2 * B * H * hd + 2 * B * C * K * hd + C + 1)
+    nbytes = elt * (2 * B * H * hd + 2 * B * K * hd * read_slots) + 4 * (C + 1)
     return ops, nbytes
 
 
+def decode_read_slots(pos, q_pos: int, window: int = 0):
+    """(visible slots, slots of the tiles that hold a visible one) of a
+    cache whose slots hold ``pos``, read at ``q_pos``."""
+    import torch
+
+    from repro_torch.kernels.swa_attention.ops import DECODE_TILE
+
+    pos = pos.long().cpu()
+    ok = (pos >= 0) & (pos <= q_pos)
+    if window > 0:
+        ok &= pos > q_pos - window
+    C = pos.shape[0]
+    tiles = -(-C // DECODE_TILE)
+    hit = torch.zeros(tiles * DECODE_TILE, dtype=torch.bool)
+    hit[:C] = ok
+    hit = hit.reshape(tiles, DECODE_TILE).any(dim=1).tolist()
+    return int(ok.sum()), sum(min(DECODE_TILE, C - t * DECODE_TILE)
+                              for t in range(tiles) if hit[t])
+
+
 def decode_timings(card: str):
-    """B4d at the serve shape and a long cache (every slot filled and
-    visible): kernel and plain ms in turns, the bound, and SDPA with the
-    mask as a bias (enable_gqa) as the library yardstick."""
+    """B4d at every shape of DECODE_TIMED: the kernel's ms called eagerly
+    (the wrapper's host time included, in turns with the plain version),
+    the plain version's ms and SDPA's with the mask as a bias (enable_gqa,
+    the library yardstick), all three timed the same way; beside them
+    ``graph_ms``, the kernel's time on the card alone (a CUDA graph of 20
+    wrapper calls replayed), the split count S and the bound (the bytes of
+    the tiles that hold a visible slot).  Each timed call reads the next of
+    n copies of the cache, n such that the bytes read by n calls exceed
+    twice the 50 MB L2: a decode step's 28 layers find their caches cold
+    too."""
+    import itertools
+
     import torch
     import torch.nn.functional as F
 
-    from repro_torch.kernels.swa_attention import reset_launches, swa_decode, swa_decode_ref
+    from repro_torch.kernels.swa_attention import (
+        decode_launch_splits, reset_launches, swa_decode, swa_decode_ref,
+    )
     from repro_torch.kernels.swa_attention.ref import mask_bias
 
     dev = serve_device()
     gen = torch.Generator(device=dev).manual_seed(9)
     out = {}
-    for label, (B, C, H, K, hd) in DECODE_TIMED.items():
-        q = torch.randn(B, 1, H, hd, generator=gen, device=dev)
-        k, v = (torch.randn(B, C, K, hd, generator=gen, device=dev) for _ in range(2))
-        pos = torch.arange(C, dtype=torch.int32, device=dev)
-        qp = torch.tensor([C - 1], dtype=torch.int32, device=dev)
-        km, pm = in_turns(lambda: swa_decode_ref(q, k, v, pos, qp),
-                          lambda: swa_decode(q, k, v, pos, qp))
-        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    for label, ((B, C, H, K, hd), dname, filled) in DECODE_TIMED.items():
+        dtype = torch.float32 if dname == "f32" else torch.bfloat16
+        q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, C, K, hd, generator=gen, device=dev).to(dtype) for _ in range(2))
+        q_pos = C - 1 if filled is None else filled
+        pos = slot_positions("partly filled", C, q_pos, dev)
+        qp = torch.tensor([q_pos], dtype=torch.int32, device=dev)
+        visible, read = decode_read_slots(pos, q_pos)
+        n = max(1, math.ceil(2 * 50e6 / (2 * B * K * hd * read * k.element_size())))
+        caches = [(k, v)] + [(k.clone(), v.clone()) for _ in range(n - 1)]
+        flat = itertools.cycle(caches)
+        trans = itertools.cycle([tuple(x.transpose(1, 2).contiguous() for x in kv)
+                                 for kv in caches])
+        km, pm = in_turns(lambda: swa_decode_ref(q, *next(flat), pos, qp),
+                          lambda: swa_decode(q, *next(flat), pos, qp))
+        gm = graph_ms(lambda: swa_decode(q, *next(flat), pos, qp))
+        qt = q.transpose(1, 2).contiguous()
         bias = mask_bias(qp.long(), pos.long(), True, 0, 0, (pos >= 0)[None].expand(B, C))
-        bias = bias[:, None]  # [B, 1, 1, C]
+        bias = bias[:, None].to(dtype)  # [B, 1, 1, C]
 
         def library():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=bias, enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, *next(trans), attn_mask=bias,
+                                                  enable_gqa=True)
 
-        torch.testing.assert_close(library().transpose(1, 2), swa_decode(q, k, v, pos, qp),
-                                   rtol=ATTN_TOL, atol=ATTN_TOL)
+        got = swa_decode(q, k, v, pos, qp)
+        if dtype == torch.float32:
+            torch.testing.assert_close(library().transpose(1, 2), got, rtol=ATTN_TOL,
+                                       atol=ATTN_TOL)
+        else:  # the kernel within one bf16 ulp; SDPA rounds its softmax in bf16
+            ref = swa_decode_ref(q.float(), k.float(), v.float(), pos, qp)
+            if not bool(((got.float() - ref).abs()
+                         <= ATTN_TOL + ATTN_TOL * ref.abs() + bf16_ulp(ref)).all()):
+                raise AssertionError(f"B4d at the {label} shape: beyond one bf16 ulp")
+            torch.testing.assert_close(library().transpose(1, 2).float(), ref, rtol=2e-2,
+                                       atol=2e-2)
         lm = cuda_ms(library)
-        ops, nbytes = decode_work(B, C, H, K, hd, C)
+        ops, nbytes = decode_work(B, C, H, K, hd, visible, read, q.element_size())
         by_ops, by_bytes = ops / F32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
-        r = dict(ms=km, plain_ms=pm, bound_ms=max(by_ops, by_bytes),
+        S = decode_launch_splits(q, k)
+        r = dict(ms=km, graph_ms=gm, plain_ms=pm, bound_ms=max(by_ops, by_bytes),
                  bound_by="operations" if by_ops >= by_bytes else "bytes", library_ms=lm,
-                 ops=ops, bytes=nbytes, shape=[B, C, H, K, hd])
+                 ops=ops, bytes=nbytes, shape=[B, C, H, K, hd], dtype=dname, q_pos=q_pos,
+                 visible=visible, read_slots=read, splits=S, launches_a_call=1 + (S > 1),
+                 cache_copies=n)
         out[label] = r
         print(f"[timing] B4d swa_decode at the {label} shape B={B} C={C} H={H} K={K} hd={hd} "
-              f"(f32, every slot visible): kernel {km:.4f} ms, plain {pm:.4f} ms, library "
-              f"(scaled_dot_product_attention, float mask bias, enable_gqa) {lm:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms ({r['bound_by']}: {nbytes / 1e6:.2f} MB at 3.35 TB/s, "
-              f"{ops / 1e6:.1f} MFLOP at 67 TFLOP/s f32; H100 SXM data sheet) = "
-              f"{100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
+              f"({dname}, q_pos {q_pos}: {visible} slots visible, {read} read; {n} cache "
+              f"copies in turn), S={S} splits "
+              f"({r['launches_a_call']} launch(es) a call), each called eagerly: kernel {km:.4f} "
+              f"ms, plain {pm:.4f} ms, library (scaled_dot_product_attention, float mask bias, "
+              f"enable_gqa) {lm:.4f} ms; the kernel on the card alone {gm:.4f} ms (a graph of "
+              f"20 calls replayed); bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+              f"{nbytes / 1e6:.2f} MB at 3.35 TB/s, {ops / 1e6:.1f} MFLOP at 67 TFLOP/s f32; "
+              f"H100 SXM data sheet) = {100 * r['bound_ms'] / km:.1f}% eager, "
+              f"{100 * r['bound_ms'] / gm:.1f}% on the card alone; card {card}")
     reset_launches()
     return out
 
@@ -4381,7 +4581,7 @@ def serve_paths(card: str, ckpt: Path):
     out["serve-smollm-135m-ring"] = serve_ring(model, params, card)
     del model, params
     torch.cuda.empty_cache()
-    out["serve-qwen2-1.5b"] = serve_qwen(card)
+    out["serve-qwen2-1.5b"], out["serve-qwen2-1.5b-long-cache"] = serve_qwen(card)
     out["serve-granite-moe-1b-a400m"] = serve_granite(card)
     out["serve-mamba2-1.3b"] = serve_mamba(card)
     out[f"serve-{ZOO_HYBRID}-reduced"] = serve_jamba_card_vs_cpu(card)
@@ -4392,7 +4592,8 @@ def serve_paths(card: str, ckpt: Path):
         if counts[path] == 0:
             raise AssertionError(f"kernel {DECODE} was not launched on {path}")
     times = decode_timings(card)
-    print("[timing] [serve] ms a decode step, tok/s and peak GB at batch 8, prompt 64, gen 64: "
+    print("[timing] [serve] ms a decode step, tok/s and peak GB at batch 8 (prompt 64, gen 64; "
+          "the long cache: 8192 filled, 64 timed steps): "
           + json.dumps({k: [round(v["ms_per_step"], 4), round(v["tok_s"], 1),
                             round(v["peak"] / 1e9, 3)] for k, v in out.items()
                         if "ms_per_step" in v})
@@ -4494,7 +4695,7 @@ def main() -> int:
                        ("sharded-2-ranks-gloo-int8", AGG[1])):
         if sharded_counts[path][name] == 0:
             raise AssertionError(f"kernel {name} was not launched on {path}")
-    serve_counts, _, decode_errs, decode_times = serve_paths(card, serve_ckpt)
+    serve_counts, serve_out, decode_errs, decode_times = serve_paths(card, serve_ckpt)
     times = timings(card, run)
     times.update(ragged_timings(card))
     times.update(masked_timings(card))
@@ -4607,8 +4808,9 @@ def main() -> int:
     } for name in ATTN]
     # B4d: decode attention, on the [serve] paths; its main path is the
     # trained smollm-135m served at batch 8, prompt 64, gen 64
-    B, C, H, K, hd = DECODE_TIMED["serve"]
+    B, C, H, K, hd = DECODE_TIMED["serve"][0]
     t = decode_times["serve"]
+    long_shape = DECODE_TIMED["long cache"][0]
     kernels.append({
         "name": DECODE, "route": "cuda", "source": SOURCES[DECODE], "replaces": REPLACES[DECODE],
         "launches": serve_counts["serve-smollm-135m"],
@@ -4618,9 +4820,18 @@ def main() -> int:
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
         "library": ("torch.nn.functional.scaled_dot_product_attention (float mask bias, "
                     "enable_gqa, f32)"),
-        "timed_at": f"B={B} C={C} H={H} K={K} hd={hd} f32, every slot visible",
+        "timed_at": (f"B={B} C={C} H={H} K={K} hd={hd} f32, every slot visible; ms, "
+                     "plain_ms and library_ms called eagerly; graph_ms (in timings) the "
+                     "kernel alone on the card, a CUDA graph of 20 calls replayed"),
+        "launches_a_call": "1 (S = 1) or 2 (the split kernel, then the merge kernel)",
         "long_cache": decode_times["long cache"],
-        "build": decode_build[f"swa_decode_kernel<{hd}, f32>"],
+        "timings": decode_times,
+        "serve_long_cache": serve_out["serve-qwen2-1.5b-long-cache"],
+        "build": decode_build[f"swa_decode_kernel<{hd}, {decode_heads_a_warp(H // K)}, f32>"],
+        "build_long_cache": decode_build[
+            f"swa_decode_kernel<{long_shape[4]}, "
+            f"{decode_heads_a_warp(long_shape[2] // long_shape[3])}, f32>"],
+        "build_merge": decode_build["swa_decode_merge_kernel<f32>"],
         "port_only": "no TPU kernel: the jnp _sdpa of attention's cache branch",
     })
     print(json.dumps({"kernels": kernels}))

@@ -1,6 +1,8 @@
 from .ops import (
     HEAD_DIMS,
+    decode_launch_splits,
     decode_launches,
+    decode_splits,
     launches,
     reset_launches,
     swa_attention,

@@ -28,12 +28,16 @@ versions count nothing.
 [B, C, K, hd] whose slots hold the positions ``cache_pos`` [C].  It has no
 backward, so no ``autograd.Function``: it raises when q requires grad.  On
 a CUDA tensor it launches B4d or raises; on a CPU tensor it runs
-``swa_decode_ref``.  Its launches count in ``decode_launches``, apart from
-the training kernels' ``launches``; ``reset_launches`` sets both to 0.
+``swa_decode_ref``.  B4d splits the cache's 32-slot tiles over
+``decode_splits`` blocks a (b, kv head) and merges the
+splits' partials in a second launch when there is more than one split;
+``decode_launches`` counts one a call either way, apart from the training
+kernels' ``launches``; ``reset_launches`` sets both to 0.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -49,6 +53,9 @@ SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
 DECODE_SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_decode.cu"
 HEAD_DIMS = (32, 64, 80, 96, 128)
 DECODE_MAX_GROUP = 16  # query heads a kv head that B4d takes
+DECODE_TILE = 32  # cache slots a B4d tile
+DECODE_MIN_SPLIT_TILES = 4  # tiles a split holds at the least
+DECODE_MAX_BLOCKS_PER_SM = 4  # the most that the split count plans for
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches: Dict[str, int] = {
@@ -82,15 +89,22 @@ def _library() -> ctypes.CDLL:
     return _lib
 
 
+def bind_decode(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """``lib``, a build of ``DECODE_SOURCE``, with its C entries' signatures."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    # q, k, v, cache_pos, q_pos, o, workspace; dtype, B, C, H, K, hd, window,
+    # scale, splits, stream
+    lib.swa_decode.argtypes = [p] * 7 + [i] * 7 + [f, i, p]
+    lib.swa_decode.restype = i
+    lib.swa_decode_blocks_per_sm.argtypes = [i, i, i]  # dtype, hd, G
+    lib.swa_decode_blocks_per_sm.restype = i
+    return lib
+
+
 def _decode_library() -> ctypes.CDLL:
     global _decode_lib
     if _decode_lib is None:
-        lib = build.load(DECODE_SOURCE)
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # q, k, v, cache_pos, q_pos, o; dtype, B, C, H, K, hd, window, scale, stream
-        lib.swa_decode.argtypes = [p] * 6 + [i] * 7 + [f, p]
-        lib.swa_decode.restype = i
-        _decode_lib = lib
+        _decode_lib = bind_decode(build.load(DECODE_SOURCE))
     return _decode_lib
 
 
@@ -334,6 +348,37 @@ def _check_decode(q, k, v, cache_pos, q_pos) -> bool:
     return True
 
 
+def decode_splits(B: int, K: int, C: int, num_sms: int, blocks_per_sm: int) -> int:
+    """S, the splits of B4d's cache a (b, kv head): a function of the shapes
+    and of the card's SM count and resident blocks an SM, so it reads
+    nothing from the card.  The B·K·S blocks fill the SMs once, at most
+    ``DECODE_MAX_BLOCKS_PER_SM`` an SM: a second, partial wave runs on a
+    nearly idle card, and more, shorter blocks ran slower
+    (chip_ablate_decode.py).  Each split holds at least
+    ``DECODE_MIN_SPLIT_TILES`` tiles of ``DECODE_TILE`` slots, so a cache of
+    fewer than 8 tiles is not split."""
+    tiles = -(-C // DECODE_TILE)
+    per_sm = min(blocks_per_sm, DECODE_MAX_BLOCKS_PER_SM)
+    return max(1, min(num_sms * per_sm // max(B * K, 1), tiles // DECODE_MIN_SPLIT_TILES))
+
+
+@functools.lru_cache(maxsize=None)
+def _splits_on(B: int, C: int, H: int, K: int, hd: int, dtype: int, index: int) -> int:
+    blocks = _decode_library().swa_decode_blocks_per_sm(dtype, hd, H // K)
+    if blocks <= 0:
+        raise RuntimeError(f"swa_decode's occupancy query failed with CUDA error {-blocks}")
+    return decode_splits(B, K, C, torch.cuda.get_device_properties(index).multi_processor_count,
+                         blocks)
+
+
+def decode_launch_splits(q: torch.Tensor, k: torch.Tensor) -> int:
+    """The S that ``swa_decode`` launches for q and k on the card, once a
+    shape: ``decode_splits`` with the device's SM count and the occupancy
+    calculator's resident blocks of the split kernel (no launch)."""
+    B, _, H, hd = q.shape
+    return _splits_on(B, k.shape[1], H, k.shape[2], hd, _DTYPES[q.dtype], q.device.index)
+
+
 def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_pos: torch.Tensor,
                q_pos: torch.Tensor, window: int = 0) -> torch.Tensor:
     """B4d: decode attention of q [B, 1, H, hd] at position ``q_pos`` ([1])
@@ -348,14 +393,17 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_pos: tor
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     cache_pos = cache_pos.to(torch.int32).contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
+    S = decode_launch_splits(q, k)
     o = torch.empty_like(q)
+    ws = (torch.empty(B * H * S * (hd + 2), dtype=torch.float32, device=q.device)
+          if S > 1 else None)
     lib = _decode_library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.swa_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), cache_pos.data_ptr(), q_pos.data_ptr(),
-            o.data_ptr(), _DTYPES[q.dtype], B, C, H, K, hd, max(int(window), 0),
-            1.0 / math.sqrt(hd), stream,
+            o.data_ptr(), None if ws is None else ws.data_ptr(), _DTYPES[q.dtype], B, C, H, K,
+            hd, max(int(window), 0), 1.0 / math.sqrt(hd), S, stream,
         )
     _raise_on(status, "swa_decode")
     decode_launches["swa_decode"] += 1

@@ -967,13 +967,25 @@ def _decode_inputs(cuda, B, C, H, K, hd, dtype=torch.float32, seed=0):
 DECODE_FILLS = [("partly filled", 70), ("wrapped", 300), ("all masked", 40)]
 
 
+def _decode_fills(C):
+    """DECODE_FILLS for a short cache; for a split one (C > 128) the first
+    half filled (the later splits hold no visible slot), a full ring (a
+    window of 16 lies in one split) and every slot ahead of the query."""
+    if C <= 128:
+        return DECODE_FILLS
+    return [("partly filled", C // 2 + 7), ("wrapped", 2 * C + 300), ("all masked", C // 3)]
+
+
 @pytest.mark.parametrize("hd", swa.HEAD_DIMS)
-@pytest.mark.parametrize("G", [1, 2, 3, 6, 16])
+@pytest.mark.parametrize("G", [1, 2, 3, 5, 6, 12, 16])
 def test_b4d_matches_plain_across_head_dims_groups_windows_and_fills(cuda, hd, G):
     """f32 at ATTN_TOL rtol = atol 2e-5; an all-masked row NaN as the plain
-    version's; C = 128 (a few tiles and a ragged one at 100)."""
-    for C in (100, 128):
-        for kind, q_pos in DECODE_FILLS:
+    version's; one call counted a call.  C = 100 and 128 (one split: a few
+    tiles and a ragged one at 100), 1300 (10 splits at batch 3: split 0
+    holds 5 tiles, the others 4, and its last tile is ragged), 4096 and 8192
+    (32 and 64 splits)."""
+    for C in (100, 128, 1300, 4096, 8192):
+        for kind, q_pos in _decode_fills(C):
             for W in (0, 16, C + 5):
                 q, k, v = _decode_inputs(cuda, 3, C, 2 * G, 2, hd, seed=hd + G + W + C)
                 pos = _slots(kind, C, q_pos, cuda)
@@ -991,25 +1003,31 @@ def test_b4d_matches_plain_across_head_dims_groups_windows_and_fills(cuda, hd, G
 @pytest.mark.parametrize("hd", swa.HEAD_DIMS)
 def test_b4d_bf16_within_one_ulp_of_the_f32_tolerance(cuda, hd):
     """bf16 inputs: o within one bf16 ulp of the f32 plain version on the
-    same (bf16) inputs, beyond the f32 tolerance."""
-    q, k, v = _decode_inputs(cuda, 4, 200, 6, 2, hd, torch.bfloat16, seed=hd)
-    pos = _slots("wrapped", 200, 450, cuda)
-    qp = torch.tensor([450], dtype=torch.int32, device=cuda)
-    for W in (0, 64):
-        o = swa.swa_decode(q, k, v, pos, qp, W)
-        torch.cuda.synchronize()
-        assert o.dtype == torch.bfloat16
-        ro = swa.swa_decode_ref(q.float(), k.float(), v.float(), pos, qp, W)
-        _, exp = torch.frexp(ro)
-        ulp = torch.ldexp(torch.ones_like(ro), exp - 8)
-        bad = (o.float() - ro).abs() > 2e-5 + 2e-5 * ro.abs() + ulp
-        assert not bool(bad.any()), f"window={W}: {int(bad.sum())} elements"
+    same (bf16) inputs, beyond the f32 tolerance: a wrapped ring of 200
+    slots (one split) and of 1300 (10 splits at batch 4, its last tile
+    ragged), at one and two query heads a warp."""
+    for C, q_pos in ((200, 450), (1300, 3000)):
+        for G in (2, 3, 16):
+            q, k, v = _decode_inputs(cuda, 4, C, 2 * G, 2, hd, torch.bfloat16, seed=hd + G)
+            pos = _slots("wrapped", C, q_pos, cuda)
+            qp = torch.tensor([q_pos], dtype=torch.int32, device=cuda)
+            for W in (0, 64):
+                o = swa.swa_decode(q, k, v, pos, qp, W)
+                torch.cuda.synchronize()
+                assert o.dtype == torch.bfloat16
+                ro = swa.swa_decode_ref(q.float(), k.float(), v.float(), pos, qp, W)
+                _, exp = torch.frexp(ro)
+                ulp = torch.ldexp(torch.ones_like(ro), exp - 8)
+                bad = (o.float() - ro).abs() > 2e-5 + 2e-5 * ro.abs() + ulp
+                assert not bool(bad.any()), f"C={C} G={G} window={W}: {int(bad.sum())} elements"
 
 
 # (B, C, H, K, hd): the serve cells (smollm-135m, qwen2-1.5b, granite-moe-1b-a400m
-# at batch 8, cache 128), REDUCED smollm and qwen2.5, and a long cache
+# at batch 8, cache 128), REDUCED smollm and qwen2.5, and two long caches (32
+# splits each)
 DECODE_SHAPES = [(8, 128, 9, 3, 64), (8, 128, 12, 2, 128), (8, 128, 16, 8, 64),
-                 (2, 16, 3, 3, 64), (2, 16, 8, 2, 32), (2, 4096, 12, 2, 128)]
+                 (2, 16, 3, 3, 64), (2, 16, 8, 2, 32), (2, 4096, 12, 2, 128),
+                 (8, 8192, 12, 2, 128)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES, ids=[str(s) for s in DECODE_SHAPES])
@@ -1022,6 +1040,32 @@ def test_b4d_at_the_serve_shapes_repeats_bit_for_bit(cuda, shape):
     torch.cuda.synchronize()
     assert torch.equal(o1, o2)
     torch.testing.assert_close(o1, swa.swa_decode_ref(q, k, v, pos, qp), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_b4d_never_reads_a_tile_without_a_visible_slot(cuda, dtype):
+    """C = 8192 filled to q_pos = 1023: slots 1024..8191 are unfilled whole
+    tiles of any tile size that divides 128.  With NaN in their k and v the
+    kernel still equals the plain version on the same cache with zeros
+    there (f32 at 2e-5; bf16 one ulp beyond it), because a skipped tile is
+    never read."""
+    B, C, H, K, hd, q_pos = 8, 8192, 12, 2, 128, 1023
+    q, k, v = _decode_inputs(cuda, B, C, H, K, hd, dtype, seed=17)
+    pos = _slots("partly filled", C, q_pos, cuda)
+    qp = torch.tensor([q_pos], dtype=torch.int32, device=cuda)
+    k[:, q_pos + 1 :] = 0
+    v[:, q_pos + 1 :] = 0
+    ref = swa.swa_decode_ref(q.float(), k.float(), v.float(), pos, qp)
+    k[:, q_pos + 1 :] = float("nan")
+    v[:, q_pos + 1 :] = float("nan")
+    o = swa.swa_decode(q, k, v, pos, qp)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(o).any())
+    tol = 2e-5 + 2e-5 * ref.abs()
+    if dtype == torch.bfloat16:
+        _, exp = torch.frexp(ref)
+        tol = tol + torch.ldexp(torch.ones_like(ref), exp - 8)
+    assert bool(((o.float() - ref).abs() <= tol).all())
 
 
 def test_b4d_raises_on_what_the_kernel_does_not_take(cuda):
