@@ -22,8 +22,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    NumPy; the flash-attention forward (B4) and its two
    backward passes (B5) at the JAX package's test cases, the full-width
    smollm-135m shape at windows 0/128/256/512, the CLI's S=64 and REDUCED
-   qwen2.5's hd 32 / GQA 4:1, bf16 (the forward and both backward passes),
-   and under ``vmap(grad_and_value)``;
+   qwen2.5's hd 32 / GQA 4:1, paligemma-3b's Engine-B tiers (hd 256, one kv
+   head, the prefix-LM mask at prefix 256) and REDUCED paligemma's, hd 256
+   without a prefix, prefixes under a window, at tile edges, at S and past
+   it, the causal shapes at prefix 0 and 1 equal and repeating bit for bit,
+   bf16 (the forward and both backward passes, hd 64 and paligemma's
+   shape), and under ``vmap(grad_and_value)``;
 4. the port on the card against the port on the CPU: VGG REDUCED (N=4, 3
    rounds, f32 convolutions, TF32 off), VGG REDUCED with per-class cuts
    (N=8, 6 rounds, plain and over the int8 wire) and smollm-135m REDUCED
@@ -121,6 +125,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    twice as far as the f32 forward), smollm-135m under a window of 32 over
    96 steps (the ring wraps) against the windowed forward, REDUCED jamba
    on the card against the CPU, and the serve CLI (REDUCED smollm-135m);
+   paligemma-3b at full width and depth served the same way, its decode
+   held to the forward of its dense twin (the same weights under
+   ``family="dense", prefix_len=0``: the JAX package's VLM decode is text
+   only); the ``[vlm]`` phase (``vlm_paths``, run right after the kernel
+   checks of 3, before every other path, so that its cell has the card to
+   itself): B4 and both B5 passes
+   timed at paligemma-3b's Engine-B shape [4, 512, 8, 1, 256], prefix 256,
+   beside SDPA with a boolean mask; paligemma-3b at full width and depth
+   through Engine B (N=4, J2=2, batch 1, 256 image-prefix and 256 text
+   tokens a client from ``configs.shapes.concrete_inputs`` on the card,
+   cuts (1, 2), intervals (2, 2, 1), SGD 5e-4, 4 rounds): B4/B5 18 a
+   round, B1 by ``engine_b_fed``, finite losses and params, peak at most
+   70 GB beside the reckoning, the round's ms and the attention share;
+   its 4-layer full-width Engine-A twin from one init (losses rtol 1e-4,
+   params atol 1e-5 / rtol 1e-4, the tied embedding's pad rows within a
+   reckoned bound: Engine B's tied logits skip the pad mask); REDUCED
+   paligemma through both engines on the card against the CPU;
 6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
@@ -139,6 +160,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -193,6 +215,14 @@ KERNEL_FN = {"swa_attention_fwd": "swa_fwd_kernel", "swa_attention_bwd_dq": "swa
 ATTN_TOL = 2e-5  # tests/test_kernels_swa.py's: rtol = atol (forward); after max-normalising (backward)
 # attention at the full-width smollm-135m path: B = N·batch = 8·1, S, H, K, hd
 MAIN_ATTN = (8, 1024, 9, 3, 64)
+# paligemma-3b through Engine B at full width (the [vlm] phase): N = 4
+# clients x batch 1, 256 image-prefix and 256 text tokens a client; every
+# tier folds the clients into the batch: attention at B = 4, S = 512, H = 8,
+# K = 1, hd = 256, prefix 256.  REDUCED paligemma's cell: batch 2, S = 64.
+VLM_ARCH = "paligemma-3b"
+VLM_N, VLM_BATCH, VLM_PREFIX, VLM_TEXT = 4, 1, 256, 256
+VLM_ATTN = (VLM_N * VLM_BATCH, VLM_PREFIX + VLM_TEXT, 8, 1, 256)
+VLM_REDUCED_BATCH, VLM_REDUCED_SEQ = 2, 64
 # the full-width smollm-135m batch per client: 2 peaked at 73.6 GB of the
 # card's 80 GB, above the 70 GB line at which the batch is cut to 1
 LM_BATCH = 1
@@ -316,7 +346,7 @@ def _attention_kernel(mangled: str):
 def attention_build_report(source) -> dict:
     """ptxas's registers and spills and cuobjdump's count of tensor-core
     instructions (HMMA) for every attention kernel of the built library (3
-    kernels x 5 head dims x 2 dtypes); fails if one has none."""
+    kernels x 6 head dims x 2 dtypes); fails if one has none."""
     import os
 
     from repro_torch.kernels import build
@@ -343,15 +373,19 @@ def attention_build_report(source) -> dict:
                 report.setdefault(key, {})["hmma"] = 0
         elif key and re.search(r"\bHMMA\b", line):
             report[key]["hmma"] += 1
-    if len(report) != 30 or any(r.get("hmma", 0) == 0 for r in report.values()):
+    if len(report) != 36 or any(r.get("hmma", 0) == 0 for r in report.values()):
         raise AssertionError(f"attention kernels without tensor-core instructions: {report}")
+    # hd 64: smollm-135m's path; hd 256: paligemma-3b's (the column-split tiles)
     for key in ("swa_fwd_kernel<64, f32>", "swa_bwd_dq_kernel<64, f32>",
-                "swa_bwd_dkv_kernel<64, f32>"):
+                "swa_bwd_dkv_kernel<64, f32>", "swa_fwd_kernel<256, f32>",
+                "swa_bwd_dq_kernel<256, f32>", "swa_bwd_dkv_kernel<256, f32>",
+                "swa_fwd_kernel<256, bf16>", "swa_bwd_dq_kernel<256, bf16>",
+                "swa_bwd_dkv_kernel<256, bf16>"):
         r = report[key]
         print(f"[build] {key}: {r['registers']} registers, spill stores/loads "
               f"{r['spill_stores']}/{r['spill_loads']} bytes (ptxas -v), {r['hmma']} HMMA "
               f"instructions (cuobjdump -sass)")
-    print("[build] every attention kernel (B4 and B5, hd 32-128, f32 and bf16) has HMMA "
+    print("[build] every attention kernel (B4 and B5, hd 32-256, f32 and bf16) has HMMA "
           "instructions: "
           + ", ".join(f"{k} {r['hmma']}" for k, r in report.items()))
     return report
@@ -1057,7 +1091,7 @@ def class_round_parts(card: str, run):
 
 
 def attention_cases():
-    """(B, S, H, K, hd, window) of every attention check."""
+    """(B, S, H, K, hd, window, prefix) of every attention check."""
     cases = [(1, 256, 4, 2, 64, 128), (2, 384, 4, 4, 128, 256), (1, 512, 8, 2, 80, 0),
              (1, 300, 4, 1, 64, 128), (1, 256, 6, 3, 96, 128),
              (1, 640, 4, 2, 64, 512)]  # tests/test_kernels_swa.py's CASES
@@ -1068,6 +1102,19 @@ def attention_cases():
     # full-width granite-moe-1b-a400m (N=4 x batch 1, S=512, GQA 2:1, hd 64)
     # and REDUCED granite / jamba (N=8 x batch 2, S=64, hd 32)
     cases += [(4, 512, 16, 8, 64, 0), (16, 64, 4, 2, 32, 0)]
+    cases = [c + (0,) for c in cases]
+    # [vlm]: every Engine-B tier of full-width paligemma-3b (N=4 x batch 1,
+    # 256 image + 256 text tokens, hd 256, one kv head, prefix 256) and
+    # REDUCED paligemma (N=4 x batch 2, 4 + 60 tokens, hd 32, prefix 4)
+    cases += [VLM_ATTN + (0, VLM_PREFIX), (VLM_N * VLM_REDUCED_BATCH, VLM_REDUCED_SEQ, 4, 1, 32,
+                                           0, 4)]
+    # hd 256 without a prefix (ragged, windowed); a prefix under a window
+    # with a ragged tail; a prefix of 1 (the causal mask itself), at a tile
+    # edge, one past it, of S - 1, of S and beyond S
+    cases += [(2, 256, 8, 2, 256, 0, 0), (1, 300, 4, 1, 256, 64, 0),
+              (1, 300, 4, 1, 64, 64, 100), (1, 130, 4, 2, 256, 48, 70),
+              (2, 256, 4, 2, 64, 0, 1), (1, 256, 4, 1, 128, 0, 32), (1, 256, 8, 1, 256, 0, 33),
+              (1, 200, 4, 2, 64, 0, 199), (1, 200, 4, 2, 80, 0, 200), (1, 96, 4, 4, 32, 0, 1000)]
     return cases
 
 
@@ -1093,24 +1140,41 @@ def check_attention():
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     errs = dict.fromkeys(ATTN, 0.0)
-    for B, S, H, K, hd, W in attention_cases():
+    n_bitwise = 0
+    for B, S, H, K, hd, W, P in attention_cases():
         q, k, v, do = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd), randn(B, S, H, hd)
-        o, lse = swa_attention_fwd(q, k, v, W)
-        dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W)
-        dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)
+        o, lse = swa_attention_fwd(q, k, v, W, P)
+        dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+        dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P)
         torch.cuda.synchronize()
-        what = f"B={B} S={S} H={H} K={K} hd={hd} window={W}"
-        ro, rlse = swa_attention_ref(q, k, v, W)
+        what = f"B={B} S={S} H={H} K={K} hd={hd} window={W} prefix={P}"
+        ro, rlse = swa_attention_ref(q, k, v, W, P)
         torch.testing.assert_close(o, ro, rtol=ATTN_TOL, atol=ATTN_TOL, msg=f"B4 o {what}")
         torch.testing.assert_close(lse, rlse, rtol=ATTN_TOL, atol=ATTN_TOL, msg=f"B4 lse {what}")
-        rdq, rdelta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W)
-        rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
+        rdq, rdelta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W, P)
+        rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W, P)
         for name, got, ref in (("dq", dq, rdq), ("delta", delta, rdelta), ("dk", dk, rdk),
                                ("dv", dv, rdv)):
             e = normalised_err(got, ref)
             if e > ATTN_TOL:
                 raise AssertionError(f"B5 {name} {what}: max error {e:.3e} of max|ref| "
                                      f"> {ATTN_TOL}")
+        if W == 0 and P <= 1:
+            # a prefix of 1 adds no visible key to the causal mask: its
+            # kernels' other bounds must give the prefix-free results bit
+            # for bit; a second call repeats them bit for bit
+            again = (swa_attention_fwd(q, k, v, W, 1 - P)
+                     + swa_attention_bwd_dq(q, k, v, o, lse, do, W, 1 - P)
+                     + swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, 1 - P))
+            twice = (swa_attention_fwd(q, k, v, W, P)
+                     + swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+                     + swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P))
+            for name, a, b, c in zip(("o", "lse", "dq", "delta", "dk", "dv"),
+                                     (o, lse, dq, delta, dk, dv), again, twice):
+                if not (torch.equal(a, b) and torch.equal(a, c)):
+                    raise AssertionError(f"{name} {what}: prefix 0 and 1 (or two calls) "
+                                         "differ in some bit")
+            n_bitwise += 1
         errs["swa_attention_fwd"] = max(errs["swa_attention_fwd"],
                                         float((o - ro).abs().max()), float((lse - rlse).abs().max()))
         errs["swa_attention_bwd_dq"] = max(errs["swa_attention_bwd_dq"],
@@ -1122,29 +1186,33 @@ def check_attention():
         del q, k, v, do, o, lse, dq, delta, dk, dv, ro, rlse, rdq, rdelta, rdk, rdv
     n_cases = len(attention_cases())
 
-    # bf16 inputs against the f32 plain version, the JAX test's tolerance
-    B, S, H, K, hd, W = 1, 256, 4, 2, 64, 128
-    q, k, v, do = (randn(*s, dtype=torch.bfloat16) for s in
-                   ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
-    o, lse = swa_attention_fwd(q, k, v, W)
-    ro, _ = swa_attention_ref(q.float(), k.float(), v.float(), W)
-    torch.testing.assert_close(o.float(), ro, rtol=0, atol=3e-2, msg="B4 bf16")
-    bf16_errs = {"swa_attention_fwd": float((o.float() - ro).abs().max())}
-    # the bf16 backward against the f32 plain version on the same bf16
-    # inputs: one bf16 ulp beyond the f32 tolerance, as B1's bf16 check
-    dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W)
-    dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W)
-    torch.cuda.synchronize()
-    f = [x.float() for x in (q, k, v, o, do)]
-    rdq, _ = swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], W)
-    rdk, rdv = swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], W)
-    for name, pairs in (("swa_attention_bwd_dq", ((dq, rdq),)),
-                        ("swa_attention_bwd_dkv", ((dk, rdk), (dv, rdv)))):
-        for got, ref in pairs:
-            err = (got.float() - ref).abs()
-            if bool((err > ATTN_TOL * ref.abs().max() + bf16_ulp(ref)).any()):
-                raise AssertionError(f"{name} bf16: beyond one bf16 ulp of the f32 tolerance")
-            bf16_errs[name] = max(bf16_errs.get(name, 0.0), float(err.max()))
+    # bf16 inputs against the f32 plain version, the JAX test's tolerance:
+    # hd 64 under a window, and paligemma-3b's tiers (hd 256, prefix 256)
+    bf16_errs = dict.fromkeys(ATTN, 0.0)
+    for B, S, H, K, hd, W, P in ((1, 256, 4, 2, 64, 128, 0), VLM_ATTN + (0, VLM_PREFIX)):
+        q, k, v, do = (randn(*s, dtype=torch.bfloat16) for s in
+                       ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
+        o, lse = swa_attention_fwd(q, k, v, W, P)
+        ro, _ = swa_attention_ref(q.float(), k.float(), v.float(), W, P)
+        torch.testing.assert_close(o.float(), ro, rtol=0, atol=3e-2, msg=f"B4 bf16 hd {hd}")
+        bf16_errs["swa_attention_fwd"] = max(bf16_errs["swa_attention_fwd"],
+                                             float((o.float() - ro).abs().max()))
+        # the bf16 backward against the f32 plain version on the same bf16
+        # inputs: one bf16 ulp beyond the f32 tolerance, as B1's bf16 check
+        dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+        dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P)
+        torch.cuda.synchronize()
+        f = [x.float() for x in (q, k, v, o, do)]
+        rdq, _ = swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], W, P)
+        rdk, rdv = swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], W, P)
+        for name, pairs in (("swa_attention_bwd_dq", ((dq, rdq),)),
+                            ("swa_attention_bwd_dkv", ((dk, rdk), (dv, rdv)))):
+            for got, ref in pairs:
+                err = (got.float() - ref).abs()
+                if bool((err > ATTN_TOL * ref.abs().max() + bf16_ulp(ref)).any()):
+                    raise AssertionError(f"{name} bf16 hd {hd}: beyond one bf16 ulp of the f32 "
+                                         "tolerance")
+                bf16_errs[name] = max(bf16_errs[name], float(err.max()))
 
     # Engine A's transform: one launch of each kernel for all N clients
     N, B, S, H, K, hd, W = 4, 2, 256, 9, 3, 64, 128
@@ -1171,8 +1239,10 @@ def check_attention():
             raise AssertionError(f"vmap(grad_and_value) {name}: {e:.3e} > {ATTN_TOL}")
     reset_launches()
     print(f"[attention] {n_cases} shapes x (B4, B5 dq, B5 dk/dv) against the plain versions "
-          f"passed (forward rtol=atol {ATTN_TOL}; backward {ATTN_TOL} of max|ref|); bf16 "
-          f"forward within 3e-2 of f32 (max |err| {bf16_errs['swa_attention_fwd']:.3e}), bf16 "
+          f"passed (forward rtol=atol {ATTN_TOL}; backward {ATTN_TOL} of max|ref|; hd 32-256, "
+          f"windows, prefixes 0 to past S); {n_bitwise} causal shapes at prefix 0 and 1 equal "
+          f"bit for bit and repeating bit for bit; bf16 (hd 64, and hd 256 at prefix "
+          f"{VLM_PREFIX}) forward within 3e-2 of f32 (max |err| {bf16_errs['swa_attention_fwd']:.3e}), bf16 "
           f"backward within one bf16 ulp of the f32 tolerance (max |err| dq "
           f"{bf16_errs['swa_attention_bwd_dq']:.3e}, dk/dv "
           f"{bf16_errs['swa_attention_bwd_dkv']:.3e}); vmap(grad_and_value) "
@@ -1338,17 +1408,20 @@ def lm_main_path(rounds: int = 8):
     return got, dict(model=model, plan=plan, opt=opt, state=state, batch=batch, spec=spec)
 
 
-def visible_pairs(S: int, window: int) -> int:
-    """(query, key) pairs the causal / windowed mask lets through, per head."""
-    if window <= 0 or window >= S:
+def visible_pairs(S: int, window: int, prefix: int = 0) -> int:
+    """(query, key) pairs the causal / windowed / prefix mask lets through,
+    per head: query p sees keys max(0, p - W + 1) .. max(p, min(P, S) - 1)."""
+    if prefix <= 0 and (window <= 0 or window >= S):
         return S * (S + 1) // 2
-    return sum(min(p + 1, window) for p in range(S))
+    last_prefix = min(prefix, S) - 1
+    return sum(max(p, last_prefix) - (max(0, p - window + 1) if window > 0 else 0) + 1
+               for p in range(S))
 
 
-def attention_work(B, S, H, K, hd, window):
+def attention_work(B, S, H, K, hd, window, prefix: int = 0):
     """{kernel: (operations, bytes)}: each input read once, each output
     written once, multiply-adds counted as 2, over the visible pairs."""
-    pairs = visible_pairs(S, window) * B * H
+    pairs = visible_pairs(S, window, prefix) * B * H
     qb, kb, rows = 4 * B * S * H * hd, 4 * B * S * K * hd, 4 * B * H * S
     return {
         # s = q·k, o += p·v
@@ -1450,6 +1523,80 @@ def attention_timings(card: str):
         f_ms, fb_ms = lib[0]
         # the library's backward computes dq, dk and dv together
         r["library_ms"] = f_ms if name == "swa_attention_fwd" else fb_ms - f_ms
+    return out
+
+
+def vlm_attention_timings(card: str):
+    """B4 and both B5 passes at paligemma-3b's Engine-B shape (hd 256,
+    prefix 256): kernel, plain, the 3xTF32 bound over the prefix mask's
+    visible pairs, and SDPA (eager, the prefix mask as a boolean attn_mask,
+    enable_gqa) as the library yardstick, never called by the port."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.swa_attention import (
+        reset_launches, swa_attention_bwd_dkv, swa_attention_bwd_dkv_ref,
+        swa_attention_bwd_dq, swa_attention_bwd_dq_ref, swa_attention_fwd, swa_attention_ref,
+    )
+    from repro_torch.kernels.swa_attention.ref import visible
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev).manual_seed(4)
+    B, S, H, K, hd = VLM_ATTN
+    P = VLM_PREFIX
+    q = torch.randn(B, S, H, hd, generator=gen, device=dev)
+    k = torch.randn(B, S, K, hd, generator=gen, device=dev)
+    v = torch.randn(B, S, K, hd, generator=gen, device=dev)
+    do = torch.randn(B, S, H, hd, generator=gen, device=dev)
+    o, lse = swa_attention_fwd(q, k, v, 0, P)
+    _, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, 0, P)
+    runs = {
+        "swa_attention_fwd": (lambda: swa_attention_ref(q, k, v, 0, P),
+                              lambda: swa_attention_fwd(q, k, v, 0, P)),
+        "swa_attention_bwd_dq": (lambda: swa_attention_bwd_dq_ref(q, k, v, o, lse, do, 0, P),
+                                 lambda: swa_attention_bwd_dq(q, k, v, o, lse, do, 0, P)),
+        "swa_attention_bwd_dkv": (
+            lambda: swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, 0, P),
+            lambda: swa_attention_bwd_dkv(q, k, v, lse, delta, do, 0, P)),
+    }
+    pos = torch.arange(S, device=dev)
+    mask = visible(pos, pos, True, 0, P)
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    dot = do.transpose(1, 2).contiguous()
+
+    def lib_fwd():
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    def lib_fwd_bwd():
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        torch.autograd.grad(out, (qt, kt, vt), dot)
+
+    f_ms, fb_ms = cuda_ms(lib_fwd), cuda_ms(lib_fwd_bwd)
+    work = attention_work(B, S, H, K, hd, 0, P)
+    out = {}
+    for name, (plain, kernel) in runs.items():
+        km, pm = in_turns(plain, kernel)
+        ops, nbytes = work[name]
+        by_tc = 3 * ops / TF32_FLOPS_PER_S * 1e3
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        r = dict(ms=km, plain_ms=pm, bound_ms=max(by_tc, by_bytes),
+                 bound_by="operations" if by_tc >= by_bytes else "bytes", ops=ops, bytes=nbytes,
+                 library_ms=f_ms if name == "swa_attention_fwd" else fb_ms - f_ms,
+                 visible_pairs=visible_pairs(S, 0, P))
+        out[name] = r
+        print(f"[timing] {name} at paligemma-3b's B={B} S={S} H={H} K={K} hd={hd} prefix={P}: "
+              f"kernel {km:.4f} ms, plain {pm:.4f} ms, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']}: 3 x {ops / 1e9:.2f} GFLOP at 495 TFLOP/s TF32 over "
+              f"{r['visible_pairs']} visible pairs a head, {nbytes / 1e6:.1f} MB at 3.35 TB/s) "
+              f"= {100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
+    print(f"[timing] library yardstick torch.nn.functional.scaled_dot_product_attention "
+          f"(enable_gqa, the prefix mask as a boolean attn_mask, f32, eager) at paligemma-3b's "
+          f"shape: forward {f_ms:.4f} ms, forward+backward {fb_ms:.4f} ms (backward "
+          f"{fb_ms - f_ms:.4f} against B5's two passes "
+          f"{out['swa_attention_bwd_dq']['ms'] + out['swa_attention_bwd_dkv']['ms']:.4f}); "
+          f"card {card}")
+    reset_launches()
     return out
 
 
@@ -3825,6 +3972,455 @@ def zoo_paths(card: str):
 
 
 # --------------------------------------------------------------------------- #
+# [vlm]: paligemma-3b through Engine B at full width (ROADMAP A14.4)
+# --------------------------------------------------------------------------- #
+
+# Engine B at full width and depth: N = 4 clients, J2 = 2 edges, cuts
+# (1, 2) (tier 1: the embedding, the projection and 1 unit a client; tier
+# 2: 1 unit an edge; tier 3: 16 units), intervals (2, 2, 1), SGD.  A step
+# holds the params, their gradients and the SGD's new params at once: at
+# cuts (2, 6) that peaked at 66.83 GB and ran out of memory through
+# fragmentation, at (1, 2) at 57.68 GB (`vlm_reckoning`)
+VLM_EDGES, VLM_CUTS, VLM_INTERVALS, VLM_ROUNDS, VLM_LR = 2, (1, 2), (2, 2, 1), 4, 5e-4
+# the Engine-A twin at full width, 4 layers: cuts (1, 2)
+VLM_TWIN_LAYERS, VLM_TWIN_CUTS = 4, (1, 2)
+VLM_REDUCED_ROUNDS = 3
+VLM_PEAK_LIMIT = 70e9
+VLM_LOSS_RTOL = 1e-4  # the twin, and REDUCED card against CPU
+VLM_ATOL, VLM_RTOL = 1e-5, 1e-4  # the twin's params
+
+
+def leaves_by_path(tree, prefix=()):
+    """{"frontend/embed": leaf, ...}: a tree's leaves keyed by their paths,
+    whatever the order its dicts were built in."""
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items()
+                for k, v in leaves_by_path(sub, prefix + (str(key),)).items()}
+    if isinstance(tree, (list, tuple)):
+        return {k: v for i, sub in enumerate(tree)
+                for k, v in leaves_by_path(sub, prefix + (str(i),)).items()}
+    return {"/".join(prefix): tree}
+
+
+@contextlib.contextmanager
+def expandable_segments():
+    """The caching allocator maps new blocks as expandable segments inside
+    the block, then as before.  The [vlm] cell's largest leaves (tier 1's
+    four copies of the padded embedding, 8.4 GB each) and their gradients
+    and updates left 12.7 GiB of the card reserved but unusable in fixed
+    segments, and a step ran out of memory at 65.7 GB allocated on an H100
+    80GB; with expandable segments the same step peaked at 57.68 GB."""
+    import torch
+
+    # torch 2.11 names the setter anew and warns on the old name
+    settings = getattr(torch._C, "_accelerator_setAllocatorSettings", None)
+    settings = settings or torch.cuda.memory._set_allocator_settings
+    torch.cuda.empty_cache()
+    settings("expandable_segments:True")
+    try:
+        yield
+    finally:
+        torch.cuda.empty_cache()
+        settings("expandable_segments:False")
+
+
+class _GivenInit:
+    """Stands in for the model in ``init_state_b``: its init is given, so
+    both engines start from one draw."""
+
+    def __init__(self, params):
+        self.params = params
+
+    def init_params(self, generator, device=None):
+        return self.params
+
+
+def vlm_batches(spec, N: int, b: int, seq: int, rounds: int, seed: int, device):
+    """``rounds`` batches of N clients x b sequences of ``seq`` positions
+    (the image prefix and the text), drawn by the port's
+    ``concrete_inputs`` on ``device`` from one seeded generator; leaves
+    [N, b, ...]."""
+    import torch
+
+    from repro_torch.configs.shapes import concrete_inputs
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    out = []
+    for _ in range(rounds):
+        batch = concrete_inputs(spec, N * b, seq, gen, device)
+        out.append({k: v.reshape(N, b, *v.shape[1:]) for k, v in batch.items()})
+    return out
+
+
+def vlm_unit_params(spec) -> int:
+    """One dense unit's parameters: q, k, v, o, the SwiGLU MLP, two norms."""
+    d, hd = spec.d_model, spec.hd
+    return (d * spec.num_heads * hd * 2 + 2 * d * spec.num_kv_heads * hd + 3 * d * spec.d_ff
+            + 2 * d)
+
+
+def vlm_reckoning(spec, plan, tokens: int, text: int) -> dict:
+    """The memory an Engine-B step needs, reckoned before the run: the
+    parameters each tier's entities hold (tier 1 also the padded embedding
+    and the projection).  The backward holds them, their gradients, the
+    MLP's four [tokens, d_ff] f32 intermediates a layer and the text's
+    tied logits with their softmax and gradient [text tokens,
+    padded_vocab] x 3; the SGD update the params, the gradients and the
+    new params, 3 x the params."""
+    unit = vlm_unit_params(spec)
+    frontend = spec.padded_vocab * spec.d_model + spec.d_model ** 2
+    bounds = [plan.tier_bounds(m) for m in range(plan.M)]
+    held = sum(plan.entities[m] * ((hi - lo) * unit + (frontend if m == 0 else 0))
+               for m, (lo, hi) in enumerate(bounds)) + spec.d_model
+    acts = spec.n_units * 4 * tokens * spec.d_ff * 4
+    logits = 3 * text * spec.padded_vocab * 4
+    backward, update = 2 * 4 * held + acts + logits, 3 * 4 * held
+    return dict(unit=unit, frontend=frontend, held=held, activations=acts, logits=logits,
+                backward=backward, update=update, total=max(backward, update))
+
+
+def vlm_train(step, states, batches):
+    """(state, losses, host ms of each round ending in a device sync) from
+    the state in the one-element list ``states``, taken out of it: no name
+    keeps the initial params alive beside the trained ones."""
+    import torch
+
+    state = states.pop()
+    losses, ms = [], []
+    for batch in batches:
+        t = time.perf_counter()
+        state, loss = step(state, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        losses.append(float(loss))
+    return state, losses, ms
+
+
+def vlm_cell(card: str, attn_times):
+    """paligemma-3b at full width and depth through Engine B: N=4, J2=2,
+    batch 1, 256 image-prefix and 256 text tokens a client, cuts (1, 2),
+    intervals (2, 2, 1), SGD at 5e-4, 4 rounds from a seeded init drawn on
+    the card.  B4 and both B5 passes launch once a layer a round, B1 as
+    ``engine_b_fed`` predicts; losses and params finite; the peak at most
+    70 GB, beside the reckoning; the round's ms and the attention kernels'
+    share of it (18 layers x their time at the tiers' shape)."""
+    import math as _math
+
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.configs import get_spec
+    from repro_torch.core import build_train_step_b, default_plan, init_state_b
+    from repro_torch.models import SplittableModel
+    from repro_torch.optim import sgd
+
+    spec = get_spec(VLM_ARCH)
+    model = SplittableModel(spec)
+    N, b, seq = VLM_N, VLM_BATCH, VLM_PREFIX + VLM_TEXT
+    plan = default_plan(spec.n_units, N, cuts=VLM_CUTS, intervals=VLM_INTERVALS,
+                        entities=(N, VLM_EDGES, 1))
+    opt = sgd(VLM_LR)
+    dev = serve_device()
+    reckoned = vlm_reckoning(spec, plan, N * b * seq, N * b * VLM_TEXT)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(25)
+    with dev:
+        states = [init_state_b(model, plan, opt, gen, dev)]
+    batches = vlm_batches(spec, N, b, seq, VLM_ROUNDS, 26, dev)
+    leaves = tier_leaves(one_row(states[0].params), plan)
+    held = sum(x.numel() for x in tree_leaves(states[0].params))
+    reset_all_launches()
+    state, losses, ms = vlm_train(build_train_step_b(model, plan, opt), states, batches)
+    got = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in got}
+    want[AGG[0]] = sum(engine_b_fed(plan, s, leaves) for s in range(VLM_ROUNDS))
+    want.update(dict.fromkeys(ATTN, spec.n_units * VLM_ROUNDS))
+    if got != want:
+        raise AssertionError(f"[vlm] paligemma-3b: launches {got}, the plan and depth imply "
+                             f"{want}")
+    if not all(_math.isfinite(v) for v in losses):
+        raise AssertionError(f"[vlm] paligemma-3b: losses {losses}")
+    for i, x in enumerate(tree_leaves(state.params)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"[vlm] paligemma-3b: leaf {i} not finite")
+    if peak > VLM_PEAK_LIMIT:
+        raise AssertionError(f"[vlm] paligemma-3b: peaked at {peak / 1e9:.2f} GB > 70 GB")
+    if held != reckoned["held"]:
+        raise AssertionError(f"[vlm] Engine B holds {held} parameters, reckoned "
+                             f"{reckoned['held']}")
+    del state, batches
+    torch.cuda.empty_cache()
+    round_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    attn_ms = spec.n_units * sum(attn_times[name]["ms"] for name in ATTN)
+    out = dict(round_ms=round_ms, rounds_ms=ms, peak=peak, held=held, losses=losses,
+               reckoned=reckoned, attention_ms=attn_ms, attention_share=attn_ms / round_ms)
+    print(f"[vlm] paligemma-3b at full width and depth through Engine B ({spec.num_layers} "
+          f"layers, d {spec.d_model}, hd {spec.hd}, {spec.total_param_count()} params; N={N}, "
+          f"J2={VLM_EDGES}, batch {b}, {VLM_PREFIX} image-prefix + {VLM_TEXT} text tokens a "
+          f"client; cuts {plan.cuts}, intervals {plan.intervals}, SGD {VLM_LR}): launches "
+          f"{got} as the plan and depth imply; losses {[round(v, 4) for v in losses]}; every "
+          f"param finite; Engine B holds {held} params ({held * 4 / 1e9:.2f} GB f32); "
+          f"reckoned: the backward {reckoned['backward'] / 1e9:.2f} GB (params and gradients "
+          f"{8 * held / 1e9:.2f}, MLP activations {reckoned['activations'] / 1e9:.2f}, the "
+          f"text's tied logits {reckoned['logits'] / 1e9:.2f}), the update "
+          f"{reckoned['update'] / 1e9:.2f} GB (params, gradients, new params); measured peak "
+          f"{peak / 1e9:.2f} GB (limit 70); rounds {[round(v, 1) for v in ms]} "
+          f"ms, median (rounds 2 on) {round_ms:.2f} ms, of which B4 + B5 {attn_ms:.2f} ms "
+          f"({spec.n_units} layers x their time at the tiers' shape) = "
+          f"{100 * attn_ms / round_ms:.1f}%; card {card}")
+    return got, out
+
+
+def vlm_pad_bound(model, params, batch, rounds: int, lr: float):
+    """A bound on how far Engine B's pad rows of the tied embedding move
+    from Engine A's, from the init: Engine A masks the pad logits, so its
+    pad rows get no gradient; Engine B's do not (ROADMAP §C), and a client's
+    row v moves by lr times the token mean of p_tv h_t a round (its tier-1
+    gradient scaled by J = N, the fed means averaging the clients).  So the
+    distance is at most rounds x lr x max p_pad x max |h|, taken on the
+    first batch at the init, doubled for the drift over the rounds."""
+    import torch
+
+    from repro_torch.models import layers as L
+
+    spec = model.spec
+    with torch.no_grad():
+        batch0 = {k: v[0] for k, v in batch.items()}
+        carry = model.frontend_apply(params["frontend"], batch0)
+        carry = model.apply_units(params["units"], carry, 0, spec.n_units,
+                                  prefix_len=model.prefix_len)
+        h = L.rms_norm(carry["h"], params["head"]["norm"], spec.norm_eps)[:, spec.prefix_len:]
+        logits = h @ params["frontend"]["embed"].T
+        p_pad = torch.softmax(logits, dim=-1)[..., spec.vocab_size:]
+        p_max, h_max = float(p_pad.max()), float(h.abs().max())
+        # ln(1 + the pad rows' share of the softmax), in float64: in f32 it
+        # rounds to 0 where the logits are far from uniform
+        share = torch.exp(torch.logsumexp(logits[..., spec.vocab_size:].double(), -1)
+                          - torch.logsumexp(logits[..., : spec.vocab_size].double(), -1))
+        gap = float(torch.log1p(share).mean())
+    return dict(bound=2 * rounds * lr * p_max * h_max, p_pad_max=p_max, h_max=h_max,
+                loss_gap=gap)
+
+
+def vlm_twin(card: str):
+    """Engine A against Engine B from one init at full width, 4 layers
+    (N=4, J2=2, cuts (1, 2), the cell's batches, SGD, 4 rounds): A runs
+    first, its params go to the host and are freed.  Losses rtol 1e-4,
+    ``engine_b_to_full`` against A's params atol 1e-5 / rtol 1e-4 but for
+    the tied embedding's 64 pad rows (257 216 padded to 257 280): Engine
+    B's tied logits skip the pad mask (ROADMAP §C), so its loss sits
+    ln(1 + the pad rows' share of the softmax) above A's (~2.5e-4 nats at
+    near-uniform logits), and its pad rows move where A's stay; they are
+    held to ``vlm_pad_bound`` apart."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_spec
+    from repro_torch.core import (
+        TrainState, build_train_step_a, build_train_step_b, default_plan, init_state_b,
+        replicate_for_clients,
+    )
+    from repro_torch.core.engine import engine_b_to_full
+    from repro_torch.models import SplittableModel
+    from repro_torch.optim import sgd
+
+    spec = dataclasses.replace(get_spec(VLM_ARCH), num_layers=VLM_TWIN_LAYERS)
+    model = SplittableModel(spec)
+    N, b, seq = VLM_N, VLM_BATCH, VLM_PREFIX + VLM_TEXT
+    plan = default_plan(spec.n_units, N, cuts=VLM_TWIN_CUTS, intervals=VLM_INTERVALS,
+                        entities=(N, VLM_EDGES, 1))
+    opt = sgd(VLM_LR)
+    dev = serve_device()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    p0 = card_init(model, 27)
+    batches = vlm_batches(spec, N, b, seq, VLM_ROUNDS, 28, dev)
+    pad = vlm_pad_bound(model, p0, batches[0], VLM_ROUNDS, VLM_LR)
+    counts = {}
+    params = replicate_for_clients(p0, N)
+    states = [TrainState(params, opt.init(params), 0)]
+    del params
+    reset_all_launches()
+    state, losses_a, ms_a = vlm_train(build_train_step_a(model, plan, opt), states, batches)
+    counts["vlm-paligemma-3b-twin-a"] = all_launches()
+    want_a = lm_expected(plan, state.params, spec.n_units, VLM_ROUNDS)
+    host_a = tree_map(lambda x: x.cpu(), state.params)
+    del state
+    torch.cuda.empty_cache()
+    reset_all_launches()
+    with dev:
+        states = [init_state_b(_GivenInit(p0), plan, opt, None, dev)]
+    del p0
+    leaves = tier_leaves(one_row(states[0].params), plan)
+    state, losses_b, ms_b = vlm_train(build_train_step_b(model, plan, opt), states, batches)
+    counts["vlm-paligemma-3b-twin-b"] = all_launches()
+    want_b = {k: 0 for k in counts["vlm-paligemma-3b-twin-b"]}
+    want_b[AGG[0]] = sum(engine_b_fed(plan, s, leaves) for s in range(VLM_ROUNDS))
+    want_b.update(dict.fromkeys(ATTN, spec.n_units * VLM_ROUNDS))
+    peak = torch.cuda.max_memory_allocated()
+    host_b = tree_map(lambda x: x.cpu(), state.params)
+    del state, batches
+    torch.cuda.empty_cache()
+    for name, got, want in (("A", counts["vlm-paligemma-3b-twin-a"], want_a),
+                            ("B", counts["vlm-paligemma-3b-twin-b"], want_b)):
+        if {k: got.get(k, 0) for k in want} != want:
+            raise AssertionError(f"[vlm] twin Engine {name}: launches {got}, the plan "
+                                 f"implies {want}")
+    np.testing.assert_allclose(losses_b, losses_a, rtol=VLM_LOSS_RTOL)
+    full_b = engine_b_to_full(model, plan, host_b)
+    V = spec.vocab_size
+    leaves_a, leaves_b = leaves_by_path(host_a), leaves_by_path(full_b)
+    if leaves_a.keys() != leaves_b.keys():
+        raise AssertionError(f"[vlm] twin: leaves {sorted(leaves_b)} against {sorted(leaves_a)}")
+    emb_a, emb_b = leaves_a.pop("frontend/embed"), leaves_b.pop("frontend/embed")
+    pad_dist = float((emb_b[:, V:] - emb_a[:, V:]).abs().max())
+    if not pad_dist <= pad["bound"]:
+        raise AssertionError(f"[vlm] twin: the pad rows {pad_dist:.3e} apart, above the "
+                             f"reckoned {pad['bound']:.3e}")
+    torch.testing.assert_close(emb_b[:, :V], emb_a[:, :V], atol=VLM_ATOL, rtol=VLM_RTOL,
+                               msg="[vlm] twin: the embedding's vocabulary rows")
+    worst = float((emb_b[:, :V] - emb_a[:, :V]).abs().max())
+    for path, a in leaves_a.items():
+        c = leaves_b[path]
+        torch.testing.assert_close(c, a, atol=VLM_ATOL, rtol=VLM_RTOL,
+                                   msg=f"[vlm] twin: {path}")
+        if a.numel():
+            worst = max(worst, float((c - a).abs().max()))
+    gaps = [lb - la for la, lb in zip(losses_a, losses_b)]
+    out = dict(losses_a=losses_a, losses_b=losses_b, pad_distance=pad_dist, pad=pad,
+               worst=worst, peak=peak, round_ms_a=sorted(ms_a[1:])[1],
+               round_ms_b=sorted(ms_b[1:])[1])
+    print(f"[vlm] paligemma-3b twin at full width, {VLM_TWIN_LAYERS} layers (N={N}, cuts "
+          f"{plan.cuts}): Engine A first, then B from the same init; losses A "
+          f"{[round(v, 5) for v in losses_a]} B {[round(v, 5) for v in losses_b]} (rtol "
+          f"{VLM_LOSS_RTOL}), B - A {[f'{g:.3e}' for g in gaps]} against the reckoned "
+          f"{pad['loss_gap']:.3e} nats of the pad rows' softmax share at the init "
+          f"(ln({spec.padded_vocab} / {V}) = {math.log(spec.padded_vocab / V):.3e} at "
+          f"uniform logits); engine_b_to_full within atol {VLM_ATOL} / rtol {VLM_RTOL} of A "
+          f"(max |diff| {worst:.3e}) but for the {spec.padded_vocab - V} pad rows, "
+          f"{pad_dist:.3e} apart, bound "
+          f"{pad['bound']:.3e} (2 x {VLM_ROUNDS} rounds x lr {VLM_LR} x max p_pad "
+          f"{pad['p_pad_max']:.3e} x max |h| {pad['h_max']:.3f}); launches A "
+          f"{counts['vlm-paligemma-3b-twin-a']}, B {counts['vlm-paligemma-3b-twin-b']} as the "
+          f"plan implies; round ms A {out['round_ms_a']:.2f}, B {out['round_ms_b']:.2f} "
+          f"(median of rounds 2 on); peak {peak / 1e9:.2f} GB; card {card}")
+    return counts, out
+
+
+def vlm_reduced_card_vs_cpu(rounds: int = VLM_REDUCED_ROUNDS):
+    """REDUCED paligemma, Engine A and Engine B, N=4, J2=2, batch 2, 4 + 60
+    tokens, cuts (1, 1), 3 rounds from one init and NumPy batches, on the
+    card and on the CPU: losses rtol 1e-4; the card's launches as the plan
+    implies."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import (
+        TrainState, build_train_step_a, build_train_step_b, default_plan, init_state_b,
+        replicate_for_clients,
+    )
+    from repro_torch.models import SplittableModel
+    from repro_torch.optim import sgd
+
+    spec = get_reduced(VLM_ARCH)
+    model = SplittableModel(spec)
+    N, b, seq = VLM_N, VLM_REDUCED_BATCH, VLM_REDUCED_SEQ
+    plan = default_plan(spec.n_units, N, cuts=(1, 1), intervals=(2, 2, 1),
+                        entities=(N, VLM_EDGES, 1))
+    opt = sgd(0.1)
+    p0 = model.init_params(torch.Generator().manual_seed(0), torch.device("cpu"))
+    rng = np.random.default_rng(0)
+    batches = [{
+        "patch_embeds": rng.normal(size=(N, b, spec.prefix_len, spec.d_model)).astype(np.float32),
+        "tokens": rng.integers(0, spec.vocab_size, (N, b, seq - spec.prefix_len)).astype(np.int32),
+        "labels": rng.integers(0, spec.vocab_size, (N, b, seq - spec.prefix_len)).astype(np.int32),
+    } for _ in range(rounds)]
+    losses, counts = {}, {}
+    for engine in ("a", "b"):
+        for name in ("cuda", "cpu"):
+            device = torch.device(name)
+            params = tree_map(lambda x: x.to(device), p0)
+            if engine == "a":
+                stacked = replicate_for_clients(params, N)
+                state = TrainState(stacked, opt.init(stacked), 0)
+                step = build_train_step_a(model, plan, opt)
+            else:
+                state = init_state_b(_GivenInit(params), plan, opt, None, device)
+                step = build_train_step_b(model, plan, opt)
+            reset_all_launches()
+            got = []
+            for batch in batches:
+                state, loss = step(state, {k: torch.from_numpy(v).to(device)
+                                           for k, v in batch.items()})
+                got.append(float(loss))
+            losses[(engine, name)] = got
+            if name == "cuda":
+                counts[f"vlm-paligemma-3b-reduced-{engine}"] = all_launches()
+                if engine == "a":
+                    want = lm_expected(plan, state.params, spec.n_units, rounds)
+                else:
+                    want = {k: 0 for k in counts[f"vlm-paligemma-3b-reduced-{engine}"]}
+                    want[AGG[0]] = sum(engine_b_fed(plan, s, tier_leaves(
+                        one_row(state.params), plan)) for s in range(rounds))
+                    want.update(dict.fromkeys(ATTN, spec.n_units * rounds))
+                got_counts = counts[f"vlm-paligemma-3b-reduced-{engine}"]
+                if {k: got_counts.get(k, 0) for k in want} != want:
+                    raise AssertionError(f"[vlm] REDUCED Engine {engine.upper()}: launches "
+                                         f"{got_counts}, the plan implies {want}")
+        np.testing.assert_allclose(losses[(engine, "cuda")], losses[(engine, "cpu")],
+                                   rtol=VLM_LOSS_RTOL)
+    print(f"[vlm] REDUCED paligemma-3b (N={N}, batch {b}, {spec.prefix_len} + "
+          f"{seq - spec.prefix_len} tokens, {rounds} rounds) on the card against the CPU: "
+          + "; ".join(f"Engine {e.upper()} cuda {losses[(e, 'cuda')]} cpu {losses[(e, 'cpu')]}"
+                      for e in ("a", "b"))
+          + f" (rtol {VLM_LOSS_RTOL}); launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    return counts
+
+
+def vlm_paths(card: str):
+    """The ``[vlm]`` phase: B4/B5 timed at paligemma-3b's Engine-B shape;
+    the full-width, full-depth Engine-B cell; its 4-layer Engine-A twin;
+    REDUCED paligemma on the card against the CPU.  It runs right after the
+    kernel checks, before the other paths: its cell needs 58 GB of the
+    card's 80, and tensors that earlier phases leave behind (in reference
+    cycles until a collection, or held) would not leave room for it."""
+    import torch
+
+    t0 = time.perf_counter()
+    before = torch.cuda.memory_allocated()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[vlm] device memory allocated at the phase's start: {before / 1e9:.2f} GB, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB after a collection")
+    attn_times = vlm_attention_timings(card)
+    counts, out = {}, {"attention": attn_times}
+    with expandable_segments():
+        counts["vlm-paligemma-3b"], out["vlm-paligemma-3b"] = vlm_cell(card, attn_times)
+        twin_counts, out["vlm-paligemma-3b-twin"] = vlm_twin(card)
+    counts.update(twin_counts)
+    counts.update(vlm_reduced_card_vs_cpu())
+    for path in ("vlm-paligemma-3b", "vlm-paligemma-3b-reduced-b"):
+        for name in (AGG[0],) + ATTN:
+            if counts[path][name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on {path}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[timing] [vlm] paligemma-3b through Engine B: median round "
+          f"{out['vlm-paligemma-3b']['round_ms']:.2f} ms, peak "
+          f"{out['vlm-paligemma-3b']['peak'] / 1e9:.2f} GB; phase "
+          f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
+          f"left allocated; card {card}")
+    return counts, out
+
+
+# --------------------------------------------------------------------------- #
 # [serve]: decoding at full width (ROADMAP A14.3)
 # --------------------------------------------------------------------------- #
 
@@ -3857,6 +4453,8 @@ DECODE_TIMED = {
     "long cache bf16": ((8, 8192, 12, 2, 128), "bf16", None),
     "long cache filled to 1023": ((8, 8192, 12, 2, 128), "f32", 1023),
     "C 1024": ((8, 1024, 12, 2, 128), "f32", None),
+    # paligemma-3b's serve cell: hd 256, 8 query heads on one kv head
+    "paligemma serve": ((8, 128, 8, 1, 256), "f32", None),
 }
 # qwen2-1.5b served from a full long cache: batch 8, slots 0..8191 filled,
 # then 4 warm-up and 64 timed decode steps (8192 + 68 slots)
@@ -3889,7 +4487,7 @@ def decode_shapes():
     from repro_torch.configs import PORTED_ARCH_IDS, get_reduced, get_spec
 
     shapes = [(SERVE_B, SERVE_C, s.num_heads, s.num_kv_heads, s.hd)
-              for s in map(get_spec, ("smollm-135m", "qwen2-1.5b", ZOO_MOE))]
+              for s in map(get_spec, ("smollm-135m", "qwen2-1.5b", ZOO_MOE, VLM_ARCH))]
     shapes.append((SERVE_B, SERVE_RING[1], 9, 3, 64))
     shapes += [(8, 64, s.num_heads, s.num_kv_heads, s.hd) for s in map(get_reduced, PORTED_ARCH_IDS)
                if s.family != "ssm"]
@@ -3912,15 +4510,16 @@ def slot_positions(kind: str, C: int, q_pos: int, dev):
     return pos.to(device=dev, dtype=torch.int32)
 
 
-def decode_heads_a_warp(G: int) -> int:
-    """The query heads a warp of B4d's split kernel takes (its HPW)."""
-    return 1 if G <= 4 else 2
+def decode_heads_a_warp(G: int, hd: int) -> int:
+    """The query heads a warp of B4d's split kernel takes (its HPW): one up
+    to G = 4 and at hd 256, else two."""
+    return 1 if G <= 4 or hd > 128 else 2
 
 
 def decode_build_report(source) -> dict:
     """ptxas's registers and spills of each B4d instantiation: the split
-    kernel (5 head dims x 1 or 2 query heads a warp x f32, bf16) and the
-    merge kernel (f32, bf16); fails on a spill."""
+    kernel (5 head dims x 1 or 2 query heads a warp, and hd 256 at one, x
+    f32, bf16) and the merge kernel (f32, bf16); fails on a spill."""
     from repro_torch.kernels import build
 
     def dt(mangled: str) -> str:
@@ -3943,8 +4542,8 @@ def decode_build_report(source) -> dict:
             stores, loads = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                                       line).groups()
             report.setdefault(key, {}).update(spill_stores=int(stores), spill_loads=int(loads))
-    if len(report) != 22:
-        raise AssertionError(f"B4d: {len(report)} kernel instantiations in the build log, not 22")
+    if len(report) != 24:
+        raise AssertionError(f"B4d: {len(report)} kernel instantiations in the build log, not 24")
     print("[build] B4d (swa_decode_kernel, swa_decode_merge_kernel) registers / spill stores: "
           + ", ".join(f"{k} {r['registers']} / {r['spill_stores']} B" for k, r in report.items())
           + "; a call launches the split kernel, then the merge kernel when S > 1")
@@ -4185,6 +4784,31 @@ def serve_qwen(card: str):
     del params
     torch.cuda.empty_cache()
     return res, long
+
+
+def serve_paligemma(card: str):
+    """paligemma-3b at full width and depth with random weights drawn on
+    the card, served at the serve shape: the VLM decodes its text as a
+    dense model (the JAX package's decode: no image prefix, no √d scale), so
+    its decode is held to the forward of the same weights under
+    ``family="dense", prefix_len=0``; B4d at hd 256, one kv head."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.models import SplittableModel
+
+    spec = get_spec(VLM_ARCH)
+    model = SplittableModel(spec)
+    params = card_init(model, 29)
+    run, res = serve_generate(f"paligemma-3b ({spec.total_param_count()} params, random; hd "
+                              f"{spec.hd}, {spec.num_heads} heads on {spec.num_kv_heads} kv head)",
+                              model, params, serve_prompt(spec.vocab_size), card)
+    twin = SplittableModel(dataclasses.replace(spec, family="dense", prefix_len=0))
+    res["tf_err"] = check_teacher_forced("paligemma-3b against its dense twin's forward", twin,
+                                         params, run)
+    del run, params
+    torch.cuda.empty_cache()
+    return res
 
 
 def serve_long_cache(model, params, card: str):
@@ -4570,7 +5194,8 @@ def decode_timings(card: str):
 def serve_paths(card: str, ckpt: Path):
     """The ``[serve]`` phase: B4d against its plain version; the trained
     smollm-135m served from its checkpoint, its ring under a window;
-    qwen2-1.5b, granite-moe-1b-a400m and mamba2-1.3b at full width; REDUCED
+    qwen2-1.5b, granite-moe-1b-a400m, mamba2-1.3b and paligemma-3b at full
+    width; REDUCED
     jamba on the card against the CPU; the serve CLI; B4d's times."""
     import torch
 
@@ -4584,11 +5209,13 @@ def serve_paths(card: str, ckpt: Path):
     out["serve-qwen2-1.5b"], out["serve-qwen2-1.5b-long-cache"] = serve_qwen(card)
     out["serve-granite-moe-1b-a400m"] = serve_granite(card)
     out["serve-mamba2-1.3b"] = serve_mamba(card)
+    out["serve-paligemma-3b"] = serve_paligemma(card)
     out[f"serve-{ZOO_HYBRID}-reduced"] = serve_jamba_card_vs_cpu(card)
     out["serve-cli-smollm-135m-reduced"] = serve_cli(card)
     for path, r in out.items():
         counts[path] = r["launches"]
-    for path in ("serve-smollm-135m", "serve-qwen2-1.5b", "serve-granite-moe-1b-a400m"):
+    for path in ("serve-smollm-135m", "serve-qwen2-1.5b", "serve-granite-moe-1b-a400m",
+                 "serve-paligemma-3b"):
         if counts[path] == 0:
             raise AssertionError(f"kernel {DECODE} was not launched on {path}")
     times = decode_timings(card)
@@ -4642,6 +5269,7 @@ def main() -> int:
     masked_errs, masked_bf16_errs = check_masked_kernels(SPEC)
     mr_errs, mr_bf16_errs = check_masked_ragged_kernels(SPEC)
     attn_errs, attn_bf16_errs = check_attention()
+    vlm_counts, vlm_out = vlm_paths(card)
     solved = solve_classes(SPEC)
     solve_backend_timings(card, SPEC)
     card_vs_cpu()
@@ -4759,7 +5387,7 @@ def main() -> int:
     } for name in MASKED]
     new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
                  "async-staleness-2": async_launches, **control_counts, **engine_b_counts,
-                 **zoo_counts, **sharded_counts}
+                 **zoo_counts, **vlm_counts, **sharded_counts}
     for row in kernels:
         row["launches_by_path"].update(
             {path: got[row["name"]] for path, got in new_paths.items()})
@@ -4805,6 +5433,14 @@ def main() -> int:
                        else "backward (dq, dk and dv together)")),
         **({} if name == "swa_attention_fwd" else {"library_ms_pair": b5_pair}),
         "timed_at": f"B={B} S={S} H={H} K={K} hd={hd} window=0 f32",
+        # paligemma-3b's Engine-B tiers: hd 256 (the column-split tiles), the
+        # prefix-LM mask; the library call is SDPA with a boolean mask
+        "vlm": {**{k: vlm_out["attention"][name][k] for k in
+                   ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "visible_pairs")},
+                "timed_at": (f"B={VLM_ATTN[0]} S={VLM_ATTN[1]} H={VLM_ATTN[2]} K={VLM_ATTN[3]} "
+                             f"hd={VLM_ATTN[4]} prefix={VLM_PREFIX} f32"),
+                "launches": vlm_counts["vlm-paligemma-3b"][name],
+                "build": attn_build[f"{KERNEL_FN[name]}<{VLM_ATTN[4]}, f32>"]},
     } for name in ATTN]
     # B4d: decode attention, on the [serve] paths; its main path is the
     # trained smollm-135m served at batch 8, prompt 64, gen 64
@@ -4827,11 +5463,13 @@ def main() -> int:
         "long_cache": decode_times["long cache"],
         "timings": decode_times,
         "serve_long_cache": serve_out["serve-qwen2-1.5b-long-cache"],
-        "build": decode_build[f"swa_decode_kernel<{hd}, {decode_heads_a_warp(H // K)}, f32>"],
+        "build": decode_build[
+            f"swa_decode_kernel<{hd}, {decode_heads_a_warp(H // K, hd)}, f32>"],
         "build_long_cache": decode_build[
             f"swa_decode_kernel<{long_shape[4]}, "
-            f"{decode_heads_a_warp(long_shape[2] // long_shape[3])}, f32>"],
+            f"{decode_heads_a_warp(long_shape[2] // long_shape[3], long_shape[4])}, f32>"],
         "build_merge": decode_build["swa_decode_merge_kernel<f32>"],
+        "build_hd256": decode_build["swa_decode_kernel<256, 1, f32>"],
         "port_only": "no TPU kernel: the jnp _sdpa of attention's cache branch",
     })
     print(json.dumps({"kernels": kernels}))

@@ -172,6 +172,9 @@ def build_train_step_a(
     def _step(state: TrainState, batch: Params, mask):
         grads, losses = per_client(state.params, batch)
         new_params, new_opt = opt.update(state.params, grads, state.opt_state)
+        # the gradients go before the sync, which copies every synced leaf
+        # (a 4-layer full-width paligemma-3b's four replicas: 15.5 GB)
+        del grads
         if guard is not None:
             # quarantine clients whose update went non-finite or blew up in
             # norm: their local update rolls back (the guarded syncs below
@@ -290,12 +293,16 @@ def build_train_step_b(
 
     The fed levels are chosen on the host from the int round counter;
     every fed mean is a kernel launch per leaf (``_fed_mean_b``).  The
-    dense, MoE, SSM and hybrid transformer families run here; a MoE layer
+    dense, MoE, SSM, hybrid and VLM transformer families run here; a MoE layer
     dispatches each client's tokens in a group of their own
     (``model.moe_groups``: 1 on tier 1, ``per`` on a middle tier, N on
     the top), so capacity is per client as in Engine A, and the loss adds
     ``0.01·(aux below the top / N + the top tier's aux)``, Engine A's
-    ``0.01·aux`` of the client mean.  VGG is refused:
+    ``0.01·aux`` of the client mean.  The VLM runs its prefix-LM mask on
+    every tier and takes its loss on the text positions, as the JAX
+    package's step does (which computes the prefix's logits and drops them;
+    here they are not computed); its tied logits, like every tied model's here, skip
+    ``head_apply``'s pad mask (ROADMAP §C).  VGG is refused:
     ``VggModel.apply_units`` reads absolute unit indices, which the tiers'
     local slices do not carry — the JAX package's step fails on VGG too
     (ROADMAP §C).
@@ -334,9 +341,12 @@ def build_train_step_b(
         )
     from ..models import layers as L
 
+    # the VLM's prefix-LM mask on every tier (its image tokens), else 0
+    prefix = getattr(model, "prefix_len", 0)
+
     def tier_apply(m):
         lo, hi = plan.tier_bounds(m)
-        return lambda p, c: model.apply_units(p["units"], c, 0, hi - lo)
+        return lambda p, c: model.apply_units(p["units"], c, 0, hi - lo, prefix_len=prefix)
 
     def global_loss(tier_params, batch, w):
         # MoE capacity is per client: an entity that pools k clients'
@@ -365,6 +375,9 @@ def build_train_step_b(
         model.moe_groups = N  # the cloud batch pools all N clients
         aux_pre = carry_g["aux"]
         carry_g = tier_apply(M - 1)(pM, carry_g)
+        # the VLM's loss is on the text positions only: the prefix's logits,
+        # which JAX computes and drops, are not computed
+        carry_g["h"] = carry_g["h"][:, prefix:]
         if spec.tie_embeddings:
             h = L.rms_norm(carry_g["h"], pM["head"]["norm"], spec.norm_eps)
             hn = h.reshape(N, h.shape[0] // N, *h.shape[1:])
@@ -415,9 +428,14 @@ def build_train_step_b(
         grads, loss = grad_loss(state.params, batch, w)
         # per-client SGD: tier m's entity model moves by the mean of its
         # clients' gradients = (N / N_m^j)·dL/dw_m; under a mask the mean
-        # runs over the entity's participants (zero for a silent entity)
-        scaled, counts = [], []
-        for m, g in enumerate(grads):
+        # runs over the entity's participants (zero for a silent entity).
+        # Each tier's gradients are dropped once scaled, and the scaled ones
+        # once the optimizer has read them, so the step holds one copy of
+        # the gradients beside the old and the new params (full-width
+        # paligemma-3b's tier-1 embeddings alone are 8.4 GB)
+        grads, scaled, counts = list(grads), [], []
+        for m in range(len(grads)):
+            g, grads[m] = grads[m], None
             J = plan.entities[m]
             if w is None:
                 scaled.append(tree_map(lambda x, J=J: x * J, g))
@@ -429,7 +447,9 @@ def build_train_step_b(
             scaled.append(tree_map(
                 lambda x, sc=sc: x * sc.reshape((-1,) + (1,) * (x.ndim - 1)).to(x.dtype), g))
             counts.append(wj)
+        del grads, g
         new_params, new_opt = opt.update(state.params, scaled, state.opt_state)
+        del scaled
         out = []
         for m, p in enumerate(new_params):
             interval = int(plan.intervals[m])

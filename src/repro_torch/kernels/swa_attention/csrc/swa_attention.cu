@@ -1,5 +1,6 @@
-// Causal / sliding-window GQA flash attention, forward and backward, for
-// Hopper (sm_90a), with a plain C interface loaded through ctypes.
+// Causal / sliding-window / prefix-LM GQA flash attention, forward and
+// backward, for Hopper (sm_90a), with a plain C interface loaded through
+// ctypes.
 //
 // Replaces the Pallas TPU kernels in
 //   src/repro/kernels/swa_attention/swa_attention.py
@@ -11,8 +12,14 @@
 //                                          -> swa_bwd_dkv_kernel
 //
 // What it computes.  q [B, S, H, hd], k and v [B, S, K, hd] (H = G*K, head
-// h reads kv head h / G), row-major, f32 or bf16.  A query at position p
-// attends keys in (p - W, p], or [0, p] for W = 0 (full causal).  The
+// h reads kv head h / G), row-major, f32 or bf16, hd in {32, 64, 80, 96,
+// 128, 256}.  A query at position p attends key c when (c <= p or c < P)
+// and, for W > 0, c > p - W: the JAX package's _mask_bias
+// (src/repro/models/layers.py:93) in that order, where the prefix P > 0 is
+// the VLM's prefix-LM mask (every query sees the image prefix, itself
+// windowed) and P = 0 is causal attention, the kernels of P = 0 unchanged
+// bit for bit.  JAX computes the prefix mask in jnp, never in Pallas, so
+// it is a port-only variant of B4/B5, as B1m is of B1.  The
 // scores are (scale*q) . k in f32; masked scores are -1e30, not -inf, so a
 // fully masked tile yields no NaN, as on the TPU.  The forward writes
 // o [B, S, H, hd] in the input dtype and the row logsumexp lse [B, H, S] in
@@ -79,7 +86,31 @@
 //
 // Masking: a masked score never enters a sum (p = 0).  The ragged sequence
 // tail is masked in the kernels (rows >= S load as 0 and are not written),
-// so neither S nor hd is padded.
+// so neither S nor hd is padded.  The prefix widens the kv tiles a q tile
+// walks (B4 and dq: up to the tile of key min(P, S) - 1) and the q tiles a
+// kv tile walks (dk/dv: from q tile 0 for a key tile that starts below P);
+// the window's bounds still apply on the other side.
+//
+// Head dim 256 (paligemma-3b).  A warp that owns 16 rows of o (or dq) over
+// all 256 dims holds 16 x 256 / 32 = 128 f32 accumulators a lane, and a
+// warp pair's dk and dv 256: past what a lane can hold beside its
+// fragments.  So at hd 256 the output's columns are split in two:
+//   forward and dq pass: a block is 2 row strips x 2 column halves (32 q
+//   rows, 4 warps).  Warps w and w + 2 own the same 16 rows; each computes
+//   s (and dp) over the full hd, the same values in the same order, and
+//   the online softmax of its rows, and keeps o (dq) for its 128 columns:
+//   64 accumulators a lane.  s is computed twice, 1.5x the forward's
+//   products (1.33x dq's); the sums and their order are those of hd <= 128.
+//   Shared memory: forward (32 + 2*32)*264 + 2*32*260 floats = 164 KB,
+//   dq (2*32 + 4*32)*260 = 195 KB (hd <= 128 tiles of 64 rows would take
+//   197 and 260 KB at hd 256), one block an SM.
+//   dk/dv pass: a third grid dimension of 2 column halves; each block
+//   recomputes s^T and dp^T over the full hd for its 32 keys and keeps its
+//   128 columns of dk and dv, 2 x 64 accumulators a lane, as at hd 128.
+//   k and v are split into TF32 parts as their fragments load instead of
+//   once a block: the split tiles would take (4*32 + 4*32)*260 floats =
+//   260 KB with the q/do ring; without them (2*32 + 4*32)*260 + 128 =
+//   196 KB.  The split values are the same either way.
 
 #include <cstdint>
 #include <initializer_list>
@@ -93,14 +124,20 @@
 namespace {
 
 constexpr int kThreads = 128;  // 4 warps a block, every kernel
-constexpr int kFwdRows = 64;   // forward: q tile (16 rows a warp) ...
-constexpr int kFwdKeys = 32;   // ... and the kv tiles it walks
-constexpr int kDqRows = 64;    // dq pass: q tile (16 rows a warp) ...
-constexpr int kDqKeys = 32;    // ... and the kv tiles it walks
+constexpr int kFwdKeys = 32;   // forward: the kv tiles a q tile walks
+constexpr int kDqKeys = 32;    // dq pass: the kv tiles a q tile walks
 constexpr int kDkvKeys = 32;   // dk/dv pass: kv tile (16 keys a warp pair) ...
 constexpr int kDkvRows = 32;   // ... and the q tiles it walks (16 rows a warp)
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.44269504f, kLn2 = 0.693147181f;
+
+// The output's column parts (1, or 2 at hd 256: see the note above), and
+// the q tile of the forward and the dq pass: 16 rows a warp over the
+// block's 4 / parts row strips.
+template <int HD> __host__ __device__ constexpr int col_parts() { return HD > 128 ? 2 : 1; }
+template <int HD> __host__ __device__ constexpr int q_rows() {
+  return 16 * (kThreads / 32) / col_parts<HD>();
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -114,14 +151,22 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 struct Shape {
   int B, S, H, K, G;
   int window;  // 0: full causal; else keys in (p - window, p]
+  int prefix;  // 0; else keys < prefix are seen by every query (in the window)
   float scale;
   int vec;     // every f32 tensor is 16-byte aligned: tiles stage with cp.async
 };
 
 __device__ __forceinline__ bool allowed(int row, int col, const Shape& sh) {
-  bool ok = col <= row && row < sh.S;  // col <= row < S also keeps col < S
+  bool ok = (col <= row || col < sh.prefix) && row < sh.S && col < sh.S;
   if (sh.window > 0) ok = ok && col > row - sh.window;
   return ok;
+}
+
+// The last kv tile (of bk keys) that a query tile ending at row r_last sees.
+__device__ __forceinline__ int last_kv_tile(int r_last, int bk, const Shape& sh) {
+  int last = r_last / bk;
+  if (sh.prefix > 0) last = max(last, (min(sh.prefix, sh.S) - 1) / bk);
+  return min((sh.S - 1) / bk, last);
 }
 
 // Rows [row0, row0 + ROWS) of head `head` of a [B, S, heads, HD] tensor into
@@ -166,9 +211,12 @@ __device__ __forceinline__ void stage_stat(float* __restrict__ dst, const float*
   }
 }
 
-// Whether some (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is masked.
+// Whether some (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is
+// masked: a column past a row and at or past the prefix, a row or column
+// past S, or a column at or before a row's window.
 __device__ __forceinline__ bool tile_masked(int r0, int nr, int c0, int nc, const Shape& sh) {
-  if (c0 + nc - 1 > r0 || r0 + nr > sh.S) return true;
+  const int c_last = c0 + nc - 1;
+  if ((c_last > r0 && c_last >= sh.prefix) || r0 + nr > sh.S || c0 + nc > sh.S) return true;
   return sh.window > 0 && c0 <= r0 + nr - 1 - sh.window;
 }
 
@@ -197,16 +245,19 @@ __device__ __forceinline__ void load_b_pairs(const float* s, int pitch, int n0, 
 }
 
 // --------------------------------------------------------------------------
-// B4: forward.  grid (B*H, nq) over 64-row q tiles, i = nq - 1 - blockIdx.y;
-// warp w owns rows 16w..16w+15 of the tile and walks its 32-key kv tiles.
+// B4: forward.  grid (B*H, nq) over q tiles of q_rows<HD>() rows, i = nq -
+// 1 - blockIdx.y; warp w owns rows 16(w % RW)..+15 of the tile and columns
+// (w / RW) * HD / CS.. of o (RW = 4 / CS row strips; CS = 1 below hd 256)
+// and walks its 32-key kv tiles.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
 swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                T* __restrict__ o, float* __restrict__ lse, Shape sh) {
   // q and k rows at a pitch of hd + 8 (paired loads), v rows at hd + 4
-  constexpr int LDQ = HD + 8, LD = HD + 4, NT = HD / 8, BQ = kFwdRows, BK = kFwdKeys,
-                NS = BK / 8;
+  constexpr int CS = col_parts<HD>(), RW = kThreads / 32 / CS;
+  constexpr int LDQ = HD + 8, LD = HD + 4, NT = HD / 8 / CS, BQ = q_rows<HD>(),
+                BK = kFwdKeys, NS = BK / 8;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][LDQ]
   float* KVs = Qs + BQ * LDQ;    // 2 stages x (k [BK][LDQ], v [BK][LD])
@@ -215,10 +266,12 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = i * BQ, wr = 16 * warp;  // the tile's first row, the warp's
+  // the tile's first row, the warp's, and the warp's first column of o
+  const int q0 = i * BQ, wr = 16 * (CS == 1 ? warp : warp % RW);
+  const int col0 = CS == 1 ? 0 : (warp / RW) * (HD / CS);
   int j_lo = 0;  // the kv tiles that the tile's rows see
   if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
-  const int j_hi = min((sh.S - 1) / BK, (q0 + BQ - 1) / BK);
+  const int j_hi = last_kv_tile(q0 + BQ - 1, BK, sh);
 
   auto stage_kv = [&](int j, int stage) {
     float* Ks = KVs + stage * BK * (LDQ + LD);
@@ -335,8 +388,8 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         uint32_t b0[2], s0[2], b1[2], s1[2];
-        tf32::load_b_kperm(Vs, LD, 8 * n, 8 * c, 1.0f, b0, s0);
-        tf32::load_b_kperm(Vs, LD, 8 * n, 8 * c + 8, 1.0f, b1, s1);
+        tf32::load_b_kperm(Vs, LD, 8 * n, col0 + 8 * c, 1.0f, b0, s0);
+        tf32::load_b_kperm(Vs, LD, 8 * n, col0 + 8 * c + 8, 1.0f, b1, s1);
         tf32::mma3(p0, pb[n], ps[n], b0, s0);
         tf32::mma3(p1, pb[n], ps[n], b1, s1);
       }
@@ -354,13 +407,13 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int row = q0 + wr + g + 8 * e2;
     if (row >= sh.S) continue;
     const float lr = fmaxf(l[e2], 1e-30f);
-    T* out = o + ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD + 2 * t;
+    T* out = o + ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD + col0 + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       out[8 * c] = from_f32<T>(acc[c][2 * e2] / lr);
       out[8 * c + 1] = from_f32<T>(acc[c][2 * e2 + 1] / lr);
     }
-    if (t == 0) {
+    if (t == 0 && col0 == 0) {
       lse[(static_cast<long long>(b) * sh.H + h) * sh.S + row] = kLn2 * m[e2] + logf(lr);
     }
   }
@@ -368,8 +421,10 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
 // --------------------------------------------------------------------------
 // B5, q-parallel pass: dq, and delta = rowsum(o * do) for the dk/dv pass.
-// grid (B*H, nq) over 64-row q tiles, i = nq - 1 - blockIdx.y; warp w owns
-// rows 16w..16w+15 of the tile and walks its 32-key kv tiles.
+// grid (B*H, nq) over q tiles of q_rows<HD>() rows, i = nq - 1 -
+// blockIdx.y; warp w owns rows 16(w % RW)..+15 of the tile and columns
+// (w / RW) * HD / CS.. of dq, as the forward's, and walks its 32-key kv
+// tiles.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
@@ -377,7 +432,8 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   const T* __restrict__ o, const T* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
                   T* __restrict__ dq, Shape sh) {
-  constexpr int LD = HD + 4, NT = HD / 8, BQ = kDqRows, BK = kDqKeys, NS = BK / 8;
+  constexpr int CS = col_parts<HD>(), RW = kThreads / 32 / CS;
+  constexpr int LD = HD + 4, NT = HD / 8 / CS, BQ = q_rows<HD>(), BK = kDqKeys, NS = BK / 8;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][LD]
   float* dOs = Qs + BQ * LD;     // [BQ][LD]
@@ -387,11 +443,13 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  const int q0 = i * BQ, wr = 16 * warp;  // the tile's first row, the warp's
+  // the tile's first row, the warp's, and the warp's first column of dq
+  const int q0 = i * BQ, wr = 16 * (CS == 1 ? warp : warp % RW);
+  const int col0 = CS == 1 ? 0 : (warp / RW) * (HD / CS);
   const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.S;
   int j_lo = 0;
   if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
-  const int j_hi = min((sh.S - 1) / BK, (q0 + BQ - 1) / BK);
+  const int j_hi = last_kv_tile(q0 + BQ - 1, BK, sh);
 
   auto stage_kv = [&](int j, int stage) {
     float* Ks = KVs + stage * 2 * BK * LD;
@@ -404,7 +462,8 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   tf32::cp_async_commit();
 
   // delta of the warp's 16 rows, read from o and do in device memory while
-  // the copies fly; lane (g, t) keeps rows g and g + 8
+  // the copies fly (the warps of a row strip compute the same values, the
+  // first column part writes them); lane (g, t) keeps rows g and g + 8
   float dl[2] = {0.0f, 0.0f}, lr[2] = {0.0f, 0.0f};
   for (int r = 0; r < 16; ++r) {
     const int row = q0 + wr + r;
@@ -415,7 +474,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     }
 #pragma unroll
     for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
-    if (lane == 0 && row < sh.S) delta[row_base + row] = part;
+    if (lane == 0 && row < sh.S && col0 == 0) delta[row_base + row] = part;
     if (r == g) dl[0] = part;
     if (r == g + 8) dl[1] = part;
   }
@@ -490,8 +549,8 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         uint32_t b0[2], s0[2], b1[2], s1[2];
-        tf32::load_b_kperm(Ks, LD, 8 * n, 8 * c, 1.0f, b0, s0);
-        tf32::load_b_kperm(Ks, LD, 8 * n, 8 * c + 8, 1.0f, b1, s1);
+        tf32::load_b_kperm(Ks, LD, 8 * n, col0 + 8 * c, 1.0f, b0, s0);
+        tf32::load_b_kperm(Ks, LD, 8 * n, col0 + 8 * c + 8, 1.0f, b1, s1);
         tf32::mma3(p0, db[n], dsm[n], b0, s0);
         tf32::mma3(p1, db[n], dsm[n], b1, s1);
       }
@@ -508,7 +567,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   for (int e2 = 0; e2 < 2; ++e2) {
     const int row = q0 + wr + g + 8 * e2;
     if (row >= sh.S) continue;
-    T* out = dq + ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD + 2 * t;
+    T* out = dq + ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD + col0 + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       out[8 * c] = from_f32<T>(acc[c][2 * e2] * sh.scale);
@@ -519,10 +578,11 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 
 // --------------------------------------------------------------------------
 // B5, kv-parallel pass: dk and dv, summed over the G query heads of each kv
-// head in the block.  grid (B*K, nk) over 32-key kv tiles, j = blockIdx.y;
-// the block walks every (query head, 32-row q tile) that sees its keys.
-// Warp w computes keys 16(w % 2).. against rows 16(w / 2).. of each q
-// tile; warps w and w + 2 add their sums in a fixed order at the end.
+// head in the block.  grid (B*K, nk, CS) over 32-key kv tiles, j =
+// blockIdx.y, and the output's column parts (CS = 1 below hd 256), part
+// blockIdx.z; the block walks every (query head, 32-row q tile) that sees
+// its keys.  Warp w computes keys 16(w % 2).. against rows 16(w / 2).. of
+// each q tile; warps w and w + 2 add their sums in a fixed order at the end.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
@@ -530,13 +590,17 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                    Shape sh) {
-  constexpr int LD = HD + 4, NT = HD / 8, BK = kDkvKeys, BQ = kDkvRows;
+  constexpr int CS = col_parts<HD>(), LD = HD + 4, NT = HD / 8 / CS, BK = kDkvKeys,
+                BQ = kDkvRows;
+  // k and v split into TF32 parts once a block, where shared memory holds
+  // the parts (not at hd 256: see the note above)
+  constexpr bool kSplitOnce = CS == 1;
   extern __shared__ float smem[];
   float* Ks = smem;              // [BK][LD] k, then its tf32 big parts
   float* Vs = Ks + BK * LD;      // [BK][LD] v, then its big parts
-  float* Kl = Vs + BK * LD;      // [BK][LD] small parts of k
-  float* Vl = Kl + BK * LD;      // [BK][LD] small parts of v
-  float* QDs = Vl + BK * LD;     // 2 stages x (q [BQ][LD], do [BQ][LD])
+  float* Kl = Vs + BK * LD;      // [BK][LD] small parts of k (kSplitOnce)
+  float* Vl = Kl + BK * LD;      // [BK][LD] small parts of v (kSplitOnce)
+  float* QDs = kSplitOnce ? Vl + BK * LD : Kl;  // 2 stages x (q [BQ][LD], do [BQ][LD])
   float* Stat = QDs + 4 * BQ * LD;  // 2 stages x (lse [BQ], delta [BQ])
 
   const int j = blockIdx.y;
@@ -544,9 +608,10 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wk = 16 * (warp & 1), wq = 16 * (warp >> 1);  // the warp's keys, rows
+  const int col0 = CS == 1 ? 0 : blockIdx.z * (HD / CS);  // the block's first column
   const int k0 = j * BK;
   const int nq = (sh.S + BQ - 1) / BQ;
-  const int i_lo = k0 / BQ;
+  const int i_lo = k0 < sh.prefix ? 0 : k0 / BQ;  // the prefix is seen from row 0
   int i_hi = nq - 1;  // the last q tile whose rows see a key of this tile
   if (sh.window > 0) i_hi = min(i_hi, (k0 + BK - 1 + sh.window - 1) / BQ);
   const int n_i = i_hi - i_lo + 1, n_it = sh.G * n_i;
@@ -567,8 +632,10 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   // k and v are the A operands of every q tile: split them once
   tf32::cp_async_wait<0>();
   __syncthreads();
-  tf32::split_tile(Ks, Kl, BK * LD, 1.0f);
-  tf32::split_tile(Vs, Vl, BK * LD, 1.0f);
+  if constexpr (kSplitOnce) {
+    tf32::split_tile(Ks, Kl, BK * LD, 1.0f);
+    tf32::split_tile(Vs, Vl, BK * LD, 1.0f);
+  }
 
   float dka[NT][4], dva[NT][4];
 #pragma unroll
@@ -601,8 +668,13 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
     for (int kk = 0; kk < HD; kk += 8) {
       uint32_t kb[4], ks[4], vb[4], vs[4];
-      tf32::load_a_split(Ks, Kl, LD, wk, kk, kb, ks);
-      tf32::load_a_split(Vs, Vl, LD, wk, kk, vb, vs);
+      if constexpr (kSplitOnce) {
+        tf32::load_a_split(Ks, Kl, LD, wk, kk, kb, ks);
+        tf32::load_a_split(Vs, Vl, LD, wk, kk, vb, vs);
+      } else {
+        tf32::load_a(Ks, LD, wk, kk, 1.0f, kb, ks);
+        tf32::load_a(Vs, LD, wk, kk, 1.0f, vb, vs);
+      }
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         uint32_t qb[2], qs[2], ob[2], os[2];
@@ -641,8 +713,8 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         uint32_t ob[2], os[2], qb[2], qs[2];
-        tf32::load_b_kperm(dOs, LD, wq + 8 * n, 8 * c, 1.0f, ob, os);
-        tf32::load_b_kperm(Qs, LD, wq + 8 * n, 8 * c, sh.scale, qb, qs);
+        tf32::load_b_kperm(dOs, LD, wq + 8 * n, col0 + 8 * c, 1.0f, ob, os);
+        tf32::load_b_kperm(Qs, LD, wq + 8 * n, col0 + 8 * c, sh.scale, qb, qs);
         tf32::mma3(pv, pb[n], ps[n], ob, os);
         tf32::mma3(pk, db[n], dsm[n], qb, qs);
       }
@@ -656,7 +728,8 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 
   // warps 2 and 3 hand their sums to warps 0 and 1 through shared memory
-  // (the q/do ring is free now), which add them and write dk and dv
+  // (the q/do ring is free now), which add them and write dk and dv (the
+  // block's columns, at their place in the part)
   float* dKs = QDs;              // [BK][LD]
   float* dVs = QDs + BK * LD;    // [BK][LD]
 #pragma unroll
@@ -675,7 +748,8 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   for (int e2 = 0; e2 < 2; ++e2) {
     const int key = k0 + wk + g + 8 * e2;
     if (key >= sh.S) continue;
-    const long long off = ((static_cast<long long>(b) * sh.S + key) * sh.K + kh) * HD + 2 * t;
+    const long long off =
+        ((static_cast<long long>(b) * sh.S + key) * sh.K + kh) * HD + col0 + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c)
 #pragma unroll
@@ -692,8 +766,8 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 // launches
 // --------------------------------------------------------------------------
 
-Shape make_shape(int B, int S, int H, int K, int window, float scale) {
-  return Shape{B, S, H, K, H / K, window, scale, 0};
+Shape make_shape(int B, int S, int H, int K, int window, int prefix, float scale) {
+  return Shape{B, S, H, K, H / K, window, prefix, scale, 0};
 }
 
 // Whether every pointer is 16-byte aligned.
@@ -712,11 +786,12 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int HD, typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
         cudaStream_t stream) {
+  constexpr int BQ = q_rows<HD>();
   const size_t smem =
-      ((kFwdRows + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
+      ((BQ + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
   cudaError_t e = allow_smem(swa_fwd_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.H, (sh.S + kFwdRows - 1) / kFwdRows);
+  const dim3 grid(sh.B * sh.H, (sh.S + BQ - 1) / BQ);
   swa_fwd_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, sh);
@@ -726,10 +801,11 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const 
 template <int HD, typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, const Shape& sh, cudaStream_t stream) {
-  const size_t smem = (2 * kDqRows + 4 * kDqKeys) * (HD + 4) * sizeof(float);
+  constexpr int BQ = q_rows<HD>();
+  const size_t smem = (2 * BQ + 4 * kDqKeys) * (HD + 4) * sizeof(float);
   cudaError_t e = allow_smem(swa_bwd_dq_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.H, (sh.S + kDqRows - 1) / kDqRows);
+  const dim3 grid(sh.B * sh.H, (sh.S + BQ - 1) / BQ);
   swa_bwd_dq_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
@@ -740,11 +816,14 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
 template <int HD, typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
             const float* delta, void* dk, void* dv, const Shape& sh, cudaStream_t stream) {
+  constexpr int CS = col_parts<HD>();
+  // k and v with their split parts (below hd 256) or alone, and the q/do ring
+  const int kv_tiles = CS == 1 ? 4 : 2;
   const size_t smem =
-      ((4 * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
+      ((kv_tiles * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
   cudaError_t e = allow_smem(swa_bwd_dkv_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.K, (sh.S + kDkvKeys - 1) / kDkvKeys);
+  const dim3 grid(sh.B * sh.K, (sh.S + kDkvKeys - 1) / kDkvKeys, CS);
   swa_bwd_dkv_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
@@ -765,6 +844,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
     SWA_CASE(FN, 80, __VA_ARGS__)                                           \
     SWA_CASE(FN, 96, __VA_ARGS__)                                           \
     SWA_CASE(FN, 128, __VA_ARGS__)                                          \
+    SWA_CASE(FN, 256, __VA_ARGS__)                                          \
     default:                                                                \
       return static_cast<int>(cudaErrorInvalidValue);                       \
   }
@@ -776,12 +856,13 @@ extern "C" {
 // Each entry launches on `stream` and returns a cudaError_t (0 = launched).
 // Tensors are contiguous: q, o, do, dq [B, S, H, hd]; k, v, dk, dv
 // [B, S, K, hd]; lse, delta [B, H, S] f32.  dtype 0 is f32, 1 is bf16.
+// window 0 is causal; prefix 0 has no prefix (0 <= prefix <= S).
 
 int swa_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                      int dtype, int B, int S, int H, int K, int hd, int window, float scale,
-                      void* stream) {
+                      int dtype, int B, int S, int H, int K, int hd, int window, int prefix,
+                      float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  Shape sh = make_shape(B, S, H, K, window, scale);
+  Shape sh = make_shape(B, S, H, K, window, prefix, scale);
   sh.vec = aligned16({q, k, v});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(fwd, q, k, v, o, lse, sh, st)
@@ -790,9 +871,9 @@ int swa_attention_fwd(const void* q, const void* k, const void* v, void* o, floa
 int swa_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, float* delta, void* dq,
                          int dtype, int B, int S, int H, int K, int hd, int window,
-                         float scale, void* stream) {
+                         int prefix, float scale, void* stream) {
   if (B == 0 || S == 0 || H == 0) return 0;
-  Shape sh = make_shape(B, S, H, K, window, scale);
+  Shape sh = make_shape(B, S, H, K, window, prefix, scale);
   sh.vec = aligned16({q, k, v, dout});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(bwd_dq, q, k, v, o, dout, lse, delta, dq, sh, st)
@@ -801,9 +882,9 @@ int swa_attention_bwd_dq(const void* q, const void* k, const void* v, const void
 int swa_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dk, void* dv,
                           int dtype, int B, int S, int H, int K, int hd, int window,
-                          float scale, void* stream) {
+                          int prefix, float scale, void* stream) {
   if (B == 0 || S == 0 || K == 0) return 0;
-  Shape sh = make_shape(B, S, H, K, window, scale);
+  Shape sh = make_shape(B, S, H, K, window, prefix, scale);
   sh.vec = aligned16({q, k, v, dout});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, sh, st)

@@ -35,8 +35,8 @@
 //   over every split: 1.4x faster there than contiguous ranges, the same on
 //   a full cache (the same script).
 // - A block has NW = ceil(G / HPW) warps: one query head a warp up to G =
-//   4, two above (NW <= 8); all of them read the same k/v tiles from
-//   shared memory.  (Four heads a warp made ptxas spill; one head a warp
+//   4, two above (NW <= 8), one at every G at hd 256 (NW <= 16); all of
+//   them read the same k/v tiles from shared memory.  (Four heads a warp made ptxas spill; one head a warp
 //   at G = 6 ran bf16 slower, chip_ablate_decode.py.)
 // - Tiles go through a ring of kStages = 2 stages with 16-byte cp.async, so
 //   tile t + 1 loads while tile t is computed (a third stage gained
@@ -57,6 +57,12 @@
 //   goes into at least 4 independent accumulators a lane (U over the slots
 //   times the lane's dims times HPW), summed at the end of the tile and
 //   added to the running o after its rescale.
+// - Head dim 256 (paligemma-3b): 8 output dims a lane, and one query head
+//   a warp at every G (up to 16 warps): two heads a warp held 2 x 8
+//   accumulators and 2 x 8 partial products a lane, and ptxas spilled in
+//   bf16.  An f32 stage is 32 x (260 + 256) x 4 B = 66 KB, so the 2-stage
+//   ring takes 132 KB and one block fits an SM (the occupancy query says
+//   so, and decode_splits reads it); bf16 half that.
 // - S == 1: the split kernel writes o.  S > 1: each split writes its f32
 //   partials (m, l and the unnormalised acc [hd]) to a workspace, and
 //   swa_decode_merge_kernel merges them in split order by log-sum-exp.  A
@@ -76,8 +82,17 @@ constexpr int kStages = 2;         // tiles in the cp.async ring
 constexpr int kMaxWarps = 8;
 constexpr int kOneHeadWarps = 4;   // G up to this: one query head a warp; above, two
 constexpr int kMaxGroup = 16;      // query heads a kv head (G = H / K)
-constexpr int kMergeThreads = 128;  // one a dim, >= the largest head dim
+constexpr int kMergeThreads = 256;  // one a dim, >= the largest head dim (256)
 constexpr float kLog2e = 1.4426950408889634f;
+
+// Head dim 256: one query head a warp at every G (up to kMaxGroup warps),
+// since two heads a warp spilled in bf16; below, as kOneHeadWarps says.
+template <int HD> __host__ __device__ constexpr bool one_head_a_warp_always() {
+  return HD > 128;
+}
+template <int HD> __host__ __device__ constexpr int max_warps() {
+  return one_head_a_warp_always<HD>() ? kMaxGroup : kMaxWarps;
+}
 
 // ---- PTX ------------------------------------------------------------------
 
@@ -301,7 +316,7 @@ __device__ __forceinline__ void attend_tile(const T* __restrict__ ks, const floa
 }
 
 template <int HD, int HPW, typename T>
-__global__ void __launch_bounds__(kMaxWarps * 32)
+__global__ void __launch_bounds__(max_warps<HD>() * 32)
 swa_decode_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const int* __restrict__ cache_pos, const int* __restrict__ q_pos,
                   T* __restrict__ o, float* __restrict__ ws, DecodeShape sh) {
@@ -430,13 +445,14 @@ swa_decode_merge_kernel(const float* __restrict__ ws, T* __restrict__ o, int BH,
   o[static_cast<long long>(bh) * HD + d] = from_f32<T>(a / L);
 }
 
-// The shared memory an instantiation may ask for (G = kMaxWarps * HPW), set
+// The shared memory an instantiation may ask for (G = max_warps * HPW), set
 // once an instantiation.
 template <int HD, int HPW, typename T>
 cudaError_t prepare() {
+  constexpr int NW = max_warps<HD>();
   static const cudaError_t e = cudaFuncSetAttribute(
       swa_decode_kernel<HD, HPW, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem_bytes<HD, T>(kMaxWarps * HPW, kMaxWarps, HPW)));
+      static_cast<int>(smem_bytes<HD, T>(NW * HPW, NW, HPW)));
   return e;
 }
 
@@ -471,13 +487,21 @@ int decode(const void* q, const void* k, const void* v, const int* cache_pos, co
 template <int HD, typename T>
 int decode_hd(const void* q, const void* k, const void* v, const int* cache_pos,
               const int* q_pos, void* o, float* ws, const DecodeShape& sh, cudaStream_t st) {
-  if (sh.G <= kOneHeadWarps) return decode<HD, 1, T>(q, k, v, cache_pos, q_pos, o, ws, sh, st);
-  return decode<HD, 2, T>(q, k, v, cache_pos, q_pos, o, ws, sh, st);
+  if constexpr (one_head_a_warp_always<HD>()) {
+    return decode<HD, 1, T>(q, k, v, cache_pos, q_pos, o, ws, sh, st);
+  } else {
+    if (sh.G <= kOneHeadWarps) return decode<HD, 1, T>(q, k, v, cache_pos, q_pos, o, ws, sh, st);
+    return decode<HD, 2, T>(q, k, v, cache_pos, q_pos, o, ws, sh, st);
+  }
 }
 
 template <int HD, typename T>
 int blocks_per_sm_hd(int G) {
-  return G <= kOneHeadWarps ? blocks_per_sm<HD, 1, T>(G) : blocks_per_sm<HD, 2, T>(G);
+  if constexpr (one_head_a_warp_always<HD>()) {
+    return blocks_per_sm<HD, 1, T>(G);
+  } else {
+    return G <= kOneHeadWarps ? blocks_per_sm<HD, 1, T>(G) : blocks_per_sm<HD, 2, T>(G);
+  }
 }
 
 #define DECODE_CASE(HD)                                                              \
@@ -526,6 +550,7 @@ int swa_decode(const void* q, const void* k, const void* v, const int* cache_pos
     DECODE_CASE(80)
     DECODE_CASE(96)
     DECODE_CASE(128)
+    DECODE_CASE(256)
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -544,6 +569,7 @@ int swa_decode_blocks_per_sm(int dtype, int hd, int G) {
     OCCUPANCY_CASE(80)
     OCCUPANCY_CASE(96)
     OCCUPANCY_CASE(128)
+    OCCUPANCY_CASE(256)
     default:
       return -static_cast<int>(cudaErrorInvalidValue);
   }

@@ -1,8 +1,10 @@
 """Public wrapper of the flash-attention kernels — port of
 ``repro.kernels.swa_attention.ops``.
 
-``swa_attention(q, k, v, window)`` takes q [B, S, H, hd] and k, v
-[B, S, K, hd] (GQA) and is differentiable.  The forward (B4) and the
+``swa_attention(q, k, v, window, prefix_len)`` takes q [B, S, H, hd] and
+k, v [B, S, K, hd] (GQA) and is differentiable.  ``prefix_len`` P > 0 is
+the VLM's prefix-LM mask: every query also sees the keys below P (within
+the window); P = 0 launches the causal kernels' arithmetic bit for bit.  The forward (B4) and the
 backward (B5: a q-parallel dq pass, then a kv-parallel dk/dv pass) choose
 their implementation from the device of the tensors they are given:
 
@@ -12,7 +14,8 @@ their implementation from the device of the tensors they are given:
 
 The kernels mask the ragged sequence tail and fold the 1/√hd scale into q
 as they load it, so nothing is padded or rescaled here; a window of at
-least S is full causal attention (window 0), as in the JAX wrapper.
+least S is full causal attention (window 0), as in the JAX wrapper, and a
+prefix of at least S lets every query see every key.
 
 Gradients go through two ``torch.autograd.Function``s in the functorch
 style (``setup_context`` and a ``vmap`` rule), so Engine A's
@@ -51,7 +54,7 @@ from .ref import (
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_attention.cu"
 DECODE_SOURCE = Path(__file__).resolve().parent / "csrc" / "swa_decode.cu"
-HEAD_DIMS = (32, 64, 80, 96, 128)
+HEAD_DIMS = (32, 64, 80, 96, 128, 256)
 DECODE_MAX_GROUP = 16  # query heads a kv head that B4d takes
 DECODE_TILE = 32  # cache slots a B4d tile
 DECODE_MIN_SPLIT_TILES = 4  # tiles a split holds at the least
@@ -78,7 +81,8 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        dims = [i, i, i, i, i, i, i, f, p]  # dtype, B, S, H, K, hd, window, scale, stream
+        # dtype, B, S, H, K, hd, window, prefix, scale, stream
+        dims = [i, i, i, i, i, i, i, i, f, p]
         lib.swa_attention_fwd.argtypes = [p] * 5 + dims
         lib.swa_attention_bwd_dq.argtypes = [p] * 8 + dims
         lib.swa_attention_bwd_dkv.argtypes = [p] * 8 + dims
@@ -111,6 +115,12 @@ def _decode_library() -> ctypes.CDLL:
 def effective_window(window: int, S: int) -> int:
     """0 (full causal) for window 0 or a window that covers the sequence."""
     return 0 if (window == 0 or window >= S) else int(window)
+
+
+def effective_prefix(prefix_len: int, S: int) -> int:
+    """The prefix the kernels take, 0 <= P <= S: none for P <= 0, every key
+    for P >= S."""
+    return min(max(int(prefix_len), 0), S)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -151,10 +161,11 @@ def _raise_on(status: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {status}")
 
 
-def swa_attention_fwd(q, k, v, window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+def swa_attention_fwd(q, k, v, window: int = 0,
+                      prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4: (o [B, S, H, hd] in q's dtype, lse [B, H, S] f32)."""
     if not _check(q, k, v):
-        return swa_attention_ref(q, k, v, window)
+        return swa_attention_ref(q, k, v, window, prefix_len)
     B, S, H, hd = q.shape
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     o = torch.empty_like(q)
@@ -164,7 +175,7 @@ def swa_attention_fwd(q, k, v, window: int = 0) -> Tuple[torch.Tensor, torch.Ten
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.swa_attention_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-            *_dims(q, k, window), stream,
+            *_dims(q, k, window, prefix_len), stream,
         )
     _raise_on(status, "swa_attention_fwd")
     launches["swa_attention_fwd"] += 1
@@ -182,16 +193,16 @@ def _check_bwd(q, lse, *rows):
                          f"{lse.dtype} {tuple(lse.shape)}")
 
 
-def _dims(q, k, window):
+def _dims(q, k, window, prefix_len):
     B, S, H, hd = q.shape
     return (_DTYPES[q.dtype], B, S, H, k.shape[2], hd, effective_window(window, S),
-            1.0 / math.sqrt(hd))
+            effective_prefix(prefix_len, S), 1.0 / math.sqrt(hd))
 
 
-def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0):
+def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0, prefix_len: int = 0):
     """B5's q-parallel pass: (dq in q's dtype, delta = rowsum(o·do) [B, H, S])."""
     if not _check(q, k, v):
-        return swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window)
+        return swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window, prefix_len)
     _check_bwd(q, lse, o, do)
     q, k, v, o, lse, do = (t.contiguous() for t in (q, k, v, o, lse, do))
     dq, delta = torch.empty_like(q), torch.empty_like(lse)
@@ -200,18 +211,19 @@ def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.swa_attention_bwd_dq(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_dims(q, k, window), stream,
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), *_dims(q, k, window, prefix_len),
+            stream,
         )
     _raise_on(status, "swa_attention_bwd_dq")
     launches["swa_attention_bwd_dq"] += 1
     return dq, delta
 
 
-def swa_attention_bwd_dkv(q, k, v, lse, delta, do, window: int = 0):
+def swa_attention_bwd_dkv(q, k, v, lse, delta, do, window: int = 0, prefix_len: int = 0):
     """B5's kv-parallel pass: (dk, dv), each summed over the G query heads of
     its kv head."""
     if not _check(q, k, v):
-        return swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window)
+        return swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window, prefix_len)
     _check_bwd(q, lse, do)
     _check_bwd(q, delta)
     q, k, v, lse, delta, do = (t.contiguous() for t in (q, k, v, lse, delta, do))
@@ -221,19 +233,20 @@ def swa_attention_bwd_dkv(q, k, v, lse, delta, do, window: int = 0):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.swa_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k, window), stream,
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k, window, prefix_len),
+            stream,
         )
     _raise_on(status, "swa_attention_bwd_dkv")
     launches["swa_attention_bwd_dkv"] += 1
     return dk, dv
 
 
-def swa_attention_bwd(q, k, v, o, lse, do, window: int = 0):
+def swa_attention_bwd(q, k, v, o, lse, do, window: int = 0, prefix_len: int = 0):
     """B5: (dq, dk, dv) from the forward's o and lse and the output grad:
     the dq pass, which also writes delta, then the dk/dv pass."""
     do = do.to(q.dtype)
-    dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, window)
-    dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, window)
+    dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, window, prefix_len)
+    dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, window, prefix_len)
     return dq, dk, dv
 
 
@@ -252,28 +265,29 @@ class _SwaAttention(torch.autograd.Function):
     """(o, lse) = B4(q, k, v); lse is not differentiable."""
 
     @staticmethod
-    def forward(q, k, v, window):
-        return swa_attention_fwd(q, k, v, window)
+    def forward(q, k, v, window, prefix_len):
+        return swa_attention_fwd(q, k, v, window, prefix_len)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, window = inputs
+        q, k, v, window, prefix_len = inputs
         o, lse = output
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.window = window
+        ctx.prefix_len = prefix_len
         ctx.mark_non_differentiable(lse)
 
     @staticmethod
     def backward(ctx, do, _dlse):
         q, k, v, o, lse = ctx.saved_tensors
-        dq, dk, dv = _SwaAttentionBwd.apply(q, k, v, o, lse, do, ctx.window)
-        return dq, dk, dv, None
+        dq, dk, dv = _SwaAttentionBwd.apply(q, k, v, o, lse, do, ctx.window, ctx.prefix_len)
+        return dq, dk, dv, None, None
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, window):
+    def vmap(info, in_dims, q, k, v, window, prefix_len):
         n = info.batch_size
         q, k, v = (_fold(x, d, n) for x, d in zip((q, k, v), in_dims[:3]))
-        o, lse = _SwaAttention.apply(q, k, v, window)
+        o, lse = _SwaAttention.apply(q, k, v, window, prefix_len)
         return (_unfold(o, n), _unfold(lse, n)), (0, 0)
 
 
@@ -281,8 +295,8 @@ class _SwaAttentionBwd(torch.autograd.Function):
     """(dq, dk, dv) = B5(q, k, v, o, lse, do); no double backward."""
 
     @staticmethod
-    def forward(q, k, v, o, lse, do, window):
-        return swa_attention_bwd(q, k, v, o, lse, do, window)
+    def forward(q, k, v, o, lse, do, window, prefix_len):
+        return swa_attention_bwd(q, k, v, o, lse, do, window, prefix_len)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
@@ -293,17 +307,18 @@ class _SwaAttentionBwd(torch.autograd.Function):
         raise NotImplementedError("the flash-attention backward has no backward")
 
     @staticmethod
-    def vmap(info, in_dims, q, k, v, o, lse, do, window):
+    def vmap(info, in_dims, q, k, v, o, lse, do, window, prefix_len):
         n = info.batch_size
         args = [_fold(x, d, n) for x, d in zip((q, k, v, o, lse, do), in_dims[:6])]
-        dq, dk, dv = _SwaAttentionBwd.apply(*args, window)
+        dq, dk, dv = _SwaAttentionBwd.apply(*args, window, prefix_len)
         return (_unfold(dq, n), _unfold(dk, n), _unfold(dv, n)), (0, 0, 0)
 
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: int = 0) -> torch.Tensor:
-    """Causal (window 0) or sliding-window GQA attention, [B, S, H, hd]."""
-    o, _ = _SwaAttention.apply(q, k, v, int(window))
+                  window: int = 0, prefix_len: int = 0) -> torch.Tensor:
+    """Causal (window 0) or sliding-window GQA attention, [B, S, H, hd],
+    with every key below ``prefix_len`` visible too (the prefix-LM mask)."""
+    o, _ = _SwaAttention.apply(q, k, v, int(window), int(prefix_len))
     return o
 
 

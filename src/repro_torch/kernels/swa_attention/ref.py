@@ -4,6 +4,9 @@
 q [B, S, H, hd]; k, v [B, S, K, hd] with H = G·K (query head h reads kv
 head h // G).  A query at position p attends keys in (p − window, p]
 (causal, window inclusive of self); window = 0 means full causal attention.
+A ``prefix_len`` P > 0 is the VLM's prefix-LM mask: keys below P are seen
+by every query too, within the window (``visible``: the JAX package's
+``_mask_bias`` rule, ``src/repro/models/layers.py:93``).
 
 ``swa_attention_ref`` is the JAX oracle with the per-row logsumexp added;
 ``swa_attention_bwd_ref`` is the flash backward formula that the kernel's
@@ -21,80 +24,11 @@ from typing import Optional, Tuple
 import torch
 
 
-def _allowed(S: int, window: int, device) -> torch.Tensor:
-    """[S, S] bool: key s visible from query q."""
-    pos = torch.arange(S, device=device)
-    ok = pos[None, :] <= pos[:, None]
-    if window > 0:
-        ok = ok & (pos[None, :] > pos[:, None] - window)
-    return ok
-
-
-def _scores(q, k, window):
-    """(scaled q grouped [B, S, K, G, hd], masked scores [B, K, G, S, S], mask)."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
-    qg = (q.float() / math.sqrt(hd)).reshape(B, S, K, H // K, hd)
-    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
-    ok = _allowed(S, window, q.device)
-    return qg, scores.masked_fill(~ok, -math.inf), ok
-
-
-def swa_attention_ref(q, k, v, window: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o [B, S, H, hd] in q's dtype, lse [B, H, S] f32 of the scaled scores)."""
-    B, S, H, hd = q.shape
-    _, scores, _ = _scores(q, k, window)
-    w = torch.softmax(scores, dim=-1)
-    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
-    lse = torch.logsumexp(scores, dim=-1)  # [B, K, G, S]
-    return out.reshape(B, S, H, hd).to(q.dtype), lse.reshape(B, H, S)
-
-
-def _p_ds(q, k, v, lse, delta, do, window):
-    """(scaled q and do grouped [B, S, K, G, hd], p and ds [B, K, G, S, S])
-    from the forward's lse and delta [B, H, S]."""
-    B, S, H, hd = q.shape
-    K = k.shape[2]
-    G = H // K
-    qg, scores, ok = _scores(q, k, window)
-    p = torch.where(ok, torch.exp(scores - lse.reshape(B, K, G, S, 1)), 0.0)
-    dog = do.float().reshape(B, S, K, G, hd)
-    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())
-    return qg, dog, p, p * (dp - delta.reshape(B, K, G, S, 1))
-
-
-def swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window: int = 0):
-    """The q-parallel pass: (dq in q's dtype, delta [B, H, S] f32), with
-    delta = rowsum(o·do) and dq = scale·ds·k."""
-    B, S, H, hd = q.shape
-    delta = (o.float() * do.float()).sum(-1).permute(0, 2, 1)  # [B, H, S]
-    _, _, _, ds = _p_ds(q, k, v, lse, delta, do, window)
-    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()) / math.sqrt(hd)
-    return dq.reshape(B, S, H, hd).to(q.dtype), delta.contiguous()
-
-
-def swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window: int = 0):
-    """The kv-parallel pass: (dk, dv) in k's dtype, each summed over the G
-    query heads of its kv head: dk = dsᵀ·(scale·q), dv = pᵀ·do."""
-    qg, dog, p, ds = _p_ds(q, k, v, lse, delta, do, window)
-    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
-    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
-    return dk.to(k.dtype), dv.to(v.dtype)
-
-
-def swa_attention_bwd_ref(q, k, v, o, lse, do, window: int = 0):
-    """(dq, dk, dv) of ``swa_attention_ref``'s output, from its o and lse:
-    the dq pass (which also yields delta), then the dk/dv pass."""
-    dq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window)
-    dk, dv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window)
-    return dq, dk, dv
-
-
-def mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: int,
-              prefix_len: int = 0, k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Additive mask [Sq, Sk] (or [B, Sq, Sk] with ``k_valid`` [B, Sk]): 0
-    where a key is visible, -inf where it is not; negative key positions are
-    unfilled cache slots."""
+def visible(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: int,
+            prefix_len: int = 0) -> torch.Tensor:
+    """[Sq, Sk] bool, the JAX package's ``_mask_bias`` rule in its order:
+    causal keys (with every key below ``prefix_len`` for a prefix), then
+    the window, then no negative (unfilled) key position."""
     qp = q_pos[:, None]
     kp = k_pos[None, :]
     ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool, device=q_pos.device)
@@ -104,7 +38,77 @@ def mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: in
             ok = ok | (kp < prefix_len)
     if window > 0:
         ok = ok & (kp > qp - window)
-    ok = ok & (kp >= 0)
+    return ok & (kp >= 0)
+
+
+def _scores(q, k, window, prefix_len=0):
+    """(scaled q grouped [B, S, K, G, hd], masked scores [B, K, G, S, S], mask)."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    qg = (q.float() / math.sqrt(hd)).reshape(B, S, K, H // K, hd)
+    scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
+    pos = torch.arange(S, device=q.device)
+    ok = visible(pos, pos, True, window, prefix_len)  # [S, S]: key s visible from query q
+    return qg, scores.masked_fill(~ok, -math.inf), ok
+
+
+def swa_attention_ref(q, k, v, window: int = 0,
+                      prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o [B, S, H, hd] in q's dtype, lse [B, H, S] f32 of the scaled scores)."""
+    B, S, H, hd = q.shape
+    _, scores, _ = _scores(q, k, window, prefix_len)
+    w = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
+    lse = torch.logsumexp(scores, dim=-1)  # [B, K, G, S]
+    return out.reshape(B, S, H, hd).to(q.dtype), lse.reshape(B, H, S)
+
+
+def _p_ds(q, k, v, lse, delta, do, window, prefix_len):
+    """(scaled q and do grouped [B, S, K, G, hd], p and ds [B, K, G, S, S])
+    from the forward's lse and delta [B, H, S]."""
+    B, S, H, hd = q.shape
+    K = k.shape[2]
+    G = H // K
+    qg, scores, ok = _scores(q, k, window, prefix_len)
+    p = torch.where(ok, torch.exp(scores - lse.reshape(B, K, G, S, 1)), 0.0)
+    dog = do.float().reshape(B, S, K, G, hd)
+    dp = torch.einsum("bqkgh,bskh->bkgqs", dog, v.float())
+    return qg, dog, p, p * (dp - delta.reshape(B, K, G, S, 1))
+
+
+def swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window: int = 0, prefix_len: int = 0):
+    """The q-parallel pass: (dq in q's dtype, delta [B, H, S] f32), with
+    delta = rowsum(o·do) and dq = scale·ds·k."""
+    B, S, H, hd = q.shape
+    delta = (o.float() * do.float()).sum(-1).permute(0, 2, 1)  # [B, H, S]
+    _, _, _, ds = _p_ds(q, k, v, lse, delta, do, window, prefix_len)
+    dq = torch.einsum("bkgqs,bskh->bqkgh", ds, k.float()) / math.sqrt(hd)
+    return dq.reshape(B, S, H, hd).to(q.dtype), delta.contiguous()
+
+
+def swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window: int = 0, prefix_len: int = 0):
+    """The kv-parallel pass: (dk, dv) in k's dtype, each summed over the G
+    query heads of its kv head: dk = dsᵀ·(scale·q), dv = pᵀ·do."""
+    qg, dog, p, ds = _p_ds(q, k, v, lse, delta, do, window, prefix_len)
+    dk = torch.einsum("bkgqs,bqkgh->bskh", ds, qg)
+    dv = torch.einsum("bkgqs,bqkgh->bskh", p, dog)
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def swa_attention_bwd_ref(q, k, v, o, lse, do, window: int = 0, prefix_len: int = 0):
+    """(dq, dk, dv) of ``swa_attention_ref``'s output, from its o and lse:
+    the dq pass (which also yields delta), then the dk/dv pass."""
+    dq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window, prefix_len)
+    dk, dv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window, prefix_len)
+    return dq, dk, dv
+
+
+def mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: int,
+              prefix_len: int = 0, k_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Additive mask [Sq, Sk] (or [B, Sq, Sk] with ``k_valid`` [B, Sk]): 0
+    where a key is visible, -inf where it is not; negative key positions are
+    unfilled cache slots."""
+    ok = visible(q_pos, k_pos, causal, window, prefix_len)
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
     bias = torch.where(ok, zero, -math.inf)
     if k_valid is not None:

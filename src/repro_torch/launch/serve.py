@@ -15,7 +15,8 @@ checkpoint written by JAX loads here).  The prompt is prefilled by
 repeated decode, then ``--gen`` tokens are sampled greedily or, with
 ``--temperature`` > 0, from the softmax through a ``torch.Generator``
 seeded from ``--seed``.  ``generate`` is that loop, for callers that hold a
-model and its parameters.  Runs on the first CUDA device; ``--device cpu``
+model and its parameters.  The VLM and audio ids exit as the JAX CLI does:
+the CLI decodes text-only archs.  Runs on the first CUDA device; ``--device cpu``
 asks for the CPU (decode attention then takes its plain version).
 """
 from __future__ import annotations
@@ -157,6 +158,8 @@ def main(argv=None) -> int:
 
     device = resolve_device(args.device)
     spec = get_reduced(args.arch)
+    if spec.family in ("vlm", "audio"):
+        raise SystemExit(f"{args.arch}: decode driver supports text-only archs")
     model = SplittableModel(spec)
     params = model.init_params(torch.Generator().manual_seed(args.seed), device)
     if args.checkpoint:

@@ -14,8 +14,9 @@ the dense (``smollm-135m``, ``qwen2-1.5b``, ``qwen2.5-14b``,
 SSM (``mamba2-1.3b``) or hybrid (``jamba-1.5-large-398b``) family trains
 its REDUCED variant on a synthetic LM stream of 64-token sequences, as the
 JAX CLI does, with every attention on the flash-attention kernels.  The
-VLM and audio ids (``paligemma-3b``, ``whisper-large-v3``) raise
-``NotImplementedError`` naming ROADMAP A14.4 and A14.5.
+VLM id (``paligemma-3b``) exits as the JAX CLI does (its stream carries no
+image-prefix embeddings); the audio id (``whisper-large-v3``) raises
+``NotImplementedError`` naming ROADMAP A14.5.
 
 ``--auto-optimize`` runs ``--probe-rounds`` probe rounds from the initial
 state, estimates the Theorem-1 constants from them (``core.estimator``),
@@ -118,6 +119,11 @@ def setup(args: argparse.Namespace, spec=None, seq: Optional[int] = None):
         spec = spec or get_reduced(args.arch)
         ds = make_lm_stream(2048, seq or 64, spec.vocab_size, seed=args.seed)
         labels = ds.tokens[:, 0] % 10
+        if spec.family in ("vlm", "audio"):
+            raise SystemExit(
+                f"{args.arch}: frontend is a stub; use examples/train_hsfl_e2e.py "
+                "with dense/moe/ssm/hybrid archs or vgg16-cifar10"
+            )
     parts = (
         partition_sort_and_shard(labels, args.clients, 2, args.seed)
         if args.non_iid

@@ -25,9 +25,9 @@ place (see ``attention``); under a sliding window it is a ring of
 ``window`` slots that wraps, where the JAX package's decode stops writing
 once the ring is full (ROADMAP §C).
 
-Not ported yet (ROADMAP A14.4–A14.5): the cross-attention ``kv_override``
-(audio), ``prefix_len > 0`` (the VLM's prefix-LM mask) and bidirectional
-attention.
+The VLM's prefix-LM mask (``attention(prefix_len=)``) runs on the same
+kernels.  Not ported yet (ROADMAP A14.5): the cross-attention
+``kv_override`` and bidirectional attention (audio).
 """
 from __future__ import annotations
 
@@ -128,14 +128,17 @@ def attention(
     """Causal GQA self-attention sub-layer (pre-norm + residual by the caller).
 
     Training and prefill (``cache=None``): rope positions are 0..S-1 and the
-    mask is causal over them, optionally within ``spec.window``, on the
-    flash-attention kernels; ``positions`` must be None (0..S-1).
+    mask is causal over them, optionally within ``spec.window``, with every
+    key below ``prefix_len`` visible too (the VLM's prefix-LM mask, within
+    the window), on the flash-attention kernels; ``positions`` must be None
+    (0..S-1).
 
     Decode (``cache=`` from ``init_attn_cache``, S = 1): the token is roped
     at ``positions`` (default [0], as in JAX), its k and v go into slot
     ``index`` of the cache (``index % C`` under a window whose ring holds
     the whole window, C = window), and the query attends every filled slot
-    that the causal and window mask lets through, on B4d.  A cache without
+    that the causal and window mask lets through, on B4d; a prefix raises
+    (the JAX package's decode passes none).  A cache without
     a window (or shorter than its window) that is full raises
     ``ValueError``.  The cache's k, v and positions are written **in
     place**; the returned cache holds those tensors and ``index + 1``, and
@@ -143,8 +146,6 @@ def attention(
     """
     if kv_override is not None:
         raise NotImplementedError("cross-attention (audio) is ported with ROADMAP A14.5")
-    if prefix_len > 0:
-        raise NotImplementedError("the prefix-LM mask (VLM) is ported with ROADMAP A14.4")
     if not causal:
         raise NotImplementedError("bidirectional attention (audio encoder) is ported with ROADMAP A14.5")
     B, S, d = x.shape
@@ -179,9 +180,12 @@ def attention(
     kx = rope(kx, positions, spec.rope_theta)
 
     if cache is None:
-        out = swa_attention(q, kx, vx, spec.window)
+        out = swa_attention(q, kx, vx, spec.window, prefix_len)
         return out.reshape(B, S, h * hd) @ params["wo"], None
 
+    if prefix_len > 0:
+        raise ValueError("decode attention (B4d) takes no prefix: the VLM decodes its text "
+                         "as a dense model, as the JAX package's decode_step does")
     ck, cv, cpos = cache["k"], cache["v"], cache["positions"]
     idx = int(cache["index"])  # host bookkeeping: reads no device value
     slot = _cache_slot(idx, ck.shape[1], spec.window)

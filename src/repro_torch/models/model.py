@@ -1,5 +1,5 @@
 """SplittableModel: the frontend / units / head protocol over the model zoo
-— port of ``repro.models.model`` for the dense, MoE, SSM and hybrid
+— port of ``repro.models.model`` for the dense, MoE, SSM, hybrid and VLM
 families.
 
 The HSFL engine relies only on:
@@ -19,18 +19,29 @@ client's tokens then compete for expert capacity only among themselves).
 The MoE families add ``0.01 · aux`` (the Switch load-balancing loss summed
 over the layers) to the token loss.
 
+The VLM (paligemma) runs dense units over the image-prefix embeddings
+projected by ``frontend["proj"]`` and the text's token embeddings, both
+scaled by √d; every attention layer sees the prefix bidirectionally
+(``prefix_len``, the prefix-LM mask on the flash-attention kernels), and
+the loss is on the text positions (``loss_fn`` computes no logits for the
+prefix, which the JAX package computes and drops).  Its batch carries ``patch_embeds``
+[B, P, d] beside the P-less tokens and labels (``configs.shapes``).
+
 Decoding (``init_caches``, ``decode_step``) keeps one cache per unit,
 stacked on axis 0 as the units are (a hybrid super-block's one attention
-cache and ``attn_period − 1`` Mamba caches), and writes it in place.
+cache and ``attn_period − 1`` Mamba caches), and writes it in place.  The
+VLM decodes as the JAX package's does: its units as dense ones over the
+text's token embeddings alone (no prefix, no √d scale).
 
-Not ported yet (ROADMAP A14.4–A14.6): the VLM (A14.4) and audio (A14.5)
-families, and ``spec.remat`` (A14.6: ``torch.utils.checkpoint`` does not
-compose with ``torch.func``).  The
+Not ported yet (ROADMAP A14.5–A14.6): the audio family (A14.5) and
+``spec.remat`` (A14.6: ``torch.utils.checkpoint`` does not compose with
+``torch.func``).  The
 GSPMD hooks of the JAX class (``carry_constraint``, ``moe_constraint``) pin
 XLA shardings and have no counterpart here.
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -54,7 +65,7 @@ def _unstack(units: Any, lo: int, hi: int) -> List[Any]:
     return list(units[lo:hi].unbind(0))
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
 
 
 def _stack(trees: List[Params]) -> Params:
@@ -83,7 +94,7 @@ class SplittableModel:
     # ------------------------------------------------------------------ #
     def _init_unit(self, gen: torch.Generator) -> Params:
         spec = self.spec
-        if spec.family == "dense":
+        if spec.family in ("dense", "vlm"):
             return {"attn": L.init_attention(gen, spec), "mlp": L.init_mlp(gen, spec)}
         if spec.family == "moe":
             return {"attn": L.init_attention(gen, spec), "moe": L.init_moe(gen, spec)}
@@ -110,6 +121,8 @@ class SplittableModel:
         frontend: Params = {
             "embed": (torch.randn((V, d), generator=generator) * 0.02).to(spec.pdtype)
         }
+        if spec.family == "vlm":
+            frontend["proj"] = L._dense_init(generator, (d, d), spec.pdtype)
         stacked = _stack([self._init_unit(generator) for _ in range(spec.n_units)])
         head: Params = {"norm": torch.zeros((d,), dtype=spec.pdtype)}
         if not spec.tie_embeddings:
@@ -120,8 +133,9 @@ class SplittableModel:
     # ------------------------------------------------------------------ #
     # unit application (training)
     # ------------------------------------------------------------------ #
-    def _attention(self, p: Params, h: torch.Tensor) -> torch.Tensor:
-        a, _ = L.attention(p, L.rms_norm(h, p["norm"], self.spec.norm_eps), self.spec)
+    def _attention(self, p: Params, h: torch.Tensor, prefix_len: int = 0) -> torch.Tensor:
+        a, _ = L.attention(p, L.rms_norm(h, p["norm"], self.spec.norm_eps), self.spec,
+                           prefix_len=prefix_len)
         return a
 
     def _moe(self, p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -135,12 +149,12 @@ class SplittableModel:
     def _mlp(self, p: Params, h: torch.Tensor) -> torch.Tensor:
         return L.mlp(p, L.rms_norm(h, p["norm"], self.spec.norm_eps))
 
-    def _apply_one_unit(self, up: Params, carry: Params) -> Params:
+    def _apply_one_unit(self, up: Params, carry: Params, prefix_len: int) -> Params:
         spec = self.spec
         fam = spec.family
         h, aux = carry["h"], carry["aux"]
-        if fam in ("dense", "moe"):
-            h = h + self._attention(up["attn"], h)
+        if fam in ("dense", "vlm", "moe"):
+            h = h + self._attention(up["attn"], h, prefix_len)
             if fam == "moe":
                 o, al = self._moe(up["moe"], h)
                 aux = aux + al
@@ -157,7 +171,7 @@ class SplittableModel:
             mlps = _unstack(up["mlp"], 0, per - n_moe)
             for j in range(per):
                 if j == 0:
-                    h = h + self._attention(up["attn"], h)
+                    h = h + self._attention(up["attn"], h, prefix_len)
                 else:
                     h = h + self._mamba(mambas.pop(0), h)
                 if j % spec.moe_period == 1:
@@ -173,13 +187,13 @@ class SplittableModel:
 
     def apply_units(self, units: Params, carry: Params, lo: int, hi: int,
                     prefix_len: int = 0) -> Params:
-        """Run units [lo, hi) on the carry; unit params are stacked on axis 0."""
-        if prefix_len > 0:
-            raise NotImplementedError("the prefix-LM mask (VLM) is ported with ROADMAP A14.4")
+        """Run units [lo, hi) on the carry; unit params are stacked on axis 0.
+        ``prefix_len`` > 0: every attention layer sees the first
+        ``prefix_len`` positions bidirectionally (the VLM)."""
         if lo >= hi:
             return carry
         for up in _unstack(units, lo, hi):
-            carry = self._apply_one_unit(up, carry)
+            carry = self._apply_one_unit(up, carry, prefix_len)
         return carry
 
     # ------------------------------------------------------------------ #
@@ -188,6 +202,10 @@ class SplittableModel:
     def frontend_apply(self, frontend: Params, batch: Params) -> Params:
         spec = self.spec
         h = frontend["embed"][batch["tokens"].long()].to(spec.cdtype)
+        if spec.family == "vlm":
+            # the image prefix, projected, then the text; both scaled by √d
+            pe = batch["patch_embeds"].to(spec.cdtype) @ frontend["proj"]
+            h = (torch.cat([pe, h], dim=1) * math.sqrt(spec.d_model)).to(spec.cdtype)
         return {"h": h, "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
 
     def head_apply(self, params: Params, carry: Params) -> torch.Tensor:
@@ -207,13 +225,25 @@ class SplittableModel:
     # ------------------------------------------------------------------ #
     # end-to-end loss / forward
     # ------------------------------------------------------------------ #
+    @property
+    def prefix_len(self) -> int:
+        """The prefix-LM mask's prefix: the VLM's image tokens, else 0."""
+        return self.spec.prefix_len if self.spec.family == "vlm" else 0
+
     def forward(self, params: Params, batch: Params) -> Tuple[torch.Tensor, torch.Tensor]:
         carry = self.frontend_apply(params["frontend"], batch)
-        carry = self.apply_units(params["units"], carry, 0, self.spec.n_units)
+        carry = self.apply_units(params["units"], carry, 0, self.spec.n_units,
+                                 prefix_len=self.prefix_len)
         return self.head_apply(params, carry), carry["aux"]
 
     def loss_fn(self, params: Params, batch: Params) -> torch.Tensor:
-        logits, aux = self.forward(params, batch)
+        carry = self.frontend_apply(params["frontend"], batch)
+        carry = self.apply_units(params["units"], carry, 0, self.spec.n_units,
+                                 prefix_len=self.prefix_len)
+        # the VLM's loss is on the text positions only: the prefix's logits,
+        # which the JAX package computes and drops, are not computed
+        carry["h"] = carry["h"][:, self.prefix_len:]
+        logits, aux = self.head_apply(params, carry), carry["aux"]
         labels = batch["labels"]
         mask = (labels >= 0).float()
         loss = L.cross_entropy(logits, torch.clamp(labels, min=0), mask)
@@ -238,7 +268,7 @@ class SplittableModel:
             return tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)).contiguous(), tree)
 
         unit: Params = {}
-        if spec.family in ("dense", "moe", "hybrid"):
+        if spec.family in ("dense", "vlm", "moe", "hybrid"):
             unit["attn"] = L.init_attn_cache(spec, batch, cache_len, device)
         if spec.family == "ssm":
             unit["mamba"] = L.init_mamba_cache(spec, batch, device)
@@ -261,7 +291,7 @@ class SplittableModel:
         def mamba(p, c, h):
             return L.mamba_block(p, L.rms_norm(h, p["norm"], eps), spec, cache=c)
 
-        if fam in ("dense", "moe"):
+        if fam in ("dense", "vlm", "moe"):
             a, nc = attn(up["attn"], cache["attn"], h)
             h = h + a
             h = h + (self._moe(up["moe"], h)[0] if fam == "moe" else self._mlp(up["mlp"], h))

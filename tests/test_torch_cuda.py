@@ -496,7 +496,7 @@ def test_b4_bf16_within_one_ulp_of_the_f32_tolerance(cuda, hd):
         assert not bool(bad.any()), f"window={W}: {int(bad.sum())} elements"
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_b4_two_launches_bit_identical(cuda, hd):
     """No atomics: o and lse repeat bit for bit."""
     q, k, v = _qkv(cuda, 2, 1024, 9, 3, hd)
@@ -569,7 +569,7 @@ def test_b5_bf16_within_one_ulp_of_the_f32_tolerance(cuda, hd):
             assert not bool(bad.any()), f"{name} window={W}: {int(bad.sum())} elements"
 
 
-@pytest.mark.parametrize("hd", [64, 128])
+@pytest.mark.parametrize("hd", [64, 128, 256])
 def test_b5_two_launches_bit_identical(cuda, hd):
     """No atomics: dq, delta, dk and dv repeat bit for bit."""
     q, k, v, o, lse, do = _b5_inputs(cuda, 2, 1024, 9, 3, hd, 0)
@@ -598,6 +598,92 @@ def test_b5_f32_views_off_16_byte_alignment_match_plain(cuda):
     rdk, rdv = swa.swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
     for a, b in ((dq, rdq), (delta, rdelta), (dk, rdk), (dv, rdv)):
         assert _normalised_err(a, b) <= 2e-5
+
+
+# B, S, H, K, hd, window, prefix: the VLM's prefix-LM mask, alone and under
+# a window, at ragged S, at a tile edge and one past it, at S and past S, and
+# paligemma-3b's Engine-B tiers (hd 256, one kv head, prefix 256)
+PREFIX_CASES = [(2, 300, 4, 2, 64, 0, 100), (1, 300, 4, 1, 64, 64, 100),
+                (1, 130, 4, 2, 256, 48, 70), (2, 256, 8, 1, 256, 0, 33),
+                (1, 256, 4, 1, 128, 0, 32), (1, 200, 6, 3, 96, 0, 200),
+                (1, 96, 4, 4, 32, 0, 1000), (4, 512, 8, 1, 256, 0, 256)]
+
+
+def _prefix_passes(q, k, v, do, W, P):
+    o, lse = swa.swa_attention_fwd(q, k, v, W, P)
+    dq, delta = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+    dk, dv = swa.swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P)
+    return o, lse, dq, delta, dk, dv
+
+
+@pytest.mark.parametrize("case", PREFIX_CASES, ids=[str(c) for c in PREFIX_CASES])
+def test_b4_b5_with_a_prefix_match_plain(cuda, case):
+    """The forward at rtol = atol 2e-5, each backward pass within 2e-5 of
+    max|ref|, against the plain versions under the JAX package's mask."""
+    B, S, H, K, hd, W, P = case
+    q, k, v = _qkv(cuda, B, S, H, K, hd, seed=sum(case))
+    do = torch.randn_like(q)
+    o, lse, dq, delta, dk, dv = _prefix_passes(q, k, v, do, W, P)
+    torch.cuda.synchronize()
+    ro, rlse = swa.swa_attention_ref(q, k, v, W, P)
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
+    rdq, rdelta = swa.swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W, P)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W, P)
+    for name, a, b in (("dq", dq, rdq), ("delta", delta, rdelta), ("dk", dk, rdk),
+                       ("dv", dv, rdv)):
+        err = _normalised_err(a, b)
+        assert err <= 2e-5, f"{name}: {err:.3e}"
+
+
+@pytest.mark.parametrize("hd", swa.HEAD_DIMS)
+def test_prefix_zero_and_one_give_the_causal_kernels_bit_for_bit(cuda, hd):
+    """Causal attention (window 0): a call without a prefix, prefix 0 and
+    prefix 1 (key 0, which every query sees anyway) give the same bits."""
+    q, k, v = _qkv(cuda, 2, 300, 4, 2, hd, seed=hd)
+    do = torch.randn_like(q)
+    o, lse = swa.swa_attention_fwd(q, k, v, 0)
+    dq, delta = swa.swa_attention_bwd_dq(q, k, v, o, lse, do, 0)
+    dk, dv = swa.swa_attention_bwd_dkv(q, k, v, lse, delta, do, 0)
+    plain = (o, lse, dq, delta, dk, dv)
+    for P in (0, 1):
+        for a, b in zip(plain, _prefix_passes(q, k, v, do, 0, P)):
+            assert torch.equal(a, b), f"prefix {P}"
+
+
+def test_paligemma_shape_repeats_bit_for_bit(cuda):
+    """B4 and both B5 passes at paligemma-3b's Engine-B shape (hd 256,
+    prefix 256): two calls give the same bits (no atomics)."""
+    q, k, v = _qkv(cuda, 4, 512, 8, 1, 256, seed=3)
+    do = torch.randn_like(q)
+    first = _prefix_passes(q, k, v, do, 0, 256)
+    second = _prefix_passes(q, k, v, do, 0, 256)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_b4_b5_bf16_at_paligemma_shape_within_one_ulp(cuda):
+    """bf16 at hd 256 with the prefix: o and each backward output within one
+    bf16 ulp beyond the f32 tolerance of the f32 plain version on the same
+    bf16 inputs."""
+    B, S, H, K, hd, W, P = 4, 512, 8, 1, 256, 0, 256
+    q, k, v = _qkv(cuda, B, S, H, K, hd, torch.bfloat16, seed=5)
+    do = torch.randn_like(q)
+    o, lse, dq, delta, dk, dv = _prefix_passes(q, k, v, do, W, P)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, k, v, o, do)]
+    ro, rlse = swa.swa_attention_ref(f[0], f[1], f[2], W, P)
+    torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
+    rdq, _ = swa.swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], W, P)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], W, P)
+    for name, a, b, scale in (("o", o, ro, None), ("dq", dq, rdq, 1), ("dk", dk, rdk, 1),
+                              ("dv", dv, rdv, 1)):
+        _, exp = torch.frexp(b)
+        ulp = torch.ldexp(torch.ones_like(b), exp - 8)
+        tol = (2e-5 + 2e-5 * b.abs() if scale is None else 2e-5 * float(b.abs().max())) + ulp
+        bad = (a.float() - b).abs() > tol
+        assert not bool(bad.any()), f"{name}: {int(bad.sum())} elements"
 
 
 # --------------------------------------------------------------------------- #
@@ -1023,11 +1109,11 @@ def test_b4d_bf16_within_one_ulp_of_the_f32_tolerance(cuda, hd):
 
 
 # (B, C, H, K, hd): the serve cells (smollm-135m, qwen2-1.5b, granite-moe-1b-a400m
-# at batch 8, cache 128), REDUCED smollm and qwen2.5, and two long caches (32
-# splits each)
+# at batch 8, cache 128), REDUCED smollm and qwen2.5, two long caches (32
+# splits each), and paligemma-3b's serve cell (hd 256) with a long cache
 DECODE_SHAPES = [(8, 128, 9, 3, 64), (8, 128, 12, 2, 128), (8, 128, 16, 8, 64),
                  (2, 16, 3, 3, 64), (2, 16, 8, 2, 32), (2, 4096, 12, 2, 128),
-                 (8, 8192, 12, 2, 128)]
+                 (8, 8192, 12, 2, 128), (8, 128, 8, 1, 256), (2, 4096, 8, 1, 256)]
 
 
 @pytest.mark.parametrize("shape", DECODE_SHAPES, ids=[str(s) for s in DECODE_SHAPES])

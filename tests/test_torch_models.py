@@ -144,8 +144,10 @@ def test_build_model_refuses_transformer_specs():
                               moe=MoeSpec(num_experts=4, top_k=2))
     assert isinstance(build_model(moe), SplittableModel)
     vlm = dataclasses.replace(port_get_reduced("smollm-135m"), family="vlm", prefix_len=4)
-    with pytest.raises(NotImplementedError, match="A14.4"):
-        build_model(vlm)
+    assert isinstance(build_model(vlm), SplittableModel)
+    audio = dataclasses.replace(port_get_reduced("smollm-135m"), family="audio")
+    with pytest.raises(NotImplementedError, match="A14.5"):
+        build_model(audio)
     with pytest.raises(TypeError, match="ModelSpec"):
         build_model(get_reduced("smollm-135m"))
 

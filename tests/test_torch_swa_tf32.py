@@ -11,7 +11,8 @@ tiles, each tile's p.v added to o in f32) and of the backward
 (s, dp = do.v^T, dq = scale ds.k, dk = ds^T.(scale q), dv = p^T.do) goes
 through the same split, on the same numpy inputs as the plain versions in
 ``ref.py``, at the JAX package's backward cases (``tests/test_kernels_swa.py``)
-and at hd 64 and 128 with windows 0 and 128.  The forward's emulation
+at hd 64 and 128 with windows 0 and 128, and with the VLM's prefix-LM mask
+(P) and at hd 256.  The forward's emulation
 follows the kernel's log2 units (log2(e) folded into q's scale, p = 2^(s - m),
 lse = ln(2) m + ln(l)).  3xTF32 holds the tolerances (forward: rtol = atol =
 2e-5; backward: ATTN_TOL = 2e-5 of max|ref|); one TF32 product (a_big.b_big
@@ -29,6 +30,11 @@ above, against the plain f32 versions:
     (1, 256, 4, 2, 64, 0)           (43.5, 16.1)    (0.028, 0.009)
     (1, 256, 4, 2, 128, 0)          (31.9, 21.5)    (0.040, 0.008)
     (1, 256, 4, 2, 128, 128)        (38.5, 8.3)     (0.047, 0.010)
+    (1, 300, 4, 1, 64, 64), P 100   (20.9, 2.8)     (0.035, 0.008)
+    (1, 256, 8, 1, 256, 0), P 128   (17.1, 1.6)     (0.061, 0.008)
+    (1, 130, 4, 2, 256, 48), P 70   (25.3, 2.2)     (0.060, 0.009)
+    (1, 160, 4, 2, 32, 0), P 33     (28.0, 4.6)     (0.029, 0.009)
+    (1, 256, 4, 1, 256, 0)          (34.5, 23.7)    (0.076, 0.026)
 
     case (B, S, H, K, hd, window)   backward: max|err| / max|ref|, (dq, dk, dv)
                                     1xTF32                  3xTF32
@@ -41,9 +47,14 @@ above, against the plain f32 versions:
     (1, 256, 4, 2, 64, 0)           (6.7, 7.0, 4.1)e-4      (12.3, 14.7, 11.8)e-7
     (1, 256, 4, 2, 128, 0)          (7.7, 6.6, 3.7)e-4      (8.6, 10.1, 8.8)e-7
     (1, 256, 4, 2, 128, 128)        (7.1, 6.1, 2.8)e-4      (13.9, 10.1, 6.3)e-7
+    (1, 300, 4, 1, 64, 64), P 100   (8.0, 7.7, 6.4)e-4      (14.8, 17.4, 5.6)e-7
+    (1, 256, 8, 1, 256, 0), P 128   (6.5, 4.9, 4.4)e-4      (26.1, 12.8, 10.4)e-7
+    (1, 130, 4, 2, 256, 48), P 70   (6.9, 10.1, 4.9)e-4     (18.8, 19.2, 14.4)e-7
+    (1, 160, 4, 2, 32, 0), P 33     (11.6, 6.5, 4.5)e-4     (5.8, 9.3, 7.9)e-7
+    (1, 256, 4, 1, 256, 0)          (8.7, 7.6, 6.7)e-4      (10.6, 12.1, 9.7)e-7
 
 The 3xTF32 columns are the size of the f32 differences between two orders
-of summation; 1xTF32 is 8-63x outside the forward's tolerance and 14-51x
+of summation; 1xTF32 is 8-63x outside the forward's tolerance and 14-58x
 outside the backward's.  The emulation sums each product's terms in f32 in
 einsum's order; the tensor cores add with truncation instead, which the
 kernels keep from drifting by summing each tile's partial product from 0
@@ -61,6 +72,7 @@ from repro_torch.kernels import build
 from repro_torch.kernels.swa_attention import (
     swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref,
 )
+from repro_torch.kernels.swa_attention.ref import visible
 
 ATTN_TOL = 2e-5  # tests/test_kernels_swa.py: the backward, after max-normalising
 FWD_TOL = 2e-5  # tests/test_kernels_swa.py: the forward, rtol = atol
@@ -76,7 +88,23 @@ CASES = [
     (1, 256, 4, 2, 128, 0),
     (1, 256, 4, 2, 128, 128),
 ]
+# B, S, H, K, hd, window, prefix: the VLM's prefix-LM mask (under a window,
+# at a ragged S, past a tile edge) and hd 256, whose kernels split the
+# output's columns over warps (B4, dq) or blocks (dk/dv): each column's sum
+# runs in the same order as below hd 256, so the emulation is the same
+CASES += [
+    (1, 300, 4, 1, 64, 64, 100),
+    (1, 256, 8, 1, 256, 0, 128),
+    (1, 130, 4, 2, 256, 48, 70),
+    (1, 160, 4, 2, 32, 0, 33),
+    (1, 256, 4, 1, 256, 0, 0),
+]
 IDS = [str(c) for c in CASES]
+
+
+def mask_of(case):
+    """(window, prefix) of a case."""
+    return case[5], (case[6] if len(case) > 6 else 0)
 
 
 def tf32(x: torch.Tensor) -> torch.Tensor:
@@ -98,7 +126,7 @@ def product(eq: str, a: torch.Tensor, b: torch.Tensor, terms: int) -> torch.Tens
     return out
 
 
-def tf32_backward(q, k, v, o, lse, do, window, terms):
+def tf32_backward(q, k, v, o, lse, do, window, terms, prefix=0):
     """(dq, dk, dv) as the kernels compute them, with every product through
     ``product``: the scale folded into q, delta = rowsum(o·do), p from lse."""
     B, S, H, hd = q.shape
@@ -108,9 +136,7 @@ def tf32_backward(q, k, v, o, lse, do, window, terms):
     qg = (q * scale).reshape(B, S, K, G, hd)
     dog = do.reshape(B, S, K, G, hd)
     pos = torch.arange(S)
-    ok = pos[None, :] <= pos[:, None]
-    if window > 0:
-        ok = ok & (pos[None, :] > pos[:, None] - window)
+    ok = visible(pos, pos, True, window, prefix)
     s = product("bqkgh,bskh->bkgqs", qg, k, terms)
     p = torch.where(ok, torch.exp(s - lse.reshape(B, K, G, S, 1)), 0.0)
     dp = product("bqkgh,bskh->bkgqs", dog, v, terms)
@@ -122,7 +148,7 @@ def tf32_backward(q, k, v, o, lse, do, window, terms):
     return dq, dk, dv
 
 
-def tf32_forward(q, k, v, window, terms, tile=32):
+def tf32_forward(q, k, v, window, terms, tile=32, prefix=0):
     """(o, lse) as the forward kernel computes them: the scores in log2
     units, s = (scale log2(e) q).k^T through ``product``; an online softmax
     over ``tile``-key kv tiles, p = 2^(s - m); each tile's p.v through
@@ -138,10 +164,7 @@ def tf32_forward(q, k, v, window, terms, tile=32):
     l = torch.zeros(B, K, G, S)
     o = torch.zeros(B, K, G, S, hd)
     for j0 in range(0, S, tile):
-        cols = pos[j0:j0 + tile]
-        ok = cols[None, :] <= pos[:, None]
-        if window > 0:
-            ok = ok & (cols[None, :] > pos[:, None] - window)
+        ok = visible(pos, pos[j0:j0 + tile], True, window, prefix)
         s = torch.where(ok, s_all[..., j0:j0 + tile], -1e30)
         m_new = torch.maximum(m, s.amax(-1))
         p = torch.where(ok, torch.exp2(s - m_new[..., None]), 0.0)
@@ -155,7 +178,7 @@ def tf32_forward(q, k, v, window, terms, tile=32):
 
 def inputs(case):
     """q, k, v, do from numpy, seeded by the case."""
-    B, S, H, K, hd, _ = case
+    B, S, H, K, hd = case[:5]
     rng = np.random.default_rng(sum(case))
     q, do = (torch.from_numpy(rng.normal(size=(B, S, H, hd)).astype(np.float32))
              for _ in range(2))
@@ -168,20 +191,21 @@ def forward_errors(case, terms):
     """Worst |err| / (FWD_TOL + FWD_TOL |ref|) of (o, lse) against the plain
     f32 version: at most 1 within the forward's tolerance."""
     q, k, v, _ = inputs(case)
-    ref = swa_attention_ref(q, k, v, case[-1])
-    got = tf32_forward(q, k, v, case[-1], terms)
+    W, P = mask_of(case)
+    ref = swa_attention_ref(q, k, v, W, P)
+    got = tf32_forward(q, k, v, W, terms, prefix=P)
     return [float(((a - r).abs() / (FWD_TOL + FWD_TOL * r.abs())).max())
             for a, r in zip(got, ref)]
 
 
 def errors(case, terms):
     """max|err| / max|ref| of (dq, dk, dv) against the plain f32 versions."""
-    W = case[-1]
+    W, P = mask_of(case)
     q, k, v, do = inputs(case)
-    o, lse = swa_attention_ref(q, k, v, W)
-    rdq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W)
-    rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W)
-    got = tf32_backward(q, k, v, o, lse, do, W, terms)
+    o, lse = swa_attention_ref(q, k, v, W, P)
+    rdq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W, P)
+    rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W, P)
+    got = tf32_backward(q, k, v, o, lse, do, W, terms, prefix=P)
     return [float((a - r).abs().max() / r.abs().max()) for a, r in zip(got, (rdq, rdk, rdv))]
 
 

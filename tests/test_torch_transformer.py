@@ -111,10 +111,11 @@ def test_spec_counts_of_the_other_families_match_jax():
 
 
 def test_registry_matches_jax_and_names_roadmap_for_the_rest():
-    """The dense, MoE, SSM and hybrid ids resolve to JAX's configs; the VLM
-    and audio ids raise naming their items (A14.4, A14.5)."""
+    """The dense, MoE, SSM, hybrid and VLM ids resolve to JAX's configs
+    (paligemma-3b among them); the audio id raises naming its item
+    (A14.5)."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
-    unported = {"paligemma-3b": "A14.4", "whisper-large-v3": "A14.5"}
+    unported = {"whisper-large-v3": "A14.5"}
     for arch in jconfigs.ARCH_IDS:
         if arch not in unported:
             assert arch in tconfigs.PORTED_ARCH_IDS
@@ -124,6 +125,10 @@ def test_registry_matches_jax_and_names_roadmap_for_the_rest():
                 tconfigs.get_spec(arch)
             with pytest.raises(NotImplementedError, match=unported[arch]):
                 tconfigs.get_reduced(arch)
+    for get in ("get_spec", "get_reduced"):
+        t, j = getattr(tconfigs, get)("paligemma-3b"), getattr(jconfigs, get)("paligemma-3b")
+        assert (t.family, t.prefix_len, t.hd, t.num_kv_heads) == (j.family, j.prefix_len, j.hd,
+                                                                 j.num_kv_heads)
     assert tconfigs.get_spec("vgg16-cifar10").name == "vgg16-cifar10"
     with pytest.raises(KeyError):
         tconfigs.get_spec("gpt-5")
@@ -175,8 +180,12 @@ def test_unported_layer_paths_raise_naming_a14():
     p = SplittableModel(spec).init_params(torch.Generator().manual_seed(0), CPU)
     attn = {k: v[0] for k, v in p["units"]["attn"].items()}
     x = torch.zeros(1, 4, spec.d_model)
-    for kw in (dict(prefix_len=2), dict(kv_override=(x, x)), dict(causal=False)):
-        with pytest.raises(NotImplementedError, match="A14"):
+    # the prefix-LM mask (A14.4) is ported: it is JAX's _mask_bias rule
+    # (tests/test_torch_vlm.py holds it against JAX)
+    out, _ = L.attention(attn, torch.randn(1, 4, spec.d_model), spec, prefix_len=2)
+    assert out.shape == (1, 4, spec.d_model) and bool(torch.isfinite(out).all())
+    for kw in (dict(kv_override=(x, x)), dict(causal=False)):
+        with pytest.raises(NotImplementedError, match="A14.5"):
             L.attention(attn, x, spec, **kw)
     # the decode cache (A14.3) is ported: it takes one token a step, and
     # positions other than 0..S-1 only with a cache
@@ -186,9 +195,9 @@ def test_unported_layer_paths_raise_naming_a14():
         L.attention(attn, x, spec, positions=torch.arange(4) + 1)
     with pytest.raises(NotImplementedError, match="A14.6"):
         SplittableModel(dataclasses.replace(spec, remat=True))
-    for family, item in (("vlm", "A14.4"), ("audio", "A14.5")):
-        with pytest.raises(NotImplementedError, match=item):
-            build_model(dataclasses.replace(spec, family=family))
+    assert build_model(dataclasses.replace(spec, family="vlm", prefix_len=2)).prefix_len == 2
+    with pytest.raises(NotImplementedError, match="A14.5"):
+        build_model(dataclasses.replace(spec, family="audio"))
     # the MoE family builds now (tests/test_torch_zoo.py holds it against JAX)
     assert build_model(dataclasses.replace(spec, family="moe", moe=MoeSpec(4, 2))).moe_groups == 1
     with pytest.raises(TypeError):
@@ -352,5 +361,6 @@ def test_train_main_runs_a_dense_arch_on_cpu(tmp_path, capsys):
         jax.random.PRNGKey(1)), 4)
     tree, step, meta = jax_load(str(ckpt), template)
     assert step == 2 and np.asarray(tree["units"]["attn"]["wq"]).shape[:2] == (4, 2)
-    with pytest.raises(NotImplementedError, match="A14.4"):
+    # the VLM exits as the JAX CLI does (its LM stream has no image prefix)
+    with pytest.raises(SystemExit, match="frontend is a stub"):
         train.main(["--device", "cpu", "--arch", "paligemma-3b", "--rounds", "1"])
