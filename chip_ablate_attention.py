@@ -92,7 +92,7 @@ VARIANTS = {
          "tf32::load_a(Qs, LDQ, wr, kk, qscale, qb, qs);"),
         (CU, "load_b_pairs(Ks, LDQ, 8 * n, kk, kb, ks);",
          "tf32::load_b(Ks, LDQ, 8 * n, kk, 1.0f, kb, ks);"),
-        (CU, "((kFwdRows + 2 * kFwdKeys) * (HD + 8)", "((kFwdRows + 2 * kFwdKeys) * (HD + 4)"),
+        (CU, "((BQ + 2 * kFwdKeys) * (HD + 8)", "((BQ + 2 * kFwdKeys) * (HD + 4)"),
     ], True),
     "fwd q split once": (blocks(2) + [
         (CU, FWD_ACC, "  tf32::cp_async_wait<0>();\n  __syncthreads();\n"
@@ -152,7 +152,8 @@ def build_variants(out: Path):
             raise RuntimeError(f"variant {name!r} failed to build:\n{log}")
         lib = ctypes.CDLL(str(d / "lib.so"))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        dims = [i, i, i, i, i, i, i, f, p]
+        # dtype, B, Sq, Sk, H, K, hd, window, prefix, scale, stream
+        dims = [i] * 9 + [f, p]
         lib.swa_attention_fwd.argtypes = [p] * 5 + dims
         for fn in (lib.swa_attention_bwd_dq, lib.swa_attention_bwd_dkv):
             fn.argtypes = [p] * 8 + dims
@@ -207,7 +208,7 @@ def main() -> int:
     rdq, delta = swa_attention_bwd_dq_ref(q, k, v, ro, rlse, do, W)
     rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, rlse, delta, do, W)
     stream = torch.cuda.current_stream().cuda_stream
-    dims = (0, B, S, H, K, hd, W, 1.0 / math.sqrt(hd), stream)
+    dims = (0, B, S, S, H, K, hd, W, 0, 1.0 / math.sqrt(hd), stream)
 
     times = {name: [] for name in libs}
     errs = {}

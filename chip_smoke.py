@@ -128,9 +128,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    paligemma-3b at full width and depth served the same way, its decode
    held to the forward of its dense twin (the same weights under
    ``family="dense", prefix_len=0``: the JAX package's VLM decode is text
-   only); the ``[vlm]`` phase (``vlm_paths``, run right after the kernel
-   checks of 3, before every other path, so that its cell has the card to
-   itself): B4 and both B5 passes
+   only); the ``[vlm]`` phase (``vlm_paths``, run after ``[serve]``; every
+   phase boundary collects what earlier phases leave in reference cycles,
+   so its cell finds the card empty): B4 and both B5 passes
    timed at paligemma-3b's Engine-B shape [4, 512, 8, 1, 256], prefix 256,
    beside SDPA with a boolean mask; paligemma-3b at full width and depth
    through Engine B (N=4, J2=2, batch 1, 256 image-prefix and 256 text
@@ -141,7 +141,28 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    its 4-layer full-width Engine-A twin from one init (losses rtol 1e-4,
    params atol 1e-5 / rtol 1e-4, the tied embedding's pad rows within a
    reckoned bound: Engine B's tied logits skip the pad mask); REDUCED
-   paligemma through both engines on the card against the CPU;
+   paligemma through both engines on the card against the CPU; the
+   ``[audio]`` phase (``audio_paths``, last, after ``[vlm]``): B4 and both
+   B5 passes against their plain versions at whisper-large-v3's Engine-B
+   shapes -- the encoder's bidirectional self-attention [4, 1500, 1500, 20,
+   20, 64] (a prefix of S), the decoder's causal self-attention [4, 448,
+   448] and its cross-attention q [4, 448] against k, v [4, 1500] (Sq !=
+   Sk, a prefix of Sk) -- in f32 and bf16, each f32 output repeating bit
+   for bit, and the decode cross route (B4d with every slot at position 0)
+   at [8, 1, 20, 64] against [8, 1500, 20, 64]; each timed beside its
+   plain version and SDPA, the decode route beside B4 at Sq = 1;
+   whisper-large-v3 at full width and depth through Engine B (N=4, J2=2,
+   batch 1, 1500 frames and 448 text tokens a client, cuts (2, 32),
+   intervals (2, 2, 1), SGD 5e-4, 4 rounds): B4/B5 96 a round, B1 by
+   ``engine_b_fed``, peak at most 70 GB beside ``audio_reckoning``; its
+   Engine-A twin at 4 + 4 units (JAX's A == B tolerance: losses rtol 1e-5,
+   params atol 5e-6 / rtol 1e-4); REDUCED whisper through both engines
+   and 6 decode steps on the card against the CPU; whisper-large-v3
+   decoding at full width (batch 8, cache 128, 64 timed steps; B4d 32
+   self + 32 cross a step).  Each phase boundary prints a ``[memory]``
+   line: its seconds, the device memory allocated after a collection, the
+   bytes each of ``main``'s names holds and the largest tensors none
+   reaches;
 6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
@@ -168,6 +189,7 @@ import re
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -582,12 +604,12 @@ def in_turns(plain, kernel):
     return (k1 + k2) / 2, (p1 + p2) / 2
 
 
-def timings(card: str, run):
+def timings(card: str):
+    """B1 and B2 at the largest VGG-16 leaf [20, 2359296]: kernel, plain
+    version and bytes bound."""
     import torch
-    from torch.func import grad_and_value, vmap
 
     from repro_torch.compress.quantize import q8_quantize
-    from repro_torch.core import synchronize
     from repro_torch.kernels.tiered_aggregate import (
         quantized_tiered_aggregate, quantized_tiered_aggregate_ref,
         reset_launches, tiered_aggregate, tiered_aggregate_ref,
@@ -624,10 +646,20 @@ def timings(card: str, run):
               f"data sheet) = {100 * r['bound_ms'] / r['ms']:.1f}% of the bound; "
               f"library call: none (no one PyTorch call computes the fused "
               f"two-level mean with its broadcast); card {card}")
+    reset_launches()
+    return out
 
-    # where a full-width round's time goes: the per-client forward and
-    # backward, the optimizer, and the sync of an ordinary round (entity
-    # levels and the top tier) and of round 8 (every tier's fed level too)
+
+def vgg_round_parts(card: str, run) -> None:
+    """Where a full-width VGG-16 round's time goes: the per-client forward
+    and backward, the optimizer, and the sync of an ordinary round (entity
+    levels and the top tier) and of round 8 (every tier's fed level too),
+    on the main path's trained state."""
+    from torch.func import grad_and_value, vmap
+
+    from repro_torch.core import synchronize
+    from repro_torch.kernels.tiered_aggregate import reset_launches
+
     model, plan, opt, state, batch = (run[k] for k in ("model", "plan", "opt",
                                                         "state", "batch"))
     per_client = vmap(grad_and_value(model.loss_fn))
@@ -649,7 +681,6 @@ def timings(card: str, run):
           f"{rate / 1e12:.2f} TFLOP/s = {100 * rate / F32_FLOPS_PER_S:.1f}% of the "
           f"67 TFLOP/s f32 peak (TF32 off); card {card}")
     reset_launches()
-    return out
 
 
 def vgg_forward_flops(spec, images: int) -> float:
@@ -1419,15 +1450,21 @@ def visible_pairs(S: int, window: int, prefix: int = 0) -> int:
 
 
 def attention_work(B, S, H, K, hd, window, prefix: int = 0):
-    """{kernel: (operations, bytes)}: each input read once, each output
-    written once, multiply-adds counted as 2, over the visible pairs."""
-    pairs = visible_pairs(S, window, prefix) * B * H
-    qb, kb, rows = 4 * B * S * H * hd, 4 * B * S * K * hd, 4 * B * H * S
+    """``pairs_work`` of self-attention over the pairs its mask lets through."""
+    return pairs_work(B, S, S, H, K, hd, visible_pairs(S, window, prefix))
+
+
+def pairs_work(B, Sq, Sk, H, K, hd, pairs: int):
+    """{kernel: (operations, bytes)} with Sq query rows against Sk key rows
+    and ``pairs`` visible (query, key) pairs a head: each input read once,
+    each output written once, multiply-adds counted as 2."""
+    pairs = pairs * B * H
+    qb, kb, rows = 4 * B * Sq * H * hd, 4 * B * Sk * K * hd, 4 * B * H * Sq
     return {
         # s = q·k, o += p·v
         "swa_attention_fwd": (4 * hd * pairs, 2 * qb + 2 * kb + rows),
         # s, dp = do·v, dq += ds·k; delta = rowsum(o·do)
-        "swa_attention_bwd_dq": (6 * hd * pairs + 2 * B * S * H * hd, 4 * qb + 2 * kb + 2 * rows),
+        "swa_attention_bwd_dq": (6 * hd * pairs + 2 * B * Sq * H * hd, 4 * qb + 2 * kb + 2 * rows),
         # s, dp, dv += p·do, dk += ds·q
         "swa_attention_bwd_dkv": (8 * hd * pairs, 2 * qb + 4 * kb + 2 * rows),
     }
@@ -2980,6 +3017,11 @@ def control_run(api, spec, label: str, tag: str = "control", keep_state: bool = 
                plan=seen["plans"][-1])
     if keep_state:
         out["state"] = seen["state"]
+    # the hooks above (the local class among them) are a reference cycle
+    # that holds ``seen``: without this, the last state (smollm-135m's 8
+    # replicas and their optimizer state, 5.5 GB) outlives the phase until
+    # a collection
+    seen.clear()
     return got, out
 
 
@@ -4037,9 +4079,9 @@ class _GivenInit:
 
 def vlm_batches(spec, N: int, b: int, seq: int, rounds: int, seed: int, device):
     """``rounds`` batches of N clients x b sequences of ``seq`` positions
-    (the image prefix and the text), drawn by the port's
-    ``concrete_inputs`` on ``device`` from one seeded generator; leaves
-    [N, b, ...]."""
+    (the VLM: the image prefix and the text; the audio model: ``seq`` text
+    tokens beside its frames), drawn by the port's ``concrete_inputs`` on
+    ``device`` from one seeded generator; leaves [N, b, ...]."""
     import torch
 
     from repro_torch.configs.shapes import concrete_inputs
@@ -4096,21 +4138,206 @@ def vlm_train(step, states, batches):
     return state, losses, ms
 
 
+def engine_b_want(plan, tier_params, attn_layers: int, rounds: int) -> dict:
+    """Engine B's launches over ``rounds`` rounds: B1 by ``engine_b_fed`` on
+    each tier's leaves that hold elements (a tier's empty encoder or decoder
+    stack launches nothing), B4 and each B5 pass once an attention layer a
+    round."""
+    from repro_torch._tree import tree_leaves
+
+    want = {k: 0 for k in all_launches()}
+    leaves = [sum(1 for x in tree_leaves(p) if x.numel()) for p in tier_params]
+    want[AGG[0]] = sum(engine_b_fed(plan, s, leaves) for s in range(rounds))
+    want.update(dict.fromkeys(ATTN, attn_layers * rounds))
+    return want
+
+
+def engine_b_cell(tag: str, model, plan, opt, cell: dict, reckoned: dict, attn_layers: int,
+                  limit: float):
+    """``model`` at full width through Engine B from a seeded init drawn on
+    the card: ``cell`` gives the batch a client (``b``), the positions
+    ``vlm_batches`` draws (``seq``), the rounds and the two seeds.  The
+    reckoning is printed first and must stay under ``limit``.  Launches as
+    ``engine_b_want`` implies; losses and params finite; the peak at most
+    ``limit``; the parameters held equal the reckoning's.  Returns
+    (launches, {round_ms (median of rounds 2 on), rounds_ms, peak, held,
+    losses, reckoned})."""
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.core import build_train_step_b, init_state_b
+
+    label = f"{tag} {model.spec.name}"
+    dev = serve_device()
+    print(f"{tag} reckoned before the run: Engine B holds {reckoned['held']} parameters "
+          f"({4 * reckoned['held'] / 1e9:.2f} GB f32); the backward "
+          f"{reckoned['backward'] / 1e9:.2f} GB (params and gradients "
+          f"{8 * reckoned['held'] / 1e9:.2f}, activations {reckoned['activations'] / 1e9:.2f}, "
+          f"logits {reckoned['logits'] / 1e9:.2f}), the update {reckoned['update'] / 1e9:.2f} GB "
+          "(params, gradients, new params)", flush=True)
+    if reckoned["total"] > limit:
+        raise AssertionError(f"{label}: the reckoning {reckoned['total'] / 1e9:.2f} GB is over "
+                             f"the {limit / 1e9:.0f} GB line: move the cuts")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(cell["init_seed"])
+    with dev:
+        states = [init_state_b(model, plan, opt, gen, dev)]
+    batches = vlm_batches(model.spec, plan.num_clients, cell["b"], cell["seq"], cell["rounds"],
+                          cell["batch_seed"], dev)
+    held = sum(x.numel() for x in tree_leaves(states[0].params))
+    want = engine_b_want(plan, states[0].params, attn_layers, cell["rounds"])
+    reset_all_launches()
+    state, losses, ms = vlm_train(build_train_step_b(model, plan, opt), states, batches)
+    got = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, the plan and depth imply {want}")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"{label}: losses {losses}")
+    for i, x in enumerate(tree_leaves(state.params)):
+        if not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"{label}: leaf {i} not finite")
+    if peak > limit:
+        raise AssertionError(f"{label}: peaked at {peak / 1e9:.2f} GB > {limit / 1e9:.0f} GB")
+    if held != reckoned["held"]:
+        raise AssertionError(f"{label}: Engine B holds {held} parameters, reckoned "
+                             f"{reckoned['held']}")
+    del state, batches
+    torch.cuda.empty_cache()
+    return got, dict(round_ms=sorted(ms[1:])[len(ms[1:]) // 2], rounds_ms=ms, peak=peak,
+                     held=held, losses=losses, reckoned=reckoned)
+
+
+def engine_twin(tag: str, path: str, model, plan, opt, inits: list, batches, attn_layers: int,
+                tols: tuple, own_leaves=None):
+    """Engine A, then Engine B from the same init (``inits``, a one-element
+    list, emptied once B holds it, so that no name keeps it alive), on
+    ``batches``; A's params go to the host and are freed before B starts.
+    Launches as the plan implies; losses within rtol ``tols[0]``;
+    ``engine_b_to_full`` of B's params within atol ``tols[1]`` / rtol
+    ``tols[2]`` of A's leaf by leaf, but for the leaves that
+    ``own_leaves(leaves_a, leaves_b)`` takes out and holds itself (it
+    returns their largest |diff| and what it found).  Returns (launches
+    keyed ``path``-a / -b, {losses_a, losses_b, loss_rtol, worst, peak,
+    round_ms_a, round_ms_b, own})."""
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.core import (
+        TrainState, build_train_step_a, build_train_step_b, init_state_b, replicate_for_clients,
+    )
+    from repro_torch.core.engine import engine_b_to_full
+
+    loss_rtol, atol, rtol = tols
+    rounds = len(batches)
+    torch.cuda.reset_peak_memory_stats()
+    counts = {}
+    params = replicate_for_clients(inits[0], plan.num_clients)
+    states = [TrainState(params, opt.init(params), 0)]
+    del params
+    reset_all_launches()
+    state, losses_a, ms_a = vlm_train(build_train_step_a(model, plan, opt), states, batches)
+    counts[f"{path}-a"] = all_launches()
+    want_a = lm_expected(plan, state.params, model.spec.n_units, rounds)
+    want_a.update(dict.fromkeys(ATTN, attn_layers * rounds))
+    host_a = tree_map(lambda x: x.cpu(), state.params)
+    del state
+    torch.cuda.empty_cache()
+    dev = serve_device()
+    with dev:
+        states = [init_state_b(_GivenInit(inits.pop()), plan, opt, None, dev)]
+    want_b = engine_b_want(plan, states[0].params, attn_layers, rounds)
+    reset_all_launches()
+    state, losses_b, ms_b = vlm_train(build_train_step_b(model, plan, opt), states, batches)
+    counts[f"{path}-b"] = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    host_b = tree_map(lambda x: x.cpu(), state.params)
+    del state
+    torch.cuda.empty_cache()
+    for name, want in (("a", want_a), ("b", want_b)):
+        got = counts[f"{path}-{name}"]
+        if {k: got.get(k, 0) for k in want} != want:
+            raise AssertionError(f"{tag} twin Engine {name.upper()}: launches {got}, the plan "
+                                 f"implies {want}")
+    loss_err = max(abs(lb - la) / abs(la) for la, lb in zip(losses_a, losses_b))
+    if not loss_err <= loss_rtol:
+        raise AssertionError(f"{tag} twin: losses A {losses_a} B {losses_b}, rtol "
+                             f"{loss_err:.3e} > {loss_rtol}")
+    leaves_a = leaves_by_path(host_a)
+    leaves_b = leaves_by_path(engine_b_to_full(model, plan, host_b))
+    if leaves_a.keys() != leaves_b.keys():
+        raise AssertionError(f"{tag} twin: leaves {sorted(leaves_b)} against {sorted(leaves_a)}")
+    worst, own = own_leaves(leaves_a, leaves_b) if own_leaves else (0.0, None)
+    for name, a in leaves_a.items():
+        c = leaves_b[name]
+        torch.testing.assert_close(c, a, atol=atol, rtol=rtol, msg=f"{tag} twin: {name}")
+        if a.numel():
+            worst = max(worst, float((c - a).abs().max()))
+    return counts, dict(losses_a=losses_a, losses_b=losses_b, loss_rtol=loss_err, worst=worst,
+                        peak=peak, round_ms_a=sorted(ms_a[1:])[1],
+                        round_ms_b=sorted(ms_b[1:])[1], own=own)
+
+
+def reduced_card_vs_cpu(tag: str, path: str, model, plan, p0, batches, attn_layers: int,
+                        rtol: float):
+    """Engine A and Engine B from one CPU init ``p0`` on NumPy ``batches``
+    (leaves [N, b, ...]), SGD 0.1, on the card and on the CPU: losses within
+    ``rtol``; the card's launches as the plan implies.  Returns (losses
+    keyed (engine, device), launches keyed ``path``-a / -b)."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.core import (
+        TrainState, build_train_step_a, build_train_step_b, init_state_b, replicate_for_clients,
+    )
+    from repro_torch.optim import sgd
+
+    opt, rounds = sgd(0.1), len(batches)
+    losses, counts = {}, {}
+    for engine in ("a", "b"):
+        for name in ("cuda", "cpu"):
+            device = torch.device(name)
+            params = tree_map(lambda x: x.to(device), p0)
+            if engine == "a":
+                stacked = replicate_for_clients(params, plan.num_clients)
+                state = TrainState(stacked, opt.init(stacked), 0)
+                step = build_train_step_a(model, plan, opt)
+            else:
+                state = init_state_b(_GivenInit(params), plan, opt, None, device)
+                step = build_train_step_b(model, plan, opt)
+                want = engine_b_want(plan, state.params, attn_layers, rounds)
+            reset_all_launches()
+            got = []
+            for batch in batches:
+                state, loss = step(state, {k: torch.from_numpy(v).to(device)
+                                           for k, v in batch.items()})
+                got.append(float(loss))
+            losses[(engine, name)] = got
+            if name == "cuda":
+                counts[f"{path}-{engine}"] = launched = all_launches()
+                if engine == "a":
+                    want = lm_expected(plan, state.params, model.spec.n_units, rounds)
+                    want.update(dict.fromkeys(ATTN, attn_layers * rounds))
+                if {k: launched.get(k, 0) for k in want} != want:
+                    raise AssertionError(f"{tag} REDUCED Engine {engine.upper()}: launches "
+                                         f"{launched}, the plan implies {want}")
+        np.testing.assert_allclose(losses[(engine, "cuda")], losses[(engine, "cpu")], rtol=rtol)
+    return losses, counts
+
+
 def vlm_cell(card: str, attn_times):
     """paligemma-3b at full width and depth through Engine B: N=4, J2=2,
     batch 1, 256 image-prefix and 256 text tokens a client, cuts (1, 2),
     intervals (2, 2, 1), SGD at 5e-4, 4 rounds from a seeded init drawn on
-    the card.  B4 and both B5 passes launch once a layer a round, B1 as
-    ``engine_b_fed`` predicts; losses and params finite; the peak at most
-    70 GB, beside the reckoning; the round's ms and the attention kernels'
+    the card (``engine_b_cell``): B4 and both B5 passes launch once a layer
+    a round, B1 as ``engine_b_fed`` predicts; the peak at most 70 GB,
+    beside ``vlm_reckoning``; the round's ms and the attention kernels'
     share of it (18 layers x their time at the tiers' shape)."""
-    import math as _math
-
-    import torch
-
-    from repro_torch._tree import tree_leaves
     from repro_torch.configs import get_spec
-    from repro_torch.core import build_train_step_b, default_plan, init_state_b
+    from repro_torch.core import default_plan
     from repro_torch.models import SplittableModel
     from repro_torch.optim import sgd
 
@@ -4119,58 +4346,23 @@ def vlm_cell(card: str, attn_times):
     N, b, seq = VLM_N, VLM_BATCH, VLM_PREFIX + VLM_TEXT
     plan = default_plan(spec.n_units, N, cuts=VLM_CUTS, intervals=VLM_INTERVALS,
                         entities=(N, VLM_EDGES, 1))
-    opt = sgd(VLM_LR)
-    dev = serve_device()
     reckoned = vlm_reckoning(spec, plan, N * b * seq, N * b * VLM_TEXT)
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    gen = torch.Generator(device=dev).manual_seed(25)
-    with dev:
-        states = [init_state_b(model, plan, opt, gen, dev)]
-    batches = vlm_batches(spec, N, b, seq, VLM_ROUNDS, 26, dev)
-    leaves = tier_leaves(one_row(states[0].params), plan)
-    held = sum(x.numel() for x in tree_leaves(states[0].params))
-    reset_all_launches()
-    state, losses, ms = vlm_train(build_train_step_b(model, plan, opt), states, batches)
-    got = all_launches()
-    peak = torch.cuda.max_memory_allocated()
-    want = {k: 0 for k in got}
-    want[AGG[0]] = sum(engine_b_fed(plan, s, leaves) for s in range(VLM_ROUNDS))
-    want.update(dict.fromkeys(ATTN, spec.n_units * VLM_ROUNDS))
-    if got != want:
-        raise AssertionError(f"[vlm] paligemma-3b: launches {got}, the plan and depth imply "
-                             f"{want}")
-    if not all(_math.isfinite(v) for v in losses):
-        raise AssertionError(f"[vlm] paligemma-3b: losses {losses}")
-    for i, x in enumerate(tree_leaves(state.params)):
-        if not bool(torch.isfinite(x).all()):
-            raise AssertionError(f"[vlm] paligemma-3b: leaf {i} not finite")
-    if peak > VLM_PEAK_LIMIT:
-        raise AssertionError(f"[vlm] paligemma-3b: peaked at {peak / 1e9:.2f} GB > 70 GB")
-    if held != reckoned["held"]:
-        raise AssertionError(f"[vlm] Engine B holds {held} parameters, reckoned "
-                             f"{reckoned['held']}")
-    del state, batches
-    torch.cuda.empty_cache()
-    round_ms = sorted(ms[1:])[len(ms[1:]) // 2]
+    cell = dict(b=b, seq=seq, rounds=VLM_ROUNDS, init_seed=25, batch_seed=26)
+    got, out = engine_b_cell("[vlm]", model, plan, sgd(VLM_LR), cell, reckoned, spec.n_units,
+                             VLM_PEAK_LIMIT)
     attn_ms = spec.n_units * sum(attn_times[name]["ms"] for name in ATTN)
-    out = dict(round_ms=round_ms, rounds_ms=ms, peak=peak, held=held, losses=losses,
-               reckoned=reckoned, attention_ms=attn_ms, attention_share=attn_ms / round_ms)
+    out.update(attention_ms=attn_ms, attention_share=attn_ms / out["round_ms"])
     print(f"[vlm] paligemma-3b at full width and depth through Engine B ({spec.num_layers} "
           f"layers, d {spec.d_model}, hd {spec.hd}, {spec.total_param_count()} params; N={N}, "
           f"J2={VLM_EDGES}, batch {b}, {VLM_PREFIX} image-prefix + {VLM_TEXT} text tokens a "
           f"client; cuts {plan.cuts}, intervals {plan.intervals}, SGD {VLM_LR}): launches "
-          f"{got} as the plan and depth imply; losses {[round(v, 4) for v in losses]}; every "
-          f"param finite; Engine B holds {held} params ({held * 4 / 1e9:.2f} GB f32); "
-          f"reckoned: the backward {reckoned['backward'] / 1e9:.2f} GB (params and gradients "
-          f"{8 * held / 1e9:.2f}, MLP activations {reckoned['activations'] / 1e9:.2f}, the "
-          f"text's tied logits {reckoned['logits'] / 1e9:.2f}), the update "
-          f"{reckoned['update'] / 1e9:.2f} GB (params, gradients, new params); measured peak "
-          f"{peak / 1e9:.2f} GB (limit 70); rounds {[round(v, 1) for v in ms]} "
-          f"ms, median (rounds 2 on) {round_ms:.2f} ms, of which B4 + B5 {attn_ms:.2f} ms "
-          f"({spec.n_units} layers x their time at the tiers' shape) = "
-          f"{100 * attn_ms / round_ms:.1f}%; card {card}")
+          f"{got} as the plan and depth imply; losses {[round(v, 4) for v in out['losses']]}; "
+          f"every param finite; Engine B holds {out['held']} params "
+          f"({out['held'] * 4 / 1e9:.2f} GB f32); reckoned {reckoned['total'] / 1e9:.2f} GB, "
+          f"measured peak {out['peak'] / 1e9:.2f} GB (limit 70); rounds "
+          f"{[round(v, 1) for v in out['rounds_ms']]} ms, median (rounds 2 on) "
+          f"{out['round_ms']:.2f} ms, of which B4 + B5 {attn_ms:.2f} ms ({spec.n_units} layers "
+          f"x their time at the tiers' shape) = {100 * out['attention_share']:.1f}%; card {card}")
     return got, out
 
 
@@ -4207,133 +4399,79 @@ def vlm_pad_bound(model, params, batch, rounds: int, lr: float):
 
 def vlm_twin(card: str):
     """Engine A against Engine B from one init at full width, 4 layers
-    (N=4, J2=2, cuts (1, 2), the cell's batches, SGD, 4 rounds): A runs
-    first, its params go to the host and are freed.  Losses rtol 1e-4,
-    ``engine_b_to_full`` against A's params atol 1e-5 / rtol 1e-4 but for
-    the tied embedding's 64 pad rows (257 216 padded to 257 280): Engine
-    B's tied logits skip the pad mask (ROADMAP §C), so its loss sits
-    ln(1 + the pad rows' share of the softmax) above A's (~2.5e-4 nats at
-    near-uniform logits), and its pad rows move where A's stay; they are
-    held to ``vlm_pad_bound`` apart."""
-    import numpy as np
+    (N=4, J2=2, cuts (1, 2), the cell's batches, SGD, 4 rounds), through
+    ``engine_twin``.  Losses rtol 1e-4, ``engine_b_to_full`` against A's
+    params atol 1e-5 / rtol 1e-4 but for the tied embedding's 64 pad rows
+    (257 216 padded to 257 280): Engine B's tied logits skip the pad mask
+    (ROADMAP §C), so its loss sits ln(1 + the pad rows' share of the
+    softmax) above A's (~2.5e-4 nats at near-uniform logits), and its pad
+    rows move where A's stay; they are held to ``vlm_pad_bound`` apart."""
     import torch
 
-    from repro_torch._tree import tree_map
     from repro_torch.configs import get_spec
-    from repro_torch.core import (
-        TrainState, build_train_step_a, build_train_step_b, default_plan, init_state_b,
-        replicate_for_clients,
-    )
-    from repro_torch.core.engine import engine_b_to_full
+    from repro_torch.core import default_plan
     from repro_torch.models import SplittableModel
     from repro_torch.optim import sgd
 
     spec = dataclasses.replace(get_spec(VLM_ARCH), num_layers=VLM_TWIN_LAYERS)
     model = SplittableModel(spec)
-    N, b, seq = VLM_N, VLM_BATCH, VLM_PREFIX + VLM_TEXT
+    N, V = VLM_N, spec.vocab_size
     plan = default_plan(spec.n_units, N, cuts=VLM_TWIN_CUTS, intervals=VLM_INTERVALS,
                         entities=(N, VLM_EDGES, 1))
-    opt = sgd(VLM_LR)
-    dev = serve_device()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    p0 = card_init(model, 27)
-    batches = vlm_batches(spec, N, b, seq, VLM_ROUNDS, 28, dev)
-    pad = vlm_pad_bound(model, p0, batches[0], VLM_ROUNDS, VLM_LR)
-    counts = {}
-    params = replicate_for_clients(p0, N)
-    states = [TrainState(params, opt.init(params), 0)]
-    del params
-    reset_all_launches()
-    state, losses_a, ms_a = vlm_train(build_train_step_a(model, plan, opt), states, batches)
-    counts["vlm-paligemma-3b-twin-a"] = all_launches()
-    want_a = lm_expected(plan, state.params, spec.n_units, VLM_ROUNDS)
-    host_a = tree_map(lambda x: x.cpu(), state.params)
-    del state
-    torch.cuda.empty_cache()
-    reset_all_launches()
-    with dev:
-        states = [init_state_b(_GivenInit(p0), plan, opt, None, dev)]
-    del p0
-    leaves = tier_leaves(one_row(states[0].params), plan)
-    state, losses_b, ms_b = vlm_train(build_train_step_b(model, plan, opt), states, batches)
-    counts["vlm-paligemma-3b-twin-b"] = all_launches()
-    want_b = {k: 0 for k in counts["vlm-paligemma-3b-twin-b"]}
-    want_b[AGG[0]] = sum(engine_b_fed(plan, s, leaves) for s in range(VLM_ROUNDS))
-    want_b.update(dict.fromkeys(ATTN, spec.n_units * VLM_ROUNDS))
-    peak = torch.cuda.max_memory_allocated()
-    host_b = tree_map(lambda x: x.cpu(), state.params)
-    del state, batches
-    torch.cuda.empty_cache()
-    for name, got, want in (("A", counts["vlm-paligemma-3b-twin-a"], want_a),
-                            ("B", counts["vlm-paligemma-3b-twin-b"], want_b)):
-        if {k: got.get(k, 0) for k in want} != want:
-            raise AssertionError(f"[vlm] twin Engine {name}: launches {got}, the plan "
-                                 f"implies {want}")
-    np.testing.assert_allclose(losses_b, losses_a, rtol=VLM_LOSS_RTOL)
-    full_b = engine_b_to_full(model, plan, host_b)
-    V = spec.vocab_size
-    leaves_a, leaves_b = leaves_by_path(host_a), leaves_by_path(full_b)
-    if leaves_a.keys() != leaves_b.keys():
-        raise AssertionError(f"[vlm] twin: leaves {sorted(leaves_b)} against {sorted(leaves_a)}")
-    emb_a, emb_b = leaves_a.pop("frontend/embed"), leaves_b.pop("frontend/embed")
-    pad_dist = float((emb_b[:, V:] - emb_a[:, V:]).abs().max())
-    if not pad_dist <= pad["bound"]:
-        raise AssertionError(f"[vlm] twin: the pad rows {pad_dist:.3e} apart, above the "
-                             f"reckoned {pad['bound']:.3e}")
-    torch.testing.assert_close(emb_b[:, :V], emb_a[:, :V], atol=VLM_ATOL, rtol=VLM_RTOL,
-                               msg="[vlm] twin: the embedding's vocabulary rows")
-    worst = float((emb_b[:, :V] - emb_a[:, :V]).abs().max())
-    for path, a in leaves_a.items():
-        c = leaves_b[path]
-        torch.testing.assert_close(c, a, atol=VLM_ATOL, rtol=VLM_RTOL,
-                                   msg=f"[vlm] twin: {path}")
-        if a.numel():
-            worst = max(worst, float((c - a).abs().max()))
-    gaps = [lb - la for la, lb in zip(losses_a, losses_b)]
-    out = dict(losses_a=losses_a, losses_b=losses_b, pad_distance=pad_dist, pad=pad,
-               worst=worst, peak=peak, round_ms_a=sorted(ms_a[1:])[1],
-               round_ms_b=sorted(ms_b[1:])[1])
+    inits = [card_init(model, 27)]
+    batches = vlm_batches(spec, N, VLM_BATCH, VLM_PREFIX + VLM_TEXT, VLM_ROUNDS, 28,
+                          serve_device())
+    pad = vlm_pad_bound(model, inits[0], batches[0], VLM_ROUNDS, VLM_LR)
+
+    def embedding(leaves_a, leaves_b):
+        emb_a, emb_b = leaves_a.pop("frontend/embed"), leaves_b.pop("frontend/embed")
+        dist = float((emb_b[:, V:] - emb_a[:, V:]).abs().max())
+        if not dist <= pad["bound"]:
+            raise AssertionError(f"[vlm] twin: the pad rows {dist:.3e} apart, above the "
+                                 f"reckoned {pad['bound']:.3e}")
+        torch.testing.assert_close(emb_b[:, :V], emb_a[:, :V], atol=VLM_ATOL, rtol=VLM_RTOL,
+                                   msg="[vlm] twin: the embedding's vocabulary rows")
+        return float((emb_b[:, :V] - emb_a[:, :V]).abs().max()), dist
+
+    counts, out = engine_twin("[vlm]", "vlm-paligemma-3b-twin", model, plan, sgd(VLM_LR), inits,
+                              batches, spec.n_units, (VLM_LOSS_RTOL, VLM_ATOL, VLM_RTOL),
+                              embedding)
+    out.update(pad_distance=out.pop("own"), pad=pad)
+    gaps = [lb - la for la, lb in zip(out["losses_a"], out["losses_b"])]
     print(f"[vlm] paligemma-3b twin at full width, {VLM_TWIN_LAYERS} layers (N={N}, cuts "
           f"{plan.cuts}): Engine A first, then B from the same init; losses A "
-          f"{[round(v, 5) for v in losses_a]} B {[round(v, 5) for v in losses_b]} (rtol "
-          f"{VLM_LOSS_RTOL}), B - A {[f'{g:.3e}' for g in gaps]} against the reckoned "
+          f"{[round(v, 5) for v in out['losses_a']]} B {[round(v, 5) for v in out['losses_b']]} "
+          f"(rtol {VLM_LOSS_RTOL}), B - A {[f'{g:.3e}' for g in gaps]} against the reckoned "
           f"{pad['loss_gap']:.3e} nats of the pad rows' softmax share at the init "
           f"(ln({spec.padded_vocab} / {V}) = {math.log(spec.padded_vocab / V):.3e} at "
           f"uniform logits); engine_b_to_full within atol {VLM_ATOL} / rtol {VLM_RTOL} of A "
-          f"(max |diff| {worst:.3e}) but for the {spec.padded_vocab - V} pad rows, "
-          f"{pad_dist:.3e} apart, bound "
-          f"{pad['bound']:.3e} (2 x {VLM_ROUNDS} rounds x lr {VLM_LR} x max p_pad "
-          f"{pad['p_pad_max']:.3e} x max |h| {pad['h_max']:.3f}); launches A "
-          f"{counts['vlm-paligemma-3b-twin-a']}, B {counts['vlm-paligemma-3b-twin-b']} as the "
-          f"plan implies; round ms A {out['round_ms_a']:.2f}, B {out['round_ms_b']:.2f} "
-          f"(median of rounds 2 on); peak {peak / 1e9:.2f} GB; card {card}")
+          f"(max |diff| {out['worst']:.3e}) but for the {spec.padded_vocab - V} pad rows, "
+          f"{out['pad_distance']:.3e} apart, bound {pad['bound']:.3e} (2 x {VLM_ROUNDS} rounds "
+          f"x lr {VLM_LR} x max p_pad {pad['p_pad_max']:.3e} x max |h| {pad['h_max']:.3f}); "
+          f"launches A {counts['vlm-paligemma-3b-twin-a']}, B {counts['vlm-paligemma-3b-twin-b']} "
+          f"as the plan implies; round ms A {out['round_ms_a']:.2f}, B {out['round_ms_b']:.2f} "
+          f"(median of rounds 2 on); peak {out['peak'] / 1e9:.2f} GB; card {card}")
     return counts, out
 
 
 def vlm_reduced_card_vs_cpu(rounds: int = VLM_REDUCED_ROUNDS):
     """REDUCED paligemma, Engine A and Engine B, N=4, J2=2, batch 2, 4 + 60
     tokens, cuts (1, 1), 3 rounds from one init and NumPy batches, on the
-    card and on the CPU: losses rtol 1e-4; the card's launches as the plan
-    implies."""
+    card and on the CPU (``reduced_card_vs_cpu``): losses rtol 1e-4; the
+    card's launches as the plan implies."""
     import numpy as np
     import torch
 
-    from repro_torch._tree import tree_map
     from repro_torch.configs import get_reduced
-    from repro_torch.core import (
-        TrainState, build_train_step_a, build_train_step_b, default_plan, init_state_b,
-        replicate_for_clients,
-    )
+    from repro_torch.core import default_plan
     from repro_torch.models import SplittableModel
-    from repro_torch.optim import sgd
 
     spec = get_reduced(VLM_ARCH)
     model = SplittableModel(spec)
     N, b, seq = VLM_N, VLM_REDUCED_BATCH, VLM_REDUCED_SEQ
     plan = default_plan(spec.n_units, N, cuts=(1, 1), intervals=(2, 2, 1),
                         entities=(N, VLM_EDGES, 1))
-    opt = sgd(0.1)
     p0 = model.init_params(torch.Generator().manual_seed(0), torch.device("cpu"))
     rng = np.random.default_rng(0)
     batches = [{
@@ -4341,40 +4479,8 @@ def vlm_reduced_card_vs_cpu(rounds: int = VLM_REDUCED_ROUNDS):
         "tokens": rng.integers(0, spec.vocab_size, (N, b, seq - spec.prefix_len)).astype(np.int32),
         "labels": rng.integers(0, spec.vocab_size, (N, b, seq - spec.prefix_len)).astype(np.int32),
     } for _ in range(rounds)]
-    losses, counts = {}, {}
-    for engine in ("a", "b"):
-        for name in ("cuda", "cpu"):
-            device = torch.device(name)
-            params = tree_map(lambda x: x.to(device), p0)
-            if engine == "a":
-                stacked = replicate_for_clients(params, N)
-                state = TrainState(stacked, opt.init(stacked), 0)
-                step = build_train_step_a(model, plan, opt)
-            else:
-                state = init_state_b(_GivenInit(params), plan, opt, None, device)
-                step = build_train_step_b(model, plan, opt)
-            reset_all_launches()
-            got = []
-            for batch in batches:
-                state, loss = step(state, {k: torch.from_numpy(v).to(device)
-                                           for k, v in batch.items()})
-                got.append(float(loss))
-            losses[(engine, name)] = got
-            if name == "cuda":
-                counts[f"vlm-paligemma-3b-reduced-{engine}"] = all_launches()
-                if engine == "a":
-                    want = lm_expected(plan, state.params, spec.n_units, rounds)
-                else:
-                    want = {k: 0 for k in counts[f"vlm-paligemma-3b-reduced-{engine}"]}
-                    want[AGG[0]] = sum(engine_b_fed(plan, s, tier_leaves(
-                        one_row(state.params), plan)) for s in range(rounds))
-                    want.update(dict.fromkeys(ATTN, spec.n_units * rounds))
-                got_counts = counts[f"vlm-paligemma-3b-reduced-{engine}"]
-                if {k: got_counts.get(k, 0) for k in want} != want:
-                    raise AssertionError(f"[vlm] REDUCED Engine {engine.upper()}: launches "
-                                         f"{got_counts}, the plan implies {want}")
-        np.testing.assert_allclose(losses[(engine, "cuda")], losses[(engine, "cpu")],
-                                   rtol=VLM_LOSS_RTOL)
+    losses, counts = reduced_card_vs_cpu("[vlm]", "vlm-paligemma-3b-reduced", model, plan, p0,
+                                         batches, spec.n_units, VLM_LOSS_RTOL)
     print(f"[vlm] REDUCED paligemma-3b (N={N}, batch {b}, {spec.prefix_len} + "
           f"{seq - spec.prefix_len} tokens, {rounds} rounds) on the card against the CPU: "
           + "; ".join(f"Engine {e.upper()} cuda {losses[(e, 'cuda')]} cpu {losses[(e, 'cpu')]}"
@@ -4387,10 +4493,10 @@ def vlm_reduced_card_vs_cpu(rounds: int = VLM_REDUCED_ROUNDS):
 def vlm_paths(card: str):
     """The ``[vlm]`` phase: B4/B5 timed at paligemma-3b's Engine-B shape;
     the full-width, full-depth Engine-B cell; its 4-layer Engine-A twin;
-    REDUCED paligemma on the card against the CPU.  It runs right after the
-    kernel checks, before the other paths: its cell needs 58 GB of the
-    card's 80, and tensors that earlier phases leave behind (in reference
-    cycles until a collection, or held) would not leave room for it."""
+    REDUCED paligemma on the card against the CPU.  Its cell needs 58 GB of
+    the card's 80: it starts after a collection, as every phase boundary
+    of ``main`` makes one, so that the tensors earlier phases leave in
+    reference cycles are gone."""
     import torch
 
     t0 = time.perf_counter()
@@ -4417,6 +4523,577 @@ def vlm_paths(card: str):
           f"{out['vlm-paligemma-3b']['peak'] / 1e9:.2f} GB; phase "
           f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           f"left allocated; card {card}")
+    return counts, out
+
+
+# --------------------------------------------------------------------------- #
+# [audio]: whisper-large-v3, encoder-decoder (ROADMAP A14.5)
+# --------------------------------------------------------------------------- #
+
+AUDIO_ARCH = "whisper-large-v3"
+# the cell: N = 4 clients x batch 1, J2 = 2 edges; 1500 encoder positions
+# (the stubbed frames) and 448 text tokens a client (Whisper's decoder
+# context, arXiv:2212.04356); the client tier holds the frontend and 2
+# encoder units, the edges the other 30, the cloud the 32 decoder units and
+# the head
+AUDIO_N, AUDIO_EDGES, AUDIO_BATCH, AUDIO_TEXT = 4, 2, 1, 448
+AUDIO_CUTS, AUDIO_INTERVALS, AUDIO_ROUNDS, AUDIO_LR = (2, 32), (2, 2, 1), 4, 5e-4
+AUDIO_TWIN_LAYERS, AUDIO_TWIN_CUTS = 4, (2, 4)  # 4 encoder + 4 decoder units
+AUDIO_PEAK_LIMIT = 70e9
+# the twin at JAX's own A == B tolerance: losses rtol, params atol / rtol
+AUDIO_LOSS_RTOL, AUDIO_ATOL, AUDIO_RTOL = 1e-5, 5e-6, 1e-4
+AUDIO_CARD_RTOL = 1e-4  # REDUCED on the card against the CPU
+AUDIO_REDUCED_BATCH, AUDIO_REDUCED_TEXT, AUDIO_REDUCED_ROUNDS = 2, 32, 3
+AUDIO_DECODE_B, AUDIO_DECODE_C, AUDIO_DECODE_WARM, AUDIO_DECODE_STEPS = 8, 128, 4, 64
+# every Engine-B tier folds the clients into the batch: B = 4 on each; label
+# -> (B, Sq, Sk, H, K, hd, prefix).  The encoder's bidirectional attention is
+# a prefix of S; the cross-attention's prefix Sk lets every query see every key
+AUDIO_ATTN = {
+    "encoder": (4, 1500, 1500, 20, 20, 64, 1500),
+    "decoder self": (4, AUDIO_TEXT, AUDIO_TEXT, 20, 20, 64, 0),
+    "cross": (4, AUDIO_TEXT, 1500, 20, 20, 64, 1500),
+}
+# a decode step's cross-attention: one query against the 1500 encoder slots
+AUDIO_CROSS_DECODE = (AUDIO_DECODE_B, 1500, 20, 20, 64)
+
+
+def audio_attention_layers(spec) -> int:
+    """B4 (and each B5 pass) launches a round: an encoder unit's
+    self-attention, a decoder unit's self- and cross-attention."""
+    return spec.encoder_layers + 2 * spec.num_layers
+
+
+def attention_passes(q, k, v, do, W: int, P: int):
+    """(o, lse, dq, delta, dk, dv): B4, then both B5 passes."""
+    from repro_torch.kernels.swa_attention import (
+        swa_attention_bwd_dkv, swa_attention_bwd_dq, swa_attention_fwd,
+    )
+
+    o, lse = swa_attention_fwd(q, k, v, W, P)
+    dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+    dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P)
+    return o, lse, dq, delta, dk, dv
+
+
+def check_audio_attention():
+    """B4 and both B5 passes against their plain versions at the cell's three
+    shapes, f32 (forward rtol = atol ATTN_TOL, backward ATTN_TOL of max|ref|)
+    and bf16 (o, dq, dk and dv within one bf16 ulp of each value beyond
+    ATTN_TOL of max|ref|, against the f32 plain version on the same
+    inputs); a
+    second call repeats each f32 output bit for bit.  Then the decode
+    cross route, B4d with every slot at position 0, against its plain
+    version on non-zero caches, f32 and bf16."""
+    import torch
+
+    from repro_torch.kernels.swa_attention import (
+        reset_launches, swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref,
+        swa_attention_ref, swa_decode, swa_decode_ref,
+    )
+
+    dev = serve_device()
+    gen = torch.Generator(device=dev).manual_seed(12)
+    errs = {name: {"f32": 0.0, "bf16": 0.0} for name in ATTN}
+    for label, (B, Sq, Sk, H, K, hd, P) in AUDIO_ATTN.items():
+        for dtype in (torch.float32, torch.bfloat16):
+            q, do = (torch.randn(B, Sq, H, hd, generator=gen, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(B, Sk, K, hd, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            o, lse, dq, delta, dk, dv = attention_passes(q, k, v, do, 0, P)
+            torch.cuda.synchronize()
+            what = f"[audio] {label} B={B} Sq={Sq} Sk={Sk} H={H} K={K} hd={hd} prefix={P} {dtype}"
+            f = [x.float() for x in (q, k, v, o, do)]
+            ro, rlse = swa_attention_ref(f[0], f[1], f[2], 0, P)
+            rdq, rdelta = swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], 0, P)
+            rdk, rdv = swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], 0, P)
+            key = "f32" if dtype == torch.float32 else "bf16"
+            if dtype == torch.float32:
+                torch.testing.assert_close(o, ro, rtol=ATTN_TOL, atol=ATTN_TOL, msg=f"B4 o {what}")
+                torch.testing.assert_close(lse, rlse, rtol=ATTN_TOL, atol=ATTN_TOL,
+                                           msg=f"B4 lse {what}")
+                for name, got, ref in (("dq", dq, rdq), ("delta", delta, rdelta),
+                                       ("dk", dk, rdk), ("dv", dv, rdv)):
+                    e = normalised_err(got, ref)
+                    if e > ATTN_TOL:
+                        raise AssertionError(f"B5 {name} {what}: {e:.3e} of max|ref| > {ATTN_TOL}")
+                again = attention_passes(q, k, v, do, 0, P)
+                for name, a, b in zip(("o", "lse", "dq", "delta", "dk", "dv"),
+                                      (o, lse, dq, delta, dk, dv), again):
+                    if not torch.equal(a, b):
+                        raise AssertionError(f"{name} {what}: a second call differs in some bit")
+            else:
+                for name, got, ref in (("o", o, ro), ("dq", dq, rdq), ("dk", dk, rdk),
+                                       ("dv", dv, rdv)):
+                    err = (got.float() - ref).abs()
+                    if bool((err > ATTN_TOL * ref.abs().max() + bf16_ulp(ref)).any()):
+                        raise AssertionError(f"{name} {what}: beyond one bf16 ulp of the f32 "
+                                             "tolerance")
+            for name, pairs in (("swa_attention_fwd", ((o, ro),)),
+                                ("swa_attention_bwd_dq", ((dq, rdq),)),
+                                ("swa_attention_bwd_dkv", ((dk, rdk), (dv, rdv)))):
+                for got, ref in pairs:
+                    errs[name][key] = max(errs[name][key], float((got.float() - ref).abs().max()))
+            del q, k, v, do, o, lse, dq, delta, dk, dv, f, ro, rlse, rdq, rdelta, rdk, rdv
+    B, C, H, K, hd = AUDIO_CROSS_DECODE
+    slots = torch.zeros((C,), dtype=torch.int32, device=dev)
+    cross = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q = torch.randn(B, 1, H, hd, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(B, C, K, hd, generator=gen, device=dev).to(dtype) for _ in range(2))
+        for q_pos in (0, 447):
+            qp = torch.tensor([q_pos], dtype=torch.int32, device=dev)
+            o = swa_decode(q, k, v, slots, qp)
+            ref = swa_decode_ref(q.float(), k.float(), v.float(), slots, qp)
+            err = (o.float() - ref).abs()
+            tol = ATTN_TOL + ATTN_TOL * ref.abs()
+            if dtype == torch.bfloat16:
+                tol = tol + bf16_ulp(ref)
+            if not bool((err <= tol).all()):
+                raise AssertionError(f"[audio] the decode cross route {dtype} q_pos {q_pos}: "
+                                     f"max |err| {float(err.max()):.3e}")
+            key = "f32" if dtype == torch.float32 else "bf16"
+            cross[key] = max(cross.get(key, 0.0), float(err.max()))
+    reset_launches()
+    print(f"[audio] B4, B5 dq and B5 dk/dv against their plain versions at the cell's shapes "
+          + "; ".join(f"{label} {list(s)}" for label, s in AUDIO_ATTN.items())
+          + f" (B, Sq, Sk, H, K, hd, prefix): f32 within rtol=atol {ATTN_TOL} (forward) and "
+          f"{ATTN_TOL} of max|ref| (backward), repeating bit for bit; bf16 o, dq, dk, dv within "
+          f"one bf16 ulp beyond {ATTN_TOL} of max|ref|; max |err| "
+          + ", ".join(f"{n} f32 {e['f32']:.3e} bf16 {e['bf16']:.3e}" for n, e in errs.items())
+          + f"; the decode cross route (B4d, every slot at position 0) at q {[B, 1, H, hd]} "
+          f"against k, v {[B, C, K, hd]}: f32 within rtol=atol {ATTN_TOL} (max |err| "
+          f"{cross['f32']:.3e}), bf16 within one ulp beyond it ({cross['bf16']:.3e})")
+    return errs, cross
+
+
+def audio_attention_timings(card: str):
+    """B4 and both B5 passes at each of the cell's shapes: the kernel and its
+    plain version in turns, eagerly, the 3xTF32 bound over the visible
+    pairs, and SDPA (eager, f32, no mask; causal for the decoder's
+    self-attention) as the library yardstick, never called by the port.
+    Then the decode cross-attention's two routes beside its plain version
+    and SDPA: B4d with every slot at position 0 (the route the port takes)
+    and B4 at Sq = 1 (prefix Sk)."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.swa_attention import (
+        reset_launches, swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_fwd,
+        swa_attention_ref, swa_decode, swa_decode_ref,
+    )
+    from repro_torch.kernels.swa_attention import swa_attention_bwd_dkv, swa_attention_bwd_dq
+
+    dev = serve_device()
+    gen = torch.Generator(device=dev).manual_seed(13)
+    out = {}
+    for label, (B, Sq, Sk, H, K, hd, P) in AUDIO_ATTN.items():
+        q, do = (torch.randn(B, Sq, H, hd, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(B, Sk, K, hd, generator=gen, device=dev) for _ in range(2))
+        o, lse = swa_attention_fwd(q, k, v, 0, P)
+        _, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, 0, P)
+        runs = {
+            "swa_attention_fwd": (lambda: swa_attention_ref(q, k, v, 0, P),
+                                  lambda: swa_attention_fwd(q, k, v, 0, P)),
+            "swa_attention_bwd_dq": (lambda: swa_attention_bwd_dq_ref(q, k, v, o, lse, do, 0, P),
+                                     lambda: swa_attention_bwd_dq(q, k, v, o, lse, do, 0, P)),
+            "swa_attention_bwd_dkv": (
+                lambda: swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, 0, P),
+                lambda: swa_attention_bwd_dkv(q, k, v, lse, delta, do, 0, P)),
+        }
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        dot = do.transpose(1, 2).contiguous()
+        causal = P == 0
+
+        def lib_fwd():
+            with torch.no_grad():
+                return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+        def lib_fwd_bwd():
+            res = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+            torch.autograd.grad(res, (qt, kt, vt), dot)
+
+        f_ms, fb_ms = cuda_ms(lib_fwd), cuda_ms(lib_fwd_bwd)
+        pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk
+        work = pairs_work(B, Sq, Sk, H, K, hd, pairs)
+        res = {}
+        for name, (plain, kernel) in runs.items():
+            km, pm = in_turns(plain, kernel)
+            ops, nbytes = work[name]
+            by_tc = 3 * ops / TF32_FLOPS_PER_S * 1e3
+            by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+            r = dict(ms=km, plain_ms=pm, bound_ms=max(by_tc, by_bytes),
+                     bound_by="operations" if by_tc >= by_bytes else "bytes", ops=ops,
+                     bytes=nbytes, library_ms=f_ms if name == "swa_attention_fwd" else fb_ms - f_ms,
+                     visible_pairs=pairs, shape=[B, Sq, Sk, H, K, hd], prefix=P)
+            res[name] = r
+            print(f"[timing] [audio] {name} at whisper-large-v3's {label} B={B} Sq={Sq} Sk={Sk} "
+                  f"H={H} K={K} hd={hd} prefix={P}: kernel {km:.4f} ms, plain {pm:.4f} ms, "
+                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: 3 x {ops / 1e9:.2f} GFLOP at "
+                  f"495 TFLOP/s TF32 over {pairs} visible pairs a head, {nbytes / 1e6:.1f} MB at "
+                  f"3.35 TB/s) = {100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
+        print(f"[timing] [audio] library yardstick "
+              f"torch.nn.functional.scaled_dot_product_attention "
+              f"(f32, eager, {'is_causal' if causal else 'no mask'}) at the {label} shape: forward "
+              f"{f_ms:.4f} ms, backward {fb_ms - f_ms:.4f} ms against B5's two passes "
+              f"{res['swa_attention_bwd_dq']['ms'] + res['swa_attention_bwd_dkv']['ms']:.4f}; "
+              f"card {card}")
+        out[label] = res
+        del q, k, v, do, o, lse, delta, qt, kt, vt, dot
+
+    # the decode cross-attention: one query against every slot
+    B, C, H, K, hd = AUDIO_CROSS_DECODE
+    q = torch.randn(B, 1, H, hd, generator=gen, device=dev)
+    k, v = (torch.randn(B, C, K, hd, generator=gen, device=dev) for _ in range(2))
+    slots = torch.zeros((C,), dtype=torch.int32, device=dev)
+    qp = torch.tensor([100], dtype=torch.int32, device=dev)
+    b4d_ms, plain_ms = in_turns(lambda: swa_decode_ref(q, k, v, slots, qp),
+                                lambda: swa_decode(q, k, v, slots, qp))
+    b4_ms = cuda_ms(lambda: swa_attention_fwd(q, k, v, 0, C))
+    o_b4d = swa_decode(q, k, v, slots, qp)
+    o_b4, _ = swa_attention_fwd(q, k, v, 0, C)
+    torch.testing.assert_close(o_b4, o_b4d, rtol=ATTN_TOL, atol=ATTN_TOL,
+                               msg="[audio] the decode cross routes")
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+
+    def library():
+        return F.scaled_dot_product_attention(qt, kt, vt)
+
+    lib_ms = cuda_ms(library)
+    ops, nbytes = decode_work(B, C, H, K, hd, C, C)
+    by_ops, by_bytes = ops / F32_FLOPS_PER_S * 1e3, nbytes / HBM_BYTES_PER_S * 1e3
+    r = dict(ms=b4d_ms, b4_route_ms=b4_ms, plain_ms=plain_ms, library_ms=lib_ms,
+             bound_ms=max(by_ops, by_bytes),
+             bound_by="operations" if by_ops >= by_bytes else "bytes",
+             ops=ops, bytes=nbytes, shape=[B, C, H, K, hd],
+             route="B4d" if b4d_ms <= b4_ms else "B4 at Sq = 1 (faster here; the port takes B4d)")
+    out["decode cross"] = r
+    print(f"[timing] [audio] the decode cross-attention q [{B}, 1, {H}, {hd}] against k, v "
+          f"[{B}, {C}, {K}, {hd}], f32, every slot visible, each called eagerly: B4d (every slot "
+          f"at position 0, the port's route) {b4d_ms:.4f} ms, B4 at Sq = 1 (prefix {C}) "
+          f"{b4_ms:.4f} ms, plain {plain_ms:.4f} ms, library (scaled_dot_product_attention, no "
+          f"mask) {lib_ms:.4f} ms; bound {r['bound_ms']:.4f} ms ({r['bound_by']}: "
+          f"{nbytes / 1e6:.2f} MB at 3.35 TB/s) = {100 * r['bound_ms'] / b4d_ms:.1f}% for B4d, "
+          f"{100 * r['bound_ms'] / b4_ms:.1f}% for B4; card {card}")
+    reset_launches()
+    return out
+
+
+def audio_unit_params(spec):
+    """(an encoder unit's, a decoder unit's) parameters: q, k, v, o and a
+    norm per attention block (the decoder's second is the cross-attention),
+    the GELU MLP (w1, w2) and its norm."""
+    d, ff = spec.d_model, spec.d_ff
+    attn = 4 * d * spec.num_heads * spec.hd + d
+    mlp = 2 * d * ff + d
+    return attn + mlp, 2 * attn + mlp
+
+
+def audio_reckoning(spec, plan, enc_tokens: int, dec_tokens: int) -> dict:
+    """The memory an Engine-B step needs, reckoned before the run: the
+    parameters each tier's entities hold (tier 1 also the embedding, the
+    frames' projection and the encoder positions; the top tier the head);
+    the activations the backward keeps: an encoder unit about 18 tensors of
+    [tokens, d] f32 (the normed input, q, k, v, o and the attention's
+    statistics, the MLP's input) and the MLP's two [tokens, d_ff] (its
+    product and its GELU), a decoder unit about 24 [tokens, d] and two
+    [tokens, d_ff] of its own, and its cross-attention's k and v of the
+    encoder's tokens; the logits with their softmax and gradient [text
+    tokens, padded_vocab] x 3.  The SGD update holds the params, the
+    gradients and the new params, 3 x the params."""
+    from repro_torch.models.model import enc_dec_range
+
+    d, ff = spec.d_model, spec.d_ff
+    enc, dec = audio_unit_params(spec)
+    frontend = spec.padded_vocab * d + d * d + spec.encoder_len * d
+    head = d + d * spec.padded_vocab
+    ne = spec.encoder_layers
+    held = 0
+    for m in range(plan.M):
+        lo, hi = plan.tier_bounds(m)
+        (e_lo, e_hi), (d_lo, d_hi) = enc_dec_range(lo, hi, ne)
+        n_enc, n_dec = e_hi - e_lo, d_hi - d_lo
+        held += plan.entities[m] * (n_enc * enc + n_dec * dec + (frontend if m == 0 else 0)
+                                    + (head if m == plan.M - 1 else 0))
+    acts = 4 * (spec.encoder_layers * enc_tokens * (18 * d + 2 * ff)
+                + spec.num_layers * (dec_tokens * (24 * d + 2 * ff) + 2 * enc_tokens * d))
+    logits = 3 * dec_tokens * spec.padded_vocab * 4
+    backward, update = 2 * 4 * held + acts + logits, 3 * 4 * held
+    return dict(unit_enc=enc, unit_dec=dec, frontend=frontend, head=head, held=held,
+                activations=acts, logits=logits, backward=backward, update=update,
+                total=max(backward, update))
+
+
+def audio_cell(card: str, attn_times):
+    """whisper-large-v3 at full width and depth through Engine B: N=4, J2=2,
+    batch 1, 1500 frames and 448 text tokens a client, cuts (2, 32),
+    intervals (2, 2, 1), SGD 5e-4, 4 rounds from a seeded init drawn on the
+    card (``engine_b_cell``).  B4 and both B5 passes launch 96 times a round
+    (32 encoder, 32 decoder self-, 32 cross-attention), B1 as
+    ``engine_b_fed`` predicts; the peak at most 70 GB, beside
+    ``audio_reckoning``; the round's ms and the attention kernels' share of
+    it."""
+    from repro_torch.configs import get_spec
+    from repro_torch.core import default_plan
+    from repro_torch.models import SplittableModel
+    from repro_torch.optim import sgd
+
+    spec = get_spec(AUDIO_ARCH)
+    model = SplittableModel(spec)
+    N, b = AUDIO_N, AUDIO_BATCH
+    plan = default_plan(spec.n_units, N, cuts=AUDIO_CUTS, intervals=AUDIO_INTERVALS,
+                        entities=(N, AUDIO_EDGES, 1))
+    reckoned = audio_reckoning(spec, plan, N * b * spec.encoder_len, N * b * AUDIO_TEXT)
+    cell = dict(b=b, seq=AUDIO_TEXT, rounds=AUDIO_ROUNDS, init_seed=35, batch_seed=36)
+    got, out = engine_b_cell("[audio]", model, plan, sgd(AUDIO_LR), cell, reckoned,
+                             audio_attention_layers(spec), AUDIO_PEAK_LIMIT)
+    per_layer = {label: sum(attn_times[label][n]["ms"] for n in ATTN) for label in AUDIO_ATTN}
+    attn_ms = (spec.encoder_layers * per_layer["encoder"]
+               + spec.num_layers * (per_layer["decoder self"] + per_layer["cross"]))
+    out.update(attention_ms=attn_ms, attention_share=attn_ms / out["round_ms"],
+               attention_ms_by_layer=per_layer)
+    n_params = (reckoned["frontend"] + spec.encoder_layers * reckoned["unit_enc"]
+                + spec.num_layers * reckoned["unit_dec"] + reckoned["head"])
+    print(f"[audio] whisper-large-v3 at full width and depth through Engine B "
+          f"({spec.encoder_layers} encoder + {spec.num_layers} decoder units, d {spec.d_model}, "
+          f"{spec.num_heads} heads of hd {spec.hd}, {n_params} params in the model's tree "
+          f"(the spec's analytic count, {spec.total_param_count()}, prices SwiGLU MLPs); "
+          f"N={N}, J2={AUDIO_EDGES}, batch {b}, {spec.encoder_len} frames + "
+          f"{AUDIO_TEXT} text tokens a client; cuts {plan.cuts}, intervals {plan.intervals}, "
+          f"SGD {AUDIO_LR}): launches {got} as the plan and depth imply; losses "
+          f"{[round(v, 4) for v in out['losses']]}; every param finite; Engine B holds "
+          f"{out['held']} params ({out['held'] * 4 / 1e9:.2f} GB f32); reckoned "
+          f"{reckoned['total'] / 1e9:.2f} GB, measured peak {out['peak'] / 1e9:.2f} GB (limit "
+          f"70); rounds {[round(v, 1) for v in out['rounds_ms']]} ms, median (rounds 2 on) "
+          f"{out['round_ms']:.2f} ms, of which B4 + B5 {attn_ms:.2f} ms ({spec.encoder_layers} x "
+          f"{per_layer['encoder']:.4f} encoder + {spec.num_layers} x "
+          f"({per_layer['decoder self']:.4f} self + {per_layer['cross']:.4f} cross) ms, each "
+          f"timed alone at the tiers' shape) = {100 * out['attention_share']:.1f}%; card {card}")
+    return got, out
+
+
+def audio_twin(card: str):
+    """Engine A against Engine B from one init at full width, 4 encoder and 4
+    decoder units (N=4, J2=2, cuts (2, 4): the client tier holds the
+    frontend and 2 encoder units, the edges the other 2, the cloud the
+    decoder; the cell's batches, SGD, 4 rounds), through ``engine_twin``.
+    Held at JAX's own A == B tolerance: losses rtol 1e-5,
+    ``engine_b_to_full`` against A's params atol 5e-6 / rtol 1e-4.  (Engine
+    A at full depth would hold 4 replicas of 1.6 B parameters, their
+    gradients and the new params: ~77 GB.)"""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.core import default_plan
+    from repro_torch.models import SplittableModel
+    from repro_torch.optim import sgd
+
+    spec = dataclasses.replace(get_spec(AUDIO_ARCH), num_layers=AUDIO_TWIN_LAYERS,
+                               encoder_layers=AUDIO_TWIN_LAYERS)
+    model = SplittableModel(spec)
+    N = AUDIO_N
+    plan = default_plan(spec.n_units, N, cuts=AUDIO_TWIN_CUTS, intervals=AUDIO_INTERVALS,
+                        entities=(N, AUDIO_EDGES, 1))
+    torch.cuda.empty_cache()
+    inits = [card_init(model, 37)]
+    batches = vlm_batches(spec, N, AUDIO_BATCH, AUDIO_TEXT, AUDIO_ROUNDS, 38, serve_device())
+    counts, out = engine_twin("[audio]", "audio-whisper-large-v3-twin", model, plan,
+                              sgd(AUDIO_LR), inits, batches, audio_attention_layers(spec),
+                              (AUDIO_LOSS_RTOL, AUDIO_ATOL, AUDIO_RTOL))
+    print(f"[audio] whisper-large-v3 twin at full width, {AUDIO_TWIN_LAYERS} encoder + "
+          f"{AUDIO_TWIN_LAYERS} decoder units (N={N}, cuts {plan.cuts}): Engine A first, then B "
+          f"from the same init; losses A {[round(v, 6) for v in out['losses_a']]} B "
+          f"{[round(v, 6) for v in out['losses_b']]}, largest relative gap "
+          f"{out['loss_rtol']:.3e} (rtol {AUDIO_LOSS_RTOL}); engine_b_to_full within atol "
+          f"{AUDIO_ATOL} / rtol {AUDIO_RTOL} of A (max |diff| {out['worst']:.3e}); launches A "
+          f"{counts['audio-whisper-large-v3-twin-a']}, B {counts['audio-whisper-large-v3-twin-b']}"
+          f" as the plan implies; round ms A {out['round_ms_a']:.2f}, B {out['round_ms_b']:.2f} "
+          f"(median of rounds 2 on); peak {out['peak'] / 1e9:.2f} GB; card {card}")
+    return counts, out
+
+
+def audio_reduced_card_vs_cpu(rounds: int = AUDIO_REDUCED_ROUNDS):
+    """REDUCED whisper, Engine A and Engine B, N=4, J2=2, batch 2, 16 frames
+    and 32 text tokens, cuts (1, 2) (inside the encoder, at the enc/dec
+    boundary), 3 rounds from one init and NumPy batches, on the card and on
+    the CPU (``reduced_card_vs_cpu``): losses rtol 1e-4; the card's launches
+    as the plan implies.  Then 6 decode steps with the same non-zero cross
+    caches on both: logits at a max-normalised 1e-4."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_map
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import default_plan
+    from repro_torch.kernels.swa_attention import decode_launches
+    from repro_torch.models import SplittableModel
+
+    spec = get_reduced(AUDIO_ARCH)
+    model = SplittableModel(spec)
+    N, b, text = AUDIO_N, AUDIO_REDUCED_BATCH, AUDIO_REDUCED_TEXT
+    plan = default_plan(spec.n_units, N, cuts=(1, 2), intervals=(2, 2, 1),
+                        entities=(N, AUDIO_EDGES, 1))
+    p0 = model.init_params(torch.Generator().manual_seed(0), torch.device("cpu"))
+    rng = np.random.default_rng(0)
+    batches = [{
+        "frames": rng.normal(size=(N, b, spec.encoder_len, spec.d_model)).astype(np.float32),
+        "tokens": rng.integers(0, spec.vocab_size, (N, b, text)).astype(np.int32),
+        "labels": rng.integers(0, spec.vocab_size, (N, b, text)).astype(np.int32),
+    } for _ in range(rounds)]
+    losses, counts = reduced_card_vs_cpu("[audio]", "audio-whisper-large-v3-reduced", model, plan,
+                                         p0, batches, audio_attention_layers(spec),
+                                         AUDIO_CARD_RTOL)
+    steps, cross = 6, rng.normal(size=(2, spec.num_layers, 2, spec.encoder_len,
+                                       spec.num_kv_heads, spec.hd)).astype(np.float32)
+    toks = torch.from_numpy(rng.integers(0, spec.vocab_size, (2, steps)).astype(np.int32))
+    logits = {}
+    for name in ("cuda", "cpu"):
+        device = torch.device(name)
+        params = tree_map(lambda x: x.to(device), p0)
+        caches = model.init_caches(2, 8, device)
+        for i, key in enumerate(("xk", "xv")):
+            caches[key].copy_(torch.from_numpy(cross[i]))
+        reset_all_launches()
+        out = []
+        with torch.no_grad():
+            for i in range(steps):
+                step_logits, caches = model.decode_step(params, toks[:, i:i + 1].to(device),
+                                                        caches, i)
+                out.append(step_logits.float().cpu())
+        if name == "cuda":
+            counts["audio-whisper-large-v3-reduced-decode"] = {DECODE: decode_launches[DECODE]}
+            if decode_launches[DECODE] != steps * 2 * spec.num_layers:
+                raise AssertionError(f"[audio] REDUCED decode: {decode_launches[DECODE]} B4d "
+                                     f"launches, not {steps} steps x {2 * spec.num_layers}")
+        logits[name] = torch.stack(out, 1)
+    dec_err = norm_err(logits["cuda"], logits["cpu"], spec.vocab_size)
+    if not dec_err <= AUDIO_CARD_RTOL:
+        raise AssertionError(f"[audio] REDUCED decode card against CPU: {dec_err:.3e}")
+    print(f"[audio] REDUCED whisper-large-v3 (N={N}, batch {b}, {spec.encoder_len} frames + "
+          f"{text} tokens, cuts {plan.cuts}, {rounds} rounds) on the card against the CPU: "
+          + "; ".join(f"Engine {e.upper()} cuda {losses[(e, 'cuda')]} cpu {losses[(e, 'cpu')]}"
+                      for e in ("a", "b"))
+          + f" (rtol {AUDIO_CARD_RTOL}); {steps} decode steps with non-zero cross caches "
+          f"within {dec_err:.3e} (max-normalised); launches "
+          + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    return counts
+
+
+def serve_whisper(card: str):
+    """whisper-large-v3 decoding at full width and depth through
+    ``decode_step`` (both CLIs refuse audio, as the JAX package's do), with
+    random weights drawn on the card: batch 8, a cache of 128, the cross
+    caches [8, 1500, 20, 64] a layer filled with standard normal values
+    (nothing in either package fills them from an encoder), 4 warm-up steps,
+    then 64 timed (CUDA events); each step launches B4d 32 times for the
+    decoder's self-attention and 32 times for its cross-attention, the
+    latter read apart: the B4d launches made inside each call of
+    ``layers._cross_attention``; ms a step, tok/s, peak; the logits
+    finite."""
+    import torch
+
+    from repro_torch.configs import get_spec
+    from repro_torch.kernels.swa_attention import decode_launches
+    from repro_torch.models import SplittableModel
+    from repro_torch.models import layers as L
+
+    spec = get_spec(AUDIO_ARCH)
+    model = SplittableModel(spec)
+    dev = serve_device()
+    B, C = AUDIO_DECODE_B, AUDIO_DECODE_C
+    params = card_init(model, 39)
+    caches = model.init_caches(B, C, dev)
+    gen = torch.Generator(device=dev).manual_seed(40)
+    for key in ("xk", "xv"):
+        caches[key].normal_(generator=gen)
+    steps = AUDIO_DECODE_WARM + AUDIO_DECODE_STEPS
+    toks = torch.randint(0, spec.vocab_size, (B, steps), generator=gen, device=dev,
+                         dtype=torch.int32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    finite = True
+    cross_attention, cross = L._cross_attention, [0]
+
+    def counted(*args, **kwargs):
+        before = decode_launches[DECODE]
+        out = cross_attention(*args, **kwargs)
+        cross[0] += decode_launches[DECODE] - before
+        return out
+
+    L._cross_attention = counted
+    try:
+        with torch.no_grad():
+            for i in range(steps):
+                if i == AUDIO_DECODE_WARM:
+                    torch.cuda.synchronize()
+                    reset_all_launches()
+                    cross[0] = 0
+                    start.record()
+                logits, caches = model.decode_step(params, toks[:, i:i + 1], caches, i)
+                finite &= bool(torch.isfinite(logits[:, : spec.vocab_size]).all())
+        end.record()
+        torch.cuda.synchronize()
+    finally:
+        L._cross_attention = cross_attention
+    got, got_cross = decode_launches[DECODE], cross[0]
+    want = spec.num_layers * AUDIO_DECODE_STEPS
+    if (got - got_cross, got_cross) != (want, want):
+        raise AssertionError(f"[audio] decode: B4d launched {got - got_cross} times for the "
+                             f"self-attention and {got_cross} for the cross-attention, "
+                             f"{spec.num_layers} each a step x {AUDIO_DECODE_STEPS} steps "
+                             f"make {want}")
+    if not finite:
+        raise AssertionError("[audio] decode: non-finite logits")
+    ms = start.elapsed_time(end) / AUDIO_DECODE_STEPS
+    res = {"ms_per_step": ms, "tok_s": B / (ms / 1e3), "peak": torch.cuda.max_memory_allocated(),
+           "launches": got, "launches_cross": got_cross}
+    del params, caches
+    torch.cuda.empty_cache()
+    print(f"[audio] whisper-large-v3 decoding at full width ({spec.num_layers} decoder units, "
+          f"random weights drawn on the card): batch {B}, cache {C}, cross caches "
+          f"[{B}, {spec.encoder_len}, {spec.num_kv_heads}, {spec.hd}] a layer, "
+          f"{AUDIO_DECODE_WARM} warm-up + {AUDIO_DECODE_STEPS} timed steps: "
+          f"{res['ms_per_step']:.3f} ms a step (CUDA events, the logits checked finite each "
+          f"step), {res['tok_s']:.1f} tok/s, peak {res['peak'] / 1e9:.2f} GB; B4d {got} "
+          f"launches: {got - got_cross} self-attention + {got_cross} counted inside the "
+          f"cross-attention calls = ({spec.num_layers} + {spec.num_layers}) x "
+          f"{AUDIO_DECODE_STEPS} steps; card {card}")
+    return res
+
+
+def audio_paths(card: str):
+    """The ``[audio]`` phase: B4/B5 and the decode cross route against their
+    plain versions at the cell's shapes, and timed; the full-width,
+    full-depth Engine-B cell; its 4 + 4-unit Engine-A twin; REDUCED whisper
+    on the card against the CPU (both engines and decoding); decoding at
+    full width."""
+    import torch
+
+    t0 = time.perf_counter()
+    errs, cross_errs = check_audio_attention()
+    attn_times = audio_attention_timings(card)
+    counts, out = {}, {"attention": attn_times, "errors": errs, "cross_errors": cross_errs}
+    with expandable_segments():
+        counts["audio-whisper-large-v3"], out["audio-whisper-large-v3"] = audio_cell(
+            card, attn_times)
+        twin_counts, out["audio-whisper-large-v3-twin"] = audio_twin(card)
+    counts.update(twin_counts)
+    counts.update(audio_reduced_card_vs_cpu())
+    out["serve"] = serve_whisper(card)
+    counts["audio-whisper-large-v3-serve"] = {DECODE: out["serve"]["launches"]}
+    counts["audio-whisper-large-v3-serve-cross"] = {DECODE: out["serve"]["launches_cross"]}
+    for path in ("audio-whisper-large-v3", "audio-whisper-large-v3-reduced-b"):
+        for name in (AGG[0],) + ATTN:
+            if counts[path][name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on {path}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[timing] [audio] whisper-large-v3 through Engine B: median round "
+          f"{out['audio-whisper-large-v3']['round_ms']:.2f} ms, peak "
+          f"{out['audio-whisper-large-v3']['peak'] / 1e9:.2f} GB; decoding "
+          f"{out['serve']['ms_per_step']:.3f} ms a step; phase {time.perf_counter() - t0:.1f} s; "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB left allocated; card {card}")
     return counts, out
 
 
@@ -4484,12 +5161,12 @@ def card_init(model, seed: int):
 def decode_shapes():
     """(B, C, H, K, hd) of every B4d check: the three serve cells, the ring,
     each ported attention arch's REDUCED heads, and the long cache."""
-    from repro_torch.configs import PORTED_ARCH_IDS, get_reduced, get_spec
+    from repro_torch.configs import ARCH_IDS, get_reduced, get_spec
 
     shapes = [(SERVE_B, SERVE_C, s.num_heads, s.num_kv_heads, s.hd)
               for s in map(get_spec, ("smollm-135m", "qwen2-1.5b", ZOO_MOE, VLM_ARCH))]
     shapes.append((SERVE_B, SERVE_RING[1], 9, 3, 64))
-    shapes += [(8, 64, s.num_heads, s.num_kv_heads, s.hd) for s in map(get_reduced, PORTED_ARCH_IDS)
+    shapes += [(8, 64, s.num_heads, s.num_kv_heads, s.hd) for s in map(get_reduced, ARCH_IDS)
                if s.family != "ssm"]
     shapes += [shape for shape, _, _ in DECODE_TIMED.values()]
     return sorted(set(shapes))
@@ -5228,6 +5905,135 @@ def serve_paths(card: str, ckpt: Path):
     return counts, out, errs, times
 
 
+def cuda_storages(obj, seen=None) -> dict:
+    """{storage pointer: bytes} of the CUDA tensors reachable from ``obj``
+    through dicts, lists, tuples, sets and objects' attributes (modules,
+    classes and functions are not followed)."""
+    import types
+
+    import torch
+
+    seen = set() if seen is None else seen
+    found, stack = {}, [obj]
+    while stack:
+        x = stack.pop()
+        if id(x) in seen:
+            continue
+        seen.add(id(x))
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                st = x.untyped_storage()
+                found[st.data_ptr()] = st.nbytes()
+        elif isinstance(x, dict):
+            stack.extend(x.values())
+        elif isinstance(x, (list, tuple, set, frozenset)):
+            stack.extend(x)
+        elif not isinstance(x, (type, types.ModuleType, types.FunctionType, types.MethodType,
+                                str, bytes, int, float)) and hasattr(x, "__dict__"):
+            stack.extend(vars(x).values())
+    return found
+
+
+def referrer_chain(obj, skip: set, depth: int = 5) -> str:
+    """Who keeps ``obj`` alive: up to ``depth`` referrers, each the first
+    one that is not a frame or in ``skip`` (ids), named by type, a dict by
+    the key that holds the child, a generator or function by its code's
+    name and place, and a closure cell by the function that holds it."""
+    import types
+
+    def name(parent, child) -> str:
+        if isinstance(parent, dict):
+            key = next((repr(k) for k, v in parent.items() if v is child), None)
+            return f"dict[{key}]" if key else "dict"
+        if isinstance(parent, types.GeneratorType):
+            code = parent.gi_code
+            return f"generator {code.co_qualname} ({Path(code.co_filename).name}:" \
+                   f"{code.co_firstlineno})"
+        if isinstance(parent, types.FunctionType):
+            return f"function {parent.__qualname__}"
+        return type(parent).__name__
+
+    names, skip = [], set(skip)
+    for _ in range(depth):
+        refs = [r for r in gc.get_referrers(obj)
+                if id(r) not in skip and not isinstance(r, types.FrameType)]
+        skip.add(id(refs))  # this list refers to the parent the next step asks about
+        if not refs:
+            break
+        parent = refs[0]
+        if isinstance(parent, types.CellType):
+            # the function whose closure holds the cell
+            owners = [f for t in gc.get_referrers(parent) if isinstance(t, tuple)
+                      for f in gc.get_referrers(t) if isinstance(f, types.FunctionType)]
+            skip.add(id(owners))
+            if owners:
+                names.append(f"cell of {name(owners[0], None)}")
+                obj = owners[0]
+                continue
+        names.append(name(parent, obj))
+        obj = parent
+    return " <- ".join(names) or "nothing"
+
+
+def loose_tensors(reached: dict, top_n: int = 4):
+    """(bytes, count, descriptions of the ``top_n`` largest) of the CUDA
+    storages of 1 MB or more that no storage of ``reached`` is: each
+    described by shape, dtype, size and ``referrer_chain``."""
+    import torch
+
+    loose = {}
+    with warnings.catch_warnings():  # deprecated module proxies warn on isinstance
+        warnings.simplefilter("ignore")
+        every = gc.get_objects()
+        tensors = [obj for obj in every if isinstance(obj, torch.Tensor)]
+    for obj in tensors:
+        if obj.is_cuda:
+            st = obj.untyped_storage()
+            if st.data_ptr() not in reached and st.nbytes() >= 1 << 20:
+                loose.setdefault(st.data_ptr(), (st.nbytes(), obj))
+    top = sorted(loose.values(), key=lambda pair: -pair[0])[:top_n]
+    skip = {id(every), id(tensors), id(loose), id(top)} | {id(pair) for pair in top}
+    chains = []  # a loop, not a generator: a generator's frame would refer to the tensors
+    for n, t in top:
+        chains.append(f"{tuple(t.shape)} {t.dtype} {n / 1e9:.3f} GB <- {referrer_chain(t, skip)}")
+    return sum(n for n, _ in loose.values()), len(loose), chains
+
+
+def phase_boundary(label: str, scope: dict, since: float) -> float:
+    """At the end of a phase: print the seconds since ``since`` (the last
+    boundary's return), ``torch.cuda.memory_allocated()`` before and after a
+    collection, the device bytes each name of ``scope`` (``main``'s locals)
+    holds, and the largest CUDA tensors no such name reaches (before the
+    collection: garbage in reference cycles, or held elsewhere; after it:
+    held elsewhere) with the chain of objects that refer to them; returns
+    the time of this boundary."""
+    import torch
+
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - since
+    before = torch.cuda.memory_allocated()
+    held, reached = {}, {}
+    for name, obj in scope.items():
+        if name.startswith("__"):
+            continue
+        found = cuda_storages(obj)
+        if found:
+            held[name] = sum(found.values())
+            reached.update(found)
+    cyc_bytes, cyc_n, cyc = loose_tensors(reached)
+    gc.collect()
+    after = torch.cuda.memory_allocated()
+    kept_bytes, kept_n, kept = loose_tensors(reached)
+    named = ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in sorted(held.items(), key=lambda t: -t[1]))
+    print(f"[memory] after {label}: {seconds:.1f} s; {before / 1e9:.3f} GB allocated, "
+          f"{after / 1e9:.3f} GB after a collection; held by main's names: {named or 'none'}; "
+          f"reached by no name before the collection: {cyc_bytes / 1e9:.3f} GB in {cyc_n} "
+          f"storages of 1 MB or more{': ' + '; '.join(cyc) if cyc else ''}; after it: "
+          f"{kept_bytes / 1e9:.3f} GB in {kept_n}{': ' + '; '.join(kept) if kept else ''}",
+          flush=True)
+    return time.perf_counter()
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch is missing beside this script",
@@ -5258,6 +6064,7 @@ def main() -> int:
     print(f"[build] {len(libs)} kernel libraries in {time.perf_counter() - t:.1f} s: "
           + ", ".join(p.name for p in libs))
 
+    clock = time.perf_counter()
     from repro_torch.kernels.swa_attention.ops import DECODE_SOURCE, SOURCE as SWA_SOURCE
 
     attn_build = attention_build_report(SWA_SOURCE)
@@ -5269,23 +6076,28 @@ def main() -> int:
     masked_errs, masked_bf16_errs = check_masked_kernels(SPEC)
     mr_errs, mr_bf16_errs = check_masked_ragged_kernels(SPEC)
     attn_errs, attn_bf16_errs = check_attention()
-    vlm_counts, vlm_out = vlm_paths(card)
+    clock = phase_boundary("the kernel checks", locals(), clock)
     solved = solve_classes(SPEC)
     solve_backend_timings(card, SPEC)
     card_vs_cpu()
     class_card_vs_cpu()
     lm_card_vs_cpu()
     estimator_card_vs_cpu()
+    clock = phase_boundary("the card-against-CPU checks", locals(), clock)
     path_launches, run = main_path()
     for name in AGG:
         if path_launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the VGG main path")
+    vgg_round_parts(card, run)
+    del run  # the trained VGG-16 state: 1.22 GB that no later phase reads
+    clock = phase_boundary("the VGG main path", locals(), clock)
     class_launches, class_run = class_path(solved)
     for name in RAGGED:
         if class_launches[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the per-class path")
     class_round_parts(card, class_run)
     del class_run
+    clock = phase_boundary("the per-class path", locals(), clock)
     cli_launches = lm_cli()
     lm_launches, lm_run = lm_main_path()
     for name in ("tiered_aggregate",) + ATTN:
@@ -5294,37 +6106,54 @@ def main() -> int:
     lm_parts = lm_round_parts(card, lm_run)
     serve_ckpt = save_trained_lm(lm_run)
     del lm_run["state"], lm_run["batch"]
+    clock = phase_boundary("the smollm-135m paths", locals(), clock)
     auto_launches = auto_optimize_cli()
     api_launches = api_paths()
+    clock = phase_boundary("--auto-optimize and the API", locals(), clock)
     masked_launches = {name: api_launches[path][name] for name, path in
                        zip(MASKED, ("participation train", "participation int8 train"))}
     for name, n in masked_launches.items():
         if n == 0:
             raise AssertionError(f"kernel {name} was not launched on the participation path")
     sim_backends(card)
+    clock = phase_boundary("the fleet simulator", locals(), clock)
     storm_counts, _ = fault_storm_paths(card)
+    clock = phase_boundary("the fault storm", locals(), clock)
     class_storm, class_storm_by_run, _ = class_fault_storm(solved)
     for name in MASKED_RAGGED:
         if class_storm[name] == 0:
             raise AssertionError(f"kernel {name} was not launched on the per-class storm")
+    clock = phase_boundary("the per-class storm", locals(), clock)
     privacy_counts = privacy_paths(card)
     async_launches, _ = async_paths()
+    clock = phase_boundary("privacy, energy and staleness", locals(), clock)
     control_counts, _ = control_paths(card)
+    clock = phase_boundary("[control]", locals(), clock)
     for path, names in (("control-vgg16", (MASKED[0], AGG[0])),
                         ("control-smollm-135m", (AGG[0],) + ATTN)):
         for name in names:
             if control_counts[path][name] == 0:
                 raise AssertionError(f"kernel {name} was not launched on {path}")
     engine_b_counts, _ = engine_b_paths(card)
+    clock = phase_boundary("[engine-b]", locals(), clock)
     zoo_counts, _ = zoo_paths(card)
+    clock = phase_boundary("[zoo]", locals(), clock)
     sharded_counts = sharded_paths(card)
+    clock = phase_boundary("[sharded]", locals(), clock)
     for path, name in (("sharded-cli-1-rank", AGG[0]), ("sharded-api-1-rank-int8", AGG[1]),
                        ("sharded-2-ranks-gloo-plain", AGG[0]),
                        ("sharded-2-ranks-gloo-int8", AGG[1])):
         if sharded_counts[path][name] == 0:
             raise AssertionError(f"kernel {name} was not launched on {path}")
     serve_counts, serve_out, decode_errs, decode_times = serve_paths(card, serve_ckpt)
-    times = timings(card, run)
+    clock = phase_boundary("[serve]", locals(), clock)
+    # the two largest cells, after every other path: each phase boundary
+    # collects the reference cycles that earlier phases leave behind
+    vlm_counts, vlm_out = vlm_paths(card)
+    clock = phase_boundary("[vlm]", locals(), clock)
+    audio_counts, audio_out = audio_paths(card)
+    clock = phase_boundary("[audio]", locals(), clock)
+    times = timings(card)
     times.update(ragged_timings(card))
     times.update(masked_timings(card))
     robust_times, _ = robustness_timings(card)
@@ -5332,6 +6161,7 @@ def main() -> int:
     round_time_comparison(card)
     attn_times = attention_timings(card)
     attention_share(card, lm_run["spec"], lm_parts, attn_times)
+    clock = phase_boundary("the timings", locals(), clock)
 
     # max_abs_err: the f32 checks, the dtype the main paths launch;
     # max_abs_err_bf16: the bf16 instantiation (B2 is checked in f32 only).
@@ -5385,9 +6215,12 @@ def main() -> int:
         "library_ms": None,
         "port_only": "no TPU kernel: the jnp tiers._group_mean_masked",
     } for name in MASKED]
+    # the [audio] paths: training (every counter) and decoding (B4d's alone)
+    audio_decode = {k: v[DECODE] for k, v in audio_counts.items() if set(v) == {DECODE}}
+    audio_train = {k: v for k, v in audio_counts.items() if k not in audio_decode}
     new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
                  "async-staleness-2": async_launches, **control_counts, **engine_b_counts,
-                 **zoo_counts, **vlm_counts, **sharded_counts}
+                 **zoo_counts, **vlm_counts, **audio_train, **sharded_counts}
     for row in kernels:
         row["launches_by_path"].update(
             {path: got[row["name"]] for path, got in new_paths.items()})
@@ -5441,6 +6274,16 @@ def main() -> int:
                              f"hd={VLM_ATTN[4]} prefix={VLM_PREFIX} f32"),
                 "launches": vlm_counts["vlm-paligemma-3b"][name],
                 "build": attn_build[f"{KERNEL_FN[name]}<{VLM_ATTN[4]}, f32>"]},
+        # whisper-large-v3's Engine-B tiers: the encoder (bidirectional, a
+        # prefix of S), the decoder's self-attention and its cross-attention
+        # (Sq != Sk); the library call is SDPA without a mask (causal for
+        # the decoder's self-attention)
+        "audio": {"launches": audio_counts["audio-whisper-large-v3"][name],
+                  "max_abs_err": audio_out["errors"][name]["f32"],
+                  "max_abs_err_bf16": audio_out["errors"][name]["bf16"],
+                  **{label: {k: audio_out["attention"][label][name][k] for k in
+                             ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+                              "visible_pairs", "shape", "prefix")} for label in AUDIO_ATTN}},
     } for name in ATTN]
     # B4d: decode attention, on the [serve] paths; its main path is the
     # trained smollm-135m served at batch 8, prompt 64, gen 64
@@ -5450,7 +6293,7 @@ def main() -> int:
     kernels.append({
         "name": DECODE, "route": "cuda", "source": SOURCES[DECODE], "replaces": REPLACES[DECODE],
         "launches": serve_counts["serve-smollm-135m"],
-        "launches_by_path": serve_counts,
+        "launches_by_path": {**serve_counts, **audio_decode},
         "max_abs_err": decode_errs["f32"], "max_abs_err_bf16": decode_errs["bf16"],
         "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
         "bound_by": t["bound_by"], "library_ms": t["library_ms"],
@@ -5470,6 +6313,16 @@ def main() -> int:
             f"{decode_heads_a_warp(long_shape[2] // long_shape[3], long_shape[4])}, f32>"],
         "build_merge": decode_build["swa_decode_merge_kernel<f32>"],
         "build_hd256": decode_build["swa_decode_kernel<256, 1, f32>"],
+        # whisper-large-v3's decode cross-attention: one query against the
+        # 1500 encoder slots, every slot at position 0; beside it the other
+        # route, B4 at Sq = 1
+        "audio_cross": {**audio_out["attention"]["decode cross"],
+                        "max_abs_err": audio_out["cross_errors"]["f32"],
+                        "max_abs_err_bf16": audio_out["cross_errors"]["bf16"],
+                        "launches": audio_decode["audio-whisper-large-v3-serve-cross"],
+                        "build": decode_build[
+                            f"swa_decode_kernel<{AUDIO_CROSS_DECODE[4]}, "
+                            f"{decode_heads_a_warp(1, AUDIO_CROSS_DECODE[4])}, f32>"]},
         "port_only": "no TPU kernel: the jnp _sdpa of attention's cache branch",
     })
     print(json.dumps({"kernels": kernels}))

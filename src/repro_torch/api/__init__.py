@@ -6,8 +6,7 @@
 # composes the underlying repro_torch.core objects in the one valid order;
 # run() dispatches to the BCD/MA/MS solvers, the fleet simulator, or Engine
 # A training on the card and returns a uniform ExperimentResult whose
-# provenance is the resolved spec.  Sections whose modules are not ported
-# yet are refused by check_capabilities, naming their ROADMAP item.
+# provenance is the resolved spec.
 from .spec import (
     ClassesCfg,
     CompressionCfg,

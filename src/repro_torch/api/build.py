@@ -32,7 +32,6 @@ from ..core.convergence import (
     theorem1_bound,
 )
 from ..core.latency import LayerProfile, SystemSpec, build_profile
-from ..configs import PORTED_ARCH_IDS, UNPORTED_ARCH_ITEMS
 from ..core.problem import HsflProblem
 from .registry import resolve_codec, resolve_model, resolve_system
 from .spec import CompressionCfg, ExperimentSpec
@@ -115,10 +114,6 @@ def check_capabilities(spec: ExperimentSpec) -> None:
     §17) adds more combinations.  The engine-level raises remain as
     backstops for direct ``core.engine`` users, but the declarative API
     rejects every combination before any state is allocated.
-
-    After the JAX package's matrix, the port's: a section or option whose
-    modules are not ported yet raises ``NotImplementedError`` in the same
-    message shape, naming its ROADMAP item (``_check_port_capabilities``).
     """
     training = spec.run.mode in ("train", "control")
     sharded = spec.run.sharding is not None
@@ -193,26 +188,6 @@ def check_capabilities(spec: ExperimentSpec) -> None:
                 "have to re-shard state and re-time in-flight async "
                 "syncs across the switch (DESIGN.md §13/§17)",
             )
-    _check_port_capabilities(spec)
-
-
-def _unported(feature: str, modules: str, item: str) -> NotImplementedError:
-    """A spec section or option whose modules the port does not have yet,
-    in the capability matrix's message shape, naming its ROADMAP item."""
-    return NotImplementedError(
-        f"unsupported spec combination: {feature} requires {modules} — not "
-        f"ported yet (ROADMAP {item})"
-    )
-
-
-def _check_port_capabilities(spec: ExperimentSpec) -> None:
-    """What the port runs of a spec the JAX package accepts: every section
-    and option whose modules are not ported raises here, before any state
-    is allocated."""
-    arch = spec.model.arch
-    if arch != "vgg16-cifar10" and arch not in PORTED_ARCH_IDS:
-        raise _unported(f"arch {arch!r}", "its model family's layers",
-                        UNPORTED_ARCH_ITEMS.get(arch, "A14"))
 
 
 def build(spec: ExperimentSpec) -> BuiltExperiment:

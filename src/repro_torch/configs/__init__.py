@@ -1,11 +1,9 @@
 """Architecture registry: ``--arch <id>`` resolution — port of
 ``repro.configs``.
 
-The dense, MoE, SSM, hybrid and VLM transformer configs and VGG-16 are
-ported, each copied from its JAX counterpart; ``shapes`` holds the input
-shapes and batch factories.  The one other id of the zoo is registered
-under its name and raises ``NotImplementedError`` naming its ROADMAP item:
-``whisper-large-v3`` (A14.5: encoder-decoder).
+Every config of the zoo is ported, each copied from its JAX counterpart:
+the dense, MoE, SSM, hybrid, VLM and audio transformers and VGG-16;
+``shapes`` holds the input shapes and batch factories.
 """
 from __future__ import annotations
 
@@ -28,26 +26,10 @@ _MODULES: Dict[str, str] = {
 
 ARCH_IDS: List[str] = [k for k in _MODULES if k != "vgg16-cifar10"]
 
-# the dense, MoE, SSM, hybrid and VLM families; every attention layer runs
-# the flash-attention kernels
-PORTED_ARCH_IDS: List[str] = [
-    "qwen2.5-14b", "qwen3-32b", "qwen2-1.5b", "smollm-135m",
-    "granite-moe-1b-a400m", "phi3.5-moe-42b-a6.6b", "mamba2-1.3b", "jamba-1.5-large-398b",
-    "paligemma-3b",
-]
-# the family still to port, by ROADMAP item, and the arch that waits on it
-UNPORTED_FAMILY_ITEMS: Dict[str, str] = {"audio": "A14.5"}
-UNPORTED_ARCH_ITEMS: Dict[str, str] = {"whisper-large-v3": UNPORTED_FAMILY_ITEMS["audio"]}
-
 
 def _mod(name: str):
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; known: {sorted(_MODULES)}")
-    if name != "vgg16-cifar10" and name not in PORTED_ARCH_IDS:
-        raise NotImplementedError(
-            f"{name}: the dense, MoE, SSM, hybrid and VLM configs are ported so far; "
-            f"this arch comes with ROADMAP {UNPORTED_ARCH_ITEMS[name]}"
-        )
     return import_module(f".{_MODULES[name]}", __package__)
 
 

@@ -293,7 +293,12 @@ def build_train_step_b(
 
     The fed levels are chosen on the host from the int round counter;
     every fed mean is a kernel launch per leaf (``_fed_mean_b``).  The
-    dense, MoE, SSM, hybrid and VLM transformer families run here; a MoE layer
+    dense, MoE, SSM, hybrid, VLM and audio transformer families run here;
+    the audio model's carry takes the encoder's output ``enc`` [N, b,
+    encoder_len, d] across every cut beside ``h``, regrouped as ``h`` is,
+    and each tier runs exactly its own encoder and decoder units
+    (``SplittableModel.apply_units``: the JAX package's Engine B skips a
+    tier's decoder units, ROADMAP §C); a MoE layer
     dispatches each client's tokens in a group of their own
     (``model.moe_groups``: 1 on tier 1, ``per`` on a middle tier, N on
     the top), so capacity is per client as in Engine A, and the loss adds

@@ -44,21 +44,25 @@ def _unit_sq_norms(tree: Params, n_units: int) -> torch.Tensor:
     ``frontend`` folds into unit 0 and ``head`` into unit U−1, mirroring the
     paper's convention that cut layers never separate the embedding from the
     first block nor the head from the last.  Units are a list (VGG) or
-    stacked on the axis after the client axis (the dense transformers); the
-    audio model's ``{"enc", "dec"}`` stacks come with ROADMAP A14.
+    stacked on the axis after the client axis (the transformers); the audio
+    model's ``{"enc", "dec"}`` stacks are laid out enc ++ dec.
     """
     units = tree["units"]
+
+    def stack_sq(t) -> torch.Tensor:  # [N, U]
+        tot = None
+        for x in tree_leaves(t):
+            s = _sq_sum(x, 2)
+            tot = s if tot is None else tot + s
+        return tot
+
     if isinstance(units, (list, tuple)):
         per = [sum(_sq_sum(x, 1) for x in tree_leaves(u)) for u in units]
         sq = torch.stack(per, dim=1)  # [N, U]
     elif isinstance(units, dict) and set(units) == {"enc", "dec"}:
-        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14.5")
+        sq = torch.cat([stack_sq(units["enc"]), stack_sq(units["dec"])], dim=1)
     else:
-        tot = None
-        for x in tree_leaves(units):
-            s = _sq_sum(x, 2)
-            tot = s if tot is None else tot + s
-        sq = tot
+        sq = stack_sq(units)
     assert sq.shape[1] == n_units, (sq.shape, n_units)
 
     def extra_sq(part) -> Optional[torch.Tensor]:  # [N]

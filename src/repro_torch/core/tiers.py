@@ -34,6 +34,7 @@ from ..kernels.tiered_aggregate import (
     aggregate_tree, masked_aggregate_tree, masked_ragged_aggregate_tree,
     ragged_aggregate_tree,
 )
+from ..models.model import enc_dec_range
 
 Params = Dict[str, Any]
 
@@ -210,12 +211,21 @@ class TierPlan:
 def _slice_units(units: Any, lo: int, hi: int) -> Any:
     """Slice a unit container to the range [lo, hi): a python list (VGG), or
     stacked leaves, sliced on the axis after the client axis (views).  The
-    audio model's two stacks (``{"enc", "dec"}``) come with ROADMAP A14."""
+    audio model's two stacks (``{"enc", "dec"}``) are one layout enc ++ dec:
+    each is sliced to its part of the range, possibly empty."""
     if isinstance(units, (list, tuple)):
         return list(units)[lo:hi]
-    if isinstance(units, dict) and set(units) == {"enc", "dec"}:
-        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14.5")
+    if _enc_dec(units):
+        ne = tree_leaves(units["enc"])[0].shape[1]
+        (e_lo, e_hi), (d_lo, d_hi) = enc_dec_range(lo, hi, ne)
+        return {"enc": tree_map(lambda x: x[:, e_lo:e_hi], units["enc"]),
+                "dec": tree_map(lambda x: x[:, d_lo:d_hi], units["dec"])}
     return tree_map(lambda x: x[:, lo:hi], units)
+
+
+def _enc_dec(units: Any) -> bool:
+    """Whether ``units`` is the audio model's ``{"enc", "dec"}`` pair of stacks."""
+    return isinstance(units, dict) and set(units) == {"enc", "dec"}
 
 
 def tier_subtrees(params: Params, plan: TierPlan) -> List[Params]:
@@ -239,8 +249,9 @@ def combine_tiers(parts: List[Params], template: Params) -> Params:
     tu = template["units"]
     if isinstance(tu, (list, tuple)):
         units = [u for part in units_parts for u in part]
-    elif isinstance(tu, dict) and set(tu) == {"enc", "dec"}:
-        raise NotImplementedError("the audio model's unit stacks come with ROADMAP A14.5")
+    elif _enc_dec(tu):
+        units = {k: tree_map(lambda *xs: torch.cat(xs, dim=1), *(p[k] for p in units_parts))
+                 for k in ("enc", "dec")}
     else:
         units = tree_map(lambda *xs: torch.cat(xs, dim=1), *units_parts)
     return {"units": units, "frontend": parts[0]["frontend"], "head": parts[-1]["head"]}
@@ -568,7 +579,7 @@ def ragged_synchronize(
         health, params = guard_health(params, plan.num_clients, guard)
         mask = health if mask is None else mask.to(health.device, torch.float32) * health
     units = params["units"]
-    if isinstance(units, dict) and set(units) == {"enc", "dec"}:
+    if _enc_dec(units):
         raise NotImplementedError(
             "ragged per-class sync over enc/dec unit stacks is not "
             "implemented"

@@ -11,15 +11,20 @@
 //         _bwd, dk/dv pass :346 (body _dkv_kernel:240)
 //                                          -> swa_bwd_dkv_kernel
 //
-// What it computes.  q [B, S, H, hd], k and v [B, S, K, hd] (H = G*K, head
+// What it computes.  q [B, Sq, H, hd], k and v [B, Sk, K, hd] (H = G*K, head
 // h reads kv head h / G), row-major, f32 or bf16, hd in {32, 64, 80, 96,
 // 128, 256}.  A query at position p attends key c when (c <= p or c < P)
 // and, for W > 0, c > p - W: the JAX package's _mask_bias
 // (src/repro/models/layers.py:93) in that order, where the prefix P > 0 is
 // the VLM's prefix-LM mask (every query sees the image prefix, itself
 // windowed) and P = 0 is causal attention, the kernels of P = 0 unchanged
-// bit for bit.  JAX computes the prefix mask in jnp, never in Pallas, so
-// it is a port-only variant of B4/B5, as B1m is of B1.  The
+// bit for bit.  P = Sk with W = 0 lets every query see every key: the
+// audio encoder's bidirectional self-attention (Sq = Sk) and the decoder's
+// cross-attention to the encoder's output (Sq != Sk, query and key
+// positions both from 0), which the JAX package runs as _sdpa under a zero
+// bias.  Sq = Sk runs the self-attention kernels' arithmetic bit for bit.
+// JAX computes the prefix mask and the cross-attention in jnp, never in
+// Pallas, so they are port-only variants of B4/B5, as B1m is of B1.  The
 // scores are (scale*q) . k in f32; masked scores are -1e30, not -inf, so a
 // fully masked tile yields no NaN, as on the TPU.  The forward writes
 // o [B, S, H, hd] in the input dtype and the row logsumexp lse [B, H, S] in
@@ -85,8 +90,8 @@
 // times.
 //
 // Masking: a masked score never enters a sum (p = 0).  The ragged sequence
-// tail is masked in the kernels (rows >= S load as 0 and are not written),
-// so neither S nor hd is padded.  The prefix widens the kv tiles a q tile
+// tails are masked in the kernels (q rows >= Sq and k rows >= Sk load as 0
+// and are not written), so neither Sq, Sk nor hd is padded.  The prefix widens the kv tiles a q tile
 // walks (B4 and dq: up to the tile of key min(P, S) - 1) and the q tiles a
 // kv tile walks (dk/dv: from q tile 0 for a key tile that starts below P);
 // the window's bounds still apply on the other side.
@@ -149,7 +154,7 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
 }
 
 struct Shape {
-  int B, S, H, K, G;
+  int B, Sq, Sk, H, K, G;  // Sq query rows, Sk key rows (Sq == Sk: self-attention)
   int window;  // 0: full causal; else keys in (p - window, p]
   int prefix;  // 0; else keys < prefix are seen by every query (in the window)
   float scale;
@@ -157,7 +162,7 @@ struct Shape {
 };
 
 __device__ __forceinline__ bool allowed(int row, int col, const Shape& sh) {
-  bool ok = (col <= row || col < sh.prefix) && row < sh.S && col < sh.S;
+  bool ok = (col <= row || col < sh.prefix) && row < sh.Sq && col < sh.Sk;
   if (sh.window > 0) ok = ok && col > row - sh.window;
   return ok;
 }
@@ -165,27 +170,28 @@ __device__ __forceinline__ bool allowed(int row, int col, const Shape& sh) {
 // The last kv tile (of bk keys) that a query tile ending at row r_last sees.
 __device__ __forceinline__ int last_kv_tile(int r_last, int bk, const Shape& sh) {
   int last = r_last / bk;
-  if (sh.prefix > 0) last = max(last, (min(sh.prefix, sh.S) - 1) / bk);
-  return min((sh.S - 1) / bk, last);
+  if (sh.prefix > 0) last = max(last, (min(sh.prefix, sh.Sk) - 1) / bk);
+  return min((sh.Sk - 1) / bk, last);
 }
 
-// Rows [row0, row0 + ROWS) of head `head` of a [B, S, heads, HD] tensor into
-// shared memory [ROWS][LD] as f32; rows >= S are 0.  f32 with 16-byte
+// Rows [row0, row0 + ROWS) of head `head` of a [B, rows, heads, HD] tensor
+// (rows: Sq for q, o, do; Sk for k, v) into shared memory [ROWS][LD] as f32;
+// rows past `rows` are 0.  f32 with 16-byte
 // aligned tensors (sh.vec) goes through cp.async, which the caller commits
 // and waits for; otherwise each element is loaded, converted and stored.
 template <int ROWS, int HD, int LD = HD + 4, typename T>
 __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __restrict__ src,
-                                           int b, int row0, int heads, int head,
-                                           const Shape& sh) {
+                                           int b, int row0, int rows, int heads,
+                                           int head, const Shape& sh) {
   if constexpr (std::is_same<T, float>::value) {
     if (sh.vec) {
       constexpr int CH = HD / 4;  // 16-byte chunks a row
       for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
         const int r = idx / CH, c = idx - r * CH;
         const int s = row0 + r;
-        const bool ok = s < sh.S;
+        const bool ok = s < rows;
         const long long off =
-            ((static_cast<long long>(b) * sh.S + (ok ? s : 0)) * heads + head) * HD + 4 * c;
+            ((static_cast<long long>(b) * rows + (ok ? s : 0)) * heads + head) * HD + 4 * c;
         tf32::cp_async16(dst + r * LD + 4 * c, src + off, ok);
       }
       return;
@@ -195,28 +201,28 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __r
     const int r = idx / HD, d = idx - r * HD;
     const int s = row0 + r;
     float val = 0.0f;
-    if (s < sh.S) {
-      val = to_f32(src[((static_cast<long long>(b) * sh.S + s) * heads + head) * HD + d]);
+    if (s < rows) {
+      val = to_f32(src[((static_cast<long long>(b) * rows + s) * heads + head) * HD + d]);
     }
     dst[r * LD + d] = val;
   }
 }
 
-// n values of a [B, H, S] f32 row statistic from position s0, 0 past S.
+// n values of a [B, H, Sq] f32 row statistic from position s0, 0 past Sq.
 __device__ __forceinline__ void stage_stat(float* __restrict__ dst, const float* __restrict__ src,
                                            int s0, int n, const Shape& sh) {
   for (int r = threadIdx.x; r < n; r += kThreads) {
-    const bool ok = s0 + r < sh.S;
+    const bool ok = s0 + r < sh.Sq;
     tf32::cp_async4(dst + r, src + (ok ? s0 + r : 0), ok);
   }
 }
 
 // Whether some (row, col) of rows [r0, r0 + nr) x cols [c0, c0 + nc) is
-// masked: a column past a row and at or past the prefix, a row or column
-// past S, or a column at or before a row's window.
+// masked: a column past a row and at or past the prefix, a row past Sq or a
+// column past Sk, or a column at or before a row's window.
 __device__ __forceinline__ bool tile_masked(int r0, int nr, int c0, int nc, const Shape& sh) {
   const int c_last = c0 + nc - 1;
-  if ((c_last > r0 && c_last >= sh.prefix) || r0 + nr > sh.S || c0 + nc > sh.S) return true;
+  if ((c_last > r0 && c_last >= sh.prefix) || r0 + nr > sh.Sq || c0 + nc > sh.Sk) return true;
   return sh.window > 0 && c0 <= r0 + nr - 1 - sh.window;
 }
 
@@ -275,10 +281,10 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 
   auto stage_kv = [&](int j, int stage) {
     float* Ks = KVs + stage * BK * (LDQ + LD);
-    stage_rows<BK, HD, LDQ>(Ks, k, b, j * BK, sh.K, kh, sh);
-    stage_rows<BK, HD>(Ks + BK * LDQ, v, b, j * BK, sh.K, kh, sh);
+    stage_rows<BK, HD, LDQ>(Ks, k, b, j * BK, sh.Sk, sh.K, kh, sh);
+    stage_rows<BK, HD>(Ks + BK * LDQ, v, b, j * BK, sh.Sk, sh.K, kh, sh);
   };
-  stage_rows<BQ, HD, LDQ>(Qs, q, b, q0, sh.H, h, sh);
+  stage_rows<BQ, HD, LDQ>(Qs, q, b, q0, sh.Sq, sh.H, h, sh);
   stage_kv(j_lo, 0);
   tf32::cp_async_commit();
 
@@ -405,16 +411,16 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
   for (int e2 = 0; e2 < 2; ++e2) {
     const int row = q0 + wr + g + 8 * e2;
-    if (row >= sh.S) continue;
+    if (row >= sh.Sq) continue;
     const float lr = fmaxf(l[e2], 1e-30f);
-    T* out = o + ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD + col0 + 2 * t;
+    T* out = o + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + col0 + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       out[8 * c] = from_f32<T>(acc[c][2 * e2] / lr);
       out[8 * c + 1] = from_f32<T>(acc[c][2 * e2 + 1] / lr);
     }
     if (t == 0 && col0 == 0) {
-      lse[(static_cast<long long>(b) * sh.H + h) * sh.S + row] = kLn2 * m[e2] + logf(lr);
+      lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + row] = kLn2 * m[e2] + logf(lr);
     }
   }
 }
@@ -446,18 +452,18 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   // the tile's first row, the warp's, and the warp's first column of dq
   const int q0 = i * BQ, wr = 16 * (CS == 1 ? warp : warp % RW);
   const int col0 = CS == 1 ? 0 : (warp / RW) * (HD / CS);
-  const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.S;
+  const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.Sq;
   int j_lo = 0;
   if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
   const int j_hi = last_kv_tile(q0 + BQ - 1, BK, sh);
 
   auto stage_kv = [&](int j, int stage) {
     float* Ks = KVs + stage * 2 * BK * LD;
-    stage_rows<BK, HD>(Ks, k, b, j * BK, sh.K, kh, sh);
-    stage_rows<BK, HD>(Ks + BK * LD, v, b, j * BK, sh.K, kh, sh);
+    stage_rows<BK, HD>(Ks, k, b, j * BK, sh.Sk, sh.K, kh, sh);
+    stage_rows<BK, HD>(Ks + BK * LD, v, b, j * BK, sh.Sk, sh.K, kh, sh);
   };
-  stage_rows<BQ, HD>(Qs, q, b, q0, sh.H, h, sh);
-  stage_rows<BQ, HD>(dOs, dout, b, q0, sh.H, h, sh);
+  stage_rows<BQ, HD>(Qs, q, b, q0, sh.Sq, sh.H, h, sh);
+  stage_rows<BQ, HD>(dOs, dout, b, q0, sh.Sq, sh.H, h, sh);
   stage_kv(j_lo, 0);
   tf32::cp_async_commit();
 
@@ -468,20 +474,20 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   for (int r = 0; r < 16; ++r) {
     const int row = q0 + wr + r;
     float part = 0.0f;
-    if (row < sh.S) {
-      const long long off = ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD;
+    if (row < sh.Sq) {
+      const long long off = ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD;
       for (int d = lane; d < HD; d += 32) part += to_f32(o[off + d]) * to_f32(dout[off + d]);
     }
 #pragma unroll
     for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
-    if (lane == 0 && row < sh.S && col0 == 0) delta[row_base + row] = part;
+    if (lane == 0 && row < sh.Sq && col0 == 0) delta[row_base + row] = part;
     if (r == g) dl[0] = part;
     if (r == g + 8) dl[1] = part;
   }
 #pragma unroll
   for (int e = 0; e < 2; ++e) {
     const int row = q0 + wr + g + 8 * e;
-    if (row < sh.S) lr[e] = lse[row_base + row];
+    if (row < sh.Sq) lr[e] = lse[row_base + row];
   }
 
   float acc[NT][4];
@@ -566,8 +572,8 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
   for (int e2 = 0; e2 < 2; ++e2) {
     const int row = q0 + wr + g + 8 * e2;
-    if (row >= sh.S) continue;
-    T* out = dq + ((static_cast<long long>(b) * sh.S + row) * sh.H + h) * HD + col0 + 2 * t;
+    if (row >= sh.Sq) continue;
+    T* out = dq + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + col0 + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       out[8 * c] = from_f32<T>(acc[c][2 * e2] * sh.scale);
@@ -610,24 +616,25 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int wk = 16 * (warp & 1), wq = 16 * (warp >> 1);  // the warp's keys, rows
   const int col0 = CS == 1 ? 0 : blockIdx.z * (HD / CS);  // the block's first column
   const int k0 = j * BK;
-  const int nq = (sh.S + BQ - 1) / BQ;
+  const int nq = (sh.Sq + BQ - 1) / BQ;
   const int i_lo = k0 < sh.prefix ? 0 : k0 / BQ;  // the prefix is seen from row 0
   int i_hi = nq - 1;  // the last q tile whose rows see a key of this tile
   if (sh.window > 0) i_hi = min(i_hi, (k0 + BK - 1 + sh.window - 1) / BQ);
-  const int n_i = i_hi - i_lo + 1, n_it = sh.G * n_i;
+  // none when Sq < Sk leaves the tile's keys past every causal row
+  const int n_i = max(i_hi - i_lo + 1, 0), n_it = sh.G * n_i;
 
   auto stage_q = [&](int it, int stage) {
     const int h = kh * sh.G + it / n_i, q0 = (i_lo + it % n_i) * BQ;
     float* Qs = QDs + stage * 2 * BQ * LD;
-    stage_rows<BQ, HD>(Qs, q, b, q0, sh.H, h, sh);
-    stage_rows<BQ, HD>(Qs + BQ * LD, dout, b, q0, sh.H, h, sh);
-    const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.S;
+    stage_rows<BQ, HD>(Qs, q, b, q0, sh.Sq, sh.H, h, sh);
+    stage_rows<BQ, HD>(Qs + BQ * LD, dout, b, q0, sh.Sq, sh.H, h, sh);
+    const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.Sq;
     stage_stat(Stat + stage * 2 * BQ, lse + row_base, q0, BQ, sh);
     stage_stat(Stat + stage * 2 * BQ + BQ, delta + row_base, q0, BQ, sh);
   };
-  stage_rows<BK, HD>(Ks, k, b, k0, sh.K, kh, sh);
-  stage_rows<BK, HD>(Vs, v, b, k0, sh.K, kh, sh);
-  stage_q(0, 0);
+  stage_rows<BK, HD>(Ks, k, b, k0, sh.Sk, sh.K, kh, sh);
+  stage_rows<BK, HD>(Vs, v, b, k0, sh.Sk, sh.K, kh, sh);
+  if (n_it > 0) stage_q(0, 0);
   tf32::cp_async_commit();
   // k and v are the A operands of every q tile: split them once
   tf32::cp_async_wait<0>();
@@ -747,9 +754,9 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
   for (int e2 = 0; e2 < 2; ++e2) {
     const int key = k0 + wk + g + 8 * e2;
-    if (key >= sh.S) continue;
+    if (key >= sh.Sk) continue;
     const long long off =
-        ((static_cast<long long>(b) * sh.S + key) * sh.K + kh) * HD + col0 + 2 * t;
+        ((static_cast<long long>(b) * sh.Sk + key) * sh.K + kh) * HD + col0 + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c)
 #pragma unroll
@@ -766,8 +773,8 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 // launches
 // --------------------------------------------------------------------------
 
-Shape make_shape(int B, int S, int H, int K, int window, int prefix, float scale) {
-  return Shape{B, S, H, K, H / K, window, prefix, scale, 0};
+Shape make_shape(int B, int Sq, int Sk, int H, int K, int window, int prefix, float scale) {
+  return Shape{B, Sq, Sk, H, K, H / K, window, prefix, scale, 0};
 }
 
 // Whether every pointer is 16-byte aligned.
@@ -791,7 +798,7 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const 
       ((BQ + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
   cudaError_t e = allow_smem(swa_fwd_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.H, (sh.S + BQ - 1) / BQ);
+  const dim3 grid(sh.B * sh.H, (sh.Sq + BQ - 1) / BQ);
   swa_fwd_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, sh);
@@ -805,7 +812,7 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   const size_t smem = (2 * BQ + 4 * kDqKeys) * (HD + 4) * sizeof(float);
   cudaError_t e = allow_smem(swa_bwd_dq_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.H, (sh.S + BQ - 1) / BQ);
+  const dim3 grid(sh.B * sh.H, (sh.Sq + BQ - 1) / BQ);
   swa_bwd_dq_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
@@ -823,7 +830,7 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
       ((kv_tiles * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
   cudaError_t e = allow_smem(swa_bwd_dkv_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.K, (sh.S + kDkvKeys - 1) / kDkvKeys, CS);
+  const dim3 grid(sh.B * sh.K, (sh.Sk + kDkvKeys - 1) / kDkvKeys, CS);
   swa_bwd_dkv_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
@@ -854,15 +861,15 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
 extern "C" {
 
 // Each entry launches on `stream` and returns a cudaError_t (0 = launched).
-// Tensors are contiguous: q, o, do, dq [B, S, H, hd]; k, v, dk, dv
-// [B, S, K, hd]; lse, delta [B, H, S] f32.  dtype 0 is f32, 1 is bf16.
-// window 0 is causal; prefix 0 has no prefix (0 <= prefix <= S).
+// Tensors are contiguous: q, o, do, dq [B, Sq, H, hd]; k, v, dk, dv
+// [B, Sk, K, hd]; lse, delta [B, H, Sq] f32.  dtype 0 is f32, 1 is bf16.
+// window 0 is causal; prefix 0 has no prefix (0 <= prefix <= Sk).
 
 int swa_attention_fwd(const void* q, const void* k, const void* v, void* o, float* lse,
-                      int dtype, int B, int S, int H, int K, int hd, int window, int prefix,
-                      float scale, void* stream) {
-  if (B == 0 || S == 0 || H == 0) return 0;
-  Shape sh = make_shape(B, S, H, K, window, prefix, scale);
+                      int dtype, int B, int Sq, int Sk, int H, int K, int hd, int window,
+                      int prefix, float scale, void* stream) {
+  if (B == 0 || Sq == 0 || Sk == 0 || H == 0) return 0;
+  Shape sh = make_shape(B, Sq, Sk, H, K, window, prefix, scale);
   sh.vec = aligned16({q, k, v});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(fwd, q, k, v, o, lse, sh, st)
@@ -870,10 +877,10 @@ int swa_attention_fwd(const void* q, const void* k, const void* v, void* o, floa
 
 int swa_attention_bwd_dq(const void* q, const void* k, const void* v, const void* o,
                          const void* dout, const float* lse, float* delta, void* dq,
-                         int dtype, int B, int S, int H, int K, int hd, int window,
-                         int prefix, float scale, void* stream) {
-  if (B == 0 || S == 0 || H == 0) return 0;
-  Shape sh = make_shape(B, S, H, K, window, prefix, scale);
+                         int dtype, int B, int Sq, int Sk, int H, int K, int hd,
+                         int window, int prefix, float scale, void* stream) {
+  if (B == 0 || Sq == 0 || Sk == 0 || H == 0) return 0;
+  Shape sh = make_shape(B, Sq, Sk, H, K, window, prefix, scale);
   sh.vec = aligned16({q, k, v, dout});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(bwd_dq, q, k, v, o, dout, lse, delta, dq, sh, st)
@@ -881,10 +888,10 @@ int swa_attention_bwd_dq(const void* q, const void* k, const void* v, const void
 
 int swa_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dk, void* dv,
-                          int dtype, int B, int S, int H, int K, int hd, int window,
-                          int prefix, float scale, void* stream) {
-  if (B == 0 || S == 0 || K == 0) return 0;
-  Shape sh = make_shape(B, S, H, K, window, prefix, scale);
+                          int dtype, int B, int Sq, int Sk, int H, int K, int hd,
+                          int window, int prefix, float scale, void* stream) {
+  if (B == 0 || Sq == 0 || Sk == 0 || K == 0) return 0;
+  Shape sh = make_shape(B, Sq, Sk, H, K, window, prefix, scale);
   sh.vec = aligned16({q, k, v, dout});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   SWA_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, sh, st)

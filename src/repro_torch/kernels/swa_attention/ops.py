@@ -1,10 +1,14 @@
 """Public wrapper of the flash-attention kernels — port of
 ``repro.kernels.swa_attention.ops``.
 
-``swa_attention(q, k, v, window, prefix_len)`` takes q [B, S, H, hd] and
-k, v [B, S, K, hd] (GQA) and is differentiable.  ``prefix_len`` P > 0 is
+``swa_attention(q, k, v, window, prefix_len)`` takes q [B, Sq, H, hd] and
+k, v [B, Sk, K, hd] (GQA) and is differentiable.  ``prefix_len`` P > 0 is
 the VLM's prefix-LM mask: every query also sees the keys below P (within
-the window); P = 0 launches the causal kernels' arithmetic bit for bit.  The forward (B4) and the
+the window); P = 0 launches the causal kernels' arithmetic bit for bit.
+P >= Sk (window 0) lets every query see every key: the audio encoder's
+bidirectional self-attention, and with Sq != Sk the decoder's
+cross-attention to the encoder's output.  Query and key positions both
+count from 0; Sq = Sk is self-attention.  The forward (B4) and the
 backward (B5: a q-parallel dq pass, then a kv-parallel dk/dv pass) choose
 their implementation from the device of the tensors they are given:
 
@@ -12,10 +16,10 @@ their implementation from the device of the tensors they are given:
   on the current stream, or raise — there is no fallback;
 * CPU tensors run the plain versions in ``ref.py`` (the CPU tests).
 
-The kernels mask the ragged sequence tail and fold the 1/√hd scale into q
+The kernels mask the ragged sequence tails and fold the 1/√hd scale into q
 as they load it, so nothing is padded or rescaled here; a window of at
-least S is full causal attention (window 0), as in the JAX wrapper, and a
-prefix of at least S lets every query see every key.
+least Sq is full causal attention (window 0), as in the JAX wrapper, and a
+prefix of at least Sk lets every query see every key.
 
 Gradients go through two ``torch.autograd.Function``s in the functorch
 style (``setup_context`` and a ``vmap`` rule), so Engine A's
@@ -81,8 +85,8 @@ def _library() -> ctypes.CDLL:
     if _lib is None:
         lib = build.load(SOURCE)
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        # dtype, B, S, H, K, hd, window, prefix, scale, stream
-        dims = [i, i, i, i, i, i, i, i, f, p]
+        # dtype, B, Sq, Sk, H, K, hd, window, prefix, scale, stream
+        dims = [i] * 9 + [f, p]
         lib.swa_attention_fwd.argtypes = [p] * 5 + dims
         lib.swa_attention_bwd_dq.argtypes = [p] * 8 + dims
         lib.swa_attention_bwd_dkv.argtypes = [p] * 8 + dims
@@ -112,15 +116,15 @@ def _decode_library() -> ctypes.CDLL:
     return _decode_lib
 
 
-def effective_window(window: int, S: int) -> int:
-    """0 (full causal) for window 0 or a window that covers the sequence."""
-    return 0 if (window == 0 or window >= S) else int(window)
+def effective_window(window: int, Sq: int) -> int:
+    """0 (no window) for window 0 or a window that covers every query row."""
+    return 0 if (window == 0 or window >= Sq) else int(window)
 
 
-def effective_prefix(prefix_len: int, S: int) -> int:
-    """The prefix the kernels take, 0 <= P <= S: none for P <= 0, every key
-    for P >= S."""
-    return min(max(int(prefix_len), 0), S)
+def effective_prefix(prefix_len: int, Sk: int) -> int:
+    """The prefix the kernels take, 0 <= P <= Sk: none for P <= 0, every key
+    for P >= Sk."""
+    return min(max(int(prefix_len), 0), Sk)
 
 
 def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
@@ -128,14 +132,15 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> bool:
     version."""
     if q.ndim != 4 or k.ndim != 4 or k.shape != v.shape:
         raise ValueError(
-            f"q must be [B, S, H, hd] and k, v [B, S, K, hd], got "
+            f"q must be [B, S, H, hd] and k, v [B, Sk, K, hd], got "
             f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
         )
-    B, S, H, hd = q.shape
-    if k.shape[:2] != (B, S) or k.shape[3] != hd or k.shape[2] == 0 or H % k.shape[2]:
+    B, _, H, hd = q.shape
+    if (k.shape[0] != B or k.shape[1] == 0 or k.shape[3] != hd or k.shape[2] == 0
+            or H % k.shape[2]):
         raise ValueError(
             f"k, v {tuple(k.shape)} do not fit q {tuple(q.shape)}: need "
-            f"[{B}, {S}, K, {hd}] with H={H} divisible by K"
+            f"[{B}, Sk >= 1, K, {hd}] with H={H} divisible by K"
         )
     if q.device.type not in ("cuda", "cpu"):
         raise ValueError(
@@ -163,7 +168,7 @@ def _raise_on(status: int, name: str) -> None:
 
 def swa_attention_fwd(q, k, v, window: int = 0,
                       prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """B4: (o [B, S, H, hd] in q's dtype, lse [B, H, S] f32)."""
+    """B4: (o [B, Sq, H, hd] in q's dtype, lse [B, H, Sq] f32)."""
     if not _check(q, k, v):
         return swa_attention_ref(q, k, v, window, prefix_len)
     B, S, H, hd = q.shape
@@ -194,13 +199,14 @@ def _check_bwd(q, lse, *rows):
 
 
 def _dims(q, k, window, prefix_len):
-    B, S, H, hd = q.shape
-    return (_DTYPES[q.dtype], B, S, H, k.shape[2], hd, effective_window(window, S),
-            effective_prefix(prefix_len, S), 1.0 / math.sqrt(hd))
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    return (_DTYPES[q.dtype], B, Sq, Sk, H, k.shape[2], hd, effective_window(window, Sq),
+            effective_prefix(prefix_len, Sk), 1.0 / math.sqrt(hd))
 
 
 def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0, prefix_len: int = 0):
-    """B5's q-parallel pass: (dq in q's dtype, delta = rowsum(o·do) [B, H, S])."""
+    """B5's q-parallel pass: (dq in q's dtype, delta = rowsum(o·do) [B, H, Sq])."""
     if not _check(q, k, v):
         return swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window, prefix_len)
     _check_bwd(q, lse, o, do)
@@ -316,8 +322,9 @@ class _SwaAttentionBwd(torch.autograd.Function):
 
 def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window: int = 0, prefix_len: int = 0) -> torch.Tensor:
-    """Causal (window 0) or sliding-window GQA attention, [B, S, H, hd],
-    with every key below ``prefix_len`` visible too (the prefix-LM mask)."""
+    """Causal (window 0) or sliding-window GQA attention, [B, Sq, H, hd],
+    with every key below ``prefix_len`` visible too (the prefix-LM mask;
+    ``prefix_len`` >= Sk at window 0: unmasked, e.g. cross-attention)."""
     o, _ = _SwaAttention.apply(q, k, v, int(window), int(prefix_len))
     return o
 

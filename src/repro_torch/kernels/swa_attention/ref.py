@@ -1,12 +1,16 @@
 """Plain PyTorch versions of the flash-attention kernels — port of
 ``repro.kernels.swa_attention.ref``.
 
-q [B, S, H, hd]; k, v [B, S, K, hd] with H = G·K (query head h reads kv
-head h // G).  A query at position p attends keys in (p − window, p]
+q [B, Sq, H, hd]; k, v [B, Sk, K, hd] with H = G·K (query head h reads kv
+head h // G); query and key positions both count from 0 (Sq = Sk:
+self-attention).  A query at position p attends keys in (p − window, p]
 (causal, window inclusive of self); window = 0 means full causal attention.
 A ``prefix_len`` P > 0 is the VLM's prefix-LM mask: keys below P are seen
 by every query too, within the window (``visible``: the JAX package's
-``_mask_bias`` rule, ``src/repro/models/layers.py:93``).
+``_mask_bias`` rule, ``src/repro/models/layers.py:93``).  P >= Sk at
+window 0 sees every key: the audio encoder (Sq = Sk) and the decoder's
+cross-attention (Sq != Sk), which the JAX package runs as ``_sdpa`` under a
+zero bias.
 
 ``swa_attention_ref`` is the JAX oracle with the per-row logsumexp added;
 ``swa_attention_bwd_ref`` is the flash backward formula that the kernel's
@@ -42,30 +46,30 @@ def visible(q_pos: torch.Tensor, k_pos: torch.Tensor, causal: bool, window: int,
 
 
 def _scores(q, k, window, prefix_len=0):
-    """(scaled q grouped [B, S, K, G, hd], masked scores [B, K, G, S, S], mask)."""
-    B, S, H, hd = q.shape
+    """(scaled q grouped [B, Sq, K, G, hd], masked scores [B, K, G, Sq, Sk], mask)."""
+    B, Sq, H, hd = q.shape
     K = k.shape[2]
-    qg = (q.float() / math.sqrt(hd)).reshape(B, S, K, H // K, hd)
+    qg = (q.float() / math.sqrt(hd)).reshape(B, Sq, K, H // K, hd)
     scores = torch.einsum("bqkgh,bskh->bkgqs", qg, k.float())
-    pos = torch.arange(S, device=q.device)
-    ok = visible(pos, pos, True, window, prefix_len)  # [S, S]: key s visible from query q
+    ok = visible(torch.arange(Sq, device=q.device), torch.arange(k.shape[1], device=q.device),
+                 True, window, prefix_len)  # [Sq, Sk]: key s visible from query q
     return qg, scores.masked_fill(~ok, -math.inf), ok
 
 
 def swa_attention_ref(q, k, v, window: int = 0,
                       prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(o [B, S, H, hd] in q's dtype, lse [B, H, S] f32 of the scaled scores)."""
+    """(o [B, Sq, H, hd] in q's dtype, lse [B, H, Sq] f32 of the scaled scores)."""
     B, S, H, hd = q.shape
     _, scores, _ = _scores(q, k, window, prefix_len)
     w = torch.softmax(scores, dim=-1)
     out = torch.einsum("bkgqs,bskh->bqkgh", w, v.float())
-    lse = torch.logsumexp(scores, dim=-1)  # [B, K, G, S]
+    lse = torch.logsumexp(scores, dim=-1)  # [B, K, G, Sq]
     return out.reshape(B, S, H, hd).to(q.dtype), lse.reshape(B, H, S)
 
 
 def _p_ds(q, k, v, lse, delta, do, window, prefix_len):
-    """(scaled q and do grouped [B, S, K, G, hd], p and ds [B, K, G, S, S])
-    from the forward's lse and delta [B, H, S]."""
+    """(scaled q and do grouped [B, Sq, K, G, hd], p and ds [B, K, G, Sq, Sk])
+    from the forward's lse and delta [B, H, Sq]."""
     B, S, H, hd = q.shape
     K = k.shape[2]
     G = H // K
@@ -77,7 +81,7 @@ def _p_ds(q, k, v, lse, delta, do, window, prefix_len):
 
 
 def swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window: int = 0, prefix_len: int = 0):
-    """The q-parallel pass: (dq in q's dtype, delta [B, H, S] f32), with
+    """The q-parallel pass: (dq in q's dtype, delta [B, H, Sq] f32), with
     delta = rowsum(o·do) and dq = scale·ds·k."""
     B, S, H, hd = q.shape
     delta = (o.float() * do.float()).sum(-1).permute(0, 2, 1)  # [B, H, S]

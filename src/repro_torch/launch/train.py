@@ -14,9 +14,9 @@ the dense (``smollm-135m``, ``qwen2-1.5b``, ``qwen2.5-14b``,
 SSM (``mamba2-1.3b``) or hybrid (``jamba-1.5-large-398b``) family trains
 its REDUCED variant on a synthetic LM stream of 64-token sequences, as the
 JAX CLI does, with every attention on the flash-attention kernels.  The
-VLM id (``paligemma-3b``) exits as the JAX CLI does (its stream carries no
-image-prefix embeddings); the audio id (``whisper-large-v3``) raises
-``NotImplementedError`` naming ROADMAP A14.5.
+VLM id (``paligemma-3b``) and the audio id (``whisper-large-v3``) exit as
+the JAX CLI does: the stream carries no image-prefix embeddings and no
+audio frames.
 
 ``--auto-optimize`` runs ``--probe-rounds`` probe rounds from the initial
 state, estimates the Theorem-1 constants from them (``core.estimator``),

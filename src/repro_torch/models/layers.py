@@ -26,8 +26,12 @@ place (see ``attention``); under a sliding window it is a ring of
 once the ring is full (ROADMAP §C).
 
 The VLM's prefix-LM mask (``attention(prefix_len=)``) runs on the same
-kernels.  Not ported yet (ROADMAP A14.5): the cross-attention
-``kv_override`` and bidirectional attention (audio).
+kernels, and so does the audio model's attention: the encoder's
+bidirectional self-attention (``causal=False``, unroped) as a prefix that
+covers every key, and the decoder's cross-attention (``kv_override``) to
+the encoder's output, with Sq != Sk, as the same unmasked case.  A decode
+step's cross-attention (``positions`` given: one query) runs on B4d with
+every encoder slot at position 0, so every slot is visible.
 """
 from __future__ import annotations
 
@@ -93,8 +97,9 @@ def cross_entropy(
 
 
 def init_attention(gen: torch.Generator, spec: ModelSpec, cross: bool = False) -> Params:
-    if cross:
-        raise NotImplementedError("cross-attention (audio) is ported with ROADMAP A14.5")
+    """q, k, v, o projections and the pre-norm; the q/k/v biases and the
+    q/k norms where the spec has them, but not on a cross-attention block
+    (``cross``), as in JAX."""
     d, hd = spec.d_model, spec.hd
     h, k = spec.num_heads, spec.num_kv_heads
     p: Params = {
@@ -104,11 +109,11 @@ def init_attention(gen: torch.Generator, spec: ModelSpec, cross: bool = False) -
         "wo": _dense_init(gen, (h * hd, d), spec.pdtype),
         "norm": torch.zeros((d,), dtype=spec.pdtype),
     }
-    if spec.qkv_bias:
+    if spec.qkv_bias and not cross:
         p["bq"] = torch.zeros((h * hd,), dtype=spec.pdtype)
         p["bk"] = torch.zeros((k * hd,), dtype=spec.pdtype)
         p["bv"] = torch.zeros((k * hd,), dtype=spec.pdtype)
-    if spec.qk_norm:
+    if spec.qk_norm and not cross:
         p["q_norm"] = torch.zeros((hd,), dtype=spec.pdtype)
         p["k_norm"] = torch.zeros((hd,), dtype=spec.pdtype)
     return p
@@ -124,14 +129,25 @@ def attention(
     prefix_len: int = 0,
     cache: Optional[Params] = None,
     kv_override: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+    use_rope: bool = True,
 ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """Causal GQA self-attention sub-layer (pre-norm + residual by the caller).
+    """GQA attention sub-layer (pre-norm + residual by the caller).
 
     Training and prefill (``cache=None``): rope positions are 0..S-1 and the
     mask is causal over them, optionally within ``spec.window``, with every
     key below ``prefix_len`` visible too (the VLM's prefix-LM mask, within
     the window), on the flash-attention kernels; ``positions`` must be None
-    (0..S-1).
+    (0..S-1).  ``causal=False`` lets every query see every key (the audio
+    encoder; the window still applies), ``use_rope=False`` skips the rotary
+    embedding.
+
+    Cross-attention (``kv_override=(k, v)``, [B, Sk, K, hd], precomputed):
+    only q is projected (and q-normed where the block has ``q_norm``), and
+    it attends every key of k with no mask, the JAX package's ``_sdpa`` under
+    a zero bias, on the flash-attention kernels (Sq = S against Sk).  With
+    ``positions`` (a decode step, S = 1) it runs on B4d, every slot at
+    position 0.  ``cache`` is returned as it came: JAX's cross branch never
+    writes one.
 
     Decode (``cache=`` from ``init_attn_cache``, S = 1): the token is roped
     at ``positions`` (default [0], as in JAX), its k and v go into slot
@@ -144,12 +160,10 @@ def attention(
     place**; the returned cache holds those tensors and ``index + 1``, and
     the cache passed in must not be used again.
     """
-    if kv_override is not None:
-        raise NotImplementedError("cross-attention (audio) is ported with ROADMAP A14.5")
-    if not causal:
-        raise NotImplementedError("bidirectional attention (audio encoder) is ported with ROADMAP A14.5")
     B, S, d = x.shape
     h, k_heads, hd = spec.num_heads, spec.num_kv_heads, spec.hd
+    if kv_override is not None:
+        return _cross_attention(params, x, spec, positions, kv_override), cache
     if cache is None:
         if positions is not None:
             raise ValueError("positions other than 0..S-1 need a cache: the training path's "
@@ -176,16 +190,19 @@ def attention(
     if spec.qk_norm and "q_norm" in params:
         q = rms_norm(q, params["q_norm"], spec.norm_eps)
         kx = rms_norm(kx, params["k_norm"], spec.norm_eps)
-    q = rope(q, positions, spec.rope_theta)
-    kx = rope(kx, positions, spec.rope_theta)
+    if use_rope:
+        q = rope(q, positions, spec.rope_theta)
+        kx = rope(kx, positions, spec.rope_theta)
 
     if cache is None:
-        out = swa_attention(q, kx, vx, spec.window, prefix_len)
+        # bidirectional: a prefix that covers every key
+        out = swa_attention(q, kx, vx, spec.window, prefix_len if causal else S)
         return out.reshape(B, S, h * hd) @ params["wo"], None
 
-    if prefix_len > 0:
-        raise ValueError("decode attention (B4d) takes no prefix: the VLM decodes its text "
-                         "as a dense model, as the JAX package's decode_step does")
+    if prefix_len > 0 or not causal:
+        raise ValueError("decode attention (B4d) is causal and takes no prefix: the VLM "
+                         "decodes its text as a dense model, as the JAX package's "
+                         "decode_step does")
     ck, cv, cpos = cache["k"], cache["v"], cache["positions"]
     idx = int(cache["index"])  # host bookkeeping: reads no device value
     slot = _cache_slot(idx, ck.shape[1], spec.window)
@@ -195,6 +212,30 @@ def attention(
     new_cache = {"k": ck, "v": cv, "positions": cpos, "index": cache["index"] + 1}
     out = swa_decode(q, ck, cv, cpos, positions, spec.window)
     return out.reshape(B, S, h * hd) @ params["wo"], new_cache
+
+
+def _cross_attention(params: Params, x: torch.Tensor, spec: ModelSpec,
+                     positions: Optional[torch.Tensor], kv) -> torch.Tensor:
+    """``attention``'s ``kv_override`` branch: q [B, S, H, hd] against every
+    key of k, v [B, Sk, K, hd]."""
+    B, S, _ = x.shape
+    h, hd = spec.num_heads, spec.hd
+    k, v = kv
+    q = x @ params["wq"]
+    if "bq" in params:
+        q = q + params["bq"]
+    q = q.reshape(B, S, h, hd)
+    if spec.qk_norm and "q_norm" in params:
+        q = rms_norm(q, params["q_norm"], spec.norm_eps)
+    if positions is None:
+        out = swa_attention(q, k, v, 0, k.shape[1])
+    else:
+        if S != 1:
+            raise ValueError(f"the decode path takes one token a step, got S={S}")
+        # every slot at position 0 <= the query's: all visible, no window
+        slots = torch.zeros((k.shape[1],), dtype=torch.int32, device=k.device)
+        out = swa_decode(q, k, v, slots, positions, 0)
+    return out.reshape(B, S, h * hd) @ params["wo"]
 
 
 def _cache_slot(idx: int, C: int, window: int) -> int:

@@ -1,6 +1,6 @@
 """SplittableModel: the frontend / units / head protocol over the model zoo
-— port of ``repro.models.model`` for the dense, MoE, SSM, hybrid and VLM
-families.
+— port of ``repro.models.model`` for the dense, MoE, SSM, hybrid, VLM and
+audio families.
 
 The HSFL engine relies only on:
   * ``init_params(gen, device)`` -> {"frontend": .., "units": <stacked [U, ...]>, "head": ..}
@@ -33,9 +33,18 @@ cache and ``attn_period − 1`` Mamba caches), and writes it in place.  The
 VLM decodes as the JAX package's does: its units as dense ones over the
 text's token embeddings alone (no prefix, no √d scale).
 
-Not ported yet (ROADMAP A14.5–A14.6): the audio family (A14.5) and
-``spec.remat`` (A14.6: ``torch.utils.checkpoint`` does not compose with
-``torch.func``).  The
+The audio model (whisper, encoder-decoder) keeps two unit stacks,
+``units = {"enc": [Ue, ...], "dec": [Ud, ...]}``, cut as one layout enc ++
+dec.  Its frontend projects the (stubbed) frames and adds ``enc_pos`` into
+the carry's ``enc`` [B, encoder_len, d] beside the tokens' ``h``; an
+encoder unit runs unroped bidirectional self-attention and a GELU MLP on
+``enc``, a decoder unit causal self-attention, cross-attention to ``enc``
+(its k and v projected without biases) and a GELU MLP on ``h``.  Decoding
+runs the decoder units against cross caches ``xk``/``xv`` that, as in the
+JAX package, start at zero and are never filled from an encoder.
+
+Not ported yet (ROADMAP A14.6): ``spec.remat`` (``torch.utils.checkpoint``
+does not compose with ``torch.func``).  The
 GSPMD hooks of the JAX class (``carry_constraint``, ``moe_constraint``) pin
 XLA shardings and have no counterpart here.
 """
@@ -47,8 +56,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from .._device import DeviceLike, resolve_device
-from .._tree import tree_map
-from ..configs import UNPORTED_FAMILY_ITEMS
+from .._tree import tree_leaves, tree_map
 from . import layers as L
 from .spec import ModelSpec
 
@@ -65,7 +73,14 @@ def _unstack(units: Any, lo: int, hi: int) -> List[Any]:
     return list(units[lo:hi].unbind(0))
 
 
-FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm")
+def enc_dec_range(lo: int, hi: int, ne: int) -> Tuple[Tuple[int, int], Tuple[int, int]]:
+    """The audio model's layout enc ++ dec: the unit range [lo, hi) over ``ne``
+    encoder units, as ((e_lo, e_hi), (d_lo, d_hi)) in each stack's own
+    indices, either possibly empty."""
+    return (min(lo, ne), min(hi, ne)), (max(lo, ne) - ne, max(hi, ne) - ne)
+
+
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "audio")
 
 
 def _stack(trees: List[Params]) -> Params:
@@ -75,11 +90,8 @@ def _stack(trees: List[Params]) -> Params:
 class SplittableModel:
     def __init__(self, spec: ModelSpec):
         if spec.family not in FAMILIES:
-            item = UNPORTED_FAMILY_ITEMS.get(spec.family, "A14")
-            raise NotImplementedError(
-                f"{spec.name}: the {spec.family} family is ported with ROADMAP {item}; "
-                f"the port runs the {', '.join(FAMILIES)} families"
-            )
+            raise ValueError(f"{spec.name}: unknown family {spec.family!r}; "
+                             f"SplittableModel runs the {', '.join(FAMILIES)} families")
         if spec.remat:
             raise NotImplementedError(
                 "spec.remat: unit rematerialisation is ported with ROADMAP A14.6 "
@@ -92,14 +104,20 @@ class SplittableModel:
     # ------------------------------------------------------------------ #
     # init
     # ------------------------------------------------------------------ #
-    def _init_unit(self, gen: torch.Generator) -> Params:
+    def _init_unit(self, gen: torch.Generator, kind: str) -> Params:
         spec = self.spec
-        if spec.family in ("dense", "vlm"):
+        if kind in ("dense", "vlm"):
             return {"attn": L.init_attention(gen, spec), "mlp": L.init_mlp(gen, spec)}
-        if spec.family == "moe":
+        if kind == "moe":
             return {"attn": L.init_attention(gen, spec), "moe": L.init_moe(gen, spec)}
-        if spec.family == "ssm":
+        if kind == "ssm":
             return {"mamba": L.init_mamba(gen, spec)}
+        if kind == "enc":
+            return {"attn": L.init_attention(gen, spec), "mlp": L.init_mlp(gen, spec, gelu=True)}
+        if kind == "dec":
+            return {"attn": L.init_attention(gen, spec),
+                    "xattn": L.init_attention(gen, spec, cross=True),
+                    "mlp": L.init_mlp(gen, spec, gelu=True)}
         per = spec.attn_period  # hybrid: one attention, per − 1 Mamba sub-layers
         n_moe = per // spec.moe_period
         return {
@@ -121,9 +139,20 @@ class SplittableModel:
         frontend: Params = {
             "embed": (torch.randn((V, d), generator=generator) * 0.02).to(spec.pdtype)
         }
-        if spec.family == "vlm":
+        if spec.family in ("vlm", "audio"):
             frontend["proj"] = L._dense_init(generator, (d, d), spec.pdtype)
-        stacked = _stack([self._init_unit(generator) for _ in range(spec.n_units)])
+        if spec.family == "audio":
+            frontend["enc_pos"] = (torch.randn((spec.encoder_len, d), generator=generator)
+                                   * 0.02).to(spec.pdtype)
+            stacked = {
+                "enc": _stack([self._init_unit(generator, "enc")
+                               for _ in range(spec.encoder_layers)]),
+                "dec": _stack([self._init_unit(generator, "dec")
+                               for _ in range(spec.num_layers)]),
+            }
+        else:
+            stacked = _stack([self._init_unit(generator, spec.family)
+                              for _ in range(spec.n_units)])
         head: Params = {"norm": torch.zeros((d,), dtype=spec.pdtype)}
         if not spec.tie_embeddings:
             head["unembed"] = L._dense_init(generator, (d, V), spec.pdtype, scale=0.02)
@@ -185,16 +214,61 @@ class SplittableModel:
         out["aux"] = aux
         return out
 
+    def _apply_enc_unit(self, up: Params, henc: torch.Tensor) -> torch.Tensor:
+        """An encoder unit: unroped bidirectional self-attention, GELU MLP."""
+        p = up["attn"]
+        a, _ = L.attention(p, L.rms_norm(henc, p["norm"], self.spec.norm_eps), self.spec,
+                           causal=False, use_rope=False)
+        henc = henc + a
+        return henc + self._mlp(up["mlp"], henc)
+
+    def _apply_dec_unit(self, up: Params, carry: Params) -> Params:
+        """A decoder unit: causal self-attention, cross-attention to the
+        encoder's output ``carry["enc"]`` (k and v projected without
+        biases), GELU MLP."""
+        spec = self.spec
+        h = carry["h"]
+        h = h + self._attention(up["attn"], h)
+        enc, px = carry["enc"], up["xattn"]
+        kv_shape = (enc.shape[0], enc.shape[1], spec.num_kv_heads, spec.hd)
+        kx = (enc @ px["wk"]).reshape(kv_shape)
+        vx = (enc @ px["wv"]).reshape(kv_shape)
+        x, _ = L.attention(px, L.rms_norm(h, px["norm"], spec.norm_eps), spec,
+                           kv_override=(kx, vx), use_rope=False)
+        h = h + x
+        out = dict(carry)
+        out["h"] = h + self._mlp(up["mlp"], h)
+        return out
+
     def apply_units(self, units: Params, carry: Params, lo: int, hi: int,
                     prefix_len: int = 0) -> Params:
         """Run units [lo, hi) on the carry; unit params are stacked on axis 0.
         ``prefix_len`` > 0: every attention layer sees the first
-        ``prefix_len`` positions bidirectionally (the VLM)."""
+        ``prefix_len`` positions bidirectionally (the VLM).
+
+        The audio model's ``{"enc", "dec"}`` stacks are one layout enc ++
+        dec: [lo, hi) runs the encoder units it covers on ``carry["enc"]``,
+        then the decoder units on the carry.  The boundary is the number of
+        encoder units that ``units`` holds, so a tier's slice (Engine B
+        applies its units [0, hi − lo)) runs exactly its own units.  The
+        JAX package splits at ``spec.encoder_layers`` for a slice too, and
+        its Engine B so skips the decoder units of every tier that holds
+        no more than ``encoder_layers`` units (ROADMAP §C)."""
         if lo >= hi:
+            return carry
+        if self.spec.family == "audio":
+            ne = tree_leaves(units["enc"])[0].shape[0]  # the encoder units held
+            (e_lo, e_hi), (d_lo, d_hi) = enc_dec_range(lo, hi, ne)
+            carry = dict(carry)
+            for up in _unstack(units["enc"], e_lo, e_hi):
+                carry["enc"] = self._apply_enc_unit(up, carry["enc"])
+            for up in _unstack(units["dec"], d_lo, d_hi):
+                carry = self._apply_dec_unit(up, carry)
             return carry
         for up in _unstack(units, lo, hi):
             carry = self._apply_one_unit(up, carry, prefix_len)
         return carry
+
 
     # ------------------------------------------------------------------ #
     # frontend / head
@@ -202,11 +276,18 @@ class SplittableModel:
     def frontend_apply(self, frontend: Params, batch: Params) -> Params:
         spec = self.spec
         h = frontend["embed"][batch["tokens"].long()].to(spec.cdtype)
+        aux = torch.zeros((), dtype=torch.float32, device=h.device)
         if spec.family == "vlm":
             # the image prefix, projected, then the text; both scaled by √d
             pe = batch["patch_embeds"].to(spec.cdtype) @ frontend["proj"]
             h = (torch.cat([pe, h], dim=1) * math.sqrt(spec.d_model)).to(spec.cdtype)
-        return {"h": h, "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
+        if spec.family == "audio":
+            # the frames (a stub of the conv/mel frontend), projected, plus
+            # the encoder's positions
+            henc = (batch["frames"].to(spec.cdtype) @ frontend["proj"]
+                    + frontend["enc_pos"][None].to(spec.cdtype))
+            return {"h": h, "enc": henc, "aux": aux}
+        return {"h": h, "aux": aux}
 
     def head_apply(self, params: Params, carry: Params) -> torch.Tensor:
         spec = self.spec
@@ -259,7 +340,9 @@ class SplittableModel:
         """Every unit's decode cache, stacked on axis 0 (the JAX tree, leaf
         for leaf): ``{"attn": ...}`` (dense, moe), ``{"mamba": ...}`` (ssm),
         both for a hybrid super-block, its Mamba caches stacked once more
-        [U, attn_period − 1, ...].  On ``device`` (default: the first CUDA
+        [U, attn_period − 1, ...]; the audio model's decoder units
+        ``{"attn", "xk", "xv"}``, the cross caches zero [B, encoder_len, K,
+        hd] in the compute dtype.  On ``device`` (default: the first CUDA
         device), but each ``index`` on the host (``L.init_attn_cache``)."""
         spec = self.spec
         device = resolve_device(device)
@@ -268,8 +351,13 @@ class SplittableModel:
             return tree_map(lambda x: x[None].expand((n,) + tuple(x.shape)).contiguous(), tree)
 
         unit: Params = {}
-        if spec.family in ("dense", "vlm", "moe", "hybrid"):
+        if spec.family in ("dense", "vlm", "moe", "hybrid", "audio"):
             unit["attn"] = L.init_attn_cache(spec, batch, cache_len, device)
+        if spec.family == "audio":
+            for name in ("xk", "xv"):
+                unit[name] = torch.zeros((batch, spec.encoder_len, spec.num_kv_heads, spec.hd),
+                                         dtype=spec.cdtype, device=device)
+            return stacked(unit, spec.num_layers)
         if spec.family == "ssm":
             unit["mamba"] = L.init_mamba_cache(spec, batch, device)
         if spec.family == "hybrid":
@@ -300,6 +388,15 @@ class SplittableModel:
             o, nc = mamba(up["mamba"], cache["mamba"], h)
             h = h + o
             new = {"mamba": nc}
+        elif fam == "audio":
+            a, nc = attn(up["attn"], cache["attn"], h)
+            h = h + a
+            px = up["xattn"]
+            x, _ = L.attention(px, L.rms_norm(h, px["norm"], eps), spec, positions=pos,
+                               kv_override=(cache["xk"], cache["xv"]), use_rope=False)
+            h = h + x
+            h = h + self._mlp(up["mlp"], h)
+            new = {"attn": nc, "xk": cache["xk"], "xv": cache["xv"]}
         else:  # hybrid: attention, then Mamba; MoE on every moe_period-th sub-layer
             per = spec.attn_period
             n_moe = per // spec.moe_period
@@ -336,7 +433,10 @@ class SplittableModel:
         h = params["frontend"]["embed"][tokens.long()].to(spec.cdtype)  # [B, 1, d]
         carry = {"h": h, "aux": torch.zeros((), dtype=torch.float32, device=h.device)}
         pos = torch.full((1,), int(pos_index), dtype=torch.int32, device=h.device)
-        units = _unstack(params["units"], 0, spec.n_units)
+        if spec.family == "audio":  # the decoder units
+            units = _unstack(params["units"]["dec"], 0, spec.num_layers)
+        else:
+            units = _unstack(params["units"], 0, spec.n_units)
         for u, up in enumerate(units):
             view = tree_map(lambda x: x[u], caches)
             carry, new = self._decode_unit(up, view, carry, pos)

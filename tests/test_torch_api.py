@@ -213,15 +213,20 @@ def test_ported_sections_pass_the_capability_check(name):
 
 @pytest.mark.parametrize("name", list(UNPORTED))
 def test_unported_sections_raise_naming_their_item(name):
+    """The sections once unported, by ROADMAP item, now pass the port's
+    capability check and fail where the JAX package's run fails: whisper
+    (A14.5) on the LM stream's missing ``frames``."""
     edit, item = UNPORTED[name]
     js = edit(J.paper_spec())
-    J.build(js) if name != "arch" else None  # the JAX package accepts each
-    ts = _port(js)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}") as err:
-        check_capabilities(ts)
-    assert str(err.value).startswith("unsupported spec combination: ")
-    with pytest.raises(NotImplementedError, match=item):
-        T.run(ts)
+    check_capabilities(_port(js))
+    js = js.replace(
+        model=J.ModelCfg(arch="whisper-large-v3", variant="reduced", batch=2, seq=8),
+        solver=J.SolverCfg(kind="fixed", cuts=(1, 2), intervals=(2, 2, 1)),
+        run=J.RunCfg(mode="train", rounds=1, dataset_size=64, lr=0.1))
+    with pytest.raises(KeyError, match="frames"):
+        J.run(js)
+    with pytest.raises(KeyError, match="frames"):
+        T.run(_port(js), device="cpu")
 
 
 ENGINE_B = {

@@ -636,6 +636,76 @@ def test_b4_b5_with_a_prefix_match_plain(cuda, case):
         assert err <= 2e-5, f"{name}: {err:.3e}"
 
 
+# B, Sq, Sk, H, K, hd, window, prefix: Sq != Sk.  Unmasked (prefix Sk):
+# whisper-large-v3's Engine-B cross-attention [4, 448] x [4, 1500], Sq > Sk,
+# one query, hd 256; causal and windowed with Sq != Sk (key tiles that no
+# query row reaches); and the encoder's bidirectional self-attention (prefix
+# S, G = 1, S = 1500: a ragged last tile at every tile size), under a window
+CROSS_CASES = [(4, 448, 1500, 20, 20, 64, 0, 1500), (2, 100, 37, 4, 2, 64, 0, 37),
+               (2, 1, 300, 4, 4, 128, 0, 300), (1, 65, 200, 8, 1, 256, 0, 200),
+               (1, 130, 60, 4, 2, 32, 0, 0), (1, 60, 130, 4, 2, 80, 0, 0),
+               (1, 60, 130, 6, 3, 96, 16, 0), (4, 1500, 1500, 20, 20, 64, 0, 1500),
+               (2, 1500, 1500, 2, 1, 32, 300, 1500)]
+
+
+@pytest.mark.parametrize("case", CROSS_CASES, ids=[str(c) for c in CROSS_CASES])
+def test_b4_b5_with_sq_other_than_sk_match_plain(cuda, case):
+    """q [B, Sq, H, hd] against k, v [B, Sk, K, hd]: the forward at rtol =
+    atol 2e-5, each backward pass within 2e-5 of max|ref|, every output in
+    its own shape."""
+    B, Sq, Sk, H, K, hd, W, P = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q, do = (torch.randn(B, Sq, H, hd, generator=g, device=cuda) for _ in range(2))
+    k, v = (torch.randn(B, Sk, K, hd, generator=g, device=cuda) for _ in range(2))
+    o, lse, dq, delta, dk, dv = _prefix_passes(q, k, v, do, W, P)
+    torch.cuda.synchronize()
+    assert (o.shape, lse.shape, dk.shape) == (q.shape, (B, H, Sq), k.shape)
+    ro, rlse = swa.swa_attention_ref(q, k, v, W, P)
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
+    rdq, rdelta = swa.swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W, P)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W, P)
+    for name, a, b in (("dq", dq, rdq), ("delta", delta, rdelta), ("dk", dk, rdk),
+                       ("dv", dv, rdv)):
+        err = _normalised_err(a, b)
+        assert err <= 2e-5, f"{name}: {err:.3e}"
+
+
+def test_b4_b5_bf16_at_the_cross_shape_within_one_ulp(cuda):
+    """bf16 inputs at whisper's cross-attention shape against the f32 plain
+    version on the same inputs: o and each backward pass's outputs within
+    one bf16 ulp of each value beyond the f32 tolerance of max|ref|."""
+    B, Sq, Sk, H, K, hd = 4, 448, 1500, 20, 20, 64
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q, do = (torch.randn(B, Sq, H, hd, generator=g, device=cuda).bfloat16() for _ in range(2))
+    k, v = (torch.randn(B, Sk, K, hd, generator=g, device=cuda).bfloat16() for _ in range(2))
+    o, lse, dq, delta, dk, dv = _prefix_passes(q, k, v, do, 0, Sk)
+    torch.cuda.synchronize()
+    f = [x.float() for x in (q, k, v, o, do)]
+    ro, _ = swa.swa_attention_ref(f[0], f[1], f[2], 0, Sk)
+    rdq, _ = swa.swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], 0, Sk)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], 0, Sk)
+    for got, ref in ((o, ro), (dq, rdq), (dk, rdk), (dv, rdv)):
+        _, exp = torch.frexp(ref)
+        ulp = torch.ldexp(torch.ones_like(ref), exp - 8)  # one bf16 ulp of each value
+        assert bool(((got.float() - ref).abs() <= 2e-5 * ref.abs().max() + ulp).all())
+
+
+def test_b4d_cross_route_matches_plain(cuda):
+    """A decode step's cross-attention: one query against every slot of
+    non-zero caches [8, 1500, 20, 64], every slot at position 0 (B4d admits
+    0 <= p <= q_pos), against the plain version at rtol = atol 2e-5."""
+    g = torch.Generator(device=cuda).manual_seed(9)
+    q = torch.randn(8, 1, 20, 64, generator=g, device=cuda)
+    k, v = (torch.randn(8, 1500, 20, 64, generator=g, device=cuda) for _ in range(2))
+    slots = torch.zeros(1500, dtype=torch.int32, device=cuda)
+    for p in (0, 37):
+        qp = torch.tensor([p], dtype=torch.int32, device=cuda)
+        got = swa.swa_decode(q, k, v, slots, qp)
+        torch.testing.assert_close(got, swa.swa_decode_ref(q, k, v, slots, qp),
+                                   rtol=2e-5, atol=2e-5)
+
+
 @pytest.mark.parametrize("hd", swa.HEAD_DIMS)
 def test_prefix_zero_and_one_give_the_causal_kernels_bit_for_bit(cuda, hd):
     """Causal attention (window 0): a call without a prefix, prefix 0 and
@@ -1173,11 +1243,13 @@ def test_b4d_raises_on_what_the_kernel_does_not_take(cuda):
 
 @pytest.mark.parametrize("arch,window", [("smollm-135m", 0), ("smollm-135m", 4),
                                          ("qwen2-1.5b", 0), ("granite-moe-1b-a400m", 0),
-                                         ("mamba2-1.3b", 0), ("jamba-1.5-large-398b", 0)])
+                                         ("mamba2-1.3b", 0), ("jamba-1.5-large-398b", 0),
+                                         ("whisper-large-v3", 0)])
 def test_decode_step_on_card_matches_cpu_and_counts_launches(cuda, arch, window):
     """REDUCED: 10 decode steps (a window of 4 wraps its ring twice) on the
     card against the CPU, logits at a max-normalised 2e-5; B4d launches once
-    per attention layer a step, and no B4/B5."""
+    per attention layer a step (whisper: self and cross, its cross caches
+    filled with the same values on both), and no B4/B5."""
     spec = get_reduced(arch).with_window(window)
     model = SplittableModel(spec)
     params = model.init_params(torch.Generator().manual_seed(0), "cpu")
@@ -1186,6 +1258,10 @@ def test_decode_step_on_card_matches_cpu_and_counts_launches(cuda, arch, window)
     for device in (cuda, torch.device("cpu")):
         p = tree_map(lambda x: x.to(device), params)
         caches = model.init_caches(2, 10, device)
+        if spec.family == "audio":
+            for name in ("xk", "xv"):
+                caches[name].copy_(torch.randn(caches[name].shape,
+                                               generator=torch.Generator().manual_seed(2)))
         swa.reset_launches()
         out = []
         for i in range(10):
@@ -1193,7 +1269,7 @@ def test_decode_step_on_card_matches_cpu_and_counts_launches(cuda, arch, window)
             out.append(step.float().cpu())
         torch.cuda.synchronize()
         if device.type == "cuda":
-            layers = 0 if spec.family == "ssm" else spec.n_units
+            layers = {"ssm": 0, "audio": 2 * spec.num_layers}.get(spec.family, spec.n_units)
             assert swa.decode_launches == {"swa_decode": 10 * layers}
             assert swa.launches == dict.fromkeys(swa.launches, 0)
         logits[device.type] = torch.stack(out)

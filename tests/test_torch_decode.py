@@ -44,7 +44,7 @@ from repro_torch.models import SplittableModel, params_from_numpy, params_to_num
 from repro_torch.models import layers as L
 
 CPU = torch.device("cpu")
-ARCHS = tconfigs.PORTED_ARCH_IDS
+ARCHS = tconfigs.ARCH_IDS
 DENSE_TOL = dict(rtol=1e-5, atol=1e-5)
 MOE_TOL, MAMBA_TOL = 1e-5, 2e-5
 TF_TOL = 1e-5  # teacher forcing, port against port (2e-5 through Mamba blocks)

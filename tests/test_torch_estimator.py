@@ -70,9 +70,20 @@ def test_unit_sq_norms_match_jax(make, U):
 
 
 def test_audio_unit_stacks_raise_naming_a14():
-    tree = {"frontend": {}, "head": {}, "units": {"enc": {}, "dec": {}}}
-    with pytest.raises(NotImplementedError, match="A14"):
-        _unit_sq_norms(tree, 2)
+    """The audio model's two unit stacks (ROADMAP A14.5, once a raise) are
+    one layout enc ++ dec: their per-unit squared norms equal JAX's, the
+    frontend folded into unit 0 and the head into the last."""
+    rng = np.random.default_rng(3)
+
+    def r(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    tree = {"frontend": {"embed": r(2, 6, 4)}, "head": {"norm": r(2, 4)},
+            "units": {"enc": {"w": r(2, 2, 4, 3)}, "dec": {"w": r(2, 3, 4, 3), "b": r(2, 3, 4)}}}
+    got = _unit_sq_norms(params_from_numpy(tree, "cpu"), 5).numpy()
+    ref = np.asarray(jax_unit_sq_norms(jax.tree.map(jnp.asarray, tree), 5))
+    assert got.shape == (2, 5)
+    np.testing.assert_allclose(got, ref, rtol=1e-6)
 
 
 def _observations(seed, rounds, make=_stacked_tree):

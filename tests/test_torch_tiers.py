@@ -141,14 +141,30 @@ def test_sync_kernel_mapping_counts_no_plain_launches():
 
 
 def test_unported_paths_raise_naming_their_roadmap_item():
-    """The audio model's two unit stacks come with ROADMAP A14: slicing them
-    into tiers raises, masked or not."""
-    plan = default_plan(5, 4, cuts=(1, 3), intervals=(2, 2, 1), entities=(4, 2, 1))
-    audio = {"frontend": {}, "units": {"enc": {}, "dec": {}}, "head": {}}
-    with pytest.raises(NotImplementedError, match="A14"):
-        synchronize(audio, plan, 0)
-    with pytest.raises(NotImplementedError, match="A14"):
-        synchronize(audio, plan, 0, mask=torch.ones(4))
+    """The audio model's two unit stacks (ROADMAP A14.5, once unported)
+    are one layout enc ++ dec: synchronizing them, masked or not, equals
+    JAX's sync of the same tree, with a cut inside the encoder and one
+    inside the decoder."""
+    N = 4
+    rng = np.random.default_rng(11)
+
+    def r(*shape):
+        return rng.normal(size=shape).astype(np.float32)
+
+    np_tree = {"frontend": {"embed": r(N, 16, 8)},
+               "units": {"enc": {"w": r(N, 2, 8, 4)}, "dec": {"w": r(N, 3, 8, 4)}},
+               "head": {"norm": r(N, 8)}}
+    plan = default_plan(5, N, cuts=(1, 3), intervals=(2, 2, 1), entities=(N, 2, 1))
+    mask = np.array([1.0, 0.0, 1.0, 1.0], np.float32)
+    for m in (None, mask):
+        ref = jax_synchronize(jax.tree.map(jnp.asarray, np_tree), plan, jnp.int32(1),
+                              mask=None if m is None else jnp.asarray(m))
+        got = synchronize(params_from_numpy(np_tree, CPU), plan, 1,
+                          mask=None if m is None else torch.from_numpy(m))
+        g, r_ = _flat_tree(got), _flat_tree(ref)
+        assert g.keys() == r_.keys()
+        for k in r_:
+            np.testing.assert_allclose(g[k], r_[k], rtol=1e-5, atol=1e-6, err_msg=k)
 
 
 def _stacked_units_tree(N, U, seed):

@@ -111,20 +111,17 @@ def test_spec_counts_of_the_other_families_match_jax():
 
 
 def test_registry_matches_jax_and_names_roadmap_for_the_rest():
-    """The dense, MoE, SSM, hybrid and VLM ids resolve to JAX's configs
-    (paligemma-3b among them); the audio id raises naming its item
-    (A14.5)."""
+    """Every id resolves to JAX's configs: the dense, MoE, SSM, hybrid and
+    VLM ids, and since A14.5 the audio id (whisper-large-v3) too; an
+    unknown id raises ``KeyError`` in both packages."""
     assert tconfigs.ARCH_IDS == jconfigs.ARCH_IDS
-    unported = {"whisper-large-v3": "A14.5"}
     for arch in jconfigs.ARCH_IDS:
-        if arch not in unported:
-            assert arch in tconfigs.PORTED_ARCH_IDS
-            assert tconfigs.get_reduced(arch).name == jconfigs.get_reduced(arch).name
-        else:
-            with pytest.raises(NotImplementedError, match=unported[arch]):
-                tconfigs.get_spec(arch)
-            with pytest.raises(NotImplementedError, match=unported[arch]):
-                tconfigs.get_reduced(arch)
+        for get in ("get_spec", "get_reduced"):
+            t, j = getattr(tconfigs, get)(arch), getattr(jconfigs, get)(arch)
+            assert (t.name, t.family, t.n_units) == (j.name, j.family, j.n_units)
+    for get in (tconfigs.get_spec, jconfigs.get_spec):
+        with pytest.raises(KeyError, match="unknown arch"):
+            get("whisper-tiny")
     for get in ("get_spec", "get_reduced"):
         t, j = getattr(tconfigs, get)("paligemma-3b"), getattr(jconfigs, get)("paligemma-3b")
         assert (t.family, t.prefix_len, t.hd, t.num_kv_heads) == (j.family, j.prefix_len, j.hd,
@@ -184,9 +181,12 @@ def test_unported_layer_paths_raise_naming_a14():
     # (tests/test_torch_vlm.py holds it against JAX)
     out, _ = L.attention(attn, torch.randn(1, 4, spec.d_model), spec, prefix_len=2)
     assert out.shape == (1, 4, spec.d_model) and bool(torch.isfinite(out).all())
-    for kw in (dict(kv_override=(x, x)), dict(causal=False)):
-        with pytest.raises(NotImplementedError, match="A14.5"):
-            L.attention(attn, x, spec, **kw)
+    # cross-attention and bidirectional attention (A14.5) are ported
+    # (tests/test_torch_audio.py holds them against JAX)
+    kv = torch.randn(1, 6, spec.num_kv_heads, spec.hd)
+    for kw in (dict(kv_override=(kv, kv)), dict(causal=False)):
+        out, _ = L.attention(attn, torch.randn(1, 4, spec.d_model), spec, **kw)
+        assert out.shape == (1, 4, spec.d_model) and bool(torch.isfinite(out).all())
     # the decode cache (A14.3) is ported: it takes one token a step, and
     # positions other than 0..S-1 only with a cache
     with pytest.raises(ValueError, match="one token a step"):
@@ -196,8 +196,8 @@ def test_unported_layer_paths_raise_naming_a14():
     with pytest.raises(NotImplementedError, match="A14.6"):
         SplittableModel(dataclasses.replace(spec, remat=True))
     assert build_model(dataclasses.replace(spec, family="vlm", prefix_len=2)).prefix_len == 2
-    with pytest.raises(NotImplementedError, match="A14.5"):
-        build_model(dataclasses.replace(spec, family="audio"))
+    audio = dataclasses.replace(spec, family="audio", encoder_layers=2, encoder_len=8)
+    assert build_model(audio).spec.n_units == spec.num_layers + 2  # A14.5: enc ++ dec
     # the MoE family builds now (tests/test_torch_zoo.py holds it against JAX)
     assert build_model(dataclasses.replace(spec, family="moe", moe=MoeSpec(4, 2))).moe_groups == 1
     with pytest.raises(TypeError):
