@@ -12,7 +12,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    B4d's registers and spills;
 3. hold each kernel against its plain PyTorch version on the card: the
    aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
-   ragged edge shapes; the participation-masked B1m (f32, bf16, int8 load)
+   ragged edge shapes (B2 and B3 through ``kernels/tiered_aggregate/
+   check.py``: the entry against the wire payload's route and B3's all-ones
+   collapse onto B2 bit for bit); the participation-masked B1m (f32, bf16, int8 load)
    at the same shapes under random masks, masks with silent entity groups,
    all-zero and all-ones masks, every flag pair, silent groups keeping
    ``keep`` bit for bit; the per-class kernels (B3 and its dense twin) at the
@@ -159,10 +161,23 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    params atol 5e-6 / rtol 1e-4); REDUCED whisper through both engines
    and 6 decode steps on the card against the CPU; whisper-large-v3
    decoding at full width (batch 8, cache 128, 64 timed steps; B4d 32
-   self + 32 cross a step).  Each phase boundary prints a ``[memory]``
-   line: its seconds, the device memory allocated after a collection, the
-   bytes each of ``main``'s names holds and the largest tensors none
-   reaches;
+   self + 32 cross a step); the ``[remat]`` phase (``remat_paths``):
+   smollm-135m at full width through Engine A with every unit
+   rematerialised (``spec.remat``) -- ``"full"`` against no remat at seq
+   1024 from one init, bit for bit; at seq 4096, the train_4k length, 3
+   rounds under each of ``"full"``, ``"outs"`` and ``"dots"`` (losses equal
+   at rtol 1e-6, groups equal after each round's levels, B4 twice a layer a
+   round, B5 and B1 as without remat, peak at most 70 GB beside the
+   dry-run's reckoning without remat) and Engine B under ``"full"`` for 2
+   rounds against Engine A's losses (rtol 1e-4); the ``[dryrun]`` phase
+   (``dryrun_paths``): ``python -m repro_torch.launch.dryrun`` on train_4k
+   and decode_32k over the virtual pod mesh, and ``count_train_step`` at
+   ``[remat]``'s ``"full"`` cell held to ``lm_forward_flops`` x (3 + 1 for
+   the replay without the head) within 1%, printed as TFLOP/s over the
+   measured round, its predicted memory beside the card's peak.  Each
+   phase boundary prints a ``[memory]`` line: its seconds, the device
+   memory allocated after a collection, the bytes each of ``main``'s names
+   holds and the largest tensors none reaches;
 6. kernel, plain-version, library and bound times: B1/B2, B1m, B3 and its twin
    at the largest VGG leaf [20, 2359296], B4/B5 at the full-width attention shape (window 0,
    the path's, and window 128; the plain version at window 0; B4's and B5's
@@ -300,11 +315,8 @@ def vgg_leaf_widths(spec):
 def check_kernels(spec):
     import torch
 
-    from repro_torch.compress.quantize import q8_quantize
-    from repro_torch.kernels.tiered_aggregate import (
-        quantized_tiered_aggregate, quantized_tiered_aggregate_ref,
-        tiered_aggregate, tiered_aggregate_ref,
-    )
+    from repro_torch.kernels.tiered_aggregate import tiered_aggregate, tiered_aggregate_ref
+    from repro_torch.kernels.tiered_aggregate.check import assert_q8_matches_oracle
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -339,17 +351,12 @@ def check_kernels(spec):
     for P in vgg_leaf_widths(spec):
         w = torch.full((N,), 1.0 / N, device=dev)
         x = torch.randn(N, P, generator=gen, device=dev) * 0.05
-        q, scales = q8_quantize(x, Q8_TILE)
         for J in (5, 1):
-            for de, dg in flags:
-                out = quantized_tiered_aggregate(q, scales, w, de, dg, J, Q8_TILE)
-                torch.cuda.synchronize()
-                ref = quantized_tiered_aggregate_ref(q, scales, w, de, dg, J, Q8_TILE)
-                assert out.dtype == torch.float32 and out.shape == q.shape
-                e = max_err(out, ref, torch.float32, f"B2 N={N} J={J} P={P} "
-                            f"do_entity={de} do_global={dg}")
-                errs["tiered_aggregate_q8"] = max(errs["tiered_aggregate_q8"], e)
-                n_checks += 1
+            # every flag pair: B2 against its plain version, the entry
+            # (quantize, then B2) against the payload route bit for bit
+            e = assert_q8_matches_oracle(N, J, P, Q8_TILE, device=dev, x=x, weights=w)
+            errs["tiered_aggregate_q8"] = max(errs["tiered_aggregate_q8"], e)
+            n_checks += len(flags)
     print(f"[kernels] {n_checks} checks against the plain versions passed "
           f"(f32 rtol {F32_RTOL} atol {F32_ATOL}, bf16 one ulp beyond that); max |err| "
           f"B1 f32 {errs['tiered_aggregate']:.3e} B1 bf16 {bf16_err:.3e} "
@@ -726,20 +733,18 @@ def ragged_members(N, J, U, gen, dev):
     return out
 
 
-def check_ragged_pair(x, q, scales, w, m, de, dg, J, tile, what, errs):
-    """One twin and one B3 launch on the same inputs, each held to its plain
-    version; the twin must also leave every non-member's value as it was."""
+def check_twin(x, w, m, de, dg, J, what, errs):
+    """B3's dense twin held to its plain version; it must also leave every
+    non-member's value as it was."""
     import torch
 
     from repro_torch.kernels.tiered_aggregate import (
-        ragged_quantized_tiered_aggregate, ragged_quantized_tiered_aggregate_ref,
         ragged_tiered_aggregate, ragged_tiered_aggregate_ref,
     )
 
     N, P = x.shape
     U = m.shape[1]
     out = ragged_tiered_aggregate(x, w, m, de, dg, J)
-    b3 = ragged_quantized_tiered_aggregate(q, scales, w, m, de, dg, J, tile, width=P)
     torch.cuda.synchronize()
     e = max_err(out, ragged_tiered_aggregate_ref(x, w, m, de, dg, J), torch.float32,
                 f"twin {what}")
@@ -747,8 +752,17 @@ def check_ragged_pair(x, q, scales, w, m, de, dg, J, tile, what, errs):
     keep = (m == 0).repeat_interleave(P // U, dim=1)
     if not torch.equal(out[keep], x[keep]):
         raise AssertionError(f"twin {what}: a non-member's value changed")
-    ref = ragged_quantized_tiered_aggregate_ref(q, scales, w, m, de, dg, J, tile, P)
-    e = max_err(b3, ref, torch.float32, f"B3 tile={tile} {what}")
+
+
+def check_b3(x, w, m, J, tile, errs):
+    """B3 through ``kernels.tiered_aggregate.check`` on every flag pair: held
+    to its plain version on one wire payload, the entry against the payload
+    route and, where JAX's condition holds, the all-ones collapse onto B2,
+    bit for bit."""
+    from repro_torch.kernels.tiered_aggregate.check import assert_ragged_q8_matches_oracle
+
+    N, P = x.shape
+    e = assert_ragged_q8_matches_oracle(N, J, P, tile, device=x.device, x=x, weights=w, member=m)
     errs["ragged_tiered_aggregate_q8"] = max(errs["ragged_tiered_aggregate_q8"], e)
 
 
@@ -759,7 +773,6 @@ def check_ragged_kernels(spec):
     Q8_TILE, each class's members, all, none)."""
     import torch
 
-    from repro_torch.compress.quantize import q8_quantize
     from repro_torch.kernels.tiered_aggregate import (
         ragged_tiered_aggregate, ragged_tiered_aggregate_ref,
     )
@@ -772,13 +785,14 @@ def check_ragged_kernels(spec):
     for N, J, P, U, tile in RAGGED_CASES:
         x = torch.randn(N, P, generator=gen, device=dev)
         w = torch.softmax(torch.randn(N, generator=gen, device=dev), 0)
-        q, scales = q8_quantize(x, tile)
         xb = x.bfloat16() if P < 10**5 else None
         for pattern, m in ragged_members(N, J, U, gen, dev).items():
+            check_b3(x, w, m, J, tile, errs)
+            n_checks += len(flags)
             for de, dg in flags:
                 what = f"N={N} J={J} P={P} U={U} {pattern} do_entity={de} do_global={dg}"
-                check_ragged_pair(x, q, scales, w, m, de, dg, J, tile, what, errs)
-                n_checks += 2
+                check_twin(x, w, m, de, dg, J, what, errs)
+                n_checks += 1
                 if xb is not None:
                     ob = ragged_tiered_aggregate(xb, w, m, de, dg, J)
                     torch.cuda.synchronize()
@@ -786,7 +800,7 @@ def check_ragged_kernels(spec):
                         ob, ragged_tiered_aggregate_ref(xb, w, m, de, dg, J),
                         torch.bfloat16, f"twin bf16 {what}"))
                     n_checks += 1
-        del x, q, scales
+        del x
     N = 20
     odd = (torch.arange(N, device=dev) % 2).float()[:, None]
     path_members = {"class 0 (odd rows)": odd, "class 1 (even rows)": 1.0 - odd,
@@ -794,19 +808,21 @@ def check_ragged_kernels(spec):
     ones = torch.ones(N, device=dev)
     for P in vgg_leaf_widths(spec):
         x = torch.randn(N, P, generator=gen, device=dev) * 0.05
-        q, scales = q8_quantize(x, Q8_TILE)
         for J in (5, 1):
             for pattern, m in path_members.items():
+                check_b3(x, ones, m, J, Q8_TILE, errs)
+                n_checks += len(flags)
                 for de, dg in flags:
                     what = f"path N={N} J={J} P={P} {pattern} do_entity={de} do_global={dg}"
-                    check_ragged_pair(x, q, scales, ones, m, de, dg, J, Q8_TILE, what, errs)
-                    n_checks += 2
-        del x, q, scales
+                    check_twin(x, ones, m, de, dg, J, what, errs)
+                    n_checks += 1
+        del x
     print(f"[kernels] {n_checks} checks of B3 and its twin against their plain versions "
           f"passed, every VGG-16 leaf width at the per-class path's shapes among them "
           f"(f32 rtol {F32_RTOL} atol {F32_ATOL}, bf16 one ulp beyond that; "
-          f"non-members kept exactly by the twin); max |err| twin f32 "
-          f"{errs['ragged_tiered_aggregate']:.3e} twin bf16 {bf16_err:.3e} "
+          f"non-members kept exactly by the twin; B3 through kernels/tiered_aggregate/"
+          f"check.py, its entry and the all-ones collapse onto B2 bit for bit); max |err| "
+          f"twin f32 {errs['ragged_tiered_aggregate']:.3e} twin bf16 {bf16_err:.3e} "
           f"B3 {errs['ragged_tiered_aggregate_q8']:.3e}")
     return errs, {"ragged_tiered_aggregate": bf16_err, "ragged_tiered_aggregate_q8": None}
 
@@ -1439,37 +1455,6 @@ def lm_main_path(rounds: int = 8):
     return got, dict(model=model, plan=plan, opt=opt, state=state, batch=batch, spec=spec)
 
 
-def visible_pairs(S: int, window: int, prefix: int = 0) -> int:
-    """(query, key) pairs the causal / windowed / prefix mask lets through,
-    per head: query p sees keys max(0, p - W + 1) .. max(p, min(P, S) - 1)."""
-    if prefix <= 0 and (window <= 0 or window >= S):
-        return S * (S + 1) // 2
-    last_prefix = min(prefix, S) - 1
-    return sum(max(p, last_prefix) - (max(0, p - window + 1) if window > 0 else 0) + 1
-               for p in range(S))
-
-
-def attention_work(B, S, H, K, hd, window, prefix: int = 0):
-    """``pairs_work`` of self-attention over the pairs its mask lets through."""
-    return pairs_work(B, S, S, H, K, hd, visible_pairs(S, window, prefix))
-
-
-def pairs_work(B, Sq, Sk, H, K, hd, pairs: int):
-    """{kernel: (operations, bytes)} with Sq query rows against Sk key rows
-    and ``pairs`` visible (query, key) pairs a head: each input read once,
-    each output written once, multiply-adds counted as 2."""
-    pairs = pairs * B * H
-    qb, kb, rows = 4 * B * Sq * H * hd, 4 * B * Sk * K * hd, 4 * B * H * Sq
-    return {
-        # s = q·k, o += p·v
-        "swa_attention_fwd": (4 * hd * pairs, 2 * qb + 2 * kb + rows),
-        # s, dp = do·v, dq += ds·k; delta = rowsum(o·do)
-        "swa_attention_bwd_dq": (6 * hd * pairs + 2 * B * Sq * H * hd, 4 * qb + 2 * kb + 2 * rows),
-        # s, dp, dv += p·do, dk += ds·q
-        "swa_attention_bwd_dkv": (8 * hd * pairs, 2 * qb + 4 * kb + 2 * rows),
-    }
-
-
 def attention_timings(card: str):
     """B4 and both B5 passes at the full-width shape: kernel, plain, bound,
     and SDPA as the library yardstick (never called by the port)."""
@@ -1480,6 +1465,7 @@ def attention_timings(card: str):
         reset_launches, swa_attention_bwd_dkv, swa_attention_bwd_dkv_ref,
         swa_attention_bwd_dq, swa_attention_bwd_dq_ref, swa_attention_fwd, swa_attention_ref,
     )
+    from repro_torch.launch.dryrun_lib import attention_work
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(3)
@@ -1576,6 +1562,7 @@ def vlm_attention_timings(card: str):
         swa_attention_bwd_dq, swa_attention_bwd_dq_ref, swa_attention_fwd, swa_attention_ref,
     )
     from repro_torch.kernels.swa_attention.ref import visible
+    from repro_torch.launch.dryrun_lib import attention_work, visible_pairs
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev).manual_seed(4)
@@ -1640,6 +1627,8 @@ def vlm_attention_timings(card: str):
 def lm_forward_flops(spec, sequences: int, seq: int) -> float:
     """Model FLOPs of one forward pass: the matmuls (2 per multiply-add)
     and the causal attention over its visible pairs."""
+    from repro_torch.launch.dryrun_lib import visible_pairs
+
     d, ff, hd, h, kv = spec.d_model, spec.d_ff, spec.hd, spec.num_heads, spec.num_kv_heads
     tokens = sequences * seq
     per_layer = 2.0 * tokens * (d * h * hd + 2 * d * kv * hd + h * hd * d + 3 * d * ff)
@@ -4683,6 +4672,7 @@ def audio_attention_timings(card: str):
         swa_attention_ref, swa_decode, swa_decode_ref,
     )
     from repro_torch.kernels.swa_attention import swa_attention_bwd_dkv, swa_attention_bwd_dq
+    from repro_torch.launch.dryrun_lib import decode_work, pairs_work
 
     dev = serve_device()
     gen = torch.Generator(device=dev).manual_seed(13)
@@ -5754,17 +5744,6 @@ def serve_cli(card: str):
     return {"launches": got}
 
 
-def decode_work(B, C, H, K, hd, visible: int, read_slots: int, elt: int = 4):
-    """(operations, bytes) of decode attention: s = q.k and o += p.v over the
-    visible slots (2 flops a multiply-add); q read and o written once in
-    the input dtype (``elt`` bytes), k and v of the ``read_slots`` (the
-    slots of the tiles that hold a visible slot: B4d skips the others), and
-    cache_pos and q_pos once."""
-    ops = 4 * hd * B * H * visible
-    nbytes = elt * (2 * B * H * hd + 2 * B * K * hd * read_slots) + 4 * (C + 1)
-    return ops, nbytes
-
-
 def decode_read_slots(pos, q_pos: int, window: int = 0):
     """(visible slots, slots of the tiles that hold a visible one) of a
     cache whose slots hold ``pos``, read at ``q_pos``."""
@@ -5797,7 +5776,6 @@ def decode_timings(card: str):
     twice the 50 MB L2: a decode step's 28 layers find their caches cold
     too."""
     import itertools
-
     import torch
     import torch.nn.functional as F
 
@@ -5805,6 +5783,7 @@ def decode_timings(card: str):
         decode_launch_splits, reset_launches, swa_decode, swa_decode_ref,
     )
     from repro_torch.kernels.swa_attention.ref import mask_bias
+    from repro_torch.launch.dryrun_lib import decode_work
 
     dev = serve_device()
     gen = torch.Generator(device=dev).manual_seed(9)
@@ -5903,6 +5882,271 @@ def serve_paths(card: str, ckpt: Path):
                         if "ms_per_step" in v})
           + f"; phase {time.perf_counter() - t0:.1f} s; card {card}")
     return counts, out, errs, times
+
+
+# --------------------------------------------------------------------------- #
+# [remat] and [dryrun]: smollm-135m trained at the train_4k length under each
+# remat policy (ROADMAP A14.6), and the dry-run's count of the same step (A15)
+# --------------------------------------------------------------------------- #
+
+# configs/shapes.SHAPES["train_4k"].seq_len: the dry-run's train shape, where
+# JAX applies remat; without remat the full-width cell reckons ~134 GB
+REMAT_SEQ = 4096
+REMAT_POLICIES = ("full", "outs", "dots")
+REMAT_ROUNDS, REMAT_B_ROUNDS = 3, 2
+REMAT_CHECK_SEQ, REMAT_CHECK_ROUNDS = 1024, 2  # (a): remat against none, bit for bit
+REMAT_PEAK_LIMIT = 70e9
+REMAT_RTOL = 1e-6  # the policies' losses against one another
+REMAT_B_RTOL = 1e-4  # Engine B against Engine A, as [engine-b]
+# the card's peak over the dry-run's (arg_bytes + temp_bytes) of the same
+# step: PERF.md says why this band
+REMAT_MEMORY_BAND = (0.8, 1.25)
+DRYRUN_SHAPES = ("train_4k", "decode_32k")
+DRYRUN_FLOPS_RTOL = 0.01
+
+
+def remat_cell(seq: int, policy=None):
+    """(device, model, plan, opt, loader) of the full-width smollm-135m cell
+    as ``lm_main_path`` builds it through the CLI's pieces (N=8, J2=4,
+    batch 1, cuts (6, 15), SGD), at ``seq`` tokens, each unit
+    rematerialised under ``policy`` (None: no remat)."""
+    from repro_torch.configs import get_spec
+    from repro_torch.launch import train
+
+    spec = get_spec("smollm-135m")
+    if policy is not None:
+        spec = dataclasses.replace(spec, remat=True, remat_policy=policy)
+    args = train.parse_args(["--arch", "smollm-135m", "--clients", "8", "--edges", "4",
+                             "--batch", str(LM_BATCH)])
+    device, _, model, plan, opt, loader = train.setup(args, spec=spec, seq=seq)
+    assert plan.cuts == (6, 15) and plan.intervals == (8, 4, 1), plan
+    return device, model, plan, opt, loader
+
+
+def remat_train(model, plan, opt, p0, batches, device, engine: str = "a"):
+    """``len(batches)`` rounds from the init ``p0`` (one draw for every run;
+    the engines copy it) on Engine A's dispatch or Engine B's step: (state,
+    losses, host ms a round ending in a device sync, launches, peak
+    bytes)."""
+    import torch
+
+    from repro_torch.core import build_train_step_b, init_state_a, init_state_b
+    from repro_torch.launch import train
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    init = init_state_a if engine == "a" else init_state_b
+    state = init(_GivenInit(p0), plan, opt, None, device)
+    if engine == "a":
+        step = train.make_dispatch(model, plan, opt)
+    else:
+        step_b = build_train_step_b(model, plan, opt)
+        step = lambda st, b, r: step_b(st, b)
+    reset_all_launches()
+    losses, ms = [], []
+    for r, batch in enumerate(batches):
+        t = time.perf_counter()
+        state, loss = step(state, batch, r)
+        losses.append(float(loss))  # waits for the round
+        ms.append((time.perf_counter() - t) * 1e3)
+    return state, losses, ms, all_launches(), torch.cuda.max_memory_allocated()
+
+
+def assert_groups_equal(params, plan, what: str) -> None:
+    """Every client replica equal to its entity group's after a round whose
+    entity levels ran: tier m's rows equal in groups of N / J_m (the top
+    tier's across all clients)."""
+    from repro_torch._tree import tree_leaves
+
+    N = plan.num_clients
+    for m, part in enumerate(tier_parts(params, plan)):
+        per = N // plan.entities[m]
+        for i, x in enumerate(tree_leaves(part)):
+            g = x.reshape(plan.entities[m], per, *x.shape[1:])
+            if per > 1 and x.numel() and not bool((g == g[:, :1]).all()):
+                raise AssertionError(f"{what}: tier {m + 1} leaf {i} differs within a group")
+
+
+def remat_paths(card: str):
+    """The ``[remat]`` phase: smollm-135m at full width and depth through
+    Engine A with every unit rematerialised.  (a) ``"full"`` against the same
+    run without remat at seq 1024 from one init, bit for bit; (b) at seq 4096
+    (train_4k's length) 3 rounds under each policy: finite losses equal
+    across the policies at rtol 1e-6, groups equal after each round's
+    levels, B4 launched twice per layer a round (the backward's replay),
+    B5 and B1 as without remat, peak at most 70 GB beside the dry-run's
+    reckoning without remat; (c) Engine B under ``"full"`` at the same cell
+    for 2 rounds, its losses within rtol 1e-4 of (b)'s Engine A."""
+    import numpy as np
+    import torch
+
+    from repro_torch._tree import tree_leaves
+    from repro_torch.launch import train
+    from repro_torch.launch.dryrun_lib import count_train_step
+
+    t0 = time.perf_counter()
+    counts, out = {}, {}
+    device, model, plan, opt, loader = remat_cell(REMAT_CHECK_SEQ)
+    # one seeded draw (on the host, as lm_main_path's) for every run
+    p0 = model.init_params(torch.Generator().manual_seed(0), device)
+    # (a) at the main path's length: remat changes no number
+    runs = {}
+    batches = [train.to_device(loader.next_round(), device) for _ in range(REMAT_CHECK_ROUNDS)]
+    for policy in (None, "full"):
+        _, model, plan, opt, _ = remat_cell(REMAT_CHECK_SEQ, policy)
+        state, losses, _, _, _ = remat_train(model, plan, opt, p0, batches, device)
+        runs[policy] = (losses, state.params)
+        del state
+    (l0, q0), (l1, q1) = runs[None], runs["full"]
+    exact = l0 == l1 and all(torch.equal(a, b) for a, b in zip(tree_leaves(q1), tree_leaves(q0)))
+    if not exact:
+        np.testing.assert_allclose(l1, l0, rtol=REMAT_RTOL)
+        for a, b in zip(tree_leaves(q1), tree_leaves(q0)):
+            torch.testing.assert_close(a, b, rtol=REMAT_RTOL, atol=0)
+    print(f"[remat] (a) smollm-135m full width, seq {REMAT_CHECK_SEQ}, {REMAT_CHECK_ROUNDS} "
+          f"rounds: \"full\" against no remat from one init: losses {l1} against {l0}, "
+          + ("losses and params bit for bit" if exact else f"within rtol {REMAT_RTOL}, "
+             "not bit for bit"), flush=True)
+    out["bit_for_bit"] = exact
+    del runs, q0, q1
+    # (b) at train_4k's length, each policy from the same init and batches
+    device, model, plan, opt, loader = remat_cell(REMAT_SEQ)
+    batches = [train.to_device(loader.next_round(), device) for _ in range(REMAT_ROUNDS)]
+    plain = count_train_step(model, plan, opt, batches[0], fed_round=(False, False, True))
+    reckoned = plain["arg_bytes"] + plain["temp_bytes"]
+    print(f"[remat] reckoned without remat at seq {REMAT_SEQ} (launch/dryrun_lib."
+          f"count_train_step): {reckoned / 1e9:.2f} GB (state and batch "
+          f"{plain['arg_bytes'] / 1e9:.2f}, the step's peak {plain['temp_bytes'] / 1e9:.2f}) "
+          f"against the {REMAT_PEAK_LIMIT / 1e9:.0f} GB line", flush=True)
+    out["reckoned_no_remat"] = reckoned
+    losses_by = {}
+    for policy in REMAT_POLICIES:
+        _, model, plan, opt, _ = remat_cell(REMAT_SEQ, policy)
+        state, losses, ms, got, peak = remat_train(model, plan, opt, p0, batches, device)
+        want = lm_expected(plan, state.params, model.spec.n_units, REMAT_ROUNDS)
+        want[ATTN[0]] *= 2  # the backward replays each unit's forward
+        label = f"remat-{policy}-smollm-135m-seq{REMAT_SEQ}"
+        if got != want:
+            raise AssertionError(f"{label}: launches {got}, the plan, depth and replay imply "
+                                 f"{want}")
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"{label}: losses {losses}")
+        assert_groups_equal(state.params, plan, label)
+        if peak > REMAT_PEAK_LIMIT:
+            raise AssertionError(f"{label}: peaked at {peak / 1e9:.2f} GB > "
+                                 f"{REMAT_PEAK_LIMIT / 1e9:.0f} GB")
+        del state
+        counts[label] = got
+        losses_by[policy] = losses
+        med = sorted(ms[1:])[len(ms[1:]) // 2]
+        out[policy] = dict(losses=losses, round_ms=med, rounds_ms=ms, peak=peak)
+        print(f"[remat] (b) {label} (N=8, J2=4, batch {LM_BATCH}, cuts {plan.cuts}): losses "
+              f"{losses}; peak {peak / 1e9:.2f} GB (reckoned without remat "
+              f"{reckoned / 1e9:.2f}); median round {med:.1f} ms (rounds {ms}); launches "
+              f"{got}; groups equal; card {card}", flush=True)
+    for policy in REMAT_POLICIES[1:]:
+        np.testing.assert_allclose(losses_by[policy], losses_by["full"], rtol=REMAT_RTOL)
+    # (c) Engine B under "full" at the same cell
+    _, model, plan, opt, _ = remat_cell(REMAT_SEQ, "full")
+    state, losses, ms, got, peak = remat_train(model, plan, opt, p0, batches[:REMAT_B_ROUNDS],
+                                               device, engine="b")
+    want = engine_b_want(plan, state.params, model.spec.n_units, REMAT_B_ROUNDS)
+    want[ATTN[0]] *= 2
+    label = f"remat-full-engine-b-smollm-135m-seq{REMAT_SEQ}"
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, the plan, depth and replay imply {want}")
+    np.testing.assert_allclose(losses, losses_by["full"][:REMAT_B_ROUNDS], rtol=REMAT_B_RTOL)
+    if peak > REMAT_PEAK_LIMIT:
+        raise AssertionError(f"{label}: peaked at {peak / 1e9:.2f} GB")
+    del state
+    counts[label] = got
+    out["engine-b"] = dict(losses=losses, rounds_ms=ms, peak=peak)
+    print(f"[remat] (c) {label}: losses {losses} against Engine A's "
+          f"{losses_by['full'][:REMAT_B_ROUNDS]} (rtol {REMAT_B_RTOL}); peak "
+          f"{peak / 1e9:.2f} GB; rounds {ms} ms; launches {got}; card {card}", flush=True)
+    out["batch"] = batches[0]
+    del p0
+    print(f"[remat] phase {time.perf_counter() - t0:.1f} s; card {card}")
+    return counts, out
+
+
+def dryrun_paths(card: str, remat_out):
+    """The ``[dryrun]`` phase: (a) ``python -m repro_torch.launch.dryrun`` as
+    a subprocess on train_4k and decode_32k over the virtual pod mesh, each
+    record written and printed; (b) ``count_train_step`` at ``[remat]``'s
+    ``"full"`` cell: its FLOPs against ``lm_forward_flops`` x (3 for the
+    forward and backward + 1 for the units' replay), within 1%, over (b)'s
+    median round as TFLOP/s, and its (arg_bytes + temp_bytes) beside the
+    card's peak of that run, the ratio within REMAT_MEMORY_BAND.  It
+    launches no kernel."""
+    import os
+
+    from repro_torch.configs import get_spec
+    from repro_torch.launch.dryrun_lib import count_train_step
+
+    t0 = time.perf_counter()
+    out_dir = ROOT / "build" / "chip_smoke" / "dryrun"
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    records = {}
+    # the CLI's runs, one process a shape, side by side (each is host work)
+    procs = {shape: subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", "smollm-135m",
+         "--shape", shape, "--mesh", "pod", "--out", str(out_dir)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env, cwd=ROOT)
+        for shape in DRYRUN_SHAPES}
+    try:
+        for shape, proc in procs.items():
+            _, err = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise AssertionError(f"dryrun {shape}: exit {proc.returncode}: {err[-2000:]}")
+    finally:
+        for proc in procs.values():
+            proc.kill()
+    for shape in DRYRUN_SHAPES:
+        path = out_dir / f"smollm-135m_{shape}_16x16_baseline.json"
+        rec = json.loads(path.read_text())
+        records[shape] = rec
+        print(f"[dryrun] (a) smollm-135m {shape} on the virtual pod mesh (16x16, rank 0's "
+              f"view; lowered in {rec['lower_s']} s, counted in {rec['step_s']} s): flops "
+              f"{rec['flops']:.6g}, collective_bytes {rec['collective_bytes']:.6g}, "
+              f"collectives {json.dumps(rec['collectives'])}, arg_bytes {rec['arg_bytes']}, "
+              f"temp_bytes {rec['temp_bytes']}; {path.relative_to(ROOT)}", flush=True)
+    print(f"[dryrun] (a) both CLI runs in {time.perf_counter() - t0:.1f} s", flush=True)
+    # (b) the [remat] (b) "full" step, counted on meta tensors
+    _, model, plan, opt, _ = remat_cell(REMAT_SEQ, "full")
+    reset_all_launches()
+    got = count_train_step(model, plan, opt, remat_out["batch"], fed_round=(False, False, True))
+    if any(all_launches().values()):
+        raise AssertionError(f"count_train_step launched kernels: {all_launches()}")
+    spec = get_spec("smollm-135m")
+    N, b, S = remat_out["batch"]["tokens"].shape
+    fwd = lm_forward_flops(spec, N * b, S)
+    head = 2.0 * N * b * S * spec.d_model * spec.padded_vocab
+    want = 3 * fwd + (fwd - head)
+    if abs(got["flops"] / want - 1) > DRYRUN_FLOPS_RTOL:
+        raise AssertionError(f"count_train_step {got['flops']:.6g} FLOPs, lm_forward_flops "
+                             f"x (3 + 1 without the head) {want:.6g}")
+    ms = remat_out["full"]["round_ms"]
+    peak = remat_out["full"]["peak"]
+    predicted = got["arg_bytes"] + got["temp_bytes"]
+    ratio = peak / predicted
+    print(f"[dryrun] (b) count_train_step at [remat]'s \"full\" cell (N={N}, batch {b}, seq "
+          f"{S}): {got['flops']:.6g} FLOPs (products {got['aten_flops']:.6g}, attention "
+          f"kernels {got['kernel_flops']:.6g}) against lm_forward_flops x (3 + 1 without "
+          f"the head) {want:.6g} ({100 * (got['flops'] / want - 1):+.3f}%); over the median "
+          f"round {ms:.1f} ms: {got['flops'] / (ms * 1e-3) / 1e12:.2f} TFLOP/s; predicted "
+          f"memory arg {got['arg_bytes'] / 1e9:.3f} + temp {got['temp_bytes'] / 1e9:.3f} = "
+          f"{predicted / 1e9:.3f} GB against the card's peak {peak / 1e9:.3f} GB: ratio "
+          f"{ratio:.4f} (band {REMAT_MEMORY_BAND}); counted in {got['step_s']} s; card {card}",
+          flush=True)
+    if not REMAT_MEMORY_BAND[0] <= ratio <= REMAT_MEMORY_BAND[1]:
+        raise AssertionError(f"the card's peak over the dry-run's prediction {ratio:.4f} is "
+                             f"outside {REMAT_MEMORY_BAND}")
+    print(f"[dryrun] phase {time.perf_counter() - t0:.1f} s; card {card}")
+    return dict(records=records, flops=got["flops"], want=want, ratio=ratio,
+                predicted=predicted, peak=peak,
+                tflops=got["flops"] / (ms * 1e-3) / 1e12)
 
 
 def cuda_storages(obj, seen=None) -> dict:
@@ -6153,6 +6397,16 @@ def main() -> int:
     clock = phase_boundary("[vlm]", locals(), clock)
     audio_counts, audio_out = audio_paths(card)
     clock = phase_boundary("[audio]", locals(), clock)
+    remat_counts, remat_out = remat_paths(card)
+    for path, got in remat_counts.items():
+        # Engine B's two rounds are due no fed mean: its B1 count is 0
+        for name in ATTN + (() if "engine-b" in path else (AGG[0],)):
+            if got[name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on {path}")
+    clock = phase_boundary("[remat]", locals(), clock)
+    dryrun_paths(card, remat_out)
+    del remat_out
+    clock = phase_boundary("[dryrun]", locals(), clock)
     times = timings(card)
     times.update(ragged_timings(card))
     times.update(masked_timings(card))
@@ -6220,7 +6474,8 @@ def main() -> int:
     audio_train = {k: v for k, v in audio_counts.items() if k not in audio_decode}
     new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
                  "async-staleness-2": async_launches, **control_counts, **engine_b_counts,
-                 **zoo_counts, **vlm_counts, **audio_train, **sharded_counts}
+                 **zoo_counts, **vlm_counts, **audio_train, **sharded_counts,
+                 **remat_counts}
     for row in kernels:
         row["launches_by_path"].update(
             {path: got[row["name"]] for path, got in new_paths.items()})

@@ -1,8 +1,7 @@
 """The declarative experiment specification (DESIGN.md §10) — port of
 ``repro.api.spec``.  The dataclasses and their JSON are the JAX package's,
-field for field, so one spec file drives either package; the options whose
-modules are not ported yet are refused by ``build.check_capabilities``,
-naming their ROADMAP item.
+field for field, so one spec file drives either package; the combinations
+that no engine runs are refused by ``build.check_capabilities``.
 
 One serializable dataclass tree — ``ExperimentSpec`` — describes everything
 this repo can do with the paper's pipeline: which model profile to price

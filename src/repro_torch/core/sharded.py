@@ -111,11 +111,17 @@ def _client_base(mesh, axis_names: Tuple[str, ...], n_local: int) -> int:
 class ClientShards:
     """This rank's place among the client shards of a mesh: the process
     group of the client sub-mesh it belongs to (ranks on the ``model`` axis
-    run in separate, equal groups), the shard count D and its index."""
+    run in separate, equal groups), the shard count D and its index.
+
+    ``recorder`` (a list; the dry-run's virtual mesh, ``launch.dryrun_lib``)
+    replaces the group: each collective appends ``{"op", "result_bytes",
+    "group"}`` and returns what one rank's call would, communicating
+    nothing."""
 
     group: Any
     num_shards: int
     index: int
+    recorder: Optional[list] = None
 
 
 _SHARDS: Dict[Tuple[int, Tuple[str, ...]], Tuple[Any, ClientShards]] = {}
@@ -127,6 +133,9 @@ def client_shards(mesh, client_axes=("data",)) -> ClientShards:
     import torch.distributed as dist
 
     ca = _axis_tuple(client_axes)
+    recorder = getattr(mesh, "recorder", None)
+    if recorder is not None:  # a virtual mesh: no ranks behind it
+        return ClientShards(None, num_client_shards(mesh, ca), _shard_index(mesh, ca), recorder)
     key = (id(mesh), ca)
     hit = _SHARDS.get(key)
     if hit is not None and hit[0] is mesh:
@@ -152,10 +161,18 @@ def _through_host(x: torch.Tensor, sh: ClientShards) -> bool:
     return x.is_cuda and dist.get_backend(sh.group) == "gloo"
 
 
+def _record(sh: ClientShards, op: str, result: torch.Tensor) -> None:
+    sh.recorder.append({"op": op, "result_bytes": result.numel() * result.element_size(),
+                        "group": sh.num_shards})
+
+
 def _all_reduce(buf: torch.Tensor, sh: ClientShards) -> torch.Tensor:
     """Sum ``buf`` over the client shards, in place."""
     import torch.distributed as dist
 
+    if sh.recorder is not None:
+        _record(sh, "all-reduce", buf)
+        return buf
     if _through_host(buf, sh):
         host = buf.cpu()
         dist.all_reduce(host, group=sh.group)
@@ -167,6 +184,11 @@ def _all_reduce(buf: torch.Tensor, sh: ClientShards) -> torch.Tensor:
 def _all_gather(x: torch.Tensor, sh: ClientShards) -> torch.Tensor:
     """Concatenate every shard's ``x`` on axis 0, in client order."""
     import torch.distributed as dist
+
+    if sh.recorder is not None:
+        out = torch.cat([x] * sh.num_shards, dim=0)  # the gathered shape
+        _record(sh, "all-gather", out)
+        return out
 
     src = x.cpu() if _through_host(x, sh) else x.contiguous()
     out = [torch.empty_like(src) for _ in range(sh.num_shards)]

@@ -40,6 +40,10 @@ a CUDA tensor it launches B4d or raises; on a CPU tensor it runs
 splits' partials in a second launch when there is more than one split;
 ``decode_launches`` counts one a call either way, apart from the training
 kernels' ``launches``; ``reset_launches`` sets both to 0.
+
+On ``meta`` tensors every wrapper launches nothing and counts nothing: it
+returns empty outputs of the kernel's shapes and tells the dry-run's
+recorder the call (``kernels.meta``).
 """
 from __future__ import annotations
 
@@ -51,7 +55,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from .. import build
+from .. import build, meta
 from .ref import (
     swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref, swa_decode_ref,
 )
@@ -166,9 +170,26 @@ def _raise_on(status: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {status}")
 
 
+def _record_meta(name: str, q, k, window, prefix_len) -> None:
+    """Tell the dry-run's recorder of one attention call on ``meta``."""
+    B, Sq, H, hd = q.shape
+    Sk = k.shape[1]
+    meta.record(name, B=B, Sq=Sq, Sk=Sk, H=H, K=k.shape[2], hd=hd,
+                window=effective_window(window, Sq), prefix=effective_prefix(prefix_len, Sk),
+                elt=q.element_size())
+
+
+def _lse_like(q: torch.Tensor) -> torch.Tensor:
+    B, S, H, _ = q.shape
+    return torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+
+
 def swa_attention_fwd(q, k, v, window: int = 0,
                       prefix_len: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
     """B4: (o [B, Sq, H, hd] in q's dtype, lse [B, H, Sq] f32)."""
+    if meta.is_meta(q):
+        _record_meta("swa_attention_fwd", q, k, window, prefix_len)
+        return torch.empty_like(q), _lse_like(q)
     if not _check(q, k, v):
         return swa_attention_ref(q, k, v, window, prefix_len)
     B, S, H, hd = q.shape
@@ -207,6 +228,9 @@ def _dims(q, k, window, prefix_len):
 
 def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0, prefix_len: int = 0):
     """B5's q-parallel pass: (dq in q's dtype, delta = rowsum(o·do) [B, H, Sq])."""
+    if meta.is_meta(q):
+        _record_meta("swa_attention_bwd_dq", q, k, window, prefix_len)
+        return torch.empty_like(q), _lse_like(q)
     if not _check(q, k, v):
         return swa_attention_bwd_dq_ref(q, k, v, o, lse, do, window, prefix_len)
     _check_bwd(q, lse, o, do)
@@ -228,6 +252,9 @@ def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0, prefix_len: int =
 def swa_attention_bwd_dkv(q, k, v, lse, delta, do, window: int = 0, prefix_len: int = 0):
     """B5's kv-parallel pass: (dk, dv), each summed over the G query heads of
     its kv head."""
+    if meta.is_meta(q):
+        _record_meta("swa_attention_bwd_dkv", q, k, window, prefix_len)
+        return torch.empty_like(k), torch.empty_like(v)
     if not _check(q, k, v):
         return swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window, prefix_len)
     _check_bwd(q, lse, do)
@@ -408,6 +435,11 @@ def swa_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache_pos: tor
     ([C], -1 unfilled); o [B, 1, H, hd] in q's dtype.  A slot is visible
     when 0 <= p <= q_pos and, for ``window`` > 0, p > q_pos - window; a row
     with no visible slot is NaN."""
+    if meta.is_meta(q):
+        B, _, H, hd = q.shape
+        meta.record("swa_decode", B=B, C=k.shape[1], H=H, K=k.shape[2], hd=hd,
+                    window=max(int(window), 0), elt=q.element_size())
+        return torch.empty_like(q)
     if not _check_decode(q, k, v, cache_pos, q_pos):
         return swa_decode_ref(q, k, v, cache_pos, q_pos, window)
     B, _, H, hd = q.shape

@@ -109,8 +109,12 @@ struct Q8Load {
   long long P;      // padded payload width Pp
   long long tiles;  // Pp / tile
   int tile;
+  // __fmul_rn: the dequantized value is rounded on its own, as the plain
+  // version rounds it, and never contracted into the caller's sum (an FMA
+  // there would round q * scale + s once, so B3's member-weighted sum and
+  // B2's plain one would part by an ulp where they must agree)
   __device__ __forceinline__ float operator()(int n, long long p) const {
-    return static_cast<float>(q[n * P + p]) * scales[n * tiles + p / tile];
+    return __fmul_rn(static_cast<float>(q[n * P + p]), scales[n * tiles + p / tile]);
   }
 };
 

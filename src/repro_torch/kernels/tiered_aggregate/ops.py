@@ -24,7 +24,9 @@ client-stacked tree, as ``tiers.synchronize`` does per (tier, level);
 ``masked_ragged_aggregate_tree`` applies B3m, as
 ``tiers.ragged_synchronize(mask=)`` does per (unit, tier, level).
 Flags are host-side Python values, so choosing a round's levels never waits
-for the device.
+for the device.  On ``meta`` tensors B1, B2 and B1m launch nothing and
+count nothing: they return empty outputs of the kernel's shapes and tell
+the dry-run's recorder the call (``kernels.meta``).
 """
 from __future__ import annotations
 
@@ -36,7 +38,7 @@ import torch
 
 from ..._tree import tree_map
 from ...compress.quantize import q8_quantize
-from .. import build
+from .. import build, meta
 from .ref import (
     masked_quantized_tiered_aggregate_ref,
     masked_ragged_quantized_tiered_aggregate_ref,
@@ -110,6 +112,25 @@ def _on_cuda(x: torch.Tensor, *others: torch.Tensor) -> bool:
     return x.device.type == "cuda"
 
 
+def _on_meta(x: torch.Tensor, *others: torch.Tensor) -> bool:
+    """True for shape propagation on ``meta`` (every tensor there); raises
+    on a mix of devices."""
+    if not meta.is_meta(x):
+        return False
+    for o in others:
+        if o.device != x.device:
+            raise ValueError(f"tensors on {x.device} and {o.device}")
+    return True
+
+
+def _meta_call(name: str, out: torch.Tensor, N: int, P: int, num_entities: int,
+               do_entity, do_global, **extra) -> torch.Tensor:
+    """``out`` after telling the dry-run's recorder of one call on ``meta``."""
+    meta.record(name, N=N, P=P, J=num_entities, de=bool(do_entity), dg=bool(do_global),
+                **extra)
+    return out
+
+
 def _check_weights(weights: torch.Tensor, N: int) -> None:
     if weights.shape != (N,) or weights.dtype != torch.float32:
         raise ValueError(
@@ -136,6 +157,9 @@ def tiered_aggregate(
         )
     N, P = x.shape
     _check_weights(weights, N)
+    if _on_meta(x, weights):
+        return _meta_call("tiered_aggregate", torch.empty_like(x), N, P, num_entities,
+                          do_entity, do_global, elt=x.element_size())
     if not _on_cuda(x, weights):
         return tiered_aggregate_ref(x, weights, do_entity, do_global, num_entities)
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -179,6 +203,10 @@ def quantized_tiered_aggregate(
         )
     if q.dtype != torch.int8:
         raise ValueError(f"q dtype {q.dtype}: the wire payload is int8")
+    if _on_meta(q, scales, weights):
+        out = torch.empty((N, Pp), dtype=torch.float32, device=q.device)
+        return _meta_call("tiered_aggregate_q8", out, N, Pp, num_entities, do_entity,
+                          do_global, tile=tile_p)
     if not _on_cuda(q, scales, weights):
         return quantized_tiered_aggregate_ref(
             q, scales, weights, do_entity, do_global, num_entities, tile_p
@@ -372,6 +400,9 @@ def masked_tiered_aggregate(
         raise ValueError(
             f"keep must be {x.dtype} {tuple(x.shape)}, got {keep.dtype} {tuple(keep.shape)}"
         )
+    if _on_meta(x, mask, keep):
+        return _meta_call("masked_tiered_aggregate", torch.empty_like(x), N, P, num_entities,
+                          do_entity, do_global, elt=x.element_size())
     if not _on_cuda(x, mask, keep):
         return masked_tiered_aggregate_ref(x, mask, keep, do_entity, do_global, num_entities)
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -420,6 +451,10 @@ def masked_quantized_tiered_aggregate(
         raise ValueError(
             f"keep must be f32 [{N}, P <= {Pp}], got {keep.dtype} {tuple(keep.shape)}"
         )
+    if _on_meta(q, scales, mask, keep):
+        out = torch.empty(tuple(keep.shape), dtype=torch.float32, device=q.device)
+        return _meta_call("masked_tiered_aggregate_q8", out, N, Pp, num_entities, do_entity,
+                          do_global, tile=tile_p)
     if not _on_cuda(q, scales, mask, keep):
         return masked_quantized_tiered_aggregate_ref(
             q, scales, mask, keep, do_entity, do_global, num_entities, tile_p

@@ -10,10 +10,12 @@ Self-attention runs through the flash-attention kernels
 window; the JAX package's ``_sdpa`` / ``_blockwise_sdpa`` split computes the
 same function and has no counterpart here.  The QKV, output, MLP, router,
 expert and Mamba projections stay ``torch.matmul`` / ``torch.einsum``, as
-the JAX package leaves them to XLA; so do the MoE dispatch (``moe``: top-k
-routing with capacity, an index scatter into per-group expert buffers and
-a gather or scatter-add combine) and Mamba2's chunked SSD scan
-(``ssd_scan``), which the JAX package runs in ``jnp`` too.
+the JAX package leaves them to XLA (the weight products without batch
+dimensions through ``dot``, which the ``"dots"`` remat policy saves); so
+do the MoE dispatch (``moe``: top-k routing with capacity, an index
+scatter into per-group expert buffers and a gather or scatter-add
+combine) and Mamba2's chunked SSD scan (``ssd_scan``), which the JAX
+package runs in ``jnp`` too.
 
 Decoding (serving) keeps a KV cache per attention layer (``init_attn_cache``)
 and a conv and SSM state per Mamba block (``init_mamba_cache``).  One token
@@ -35,8 +37,9 @@ every encoder slot at position 0, so every slot is visible.
 """
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -54,6 +57,28 @@ def _dense_init(gen: torch.Generator, shape, dtype, scale: Optional[float] = Non
     return (torch.randn(tuple(shape), generator=gen) * s).to(dtype)
 
 
+# the active "dots" remat segment's tape (``models.remat``), else None
+_DOT_TAPE: Optional[Callable[[torch.Tensor, torch.Tensor], torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def dot_tape(tape: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]):
+    """Route every ``dot`` through ``tape`` inside the block."""
+    global _DOT_TAPE
+    prev, _DOT_TAPE = _DOT_TAPE, tape
+    try:
+        yield
+    finally:
+        _DOT_TAPE = prev
+
+
+def dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w``, a weight product without batch dimensions: the products
+    that the ``"dots"`` remat policy saves (JAX's
+    ``dots_with_no_batch_dims_saveable``)."""
+    return x @ w if _DOT_TAPE is None else _DOT_TAPE(x, w)
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     dt = x.dtype
     x = x.float()
@@ -67,7 +92,7 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor
     hd = x.shape[-1]
     half = hd // 2
     exps = -torch.arange(0, half, dtype=torch.float32, device=x.device) / half
-    freqs = torch.pow(torch.tensor(theta, dtype=torch.float32, device=x.device), exps)
+    freqs = torch.pow(torch.full((), theta, dtype=torch.float32, device=x.device), exps)
     ang = positions[..., :, None].float() * freqs  # [..., S, half]
     cos = torch.cos(ang)[..., :, None, :]  # [..., S, 1, half]
     sin = torch.sin(ang)[..., :, None, :]
@@ -175,12 +200,12 @@ def attention(
         if positions is None:
             positions = torch.zeros((1,), dtype=torch.int32, device=x.device)
 
-    q = x @ params["wq"]
+    q = dot(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
     q = q.reshape(B, S, h, hd)
-    kx = x @ params["wk"]
-    vx = x @ params["wv"]
+    kx = dot(x, params["wk"])
+    vx = dot(x, params["wv"])
     if "bk" in params:
         kx = kx + params["bk"]
         vx = vx + params["bv"]
@@ -197,7 +222,7 @@ def attention(
     if cache is None:
         # bidirectional: a prefix that covers every key
         out = swa_attention(q, kx, vx, spec.window, prefix_len if causal else S)
-        return out.reshape(B, S, h * hd) @ params["wo"], None
+        return dot(out.reshape(B, S, h * hd), params["wo"]), None
 
     if prefix_len > 0 or not causal:
         raise ValueError("decode attention (B4d) is causal and takes no prefix: the VLM "
@@ -211,7 +236,7 @@ def attention(
     cpos[slot] = idx
     new_cache = {"k": ck, "v": cv, "positions": cpos, "index": cache["index"] + 1}
     out = swa_decode(q, ck, cv, cpos, positions, spec.window)
-    return out.reshape(B, S, h * hd) @ params["wo"], new_cache
+    return dot(out.reshape(B, S, h * hd), params["wo"]), new_cache
 
 
 def _cross_attention(params: Params, x: torch.Tensor, spec: ModelSpec,
@@ -221,7 +246,7 @@ def _cross_attention(params: Params, x: torch.Tensor, spec: ModelSpec,
     B, S, _ = x.shape
     h, hd = spec.num_heads, spec.hd
     k, v = kv
-    q = x @ params["wq"]
+    q = dot(x, params["wq"])
     if "bq" in params:
         q = q + params["bq"]
     q = q.reshape(B, S, h, hd)
@@ -235,7 +260,7 @@ def _cross_attention(params: Params, x: torch.Tensor, spec: ModelSpec,
         # every slot at position 0 <= the query's: all visible, no window
         slots = torch.zeros((k.shape[1],), dtype=torch.int32, device=k.device)
         out = swa_decode(q, k, v, slots, positions, 0)
-    return out.reshape(B, S, h * hd) @ params["wo"]
+    return dot(out.reshape(B, S, h * hd), params["wo"])
 
 
 def _cache_slot(idx: int, C: int, window: int) -> int:
@@ -296,9 +321,9 @@ def init_mlp(gen: torch.Generator, spec: ModelSpec, d_ff: Optional[int] = None,
 
 def mlp(params: Params, x: torch.Tensor) -> torch.Tensor:
     if "w3" in params:
-        return (F.silu(x @ params["w1"]) * (x @ params["w3"])) @ params["w2"]
+        return dot(F.silu(dot(x, params["w1"])) * dot(x, params["w3"]), params["w2"])
     # jax.nn.gelu's default is the tanh approximation
-    return F.gelu(x @ params["w1"], approximate="tanh") @ params["w2"]
+    return dot(F.gelu(dot(x, params["w1"]), approximate="tanh"), params["w2"])
 
 
 
@@ -324,7 +349,7 @@ def moe_route(params: Params, xg: torch.Tensor, spec: ModelSpec):
     """Router of ``moe`` on grouped tokens ``xg`` [G, Tg, d]: (the softmax
     probabilities [G, Tg, E], the top-k gate values renormalised over the k
     [G, Tg, K], the expert ids [G, Tg, K], descending by gate)."""
-    logits = (xg @ params["router"]).float()
+    logits = dot(xg, params["router"]).float()
     probs = torch.softmax(logits, dim=-1)
     gate_vals, expert_ids = torch.topk(probs, spec.moe.top_k, dim=-1)
     gate_vals = gate_vals / torch.clamp(torch.sum(gate_vals, dim=-1, keepdim=True), min=1e-9)
@@ -516,7 +541,7 @@ def mamba_block(
     n = ss.state_dim
     B, S, _ = x.shape
 
-    zxbcdt = x @ params["in_proj"]
+    zxbcdt = dot(x, params["in_proj"])
     z, xs, Bm, Cm, dt = torch.split(zxbcdt, [di, di, n, n, nh], dim=-1)
     # dt and A in f32 at least (f64 stays f64); jax.nn.softplus is logaddexp(x, 0)
     f32 = torch.promote_types(x.dtype, torch.float32)
@@ -552,7 +577,7 @@ def mamba_block(
 
     y = y.reshape(B, S, di)
     y = rms_norm(y * F.silu(z), params["gate_norm"], spec.norm_eps)
-    return y @ params["out_proj"], new_cache
+    return dot(y, params["out_proj"]), new_cache
 
 
 def init_mamba_cache(spec: ModelSpec, batch: int,

@@ -43,10 +43,15 @@ encoder unit runs unroped bidirectional self-attention and a GELU MLP on
 runs the decoder units against cross caches ``xk``/``xv`` that, as in the
 JAX package, start at zero and are never filled from an encoder.
 
-Not ported yet (ROADMAP A14.6): ``spec.remat`` (``torch.utils.checkpoint``
-does not compose with ``torch.func``).  The
-GSPMD hooks of the JAX class (``carry_constraint``, ``moe_constraint``) pin
-XLA shardings and have no counterpart here.
+Under ``spec.remat`` each unit's body runs in ``remat.remat`` under
+``spec.remat_policy``, as JAX wraps ``body``, ``enc_body`` and
+``dec_body`` in ``jax.checkpoint``: the backward recomputes the unit from
+its input carry.  ``"outs"`` splits a dense, VLM or MoE unit into its
+attention and FFN sublayers, two segments, so their outputs' sums are
+saved (JAX names ``attn_out`` and ``ffn_out`` there only); the other
+units run whole.  Decoding is not rematerialised.  The GSPMD hooks of the
+JAX class (``carry_constraint``, ``moe_constraint``) pin XLA shardings and
+have no counterpart here.
 """
 from __future__ import annotations
 
@@ -58,6 +63,7 @@ import torch
 from .._device import DeviceLike, resolve_device
 from .._tree import tree_leaves, tree_map
 from . import layers as L
+from .remat import POLICIES, remat
 from .spec import ModelSpec
 
 Params = Dict[str, Any]
@@ -92,11 +98,9 @@ class SplittableModel:
         if spec.family not in FAMILIES:
             raise ValueError(f"{spec.name}: unknown family {spec.family!r}; "
                              f"SplittableModel runs the {', '.join(FAMILIES)} families")
-        if spec.remat:
-            raise NotImplementedError(
-                "spec.remat: unit rematerialisation is ported with ROADMAP A14.6 "
-                "(torch.utils.checkpoint does not compose with torch.func)"
-            )
+        if spec.remat and spec.remat_policy not in POLICIES:
+            raise ValueError(f"{spec.name}: remat policy {spec.remat_policy!r}, "
+                             f"one of {POLICIES}")
         self.spec = spec
         # the MoE dispatch's group count (Engine B sets it per tier)
         self.moe_groups = 1
@@ -167,9 +171,10 @@ class SplittableModel:
                            prefix_len=prefix_len)
         return a
 
-    def _moe(self, p: Params, h: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def _moe(self, p: Params, h: torch.Tensor,
+             groups: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
         return L.moe(p, L.rms_norm(h, p["norm"], self.spec.norm_eps), self.spec,
-                     groups=self.moe_groups)
+                     groups=self.moe_groups if groups is None else groups)
 
     def _mamba(self, p: Params, h: torch.Tensor) -> torch.Tensor:
         o, _ = L.mamba_block(p, L.rms_norm(h, p["norm"], self.spec.norm_eps), self.spec)
@@ -178,18 +183,28 @@ class SplittableModel:
     def _mlp(self, p: Params, h: torch.Tensor) -> torch.Tensor:
         return L.mlp(p, L.rms_norm(h, p["norm"], self.spec.norm_eps))
 
-    def _apply_one_unit(self, up: Params, carry: Params, prefix_len: int) -> Params:
+    def _attn_sublayer(self, p: Params, h: torch.Tensor, prefix_len: int) -> torch.Tensor:
+        """The attention half of a dense, VLM or MoE unit (JAX's ``attn_out``
+        added to the residual)."""
+        return h + self._attention(p, h, prefix_len)
+
+    def _ffn_sublayer(self, up: Params, h: torch.Tensor, aux: torch.Tensor,
+                      groups: int) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The FFN half of a dense, VLM or MoE unit (JAX's ``ffn_out`` added
+        to the residual): (h, aux plus the MoE layer's)."""
+        if self.spec.family == "moe":
+            o, al = self._moe(up["moe"], h, groups)
+            return h + o, aux + al
+        return h + self._mlp(up["mlp"], h), aux
+
+    def _apply_one_unit(self, up: Params, carry: Params, prefix_len: int,
+                        groups: int) -> Params:
         spec = self.spec
         fam = spec.family
         h, aux = carry["h"], carry["aux"]
         if fam in ("dense", "vlm", "moe"):
-            h = h + self._attention(up["attn"], h, prefix_len)
-            if fam == "moe":
-                o, al = self._moe(up["moe"], h)
-                aux = aux + al
-            else:
-                o = self._mlp(up["mlp"], h)
-            h = h + o
+            h = self._attn_sublayer(up["attn"], h, prefix_len)
+            h, aux = self._ffn_sublayer(up, h, aux, groups)
         elif fam == "ssm":
             h = h + self._mamba(up["mamba"], h)
         else:  # hybrid: attention, then Mamba; MoE on every moe_period-th sub-layer
@@ -204,7 +219,7 @@ class SplittableModel:
                 else:
                     h = h + self._mamba(mambas.pop(0), h)
                 if j % spec.moe_period == 1:
-                    o, al = self._moe(moes.pop(0), h)
+                    o, al = self._moe(moes.pop(0), h, groups)
                     aux = aux + al
                 else:
                     o = self._mlp(mlps.pop(0), h)
@@ -213,6 +228,23 @@ class SplittableModel:
         out["h"] = h
         out["aux"] = aux
         return out
+
+    def _unit(self, up: Params, carry: Params, prefix_len: int, groups: int) -> Params:
+        """One unit of ``apply_units``, rematerialised under ``spec.remat``
+        (the MoE group count bound now: the replay runs in the backward)."""
+        spec = self.spec
+        if not spec.remat:
+            return self._apply_one_unit(up, carry, prefix_len, groups)
+        if spec.remat_policy == "outs" and spec.family in ("dense", "vlm", "moe"):
+            out = dict(carry)
+            out["h"] = remat(lambda p, h: self._attn_sublayer(p, h, prefix_len),
+                             up["attn"], carry["h"])
+            ffn = {k: v for k, v in up.items() if k != "attn"}
+            out["h"], out["aux"] = remat(
+                lambda p, h, a: self._ffn_sublayer(p, h, a, groups), ffn, out["h"], out["aux"])
+            return out
+        return remat(lambda p, c: self._apply_one_unit(p, c, prefix_len, groups), up, carry,
+                     policy=spec.remat_policy)
 
     def _apply_enc_unit(self, up: Params, henc: torch.Tensor) -> torch.Tensor:
         """An encoder unit: unroped bidirectional self-attention, GELU MLP."""
@@ -231,8 +263,8 @@ class SplittableModel:
         h = h + self._attention(up["attn"], h)
         enc, px = carry["enc"], up["xattn"]
         kv_shape = (enc.shape[0], enc.shape[1], spec.num_kv_heads, spec.hd)
-        kx = (enc @ px["wk"]).reshape(kv_shape)
-        vx = (enc @ px["wv"]).reshape(kv_shape)
+        kx = L.dot(enc, px["wk"]).reshape(kv_shape)
+        vx = L.dot(enc, px["wv"]).reshape(kv_shape)
         x, _ = L.attention(px, L.rms_norm(h, px["norm"], spec.norm_eps), spec,
                            kv_override=(kx, vx), use_rope=False)
         h = h + x
@@ -256,17 +288,23 @@ class SplittableModel:
         no more than ``encoder_layers`` units (ROADMAP §C)."""
         if lo >= hi:
             return carry
-        if self.spec.family == "audio":
+        spec = self.spec
+        if spec.family == "audio":
+            def body(fn, up, c):
+                return (remat(fn, up, c, policy=spec.remat_policy) if spec.remat
+                        else fn(up, c))
+
             ne = tree_leaves(units["enc"])[0].shape[0]  # the encoder units held
             (e_lo, e_hi), (d_lo, d_hi) = enc_dec_range(lo, hi, ne)
             carry = dict(carry)
             for up in _unstack(units["enc"], e_lo, e_hi):
-                carry["enc"] = self._apply_enc_unit(up, carry["enc"])
+                carry["enc"] = body(self._apply_enc_unit, up, carry["enc"])
             for up in _unstack(units["dec"], d_lo, d_hi):
-                carry = self._apply_dec_unit(up, carry)
+                carry = body(self._apply_dec_unit, up, carry)
             return carry
+        groups = self.moe_groups
         for up in _unstack(units, lo, hi):
-            carry = self._apply_one_unit(up, carry, prefix_len)
+            carry = self._unit(up, carry, prefix_len, groups)
         return carry
 
 

@@ -1276,3 +1276,60 @@ def test_decode_step_on_card_matches_cpu_and_counts_launches(cuda, arch, window)
     ref = logits["cpu"][..., : spec.vocab_size]
     err = (logits["cuda"][..., : spec.vocab_size] - ref).abs().max()
     assert float(err) <= 2e-5 * float(ref.abs().max())
+
+
+# --------------------------------------------------------------------------- #
+# unit rematerialisation and the int8-wire checks (check.py) on the card
+# --------------------------------------------------------------------------- #
+
+
+@pytest.mark.parametrize("policy", ["full", "outs", "dots"])
+@pytest.mark.parametrize("arch", ["smollm-135m", "mamba2-1.3b"])
+def test_remat_is_bit_equal_to_no_remat_on_card(cuda, arch, policy):
+    """REDUCED, two clients through Engine A's ``vmap(grad_and_value)``:
+    the losses and every gradient with remat equal those without, bit for
+    bit; B4 runs twice (the replay) where the model has attention."""
+    import dataclasses
+
+    from repro_torch._tree import tree_leaves
+
+    spec = get_reduced(arch)
+    plain = SplittableModel(spec)
+    rm = SplittableModel(dataclasses.replace(spec, remat=True, remat_policy=policy))
+    p = plain.init_params(torch.Generator().manual_seed(0), cuda)
+    pN = tree_map(lambda x: torch.stack([x, 1.01 * x]), p)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    toks = torch.randint(0, spec.vocab_size, (2, 2, 33), generator=g, device=cuda)
+    batch = {"tokens": toks[..., :-1].int(), "labels": toks[..., 1:].int()}
+    swa.reset_launches()
+    ref = vmap(grad_and_value(plain.loss_fn))(pN, batch)
+    fwd = swa.launches["swa_attention_fwd"]
+    swa.reset_launches()
+    got = vmap(grad_and_value(rm.loss_fn))(pN, batch)
+    torch.cuda.synchronize()
+    assert swa.launches["swa_attention_fwd"] == 2 * fwd
+    for a, b in zip(tree_leaves(got), tree_leaves(ref)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("N,J", [(20, 5), (20, 1), (16, 4)])
+def test_check_q8_and_ragged_q8_at_the_vgg_leaf_widths(cuda, N, J):
+    """``kernels/tiered_aggregate/check.py`` on the card's B2 and B3 at every
+    VGG-16 leaf width that ``chip_smoke.py`` checks, its seeded draws: each
+    kernel against its plain version, the entries against the payload route
+    and, at N = 16, J = 4 (groups of four, sixteen weights of 1/16 summing
+    to exactly 1.0 in any order), B3's all-ones collapse onto B2, bit for
+    bit; at N = 20 the weights sum to 1.0000001 left to right and the
+    collapse is not asked for, as JAX's condition says."""
+    from repro_torch.configs.vgg16_cifar10 import SPEC
+    from repro_torch.kernels.tiered_aggregate.check import (
+        assert_q8_matches_oracle, assert_ragged_q8_matches_oracle,
+    )
+
+    widths = set()
+    for u in range(SPEC.n_units):
+        _, cout, _ = SPEC.unit_io(u)
+        widths |= {SPEC.unit_param_count(u) - cout, cout}
+    for P in sorted(widths):
+        assert assert_q8_matches_oracle(N, J, P, 256, device=cuda) < 1e-3
+        assert assert_ragged_q8_matches_oracle(N, J, P, 256, device=cuda) < 1e-3

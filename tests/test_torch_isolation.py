@@ -85,7 +85,8 @@ def test_every_jax_module_of_the_slice_has_its_counterpart():
         "core/sharded.py", "launch/mesh.py", "launch/sharding.py",
         "configs/granite_moe_1b_a400m.py", "configs/phi3_5_moe_42b_a6_6b.py",
         "configs/mamba2_1_3b.py", "configs/jamba_1_5_large_398b.py",
-        "launch/serve.py",
+        "launch/serve.py", "launch/dryrun.py", "launch/dryrun_lib.py",
+        "kernels/tiered_aggregate/check.py",
     ]
     for rel in slice_modules:
         assert (ROOT / "src" / "repro" / rel).exists(), rel
@@ -93,6 +94,22 @@ def test_every_jax_module_of_the_slice_has_its_counterpart():
     assert (PORT / "kernels/tiered_aggregate/csrc/tiered_aggregate.cu").exists()
     assert (PORT / "kernels/swa_attention/csrc/swa_attention.cu").exists()
     assert (PORT / "kernels/swa_attention/csrc/swa_decode.cu").exists()
+
+
+# the two Pallas kernel files: their counterparts are the .cu sources
+PALLAS = {"kernels/swa_attention/swa_attention.py": "kernels/swa_attention/csrc/swa_attention.cu",
+          "kernels/tiered_aggregate/tiered_aggregate.py":
+              "kernels/tiered_aggregate/csrc/tiered_aggregate.cu"}
+
+
+def test_every_jax_module_has_its_counterpart():
+    """Every ``.py`` file of the JAX package has one at its relative path in
+    the port; the two Pallas kernel files have their CUDA sources."""
+    jax_pkg = ROOT / "src" / "repro"
+    rels = sorted(str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py"))
+    assert len(rels) >= 93
+    missing = [r for r in rels if not (PORT / PALLAS.get(r, r)).exists()]
+    assert not missing, missing
 
 
 _PROBE_SLICE = """
@@ -139,6 +156,11 @@ from repro_torch.kernels.swa_attention import decode_launches, swa_decode, swa_d
 from repro_torch.kernels.swa_attention.ops import DECODE_SOURCE
 from repro_torch.models.layers import init_attn_cache, init_mamba_cache
 assert DECODE_SOURCE.name == "swa_decode.cu" and decode_launches == {"swa_decode": 0}
+from repro_torch.models.remat import POLICIES, remat
+from repro_torch.kernels.tiered_aggregate.check import assert_q8_matches_oracle
+from repro_torch.launch.dryrun_lib import DryrunCase, count_train_step, run_case
+from repro_torch.launch.dryrun import main as dryrun_main
+assert POLICIES == ("full", "outs", "dots")
 print("ok")
 """
 

@@ -193,8 +193,9 @@ def test_unported_layer_paths_raise_naming_a14():
         L.attention(attn, x, spec, cache=L.init_attn_cache(spec, 1, 8, CPU))
     with pytest.raises(ValueError, match="need a cache"):
         L.attention(attn, x, spec, positions=torch.arange(4) + 1)
-    with pytest.raises(NotImplementedError, match="A14.6"):
-        SplittableModel(dataclasses.replace(spec, remat=True))
+    # unit rematerialisation (A14.6) is ported (tests/test_torch_remat.py
+    # holds it against the model without it and against JAX)
+    assert SplittableModel(dataclasses.replace(spec, remat=True)).spec.remat
     assert build_model(dataclasses.replace(spec, family="vlm", prefix_len=2)).prefix_len == 2
     audio = dataclasses.replace(spec, family="audio", encoder_layers=2, encoder_len=8)
     assert build_model(audio).spec.n_units == spec.num_layers + 2  # A14.5: enc ++ dec

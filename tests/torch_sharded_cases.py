@@ -100,11 +100,14 @@ def engine_kwargs(case: str):
 
 
 def run_engine(case: str, p0, plan_kw=PLAN, rounds: int = ROUNDS, mesh=None,
-               client_axes=("data",), arch: str = ARCH):
+               client_axes=("data",), arch: str = ARCH, remat=None):
     """(losses, full params as NumPy) of ``rounds`` Engine-A rounds of
     ``arch`` from the carried init, dispatched per round type as
     ``launch.train`` does; sharded over ``mesh``'s ``client_axes`` when one
+    is given; each unit rematerialised under the policy ``remat`` when one
     is given."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import get_reduced
@@ -118,6 +121,8 @@ def run_engine(case: str, p0, plan_kw=PLAN, rounds: int = ROUNDS, mesh=None,
 
     cpu = torch.device("cpu")
     spec = get_reduced(arch)
+    if remat is not None:
+        spec = dataclasses.replace(spec, remat=True, remat_policy=remat)
     model, opt = SplittableModel(spec), sgd(LR)
     plan = default_plan(spec.n_units, N, **plan_kw)
     kw = engine_kwargs(case)
@@ -252,6 +257,18 @@ def rank_engine_cases(p0):
 
     mesh = make_debug_mesh(data=dist.get_world_size(), model=1, device="cpu")
     return {c: run_engine(c, p0, mesh=mesh) for c in ENGINE_CASES}
+
+
+def rank_remat_cases(p0):
+    """The plain engine case with and without ``"full"`` remat on this rank
+    of a gloo world of D ranks (a ``data``×1 mesh)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_debug_mesh
+
+    mesh = make_debug_mesh(data=dist.get_world_size(), model=1, device="cpu")
+    return {"plain": run_engine("plain", p0, mesh=mesh),
+            "remat": run_engine("plain", p0, mesh=mesh, remat="full")}
 
 
 # --- the entry points: the CLI on REDUCED VGG, api.run ------------------- #
