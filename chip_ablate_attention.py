@@ -155,8 +155,8 @@ def build_variants(out: Path):
         # dtype, B, Sq, Sk, H, K, hd, window, prefix, scale, stream
         dims = [i] * 9 + [f, p]
         lib.swa_attention_fwd.argtypes = [p] * 5 + dims
-        for fn in (lib.swa_attention_bwd_dq, lib.swa_attention_bwd_dkv):
-            fn.argtypes = [p] * 8 + dims
+        lib.swa_attention_bwd_dq.argtypes = [p] * 8 + dims
+        lib.swa_attention_bwd_dkv.argtypes = [p] * 8 + [p, i] + dims  # ws, splits
         for fn in (lib.swa_attention_fwd, lib.swa_attention_bwd_dq, lib.swa_attention_bwd_dkv):
             fn.restype = i
         libs[name] = (lib, fwd_build(log))
@@ -232,7 +232,7 @@ def main() -> int:
         def run_dkv(lib=lib, dk=dk, dv=dv):
             if lib.swa_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                          rlse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                         dv.data_ptr(), *dims):
+                                         dv.data_ptr(), None, 1, *dims):  # hd 64: no split
                 raise RuntimeError("dk/dv launch failed")
 
         times[name].append((cuda_ms(run_fwd), cuda_ms(run_dq), cuda_ms(run_dkv)))

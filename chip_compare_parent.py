@@ -1,30 +1,39 @@
 #!/usr/bin/env python3
 """Hold the attention kernels (B4, B5) of this tree against an earlier
-tree's, bit for bit, on one GPU, where queries and keys are one sequence.
+tree's on one GPU, where queries and keys are one sequence: bit for bit at
+head dim <= 128, within the attention tolerance at head dim 256.
 
     python3 chip_compare_parent.py PARENT_DIR
 
 PARENT_DIR holds a checkout of the earlier commit (``git archive`` of it,
-unpacked).  Its ``csrc/swa_attention.cu`` takes one sequence length S in
-each C entry (dtype, B, S, H, K, hd, window, prefix, scale, stream); this
-tree's takes Sq and Sk.  Both sources are built with the package's nvcc
-flags, in parallel; then B4, the dq pass and the dk/dv pass of both run on
-the same inputs at every head dim, f32 and bf16, causal, windowed, with a
-prefix and bidirectional (a prefix of S), at ragged and tile-edge lengths,
-and every output (o, lse, dq, delta, dk, dv) must be equal bit for bit.
-Prints the card, the count of equal outputs, and exits non-zero on any
-difference.
+unpacked).  Its ``csrc/swa_attention.cu`` is read for its C entries'
+signatures: one sequence length S or Sq and Sk (dtype, B, S[, Sk], H, K,
+hd, window, prefix, scale, stream), and whether the dk/dv entry takes a
+workspace and a split count (ws, splits after dv).  Both sources are built
+with the package's nvcc flags, in parallel; then B4, the dq pass and the
+dk/dv pass of both run on the same inputs at every head dim, f32 and bf16,
+causal, windowed, with a prefix and bidirectional (a prefix of S), at
+ragged and tile-edge lengths: this tree's through the package's wrappers
+(which choose the dk/dv pass's split count), the parent's through its C
+entries.  Every output (o, lse, dq, delta, dk, dv) must be equal bit for
+bit, except at hd 256, where this tree's backward kernels were redesigned:
+there an output may differ within ATTN_TOL of max|parent| (f32; bf16 one
+bf16 ulp of each value beyond it) and is printed as changed by design.
+Prints the card, the counts, and exits non-zero on any other difference.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+import re
 import subprocess
 import sys
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REL = Path("src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu")
+ATTN_TOL = 2e-5  # chip_smoke.py's: the backward's error over max|ref|
+REDESIGNED_HD = 256  # the head dim whose backward kernels this tree changed
 
 # B, S, H, K, hd, window, prefix
 CASES = [(8, 1024, 9, 3, 64, 0, 0), (8, 1024, 9, 3, 64, 128, 0), (1, 300, 4, 1, 64, 128, 0),
@@ -34,19 +43,28 @@ CASES = [(8, 1024, 9, 3, 64, 0, 0), (8, 1024, 9, 3, 64, 128, 0), (1, 300, 4, 1, 
          (4, 448, 20, 20, 64, 0, 0), (2, 1500, 2, 1, 32, 300, 1500)]
 
 
-def bind(lib: ctypes.CDLL, two_lengths: bool) -> ctypes.CDLL:
+def signature(source: Path):
+    """(two lengths, a workspace) of a source's C entries: whether they take
+    Sq and Sk, and whether swa_attention_bwd_dkv takes ws and splits."""
+    text = source.read_text()
+    entry = re.search(r"int swa_attention_bwd_dkv\(([^)]*)\)", text).group(1)
+    return bool(re.search(r"\bint Sk\b", entry)), bool(re.search(r"\bint splits\b", entry))
+
+
+def bind(lib: ctypes.CDLL, two_lengths: bool, workspace: bool) -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     dims = [i] * (9 if two_lengths else 8) + [f, p]
     lib.swa_attention_fwd.argtypes = [p] * 5 + dims
     lib.swa_attention_bwd_dq.argtypes = [p] * 8 + dims
-    lib.swa_attention_bwd_dkv.argtypes = [p] * 8 + dims
+    lib.swa_attention_bwd_dkv.argtypes = [p] * 8 + ([p, i] if workspace else []) + dims
     for fn in (lib.swa_attention_fwd, lib.swa_attention_bwd_dq, lib.swa_attention_bwd_dkv):
         fn.restype = i
     return lib
 
 
-def passes(lib, two_lengths: bool, q, k, v, do, W: int, P: int):
-    """(o, lse, dq, delta, dk, dv) of one library's kernels."""
+def parent_passes(lib, two_lengths: bool, workspace: bool, q, k, v, do, W: int, P: int):
+    """(o, lse, dq, delta, dk, dv) of the parent's kernels through its C
+    entries (a workspace entry in one split)."""
     import torch
 
     from repro_torch.kernels.swa_attention.ops import _DTYPES, effective_prefix, effective_window
@@ -68,9 +86,39 @@ def passes(lib, two_lengths: bool, q, k, v, do, W: int, P: int):
         raise RuntimeError("dq launch failed")
     if lib.swa_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                                  lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-                                 *d):
+                                 *((None, 1) if workspace else ()), *d):
         raise RuntimeError("dk/dv launch failed")
     return o, lse, dq, delta, dk, dv
+
+
+def passes(q, k, v, do, W: int, P: int):
+    """(o, lse, dq, delta, dk, dv) of this tree's kernels, as the package's
+    wrappers launch them."""
+    from repro_torch.kernels.swa_attention import (
+        swa_attention_bwd_dkv, swa_attention_bwd_dq, swa_attention_fwd,
+    )
+
+    o, lse = swa_attention_fwd(q, k, v, W, P)
+    dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+    dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P)
+    return o, lse, dq, delta, dk, dv
+
+
+def normalised_diff(x, y):
+    """max|x - y| / max|y| if every element of x lies within ATTN_TOL of
+    max|y| of y (bf16: one bf16 ulp of each value beyond it), else None."""
+    import torch
+
+    bf16 = x.dtype == torch.bfloat16
+    x, y = x.float(), y.float()
+    err = (x - y).abs()
+    tol = ATTN_TOL * y.abs().max()
+    if bf16:
+        _, exp = torch.frexp(y)
+        tol = tol + torch.ldexp(torch.ones_like(y), exp - 8)
+    if bool((err > tol).any()):
+        return None
+    return float(err.max() / y.abs().max())
 
 
 def main(argv=None) -> int:
@@ -93,31 +141,41 @@ def main(argv=None) -> int:
     print(card)
     ours, parent = ROOT / REL, Path(argv[0]).resolve() / REL
     build.build([ours, parent])
-    libs = {"this tree": bind(ctypes.CDLL(str(build.library_path(ours))), True),
-            "parent": bind(ctypes.CDLL(str(build.library_path(parent))), False)}
+    two_lengths, workspace = signature(parent)
+    lib = bind(ctypes.CDLL(str(build.library_path(parent))), two_lengths, workspace)
     dev = torch.device("cuda", 0)
-    equal, differ = 0, []
+    equal, by_design, differ = 0, [], []
     for case in CASES:
         B, S, H, K, hd, W, P = case
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=dev).manual_seed(sum(case))
             q, do = (torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype) for _ in range(2))
             k, v = (torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype) for _ in range(2))
-            a = passes(libs["this tree"], True, q, k, v, do, W, P)
-            b = passes(libs["parent"], False, q, k, v, do, W, P)
+            a = passes(q, k, v, do, W, P)
+            b = parent_passes(lib, two_lengths, workspace, q, k, v, do, W, P)
             torch.cuda.synchronize()
             for name, x, y in zip(("o", "lse", "dq", "delta", "dk", "dv"), a, b):
                 if torch.equal(x, y):
                     equal += 1
+                    continue
+                line = (f"{name} {case} {dtype}: {int((x != y).sum())} elements, max "
+                        f"{float((x.float() - y.float()).abs().max()):.3e}")
+                rel = normalised_diff(x, y) if hd == REDESIGNED_HD else None
+                if rel is None:
+                    differ.append(line)
                 else:
-                    differ.append(f"{name} {case} {dtype}: {int((x != y).sum())} elements, max "
-                                  f"{float((x.float() - y.float()).abs().max()):.3e}")
+                    by_design.append(f"{line} ({rel:.3e} of max|parent|)")
+    for line in by_design:
+        print(f"[parent] changed by design (hd {REDESIGNED_HD}, within {ATTN_TOL} of "
+              f"max|parent|, bf16 one ulp beyond) {line}")
     for line in differ:
         print(f"[parent] DIFFERS {line}")
     # the summary last, where the tail of the output keeps it
     total = 6 * 2 * len(CASES)
     print(f"[parent] {equal} of {total} outputs of B4, B5 dq and B5 dk/dv equal the parent's "
-          f"kernels bit for bit ({len(CASES)} shapes x f32, bf16; Sq = Sk); card {card}")
+          f"kernels bit for bit, {len(by_design)} changed by design at hd {REDESIGNED_HD} "
+          f"within tolerance, {len(differ)} differ ({len(CASES)} shapes x f32, bf16; Sq = Sk); "
+          f"card {card}")
     return 0 if not differ else 1
 
 

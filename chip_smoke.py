@@ -8,8 +8,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. the card, its power limit, torch and CUDA versions (no card: exit 1);
 2. build every CUDA kernel of the package with nvcc, in parallel; print
    ptxas's registers and spills and cuobjdump's count of tensor-core (HMMA)
-   instructions of the attention kernels (B4, B5), and fail if one has none;
-   B4d's registers and spills;
+   instructions of the attention kernels (B4, B5), and fail if one has none
+   or if B5's 8-warp hd-256 kernels spill, with the occupancy calculator's
+   shared memory and blocks an SM; B4d's registers and spills;
 3. hold each kernel against its plain PyTorch version on the card: the
    aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
    ragged edge shapes (B2 and B3 through ``kernels/tiered_aggregate/
@@ -27,9 +28,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    qwen2.5's hd 32 / GQA 4:1, paligemma-3b's Engine-B tiers (hd 256, one kv
    head, the prefix-LM mask at prefix 256) and REDUCED paligemma's, hd 256
    without a prefix, prefixes under a window, at tile edges, at S and past
-   it, the causal shapes at prefix 0 and 1 equal and repeating bit for bit,
-   bf16 (the forward and both backward passes, hd 64 and paligemma's
-   shape), and under ``vmap(grad_and_value)``;
+   it, hd 256 where the dk/dv pass's splits meet an edge (G not a multiple
+   of the split count, kv tiles no q row sees, ragged Sq and Sk, batch 1),
+   the causal shapes at prefix 0 and 1 equal and repeating bit for bit,
+   bf16 (the forward and both backward passes, hd 64, paligemma's shape
+   and hd 256 under a window), and under ``vmap(grad_and_value)``;
 4. the port on the card against the port on the CPU: VGG REDUCED (N=4, 3
    rounds, f32 convolutions, TF32 off), VGG REDUCED with per-class cuts
    (N=8, 6 rounds, plain and over the int8 wire) and smollm-135m REDUCED
@@ -134,7 +137,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    phase boundary collects what earlier phases leave in reference cycles,
    so its cell finds the card empty): B4 and both B5 passes
    timed at paligemma-3b's Engine-B shape [4, 512, 8, 1, 256], prefix 256,
-   beside SDPA with a boolean mask; paligemma-3b at full width and depth
+   beside SDPA with a boolean mask (dq + dk/dv over SDPA's backward), and
+   the dk/dv pass at every split count beside ``dkv_splits``' choice;
+   paligemma-3b at full width and depth
    through Engine B (N=4, J2=2, batch 1, 256 image-prefix and 256 text
    tokens a client from ``configs.shapes.concrete_inputs`` on the card,
    cuts (1, 2), intervals (2, 2, 1), SGD 5e-4, 4 rounds): B4/B5 18 a
@@ -366,19 +371,33 @@ def check_kernels(spec):
 
 def _attention_kernel(mangled: str):
     """'swa_bwd_dq_kernel<64, f32>' for an attention kernel's mangled name
-    (B4's swa_fwd_kernel, B5's swa_bwd_dq_kernel and swa_bwd_dkv_kernel),
-    else None."""
-    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)_kernel)ILi(\d+)E(f|13__nv_bfloat16)", mangled)
+    (B4's swa_fwd_kernel, B5's swa_bwd_dq_kernel and swa_bwd_dkv_kernel at
+    hd <= 128, swa_bwd_dq_wide_kernel and swa_bwd_dkv_wide_kernel at hd
+    256), else None (the dk/dv merge, which multiplies nothing)."""
+    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)(?:_wide)?_kernel)ILi(\d+)E(f|13__nv_bfloat16)",
+                  mangled)
     return m and f"{m.group(1)}<{m.group(2)}, {'f32' if m.group(3) == 'f' else 'bf16'}>"
+
+
+def attention_kernel_name(name: str, hd: int) -> str:
+    """The kernel that a pass (a key of ATTN) runs at head dim hd."""
+    wide = name != "swa_attention_fwd" and hd > 128
+    return KERNEL_FN[name].replace("_kernel", "_wide_kernel") if wide else KERNEL_FN[name]
 
 
 def attention_build_report(source) -> dict:
     """ptxas's registers and spills and cuobjdump's count of tensor-core
     instructions (HMMA) for every attention kernel of the built library (3
-    kernels x 6 head dims x 2 dtypes); fails if one has none."""
+    passes x 6 head dims x 2 dtypes, the backward's at hd 256 the 8-warp
+    kernels); fails if one has none, or if an 8-warp kernel spills.  For
+    the kernels printed, the occupancy calculator's blocks an SM at the
+    launch's dynamic shared memory."""
     import os
 
+    import torch
+
     from repro_torch.kernels import build
+    from repro_torch.kernels.swa_attention import ops
 
     report, key = {}, None
     for line in build.build_log(source).read_text().splitlines():
@@ -404,16 +423,23 @@ def attention_build_report(source) -> dict:
             report[key]["hmma"] += 1
     if len(report) != 36 or any(r.get("hmma", 0) == 0 for r in report.values()):
         raise AssertionError(f"attention kernels without tensor-core instructions: {report}")
-    # hd 64: smollm-135m's path; hd 256: paligemma-3b's (the column-split tiles)
-    for key in ("swa_fwd_kernel<64, f32>", "swa_bwd_dq_kernel<64, f32>",
-                "swa_bwd_dkv_kernel<64, f32>", "swa_fwd_kernel<256, f32>",
-                "swa_bwd_dq_kernel<256, f32>", "swa_bwd_dkv_kernel<256, f32>",
-                "swa_fwd_kernel<256, bf16>", "swa_bwd_dq_kernel<256, bf16>",
-                "swa_bwd_dkv_kernel<256, bf16>"):
-        r = report[key]
-        print(f"[build] {key}: {r['registers']} registers, spill stores/loads "
-              f"{r['spill_stores']}/{r['spill_loads']} bytes (ptxas -v), {r['hmma']} HMMA "
-              f"instructions (cuobjdump -sass)")
+    # hd 64: smollm-135m's path; hd 256: paligemma-3b's (the forward's
+    # column-split tiles, the backward's 8-warp kernels)
+    passes = dict(zip(ATTN, ("fwd", "dq", "dkv")))
+    for hd, dtypes in ((64, ("f32",)), (256, ("f32", "bf16"))):
+        for dt in dtypes:
+            for name in ATTN:
+                key = f"{attention_kernel_name(name, hd)}<{hd}, {dt}>"
+                r = report[key]
+                r["blocks_per_sm"], r["smem_bytes"] = ops.occupancy(
+                    passes[name], torch.float32 if dt == "f32" else torch.bfloat16, hd)
+                print(f"[build] {key}: {r['registers']} registers, spill stores/loads "
+                      f"{r['spill_stores']}/{r['spill_loads']} bytes (ptxas -v), {r['hmma']} HMMA "
+                      f"instructions (cuobjdump -sass), {r['smem_bytes'] / 1024:.1f} KB dynamic "
+                      f"shared memory, {r['blocks_per_sm']} blocks an SM (occupancy calculator)")
+    spilled = {k: r for k, r in report.items() if "_wide_" in k and r["spill_stores"]}
+    if spilled:
+        raise AssertionError(f"the hd-256 backward kernels spill: {spilled}")
     print("[build] every attention kernel (B4 and B5, hd 32-256, f32 and bf16) has HMMA "
           "instructions: "
           + ", ".join(f"{k} {r['hmma']}" for k, r in report.items()))
@@ -1137,8 +1163,19 @@ def class_round_parts(card: str, run):
 # --------------------------------------------------------------------------- #
 
 
+# hd 256 where the dk/dv pass's splits (dkv_splits) meet an edge, (B, Sq, Sk,
+# H, K, hd, window, prefix): G not a multiple of the split count (G 6 in 4
+# splits, G 4 in 3, on an H100's 132 SMs), kv tiles that no q row sees (Sq <
+# Sk, causal) and a window of 48, ragged Sq and Sk, and batch 1 (8 splits,
+# the most)
+WIDE_EDGE_CASES = [(4, 512, 512, 6, 1, 256, 0, 0), (2, 512, 512, 8, 2, 256, 0, 256),
+                   (1, 100, 300, 4, 1, 256, 0, 0), (1, 300, 300, 4, 1, 256, 48, 0),
+                   (1, 130, 300, 8, 2, 256, 0, 300), (1, 300, 130, 6, 1, 256, 0, 0),
+                   (1, 512, 512, 8, 1, 256, 0, 256)]
+
+
 def attention_cases():
-    """(B, S, H, K, hd, window, prefix) of every attention check."""
+    """(B, Sq, Sk, H, K, hd, window, prefix) of every attention check."""
     cases = [(1, 256, 4, 2, 64, 128), (2, 384, 4, 4, 128, 256), (1, 512, 8, 2, 80, 0),
              (1, 300, 4, 1, 64, 128), (1, 256, 6, 3, 96, 128),
              (1, 640, 4, 2, 64, 512)]  # tests/test_kernels_swa.py's CASES
@@ -1162,7 +1199,7 @@ def attention_cases():
               (1, 300, 4, 1, 64, 64, 100), (1, 130, 4, 2, 256, 48, 70),
               (2, 256, 4, 2, 64, 0, 1), (1, 256, 4, 1, 128, 0, 32), (1, 256, 8, 1, 256, 0, 33),
               (1, 200, 4, 2, 64, 0, 199), (1, 200, 4, 2, 80, 0, 200), (1, 96, 4, 4, 32, 0, 1000)]
-    return cases
+    return [(B, S, S, H, K, hd, W, P) for B, S, H, K, hd, W, P in cases] + WIDE_EDGE_CASES
 
 
 def normalised_err(out, ref) -> float:
@@ -1188,13 +1225,14 @@ def check_attention():
 
     errs = dict.fromkeys(ATTN, 0.0)
     n_bitwise = 0
-    for B, S, H, K, hd, W, P in attention_cases():
-        q, k, v, do = randn(B, S, H, hd), randn(B, S, K, hd), randn(B, S, K, hd), randn(B, S, H, hd)
+    for B, Sq, Sk, H, K, hd, W, P in attention_cases():
+        q, k, v = randn(B, Sq, H, hd), randn(B, Sk, K, hd), randn(B, Sk, K, hd)
+        do = randn(B, Sq, H, hd)
         o, lse = swa_attention_fwd(q, k, v, W, P)
         dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
         dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P)
         torch.cuda.synchronize()
-        what = f"B={B} S={S} H={H} K={K} hd={hd} window={W} prefix={P}"
+        what = f"B={B} Sq={Sq} Sk={Sk} H={H} K={K} hd={hd} window={W} prefix={P}"
         ro, rlse = swa_attention_ref(q, k, v, W, P)
         torch.testing.assert_close(o, ro, rtol=ATTN_TOL, atol=ATTN_TOL, msg=f"B4 o {what}")
         torch.testing.assert_close(lse, rlse, rtol=ATTN_TOL, atol=ATTN_TOL, msg=f"B4 lse {what}")
@@ -1234,9 +1272,11 @@ def check_attention():
     n_cases = len(attention_cases())
 
     # bf16 inputs against the f32 plain version, the JAX test's tolerance:
-    # hd 64 under a window, and paligemma-3b's tiers (hd 256, prefix 256)
+    # hd 64 under a window, paligemma-3b's tiers (hd 256, prefix 256) and hd
+    # 256 under a window at G 6 (in 6 dk/dv splits)
     bf16_errs = dict.fromkeys(ATTN, 0.0)
-    for B, S, H, K, hd, W, P in ((1, 256, 4, 2, 64, 128, 0), VLM_ATTN + (0, VLM_PREFIX)):
+    for B, S, H, K, hd, W, P in ((1, 256, 4, 2, 64, 128, 0), VLM_ATTN + (0, VLM_PREFIX),
+                                 (1, 300, 6, 1, 256, 48, 0)):
         q, k, v, do = (randn(*s, dtype=torch.bfloat16) for s in
                        ((B, S, H, hd), (B, S, K, hd), (B, S, K, hd), (B, S, H, hd)))
         o, lse = swa_attention_fwd(q, k, v, W, P)
@@ -1287,9 +1327,10 @@ def check_attention():
     reset_launches()
     print(f"[attention] {n_cases} shapes x (B4, B5 dq, B5 dk/dv) against the plain versions "
           f"passed (forward rtol=atol {ATTN_TOL}; backward {ATTN_TOL} of max|ref|; hd 32-256, "
-          f"windows, prefixes 0 to past S); {n_bitwise} causal shapes at prefix 0 and 1 equal "
+          f"windows, prefixes 0 to past S, {len(WIDE_EDGE_CASES)} hd-256 edges of the dk/dv "
+          f"splits); {n_bitwise} causal shapes at prefix 0 and 1 equal "
           f"bit for bit and repeating bit for bit; bf16 (hd 64, and hd 256 at prefix "
-          f"{VLM_PREFIX}) forward within 3e-2 of f32 (max |err| {bf16_errs['swa_attention_fwd']:.3e}), bf16 "
+          f"{VLM_PREFIX} and under a window of 48) forward within 3e-2 of f32 (max |err| {bf16_errs['swa_attention_fwd']:.3e}), bf16 "
           f"backward within one bf16 ulp of the f32 tolerance (max |err| dq "
           f"{bf16_errs['swa_attention_bwd_dq']:.3e}, dk/dv "
           f"{bf16_errs['swa_attention_bwd_dkv']:.3e}); vmap(grad_and_value) "
@@ -1558,9 +1599,10 @@ def vlm_attention_timings(card: str):
     import torch.nn.functional as F
 
     from repro_torch.kernels.swa_attention import (
-        reset_launches, swa_attention_bwd_dkv, swa_attention_bwd_dkv_ref,
+        dkv_launch_splits, reset_launches, swa_attention_bwd_dkv, swa_attention_bwd_dkv_ref,
         swa_attention_bwd_dq, swa_attention_bwd_dq_ref, swa_attention_fwd, swa_attention_ref,
     )
+    from repro_torch.kernels.swa_attention import ops as swa_ops
     from repro_torch.kernels.swa_attention.ref import visible
     from repro_torch.launch.dryrun_lib import attention_work, visible_pairs
 
@@ -1598,6 +1640,7 @@ def vlm_attention_timings(card: str):
 
     f_ms, fb_ms = cuda_ms(lib_fwd), cuda_ms(lib_fwd_bwd)
     work = attention_work(B, S, H, K, hd, 0, P)
+    splits = dkv_launch_splits(q, k, 0, P)
     out = {}
     for name, (plain, kernel) in runs.items():
         km, pm = in_turns(plain, kernel)
@@ -1608,18 +1651,43 @@ def vlm_attention_timings(card: str):
                  bound_by="operations" if by_tc >= by_bytes else "bytes", ops=ops, bytes=nbytes,
                  library_ms=f_ms if name == "swa_attention_fwd" else fb_ms - f_ms,
                  visible_pairs=visible_pairs(S, 0, P))
+        if name == "swa_attention_bwd_dkv":
+            r["splits"] = splits
         out[name] = r
         print(f"[timing] {name} at paligemma-3b's B={B} S={S} H={H} K={K} hd={hd} prefix={P}: "
               f"kernel {km:.4f} ms, plain {pm:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: 3 x {ops / 1e9:.2f} GFLOP at 495 TFLOP/s TF32 over "
               f"{r['visible_pairs']} visible pairs a head, {nbytes / 1e6:.1f} MB at 3.35 TB/s) "
               f"= {100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
+    # the dk/dv pass at every split count (the C entry, as the wrapper calls
+    # it): the measure of dkv_splits' choice and of DKV_MERGE_ROWS
+    lib, dims = swa_ops._library(), swa_ops._dims(q, k, 0, P)
+    ws = torch.empty(H // K * 2 * k.numel(), device=dev)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    sweep = {}
+    for n in range(1, H // K + 1):
+        def call(n=n):
+            if lib.swa_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                                         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                                         dv.data_ptr(), ws.data_ptr(), n, *dims,
+                                         torch.cuda.current_stream().cuda_stream):
+                raise RuntimeError("dk/dv launch failed")
+        sweep[n] = cuda_ms(call)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    its = swa_ops.dkv_tile_iterations(S, S, H // K, 0, P)
+    spans = {n: swa_ops.dkv_makespan(its, B * K, n, sms) for n in sweep}
+    out["swa_attention_bwd_dkv"].update(split_sweep_ms=sweep, split_makespans=spans)
+    print(f"[timing] swa_attention_bwd_dkv at paligemma-3b's shape by split count: "
+          + ", ".join(f"{n} {ms:.4f}" for n, ms in sweep.items())
+          + f" ms; dkv_splits chose {splits}; the busiest SM's block-iterations "
+          + ", ".join(f"{n} {m}" for n, m in spans.items()) + f"; card {card}")
+    b5 = out["swa_attention_bwd_dq"]["ms"] + out["swa_attention_bwd_dkv"]["ms"]
     print(f"[timing] library yardstick torch.nn.functional.scaled_dot_product_attention "
           f"(enable_gqa, the prefix mask as a boolean attn_mask, f32, eager) at paligemma-3b's "
           f"shape: forward {f_ms:.4f} ms, forward+backward {fb_ms:.4f} ms (backward "
-          f"{fb_ms - f_ms:.4f} against B5's two passes "
-          f"{out['swa_attention_bwd_dq']['ms'] + out['swa_attention_bwd_dkv']['ms']:.4f}); "
-          f"card {card}")
+          f"{fb_ms - f_ms:.4f} against B5's two passes {b5:.4f}: dq + dk/dv over SDPA's "
+          f"backward = {b5 / (fb_ms - f_ms):.3f}; dk/dv in {splits} splits a kv tile, then "
+          f"the merge); card {card}")
     reset_launches()
     return out
 
@@ -6514,21 +6582,25 @@ def main() -> int:
         "bound_by": attn_times[(name, 0)]["bound_by"],
         "bound_against": "3xTF32 on the tensor cores: 3 x operations at 495 TFLOP/s",
         "bound_ms_f32_cuda_cores": attn_times[(name, 0)]["bound_ms_f32_cuda_cores"],
-        "build": attn_build[f"{KERNEL_FN[name]}<{hd}, f32>"],
+        "build": attn_build[f"{attention_kernel_name(name, hd)}<{hd}, f32>"],
         "library_ms": attn_times[(name, 0)]["library_ms"],
         "library": ("torch.nn.functional.scaled_dot_product_attention, "
                     + ("forward" if name == "swa_attention_fwd"
                        else "backward (dq, dk and dv together)")),
         **({} if name == "swa_attention_fwd" else {"library_ms_pair": b5_pair}),
         "timed_at": f"B={B} S={S} H={H} K={K} hd={hd} window=0 f32",
-        # paligemma-3b's Engine-B tiers: hd 256 (the column-split tiles), the
-        # prefix-LM mask; the library call is SDPA with a boolean mask
+        # paligemma-3b's Engine-B tiers: hd 256 (the forward's column-split
+        # tiles, the backward's 8-warp kernels and the dk/dv pass's splits),
+        # the prefix-LM mask; the library call is SDPA with a boolean mask
         "vlm": {**{k: vlm_out["attention"][name][k] for k in
                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "visible_pairs")},
                 "timed_at": (f"B={VLM_ATTN[0]} S={VLM_ATTN[1]} H={VLM_ATTN[2]} K={VLM_ATTN[3]} "
                              f"hd={VLM_ATTN[4]} prefix={VLM_PREFIX} f32"),
                 "launches": vlm_counts["vlm-paligemma-3b"][name],
-                "build": attn_build[f"{KERNEL_FN[name]}<{VLM_ATTN[4]}, f32>"]},
+                **({"splits": vlm_out["attention"][name]["splits"]}
+                   if name == "swa_attention_bwd_dkv" else {}),
+                "build": attn_build[f"{attention_kernel_name(name, VLM_ATTN[4])}"
+                                    f"<{VLM_ATTN[4]}, f32>"]},
         # whisper-large-v3's Engine-B tiers: the encoder (bidirectional, a
         # prefix of S), the decoder's self-attention and its cross-attention
         # (Sq != Sk); the library call is SDPA without a mask (causal for

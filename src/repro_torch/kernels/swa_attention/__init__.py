@@ -3,6 +3,8 @@ from .ops import (
     decode_launch_splits,
     decode_launches,
     decode_splits,
+    dkv_launch_splits,
+    dkv_splits,
     launches,
     reset_launches,
     swa_attention,

@@ -44,7 +44,8 @@
 // big and small part and a.b = a_small.b_big + a_big.b_small + a_big.b_big,
 // which holds the f32 tolerance where one TF32 product misses it 8-63x
 // (tests/test_torch_swa_tf32.py).  The scale is folded into q as its
-// fragments are loaded.  Blocks of 128 threads (4 warps); tiles staged as
+// fragments are loaded.  Blocks of 128 threads (4 warps; 8 for the
+// backward at hd 256, see below); tiles staged as
 // f32 with a row pitch of hd + 4 (hd + 8 for the forward's q and k),
 // conflict-free for every fragment load.
 // The scores and p (dp and ds) never leave registers: each warp computes
@@ -99,23 +100,42 @@
 // Head dim 256 (paligemma-3b).  A warp that owns 16 rows of o (or dq) over
 // all 256 dims holds 16 x 256 / 32 = 128 f32 accumulators a lane, and a
 // warp pair's dk and dv 256: past what a lane can hold beside its
-// fragments.  So at hd 256 the output's columns are split in two:
-//   forward and dq pass: a block is 2 row strips x 2 column halves (32 q
-//   rows, 4 warps).  Warps w and w + 2 own the same 16 rows; each computes
-//   s (and dp) over the full hd, the same values in the same order, and
-//   the online softmax of its rows, and keeps o (dq) for its 128 columns:
-//   64 accumulators a lane.  s is computed twice, 1.5x the forward's
-//   products (1.33x dq's); the sums and their order are those of hd <= 128.
-//   Shared memory: forward (32 + 2*32)*264 + 2*32*260 floats = 164 KB,
-//   dq (2*32 + 4*32)*260 = 195 KB (hd <= 128 tiles of 64 rows would take
-//   197 and 260 KB at hd 256), one block an SM.
-//   dk/dv pass: a third grid dimension of 2 column halves; each block
-//   recomputes s^T and dp^T over the full hd for its 32 keys and keeps its
-//   128 columns of dk and dv, 2 x 64 accumulators a lane, as at hd 128.
-//   k and v are split into TF32 parts as their fragments load instead of
-//   once a block: the split tiles would take (4*32 + 4*32)*260 floats =
-//   260 KB with the q/do ring; without them (2*32 + 4*32)*260 + 128 =
-//   196 KB.  The split values are the same either way.
+// fragments.
+//   forward: the output's columns are split in two; a block is 2 row
+//   strips x 2 column halves (32 q rows, 4 warps).  Warps w and w + 2 own
+//   the same 16 rows; each computes s over the full hd, the same values in
+//   the same order, and the online softmax of its rows, and keeps o for its
+//   128 columns: 64 accumulators a lane.  s is computed twice, 1.5x the
+//   forward's products; shared memory (32 + 2*32)*264 + 2*32*260 floats =
+//   164 KB, one block an SM.
+//   backward ("wide" kernels, blocks of 8 warps): every score product is
+//   computed once per (q tile, kv tile), its work spread over the 8 warps
+//   (each takes a part of the keys and of hd, the parts added through
+//   shared memory in a fixed order), and each warp owns 32 columns of the
+//   output.  p, dp and ds are then staged in shared memory as TF32 big and
+//   small parts, the A operands of the output's products for every warp.
+//   dq pass: a block per (batch*head, 32-row q tile), the heaviest first,
+//   walking 32-key kv tiles (2-stage ring); warp w computes s (w < 4) or dp
+//   for keys 16((w / 2) % 2).. over dims 128(w % 2).. of all 32 rows, and
+//   owns dq's columns 32w..32w+31 (32 accumulators a lane).  Shared memory
+//   (2*32 + 4*32)*260 + 8*32*16 + 2*32*40 + 64 floats = 226.6 KB.
+//   dk/dv pass: a block per (split, batch*kv head, 32-key kv tile) walking
+//   16-row q tiles (2-stage ring); k and v are split into TF32 parts once a
+//   block; warp w computes s^T (w < 4) or dp^T for all 32 keys x 16 rows
+//   over dims 64(w % 4).. and owns dk's and dv's columns 32w..32w+31 (64
+//   accumulators a lane).  Shared memory 4*32*260 + 4*16*260 + 64 + 8*32*16
+//   + 4*32*24 floats = 228.6 KB.  The (query head, q tile) iterations of a
+//   kv tile are cut into `splits` equal ranges over the grid's first
+//   dimension (dkv_splits in ops.py: the count whose blocks finish first
+//   under a model of the card's block schedule; at one kv head 64 kv tiles
+//   leave half the SMs idle); each split writes its f32 partial dk and dv
+//   to a workspace, and swa_bwd_dkv_merge_kernel adds the splits in split
+//   order and writes dk and dv in the input dtype.  A split with no
+//   iteration writes zeros.
+// Both wide kernels take one block an SM (8 warps, two a scheduler) and
+// issue about 0.2 mma.sync an SM a clock, near the 0.23-0.25 of the 4-warp
+// kernels at 3 blocks an SM: what bounds them is that rate and the seven
+// products of the two passes (PERF.md).
 
 #include <cstdint>
 #include <initializer_list>
@@ -133,12 +153,16 @@ constexpr int kFwdKeys = 32;   // forward: the kv tiles a q tile walks
 constexpr int kDqKeys = 32;    // dq pass: the kv tiles a q tile walks
 constexpr int kDkvKeys = 32;   // dk/dv pass: kv tile (16 keys a warp pair) ...
 constexpr int kDkvRows = 32;   // ... and the q tiles it walks (16 rows a warp)
+// the backward at hd 256 (the "wide" kernels): 8 warps a block
+constexpr int kWideThreads = 256;
+constexpr int kWideDqRows = 32, kWideDqKeys = 32;    // dq: q tile, the kv tiles it walks
+constexpr int kWideDkvKeys = 32, kWideDkvRows = 16;  // dk/dv: kv tile, the q tiles it walks
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.44269504f, kLn2 = 0.693147181f;
 
-// The output's column parts (1, or 2 at hd 256: see the note above), and
-// the q tile of the forward and the dq pass: 16 rows a warp over the
-// block's 4 / parts row strips.
+// The forward's column parts of o (1, or 2 at hd 256: see the note above),
+// and the q tile of the forward and of the 4-warp dq pass: 16 rows a warp
+// over the block's 4 / parts row strips.
 template <int HD> __host__ __device__ constexpr int col_parts() { return HD > 128 ? 2 : 1; }
 template <int HD> __host__ __device__ constexpr int q_rows() {
   return 16 * (kThreads / 32) / col_parts<HD>();
@@ -179,14 +203,14 @@ __device__ __forceinline__ int last_kv_tile(int r_last, int bk, const Shape& sh)
 // rows past `rows` are 0.  f32 with 16-byte
 // aligned tensors (sh.vec) goes through cp.async, which the caller commits
 // and waits for; otherwise each element is loaded, converted and stored.
-template <int ROWS, int HD, int LD = HD + 4, typename T>
+template <int ROWS, int HD, int LD = HD + 4, int NTH = kThreads, typename T>
 __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __restrict__ src,
                                            int b, int row0, int rows, int heads,
                                            int head, const Shape& sh) {
   if constexpr (std::is_same<T, float>::value) {
     if (sh.vec) {
       constexpr int CH = HD / 4;  // 16-byte chunks a row
-      for (int idx = threadIdx.x; idx < ROWS * CH; idx += kThreads) {
+      for (int idx = threadIdx.x; idx < ROWS * CH; idx += NTH) {
         const int r = idx / CH, c = idx - r * CH;
         const int s = row0 + r;
         const bool ok = s < rows;
@@ -197,7 +221,7 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __r
       return;
     }
   }
-  for (int idx = threadIdx.x; idx < ROWS * HD; idx += kThreads) {
+  for (int idx = threadIdx.x; idx < ROWS * HD; idx += NTH) {
     const int r = idx / HD, d = idx - r * HD;
     const int s = row0 + r;
     float val = 0.0f;
@@ -209,9 +233,10 @@ __device__ __forceinline__ void stage_rows(float* __restrict__ dst, const T* __r
 }
 
 // n values of a [B, H, Sq] f32 row statistic from position s0, 0 past Sq.
+template <int NTH = kThreads>
 __device__ __forceinline__ void stage_stat(float* __restrict__ dst, const float* __restrict__ src,
                                            int s0, int n, const Shape& sh) {
-  for (int r = threadIdx.x; r < n; r += kThreads) {
+  for (int r = threadIdx.x; r < n; r += NTH) {
     const bool ok = s0 + r < sh.Sq;
     tf32::cp_async4(dst + r, src + (ok ? s0 + r : 0), ok);
   }
@@ -248,6 +273,43 @@ __device__ __forceinline__ void load_b_pairs(const float* s, int pitch, int n0, 
       *reinterpret_cast<const float2*>(s + (n0 + tf32::lane_g()) * pitch + k0 + 2 * tf32::lane_t());
   tf32::split(x.x, big[0], small[0]);
   tf32::split(x.y, big[1], small[1]);
+}
+
+// The A fragment, k slots permuted as load_b_kperm's, of a tile of TF32
+// parts staged in shared memory (rows as m, columns as k): `at` points at
+// row g, column 2t of the fragment's 16 x 8 block, so lane (g, t) reads
+// columns 2t and 2t + 1 of rows g and g + 8 in two 8-byte loads, conflict-free
+// at a pitch of 8 or 24 mod 32 floats.
+__device__ __forceinline__ void load_a_staged(const float* at, int pitch, uint32_t (&a)[4]) {
+  const float2 lo = *reinterpret_cast<const float2*>(at);
+  const float2 hi = *reinterpret_cast<const float2*>(at + 8 * pitch);
+  a[0] = __float_as_uint(lo.x);
+  a[1] = __float_as_uint(hi.x);
+  a[2] = __float_as_uint(lo.y);
+  a[3] = __float_as_uint(hi.y);
+}
+
+// d[m][n] += a[m] . b[n] in 3xTF32 for every m < M and n < N, one term at a
+// time across the M x N sums (every a_small.b_big, then every a_big.b_small,
+// then every a_big.b_big): each sum takes mma3's order, and no mma waits on
+// the one just before it.
+template <int M, int N>
+__device__ __forceinline__ void mma3_terms(float (&d)[M][N][4], const uint32_t (&a_big)[M][4],
+                                           const uint32_t (&a_small)[M][4],
+                                           const uint32_t (&b_big)[N][2],
+                                           const uint32_t (&b_small)[N][2]) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) tf32::mma(d[m][n], a_small[m], b_big[n]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) tf32::mma(d[m][n], a_big[m], b_small[n]);
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) tf32::mma(d[m][n], a_big[m], b_big[n]);
 }
 
 // --------------------------------------------------------------------------
@@ -426,11 +488,10 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // --------------------------------------------------------------------------
-// B5, q-parallel pass: dq, and delta = rowsum(o * do) for the dk/dv pass.
-// grid (B*H, nq) over q tiles of q_rows<HD>() rows, i = nq - 1 -
-// blockIdx.y; warp w owns rows 16(w % RW)..+15 of the tile and columns
-// (w / RW) * HD / CS.. of dq, as the forward's, and walks its 32-key kv
-// tiles.
+// B5, q-parallel pass, hd <= 128: dq, and delta = rowsum(o * do) for the
+// dk/dv pass.  grid (B*H, nq) over 64-row q tiles, i = nq - 1 -
+// blockIdx.y; warp w owns rows 16w..16w+15 of the tile and walks its
+// 32-key kv tiles.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
@@ -438,8 +499,8 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   const T* __restrict__ o, const T* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
                   T* __restrict__ dq, Shape sh) {
-  constexpr int CS = col_parts<HD>(), RW = kThreads / 32 / CS;
-  constexpr int LD = HD + 4, NT = HD / 8 / CS, BQ = q_rows<HD>(), BK = kDqKeys, NS = BK / 8;
+  static_assert(HD <= 128, "hd 256 runs swa_bwd_dq_wide_kernel");
+  constexpr int LD = HD + 4, NT = HD / 8, BQ = q_rows<HD>(), BK = kDqKeys, NS = BK / 8;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][LD]
   float* dOs = Qs + BQ * LD;     // [BQ][LD]
@@ -449,9 +510,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  // the tile's first row, the warp's, and the warp's first column of dq
-  const int q0 = i * BQ, wr = 16 * (CS == 1 ? warp : warp % RW);
-  const int col0 = CS == 1 ? 0 : (warp / RW) * (HD / CS);
+  const int q0 = i * BQ, wr = 16 * warp;  // the tile's first row, the warp's
   const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.Sq;
   int j_lo = 0;
   if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
@@ -468,8 +527,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   tf32::cp_async_commit();
 
   // delta of the warp's 16 rows, read from o and do in device memory while
-  // the copies fly (the warps of a row strip compute the same values, the
-  // first column part writes them); lane (g, t) keeps rows g and g + 8
+  // the copies fly; lane (g, t) keeps rows g and g + 8
   float dl[2] = {0.0f, 0.0f}, lr[2] = {0.0f, 0.0f};
   for (int r = 0; r < 16; ++r) {
     const int row = q0 + wr + r;
@@ -480,7 +538,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
     }
 #pragma unroll
     for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
-    if (lane == 0 && row < sh.Sq && col0 == 0) delta[row_base + row] = part;
+    if (lane == 0 && row < sh.Sq) delta[row_base + row] = part;
     if (r == g) dl[0] = part;
     if (r == g + 8) dl[1] = part;
   }
@@ -555,8 +613,8 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         uint32_t b0[2], s0[2], b1[2], s1[2];
-        tf32::load_b_kperm(Ks, LD, 8 * n, col0 + 8 * c, 1.0f, b0, s0);
-        tf32::load_b_kperm(Ks, LD, 8 * n, col0 + 8 * c + 8, 1.0f, b1, s1);
+        tf32::load_b_kperm(Ks, LD, 8 * n, 8 * c, 1.0f, b0, s0);
+        tf32::load_b_kperm(Ks, LD, 8 * n, 8 * c + 8, 1.0f, b1, s1);
         tf32::mma3(p0, db[n], dsm[n], b0, s0);
         tf32::mma3(p1, db[n], dsm[n], b1, s1);
       }
@@ -573,7 +631,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
   for (int e2 = 0; e2 < 2; ++e2) {
     const int row = q0 + wr + g + 8 * e2;
     if (row >= sh.Sq) continue;
-    T* out = dq + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + col0 + 2 * t;
+    T* out = dq + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       out[8 * c] = from_f32<T>(acc[c][2 * e2] * sh.scale);
@@ -583,10 +641,9 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 }
 
 // --------------------------------------------------------------------------
-// B5, kv-parallel pass: dk and dv, summed over the G query heads of each kv
-// head in the block.  grid (B*K, nk, CS) over 32-key kv tiles, j =
-// blockIdx.y, and the output's column parts (CS = 1 below hd 256), part
-// blockIdx.z; the block walks every (query head, 32-row q tile) that sees
+// B5, kv-parallel pass, hd <= 128: dk and dv, summed over the G query heads
+// of each kv head in the block.  grid (B*K, nk) over 32-key kv tiles, j =
+// blockIdx.y; the block walks every (query head, 32-row q tile) that sees
 // its keys.  Warp w computes keys 16(w % 2).. against rows 16(w / 2).. of
 // each q tile; warps w and w + 2 add their sums in a fixed order at the end.
 // --------------------------------------------------------------------------
@@ -596,17 +653,14 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                    Shape sh) {
-  constexpr int CS = col_parts<HD>(), LD = HD + 4, NT = HD / 8 / CS, BK = kDkvKeys,
-                BQ = kDkvRows;
-  // k and v split into TF32 parts once a block, where shared memory holds
-  // the parts (not at hd 256: see the note above)
-  constexpr bool kSplitOnce = CS == 1;
+  static_assert(HD <= 128, "hd 256 runs swa_bwd_dkv_wide_kernel");
+  constexpr int LD = HD + 4, NT = HD / 8, BK = kDkvKeys, BQ = kDkvRows;
   extern __shared__ float smem[];
   float* Ks = smem;              // [BK][LD] k, then its tf32 big parts
   float* Vs = Ks + BK * LD;      // [BK][LD] v, then its big parts
-  float* Kl = Vs + BK * LD;      // [BK][LD] small parts of k (kSplitOnce)
-  float* Vl = Kl + BK * LD;      // [BK][LD] small parts of v (kSplitOnce)
-  float* QDs = kSplitOnce ? Vl + BK * LD : Kl;  // 2 stages x (q [BQ][LD], do [BQ][LD])
+  float* Kl = Vs + BK * LD;      // [BK][LD] small parts of k
+  float* Vl = Kl + BK * LD;      // [BK][LD] small parts of v
+  float* QDs = Vl + BK * LD;     // 2 stages x (q [BQ][LD], do [BQ][LD])
   float* Stat = QDs + 4 * BQ * LD;  // 2 stages x (lse [BQ], delta [BQ])
 
   const int j = blockIdx.y;
@@ -614,7 +668,6 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int wk = 16 * (warp & 1), wq = 16 * (warp >> 1);  // the warp's keys, rows
-  const int col0 = CS == 1 ? 0 : blockIdx.z * (HD / CS);  // the block's first column
   const int k0 = j * BK;
   const int nq = (sh.Sq + BQ - 1) / BQ;
   const int i_lo = k0 < sh.prefix ? 0 : k0 / BQ;  // the prefix is seen from row 0
@@ -639,10 +692,8 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   // k and v are the A operands of every q tile: split them once
   tf32::cp_async_wait<0>();
   __syncthreads();
-  if constexpr (kSplitOnce) {
-    tf32::split_tile(Ks, Kl, BK * LD, 1.0f);
-    tf32::split_tile(Vs, Vl, BK * LD, 1.0f);
-  }
+  tf32::split_tile(Ks, Kl, BK * LD, 1.0f);
+  tf32::split_tile(Vs, Vl, BK * LD, 1.0f);
 
   float dka[NT][4], dva[NT][4];
 #pragma unroll
@@ -675,13 +726,8 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
     for (int kk = 0; kk < HD; kk += 8) {
       uint32_t kb[4], ks[4], vb[4], vs[4];
-      if constexpr (kSplitOnce) {
-        tf32::load_a_split(Ks, Kl, LD, wk, kk, kb, ks);
-        tf32::load_a_split(Vs, Vl, LD, wk, kk, vb, vs);
-      } else {
-        tf32::load_a(Ks, LD, wk, kk, 1.0f, kb, ks);
-        tf32::load_a(Vs, LD, wk, kk, 1.0f, vb, vs);
-      }
+      tf32::load_a_split(Ks, Kl, LD, wk, kk, kb, ks);
+      tf32::load_a_split(Vs, Vl, LD, wk, kk, vb, vs);
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         uint32_t qb[2], qs[2], ob[2], os[2];
@@ -720,8 +766,8 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 #pragma unroll
       for (int n = 0; n < 2; ++n) {
         uint32_t ob[2], os[2], qb[2], qs[2];
-        tf32::load_b_kperm(dOs, LD, wq + 8 * n, col0 + 8 * c, 1.0f, ob, os);
-        tf32::load_b_kperm(Qs, LD, wq + 8 * n, col0 + 8 * c, sh.scale, qb, qs);
+        tf32::load_b_kperm(dOs, LD, wq + 8 * n, 8 * c, 1.0f, ob, os);
+        tf32::load_b_kperm(Qs, LD, wq + 8 * n, 8 * c, sh.scale, qb, qs);
         tf32::mma3(pv, pb[n], ps[n], ob, os);
         tf32::mma3(pk, db[n], dsm[n], qb, qs);
       }
@@ -735,8 +781,7 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   }
 
   // warps 2 and 3 hand their sums to warps 0 and 1 through shared memory
-  // (the q/do ring is free now), which add them and write dk and dv (the
-  // block's columns, at their place in the part)
+  // (the q/do ring is free now), which add them and write dk and dv
   float* dKs = QDs;              // [BK][LD]
   float* dVs = QDs + BK * LD;    // [BK][LD]
 #pragma unroll
@@ -755,8 +800,7 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
   for (int e2 = 0; e2 < 2; ++e2) {
     const int key = k0 + wk + g + 8 * e2;
     if (key >= sh.Sk) continue;
-    const long long off =
-        ((static_cast<long long>(b) * sh.Sk + key) * sh.K + kh) * HD + col0 + 2 * t;
+    const long long off = ((static_cast<long long>(b) * sh.Sk + key) * sh.K + kh) * HD + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c)
 #pragma unroll
@@ -767,6 +811,480 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
         dv[off + 8 * c + e1] = from_f32<T>(dva[c][e] + dVs[at]);
       }
   }
+}
+
+// --------------------------------------------------------------------------
+// B5 at hd 256, q-parallel pass: dq and delta, as swa_bwd_dq_kernel
+// computes them, in blocks of 8 warps (the note at the top).  grid (B*H,
+// nq) over 32-row q tiles, i = nq - 1 - blockIdx.y, walking 32-key kv
+// tiles.  Per kv tile: warp w computes its part of s = (scale q) k^T (w <
+// 4) or dp = do v^T (w >= 4), all 32 rows x keys 16((w / 2) % 2).. over
+// dims 128(w % 2)..; the two halves of hd are added through shared memory,
+// ds = p (dp - delta) is staged as TF32 parts, and warp w adds ds k to dq's
+// columns 32w..32w+31.
+// --------------------------------------------------------------------------
+template <int HD> constexpr int wide_dq_floats() {
+  return (2 * kWideDqRows + 4 * kWideDqKeys) * (HD + 4) + 8 * kWideDqRows * (kWideDqKeys / 2) +
+         2 * kWideDqRows * (kWideDqKeys + 8) + 2 * kWideDqRows;
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+swa_bwd_dq_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                       const T* __restrict__ v, const T* __restrict__ o,
+                       const T* __restrict__ dout, const float* __restrict__ lse,
+                       float* __restrict__ delta, T* __restrict__ dq, Shape sh) {
+  constexpr int NTH = kWideThreads, LD = HD + 4, BQ = kWideDqRows, BK = kWideDqKeys;
+  constexpr int LDP = BK / 2, LDS = BK + 8, WC = HD / 8;  // WC: a warp's columns of dq
+  static_assert(BQ == 32 && BK == 32 && WC == 32 && NTH == 8 * BQ,
+                "the partition below: 2 row strips, 4 column tiles a warp, 4 values a thread");
+  extern __shared__ float smem[];
+  float* Qs = smem;                  // [BQ][LD]
+  float* dOs = Qs + BQ * LD;         // [BQ][LD]
+  float* KVs = dOs + BQ * LD;        // 2 stages x (k [BK][LD], v [BK][LD])
+  float* Part = KVs + 4 * BK * LD;   // 8 warps x [BQ][LDP]: their parts of s and dp
+  float* DSb = Part + 8 * BQ * LDP;  // [BQ][LDS] ds, its TF32 big parts ...
+  float* DSs = DSb + BQ * LDS;       // ... and small parts
+  float* Rs = DSs + BQ * LDS;        // lse [BQ], delta [BQ]
+
+  const int i = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int q0 = i * BQ;
+  const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.Sq;
+  int j_lo = 0;
+  if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
+  const int j_hi = last_kv_tile(q0 + BQ - 1, BK, sh);
+
+  auto stage_kv = [&](int j, int stage) {
+    float* Ks = KVs + stage * 2 * BK * LD;
+    stage_rows<BK, HD, LD, NTH>(Ks, k, b, j * BK, sh.Sk, sh.K, kh, sh);
+    stage_rows<BK, HD, LD, NTH>(Ks + BK * LD, v, b, j * BK, sh.Sk, sh.K, kh, sh);
+  };
+  stage_rows<BQ, HD, LD, NTH>(Qs, q, b, q0, sh.Sq, sh.H, h, sh);
+  stage_rows<BQ, HD, LD, NTH>(dOs, dout, b, q0, sh.Sq, sh.H, h, sh);
+  if (j_lo <= j_hi) stage_kv(j_lo, 0);
+  tf32::cp_async_commit();
+
+  // delta of rows 4w..4w+3, read from o and do in device memory while the
+  // copies fly, in the 4-warp kernel's order; lse beside it
+  for (int r = 4 * warp; r < 4 * warp + 4; ++r) {
+    const int row = q0 + r;
+    float part = 0.0f;
+    if (row < sh.Sq) {
+      const long long off = ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD;
+      for (int d = lane; d < HD; d += 32) part += to_f32(o[off + d]) * to_f32(dout[off + d]);
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
+    if (lane == 0) {
+      if (row < sh.Sq) delta[row_base + row] = part;
+      Rs[r] = row < sh.Sq ? lse[row_base + row] : 0.0f;
+      Rs[BQ + r] = part;
+    }
+  }
+
+  // the warp's part of s (prod 0) or dp (prod 1): keys 16kc.., dims 128kd..
+  const int prod = warp >> 2, kc = (warp >> 1) & 1, kd = warp & 1;
+  const float* As = prod == 0 ? Qs : dOs;
+  const float amult = prod == 0 ? sh.scale : 1.0f;
+  const int col0 = WC * warp;  // the warp's columns of dq
+
+  float acc[2][4][4];  // dq: row strip, column tile, C fragment
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[m][n][e] = 0.0f;
+
+  for (int j = j_lo; j <= j_hi; ++j) {
+    const int stage = (j - j_lo) & 1;
+    tf32::cp_async_wait<0>();
+    __syncthreads();  // the tile has landed; every warp is done with the last one
+    if (j < j_hi) {
+      stage_kv(j + 1, stage ^ 1);
+      tf32::cp_async_commit();
+    }
+    const float* Ks = KVs + stage * 2 * BK * LD;
+    const float* Bs = prod == 0 ? Ks : Ks + BK * LD;
+
+    float c[2][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[m][n][e] = 0.0f;
+#pragma unroll
+    for (int st = 0; st < HD / 16; ++st) {
+      const int kk = kd * (HD / 2) + 8 * st;
+      uint32_t ab[2][4], as[2][4], bb[2][2], bs[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) tf32::load_a(As, LD, 16 * m, kk, amult, ab[m], as[m]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) tf32::load_b(Bs, LD, 16 * kc + 8 * n, kk, 1.0f, bb[n], bs[n]);
+      mma3_terms(c, ab, as, bb, bs);
+    }
+    float* P = Part + warp * BQ * LDP;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float* at = P + (16 * m + g) * LDP + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(at) = make_float2(c[m][n][0], c[m][n][1]);
+        *reinterpret_cast<float2*>(at + 8 * LDP) = make_float2(c[m][n][2], c[m][n][3]);
+      }
+    __syncthreads();
+
+    // ds = p (dp - delta), p = exp(s - lse) where the mask allows: thread
+    // (r, c4) takes row r = tid / 8 and keys c4 = 4 (tid % 8)..+3, adding
+    // the halves of hd (warps (prod, kc, 0) and (prod, kc, 1)) in order
+    {
+      const int r = threadIdx.x >> 3, c4 = 4 * (threadIdx.x & 7);
+      const float* S0 = Part + 2 * (c4 >> 4) * BQ * LDP + r * LDP + (c4 & 15);
+      const float4 s0 = *reinterpret_cast<const float4*>(S0);
+      const float4 s1 = *reinterpret_cast<const float4*>(S0 + BQ * LDP);
+      const float4 d0 = *reinterpret_cast<const float4*>(S0 + 4 * BQ * LDP);
+      const float4 d1 = *reinterpret_cast<const float4*>(S0 + 5 * BQ * LDP);
+      const float sv[4] = {s0.x + s1.x, s0.y + s1.y, s0.z + s1.z, s0.w + s1.w};
+      const float dpv[4] = {d0.x + d1.x, d0.y + d1.y, d0.z + d1.z, d0.w + d1.w};
+      const bool masked = tile_masked(q0, BQ, j * BK, BK, sh);
+      const float lr = Rs[r], dl = Rs[BQ + r];
+      float big[4], small[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float p = expf(sv[e] - lr);
+        if (masked && !allowed(q0 + r, j * BK + c4 + e, sh)) p = 0.0f;
+        uint32_t bg, sm;
+        tf32::split(p * (dpv[e] - dl), bg, sm);
+        big[e] = __uint_as_float(bg);
+        small[e] = __uint_as_float(sm);
+      }
+      *reinterpret_cast<float4*>(DSb + r * LDS + c4) = make_float4(big[0], big[1], big[2], big[3]);
+      *reinterpret_cast<float4*>(DSs + r * LDS + c4) =
+          make_float4(small[0], small[1], small[2], small[3]);
+    }
+    __syncthreads();
+
+    // dq += ds k on the warp's columns, the keys as k in load_b_kperm's
+    // order (slot t: key 2t, t + 4: key 2t + 1): the tile's keys are summed
+    // on the tensor cores from 0 and added to dq in f32
+    uint32_t db[4][2][4], dsm[4][2][4];  // 8-key step, row strip, A fragment
+#pragma unroll
+    for (int st = 0; st < 4; ++st)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int at = (16 * m + g) * LDS + 8 * st + 2 * t;
+        load_a_staged(DSb + at, LDS, db[st][m]);
+        load_a_staged(DSs + at, LDS, dsm[st][m]);
+      }
+#pragma unroll
+    for (int n0 = 0; n0 < 4; n0 += 2) {  // two column tiles at a time: four sums
+      uint32_t kb[4][2][2], ksm[4][2][2];  // 8-key step, column tile n0 + nn
+#pragma unroll
+      for (int st = 0; st < 4; ++st)
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+          tf32::load_b_kperm(Ks, LD, 8 * st, col0 + 8 * (n0 + nn), 1.0f, kb[st][nn], ksm[st][nn]);
+      float pd[2][2][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) pd[m][nn][e] = 0.0f;
+#pragma unroll
+      for (int st = 0; st < 4; ++st) mma3_terms(pd, db[st], dsm[st], kb[st], ksm[st]);
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int nn = 0; nn < 2; ++nn)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[m][n0 + nn][e] += pd[m][nn][e];
+    }
+  }
+  tf32::cp_async_wait<0>();  // nothing in flight at exit (no kv tile: q and do only)
+
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int row = q0 + 16 * m + g + 8 * e2;
+      if (row >= sh.Sq) continue;
+      T* out = dq + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + col0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 4; ++n) {
+        out[8 * n] = from_f32<T>(acc[m][n][2 * e2] * sh.scale);
+        out[8 * n + 1] = from_f32<T>(acc[m][n][2 * e2 + 1] * sh.scale);
+      }
+    }
+}
+
+// --------------------------------------------------------------------------
+// B5 at hd 256, kv-parallel pass: dk and dv, as swa_bwd_dkv_kernel computes
+// them, in blocks of 8 warps (the note at the top).  grid (splits*B*K, nk):
+// blockIdx.x = split + splits * (batch*kv head), j = blockIdx.y over 32-key
+// kv tiles, the first (the most q tiles) first.  A split walks its range of
+// the kv tile's (query head, 16-row q tile) iterations.  Per q tile: warp w
+// computes its part of s^T = k (scale q)^T (w < 4) or dp^T = v do^T (w >=
+// 4), all 32 keys x 16 rows over dims 64(w % 4)..; the four parts are added
+// through shared memory in order, p^T and ds^T are staged as TF32 parts,
+// and warp w adds p^T do to dv and ds^T (scale q) to dk on columns
+// 32w..32w+31.  With one split the block writes dk and dv; with more, its
+// f32 sums go to ws [splits][2][B, Sk, K, hd] for swa_bwd_dkv_merge_kernel.
+// --------------------------------------------------------------------------
+template <int HD> constexpr int wide_dkv_floats() {
+  return (4 * kWideDkvKeys + 4 * kWideDkvRows) * (HD + 4) + 4 * kWideDkvRows +
+         8 * kWideDkvKeys * kWideDkvRows + 4 * kWideDkvKeys * (kWideDkvRows + 8);
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(kWideThreads, 1)
+swa_bwd_dkv_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                        const T* __restrict__ v, const T* __restrict__ dout,
+                        const float* __restrict__ lse, const float* __restrict__ delta,
+                        T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ ws,
+                        int splits, Shape sh) {
+  constexpr int NTH = kWideThreads, LD = HD + 4, BK = kWideDkvKeys, BQ = kWideDkvRows;
+  constexpr int LDP = BQ, LDS = BQ + 8, WC = HD / 8;  // WC: a warp's columns of dk and dv
+  static_assert(BK == 32 && BQ == 16 && WC == 32 && NTH == 8 * BK,
+                "the partition below: 2 key strips, 4 column tiles a warp, 2 values a thread");
+  extern __shared__ float smem[];
+  float* Kb = smem;                  // [BK][LD] k, then its TF32 big parts
+  float* Vb = Kb + BK * LD;          // [BK][LD] v, then its big parts
+  float* Kl = Vb + BK * LD;          // [BK][LD] small parts of k
+  float* Vl = Kl + BK * LD;          // [BK][LD] small parts of v
+  float* QDs = Vl + BK * LD;         // 2 stages x (q [BQ][LD], do [BQ][LD])
+  float* Stat = QDs + 4 * BQ * LD;   // 2 stages x (lse [BQ], delta [BQ])
+  float* Part = Stat + 4 * BQ;       // 8 warps x [BK][LDP]: their parts of s^T and dp^T
+  float* Pb = Part + 8 * BK * LDP;   // [BK][LDS] p^T's TF32 big parts,
+  float* Ps = Pb + BK * LDS;         //   its small parts,
+  float* Db = Ps + BK * LDS;         //   ds^T's big parts,
+  float* Dl = Db + BK * LDS;         //   its small parts
+
+  const int z = blockIdx.x % splits, bk = blockIdx.x / splits;
+  const int b = bk / sh.K, kh = bk % sh.K, j = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int k0 = j * BK;
+  const int nq = (sh.Sq + BQ - 1) / BQ;
+  const int i_lo = k0 < sh.prefix ? 0 : k0 / BQ;  // the prefix is seen from row 0
+  int i_hi = nq - 1;  // the last q tile whose rows see a key of this tile
+  if (sh.window > 0) i_hi = min(i_hi, (k0 + BK - 1 + sh.window - 1) / BQ);
+  // none when Sq < Sk leaves the tile's keys past every causal row
+  const int n_i = max(i_hi - i_lo + 1, 0), n_it = sh.G * n_i;
+  const int it_lo = z * n_it / splits, it_hi = (z + 1) * n_it / splits;  // this split's
+
+  auto stage_q = [&](int it, int stage) {
+    const int h = kh * sh.G + it / n_i, q0 = (i_lo + it % n_i) * BQ;
+    float* Qs = QDs + stage * 2 * BQ * LD;
+    stage_rows<BQ, HD, LD, NTH>(Qs, q, b, q0, sh.Sq, sh.H, h, sh);
+    stage_rows<BQ, HD, LD, NTH>(Qs + BQ * LD, dout, b, q0, sh.Sq, sh.H, h, sh);
+    const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.Sq;
+    stage_stat<NTH>(Stat + stage * 2 * BQ, lse + row_base, q0, BQ, sh);
+    stage_stat<NTH>(Stat + stage * 2 * BQ + BQ, delta + row_base, q0, BQ, sh);
+  };
+  if (it_lo < it_hi) {
+    stage_rows<BK, HD, LD, NTH>(Kb, k, b, k0, sh.Sk, sh.K, kh, sh);
+    stage_rows<BK, HD, LD, NTH>(Vb, v, b, k0, sh.Sk, sh.K, kh, sh);
+    stage_q(it_lo, 0);
+    tf32::cp_async_commit();
+    // k and v are the A operands of every q tile: split them once
+    tf32::cp_async_wait<0>();
+    __syncthreads();
+    tf32::split_tile(Kb, Kl, BK * LD, 1.0f);
+    tf32::split_tile(Vb, Vl, BK * LD, 1.0f);
+  }
+
+  // the warp's part of s^T (prod 0) or dp^T (prod 1): dims 64kq..
+  const int prod = warp >> 2, kq = warp & 3;
+  const float* Ab = prod == 0 ? Kb : Vb;
+  const float* Al = prod == 0 ? Kl : Vl;
+  const float bmult = prod == 0 ? sh.scale : 1.0f;
+  const int col0 = WC * warp;  // the warp's columns of dk and dv
+
+  float dka[2][4][4], dva[2][4][4];  // key strip, column tile, C fragment
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[m][n][e] = dva[m][n][e] = 0.0f;
+
+  for (int it = it_lo; it < it_hi; ++it) {
+    const int stage = (it - it_lo) & 1;
+    tf32::cp_async_wait<0>();
+    __syncthreads();  // the tile has landed; every warp is done with the last one
+    if (it + 1 < it_hi) {
+      stage_q(it + 1, stage ^ 1);
+      tf32::cp_async_commit();
+    }
+    const int q0 = (i_lo + it % n_i) * BQ;
+    const float* Qs = QDs + stage * 2 * BQ * LD;
+    const float* dOs = Qs + BQ * LD;
+    const float* Ls = Stat + stage * 2 * BQ;
+    const float* Ds = Ls + BQ;
+    const float* Bt = prod == 0 ? Qs : dOs;
+
+    float c[2][2][4];
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) c[m][n][e] = 0.0f;
+#pragma unroll
+    for (int st = 0; st < HD / 32; ++st) {
+      const int kk = kq * (HD / 4) + 8 * st;
+      uint32_t ab[2][4], as[2][4], bb[2][2], bs[2][2];
+#pragma unroll
+      for (int m = 0; m < 2; ++m) tf32::load_a_split(Ab, Al, LD, 16 * m, kk, ab[m], as[m]);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) tf32::load_b(Bt, LD, 8 * n, kk, bmult, bb[n], bs[n]);
+      mma3_terms(c, ab, as, bb, bs);
+    }
+    float* P = Part + warp * BK * LDP;
+#pragma unroll
+    for (int m = 0; m < 2; ++m)
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float* at = P + (16 * m + g) * LDP + 8 * n + 2 * t;
+        *reinterpret_cast<float2*>(at) = make_float2(c[m][n][0], c[m][n][1]);
+        *reinterpret_cast<float2*>(at + 8 * LDP) = make_float2(c[m][n][2], c[m][n][3]);
+      }
+    __syncthreads();
+
+    // p^T = exp(s^T - lse) where the mask allows, ds^T = p^T (dp^T - delta):
+    // thread (key, r2) takes key tid / 8 and rows r2 = 2 (tid % 8), +1,
+    // adding the quarters of hd (warps (prod, 0..3)) in order
+    {
+      const int key = threadIdx.x >> 3, r2 = 2 * (threadIdx.x & 7);
+      const float* S0 = Part + key * LDP + r2;
+      float2 s = *reinterpret_cast<const float2*>(S0);
+      float2 dp = *reinterpret_cast<const float2*>(S0 + 4 * BK * LDP);
+#pragma unroll
+      for (int w = 1; w < 4; ++w) {
+        const float2 a = *reinterpret_cast<const float2*>(S0 + w * BK * LDP);
+        const float2 d = *reinterpret_cast<const float2*>(S0 + (4 + w) * BK * LDP);
+        s.x += a.x;
+        s.y += a.y;
+        dp.x += d.x;
+        dp.y += d.y;
+      }
+      const bool masked = tile_masked(q0, BQ, k0, BK, sh);
+      const float sv[2] = {s.x, s.y}, dpv[2] = {dp.x, dp.y};
+      float pbig[2], psmall[2], dbig[2], dsmall[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int row = r2 + e;  // query, in the tile
+        float p = expf(sv[e] - Ls[row]);
+        if (masked && !allowed(q0 + row, k0 + key, sh)) p = 0.0f;
+        uint32_t bg, sm;
+        tf32::split(p, bg, sm);
+        pbig[e] = __uint_as_float(bg);
+        psmall[e] = __uint_as_float(sm);
+        tf32::split(p * (dpv[e] - Ds[row]), bg, sm);
+        dbig[e] = __uint_as_float(bg);
+        dsmall[e] = __uint_as_float(sm);
+      }
+      const int at = key * LDS + r2;
+      *reinterpret_cast<float2*>(Pb + at) = make_float2(pbig[0], pbig[1]);
+      *reinterpret_cast<float2*>(Ps + at) = make_float2(psmall[0], psmall[1]);
+      *reinterpret_cast<float2*>(Db + at) = make_float2(dbig[0], dbig[1]);
+      *reinterpret_cast<float2*>(Dl + at) = make_float2(dsmall[0], dsmall[1]);
+    }
+    __syncthreads();
+
+    // dv += p^T do, dk += ds^T (scale q) on the warp's columns, the rows as
+    // k in load_b_kperm's order: the tile's 16 rows are summed on the tensor
+    // cores from 0 and added to dk and dv in f32
+    uint32_t pa[2][2][4], pas[2][2][4], da[2][2][4], das[2][2][4];  // 8-row step, key strip
+#pragma unroll
+    for (int st = 0; st < 2; ++st)
+#pragma unroll
+      for (int m = 0; m < 2; ++m) {
+        const int at = (16 * m + g) * LDS + 8 * st + 2 * t;
+        load_a_staged(Pb + at, LDS, pa[st][m]);
+        load_a_staged(Ps + at, LDS, pas[st][m]);
+        load_a_staged(Db + at, LDS, da[st][m]);
+        load_a_staged(Dl + at, LDS, das[st][m]);
+      }
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      uint32_t ob[2][1][2], os[2][1][2], qb[2][1][2], qs[2][1][2];  // 8-row step
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        tf32::load_b_kperm(dOs, LD, 8 * st, col0 + 8 * n, 1.0f, ob[st][0], os[st][0]);
+        tf32::load_b_kperm(Qs, LD, 8 * st, col0 + 8 * n, sh.scale, qb[st][0], qs[st][0]);
+      }
+      float pv[2][1][4], pk[2][1][4];
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) pv[m][0][e] = pk[m][0][e] = 0.0f;
+#pragma unroll
+      for (int st = 0; st < 2; ++st) {
+        mma3_terms(pv, pa[st], pas[st], ob[st], os[st]);
+        mma3_terms(pk, da[st], das[st], qb[st], qs[st]);
+      }
+#pragma unroll
+      for (int m = 0; m < 2; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dva[m][n][e] += pv[m][0][e];
+          dka[m][n][e] += pk[m][0][e];
+        }
+    }
+  }
+
+  // the block's keys: dk and dv in T, or this split's f32 sums into ws
+  const long long n_out = static_cast<long long>(sh.B) * sh.Sk * sh.K * HD;
+#pragma unroll
+  for (int m = 0; m < 2; ++m)
+#pragma unroll
+    for (int e2 = 0; e2 < 2; ++e2) {
+      const int key = k0 + 16 * m + g + 8 * e2;
+      if (key >= sh.Sk) continue;
+      const long long off =
+          ((static_cast<long long>(b) * sh.Sk + key) * sh.K + kh) * HD + col0 + 2 * t;
+      if (ws != nullptr) {
+        float* wk = ws + 2 * n_out * z + off;
+#pragma unroll
+        for (int n = 0; n < 4; ++n) {
+          *reinterpret_cast<float2*>(wk + 8 * n) =
+              make_float2(dka[m][n][2 * e2], dka[m][n][2 * e2 + 1]);
+          *reinterpret_cast<float2*>(wk + n_out + 8 * n) =
+              make_float2(dva[m][n][2 * e2], dva[m][n][2 * e2 + 1]);
+        }
+      } else {
+#pragma unroll
+        for (int n = 0; n < 4; ++n)
+#pragma unroll
+          for (int e1 = 0; e1 < 2; ++e1) {
+            dk[off + 8 * n + e1] = from_f32<T>(dka[m][n][2 * e2 + e1]);
+            dv[off + 8 * n + e1] = from_f32<T>(dva[m][n][2 * e2 + e1]);
+          }
+      }
+    }
+}
+
+// dk and dv (n values each) from the splits' f32 sums in ws [splits][2][n],
+// added in split order.
+template <typename T>
+__global__ void __launch_bounds__(256)
+swa_bwd_dkv_merge_kernel(const float* __restrict__ ws, T* __restrict__ dk, T* __restrict__ dv,
+                         long long n, int splits) {
+  const long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float a = ws[i], c = ws[n + i];
+  for (int z = 1; z < splits; ++z) {
+    a += ws[2 * n * z + i];
+    c += ws[2 * n * z + n + i];
+  }
+  dk[i] = from_f32<T>(a);
+  dv[i] = from_f32<T>(c);
 }
 
 // --------------------------------------------------------------------------
@@ -790,12 +1308,26 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
                               static_cast<int>(bytes));
 }
 
+// Dynamic shared memory of each pass's kernel at HD.
+template <int HD> constexpr size_t fwd_smem() {
+  constexpr int BQ = q_rows<HD>();
+  return ((BQ + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
+}
+template <int HD> constexpr size_t dq_smem() {
+  if constexpr (HD > 128) return wide_dq_floats<HD>() * sizeof(float);
+  return (2 * q_rows<HD>() + 4 * kDqKeys) * (HD + 4) * sizeof(float);
+}
+template <int HD> constexpr size_t dkv_smem() {
+  if constexpr (HD > 128) return wide_dkv_floats<HD>() * sizeof(float);
+  // k and v with their split parts, and the q/do ring
+  return ((4 * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
+}
+
 template <int HD, typename T>
 int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
         cudaStream_t stream) {
   constexpr int BQ = q_rows<HD>();
-  const size_t smem =
-      ((BQ + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
+  const size_t smem = fwd_smem<HD>();
   cudaError_t e = allow_smem(swa_fwd_kernel<HD, T>, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   const dim3 grid(sh.B * sh.H, (sh.Sq + BQ - 1) / BQ);
@@ -808,33 +1340,93 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const 
 template <int HD, typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, const Shape& sh, cudaStream_t stream) {
-  constexpr int BQ = q_rows<HD>();
-  const size_t smem = (2 * BQ + 4 * kDqKeys) * (HD + 4) * sizeof(float);
-  cudaError_t e = allow_smem(swa_bwd_dq_kernel<HD, T>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.H, (sh.Sq + BQ - 1) / BQ);
-  swa_bwd_dq_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
-      static_cast<T*>(dq), sh);
+  const size_t smem = dq_smem<HD>();
+  if constexpr (HD > 128) {
+    cudaError_t e = allow_smem(swa_bwd_dq_wide_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.H, (sh.Sq + kWideDqRows - 1) / kWideDqRows);
+    swa_bwd_dq_wide_kernel<HD, T><<<grid, kWideThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), sh);
+  } else {
+    constexpr int BQ = q_rows<HD>();
+    cudaError_t e = allow_smem(swa_bwd_dq_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.H, (sh.Sq + BQ - 1) / BQ);
+    swa_bwd_dq_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(o), static_cast<const T*>(dout), lse, delta,
+        static_cast<T*>(dq), sh);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
+// hd 256: the wide kernel over `splits` ranges of each kv tile's q tiles,
+// then (splits > 1) the merge of their sums from ws; below, one launch and
+// splits must be 1.
 template <int HD, typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-            const float* delta, void* dk, void* dv, const Shape& sh, cudaStream_t stream) {
-  constexpr int CS = col_parts<HD>();
-  // k and v with their split parts (below hd 256) or alone, and the q/do ring
-  const int kv_tiles = CS == 1 ? 4 : 2;
-  const size_t smem =
-      ((kv_tiles * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
-  cudaError_t e = allow_smem(swa_bwd_dkv_kernel<HD, T>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.K, (sh.Sk + kDkvKeys - 1) / kDkvKeys, CS);
-  swa_bwd_dkv_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
+            const float* delta, void* dk, void* dv, float* ws, int splits, const Shape& sh,
+            cudaStream_t stream) {
+  const size_t smem = dkv_smem<HD>();
+  if constexpr (HD > 128) {
+    if (splits < 1 || (splits > 1 && ws == nullptr))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = allow_smem(swa_bwd_dkv_wide_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(splits * sh.B * sh.K, (sh.Sk + kWideDkvKeys - 1) / kWideDkvKeys);
+    swa_bwd_dkv_wide_kernel<HD, T><<<grid, kWideThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+        splits > 1 ? ws : nullptr, splits, sh);
+    e = cudaGetLastError();
+    if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
+    const long long n = static_cast<long long>(sh.B) * sh.Sk * sh.K * HD;
+    swa_bwd_dkv_merge_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
+        ws, static_cast<T*>(dk), static_cast<T*>(dv), n, splits);
+  } else {
+    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = allow_smem(swa_bwd_dkv_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.K, (sh.Sk + kDkvKeys - 1) / kDkvKeys);
+    swa_bwd_dkv_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv), sh);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// Blocks of `kernel` an SM at `smem` bytes of dynamic shared memory (the
+// occupancy calculator, no launch), or a negated cudaError_t.
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel, int threads, size_t smem) {
+  cudaError_t e = allow_smem(kernel, smem);
+  int n = 0;
+  if (e == cudaSuccess) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, threads, smem);
+  return e == cudaSuccess ? n : -static_cast<int>(e);
+}
+
+// Resident blocks an SM of pass (0 forward, 1 dq, 2 dk/dv) at HD; its
+// dynamic shared memory into *smem.
+template <int HD, typename T>
+int occupancy(int pass, int* smem) {
+  constexpr bool wide = HD > 128;
+  switch (pass) {
+    case 0:
+      *smem = static_cast<int>(fwd_smem<HD>());
+      return blocks_per_sm(swa_fwd_kernel<HD, T>, kThreads, fwd_smem<HD>());
+    case 1:
+      *smem = static_cast<int>(dq_smem<HD>());
+      if constexpr (wide) return blocks_per_sm(swa_bwd_dq_wide_kernel<HD, T>, kWideThreads, dq_smem<HD>());
+      else return blocks_per_sm(swa_bwd_dq_kernel<HD, T>, kThreads, dq_smem<HD>());
+    case 2:
+      *smem = static_cast<int>(dkv_smem<HD>());
+      if constexpr (wide) return blocks_per_sm(swa_bwd_dkv_wide_kernel<HD, T>, kWideThreads, dkv_smem<HD>());
+      else return blocks_per_sm(swa_bwd_dkv_kernel<HD, T>, kThreads, dkv_smem<HD>());
+    default:
+      return -static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 // Returns FN<HD, T>(args...) for the runtime head dim and dtype (0: f32,
@@ -886,15 +1478,27 @@ int swa_attention_bwd_dq(const void* q, const void* k, const void* v, const void
   SWA_DISPATCH(bwd_dq, q, k, v, o, dout, lse, delta, dq, sh, st)
 }
 
+// ws: f32 [splits][2][B, Sk, K, hd], the splits' partial dk and dv; hd 256
+// only (splits >= 1, ws unread at 1); below it splits is 1 and ws null.
 int swa_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dk, void* dv,
-                          int dtype, int B, int Sq, int Sk, int H, int K, int hd,
-                          int window, int prefix, float scale, void* stream) {
+                          float* ws, int splits, int dtype, int B, int Sq, int Sk, int H,
+                          int K, int hd, int window, int prefix, float scale, void* stream) {
   if (B == 0 || Sq == 0 || Sk == 0 || K == 0) return 0;
   Shape sh = make_shape(B, Sq, Sk, H, K, window, prefix, scale);
   sh.vec = aligned16({q, k, v, dout});
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  SWA_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, sh, st)
+  SWA_DISPATCH(bwd_dkv, q, k, v, dout, lse, delta, dk, dv, ws, splits, sh, st)
+}
+
+// The resident blocks an SM of a pass's kernel (0 forward, 1 dq, 2 dk/dv;
+// the wide kernels at hd 256), and its dynamic shared memory in bytes into
+// *smem; a negated cudaError_t on failure.
+int swa_attention_occupancy(int pass, int dtype, int hd, int* smem) {
+  if ((dtype != 0 && dtype != 1) ||
+      (hd != 32 && hd != 64 && hd != 80 && hd != 96 && hd != 128 && hd != 256))
+    return -static_cast<int>(cudaErrorInvalidValue);  // not SWA_DISPATCH's positive one
+  SWA_DISPATCH(occupancy, pass, smem)
 }
 
 }  // extern "C"

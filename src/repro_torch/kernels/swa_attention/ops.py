@@ -19,7 +19,11 @@ their implementation from the device of the tensors they are given:
 The kernels mask the ragged sequence tails and fold the 1/√hd scale into q
 as they load it, so nothing is padded or rescaled here; a window of at
 least Sq is full causal attention (window 0), as in the JAX wrapper, and a
-prefix of at least Sk lets every query see every key.
+prefix of at least Sk lets every query see every key.  At head dim 256 the
+dk/dv pass cuts each kv tile's (query head, q tile) iterations into
+``dkv_splits`` ranges, each a block, whose f32 sums go to a workspace
+allocated here and are added in split order by a second, merge launch;
+``launches`` counts one a call either way.
 
 Gradients go through two ``torch.autograd.Function``s in the functorch
 style (``setup_context`` and a ``vmap`` rule), so Engine A's
@@ -49,6 +53,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import heapq
 import math
 from pathlib import Path
 from typing import Dict, Optional, Tuple
@@ -67,6 +72,14 @@ DECODE_MAX_GROUP = 16  # query heads a kv head that B4d takes
 DECODE_TILE = 32  # cache slots a B4d tile
 DECODE_MIN_SPLIT_TILES = 4  # tiles a split holds at the least
 DECODE_MAX_BLOCKS_PER_SM = 4  # the most that the split count plans for
+WIDE_HEAD_DIM = 128  # above it B5 runs the 8-warp kernels, the dk/dv pass split
+DKV_WIDE_KEYS = 32  # those kernels' dk/dv pass: its kv tile ...
+DKV_WIDE_ROWS = 16  # ... and the q tiles that it walks
+DRYRUN_NUM_SMS = 132  # an H100 SXM's SMs: the split count reckoned on ``meta``
+# rows (B·K·Sk) whose workspace costs a split about one block-iteration:
+# 1.0–1.3 of one at paligemma-3b's [4, 512, 8, 1, 256] (B·K·Sk = 2048) on
+# an H100 (chip_smoke.py's split sweep)
+DKV_MERGE_ROWS = 1600
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 launches: Dict[str, int] = {
@@ -93,9 +106,11 @@ def _library() -> ctypes.CDLL:
         dims = [i] * 9 + [f, p]
         lib.swa_attention_fwd.argtypes = [p] * 5 + dims
         lib.swa_attention_bwd_dq.argtypes = [p] * 8 + dims
-        lib.swa_attention_bwd_dkv.argtypes = [p] * 8 + dims
+        lib.swa_attention_bwd_dkv.argtypes = [p] * 8 + [p, i] + dims  # ws, splits
+        # pass, dtype, hd, *smem
+        lib.swa_attention_occupancy.argtypes = [i, i, i, ctypes.POINTER(i)]
         for fn in (lib.swa_attention_fwd, lib.swa_attention_bwd_dq,
-                   lib.swa_attention_bwd_dkv):
+                   lib.swa_attention_bwd_dkv, lib.swa_attention_occupancy):
             fn.restype = i
         _lib = lib
     return _lib
@@ -170,13 +185,13 @@ def _raise_on(status: int, name: str) -> None:
         raise RuntimeError(f"{name} launch failed with CUDA error {status}")
 
 
-def _record_meta(name: str, q, k, window, prefix_len) -> None:
+def _record_meta(name: str, q, k, window, prefix_len, **extra) -> None:
     """Tell the dry-run's recorder of one attention call on ``meta``."""
     B, Sq, H, hd = q.shape
     Sk = k.shape[1]
     meta.record(name, B=B, Sq=Sq, Sk=Sk, H=H, K=k.shape[2], hd=hd,
                 window=effective_window(window, Sq), prefix=effective_prefix(prefix_len, Sk),
-                elt=q.element_size())
+                elt=q.element_size(), **extra)
 
 
 def _lse_like(q: torch.Tensor) -> torch.Tensor:
@@ -249,25 +264,115 @@ def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0, prefix_len: int =
     return dq, delta
 
 
+def dkv_tile_iterations(Sq: int, Sk: int, G: int, window: int, prefix: int):
+    """The (query head, q tile) iterations of each 32-key kv tile of the
+    dk/dv pass at head dim 256, as ``swa_bwd_dkv_wide_kernel`` walks them:
+    G times the 16-row q tiles i_lo..i_hi whose rows see a key of the tile
+    (``window`` and ``prefix`` as the kernel takes them: ``effective_window``,
+    ``effective_prefix``)."""
+    nq = -(-Sq // DKV_WIDE_ROWS)
+    out = []
+    for j in range(-(-Sk // DKV_WIDE_KEYS)):
+        k0 = j * DKV_WIDE_KEYS
+        i_lo = 0 if k0 < prefix else k0 // DKV_WIDE_ROWS
+        i_hi = nq - 1
+        if window > 0:
+            i_hi = min(i_hi, (k0 + DKV_WIDE_KEYS - 1 + window - 1) // DKV_WIDE_ROWS)
+        out.append(G * max(i_hi - i_lo + 1, 0))
+    return out
+
+
+def dkv_makespan(iterations, bk: int, splits: int, num_sms: int) -> int:
+    """Iterations of the busiest SM when the blocks, one an SM, go in launch
+    order (kv tile, then (b, kv head), then split) to the first free SM."""
+    free = [0] * num_sms
+    for n in iterations:
+        for _ in range(bk):
+            for z in range(splits):
+                heapq.heappush(free, heapq.heappop(free) + (z + 1) * n // splits - z * n // splits)
+    return max(free)
+
+
+@functools.lru_cache(maxsize=None)
+def dkv_splits(B: int, Sq: int, Sk: int, K: int, G: int, hd: int, window: int, prefix: int,
+               num_sms: int) -> int:
+    """S, the ranges into which B5's dk/dv pass cuts each kv tile's
+    (query head, q tile) iterations at head dim 256, one block each (1 below
+    it, where the pass takes no split): a function of the shapes and the
+    card's SM count, so it reads nothing from the card.
+
+    The kernel takes one block an SM, and its kv tiles differ in length (a
+    tile under the prefix is seen by every q tile, the last causal one by
+    one), so S is the count, at most G, whose blocks finish first: the
+    busiest SM's iterations under the launch order's greedy schedule
+    (``dkv_makespan``), plus the workspace's cost of each split (its f32
+    dk and dv written, then read by the merge), B·K·Sk / ``DKV_MERGE_ROWS``
+    iterations a split.  Only counts that fill the SMs are weighed (the
+    least, at most G, whose B·K·⌈Sk/32⌉·S blocks reach ``num_sms``), up to
+    four blocks an SM.  ``window`` and ``prefix`` are the kernel's
+    (``effective_window``, ``effective_prefix``)."""
+    if hd <= WIDE_HEAD_DIM:
+        return 1
+    iterations = dkv_tile_iterations(Sq, Sk, G, window, prefix)
+    blocks = max(B * K * len(iterations), 1)
+    lo = min(G, -(-num_sms // blocks))
+    hi = min(G, max(lo, -(-4 * num_sms // blocks)))
+    if lo == hi:
+        return lo
+    return min(range(lo, hi + 1), key=lambda n: dkv_makespan(iterations, B * K, n, num_sms)
+               + n * B * K * Sk / DKV_MERGE_ROWS)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _splits_of(q, k, window: int, prefix_len: int, num_sms: int) -> int:
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    return dkv_splits(B, Sq, Sk, K, H // K, hd, effective_window(window, Sq),
+                      effective_prefix(prefix_len, Sk), num_sms)
+
+
+def dkv_launch_splits(q: torch.Tensor, k: torch.Tensor, window: int = 0,
+                      prefix_len: int = 0) -> int:
+    """The S that ``swa_attention_bwd_dkv`` launches for q and k on the card:
+    ``dkv_splits`` with the device's SM count."""
+    return _splits_of(q, k, window, prefix_len, _num_sms(q.device.index))
+
+
+def _dkv_workspace(k: torch.Tensor, splits: int) -> Optional[torch.Tensor]:
+    """The splits' f32 partial dk and dv, [splits, 2, B, Sk, K, hd]; none at 1."""
+    if splits == 1:
+        return None
+    return torch.empty((splits, 2, *k.shape), dtype=torch.float32, device=k.device)
+
+
 def swa_attention_bwd_dkv(q, k, v, lse, delta, do, window: int = 0, prefix_len: int = 0):
     """B5's kv-parallel pass: (dk, dv), each summed over the G query heads of
     its kv head."""
     if meta.is_meta(q):
-        _record_meta("swa_attention_bwd_dkv", q, k, window, prefix_len)
-        return torch.empty_like(k), torch.empty_like(v)
+        splits = _splits_of(q, k, window, prefix_len, DRYRUN_NUM_SMS)
+        _record_meta("swa_attention_bwd_dkv", q, k, window, prefix_len, splits=splits)
+        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        _dkv_workspace(k, splits)  # allocated and freed as on the card, for the tally
+        return dk, dv
     if not _check(q, k, v):
         return swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, window, prefix_len)
     _check_bwd(q, lse, do)
     _check_bwd(q, delta)
     q, k, v, lse, delta, do = (t.contiguous() for t in (q, k, v, lse, delta, do))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    splits = dkv_launch_splits(q, k, window, prefix_len)
+    ws = _dkv_workspace(k, splits)
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         status = lib.swa_attention_bwd_dkv(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), *_dims(q, k, window, prefix_len),
-            stream,
+            delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), None if ws is None else ws.data_ptr(),
+            splits, *_dims(q, k, window, prefix_len), stream,
         )
     _raise_on(status, "swa_attention_bwd_dkv")
     launches["swa_attention_bwd_dkv"] += 1
@@ -354,6 +459,18 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``prefix_len`` >= Sk at window 0: unmasked, e.g. cross-attention)."""
     o, _ = _SwaAttention.apply(q, k, v, int(window), int(prefix_len))
     return o
+
+
+def occupancy(pass_: str, dtype: torch.dtype, hd: int) -> Tuple[int, int]:
+    """(resident blocks an SM, dynamic shared memory in bytes) of a pass's
+    kernel on the card ("fwd", "dq" or "dkv"; the 8-warp kernels at hd 256):
+    the occupancy calculator, no launch."""
+    smem = ctypes.c_int(0)
+    blocks = _library().swa_attention_occupancy(("fwd", "dq", "dkv").index(pass_),
+                                                _DTYPES[dtype], hd, ctypes.byref(smem))
+    if blocks < 0:
+        raise RuntimeError(f"swa_attention's occupancy query failed with CUDA error {-blocks}")
+    return blocks, smem.value
 
 
 def _check_decode(q, k, v, cache_pos, q_pos) -> bool:

@@ -274,12 +274,17 @@ def kernel_work(name: str, shape: Dict[str, Any]) -> Dict[str, float]:
     shape): {"flops": the model FLOPs, "ops": the kernel's operations,
     "bytes": its bytes}.  Attention's model FLOPs are the products the math
     needs, forward 4·hd a visible pair, dq and dk/dv 4·hd each; the
-    kernels recompute s (and dk/dv dp), which ``ops`` counts.  A decode
-    step is reckoned at a full cache (every slot visible)."""
+    kernels recompute s (and dk/dv dp), which ``ops`` counts.  The dk/dv
+    pass's ``splits`` > 1 (head dim 256) adds its workspace's bytes: each
+    split's f32 dk and dv written, then read by the merge.  A decode step
+    is reckoned at a full cache (every slot visible)."""
     if name.startswith("swa_attention"):
         pairs = attention_pairs(shape["Sq"], shape["Sk"], shape["window"], shape["prefix"])
         ops, nbytes = pairs_work(shape["B"], shape["Sq"], shape["Sk"], shape["H"], shape["K"],
                                  shape["hd"], pairs, shape["elt"])[name]
+        splits = shape.get("splits", 1)
+        if splits > 1:
+            nbytes += 2 * 4 * splits * 2 * shape["B"] * shape["Sk"] * shape["K"] * shape["hd"]
         flops = 4 * shape["hd"] * pairs * shape["B"] * shape["H"]
         return {"flops": float(flops), "ops": float(ops), "bytes": float(nbytes)}
     if name == "swa_decode":

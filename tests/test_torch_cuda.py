@@ -756,6 +756,54 @@ def test_b4_b5_bf16_at_paligemma_shape_within_one_ulp(cuda):
         assert not bool(bad.any()), f"{name}: {int(bad.sum())} elements"
 
 
+# hd 256 where the 8-warp dk/dv pass's splits (``dkv_splits``) meet an edge,
+# (B, Sq, Sk, H, K, hd, window, prefix): G not a multiple of the split count
+# (G 6 in 4 splits on an H100's 132 SMs, G 4 in 3), kv tiles that no q row
+# sees (Sq < Sk, causal) and a window of 48, ragged Sq and Sk (130, 300),
+# and batch 1, where the split count is largest (8)
+WIDE_EDGE_CASES = [(4, 512, 512, 6, 1, 256, 0, 0), (2, 512, 512, 8, 2, 256, 0, 256),
+                   (1, 100, 300, 4, 1, 256, 0, 0), (1, 300, 300, 4, 1, 256, 48, 0),
+                   (1, 130, 300, 8, 2, 256, 0, 300), (1, 300, 130, 6, 1, 256, 0, 0),
+                   (1, 512, 512, 8, 1, 256, 0, 256)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", WIDE_EDGE_CASES, ids=[str(c) for c in WIDE_EDGE_CASES])
+def test_wide_b5_at_the_split_edges_matches_plain_and_repeats(cuda, case, dtype):
+    """Both hd-256 passes against the plain versions on the same inputs
+    (f32: within 2e-5 of max|ref|; bf16: against the f32 plain version, one
+    bf16 ulp of each value beyond that), the dk/dv pass in the split count
+    the wrapper launches (the merge counted with it, one launch a call),
+    and a second call equal bit for bit."""
+    B, Sq, Sk, H, K, hd, W, P = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q, do = (torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, Sk, K, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    swa.reset_launches()
+    first = _prefix_passes(q, k, v, do, W, P)
+    second = _prefix_passes(q, k, v, do, W, P)
+    torch.cuda.synchronize()
+    assert swa.launches["swa_attention_bwd_dkv"] == 2
+    assert swa.dkv_launch_splits(q, k, W, P) == swa.dkv_splits(
+        B, Sq, Sk, K, H // K, hd, swa.ops.effective_window(W, Sq),
+        swa.ops.effective_prefix(P, Sk), torch.cuda.get_device_properties(cuda).multi_processor_count)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    o, lse, dq, delta, dk, dv = first
+    f = [x.float() for x in (q, k, v, o, do)]
+    rdq, rdelta = swa.swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], W, P)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], W, P)
+    assert _normalised_err(delta, rdelta) <= 2e-5
+    for name, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert a.dtype == dtype
+        tol = 2e-5 * float(b.abs().max())
+        if dtype == torch.bfloat16:
+            _, exp = torch.frexp(b)
+            tol = tol + torch.ldexp(torch.ones_like(b), exp - 8)  # one bf16 ulp of each value
+        bad = (a.float() - b).abs() > tol
+        assert not bool(bad.any()), f"{name}: {int(bad.sum())} elements"
+
+
 # --------------------------------------------------------------------------- #
 # costs and robustness: B3m, the guarded step, DP, async
 # --------------------------------------------------------------------------- #
