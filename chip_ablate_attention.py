@@ -2,20 +2,23 @@
 """Time the attention kernels (B4, B5) against edited copies of their source,
 on one GPU.
 
-    python3 chip_ablate_attention.py
+    python3 chip_ablate_attention.py [VARIANT ...]
 
-Each variant is ``csrc/swa_attention.cu`` and ``csrc/mma_tf32.cuh`` with
-one edit, built with the package's nvcc flags into ``build/ablation/``
-(all builds started together) and loaded through ctypes beside the
-package's own build.  Every variant's forward (B4) and backward passes (B5
+Each variant is ``csrc/swa_attention.cu`` with its headers
+(``mma_tf32.cuh``, ``wgmma_tf32.cuh``) and one edit, built with the
+package's nvcc flags into ``build/ablation/`` (all builds started together)
+and loaded through ctypes beside the package's own build; naming variants
+builds only those.  Every variant's forward (B4) and backward passes (B5
 dq, dk/dv) are timed with CUDA events at the full-width smollm-135m shape,
-f32 [8, 1024, 9, 3, 64], window 0, in turns (the variants in order, then in
-reverse, one card), and held against the plain versions; ptxas's registers
-and spills of the forward at <64, f32> are printed beside them.  A variant
-that changes the arithmetic says so: it is a measure of what a part of the
-kernels costs, not a kernel.
+f32 [8, 1024, 9, 3, 64], window 0, and at whisper-large-v3's encoder, f32
+[4, 1500, 20, 20, 64], prefix 1500 (bidirectional), in turns (the variants
+in order, then in reverse, one card), and held against the plain versions;
+ptxas's registers and spills of the forward and of both wgmma passes at
+<64, f32> are printed beside them.  A variant that changes the arithmetic
+says so: it is a measure of what a part of the kernels costs, not a kernel.
 
-Edits of ``mma_tf32.cuh``, which reach every kernel:
+Edits of ``mma_tf32.cuh``, which reach B4 and B5 at hd 80-128 (B5 at hd
+<= 64 runs on wgmma, hd 256 on the 8-warp kernels):
   as built          the package's source, unedited;
   cvt.rna split     the TF32 rounding by cvt.rna.tf32.f32 instead of the
                     integer add and mask (the same values);
@@ -38,6 +41,14 @@ Edits of the forward (B4) alone, each within the forward's tolerance:
   fwd 4 blocks/SM     the launch bound of 3 blocks an SM raised to 4 (128
                       registers a thread);
   fwd 2 blocks/SM     ... lowered to 2.
+Edits of B5's wgmma passes (hd <= 64):
+  wg no derive        the producer warpgroup derives no small parts or
+                      transposes (wrong: it prices that shared-memory pass,
+                      which runs beside the consumers' products);
+  wg one product      one wgmma a k-step, big.big, in every product (wrong:
+                      it prices the two small terms);
+  wg no setmaxnreg    the dq pass's register hand-over dropped: every warp
+                      at the 168 registers that ptxas allots 12 warps.
 """
 from __future__ import annotations
 
@@ -64,7 +75,26 @@ S_MMA = ("        tf32::mma(sl[n], qs, kb);\n        tf32::mma(sl[n], qb, ks);\n
          "        tf32::mma(s[n], qb, kb);\n")
 S_ADD = ("#pragma unroll\n    for (int n = 0; n < NS; ++n)\n#pragma unroll\n"
          "      for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];\n")
-CU, HEADER = "swa_attention.cu", "mma_tf32.cuh"
+CU, HEADER, WG_HEADER = "swa_attention.cu", "mma_tf32.cuh", "wgmma_tf32.cuh"
+# the two small terms of every wgmma product (dq pass: s, dp, dq; dk/dv
+# pass: s^T, dp^T, then dv and dk in one loop)
+WG_SMALL = [
+    "        wg::mma_rs<BK>(sc, qsm[kk], kb, kk > 0);\n        wg::mma_ss<BK>(sc, qb, ks, 1);\n",
+    "        wg::mma_rs<BK>(dp, osm[kk], vb, kk > 0);\n        wg::mma_ss<BK>(dp, ob, vs, 1);\n",
+    "      wg::mma_rs<HD>(part, as[n], tb, n > 0);\n      wg::mma_rs<HD>(part, ab[n], ts, 1);\n",
+    "        wg::mma_ss<BQ>(st, ks, qb, kk > 0);\n        wg::mma_ss<BQ>(st, kb, qs, 1);\n",
+    "        wg::mma_ss<BQ>(dpt, vs, ob, kk > 0);\n        wg::mma_ss<BQ>(dpt, vb, os, 1);\n",
+    "        wg::mma_rs<HD>(part, as[n], tb, n > 0);\n"
+    "        wg::mma_rs<HD>(part, ab[n], ts, 1);\n",
+]
+SETMAXNREG = '  asm volatile("setmaxnreg.{}.sync.aligned.u32 %0;\\n" :: "n"(N));'
+WG_DERIVE = [
+    "      small_tile(Ks + 2 * TILE, Ks, 2 * TILE, pt, 128);  // k's and v's small parts\n"
+    "      transpose_tile<HD>(Ks + 4 * TILE, Ks + 5 * TILE, Ks, pt, 128);\n",
+    "      small_tile(Qs + 2 * TILE, Qs, 2 * TILE, pt, 128);  // q's and do's small parts\n",
+    "      transpose_tile<HD>(QTb, QTs, Qs, pt, 128);\n"
+    "      transpose_tile<HD>(dOTb, dOTs, Qs + TILE, pt, 128);\n",
+]
 
 
 def blocks(n: int):
@@ -107,35 +137,45 @@ VARIANTS = {
                          + blocks(2), True),
     "fwd 4 blocks/SM": (blocks(4), True),
     "fwd 2 blocks/SM": (blocks(2), True),
+    "wg no derive": ([(CU, x, "") for x in WG_DERIVE], False),
+    "wg one product": ([(CU, x, "") for x in WG_SMALL], False),
+    "wg no setmaxnreg": ([(WG_HEADER, SETMAXNREG.format("inc"), ""),
+                          (WG_HEADER, SETMAXNREG.format("dec"), "")], True),
 }
 
 
+REPORTED = ("swa_fwd_kernel", "swa_bwd_dq_wg_kernel", "swa_bwd_dkv_wg_kernel")
+
+
 def fwd_build(log: str) -> dict:
-    """ptxas's registers and spills of swa_fwd_kernel<64, f32>."""
-    out, inside = {}, False
+    """ptxas's registers and spills of REPORTED's kernels at <64, f32>."""
+    out, inside = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            inside = "swa_fwd_kernelILi64EfEE" in m.group(1)
+            inside = next((k for k in REPORTED if f"{k}ILi64EfEE" in m.group(1)), None)
         elif inside and "Used" in line:
-            out["registers"] = int(re.search(r"Used (\d+) registers", line).group(1))
+            out.setdefault(inside, {})["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
         elif inside and "spill stores" in line:
-            out["spill_bytes"] = [int(x) for x in re.search(
+            out.setdefault(inside, {})["spill_bytes"] = [int(x) for x in re.search(
                 r"(\d+) bytes spill stores, (\d+) bytes spill loads", line).groups()]
     return out
 
 
-def build_variants(out: Path):
-    """{variant: (loaded library, forward's build report)}; one nvcc per
-    variant, all started together."""
+def build_variants(out: Path, names):
+    """{variant: (loaded library, the build report)} of the variants `names`;
+    one nvcc per variant, all started together."""
     from repro_torch.kernels import build
     from repro_torch.kernels.swa_attention.ops import SOURCE
 
     jobs = {}
-    for i, (name, (edits, _)) in enumerate(VARIANTS.items()):
+    for i, name in enumerate(names):
+        edits = VARIANTS[name][0]
         d = out / f"v{i}"
         d.mkdir(parents=True, exist_ok=True)
-        text = {CU: SOURCE.read_text(), HEADER: (SOURCE.parent / HEADER).read_text()}
+        text = {CU: SOURCE.read_text(), HEADER: (SOURCE.parent / HEADER).read_text(),
+                WG_HEADER: (SOURCE.parent / WG_HEADER).read_text()}
         for f, old, new in edits:
             if text[f].count(old) != 1:
                 raise AssertionError(f"variant {name!r}: its edit of {f} no longer applies")
@@ -177,7 +217,20 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def main() -> int:
+# B, S, H, K, hd, window, prefix: smollm-135m's full-width path (causal)
+# and whisper-large-v3's encoder (bidirectional: a prefix of S)
+SHAPES = {"smollm-135m": (8, 1024, 9, 3, 64, 0, 0),
+          "whisper encoder": (4, 1500, 20, 20, 64, 0, 1500)}
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    names = argv or list(VARIANTS)
+    unknown = [n for n in names if n not in VARIANTS]
+    if unknown:
+        print(f"chip_ablate_attention.py: no variant {unknown}; the variants are "
+              f"{list(VARIANTS)}", file=sys.stderr)
+        return 2
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_ablate_attention.py: src/repro_torch is missing beside this script",
               file=sys.stderr)
@@ -196,72 +249,76 @@ def main() -> int:
                           capture_output=True, text=True, check=True,
                           timeout=60).stdout.strip().splitlines()[0]
     print(card)
-    libs = build_variants(ROOT / "build" / "ablation")
+    libs = build_variants(ROOT / "build" / "ablation", names)
 
     dev = torch.device("cuda", 0)
-    B, S, H, K, hd, W = 8, 1024, 9, 3, 64, 0
-    gen = torch.Generator(device=dev).manual_seed(3)
-    q, do = (torch.randn(B, S, H, hd, generator=gen, device=dev) for _ in range(2))
-    k, v = (torch.randn(B, S, K, hd, generator=gen, device=dev) for _ in range(2))
-    ro, rlse = swa_attention_ref(q, k, v, W)
-    # every variant's backward reads the plain forward's o and lse
-    rdq, delta = swa_attention_bwd_dq_ref(q, k, v, ro, rlse, do, W)
-    rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, rlse, delta, do, W)
     stream = torch.cuda.current_stream().cuda_stream
-    dims = (0, B, S, S, H, K, hd, W, 0, 1.0 / math.sqrt(hd), stream)
-
-    times = {name: [] for name in libs}
-    errs = {}
-    for name in list(libs) + list(libs)[::-1]:
-        lib, _ = libs[name]
-        o, lse = torch.empty_like(q), torch.empty_like(rlse)
-        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-        dl = torch.empty_like(rlse)
-
-        def run_fwd(lib=lib, o=o, lse=lse):
-            if lib.swa_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                     lse.data_ptr(), *dims):
-                raise RuntimeError("forward launch failed")
-
-        def run_dq(lib=lib, dq=dq, dl=dl):
-            if lib.swa_attention_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), ro.data_ptr(),
-                                        do.data_ptr(), rlse.data_ptr(), dl.data_ptr(),
-                                        dq.data_ptr(), *dims):
-                raise RuntimeError("dq launch failed")
-
-        def run_dkv(lib=lib, dk=dk, dv=dv):
-            if lib.swa_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                         rlse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                         dv.data_ptr(), None, 1, *dims):  # hd 64: no split
-                raise RuntimeError("dk/dv launch failed")
-
-        times[name].append((cuda_ms(run_fwd), cuda_ms(run_dq), cuda_ms(run_dkv)))
-        # the forward: worst |err| / (2e-5 + 2e-5 |ref|) of o and lse (at most 1
-        # within its tolerance); the backward: max err / max|ref| of dq, dk, dv
-        errs[name] = ([float(((a - r).abs() / (2e-5 + 2e-5 * r.abs())).max())
-                       for a, r in ((o, ro), (lse, rlse))],
-                      [float((a - r).abs().max() / r.abs().max())
-                       for a, r in ((dq, rdq), (dk, rdk), (dv, rdv))])
     rows = []
-    for name, ts in times.items():
-        keeps = VARIANTS[name][1]
-        fwd_err, bwd_err = errs[name]
-        build = libs[name][1]
-        rows.append({"variant": name, "keeps_numerics": keeps,
-                     "fwd_ms": [t[0] for t in ts], "dq_ms": [t[1] for t in ts],
-                     "dkv_ms": [t[2] for t in ts], "fwd_build_64_f32": build,
-                     "fwd_err_o_lse_of_tolerance": fwd_err,
-                     "err_dq_dk_dv_of_max_ref": bwd_err})
-        print(f"[ablation] {name:16s} fwd {ts[0][0]:.4f}, {ts[1][0]:.4f} ms; dq {ts[0][1]:.4f}, "
-              f"{ts[1][1]:.4f} ms; dk/dv {ts[0][2]:.4f}, {ts[1][2]:.4f} ms; fwd <64, f32> "
-              f"{build.get('registers')} registers, spill stores/loads {build.get('spill_bytes')} "
-              f"bytes; fwd |err| / tolerance (o, lse) "
-              + ", ".join(f"{e:.2e}" for e in fwd_err)
-              + "; max err / max|ref| (dq, dk, dv) " + ", ".join(f"{e:.2e}" for e in bwd_err)
-              + ("" if keeps else " (changes the arithmetic: timing only)")
-              + f"; f32 [{B}, {S}, {H}, {K}, {hd}] window {W}; card {card}")
-        if keeps and (max(fwd_err) > 1.0 or max(bwd_err) > 2e-5):
-            raise AssertionError(f"variant {name!r} misses the tolerance: {errs[name]}")
+    for label, (B, S, H, K, hd, W, P) in SHAPES.items():
+        gen = torch.Generator(device=dev).manual_seed(3)
+        q, do = (torch.randn(B, S, H, hd, generator=gen, device=dev) for _ in range(2))
+        k, v = (torch.randn(B, S, K, hd, generator=gen, device=dev) for _ in range(2))
+        ro, rlse = swa_attention_ref(q, k, v, W, P)
+        ro = ro.contiguous()
+        # every variant's backward reads the plain forward's o and lse
+        rdq, delta = swa_attention_bwd_dq_ref(q, k, v, ro, rlse, do, W, P)
+        rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, rlse, delta, do, W, P)
+        dims = (0, B, S, S, H, K, hd, W, P, 1.0 / math.sqrt(hd), stream)
+
+        times = {name: [] for name in libs}
+        errs = {}
+        for name in list(libs) + list(libs)[::-1]:
+            lib, _ = libs[name]
+            o, lse = torch.empty_like(q), torch.empty_like(rlse)
+            dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+            dl = torch.empty_like(rlse)
+
+            def run_fwd(lib=lib, o=o, lse=lse):
+                if lib.swa_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                         lse.data_ptr(), *dims):
+                    raise RuntimeError("forward launch failed")
+
+            def run_dq(lib=lib, dq=dq, dl=dl):
+                if lib.swa_attention_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                            ro.data_ptr(), do.data_ptr(), rlse.data_ptr(),
+                                            dl.data_ptr(), dq.data_ptr(), *dims):
+                    raise RuntimeError("dq launch failed")
+
+            def run_dkv(lib=lib, dk=dk, dv=dv):
+                if lib.swa_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                                             do.data_ptr(), rlse.data_ptr(), delta.data_ptr(),
+                                             dk.data_ptr(), dv.data_ptr(), None, 1,
+                                             *dims):  # hd 64: no split
+                    raise RuntimeError("dk/dv launch failed")
+
+            times[name].append((cuda_ms(run_fwd), cuda_ms(run_dq), cuda_ms(run_dkv)))
+            # the forward: worst |err| / (2e-5 + 2e-5 |ref|) of o and lse (at most
+            # 1 within its tolerance); the backward: max err / max|ref| of dq, dk, dv
+            errs[name] = ([float(((a - r).abs() / (2e-5 + 2e-5 * r.abs())).max())
+                           for a, r in ((o, ro), (lse, rlse))],
+                          [float((a - r).abs().max() / r.abs().max())
+                           for a, r in ((dq, rdq), (dk, rdk), (dv, rdv))])
+        for name, ts in times.items():
+            keeps = VARIANTS[name][1]
+            fwd_err, bwd_err = errs[name]
+            build = libs[name][1]
+            rows.append({"variant": name, "shape": label, "keeps_numerics": keeps,
+                         "fwd_ms": [t[0] for t in ts], "dq_ms": [t[1] for t in ts],
+                         "dkv_ms": [t[2] for t in ts], "build_64_f32": build,
+                         "fwd_err_o_lse_of_tolerance": fwd_err,
+                         "err_dq_dk_dv_of_max_ref": bwd_err})
+            print(f"[ablation] {label} {name:16s} fwd {ts[0][0]:.4f}, {ts[1][0]:.4f} ms; dq "
+                  f"{ts[0][1]:.4f}, {ts[1][1]:.4f} ms; dk/dv {ts[0][2]:.4f}, {ts[1][2]:.4f} ms; "
+                  f"<64, f32> registers and spill stores/loads bytes "
+                  + ", ".join(f"{k} {b.get('registers')} {b.get('spill_bytes')}"
+                              for k, b in build.items())
+                  + "; fwd |err| / tolerance (o, lse) " + ", ".join(f"{e:.2e}" for e in fwd_err)
+                  + "; max err / max|ref| (dq, dk, dv) " + ", ".join(f"{e:.2e}" for e in bwd_err)
+                  + ("" if keeps else " (changes the arithmetic: timing only)")
+                  + f"; f32 [{B}, {S}, {H}, {K}, {hd}] window {W} prefix {P}; card {card}")
+            if keeps and (max(fwd_err) > 1.0 or max(bwd_err) > 2e-5):
+                raise AssertionError(f"variant {name!r} misses the tolerance: {errs[name]}")
+        del q, do, k, v, ro, rlse, rdq, delta, rdk, rdv
     print(json.dumps({"ablation": rows}))
     return 0
 

@@ -7,10 +7,12 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 
 1. the card, its power limit, torch and CUDA versions (no card: exit 1);
 2. build every CUDA kernel of the package with nvcc, in parallel; print
-   ptxas's registers and spills and cuobjdump's count of tensor-core (HMMA)
-   instructions of the attention kernels (B4, B5), and fail if one has none
-   or if B5's 8-warp hd-256 kernels spill, with the occupancy calculator's
-   shared memory and blocks an SM; B4d's registers and spills;
+   ptxas's registers and spills and cuobjdump's count of tensor-core
+   instructions of the attention kernels (B4, B5: HGMMA for B5's wgmma
+   passes at hd <= 64, HMMA for the others), and fail if one has none or if
+   B5's wgmma (hd <= 64) or 8-warp (hd 256) kernels spill, with the
+   occupancy calculator's shared memory and blocks an SM; B4d's registers
+   and spills;
 3. hold each kernel against its plain PyTorch version on the card: the
    aggregation kernels (B1, B2) at the VGG main path's leaf shapes and at
    ragged edge shapes (B2 and B3 through ``kernels/tiered_aggregate/
@@ -371,27 +373,34 @@ def check_kernels(spec):
 
 def _attention_kernel(mangled: str):
     """'swa_bwd_dq_kernel<64, f32>' for an attention kernel's mangled name
-    (B4's swa_fwd_kernel, B5's swa_bwd_dq_kernel and swa_bwd_dkv_kernel at
-    hd <= 128, swa_bwd_dq_wide_kernel and swa_bwd_dkv_wide_kernel at hd
-    256), else None (the dk/dv merge, which multiplies nothing)."""
-    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)(?:_wide)?_kernel)ILi(\d+)E(f|13__nv_bfloat16)",
-                  mangled)
+    (B4's swa_fwd_kernel; B5's swa_bwd_dq_wg_kernel and swa_bwd_dkv_wg_kernel
+    on wgmma at hd <= 64, swa_bwd_dq_kernel and swa_bwd_dkv_kernel at hd 80
+    to 128, swa_bwd_dq_wide_kernel and swa_bwd_dkv_wide_kernel at hd 256),
+    else None (the dk/dv merge, which multiplies nothing)."""
+    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)(?:_wide|_wg)?_kernel)ILi(\d+)E"
+                  r"(f|13__nv_bfloat16)", mangled)
     return m and f"{m.group(1)}<{m.group(2)}, {'f32' if m.group(3) == 'f' else 'bf16'}>"
 
 
 def attention_kernel_name(name: str, hd: int) -> str:
     """The kernel that a pass (a key of ATTN) runs at head dim hd."""
-    wide = name != "swa_attention_fwd" and hd > 128
-    return KERNEL_FN[name].replace("_kernel", "_wide_kernel") if wide else KERNEL_FN[name]
+    from repro_torch.kernels.swa_attention.ops import WG_HEAD_DIM
+
+    if name == "swa_attention_fwd":
+        return KERNEL_FN[name]
+    if hd <= WG_HEAD_DIM:
+        return KERNEL_FN[name].replace("_kernel", "_wg_kernel")
+    return KERNEL_FN[name].replace("_kernel", "_wide_kernel") if hd > 128 else KERNEL_FN[name]
 
 
 def attention_build_report(source) -> dict:
     """ptxas's registers and spills and cuobjdump's count of tensor-core
-    instructions (HMMA) for every attention kernel of the built library (3
-    passes x 6 head dims x 2 dtypes, the backward's at hd 256 the 8-warp
-    kernels); fails if one has none, or if an 8-warp kernel spills.  For
-    the kernels printed, the occupancy calculator's blocks an SM at the
-    launch's dynamic shared memory."""
+    instructions for every attention kernel of the built library (3 passes
+    x 6 head dims x 2 dtypes): HGMMA (wgmma) for the backward's kernels at
+    hd <= 64, HMMA (mma.sync) for the others; fails if one has none, or if
+    a wgmma or an 8-warp (hd 256) kernel spills.  For the kernels printed,
+    the occupancy calculator's blocks an SM at the launch's dynamic shared
+    memory."""
     import os
 
     import torch
@@ -418,31 +427,42 @@ def attention_build_report(source) -> dict:
         if "Function :" in line:
             key = _attention_kernel(line)
             if key:
-                report.setdefault(key, {})["hmma"] = 0
+                report.setdefault(key, {}).update(hmma=0, hgmma=0)
         elif key and re.search(r"\bHMMA\b", line):
             report[key]["hmma"] += 1
-    if len(report) != 36 or any(r.get("hmma", 0) == 0 for r in report.values()):
+        elif key and re.search(r"\bHGMMA\b", line):
+            report[key]["hgmma"] += 1
+    # the tensor-core instruction each kernel must show: HGMMA on wgmma
+    for key, r in report.items():
+        r["tensor_core"] = "HGMMA" if "_wg_" in key else "HMMA"
+        r["tc_count"] = r["hgmma"] if "_wg_" in key else r["hmma"]
+    if len(report) != 36 or any(r["tc_count"] == 0 for r in report.values()):
         raise AssertionError(f"attention kernels without tensor-core instructions: {report}")
-    # hd 64: smollm-135m's path; hd 256: paligemma-3b's (the forward's
-    # column-split tiles, the backward's 8-warp kernels)
+    # hd 64: smollm-135m's, granite's and whisper's paths (the backward on
+    # wgmma); hd 256: paligemma-3b's (the forward's column-split tiles, the
+    # backward's 8-warp kernels)
     passes = dict(zip(ATTN, ("fwd", "dq", "dkv")))
-    for hd, dtypes in ((64, ("f32",)), (256, ("f32", "bf16"))):
+    for hd, dtypes in ((64, ("f32", "bf16")), (256, ("f32", "bf16"))):
         for dt in dtypes:
             for name in ATTN:
+                if hd == 64 and dt == "bf16" and name == "swa_attention_fwd":
+                    continue
                 key = f"{attention_kernel_name(name, hd)}<{hd}, {dt}>"
                 r = report[key]
                 r["blocks_per_sm"], r["smem_bytes"] = ops.occupancy(
                     passes[name], torch.float32 if dt == "f32" else torch.bfloat16, hd)
                 print(f"[build] {key}: {r['registers']} registers, spill stores/loads "
-                      f"{r['spill_stores']}/{r['spill_loads']} bytes (ptxas -v), {r['hmma']} HMMA "
-                      f"instructions (cuobjdump -sass), {r['smem_bytes'] / 1024:.1f} KB dynamic "
-                      f"shared memory, {r['blocks_per_sm']} blocks an SM (occupancy calculator)")
-    spilled = {k: r for k, r in report.items() if "_wide_" in k and r["spill_stores"]}
+                      f"{r['spill_stores']}/{r['spill_loads']} bytes (ptxas -v), {r['tc_count']} "
+                      f"{r['tensor_core']} instructions (cuobjdump -sass), "
+                      f"{r['smem_bytes'] / 1024:.1f} KB dynamic shared memory, "
+                      f"{r['blocks_per_sm']} blocks an SM (occupancy calculator)")
+    spilled = {k: r for k, r in report.items()
+               if ("_wide_" in k or "_wg_" in k) and r["spill_stores"]}
     if spilled:
-        raise AssertionError(f"the hd-256 backward kernels spill: {spilled}")
-    print("[build] every attention kernel (B4 and B5, hd 32-256, f32 and bf16) has HMMA "
-          "instructions: "
-          + ", ".join(f"{k} {r['hmma']}" for k, r in report.items()))
+        raise AssertionError(f"the wgmma (hd <= 64) or hd-256 backward kernels spill: {spilled}")
+    print("[build] every attention kernel (B4 and B5, hd 32-256, f32 and bf16) has tensor-core "
+          "instructions (HGMMA for the wgmma backward at hd <= 64, HMMA for the others): "
+          + ", ".join(f"{k} {r['tc_count']}" for k, r in report.items()))
     return report
 
 

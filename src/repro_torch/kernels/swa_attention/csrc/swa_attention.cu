@@ -7,9 +7,11 @@
 //     B4  _fwd:122 (bodies _fwd_kernel:49 windowed, _full_fwd_wrapper:151)
 //                                          -> swa_fwd_kernel
 //     B5  _bwd:289, dq pass :312 (body _dq_kernel:198)
-//                                          -> swa_bwd_dq_kernel (also delta)
+//                         -> swa_bwd_dq_wg_kernel (hd <= 64), swa_bwd_dq_kernel
+//                            (80-128), swa_bwd_dq_wide_kernel (256); also delta
 //         _bwd, dk/dv pass :346 (body _dkv_kernel:240)
-//                                          -> swa_bwd_dkv_kernel
+//                         -> swa_bwd_dkv_wg_kernel, swa_bwd_dkv_kernel,
+//                            swa_bwd_dkv_wide_kernel (+ its merge)
 //
 // What it computes.  q [B, Sq, H, hd], k and v [B, Sk, K, hd] (H = G*K, head
 // h reads kv head h / G), row-major, f32 or bf16, hd in {32, 64, 80, 96,
@@ -39,13 +41,14 @@
 // far above the ~50 flops/byte at which 3xTF32 on the tensor cores
 // (495 / 3 = 165 TFLOP/s of f32 work) overtakes HBM (3.35 TB/s).
 //
-// Every product of the three kernels runs in 3xTF32 on the tensor cores
-// (mma.sync m16n8k8, mma_tf32.cuh): each f32 operand is split into a TF32
-// big and small part and a.b = a_small.b_big + a_big.b_small + a_big.b_big,
-// which holds the f32 tolerance where one TF32 product misses it 8-63x
-// (tests/test_torch_swa_tf32.py).  The scale is folded into q as its
-// fragments are loaded.  Blocks of 128 threads (4 warps; 8 for the
-// backward at hd 256, see below); tiles staged as
+// Every product runs in 3xTF32 on the tensor cores: each f32 operand is
+// split into a TF32 big and small part and a.b = a_small.b_big +
+// a_big.b_small + a_big.b_big, which holds the f32 tolerance where one TF32
+// product misses it 8-63x (tests/test_torch_swa_tf32.py).  B5 at hd <= 64
+// runs on wgmma (below, "B5 on wgmma"); the forward at every hd and B5 at
+// hd 80-256 run on mma.sync m16n8k8 (mma_tf32.cuh), as follows.  The scale
+// is folded into q as its fragments are loaded.  Blocks of 128 threads (4
+// warps; 8 for the backward at hd 256, see below); tiles staged as
 // f32 with a row pitch of hd + 4 (hd + 8 for the forward's q and k),
 // conflict-free for every fragment load.
 // The scores and p (dp and ds) never leave registers: each warp computes
@@ -68,9 +71,9 @@
 //   k are staged at a pitch of hd + 8, so the fragments of s, their k slots
 //   permuted, load 8 bytes a lane; s sums its small terms in a second
 //   accumulator.
-//   dq pass: the same blocks and kv ring; delta is read from o and do in
-//   device memory while the first copies fly.
-//   dk/dv pass: a block per (batch*kv head, 32-key kv tile), first kv tiles
+//   dq pass (hd 80-128): the same blocks and kv ring; delta is read from o
+//   and do in device memory while the first copies fly.
+//   dk/dv pass (hd 80-128): a block per (batch*kv head, 32-key kv tile), first kv tiles
 //   (the most q tiles) first.  32-key tiles make twice the blocks of
 //   64-key ones, so the blocks of unequal length (G * (S - k0) / 32 q tiles) even
 //   out over the card; the block walks every (query head, 32-row q tile)
@@ -83,12 +86,76 @@
 //   Splitting q and do once per block in the dq pass, or each q/do tile
 //   once in the dk/dv pass, measured slower: the shared memory or the
 //   registers it takes cost a block per SM.
-// What bounds them on the card: the issue of the splits (an integer add
-// and mask per part and a subtraction) and of the three mma per product,
-// with 3 blocks of 4 warps per SM at hd 64 to hide their latency;
+// What bounds the mma.sync kernels on the card: the issue of the splits (an
+// integer add and mask per part and a subtraction) and of the three mma per
+// product, with 3 blocks of 4 warps per SM at hd 64 to hide their latency;
 // chip_ablate_attention.py prices each and times the forward's
 // alternatives (tile size, blocks an SM, q split once), PERF.md has the
 // times.
+//
+// B5 on wgmma (hd 32 and 64; wgmma_tf32.cuh).  Each product is a
+// warpgroup's wgmma m64nNk8 .tf32, three a k-step (small.big, big.small,
+// big.big) into one accumulator in registers: a quarter of mma.sync's
+// instructions a product, where those kernels sat at 22-27% of their bound
+// whatever the order or chains of their mma (PERF.md §6).
+//   Operands.  A tf32 wgmma reads only K-major tiles (the reduction dim
+//   contiguous); there is no transpose for tf32.  s = q k^T and dp = do v^T
+//   (dq pass), s^T = k q^T and dp^T = v do^T (dk/dv pass) reduce over hd,
+//   which every input holds contiguous: their tiles are read as TMA writes
+//   them.  dq += ds k, dv += p^T do and dk += ds^T q reduce over keys or
+//   rows: their A operand (ds, p^T, ds^T) is the accumulator of the product
+//   before, taken from registers, and their B operand is staged transposed
+//   (k^T, do^T, q^T: [hd][32]) by the producer, with its 32 k positions
+//   in the order in which an accumulator's columns sit in an A fragment
+//   (kperm), so p, dp and ds never leave registers.  Turning these products
+//   around (dv^T = do^T p) would need p in shared memory and hd as the
+//   64-row M (hd 32 wastes half); the transposed B tile costs one
+//   shared-memory pass over a 32-row tile.
+//   TF32 parts.  The tensor cores drop an f32 word's 13 low bits, so a tile
+//   serves as its own big part and only small = x - trunc(x) is stored
+//   beside it (same layout, so elementwise); the scale multiplies s and
+//   dq, dk after the products, not q.  Truncation instead of round to
+//   nearest holds ATTN_TOL (tests/test_torch_swa_tf32.py's wgmma cases).
+//   Blocks: two consumer warpgroups and a producer warpgroup (384 threads,
+//   one block an SM).  The producer's first warp loads every tile into a
+//   ring of stages, each with mbarriers: TMA (cp.async.bulk.tensor, 64B
+//   swizzle, rows past S read as 0) for 16-byte aligned f32 tensors, else
+//   the warp's plain loads converted to f32 in the same layout (bf16; f32
+//   views off alignment), fenced for the async proxy.  The whole producer
+//   warpgroup then derives the tile's small parts and transposes and
+//   signals the consumers, who only multiply: the derivation runs beside
+//   their products, and the two consumer warpgroups never wait for each
+//   other.  Deriving in the consumers, between two barriers of both
+//   warpgroups a tile, cost 17-25% of each pass (PERF.md §6).  In the
+//   dq pass at hd 64 the producer drops to 56 registers (setmaxnreg) so
+//   that the consumers rise from ptxas's 168 to 224.
+//   dq pass: a block per (batch*head, 128-row q tile), the heaviest first;
+//   warpgroup w owns rows 64w..; q and do stay resident, their small parts
+//   held as A fragments in registers (the small.big term reads A from
+//   registers, the others from shared memory).  A 2-stage ring of 32-key
+//   kv tiles, each stage k, v, their small parts and k^T (48 KB at hd 64;
+//   mbarriers loaded, full = derived, empty = read).  Per tile: s and dp
+//   (m64n32), p and ds in registers, dq's partial product (m64n(hd)),
+//   summed from 0 and added to dq in f32.  delta is computed as the
+//   mma.sync pass computes it (bit for bit).
+//   dk/dv pass: a block per (batch*kv head, 128-key kv tile), first kv
+//   tiles first; warpgroup w owns keys 64w..; k, v and their small parts
+//   stay resident (128 KB at hd 64).  Per (query head, 32-row q tile): a
+//   2-stage ring of q, do, their small parts, lse and delta (read by s^T
+//   and dp^T, m64n32), and one buffer of q^T and do^T (read by dv and dk,
+//   m64n(hd)), which the producer derives while the consumers run the
+//   tile's s^T and dp^T; p^T and ds^T in registers; dv's and then dk's
+//   partial products, each added in f32.  226 KB at hd 64: two stages of
+//   every derived tile would not fit.
+//   A warpgroup whose 64 rows or keys see none of a tile skips its
+//   products.  No split and no workspace at these head dims; no atomics:
+//   results repeat bit for bit.  hd 80 and 96 do not fit (q's and do's
+//   small fragments in registers, k and v resident for 128 keys) and stay
+//   on mma.sync with hd 128.
+// What bounds them: not the tensor cores (dropping two of the three
+// products saves 21-29%), but each tile's serial chain of products, waits
+// and softmax in a consumer warpgroup; PERF.md §6 prices the parts
+// (chip_ablate_attention.py's "wg" variants).
 //
 // Masking: a masked score never enters a sum (p = 0).  The ragged sequence
 // tails are masked in the kernels (q rows >= Sq and k rows >= Sk load as 0
@@ -141,10 +208,12 @@
 #include <initializer_list>
 #include <type_traits>
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 
 #include "mma_tf32.cuh"
+#include "wgmma_tf32.cuh"
 
 namespace {
 
@@ -814,6 +883,651 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
 }
 
 // --------------------------------------------------------------------------
+// B5 on wgmma, head dim <= kWgMaxHd (the note at the top): blocks of
+// kWgGroups consumer warpgroups and a producer warpgroup.  The producer's
+// first warp loads every tile (TMA for 16-byte aligned f32 tensors, else
+// plain loads of any dtype converted to f32, in the same swizzled layout)
+// into a ring of stages; the producer warpgroup derives each tile's small
+// parts and transposes; the consumers multiply on wgmma and release it.
+// --------------------------------------------------------------------------
+constexpr int kWgMaxHd = 64;                   // the head dims these kernels take: 32, 64
+constexpr int kWgGroups = 2;                   // consumer warpgroups a block
+constexpr int kWgConsumers = 128 * kWgGroups;
+constexpr int kWgThreads = kWgConsumers + 128;  // and a producer warpgroup, the last
+constexpr int kWgRows = 64 * kWgGroups;        // dq: q rows a block; dk/dv: keys a block
+constexpr int kWgTile = 32;                    // dq: keys a kv tile; dk/dv: rows a q tile
+constexpr int kWgStages = 2;  // 3 in the dq pass measured slower (PERF.md §6)
+constexpr int kWgSync = 1;                     // the consumers' named barrier
+// Registers a thread: ptxas allots 168 to each of the 12 warps at launch
+// (65536 / 384, rounded down to 8).  In the dq pass at hd 64 the producer
+// warpgroup, which loads and derives, drops to kWgProducerRegs, and what it
+// frees (128 x 112) lets the consumers rise to kWgConsumerRegs (256 x 56
+// more; setmaxnreg only moves registers within the block): at 168 they
+// spill 152 bytes.  The dk/dv pass and hd 32 fit in 168, and the hand-over
+// measured slower there (PERF.md §6).
+constexpr int kWgProducerRegs = 56, kWgConsumerRegs = 224;
+constexpr int kWgProducerSync = 2;  // the producer warpgroup's named barrier
+
+// Whether no (row, key) of rows [r0, r0 + nr) x keys [c0, c0 + nc) is
+// visible: rows past Sq, keys past Sk, every key past every row and at or
+// past the prefix, or every key at or before every row's window.
+__device__ __forceinline__ bool tile_empty(int r0, int nr, int c0, int nc, const Shape& sh) {
+  if (r0 >= sh.Sq || c0 >= sh.Sk) return true;
+  const int r_last = min(r0 + nr, sh.Sq) - 1, c_last = min(c0 + nc, sh.Sk) - 1;
+  if (c0 > r_last && c0 >= sh.prefix) return true;
+  return sh.window > 0 && c_last <= r0 - sh.window;
+}
+
+// The producer warp's load of rows [row0, row0 + ROWS) of head `head` of a
+// [B, rows, heads, HD] tensor into a [HD / 16][ROWS][16] tile (rows past
+// `rows` are 0): by TMA (lane 0 issues; the caller's `expect` counts the
+// bytes), or by the warp's plain loads.
+template <int ROWS, int HD, typename T>
+__device__ __forceinline__ void produce_rows(float* dst, const CUtensorMap* map, const T* src,
+                                             int b, int row0, int rows, int heads, int head,
+                                             uint64_t* bar, bool tma) {
+  const int lane = threadIdx.x & 31;
+  if (tma) {
+    if (lane == 0) {
+#pragma unroll
+      for (int c = 0; c < HD / 16; ++c)
+        wg::tma_load(dst + c * ROWS * 16, map, bar, head * HD + 16 * c, row0, b);
+    }
+    return;
+  }
+  for (int idx = lane; idx < ROWS * HD / 4; idx += 32) {
+    const int r = idx / (HD / 4), c = 4 * (idx % (HD / 4));
+    const int s = row0 + r;
+    float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    if (s < rows) {
+      const T* p = src + ((static_cast<long long>(b) * rows + s) * heads + head) * HD + c;
+      val = make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
+    }
+    *reinterpret_cast<float4*>(dst + wg::swz(r, c, ROWS)) = val;
+  }
+}
+
+// The producer's stage, in order: `expect` the bytes that its TMA loads
+// will count on `bar` (before they are issued), the loads, then `produced`:
+// the warp's plain stores fenced for the async proxy (wgmma), the warp
+// synchronised, and lane 0's arrival, the phase's one.
+__device__ __forceinline__ void expect(uint64_t* bar, uint32_t bytes, bool tma) {
+  if (tma && (threadIdx.x & 31) == 0) wg::bar_expect_tx(bar, bytes);
+}
+__device__ __forceinline__ void produced(uint64_t* bar) {
+  wg::proxy_fence();
+  __syncwarp();
+  if ((threadIdx.x & 31) == 0) wg::bar_arrive(bar);
+}
+
+// The small parts of the `n` floats of `src` into `dst` (the same layout),
+// 4 at a time, by `nth` threads (this one `tid` of them).
+__device__ __forceinline__ void small_tile(float* dst, const float* src, int n, int tid,
+                                           int nth) {
+  for (int i = 4 * tid; i < n; i += 4 * nth) {
+    const float4 x = *reinterpret_cast<const float4*>(src + i);
+    *reinterpret_cast<float4*>(dst + i) = make_float4(
+        wg::small_part(x.x), wg::small_part(x.y), wg::small_part(x.z), wg::small_part(x.w));
+  }
+}
+
+// The transpose of a [HD / 16][kWgTile][16] tile (rows r, dims d) into
+// [2][HD][16] tiles of its big parts (the f32 values) and small parts: the
+// dims as rows, the tile's rows as k in kperm order within each 8; by `nth`
+// threads (this one `tid` of them).
+template <int HD>
+__device__ __forceinline__ void transpose_tile(float* big, float* small, const float* src,
+                                               int tid, int nth) {
+  for (int u = tid; u < HD / 4 * (kWgTile / 4); u += nth) {
+    const int d4 = u % (HD / 4), rest = u / (HD / 4), kg = rest >> 1, h = rest & 1;
+    float x[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(src + wg::swz(8 * kg + 2 * s + h, 4 * d4, kWgTile));
+      x[s][0] = v.x;
+      x[s][1] = v.y;
+      x[s][2] = v.z;
+      x[s][3] = v.w;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int at = wg::swz(4 * d4 + jj, 8 * kg + 4 * h, HD);
+      *reinterpret_cast<float4*>(big + at) = make_float4(x[0][jj], x[1][jj], x[2][jj], x[3][jj]);
+      *reinterpret_cast<float4*>(small + at) =
+          make_float4(wg::small_part(x[0][jj]), wg::small_part(x[1][jj]),
+                      wg::small_part(x[2][jj]), wg::small_part(x[3][jj]));
+    }
+  }
+}
+
+// The float offset of k-step kk (8 floats) of a [width / 16][rows][16] tile.
+__device__ __forceinline__ int kstep(int kk, int rows) {
+  return (kk >> 1) * rows * 16 + (kk & 1) * 8;
+}
+
+// The A fragment (k slots in kperm order) of columns 8n.. of an
+// accumulator: big = its f32 bits, and their small parts, made here so that
+// they take registers only while their product runs.
+template <int N>
+__device__ __forceinline__ void a_of(const float (&d)[N], int n, uint32_t (&big)[4],
+                                     uint32_t (&small)[4]) {
+  constexpr int e[4] = {0, 2, 1, 3};
+#pragma unroll
+  for (int x = 0; x < 4; ++x) {
+    big[x] = __float_as_uint(d[4 * n + e[x]]);
+    small[x] = __float_as_uint(wg::small_part(d[4 * n + e[x]]));
+  }
+}
+
+template <int N>
+__device__ __forceinline__ void reg_fence_all(float (&d)[N]) {
+#pragma unroll
+  for (int x = 0; x < N; ++x) wg::reg_fence(d[x]);
+}
+template <int N>
+__device__ __forceinline__ void reg_fence_all(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int x = 0; x < 4; ++x) wg::reg_fence(a[n][x]);
+}
+
+// Dynamic shared memory of the two kernels (the tiles, the barriers, and 1
+// KB to align the tiles: the swizzle's pattern follows the address).
+template <int HD> constexpr size_t dq_wg_smem() {
+  return (2 * kWgRows * HD + kWgStages * 6 * kWgTile * HD) * sizeof(float) +
+         (3 * kWgStages + 1) * sizeof(uint64_t) + 1024;
+}
+template <int HD> constexpr size_t dkv_wg_smem() {
+  return (4 * kWgRows * HD + kWgStages * (4 * kWgTile * HD + 2 * kWgTile) +
+          4 * kWgTile * HD) * sizeof(float) +
+         (3 * kWgStages + 3) * sizeof(uint64_t) + 1024;
+}
+
+__device__ __forceinline__ float* aligned_smem(float* smem) {
+  const uint32_t pad = (1024u - (wg::smem_addr(smem) & 1023u)) & 1023u;
+  return smem + pad / 4;
+}
+
+// --------------------------------------------------------------------------
+// B5, q-parallel pass on wgmma: dq and delta.  grid (B*H, nq) over
+// kWgRows-row q tiles, i = nq - 1 - blockIdx.y; warpgroup w owns rows
+// 64w..64w+63 of the tile, and the block walks its kWgTile-key kv tiles.
+// The producer warpgroup derives each stage's small parts and k^T (its
+// first warp loading the next tile meanwhile), so the consumers only
+// multiply: a stage is k, v, their small parts, k^T's big and small parts,
+// with three mbarriers: loaded (the copies), full (derived), empty (read).
+// --------------------------------------------------------------------------
+template <int HD, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+swa_bwd_dq_wg_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo, const T* __restrict__ q,
+                     const T* __restrict__ k, const T* __restrict__ v, const T* __restrict__ o,
+                     const T* __restrict__ dout, const float* __restrict__ lse,
+                     float* __restrict__ delta, T* __restrict__ dq, Shape sh) {
+  static_assert(HD <= kWgMaxHd && HD % 16 == 0, "hd 32 or 64");
+  constexpr int NS = kWgStages, BK = kWgTile, KS = HD / 8, TILE = BK * HD;
+  extern __shared__ float smem_raw[];
+  float* Qs = aligned_smem(smem_raw);  // [HD / 16][kWgRows][16]
+  float* dOs = Qs + kWgRows * HD;
+  // NS stages x (k, v [HD / 16][BK][16], their small parts, k^T [2][HD][16]
+  // with the keys in kperm order: big, then small parts)
+  float* Ring = dOs + kWgRows * HD;
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(Ring + NS * 6 * TILE);
+  uint64_t* full = loaded + NS;
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int i = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = i * kWgRows;
+  int j_lo = 0;
+  if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
+  const int n_t = last_kv_tile(q0 + kWgRows - 1, BK, sh) - j_lo + 1;  // may be <= 0
+  const bool tma = std::is_same<T, float>::value && sh.vec;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      wg::bar_init(&loaded[s], 1);
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], kWgConsumers / 32);
+    }
+    wg::bar_init(qbar, 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {
+    // the producer: its first warp loads q and do of the block's rows, then
+    // keeps the kv ring NS - 1 tiles ahead of the warpgroup's derivation
+    if constexpr (HD > 32) wg::reg_dealloc<kWgProducerRegs>();
+    const int pt = threadIdx.x - kWgConsumers;
+    const bool loader = warp == kWgConsumers / 32;
+    auto load = [&](int t) {
+      const int s = t % NS;
+      if (t >= NS) wg::bar_wait(&empty[s], ((t / NS) & 1) ^ 1);
+      float* Ks = Ring + s * 6 * TILE;
+      const int k0 = (j_lo + t) * BK;
+      expect(&loaded[s], 2 * TILE * sizeof(float), tma);
+      produce_rows<BK, HD>(Ks, &tk, k, b, k0, sh.Sk, sh.K, kh, &loaded[s], tma);
+      produce_rows<BK, HD>(Ks + TILE, &tv, v, b, k0, sh.Sk, sh.K, kh, &loaded[s], tma);
+      produced(&loaded[s]);
+    };
+    if (loader) {
+      expect(qbar, 2 * kWgRows * HD * sizeof(float), tma);
+      produce_rows<kWgRows, HD>(Qs, &tq, q, b, q0, sh.Sq, sh.H, h, qbar, tma);
+      produce_rows<kWgRows, HD>(dOs, &tdo, dout, b, q0, sh.Sq, sh.H, h, qbar, tma);
+      produced(qbar);
+      for (int t = 0; t < min(NS - 1, n_t); ++t) load(t);
+    }
+    for (int t = 0; t < n_t; ++t) {
+      const int s = t % NS;
+      float* Ks = Ring + s * 6 * TILE;
+      wg::bar_wait(&loaded[s], (t / NS) & 1);
+      small_tile(Ks + 2 * TILE, Ks, 2 * TILE, pt, 128);  // k's and v's small parts
+      transpose_tile<HD>(Ks + 4 * TILE, Ks + 5 * TILE, Ks, pt, 128);
+      wg::proxy_fence();
+      wg::named_sync(kWgProducerSync, 128);
+      if (pt == 0) wg::bar_arrive(&full[s]);
+      // then the tile NS - 1 ahead, into the stage that tile t - 1 frees
+      if (loader && t + NS - 1 < n_t) load(t + NS - 1);
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wgi, its warp w, lane (g, t4)
+  if constexpr (HD > 32) wg::reg_alloc<kWgConsumerRegs>();
+  const int wgi = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 64 * wgi, wr = r0 + 16 * w;  // the warpgroup's first row, the warp's
+  const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.Sq;
+
+  // delta of the warp's 16 rows, as swa_bwd_dq_kernel takes it, read from o
+  // and do in device memory while q and do fly
+  float dl[2] = {0.0f, 0.0f}, lr[2] = {0.0f, 0.0f};
+  for (int r = 0; r < 16; ++r) {
+    const int row = q0 + wr + r;
+    float part = 0.0f;
+    if (row < sh.Sq) {
+      const long long off = ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD;
+      for (int d = lane; d < HD; d += 32) part += to_f32(o[off + d]) * to_f32(dout[off + d]);
+    }
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
+    if (lane == 0 && row < sh.Sq) delta[row_base + row] = part;
+    if (r == g) dl[0] = part;
+    if (r == g + 8) dl[1] = part;
+  }
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int row = q0 + wr + g + 8 * e;
+    if (row < sh.Sq) lr[e] = lse[row_base + row];
+  }
+
+  // the small parts of the warpgroup's q and do, A fragments of every kv tile
+  wg::bar_wait(qbar, 0);
+  uint32_t qsm[KS][4], osm[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = wg::swz(wr + g + 8 * (e & 1), 8 * kk + t4 + 4 * (e >> 1), kWgRows);
+      qsm[kk][e] = __float_as_uint(wg::small_part(Qs[at]));
+      osm[kk][e] = __float_as_uint(wg::small_part(dOs[at]));
+    }
+
+  float acc[HD / 2];
+#pragma unroll
+  for (int x = 0; x < HD / 2; ++x) acc[x] = 0.0f;
+
+  for (int t = 0; t < n_t; ++t) {
+    const int s = t % NS, j = j_lo + t;
+    const float* Ks = Ring + s * 6 * TILE;
+    const float* Vs = Ks + TILE;
+    const float* Ksm = Ks + 2 * TILE;
+    const float* Vsm = Ks + 3 * TILE;
+    const float* KTb = Ks + 4 * TILE;
+    const float* KTs = Ks + 5 * TILE;
+    wg::bar_wait(&full[s], (t / NS) & 1);
+
+    const bool live = !tile_empty(q0 + r0, 64, j * BK, BK, sh);
+    float sc[BK / 2], dp[BK / 2];
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) sc[x] = dp[x] = 0.0f;
+    if (live) {
+      // s = q k^T and dp = do v^T on the warpgroup's 64 rows x BK keys
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint64_t qb = wg::desc(Qs + kstep(kk, kWgRows) + r0 * 16);
+        const uint64_t kb = wg::desc(Ks + kstep(kk, BK)), ks = wg::desc(Ksm + kstep(kk, BK));
+        wg::mma_rs<BK>(sc, qsm[kk], kb, kk > 0);
+        wg::mma_ss<BK>(sc, qb, ks, 1);
+        wg::mma_ss<BK>(sc, qb, kb, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint64_t ob = wg::desc(dOs + kstep(kk, kWgRows) + r0 * 16);
+        const uint64_t vb = wg::desc(Vs + kstep(kk, BK)), vs = wg::desc(Vsm + kstep(kk, BK));
+        wg::mma_rs<BK>(dp, osm[kk], vb, kk > 0);
+        wg::mma_ss<BK>(dp, ob, vs, 1);
+        wg::mma_ss<BK>(dp, ob, vb, 1);
+      }
+      wg::commit();
+      wg::wait<0>();
+      reg_fence_all(sc);
+      reg_fence_all(dp);
+      reg_fence_all(qsm);
+      reg_fence_all(osm);
+    }
+    if (!live) {
+      __syncwarp();
+      if (lane == 0) wg::bar_arrive(&empty[s]);
+      continue;
+    }
+
+    // ds = p (dp - delta), p = exp(scale s - lse) where the mask allows;
+    // sc[4n + e] is (row g + 8 (e / 2), key 8n + 2 t4 + e % 2) of the warp's strip
+    const bool masked = tile_masked(q0 + wr, 16, j * BK, BK, sh);
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, x = 4 * n + e;
+        float p = expf(sh.scale * sc[x] - lr[r]);
+        if (masked && !allowed(q0 + wr + g + 8 * r, j * BK + 8 * n + 2 * t4 + (e & 1), sh))
+          p = 0.0f;
+        sc[x] = p * (dp[x] - dl[r]);
+      }
+
+    // dq += ds k, the keys as k: the tile's keys summed on the tensor cores
+    // from 0 and added to dq in f32 (each product rounds toward zero, so a
+    // long chain of them into one sum drifts)
+    float part[HD / 2];
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) part[x] = 0.0f;
+    uint32_t ab[BK / 8][4], as[BK / 8][4];
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) a_of(sc, n, ab[n], as[n]);
+    wg::fence();
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const uint64_t tb = wg::desc(KTb + kstep(n, HD)), ts = wg::desc(KTs + kstep(n, HD));
+      wg::mma_rs<HD>(part, as[n], tb, n > 0);
+      wg::mma_rs<HD>(part, ab[n], ts, 1);
+      wg::mma_rs<HD>(part, ab[n], tb, 1);
+    }
+    wg::commit();
+    wg::wait<0>();
+    reg_fence_all(part);
+    reg_fence_all(ab);
+    reg_fence_all(as);
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(&empty[s]);  // the stage is read
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) acc[x] += part[x];
+  }
+
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = q0 + wr + g + 8 * e2;
+    if (row >= sh.Sq) continue;
+    T* out = dq + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      out[8 * c] = from_f32<T>(acc[4 * c + 2 * e2] * sh.scale);
+      out[8 * c + 1] = from_f32<T>(acc[4 * c + 2 * e2 + 1] * sh.scale);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// B5, kv-parallel pass on wgmma: dk and dv, summed over the G query heads of
+// each kv head.  grid (B*K, nk) over kWgRows-key kv tiles, j = blockIdx.y;
+// warpgroup w owns keys 64w..64w+63 of the tile, and the block walks every
+// (query head, kWgTile-row q tile) that sees its keys.  The producer
+// warpgroup derives each q tile's small parts of q and do into the tile's
+// stage (read by s^T and dp^T), and q^T, do^T into one buffer (read by dv
+// and dk) while the consumers run the tile's first products: a stage has
+// loaded, derived ("full") and read ("empty") mbarriers, the transposes
+// their own full and empty pair.
+// --------------------------------------------------------------------------
+template <int HD, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+swa_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap tq,
+                      const __grid_constant__ CUtensorMap tk,
+                      const __grid_constant__ CUtensorMap tv,
+                      const __grid_constant__ CUtensorMap tdo, const T* __restrict__ q,
+                      const T* __restrict__ k, const T* __restrict__ v,
+                      const T* __restrict__ dout, const float* __restrict__ lse,
+                      const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+                      Shape sh) {
+  static_assert(HD <= kWgMaxHd && HD % 16 == 0, "hd 32 or 64");
+  constexpr int NS = kWgStages, BQ = kWgTile, KS = HD / 8, TILE = BQ * HD, KV = kWgRows * HD;
+  extern __shared__ float smem_raw[];
+  float* Ks = aligned_smem(smem_raw);  // [HD / 16][kWgRows][16]: k, its small parts, v, v's
+  float* Ksm = Ks + KV;
+  float* Vs = Ksm + KV;
+  float* Vsm = Vs + KV;
+  float* Ring = Vsm + KV;              // NS stages x (q, do, their small parts) [HD / 16][BQ][16]
+  float* QTb = Ring + NS * 4 * TILE;   // q^T and do^T [2][HD][16], rows in kperm order
+  float* QTs = QTb + TILE;
+  float* dOTb = QTs + TILE;
+  float* dOTs = dOTb + TILE;
+  float* Stat = dOTs + TILE;           // NS stages x (lse [BQ], delta [BQ])
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(Stat + NS * 2 * BQ);
+  uint64_t* full = loaded + NS;
+  uint64_t* empty = full + NS;
+  uint64_t* tfull = empty + NS;        // the transposes' pair
+  uint64_t* tempty = tfull + 1;
+  uint64_t* kbar = tempty + 1;
+
+  const int j = blockIdx.y;
+  const int b = blockIdx.x / sh.K, kh = blockIdx.x % sh.K;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int k0 = j * kWgRows;
+  const int nq = (sh.Sq + BQ - 1) / BQ;
+  const int i_lo = k0 < sh.prefix ? 0 : k0 / BQ;  // the prefix is seen from row 0
+  int i_hi = nq - 1;  // the last q tile whose rows see a key of this tile
+  if (sh.window > 0) i_hi = min(i_hi, (k0 + kWgRows - 1 + sh.window - 1) / BQ);
+  // none when Sq < Sk leaves the tile's keys past every causal row
+  const int n_i = max(i_hi - i_lo + 1, 0), n_it = sh.G * n_i;
+  const bool tma = std::is_same<T, float>::value && sh.vec;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      wg::bar_init(&loaded[s], 1);
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], kWgConsumers / 32);
+    }
+    wg::bar_init(tfull, 1);
+    wg::bar_init(tempty, kWgConsumers / 32);
+    wg::bar_init(kbar, 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {
+    // the producer: its first warp loads k and v of the block's keys, then
+    // keeps the q/do ring one tile ahead of the warpgroup's derivation
+    const int pt = threadIdx.x - kWgConsumers;
+    const bool loader = warp == kWgConsumers / 32;
+    auto load = [&](int it) {
+      const int s = it % NS;
+      if (it >= NS) wg::bar_wait(&empty[s], ((it / NS) & 1) ^ 1);
+      const int h = kh * sh.G + it / n_i, q0 = (i_lo + it % n_i) * BQ;
+      const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.Sq;
+      float* Qs = Ring + s * 4 * TILE;
+      float* St = Stat + s * 2 * BQ;
+      const bool ok = q0 + lane < sh.Sq;
+      St[lane] = ok ? lse[row_base + q0 + lane] : 0.0f;
+      St[BQ + lane] = ok ? delta[row_base + q0 + lane] : 0.0f;
+      expect(&loaded[s], 2 * TILE * sizeof(float), tma);
+      produce_rows<BQ, HD>(Qs, &tq, q, b, q0, sh.Sq, sh.H, h, &loaded[s], tma);
+      produce_rows<BQ, HD>(Qs + TILE, &tdo, dout, b, q0, sh.Sq, sh.H, h, &loaded[s], tma);
+      produced(&loaded[s]);
+    };
+    if (loader) {
+      expect(kbar, 2 * KV * sizeof(float), tma);
+      produce_rows<kWgRows, HD>(Ks, &tk, k, b, k0, sh.Sk, sh.K, kh, kbar, tma);
+      produce_rows<kWgRows, HD>(Vs, &tv, v, b, k0, sh.Sk, sh.K, kh, kbar, tma);
+      produced(kbar);
+      if (n_it > 0) load(0);
+    }
+    for (int it = 0; it < n_it; ++it) {
+      const int s = it % NS;
+      float* Qs = Ring + s * 4 * TILE;
+      wg::bar_wait(&loaded[s], (it / NS) & 1);
+      small_tile(Qs + 2 * TILE, Qs, 2 * TILE, pt, 128);  // q's and do's small parts
+      wg::proxy_fence();
+      wg::named_sync(kWgProducerSync, 128);
+      if (pt == 0) wg::bar_arrive(&full[s]);
+      // the next tile, into the stage whose first products (it - 1) are done
+      if (loader && it + 1 < n_it) load(it + 1);
+      if (it > 0) wg::bar_wait(tempty, (it - 1) & 1);  // dv and dk of it - 1 are done
+      transpose_tile<HD>(QTb, QTs, Qs, pt, 128);
+      transpose_tile<HD>(dOTb, dOTs, Qs + TILE, pt, 128);
+      wg::proxy_fence();
+      wg::named_sync(kWgProducerSync, 128);
+      if (pt == 0) wg::bar_arrive(tfull);
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wgi, its warp w, lane (g, t4)
+  const int wgi = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 64 * wgi, wk = r0 + 16 * w;  // the warpgroup's first key, the warp's
+  // k and v are the A operands of every q tile: their small parts, once
+  wg::bar_wait(kbar, 0);
+  small_tile(Ksm, Ks, KV, threadIdx.x, kWgConsumers);
+  small_tile(Vsm, Vs, KV, threadIdx.x, kWgConsumers);
+  wg::proxy_fence();
+  wg::named_sync(kWgSync, kWgConsumers);
+
+  float dka[HD / 2], dva[HD / 2];
+#pragma unroll
+  for (int x = 0; x < HD / 2; ++x) dka[x] = dva[x] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    const int s = it % NS, q0 = (i_lo + it % n_i) * BQ;
+    const float* Qs = Ring + s * 4 * TILE;
+    const float* dOs = Qs + TILE;
+    const float* Qsm = Qs + 2 * TILE;
+    const float* dOsm = Qs + 3 * TILE;
+    const float* Ls = Stat + s * 2 * BQ;
+    const float* Ds = Ls + BQ;
+    wg::bar_wait(&full[s], (it / NS) & 1);
+
+    const bool live = !tile_empty(q0, BQ, k0 + r0, 64, sh);
+    float st[BQ / 2], dpt[BQ / 2];
+#pragma unroll
+    for (int x = 0; x < BQ / 2; ++x) st[x] = dpt[x] = 0.0f;
+    if (live) {
+      // s^T = k q^T and dp^T = v do^T on the warpgroup's 64 keys x BQ rows
+      wg::fence();
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint64_t kb = wg::desc(Ks + kstep(kk, kWgRows) + r0 * 16);
+        const uint64_t ks = wg::desc(Ksm + kstep(kk, kWgRows) + r0 * 16);
+        const uint64_t qb = wg::desc(Qs + kstep(kk, BQ)), qs = wg::desc(Qsm + kstep(kk, BQ));
+        wg::mma_ss<BQ>(st, ks, qb, kk > 0);
+        wg::mma_ss<BQ>(st, kb, qs, 1);
+        wg::mma_ss<BQ>(st, kb, qb, 1);
+      }
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const uint64_t vb = wg::desc(Vs + kstep(kk, kWgRows) + r0 * 16);
+        const uint64_t vs = wg::desc(Vsm + kstep(kk, kWgRows) + r0 * 16);
+        const uint64_t ob = wg::desc(dOs + kstep(kk, BQ)), os = wg::desc(dOsm + kstep(kk, BQ));
+        wg::mma_ss<BQ>(dpt, vs, ob, kk > 0);
+        wg::mma_ss<BQ>(dpt, vb, os, 1);
+        wg::mma_ss<BQ>(dpt, vb, ob, 1);
+      }
+      wg::commit();
+      wg::wait<0>();
+      reg_fence_all(st);
+      reg_fence_all(dpt);
+
+      // p^T = exp(scale s^T - lse) where the mask allows, ds^T = p^T (dp^T
+      // - delta); st[4n + e] is (key g + 8 (e / 2), row 8n + 2 t4 + e % 2)
+      // of the warp's strip
+      const bool masked = tile_masked(q0, BQ, k0 + wk, 16, sh);
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int x = 4 * n + e, row = 8 * n + 2 * t4 + (e & 1);
+          float p = expf(sh.scale * st[x] - Ls[row]);
+          if (masked && !allowed(q0 + row, k0 + wk + g + 8 * (e >> 1), sh)) p = 0.0f;
+          st[x] = p;
+          dpt[x] = p * (dpt[x] - Ds[row]);
+        }
+    }
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(&empty[s]);  // the stage's q, do, lse and delta are read
+    wg::bar_wait(tfull, it & 1);
+    if (!live) {
+      __syncwarp();
+      if (lane == 0) wg::bar_arrive(tempty);
+      continue;
+    }
+
+    // dv += p^T do, then dk += ds^T q, the rows as k: each q tile's rows
+    // summed on the tensor cores from 0 and added to dk and dv in f32
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+      const float* Bb = pass == 0 ? dOTb : QTb;
+      const float* Bs = pass == 0 ? dOTs : QTs;
+      uint32_t ab[BQ / 8][4], as[BQ / 8][4];
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        if (pass == 0) a_of(st, n, ab[n], as[n]);
+        else a_of(dpt, n, ab[n], as[n]);
+      }
+      float part[HD / 2];
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) part[x] = 0.0f;
+      wg::fence();
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const uint64_t tb = wg::desc(Bb + kstep(n, HD)), ts = wg::desc(Bs + kstep(n, HD));
+        wg::mma_rs<HD>(part, as[n], tb, n > 0);
+        wg::mma_rs<HD>(part, ab[n], ts, 1);
+        wg::mma_rs<HD>(part, ab[n], tb, 1);
+      }
+      wg::commit();
+      wg::wait<0>();
+      reg_fence_all(part);
+      reg_fence_all(ab);
+      reg_fence_all(as);
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) {
+        if (pass == 0) dva[x] += part[x];
+        else dka[x] += part[x];
+      }
+    }
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(tempty);  // q^T and do^T are read
+  }
+
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int key = k0 + wk + g + 8 * e2;
+    if (key >= sh.Sk) continue;
+    const long long off = ((static_cast<long long>(b) * sh.Sk + key) * sh.K + kh) * HD + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+#pragma unroll
+      for (int e1 = 0; e1 < 2; ++e1) {
+        dk[off + 8 * c + e1] = from_f32<T>(dka[4 * c + 2 * e2 + e1] * sh.scale);
+        dv[off + 8 * c + e1] = from_f32<T>(dva[4 * c + 2 * e2 + e1]);
+      }
+  }
+}
+
+// --------------------------------------------------------------------------
 // B5 at hd 256, q-parallel pass: dq and delta, as swa_bwd_dq_kernel
 // computes them, in blocks of 8 warps (the note at the top).  grid (B*H,
 // nq) over 32-row q tiles, i = nq - 1 - blockIdx.y, walking 32-key kv
@@ -1314,10 +2028,12 @@ template <int HD> constexpr size_t fwd_smem() {
   return ((BQ + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
 }
 template <int HD> constexpr size_t dq_smem() {
+  if constexpr (HD <= kWgMaxHd) return dq_wg_smem<HD>();
   if constexpr (HD > 128) return wide_dq_floats<HD>() * sizeof(float);
   return (2 * q_rows<HD>() + 4 * kDqKeys) * (HD + 4) * sizeof(float);
 }
 template <int HD> constexpr size_t dkv_smem() {
+  if constexpr (HD <= kWgMaxHd) return dkv_wg_smem<HD>();
   if constexpr (HD > 128) return wide_dkv_floats<HD>() * sizeof(float);
   // k and v with their split parts, and the q/do ring
   return ((4 * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
@@ -1337,11 +2053,71 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const 
   return static_cast<int>(cudaGetLastError());
 }
 
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query (no link against libcuda); null where it is missing.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      return static_cast<EncodeTiled>(nullptr);
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// The TMA map of a [B, S, heads, HD] f32 tensor as 3-D (heads * HD, S, B):
+// boxes of 16 floats x `rows` rows, 64B-swizzled, rows past S read as 0.
+bool tensor_map(CUtensorMap* map, const void* ptr, int B, int S, int heads, int HD, int rows) {
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[3] = {static_cast<cuuint64_t>(heads) * HD, static_cast<cuuint64_t>(S),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(heads) * HD * sizeof(float),
+                                 static_cast<cuuint64_t>(S) * heads * HD * sizeof(float)};
+  const cuuint32_t box[3] = {16, static_cast<cuuint32_t>(rows), 1};
+  const cuuint32_t unit[3] = {1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 3, const_cast<void*>(ptr), dims, strides,
+                box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// The maps of q, k, v and do for the wgmma kernels: q and do in boxes of
+// q_rows rows, k and v of kv_rows; all zero (unused) unless sh.vec and f32.
+template <int HD, typename T>
+bool wg_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, const void* dout,
+             const Shape& sh, int q_rows, int kv_rows) {
+  for (CUtensorMap& x : m) x = CUtensorMap{};
+  if (!(std::is_same<T, float>::value && sh.vec)) return true;
+  return tensor_map(&m[0], q, sh.B, sh.Sq, sh.H, HD, q_rows) &&
+         tensor_map(&m[1], k, sh.B, sh.Sk, sh.K, HD, kv_rows) &&
+         tensor_map(&m[2], v, sh.B, sh.Sk, sh.K, HD, kv_rows) &&
+         tensor_map(&m[3], dout, sh.B, sh.Sq, sh.H, HD, q_rows);
+}
+
 template <int HD, typename T>
 int bwd_dq(const void* q, const void* k, const void* v, const void* o, const void* dout,
            const float* lse, float* delta, void* dq, const Shape& sh, cudaStream_t stream) {
   const size_t smem = dq_smem<HD>();
-  if constexpr (HD > 128) {
+  if constexpr (HD <= kWgMaxHd) {
+    CUtensorMap m[4];
+    if (!wg_maps<HD, T>(m, q, k, v, dout, sh, kWgRows, kWgTile))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = allow_smem(swa_bwd_dq_wg_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.H, (sh.Sq + kWgRows - 1) / kWgRows);
+    swa_bwd_dq_wg_kernel<HD, T><<<grid, kWgThreads, smem, stream>>>(
+        m[0], m[1], m[2], m[3], static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(o), static_cast<const T*>(dout), lse,
+        delta, static_cast<T*>(dq), sh);
+  } else if constexpr (HD > 128) {
     cudaError_t e = allow_smem(swa_bwd_dq_wide_kernel<HD, T>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid(sh.B * sh.H, (sh.Sq + kWideDqRows - 1) / kWideDqRows);
@@ -1385,6 +2161,18 @@ int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const
     const long long n = static_cast<long long>(sh.B) * sh.Sk * sh.K * HD;
     swa_bwd_dkv_merge_kernel<T><<<static_cast<unsigned>((n + 255) / 256), 256, 0, stream>>>(
         ws, static_cast<T*>(dk), static_cast<T*>(dv), n, splits);
+  } else if constexpr (HD <= kWgMaxHd) {
+    if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
+    CUtensorMap m[4];
+    if (!wg_maps<HD, T>(m, q, k, v, dout, sh, kWgTile, kWgRows))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = allow_smem(swa_bwd_dkv_wg_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.K, (sh.Sk + kWgRows - 1) / kWgRows);
+    swa_bwd_dkv_wg_kernel<HD, T><<<grid, kWgThreads, smem, stream>>>(
+        m[0], m[1], m[2], m[3], static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk),
+        static_cast<T*>(dv), sh);
   } else {
     if (splits != 1) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t e = allow_smem(swa_bwd_dkv_kernel<HD, T>, smem);
@@ -1418,11 +2206,13 @@ int occupancy(int pass, int* smem) {
       return blocks_per_sm(swa_fwd_kernel<HD, T>, kThreads, fwd_smem<HD>());
     case 1:
       *smem = static_cast<int>(dq_smem<HD>());
-      if constexpr (wide) return blocks_per_sm(swa_bwd_dq_wide_kernel<HD, T>, kWideThreads, dq_smem<HD>());
+      if constexpr (HD <= kWgMaxHd) return blocks_per_sm(swa_bwd_dq_wg_kernel<HD, T>, kWgThreads, dq_smem<HD>());
+      else if constexpr (wide) return blocks_per_sm(swa_bwd_dq_wide_kernel<HD, T>, kWideThreads, dq_smem<HD>());
       else return blocks_per_sm(swa_bwd_dq_kernel<HD, T>, kThreads, dq_smem<HD>());
     case 2:
       *smem = static_cast<int>(dkv_smem<HD>());
-      if constexpr (wide) return blocks_per_sm(swa_bwd_dkv_wide_kernel<HD, T>, kWideThreads, dkv_smem<HD>());
+      if constexpr (HD <= kWgMaxHd) return blocks_per_sm(swa_bwd_dkv_wg_kernel<HD, T>, kWgThreads, dkv_smem<HD>());
+      else if constexpr (wide) return blocks_per_sm(swa_bwd_dkv_wide_kernel<HD, T>, kWideThreads, dkv_smem<HD>());
       else return blocks_per_sm(swa_bwd_dkv_kernel<HD, T>, kThreads, dkv_smem<HD>());
     default:
       return -static_cast<int>(cudaErrorInvalidValue);

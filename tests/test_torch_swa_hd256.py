@@ -209,3 +209,32 @@ def test_meta_dkv_records_one_call_and_its_workspace(hd):
     assert got["kernels"]["swa_attention_bwd_dkv"]["calls"] == 1
     assert got["temp_bytes"] == 2 * B * S * K * hd * 4 + ws_bytes
     assert math.isclose(got["kernels"]["swa_attention_bwd_dkv"]["bytes"], plain_bytes + 2 * ws_bytes)
+
+
+# B, Sq, Sk, H, K, hd, prefix: whisper-large-v3's encoder, cross- and decoder
+# self-attention and smollm-135m's path, then hd 32 (REDUCED qwen2.5)
+WG_META = [(4, 1500, 1500, 20, 20, 64, 1500), (4, 448, 1500, 20, 20, 64, 1500),
+           (4, 448, 448, 20, 20, 64, 0), (8, 1024, 1024, 9, 3, 64, 0), (8, 256, 256, 8, 2, 32, 0)]
+
+
+@pytest.mark.parametrize("shape", WG_META, ids=[str(s) for s in WG_META])
+def test_meta_wgmma_dkv_records_no_split_and_no_workspace(shape):
+    """At head dim <= 64 the dk/dv pass runs on wgmma in one launch with no
+    workspace: on ``meta`` its record has one split, ``kernel_work`` adds no
+    workspace bytes, and the tally's temporaries are dk and dv alone."""
+    B, Sq, Sk, H, K, hd, P = shape
+    assert hd <= ops.WG_HEAD_DIM
+    q, do = _meta(B, Sq, H, hd), _meta(B, Sq, H, hd)
+    k, v = _meta(B, Sk, K, hd), _meta(B, Sk, K, hd)
+    lse, delta = _meta(B, H, Sq), _meta(B, H, Sq)
+    assert ops.dkv_splits(B, Sq, Sk, K, H // K, hd, 0, P, ops.DRYRUN_NUM_SMS) == 1
+    seen = []
+    with meta.recording(lambda name, shape: seen.append((name, shape))):
+        ops.swa_attention_bwd_dkv(q, k, v, lse, delta, do, 0, P)
+    assert [(name, rec["splits"]) for name, rec in seen] == [("swa_attention_bwd_dkv", 1)]
+    pairs = D.attention_pairs(Sq, Sk, 0, P)
+    _, plain_bytes = D.pairs_work(B, Sq, Sk, H, K, hd, pairs)["swa_attention_bwd_dkv"]
+    assert D.kernel_work("swa_attention_bwd_dkv", seen[0][1])["bytes"] == plain_bytes
+    _, got = D.count_step(lambda: ops.swa_attention_bwd_dkv(q, k, v, lse, delta, do, 0, P))
+    assert got["temp_bytes"] == 2 * B * Sk * K * hd * 4
+    assert not any(ops.launches.values())

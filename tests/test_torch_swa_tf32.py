@@ -60,14 +60,31 @@ einsum's order; the tensor cores add with truncation instead, which the
 kernels keep from drifting by summing each tile's partial product from 0
 and adding it to the running sums in f32 (checked on the card by
 ``tests/test_torch_cuda.py``).
+
+At head dim <= 64 both B5 passes run on wgmma (``swa_bwd_dq_wg_kernel``,
+``swa_bwd_dkv_wg_kernel``, ``csrc/wgmma_tf32.cuh``), whose arithmetic is
+emulated apart (``wg_backward``): the tensor cores read an f32 word as TF32
+by dropping its 13 low bits, so big = trunc(x) and small = trunc(x -
+trunc(x)) (no rounding to nearest); every product runs in k-steps of 8,
+each k-step's three terms in the order small.big, big.small, big.big into
+one f32 sum; the scale multiplies s and dq, dk after the products (q is
+not scaled first); dq sums each 32-key kv tile's product from 0 and adds it
+in f32, dk and dv each (query head, 32-row q tile) in the kernels' order.
+Held at ATTN_TOL of max|ref| against the plain versions and ``jax.grad`` of
+the JAX package's attention, at hd 64 and 32, G 1 and 3, ragged lengths,
+windows, a prefix and Sq != Sk.
 """
 import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import math
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.kernels.swa_attention.ref import swa_attention_ref as jax_swa_ref
+from repro.models import layers as JL
 from repro_torch.kernels import build
 from repro_torch.kernels.swa_attention import (
     swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref,
@@ -265,3 +282,160 @@ def test_library_is_rebuilt_when_a_header_changes(tmp_path):
     header.write_text("// two\n")
     assert build.library_path(src) != first
     assert build.build_log(src) == build.library_path(src).with_suffix(".log")
+
+
+# --------------------------------------------------------------------------
+# B5 on wgmma (head dim <= 64)
+# --------------------------------------------------------------------------
+WG_TILE = 32  # keys a kv tile of the dq pass, rows a q tile of the dk/dv pass
+# B, Sq, Sk, H, K, hd, window, prefix: G 3 causal at a ragged S; G 1 under a
+# window at hd 32; a prefix under a window; the bidirectional encoder (a
+# prefix of S); cross-attention (Sq < Sk, a prefix of Sk); Sq > Sk causal
+WG_CASES = [
+    (1, 300, 300, 3, 1, 64, 0, 0),
+    (1, 200, 200, 3, 3, 32, 64, 0),
+    (1, 300, 300, 3, 1, 64, 64, 100),
+    (2, 150, 150, 2, 2, 64, 0, 150),
+    (1, 130, 300, 2, 2, 64, 0, 300),
+    (1, 300, 130, 6, 2, 32, 0, 0),
+]
+WG_IDS = [str(c) for c in WG_CASES]
+
+
+def trunc(x: torch.Tensor) -> torch.Tensor:
+    """x as the tensor cores read an f32 word as TF32: the 13 low bits dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def wg_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """[..., M, N] = a [..., M, K] . b [..., N, K]^T as wgmma's 3xTF32 takes
+    it: k-steps of 8 in order, each adding small.big, big.small, big.big
+    (small = trunc(x - trunc(x))) to one f32 sum."""
+    a_big, b_big = trunc(a), trunc(b)
+    a_small, b_small = trunc(a - a_big), trunc(b - b_big)
+    out = None
+    for k0 in range(0, a.shape[-1], 8):
+        sl = slice(k0, k0 + 8)
+        for x, y in ((a_small, b_big), (a_big, b_small), (a_big, b_big)):
+            step = torch.einsum("...mk,...nk->...mn", x[..., sl], y[..., sl])
+            out = step if out is None else out + step
+    return out
+
+
+def wg_backward(q, k, v, o, lse, do, window, prefix):
+    """(dq, dk, dv) as swa_bwd_dq_wg_kernel and swa_bwd_dkv_wg_kernel compute
+    them (``window`` and ``prefix`` as the kernels take them)."""
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    scale = 1.0 / math.sqrt(hd)
+    ok = visible(torch.arange(Sq), torch.arange(Sk), True, window, prefix)  # [Sq, Sk]
+    qg = q.reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4)  # [B, K, G, Sq, hd]
+    dog = do.reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4)
+    kg, vg = (x.permute(0, 2, 1, 3)[:, :, None] for x in (k, v))  # [B, K, 1, Sk, hd]
+    lse_g = lse.reshape(B, K, G, Sq)
+    delta = (o * do).sum(-1).permute(0, 2, 1).reshape(B, K, G, Sq)
+
+    # the dq pass: rows x keys; each kv tile's ds.k from 0, added in f32
+    s = scale * wg_dot(qg, kg)
+    p = torch.where(ok, torch.exp(s - lse_g[..., None]), 0.0)
+    ds = p * (wg_dot(dog, vg) - delta[..., None])
+    kt = kg.transpose(-1, -2)  # [B, K, 1, hd, Sk]
+    dq = torch.zeros(B, K, G, Sq, hd)
+    for j0 in range(0, Sk, WG_TILE):
+        dq = dq + wg_dot(ds[..., j0:j0 + WG_TILE], kt[..., j0:j0 + WG_TILE])
+    dq = (scale * dq).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+
+    # the dk/dv pass: keys x rows; each (query head, q tile)'s product from
+    # 0, added in f32, heads outer, q tiles inner
+    st = scale * wg_dot(kg, qg)  # [B, K, G, Sk, Sq]
+    pt = torch.where(ok.T, torch.exp(st - lse_g[..., None, :]), 0.0)
+    dst = pt * (wg_dot(vg, dog) - delta[..., None, :])
+    qt, dot = qg.transpose(-1, -2), dog.transpose(-1, -2)  # [B, K, G, hd, Sq]
+    dk = dv = torch.zeros(B, K, Sk, hd)
+    for g in range(G):
+        for i0 in range(0, Sq, WG_TILE):
+            rows = slice(i0, i0 + WG_TILE)
+            dv = dv + wg_dot(pt[:, :, g, :, rows], dot[:, :, g, :, rows])
+            dk = dk + wg_dot(dst[:, :, g, :, rows], qt[:, :, g, :, rows])
+    dk, dv = (x.permute(0, 2, 1, 3) for x in (scale * dk, dv))
+    return dq, dk, dv
+
+
+def wg_inputs(case):
+    B, Sq, Sk, H, K, hd = case[:6]
+    rng = np.random.default_rng(sum(case))
+    q, do = (rng.normal(size=(B, Sq, H, hd)).astype(np.float32) for _ in range(2))
+    k, v = (rng.normal(size=(B, Sk, K, hd)).astype(np.float32) for _ in range(2))
+    return q, k, v, do
+
+
+def wg_errors(case):
+    """The emulated wgmma passes' (dq, dk, dv) against the plain versions and
+    against jax.grad of the JAX package's attention: max|err| / max|ref|."""
+    B, Sq, Sk, H, K, hd, W, P = case
+    q, k, v, do = wg_inputs(case)
+    tq, tk, tv, tdo = map(torch.from_numpy, (q, k, v, do))
+    o, lse = swa_attention_ref(tq, tk, tv, W, P)
+    got = wg_backward(tq, tk, tv, o, lse, tdo, W, P)
+    rdq, delta = swa_attention_bwd_dq_ref(tq, tk, tv, o, lse, tdo, W, P)
+    plain = (rdq,) + tuple(swa_attention_bwd_dkv_ref(tq, tk, tv, lse, delta, tdo, W, P))
+
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    if P or Sq != Sk:
+        bias = JL._mask_bias(jnp.arange(Sq), jnp.arange(Sk), True, W, P)
+
+        def attn(a, b, c):
+            return JL._sdpa(a, b, c, bias)
+    else:
+        def attn(a, b, c):
+            return jax_swa_ref(a, b, c, W)
+    jax_grads = jax.grad(lambda a, b, c: jnp.sum(attn(a, b, c) * jdo), argnums=(0, 1, 2))(
+        jq, jk, jv)
+
+    def err(a, r):
+        r = np.asarray(r, np.float64)
+        return float(np.abs(a.double().numpy() - r).max() / np.abs(r).max())
+    return ([err(a, r) for a, r in zip(got, plain)], [err(a, r) for a, r in zip(got, jax_grads)])
+
+
+@pytest.mark.parametrize("case", WG_CASES, ids=WG_IDS)
+def test_wgmma_backward_emulated_holds_the_f32_tolerance(case):
+    """dq, dk, dv through truncated TF32 parts, k-step by k-step, within
+    ATTN_TOL of max|ref| of the plain versions and of jax.grad."""
+    to_plain, to_jax = wg_errors(case)
+    assert max(to_plain) <= ATTN_TOL, to_plain
+    assert max(to_jax) <= ATTN_TOL, to_jax
+
+
+@pytest.mark.parametrize("case", WG_CASES[:3], ids=WG_IDS[:3])
+def test_wgmma_backward_with_one_product_misses_the_f32_tolerance(case):
+    """The small terms are what holds it: big.big alone (one truncated TF32
+    product a k-step) is more than 5x outside ATTN_TOL."""
+    B, Sq, Sk, H, K, hd, W, P = case
+    q, k, v, do = map(torch.from_numpy, wg_inputs(case))
+    o, lse = swa_attention_ref(q, k, v, W, P)
+    global wg_dot
+    three = wg_dot
+    try:
+        wg_dot = lambda a, b: torch.einsum("...mk,...nk->...mn", trunc(a), trunc(b))  # noqa: E731
+        got = wg_backward(q, k, v, o, lse, do, W, P)
+    finally:
+        wg_dot = three
+    rdq, delta = swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W, P)
+    ref = (rdq,) + tuple(swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W, P))
+    errs = [float((a - r).abs().max() / r.abs().max()) for a, r in zip(got, ref)]
+    assert min(errs) > 5 * ATTN_TOL, errs
+
+
+def test_trunc_drops_the_low_bits_and_small_carries_the_rest():
+    """trunc(x) keeps TF32's 10 mantissa bits toward zero; x - trunc(x) is
+    exact in f32, and its own trunc leaves ~2^-20 of |x|."""
+    y = torch.from_numpy(np.random.default_rng(1).normal(size=1000).astype(np.float32))
+    big = trunc(y)
+    assert bool(((big.view(torch.int32) & 0x1FFF) == 0).all())
+    assert bool((big.abs() <= y.abs()).all())
+    assert bool(((y - big).abs() < big.abs() * 2.0 ** -9).all())
+    small = trunc(y - big)
+    assert bool(((y.double() - big.double() - small.double()).abs()
+                 <= y.abs().double() * 2.0 ** -19).all())
