@@ -17,30 +17,39 @@ ptxas's registers and spills of the forward and of both wgmma passes at
 <64, f32> are printed beside them.  A variant that changes the arithmetic
 says so: it is a measure of what a part of the kernels costs, not a kernel.
 
-Edits of ``mma_tf32.cuh``, which reach B4 and B5 at hd 80-128 (B5 at hd
-<= 64 runs on wgmma, hd 256 on the 8-warp kernels):
-  as built          the package's source, unedited;
-  cvt.rna split     the TF32 rounding by cvt.rna.tf32.f32 instead of the
-                    integer add and mask (the same values);
-  split free        no split: big = the f32 bits, small = 0 (wrong: it
-                    prices the split's instructions);
-  one product       the two small-term mma dropped (wrong, 1xTF32: it prices
-                    the extra mma).
-Edits of the forward (B4) alone, each within the forward's tolerance:
-  fwd expf            the scores in natural-log units and expf, where the
-                      kernel folds log2(e) into q's scale and takes exp2f;
-  fwd one s acc       s's three products summed in one accumulator, where
-                      the kernel sums the two small terms in a second one;
-  fwd 4-byte loads    q and k at a pitch of hd + 4 and load_a / load_b's
-                      fragments (one 4-byte load a value), where the kernel
-                      permutes the k slots and loads 8 bytes a lane;
-  fwd q split once    q's fragments split once per block and kept in
-                      registers (hd / 8 x 8 of them), 2 blocks an SM;
-  fwd 64-key tiles    kv tiles of 64 keys instead of 32, 2 blocks an SM (the
-                      shared memory of the ring);
-  fwd 4 blocks/SM     the launch bound of 3 blocks an SM raised to 4 (128
-                      registers a thread);
-  fwd 2 blocks/SM     ... lowered to 2.
+Both shapes run at hd 64, where B4 and both B5 passes run on wgmma; the
+mma.sync kernels (``mma_tf32.cuh``) run only at hd 80-256, which no
+variant times.
+  as built            the package's source, unedited.
+Edits of the forward (B4) on wgmma (hd <= 64):
+  fwd serial          no overlap: each consumer warpgroup waits for tile
+                      t - 1's p.v before it issues tile t's s, then for s
+                      (the same values, bit for bit);
+  fwd one product     one wgmma a k-step, big.big, in s and in p.v (wrong,
+                      1xTF32: it prices the two small terms);
+  fwd 64-key tiles    kv tiles of 64 keys instead of 32 (in 2 stages: 4 do
+                      not fit in shared memory);
+  fwd 3 stages        a kv ring of 3 stages instead of 4;
+  fwd setmaxnreg      the dq pass's register hand-over in the forward too:
+                      the producer at 56 registers, the consumers at 224
+                      (the forward runs every warp at the 168 that ptxas
+                      allots 12 warps);
+  fwd 2 stages        a kv ring of 2 stages;
+  fwd turns           the two consumer warpgroups take turns at issuing
+                      their products (two mbarriers, n_t + 1 turns each),
+                      so that one's softmax runs under the other's products;
+  fwd q small in registers
+                      q's small part held as register A fragments (the
+                      first term of s RS, as the dq pass holds q's)
+                      instead of in shared memory;
+  fwd q big in registers
+                      q's big part held as register A fragments, the two
+                      terms of s that read it RS, its small part in shared
+                      memory;
+  fwd plain descriptors
+                      each k-step's wgmma descriptor made whole
+                      (``wg::desc``, as the backward passes make them)
+                      instead of as a tile's low word plus a constant.
 Edits of B5's wgmma passes (hd <= 64):
   wg no derive        the producer warpgroup derives no small parts or
                       transposes (wrong: it prices that shared-memory pass,
@@ -62,20 +71,118 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 
-MMA3 = """  mma(d, a_small, b_big);
-  mma(d, a_big, b_small);
-  mma(d, a_big, b_big);"""
-ROUND = "  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;"
-SPLIT = "  big = to_tf32(x);\n  small = to_tf32(x - __uint_as_float(big));"
-FWD_BOUND = "__launch_bounds__(kThreads, HD <= 64 ? 3 : 1)\nswa_fwd_kernel("
-FWD_Q = ("      uint32_t qb[4], qs[4];\n"
-         "      load_a_pairs(Qs, LDQ, wr, kk, qscale, qb, qs);\n")
-FWD_ACC = "  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f}, acc[NT][4];\n"
-S_MMA = ("        tf32::mma(sl[n], qs, kb);\n        tf32::mma(sl[n], qb, ks);\n"
-         "        tf32::mma(s[n], qb, kb);\n")
-S_ADD = ("#pragma unroll\n    for (int n = 0; n < NS; ++n)\n#pragma unroll\n"
-         "      for (int e = 0; e < 4; ++e) s[n][e] += sl[n][e];\n")
 CU, HEADER, WG_HEADER = "swa_attention.cu", "mma_tf32.cuh", "wgmma_tf32.cuh"
+# the forward on wgmma: tile t's s issued beside tile t - 1's p.v (and the
+# serial order), its products' three terms, the dq pass's register hand-over
+FWD_OVERLAP = "      issue_s(stage(t));\n      issue_pv(stage(prev));\n      wg::wait<1>();\n"
+FWD_SERIAL = ("      issue_pv(stage(prev));\n      wg::wait<0>();\n      issue_s(stage(t));\n"
+              "      wg::wait<0>();\n")
+FWD_S3 = ("      wg::mma_ss<BK>(sc, qs, kb, kk > 0);\n      wg::mma_ss<BK>(sc, qb, ks, 1);\n"
+          "      wg::mma_ss<BK>(sc, qb, kb, 1);\n")
+FWD_STAGES = "constexpr int kWgFwdStages = 4;"
+FWD_PV3 = ("      wg::mma_rs<HD>(part, ps[n], tb, n > 0);\n      wg::mma_rs<HD>(part, pb[n], ts, 1);\n"
+           "      wg::mma_rs<HD>(part, pb[n], tb, 1);\n")
+FWD_DEALLOC = ("    if constexpr (HD > 32) wg::reg_dealloc<kWgProducerRegs>();\n"
+               "    constexpr int kDerivers")
+# the consumers' q: its small part derived into shared memory, the
+# descriptors as low words, the kv loop's three parts (for "fwd turns")
+FWD_QSMEM = """  for (int c = 0; c < HD / 16; ++c) {
+    const int at = c * kWgRows * 16 + r0 * 16;
+    small_tile(Qsm + at, Qs + at, 64 * 16, threadIdx.x & 127, 128);
+  }
+  wg::proxy_fence();
+  wg::named_sync(kWgFwdGroupSync + wgi, 128);
+"""
+FWD_QREG = """  uint32_t {name}[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      {name}[kk][e] = __float_as_uint({value}(
+          Qs[wg::swz(wr + g + 8 * (e & 1), 8 * kk + t4 + 4 * (e >> 1), kWgRows)]));
+"""
+FWD_DESC = ("  const uint32_t q_lo = wg::desc_lo(Qs + r0 * 16);\n"
+            "  auto at = [](uint32_t lo, int floats) { return wg::desc_of(lo + floats / 4); };\n")
+FWD_S_DESC = ("    uint32_t q = q_lo, k_lo = wg::desc_lo(Ks);\n    wg::reg_fence(q);\n#pragma unroll\n"
+              "    for (int kk = 0; kk < KS; ++kk) {\n"
+              "      const uint64_t qb = at(q, kstep(kk, kWgRows)), "
+              "qs = at(q, kWgRows * HD + kstep(kk, kWgRows));\n"
+              "      const uint64_t kb = at(k_lo, kstep(kk, BK)), ks = at(k_lo, 2 * TILE + kstep(kk, BK));\n")
+FWD_S_PLAIN = ("#pragma unroll\n    for (int kk = 0; kk < KS; ++kk) {\n"
+               "      const uint64_t qb = wg::desc(Qs + kstep(kk, kWgRows) + r0 * 16);\n"
+               "      const uint64_t qs = wg::desc(Qsm + kstep(kk, kWgRows) + r0 * 16);\n"
+               "      const uint64_t kb = wg::desc(Ks + kstep(kk, BK)), "
+               "ks = wg::desc(Ks + 2 * TILE + kstep(kk, BK));\n")
+FWD_PV_DESC = ("    const uint32_t v_lo = wg::desc_lo(Ks + 3 * TILE);\n#pragma unroll\n"
+               "    for (int n = 0; n < BK / 8; ++n) {\n"
+               "      const uint64_t tb = at(v_lo, kstep(n, HD)), ts = at(v_lo, TILE + kstep(n, HD));\n")
+FWD_PV_PLAIN = ("#pragma unroll\n    for (int n = 0; n < BK / 8; ++n) {\n"
+                "      const uint64_t tb = wg::desc(Ks + 3 * TILE + kstep(n, HD));\n"
+                "      const uint64_t ts = wg::desc(Ks + 4 * TILE + kstep(n, HD));\n")
+FWD_SKIP_LEAD = "  int t = 0;\n  for (; t < n_t && !live(t); ++t) skip(t);\n"
+FWD_TURNS = """  uint64_t* turn = qbar + 1;  // warpgroup w's turn to issue: turn[w]
+  if (threadIdx.x == 0) {
+    wg::bar_init(&turn[0], 1);
+    wg::bar_init(&turn[1], 1);
+    wg::bar_arrive(&turn[0]);
+    wg::bar_init_fence();
+  }
+  wg::named_sync(kWgSync, kWgConsumers);
+  int slot = 0;
+  auto turn_wait = [&]() { wg::bar_wait(&turn[wgi], slot & 1); };
+  auto turn_pass = [&]() {
+    if ((threadIdx.x & 127) == 0) wg::bar_arrive(&turn[wgi ^ 1]);
+    ++slot;
+  };
+  auto turn_skip = [&](int t) {
+    wg::bar_wait(&full[t % NS], (t / NS) & 1);
+    turn_wait();
+    turn_pass();
+    release(t);
+  };
+  int t = 0;
+  for (; t < n_t && !live(t); ++t) turn_skip(t);
+"""
+FWD_FIRST = "    wg::fence();\n    issue_s(stage(t));\n    wg::wait<0>();\n"
+FWD_STEADY = ("      wg::fence();\n      issue_s(stage(t));\n      issue_pv(stage(prev));\n"
+              "      wg::wait<1>();\n")
+FWD_LAST = """    wg::fence();
+    issue_pv(stage(prev));
+    wg::wait<0>();
+    reg_fence_all(part);
+    reg_fence_all(pb);
+    reg_fence_all(ps);
+    release(prev);
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) acc[x] += part[x];
+  }
+  for (; t < n_t; ++t) skip(t);
+"""
+FWD_LAST_TURNS = """    if (t < n_t) wg::bar_wait(&full[t % NS], (t / NS) & 1);
+    turn_wait();
+    wg::fence();
+    issue_pv(stage(prev));
+    turn_pass();
+    wg::wait<0>();
+    reg_fence_all(part);
+    reg_fence_all(pb);
+    reg_fence_all(ps);
+    release(prev);
+    if (t < n_t) release(t);
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) acc[x] += part[x];
+    ++t;
+  }
+  for (; t < n_t; ++t) turn_skip(t);
+  if (t == n_t) {
+    turn_wait();
+    turn_pass();
+  }
+"""
+FWD_ALLOC = ("  if constexpr (HD > 32) wg::reg_alloc<kWgConsumerRegs>();\n"
+             "  const int wgi = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3;\n"
+             "  const int r0 = 64 * wgi, wr = r0 + 16 * w;  // the warpgroup's first row, the warp's\n"
+             "\n  // the small parts of the warpgroup's 64 rows")
 # the two small terms of every wgmma product (dq pass: s, dp, dq; dk/dv
 # pass: s^T, dp^T, then dv and dk in one loop)
 WG_SMALL = [
@@ -97,46 +204,34 @@ WG_DERIVE = [
 ]
 
 
-def blocks(n: int):
-    return [(CU, FWD_BOUND, FWD_BOUND.replace("? 3", f"? {n}"))]
-
-
 # name -> [(file, edited text, replacement)], whether the numerics hold
 VARIANTS = {
     "as built": ([], True),
-    "cvt.rna split": ([(HEADER, ROUND, '  uint32_t r;\n  asm("cvt.rna.tf32.f32 %0, %1;\\n" : "=r"(r) '
-                                       ': "f"(x));\n  return r;')], True),
-    "split free": ([(HEADER, SPLIT, "  big = __float_as_uint(x);\n  small = 0u;")], False),
-    "one product": ([(HEADER, MMA3, "  mma(d, a_big, b_big);")], False),
-    "fwd expf": ([
-        (CU, "const float qscale = sh.scale * kLog2e;", "const float qscale = sh.scale;"),
-        (CU, "exp2f(s[n][e] - m_new)", "expf(s[n][e] - m_new)"),
-        (CU, "exp2f(m[r] - m_new)", "expf(m[r] - m_new)"),
-        (CU, "kLn2 * m[e2] + logf(lr)", "m[e2] + logf(lr)"),
-    ], True),
-    "fwd one s acc": ([(CU, S_MMA, "        tf32::mma3(s[n], qb, qs, kb, ks);\n"),
-                       (CU, S_ADD, "")], True),
-    "fwd 4-byte loads": ([
-        (CU, "LDQ = HD + 8", "LDQ = HD + 4"),
-        (CU, "load_a_pairs(Qs, LDQ, wr, kk, qscale, qb, qs);",
-         "tf32::load_a(Qs, LDQ, wr, kk, qscale, qb, qs);"),
-        (CU, "load_b_pairs(Ks, LDQ, 8 * n, kk, kb, ks);",
-         "tf32::load_b(Ks, LDQ, 8 * n, kk, 1.0f, kb, ks);"),
-        (CU, "((BQ + 2 * kFwdKeys) * (HD + 8)", "((BQ + 2 * kFwdKeys) * (HD + 4)"),
-    ], True),
-    "fwd q split once": (blocks(2) + [
-        (CU, FWD_ACC, "  tf32::cp_async_wait<0>();\n  __syncthreads();\n"
-                      "  uint32_t qfb[NT][4], qfs[NT][4];\n#pragma unroll\n"
-                      "  for (int c = 0; c < NT; ++c)\n"
-                      "    load_a_pairs(Qs, LDQ, wr, 8 * c, qscale, qfb[c], qfs[c]);\n"
-                      + FWD_ACC),
-        (CU, FWD_Q, "      const uint32_t (&qb)[4] = qfb[kk / 8];\n"
-                    "      const uint32_t (&qs)[4] = qfs[kk / 8];\n"),
-    ], True),
-    "fwd 64-key tiles": ([(CU, "constexpr int kFwdKeys = 32;", "constexpr int kFwdKeys = 64;")]
-                         + blocks(2), True),
-    "fwd 4 blocks/SM": (blocks(4), True),
-    "fwd 2 blocks/SM": (blocks(2), True),
+    "fwd serial": ([(CU, FWD_OVERLAP, FWD_SERIAL)], True),
+    "fwd one product": ([(CU, FWD_S3, "      wg::mma_ss<BK>(sc, qb, kb, kk > 0);\n"),
+                         (CU, FWD_PV3, "      wg::mma_rs<HD>(part, pb[n], tb, n > 0);\n")], False),
+    "fwd 64-key tiles": ([(CU, "constexpr int kWgFwdKeys = 32;", "constexpr int kWgFwdKeys = 64;"),
+                          (CU, FWD_STAGES, FWD_STAGES.replace("4", "2"))], True),
+    "fwd 3 stages": ([(CU, FWD_STAGES, FWD_STAGES.replace("4", "3"))], True),
+    "fwd setmaxnreg": ([(CU, x.split("\n", 1)[1], x) for x in (FWD_DEALLOC, FWD_ALLOC)], True),
+    "fwd 2 stages": ([(CU, FWD_STAGES, FWD_STAGES.replace("4", "2"))], True),
+    "fwd turns": ([
+        (CU, "         (3 * kWgFwdStages + 1) * sizeof(uint64_t) + 1024;",
+         "         (3 * kWgFwdStages + 3) * sizeof(uint64_t) + 1024;"),
+        (CU, FWD_SKIP_LEAD, FWD_TURNS),
+        (CU, FWD_FIRST, "    turn_wait();\n    wg::fence();\n    issue_s(stage(t));\n"
+                        "    turn_pass();\n    wg::wait<0>();\n"),
+        (CU, FWD_STEADY, "      turn_wait();\n" + FWD_STEADY.replace(
+            "      wg::wait<1>();\n", "      turn_pass();\n      wg::wait<1>();\n")),
+        (CU, FWD_LAST, FWD_LAST_TURNS)], True),
+    "fwd q small in registers": ([
+        (CU, FWD_QSMEM, FWD_QREG.format(name="qsm", value="wg::small_part")),
+        (CU, FWD_S3, FWD_S3.replace("mma_ss<BK>(sc, qs,", "mma_rs<BK>(sc, qsm[kk],"))], True),
+    "fwd q big in registers": ([
+        (CU, FWD_QSMEM, FWD_QSMEM + FWD_QREG.format(name="qbr", value="")),
+        (CU, FWD_S3, FWD_S3.replace("mma_ss<BK>(sc, qb,", "mma_rs<BK>(sc, qbr[kk],"))], True),
+    "fwd plain descriptors": ([(CU, FWD_DESC, ""), (CU, FWD_S_DESC, FWD_S_PLAIN),
+                               (CU, FWD_PV_DESC, FWD_PV_PLAIN)], True),
     "wg no derive": ([(CU, x, "") for x in WG_DERIVE], False),
     "wg one product": ([(CU, x, "") for x in WG_SMALL], False),
     "wg no setmaxnreg": ([(WG_HEADER, SETMAXNREG.format("inc"), ""),
@@ -144,7 +239,7 @@ VARIANTS = {
 }
 
 
-REPORTED = ("swa_fwd_kernel", "swa_bwd_dq_wg_kernel", "swa_bwd_dkv_wg_kernel")
+REPORTED = ("swa_fwd_wg_kernel", "swa_bwd_dq_wg_kernel", "swa_bwd_dkv_wg_kernel")
 
 
 def fwd_build(log: str) -> dict:

@@ -1,9 +1,8 @@
 #!/usr/bin/env python3
 """Hold the attention kernels (B4, B5) of this tree against an earlier
-tree's on one GPU, where queries and keys are one sequence: bit for bit,
-except B5's dq, dk and dv at head dim <= 64, whose passes this tree moved
-to wgmma, within the attention tolerance there; then time both trees' B5
-passes in turns.
+tree's on one GPU: bit for bit, except B4's o and lse at head dim <= 64,
+which this tree computes on wgmma, within the forward's tolerance there;
+then time both trees' B4 in turns.
 
     python3 chip_compare_parent.py PARENT_DIR
 
@@ -15,17 +14,18 @@ workspace and a split count (ws, splits after dv).  Both sources are built
 with the package's nvcc flags, in parallel; then B4, the dq pass and the
 dk/dv pass of both run on the same inputs at every head dim, f32 and bf16,
 causal, windowed, with a prefix and bidirectional (a prefix of S), at
-ragged and tile-edge lengths: this tree's through the package's wrappers
-(which choose the dk/dv pass's split count), the parent's through its C
-entries.  Every output (o, lse, dq, delta, dk, dv) must be equal bit for
-bit, except dq, dk and dv at hd <= 64, which this tree computes on wgmma
-(truncated TF32 parts, the scale after the products): there an output may
-differ within ATTN_TOL of max|parent| (f32; bf16 one bf16 ulp of each
-value beyond it) and is printed as changed by design.  delta is computed
-as before and must be equal.  Then both trees' dq and dk/dv passes are
-timed with CUDA events, in turns (parent, this tree, this tree, parent),
-at smollm-135m's full-width shape and whisper-large-v3's encoder, f32.
-Prints the card, the counts, and exits non-zero on any other difference.
+ragged and tile-edge lengths, and with Sq != Sk where the parent takes it:
+this tree's through the package's wrappers (which choose the dk/dv pass's
+split count), the parent's through its C entries.  Both trees' B5 passes
+read the parent's o and lse, so that they see the same inputs.  Every
+output (o, lse, dq, delta, dk, dv) must be equal bit for bit, except o and
+lse at hd <= 64, which this tree computes on wgmma (truncated TF32 parts,
+the scale after s): there they may differ within rtol = atol ATTN_TOL of
+the parent's (bf16 o one bf16 ulp of each value beyond it) and are printed
+as changed by design.  Then both trees' B4 is timed with CUDA events, in
+turns (parent, this tree, this tree, parent), at smollm-135m's full-width
+shape and whisper-large-v3's encoder and cross-attention, f32.  Prints the
+card, the counts, and exits non-zero on any other difference.
 """
 from __future__ import annotations
 
@@ -39,12 +39,13 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 REL = Path("src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu")
-ATTN_TOL = 2e-5  # chip_smoke.py's: the backward's error over max|ref|
-REDESIGNED_HD = 64  # at and below it this tree's B5 passes run on wgmma
-REDESIGNED = ("dq", "dk", "dv")  # their outputs there; delta is computed as before
-# B, S, H, K, hd, window, prefix: the shapes whose B5 passes are timed
-TIMED = {"smollm-135m": (8, 1024, 9, 3, 64, 0, 0),
-         "whisper-large-v3 encoder": (4, 1500, 20, 20, 64, 0, 1500)}
+ATTN_TOL = 2e-5  # chip_smoke.py's: the forward's rtol = atol
+REDESIGNED_HD = 64  # at and below it this tree's B4 runs on wgmma
+REDESIGNED = ("o", "lse")  # its outputs there
+# B, Sq, Sk, H, K, hd, window, prefix: the shapes whose B4 is timed
+TIMED = {"smollm-135m": (8, 1024, 1024, 9, 3, 64, 0, 0),
+         "whisper-large-v3 encoder": (4, 1500, 1500, 20, 20, 64, 0, 1500),
+         "whisper-large-v3 cross": (4, 448, 1500, 20, 20, 64, 0, 1500)}
 
 # B, S, H, K, hd, window, prefix
 CASES = [(8, 1024, 9, 3, 64, 0, 0), (8, 1024, 9, 3, 64, 128, 0), (1, 300, 4, 1, 64, 128, 0),
@@ -52,6 +53,11 @@ CASES = [(8, 1024, 9, 3, 64, 0, 0), (8, 1024, 9, 3, 64, 128, 0), (1, 300, 4, 1, 
          (8, 256, 8, 2, 32, 0, 0), (4, 512, 16, 8, 64, 0, 0), (4, 512, 8, 1, 256, 0, 256),
          (1, 300, 4, 1, 64, 64, 100), (1, 130, 4, 2, 256, 48, 70), (4, 1500, 20, 20, 64, 0, 1500),
          (4, 448, 20, 20, 64, 0, 0), (2, 1500, 2, 1, 32, 300, 1500)]
+# as B, Sq, Sk, H, K, hd, window, prefix; then Sq != Sk: whisper's
+# cross-attention, hd 32 and 256 under a prefix of Sk, causal Sq > Sk
+CASES = [(B, S, S, H, K, hd, W, P) for B, S, H, K, hd, W, P in CASES]
+CROSS_CASES = [(4, 448, 1500, 20, 20, 64, 0, 1500), (2, 130, 301, 4, 2, 32, 0, 301),
+               (1, 65, 200, 8, 1, 256, 0, 200), (1, 130, 60, 4, 2, 64, 0, 0)]
 
 
 def signature(source: Path):
@@ -73,24 +79,31 @@ def bind(lib: ctypes.CDLL, two_lengths: bool, workspace: bool) -> ctypes.CDLL:
     return lib
 
 
+def dims(two_lengths: bool, q, k, W: int, P: int):
+    """The parent's C entries' arguments after the pointers."""
+    import torch
+
+    from repro_torch.kernels.swa_attention.ops import _DTYPES, effective_prefix, effective_window
+
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    lengths = (Sq, Sk) if two_lengths else (Sq,)
+    return (_DTYPES[q.dtype], B, *lengths, H, K, hd, effective_window(W, Sq),
+            effective_prefix(P, Sk), 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
+
+
 def parent_passes(lib, two_lengths: bool, workspace: bool, q, k, v, do, W: int, P: int):
     """(o, lse, dq, delta, dk, dv) of the parent's kernels through its C
     entries (a workspace entry in the split count that this tree's wrapper
     launches, so that both sum in one order)."""
     import torch
 
-    from repro_torch.kernels.swa_attention.ops import (
-        _DTYPES, _dkv_workspace, dkv_launch_splits, effective_prefix, effective_window,
-    )
+    from repro_torch.kernels.swa_attention.ops import _dkv_workspace, dkv_launch_splits
 
-    B, S, H, hd = q.shape
-    K = k.shape[2]
-    lengths = (S, S) if two_lengths else (S,)
-    stream = torch.cuda.current_stream().cuda_stream
-    d = (_DTYPES[q.dtype], B, *lengths, H, K, hd, effective_window(W, S), effective_prefix(P, S),
-         1.0 / math.sqrt(hd), stream)
+    B, Sq, H, hd = q.shape
+    d = dims(two_lengths, q, k, W, P)
     o, dq = torch.empty_like(q), torch.empty_like(q)
-    lse, delta = (torch.empty(B, H, S, dtype=torch.float32, device=q.device) for _ in range(2))
+    lse, delta = (torch.empty(B, H, Sq, dtype=torch.float32, device=q.device) for _ in range(2))
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     splits = dkv_launch_splits(q, k, W, P) if workspace else 1
     ws = _dkv_workspace(k, splits)
@@ -108,34 +121,37 @@ def parent_passes(lib, two_lengths: bool, workspace: bool, q, k, v, do, W: int, 
     return o, lse, dq, delta, dk, dv
 
 
-def passes(q, k, v, do, W: int, P: int):
+def passes(q, k, v, do, W: int, P: int, o_in, lse_in):
     """(o, lse, dq, delta, dk, dv) of this tree's kernels, as the package's
-    wrappers launch them."""
+    wrappers launch them; the B5 passes read o_in and lse_in (the parent's
+    forward's)."""
     from repro_torch.kernels.swa_attention import (
         swa_attention_bwd_dkv, swa_attention_bwd_dq, swa_attention_fwd,
     )
 
     o, lse = swa_attention_fwd(q, k, v, W, P)
-    dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
-    dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P)
+    dq, delta = swa_attention_bwd_dq(q, k, v, o_in, lse_in, do, W, P)
+    dk, dv = swa_attention_bwd_dkv(q, k, v, lse_in, delta, do, W, P)
     return o, lse, dq, delta, dk, dv
 
 
-def normalised_diff(x, y):
-    """max|x - y| / max|y| if every element of x lies within ATTN_TOL of
-    max|y| of y (bf16: one bf16 ulp of each value beyond it), else None."""
+def within_tolerance(x, y):
+    """The worst |x - y| / (ATTN_TOL + ATTN_TOL |y|) if every element of x
+    lies within rtol = atol ATTN_TOL of y (bf16: one bf16 ulp of each value
+    beyond it), else None."""
     import torch
 
     bf16 = x.dtype == torch.bfloat16
     x, y = x.float(), y.float()
     err = (x - y).abs()
-    tol = ATTN_TOL * y.abs().max()
+    tol = ATTN_TOL + ATTN_TOL * y.abs()
+    ulp = 0.0
     if bf16:
         _, exp = torch.frexp(y)
-        tol = tol + torch.ldexp(torch.ones_like(y), exp - 8)
-    if bool((err > tol).any()):
+        ulp = torch.ldexp(torch.ones_like(y), exp - 8)
+    if bool((err > tol + ulp).any()):
         return None
-    return float(err.max() / y.abs().max())
+    return float(((err - ulp).clamp(min=0) / tol).max())
 
 
 def main(argv=None) -> int:
@@ -162,14 +178,17 @@ def main(argv=None) -> int:
     lib = bind(ctypes.CDLL(str(build.library_path(parent))), two_lengths, workspace)
     dev = torch.device("cuda", 0)
     equal, by_design, differ = 0, [], []
-    for case in CASES:
-        B, S, H, K, hd, W, P = case
+    cases = CASES + (CROSS_CASES if two_lengths else [])
+    for case in cases:
+        B, Sq, Sk, H, K, hd, W, P = case
         for dtype in (torch.float32, torch.bfloat16):
             g = torch.Generator(device=dev).manual_seed(sum(case))
-            q, do = (torch.randn(B, S, H, hd, generator=g, device=dev).to(dtype) for _ in range(2))
-            k, v = (torch.randn(B, S, K, hd, generator=g, device=dev).to(dtype) for _ in range(2))
-            a = passes(q, k, v, do, W, P)
+            q, do = (torch.randn(B, Sq, H, hd, generator=g, device=dev).to(dtype)
+                     for _ in range(2))
+            k, v = (torch.randn(B, Sk, K, hd, generator=g, device=dev).to(dtype)
+                    for _ in range(2))
             b = parent_passes(lib, two_lengths, workspace, q, k, v, do, W, P)
+            a = passes(q, k, v, do, W, P, b[0], b[1])
             torch.cuda.synchronize()
             for name, x, y in zip(("o", "lse", "dq", "delta", "dk", "dv"), a, b):
                 if torch.equal(x, y):
@@ -177,36 +196,36 @@ def main(argv=None) -> int:
                     continue
                 line = (f"{name} {case} {dtype}: {int((x != y).sum())} elements, max "
                         f"{float((x.float() - y.float()).abs().max()):.3e}")
-                rel = (normalised_diff(x, y) if hd <= REDESIGNED_HD and name in REDESIGNED
+                rel = (within_tolerance(x, y) if hd <= REDESIGNED_HD and name in REDESIGNED
                        else None)
                 if rel is None:
                     differ.append(line)
                 else:
-                    by_design.append(f"{line} ({rel:.3e} of max|parent|)")
+                    by_design.append(f"{line} ({rel:.3f} of the tolerance)")
     for line in by_design:
-        print(f"[parent] changed by design (B5's dq, dk, dv at hd <= {REDESIGNED_HD}, within "
-              f"{ATTN_TOL} of max|parent|, bf16 one ulp beyond) {line}")
+        print(f"[parent] changed by design (B4's o, lse at hd <= {REDESIGNED_HD}, within rtol = "
+              f"atol {ATTN_TOL} of the parent's, bf16 one ulp beyond) {line}")
     for line in differ:
         print(f"[parent] DIFFERS {line}")
-    timed = time_passes(lib, two_lengths, workspace, card)
+    timed = time_forward(lib, two_lengths, card)
     # the summary last, where the tail of the output keeps it
-    total = 6 * 2 * len(CASES)
+    total = 6 * 2 * len(cases)
     print(f"[parent] {equal} of {total} outputs of B4, B5 dq and B5 dk/dv equal the parent's "
-          f"kernels bit for bit, {len(by_design)} changed by design (B5's dq, dk, dv at hd <= "
-          f"{REDESIGNED_HD}) within tolerance, {len(differ)} differ ({len(CASES)} shapes x f32, "
-          f"bf16; Sq = Sk); card {card}")
+          f"kernels bit for bit (B5 fed the parent's o and lse), {len(by_design)} changed by "
+          f"design (B4's o, lse at hd <= {REDESIGNED_HD}) within tolerance, {len(differ)} differ "
+          f"({len(cases)} shapes x f32, bf16; {len(cases) - len(CASES)} with Sq != Sk); "
+          f"card {card}")
     print(json.dumps({"parent_timings": timed}))
     return 0 if not differ else 1
 
 
-def time_passes(lib, two_lengths: bool, workspace: bool, card: str) -> dict:
-    """ms of the parent's and this tree's dq and dk/dv passes at TIMED's
-    shapes, f32, each pass timed in turns (parent, this tree, this tree,
-    parent) with CUDA events, 20 launches after 3 warm-up ones."""
+def time_forward(lib, two_lengths: bool, card: str) -> dict:
+    """ms of the parent's and this tree's B4 at TIMED's shapes, f32, in turns
+    (parent, this tree, this tree, parent) with CUDA events, 20 launches
+    after 3 warm-up ones."""
     import torch
 
-    from repro_torch.kernels.swa_attention import swa_attention_bwd_dkv, swa_attention_bwd_dq
-    from repro_torch.kernels.swa_attention.ops import _DTYPES, effective_prefix, effective_window
+    from repro_torch.kernels.swa_attention import swa_attention_fwd
 
     def cuda_ms(fn, iters: int = 20) -> float:
         for _ in range(3):
@@ -221,38 +240,28 @@ def time_passes(lib, two_lengths: bool, workspace: bool, card: str) -> dict:
 
     dev = torch.device("cuda", 0)
     out = {}
-    for label, (B, S, H, K, hd, W, P) in TIMED.items():
+    for label, (B, Sq, Sk, H, K, hd, W, P) in TIMED.items():
+        if Sq != Sk and not two_lengths:
+            continue
         g = torch.Generator(device=dev).manual_seed(7)
-        q, do = (torch.randn(B, S, H, hd, generator=g, device=dev) for _ in range(2))
-        k, v = (torch.randn(B, S, K, hd, generator=g, device=dev) for _ in range(2))
-        o, lse, _, delta, _, _ = passes(q, k, v, do, W, P)
-        lengths = (S, S) if two_lengths else (S,)
-        d = (_DTYPES[q.dtype], B, *lengths, H, K, hd, effective_window(W, S),
-             effective_prefix(P, S), 1.0 / math.sqrt(hd), torch.cuda.current_stream().cuda_stream)
-        dq, dl = torch.empty_like(q), torch.empty_like(lse)
-        dk, dv = torch.empty_like(k), torch.empty_like(v)
+        q = torch.randn(B, Sq, H, hd, generator=g, device=dev)
+        k, v = (torch.randn(B, Sk, K, hd, generator=g, device=dev) for _ in range(2))
+        o, lse = torch.empty_like(q), torch.empty(B, H, Sq, device=dev)
+        d = dims(two_lengths, q, k, W, P)
 
-        def parent_dq():
-            lib.swa_attention_bwd_dq(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                                     do.data_ptr(), lse.data_ptr(), dl.data_ptr(), dq.data_ptr(),
-                                     *d)
+        def parent():
+            if lib.swa_attention_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                                     lse.data_ptr(), *d):
+                raise RuntimeError("forward launch failed")
 
-        def parent_dkv():
-            lib.swa_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-                                      lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                                      dv.data_ptr(), *((None, 1) if workspace else ()), *d)
+        def ours():
+            swa_attention_fwd(q, k, v, W, P)
 
-        runs = {"dq": (parent_dq, lambda: swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)),
-                "dk/dv": (parent_dkv,
-                          lambda: swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P))}
-        res = {}
-        for name, (parent, ours) in runs.items():
-            p1, o1, o2, p2 = cuda_ms(parent), cuda_ms(ours), cuda_ms(ours), cuda_ms(parent)
-            res[name] = {"parent_ms": [p1, p2], "ms": [o1, o2]}
-            print(f"[parent] timing {name} at {label} [{B}, {S}, {H}, {K}, {hd}] prefix {P} f32: "
-                  f"parent {p1:.4f}, {p2:.4f} ms; this tree {o1:.4f}, {o2:.4f} ms; card {card}")
-        out[label] = res
-        del q, do, k, v, o, lse, delta, dq, dl, dk, dv
+        p1, o1, o2, p2 = cuda_ms(parent), cuda_ms(ours), cuda_ms(ours), cuda_ms(parent)
+        out[label] = {"parent_ms": [p1, p2], "ms": [o1, o2]}
+        print(f"[parent] timing B4 at {label} [{B}, {Sq}, {Sk}, {H}, {K}, {hd}] prefix {P} f32: "
+              f"parent {p1:.4f}, {p2:.4f} ms; this tree {o1:.4f}, {o2:.4f} ms; card {card}")
+        del q, k, v, o, lse
     return out
 
 

@@ -8,9 +8,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 1. the card, its power limit, torch and CUDA versions (no card: exit 1);
 2. build every CUDA kernel of the package with nvcc, in parallel; print
    ptxas's registers and spills and cuobjdump's count of tensor-core
-   instructions of the attention kernels (B4, B5: HGMMA for B5's wgmma
-   passes at hd <= 64, HMMA for the others), and fail if one has none or if
-   B5's wgmma (hd <= 64) or 8-warp (hd 256) kernels spill, with the
+   instructions of the attention kernels (B4, B5: HGMMA for the wgmma
+   kernels, B4's and B5's at hd <= 64, HMMA for the others), and fail if one
+   has none or if a wgmma kernel or B5's 8-warp (hd 256) kernels spill, with the
    occupancy calculator's shared memory and blocks an SM; B4d's registers
    and spills;
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -373,10 +373,11 @@ def check_kernels(spec):
 
 def _attention_kernel(mangled: str):
     """'swa_bwd_dq_kernel<64, f32>' for an attention kernel's mangled name
-    (B4's swa_fwd_kernel; B5's swa_bwd_dq_wg_kernel and swa_bwd_dkv_wg_kernel
-    on wgmma at hd <= 64, swa_bwd_dq_kernel and swa_bwd_dkv_kernel at hd 80
-    to 128, swa_bwd_dq_wide_kernel and swa_bwd_dkv_wide_kernel at hd 256),
-    else None (the dk/dv merge, which multiplies nothing)."""
+    (on wgmma at hd <= 64: B4's swa_fwd_wg_kernel, B5's swa_bwd_dq_wg_kernel
+    and swa_bwd_dkv_wg_kernel; on mma.sync above: B4's swa_fwd_kernel, B5's
+    swa_bwd_dq_kernel and swa_bwd_dkv_kernel at hd 80 to 128,
+    swa_bwd_dq_wide_kernel and swa_bwd_dkv_wide_kernel at hd 256), else None
+    (the dk/dv merge, which multiplies nothing)."""
     m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)(?:_wide|_wg)?_kernel)ILi(\d+)E"
                   r"(f|13__nv_bfloat16)", mangled)
     return m and f"{m.group(1)}<{m.group(2)}, {'f32' if m.group(3) == 'f' else 'bf16'}>"
@@ -386,17 +387,17 @@ def attention_kernel_name(name: str, hd: int) -> str:
     """The kernel that a pass (a key of ATTN) runs at head dim hd."""
     from repro_torch.kernels.swa_attention.ops import WG_HEAD_DIM
 
-    if name == "swa_attention_fwd":
-        return KERNEL_FN[name]
     if hd <= WG_HEAD_DIM:
         return KERNEL_FN[name].replace("_kernel", "_wg_kernel")
+    if name == "swa_attention_fwd":
+        return KERNEL_FN[name]
     return KERNEL_FN[name].replace("_kernel", "_wide_kernel") if hd > 128 else KERNEL_FN[name]
 
 
 def attention_build_report(source) -> dict:
     """ptxas's registers and spills and cuobjdump's count of tensor-core
     instructions for every attention kernel of the built library (3 passes
-    x 6 head dims x 2 dtypes): HGMMA (wgmma) for the backward's kernels at
+    x 6 head dims x 2 dtypes): HGMMA (wgmma) for B4's and B5's kernels at
     hd <= 64, HMMA (mma.sync) for the others; fails if one has none, or if
     a wgmma or an 8-warp (hd 256) kernel spills.  For the kernels printed,
     the occupancy calculator's blocks an SM at the launch's dynamic shared
@@ -438,14 +439,14 @@ def attention_build_report(source) -> dict:
         r["tc_count"] = r["hgmma"] if "_wg_" in key else r["hmma"]
     if len(report) != 36 or any(r["tc_count"] == 0 for r in report.values()):
         raise AssertionError(f"attention kernels without tensor-core instructions: {report}")
-    # hd 64: smollm-135m's, granite's and whisper's paths (the backward on
-    # wgmma); hd 256: paligemma-3b's (the forward's column-split tiles, the
-    # backward's 8-warp kernels)
+    # hd 64: smollm-135m's, granite's and whisper's paths (on wgmma); hd 32:
+    # the REDUCED paths' forward (on wgmma); hd 256: paligemma-3b's (the
+    # forward's column-split tiles, the backward's 8-warp kernels)
     passes = dict(zip(ATTN, ("fwd", "dq", "dkv")))
-    for hd, dtypes in ((64, ("f32", "bf16")), (256, ("f32", "bf16"))):
-        for dt in dtypes:
+    for hd in (32, 64, 256):
+        for dt in ("f32", "bf16"):
             for name in ATTN:
-                if hd == 64 and dt == "bf16" and name == "swa_attention_fwd":
+                if hd == 32 and name != "swa_attention_fwd":
                     continue
                 key = f"{attention_kernel_name(name, hd)}<{hd}, {dt}>"
                 r = report[key]
@@ -461,7 +462,7 @@ def attention_build_report(source) -> dict:
     if spilled:
         raise AssertionError(f"the wgmma (hd <= 64) or hd-256 backward kernels spill: {spilled}")
     print("[build] every attention kernel (B4 and B5, hd 32-256, f32 and bf16) has tensor-core "
-          "instructions (HGMMA for the wgmma backward at hd <= 64, HMMA for the others): "
+          "instructions (HGMMA for the wgmma kernels at hd <= 64, HMMA for the others): "
           + ", ".join(f"{k} {r['tc_count']}" for k, r in report.items()))
     return report
 
@@ -1227,7 +1228,9 @@ def normalised_err(out, ref) -> float:
 
 
 def check_attention():
-    """B4 and each B5 pass against its plain version, on the same inputs."""
+    """B4 and each B5 pass against its plain version, on the same inputs: on
+    wgmma at hd 32 and 64 (``swa_fwd_wg_kernel``, ``swa_bwd_dq_wg_kernel``,
+    ``swa_bwd_dkv_wg_kernel``), on mma.sync at hd 80-256."""
     import torch
     from torch.func import grad_and_value, vmap
 
@@ -1517,8 +1520,10 @@ def lm_main_path(rounds: int = 8):
 
 
 def attention_timings(card: str):
-    """B4 and both B5 passes at the full-width shape: kernel, plain, bound,
-    and SDPA as the library yardstick (never called by the port)."""
+    """B4 and both B5 passes at the full-width shape (hd 64: all three on
+    wgmma): kernel, plain, bound, and SDPA as the library yardstick (never
+    called by the port); B4's ms and share of its bound beside SDPA's
+    forward."""
     import torch
     import torch.nn.functional as F
 
@@ -1607,6 +1612,10 @@ def attention_timings(card: str):
         f_ms, fb_ms = lib[0]
         # the library's backward computes dq, dk and dv together
         r["library_ms"] = f_ms if name == "swa_attention_fwd" else fb_ms - f_ms
+    r = out[("swa_attention_fwd", 0)]
+    print(f"[timing] B4 (swa_fwd_wg_kernel) at B={B} S={S} H={H} K={K} hd={hd} window=0: "
+          f"{r['ms']:.4f} ms, {100 * r['bound_ms'] / r['ms']:.1f}% of its 3xTF32 bound "
+          f"{r['bound_ms']:.4f} ms, against SDPA's forward {r['library_ms']:.4f} ms; card {card}")
     return out
 
 
@@ -4745,7 +4754,8 @@ def check_audio_attention():
 
 
 def audio_attention_timings(card: str):
-    """B4 and both B5 passes at each of the cell's shapes: the kernel and its
+    """B4 and both B5 passes at each of the cell's shapes (hd 64: all three on
+    wgmma), B4's share of its bound beside SDPA's forward: the kernel and its
     plain version in turns, eagerly, the 3xTF32 bound over the visible
     pairs, and SDPA (eager, f32, no mask; causal for the decoder's
     self-attention) as the library yardstick, never called by the port.
@@ -4810,6 +4820,10 @@ def audio_attention_timings(card: str):
                   f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}: 3 x {ops / 1e9:.2f} GFLOP at "
                   f"495 TFLOP/s TF32 over {pairs} visible pairs a head, {nbytes / 1e6:.1f} MB at "
                   f"3.35 TB/s) = {100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
+        r = res["swa_attention_fwd"]
+        print(f"[timing] [audio] B4 (swa_fwd_wg_kernel) at the {label} shape: {r['ms']:.4f} ms, "
+              f"{100 * r['bound_ms'] / r['ms']:.1f}% of its 3xTF32 bound {r['bound_ms']:.4f} ms, "
+              f"against SDPA's forward {f_ms:.4f} ms; card {card}")
         print(f"[timing] [audio] library yardstick "
               f"torch.nn.functional.scaled_dot_product_attention "
               f"(f32, eager, {'is_causal' if causal else 'no mask'}) at the {label} shape: forward "

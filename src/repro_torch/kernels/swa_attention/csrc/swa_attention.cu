@@ -5,7 +5,7 @@
 // Replaces the Pallas TPU kernels in
 //   src/repro/kernels/swa_attention/swa_attention.py
 //     B4  _fwd:122 (bodies _fwd_kernel:49 windowed, _full_fwd_wrapper:151)
-//                                          -> swa_fwd_kernel
+//                         -> swa_fwd_wg_kernel (hd <= 64), swa_fwd_kernel (80-256)
 //     B5  _bwd:289, dq pass :312 (body _dq_kernel:198)
 //                         -> swa_bwd_dq_wg_kernel (hd <= 64), swa_bwd_dq_kernel
 //                            (80-128), swa_bwd_dq_wide_kernel (256); also delta
@@ -44,13 +44,13 @@
 // Every product runs in 3xTF32 on the tensor cores: each f32 operand is
 // split into a TF32 big and small part and a.b = a_small.b_big +
 // a_big.b_small + a_big.b_big, which holds the f32 tolerance where one TF32
-// product misses it 8-63x (tests/test_torch_swa_tf32.py).  B5 at hd <= 64
-// runs on wgmma (below, "B5 on wgmma"); the forward at every hd and B5 at
-// hd 80-256 run on mma.sync m16n8k8 (mma_tf32.cuh), as follows.  The scale
-// is folded into q as its fragments are loaded.  Blocks of 128 threads (4
-// warps; 8 for the backward at hd 256, see below); tiles staged as
-// f32 with a row pitch of hd + 4 (hd + 8 for the forward's q and k),
-// conflict-free for every fragment load.
+// product misses it 8-63x (tests/test_torch_swa_tf32.py).  B4 and B5 at
+// hd <= 64 run on wgmma (below, "On wgmma"); at hd 80-256 both run on
+// mma.sync m16n8k8 (mma_tf32.cuh), as follows.  The scale is folded into q
+// as its fragments are loaded.  Blocks of 128 threads (4 warps; 8 for the
+// backward at hd 256, see below); tiles staged as f32 with a row pitch of
+// hd + 4 (hd + 8 for the forward's q and k), conflict-free for every
+// fragment load.
 // The scores and p (dp and ds) never leave registers: each warp computes
 // its strip of s (or s^T) as mma accumulators and feeds them straight back
 // as the A operand of the next product, with that product's B operand read
@@ -59,7 +59,7 @@
 // S rows) add each tile's partial product, summed from 0 on the tensor
 // cores, in f32.  No atomics: every result repeats bit for bit.
 //   forward: a block per (batch*head, 64-row q tile), the heaviest (last)
-//   first, 3 blocks an SM at hd <= 64; warp w owns rows 16w..16w+15 and
+//   first; warp w owns rows 16w..16w+15 and
 //   walks the kv tiles (32 keys) that the mask reaches, the next k/v tile
 //   in flight (cp.async, double-buffered) while the current one is
 //   multiplied.
@@ -88,24 +88,23 @@
 //   registers it takes cost a block per SM.
 // What bounds the mma.sync kernels on the card: the issue of the splits (an
 // integer add and mask per part and a subtraction) and of the three mma per
-// product, with 3 blocks of 4 warps per SM at hd 64 to hide their latency;
-// chip_ablate_attention.py prices each and times the forward's
-// alternatives (tile size, blocks an SM, q split once), PERF.md has the
-// times.
+// product; at hd 64, where they ran until the wgmma kernels took over, they
+// sat at 22-27% of their bound with 3 blocks of 4 warps an SM (PERF.md §6).
 //
-// B5 on wgmma (hd 32 and 64; wgmma_tf32.cuh).  Each product is a
-// warpgroup's wgmma m64nNk8 .tf32, three a k-step (small.big, big.small,
-// big.big) into one accumulator in registers: a quarter of mma.sync's
-// instructions a product, where those kernels sat at 22-27% of their bound
-// whatever the order or chains of their mma (PERF.md §6).
+// On wgmma (hd 32 and 64; wgmma_tf32.cuh): B4 and both B5 passes.  Each
+// product is a warpgroup's wgmma m64nNk8 .tf32, three a k-step (small.big,
+// big.small, big.big) into one accumulator in registers: a quarter of
+// mma.sync's instructions a product, where those kernels sat at 22-27% of
+// their bound whatever the order or chains of their mma (PERF.md §6).
 //   Operands.  A tf32 wgmma reads only K-major tiles (the reduction dim
-//   contiguous); there is no transpose for tf32.  s = q k^T and dp = do v^T
-//   (dq pass), s^T = k q^T and dp^T = v do^T (dk/dv pass) reduce over hd,
-//   which every input holds contiguous: their tiles are read as TMA writes
-//   them.  dq += ds k, dv += p^T do and dk += ds^T q reduce over keys or
-//   rows: their A operand (ds, p^T, ds^T) is the accumulator of the product
-//   before, taken from registers, and their B operand is staged transposed
-//   (k^T, do^T, q^T: [hd][32]) by the producer, with its 32 k positions
+//   contiguous); there is no transpose for tf32.  s = q k^T (forward, dq
+//   pass) and dp = do v^T, s^T = k q^T and dp^T = v do^T (dk/dv pass)
+//   reduce over hd, which every input holds contiguous: their tiles are
+//   read as TMA writes them.  o += p v, dq += ds k, dv += p^T do and dk +=
+//   ds^T q reduce over keys or rows: their A operand (p, ds, p^T, ds^T) is
+//   the accumulator of the product before, taken from registers, and their
+//   B operand is staged transposed (v^T, k^T, do^T, q^T: [hd][32]) by the
+//   producer, with its 32 k positions
 //   in the order in which an accumulator's columns sit in an A fragment
 //   (kperm), so p, dp and ds never leave registers.  Turning these products
 //   around (dv^T = do^T p) would need p in shared memory and hd as the
@@ -115,7 +114,8 @@
 //   serves as its own big part and only small = x - trunc(x) is stored
 //   beside it (same layout, so elementwise); the scale multiplies s and
 //   dq, dk after the products, not q.  Truncation instead of round to
-//   nearest holds ATTN_TOL (tests/test_torch_swa_tf32.py's wgmma cases).
+//   nearest holds the forward's and the backward's tolerances
+//   (tests/test_torch_swa_tf32.py's wgmma cases).
 //   Blocks: two consumer warpgroups and a producer warpgroup (384 threads,
 //   one block an SM).  The producer's first warp loads every tile into a
 //   ring of stages, each with mbarriers: TMA (cp.async.bulk.tensor, 64B
@@ -147,15 +147,35 @@
 //   tile's s^T and dp^T; p^T and ds^T in registers; dv's and then dk's
 //   partial products, each added in f32.  226 KB at hd 64: two stages of
 //   every derived tile would not fit.
+//   forward: a block per (batch*head, 128-row q tile), the heaviest first;
+//   warpgroup w owns rows 64w..; q and its small parts stay resident (each
+//   warpgroup derives its rows' once; held as register A fragments beside
+//   p's, as the dq pass holds q's, they made the consumers spill, and every
+//   term of s reads A from shared memory instead).  A 4-stage ring of
+//   32-key kv tiles, each stage k, v, k's small parts and v^T's two parts
+//   (40 KB at hd 64; 225 KB in all), which the producer's three other
+//   warps derive while its first warp only loads, so that a freed stage is
+//   refilled at once (3 stages measured 11% slower, 2 stages 45%).  Per
+//   tile: s (m64n32), then the online softmax on its accumulator in log2
+//   units (the scale with log2 e folded in multiplies s), o rescaled in
+//   registers, p as an A fragment straight from the accumulator, and the
+//   tile's p v (m64n(hd)) summed from 0 and added to o in f32.  Tile t's s
+//   is issued beside tile t - 1's p v and the softmax of t runs under the
+//   latter (o's rescale and the add follow the serial order, one tile
+//   late: the same values bit for bit, 3% faster than serial); the two
+//   warpgroups taking turns at their products on mbarriers measured
+//   0.5-6% slower.  lse = ln 2 m + ln l.  Dropping two of the three
+//   products would save 27-32%.
 //   A warpgroup whose 64 rows or keys see none of a tile skips its
 //   products.  No split and no workspace at these head dims; no atomics:
 //   results repeat bit for bit.  hd 80 and 96 do not fit (q's and do's
 //   small fragments in registers, k and v resident for 128 keys) and stay
 //   on mma.sync with hd 128.
 // What bounds them: not the tensor cores (dropping two of the three
-// products saves 21-29%), but each tile's serial chain of products, waits
-// and softmax in a consumer warpgroup; PERF.md §6 prices the parts
-// (chip_ablate_attention.py's "wg" variants).
+// products saves 21-29% in B5), but each tile's serial chain of products,
+// waits and softmax in a consumer warpgroup, and in the forward the depth
+// of the kv ring; PERF.md §6 prices the parts (chip_ablate_attention.py's
+// "wg" and "fwd" variants).
 //
 // Masking: a masked score never enters a sum (p = 0).  The ragged sequence
 // tails are masked in the kernels (q rows >= Sq and k rows >= Sk load as 0
@@ -388,7 +408,7 @@ __device__ __forceinline__ void mma3_terms(float (&d)[M][N][4], const uint32_t (
 // and walks its 32-key kv tiles.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, 1)
 swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                T* __restrict__ o, float* __restrict__ lse, Shape sh) {
   // q and k rows at a pitch of hd + 8 (paired loads), v rows at hd + 4
@@ -903,8 +923,8 @@ constexpr int kWgSync = 1;                     // the consumers' named barrier
 // warpgroup, which loads and derives, drops to kWgProducerRegs, and what it
 // frees (128 x 112) lets the consumers rise to kWgConsumerRegs (256 x 56
 // more; setmaxnreg only moves registers within the block): at 168 they
-// spill 152 bytes.  The dk/dv pass and hd 32 fit in 168, and the hand-over
-// measured slower there (PERF.md §6).
+// spill 152 bytes.  The dk/dv pass, the forward (156) and hd 32 fit in
+// 168, and the hand-over measured slower there, or no faster (PERF.md §6).
 constexpr int kWgProducerRegs = 56, kWgConsumerRegs = 224;
 constexpr int kWgProducerSync = 2;  // the producer warpgroup's named barrier
 
@@ -971,20 +991,20 @@ __device__ __forceinline__ void small_tile(float* dst, const float* src, int n, 
   }
 }
 
-// The transpose of a [HD / 16][kWgTile][16] tile (rows r, dims d) into
-// [2][HD][16] tiles of its big parts (the f32 values) and small parts: the
-// dims as rows, the tile's rows as k in kperm order within each 8; by `nth`
-// threads (this one `tid` of them).
-template <int HD>
+// The transpose of a [HD / 16][ROWS][16] tile (rows r, dims d) into
+// [ROWS / 16][HD][16] tiles of its big parts (the f32 values) and small
+// parts: the dims as rows, the tile's rows as k in kperm order within each
+// 8; by `nth` threads (this one `tid` of them).
+template <int HD, int ROWS = kWgTile>
 __device__ __forceinline__ void transpose_tile(float* big, float* small, const float* src,
                                                int tid, int nth) {
-  for (int u = tid; u < HD / 4 * (kWgTile / 4); u += nth) {
+  for (int u = tid; u < HD / 4 * (ROWS / 4); u += nth) {
     const int d4 = u % (HD / 4), rest = u / (HD / 4), kg = rest >> 1, h = rest & 1;
     float x[4][4];
 #pragma unroll
     for (int s = 0; s < 4; ++s) {
       const float4 v =
-          *reinterpret_cast<const float4*>(src + wg::swz(8 * kg + 2 * s + h, 4 * d4, kWgTile));
+          *reinterpret_cast<const float4*>(src + wg::swz(8 * kg + 2 * s + h, 4 * d4, ROWS));
       x[s][0] = v.x;
       x[s][1] = v.y;
       x[s][2] = v.z;
@@ -1048,6 +1068,288 @@ template <int HD> constexpr size_t dkv_wg_smem() {
 __device__ __forceinline__ float* aligned_smem(float* smem) {
   const uint32_t pad = (1024u - (wg::smem_addr(smem) & 1023u)) & 1023u;
   return smem + pad / 4;
+}
+
+// --------------------------------------------------------------------------
+// B4 on wgmma: the forward at head dim <= kWgMaxHd.  grid (B*H, nq) over
+// kWgRows-row q tiles, i = nq - 1 - blockIdx.y; warpgroup w owns rows
+// 64w..64w+63 of the tile, and the block walks its kWgFwdKeys-key kv tiles.
+// q and its small parts stay resident (each consumer warpgroup derives its
+// own rows' once).  The producer's first warp only loads (q once, then the
+// kv ring, each stage as soon as the consumers release it); its other three
+// warps derive each stage's k small parts and v^T (big and small parts,
+// keys in kperm order), so neither waits for the other.  A stage is k, v,
+// k's small parts, v^T's big and small parts, with the loaded / full /
+// empty mbarriers.  Each consumer warpgroup overlaps a tile's softmax with
+// its products: s of tile t is issued with p.v of tile t - 1 (two commit
+// groups), the softmax of t runs once s has landed, while p.v still runs.
+// --------------------------------------------------------------------------
+constexpr int kWgFwdKeys = 32;    // keys a kv tile (64: p's fragments spill)
+constexpr int kWgFwdStages = 4;   // the kv ring (3 measured 11% slower; 5 do not fit)
+constexpr int kWgFwdGroupSync = 3;  // and 4: each consumer warpgroup's named barrier
+
+template <int HD> constexpr size_t fwd_wg_smem() {
+  return (2 * kWgRows * HD + kWgFwdStages * 5 * kWgFwdKeys * HD) * sizeof(float) +
+         (3 * kWgFwdStages + 1) * sizeof(uint64_t) + 1024;
+}
+
+// The online softmax of one kv tile on a warp's strip, in log2 units: sc
+// (the accumulator of q k^T, sc[4n + e] at row g + 8 (e / 2), key 8n + 2 t4
+// + e % 2) becomes p = 2^(qscale sc - m); m and l (rows g and g + 8) are
+// updated, and corr is what o is to be multiplied by.  A masked score is
+// -1e30 and its p 0.
+template <int BK>
+__device__ __forceinline__ void fwd_softmax(float (&sc)[BK / 2], float (&m)[2], float (&l)[2],
+                                            float (&corr)[2], float qscale, bool masked,
+                                            int row0, int col0, const Shape& sh) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t4 = lane & 3;
+  uint32_t keep = 0xffffffffu;
+#pragma unroll
+  for (int x = 0; x < BK / 2; ++x) sc[x] *= qscale;
+  if (masked) {
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (!allowed(row0 + g + 8 * (e >> 1), col0 + 8 * n + 2 * t4 + (e & 1), sh)) {
+          keep &= ~(1u << (4 * n + e));
+          sc[4 * n + e] = kNeg;
+        }
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNeg;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) mx = fmaxf(mx, fmaxf(sc[4 * n + 2 * r], sc[4 * n + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx);
+    float sum = 0.0f;
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 2 * r; e < 2 * r + 2; ++e) {
+        const float p = (keep >> (4 * n + e)) & 1u ? exp2f(sc[4 * n + e] - m_new) : 0.0f;
+        sc[4 * n + e] = p;
+        sum += p;
+      }
+    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+    corr[r] = exp2f(m[r] - m_new);
+    l[r] = l[r] * corr[r] + sum;
+    m[r] = m_new;
+  }
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+swa_fwd_wg_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, const T* __restrict__ q,
+                  const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+                  float* __restrict__ lse, Shape sh) {
+  static_assert(HD <= kWgMaxHd && HD % 16 == 0, "hd 32 or 64");
+  constexpr int NS = kWgFwdStages, BK = kWgFwdKeys, KS = HD / 8, TILE = BK * HD;
+  extern __shared__ float smem_raw[];
+  float* Qs = aligned_smem(smem_raw);  // [HD / 16][kWgRows][16]: q, then its small parts
+  float* Qsm = Qs + kWgRows * HD;
+  // NS stages x (k, v [HD / 16][BK][16], k's small parts, v^T [BK / 16][HD][16]
+  // with the keys in kperm order: big, then small parts)
+  float* Ring = Qsm + kWgRows * HD;
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(Ring + NS * 5 * TILE);
+  uint64_t* full = loaded + NS;
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int i = gridDim.y - 1 - blockIdx.y;
+  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int q0 = i * kWgRows;
+  int j_lo = 0;
+  if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
+  const int n_t = last_kv_tile(q0 + kWgRows - 1, BK, sh) - j_lo + 1;  // may be <= 0
+  const bool tma = std::is_same<T, float>::value && sh.vec;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      wg::bar_init(&loaded[s], 1);
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], kWgConsumers / 32);
+    }
+    wg::bar_init(qbar, 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (warp >= kWgConsumers / 32) {
+    constexpr int kDerivers = 96;  // the producer's warps but its first
+    const int pt = threadIdx.x - kWgConsumers - 32;
+    if (pt < 0) {
+      // the loader: q, then each kv tile once the consumers free its stage
+      expect(qbar, kWgRows * HD * sizeof(float), tma);
+      produce_rows<kWgRows, HD>(Qs, &tq, q, b, q0, sh.Sq, sh.H, h, qbar, tma);
+      produced(qbar);
+      for (int t = 0; t < n_t; ++t) {
+        const int s = t % NS;
+        if (t >= NS) wg::bar_wait(&empty[s], ((t / NS) & 1) ^ 1);
+        float* Ks = Ring + s * 5 * TILE;
+        const int k0 = (j_lo + t) * BK;
+        expect(&loaded[s], 2 * TILE * sizeof(float), tma);
+        produce_rows<BK, HD>(Ks, &tk, k, b, k0, sh.Sk, sh.K, kh, &loaded[s], tma);
+        produce_rows<BK, HD>(Ks + TILE, &tv, v, b, k0, sh.Sk, sh.K, kh, &loaded[s], tma);
+        produced(&loaded[s]);
+      }
+      return;
+    }
+    // the derivers: k's small parts and v^T of each loaded tile
+    for (int t = 0; t < n_t; ++t) {
+      const int s = t % NS;
+      float* Ks = Ring + s * 5 * TILE;
+      wg::bar_wait(&loaded[s], (t / NS) & 1);
+      small_tile(Ks + 2 * TILE, Ks, TILE, pt, kDerivers);
+      transpose_tile<HD, BK>(Ks + 3 * TILE, Ks + 4 * TILE, Ks + TILE, pt, kDerivers);
+      wg::proxy_fence();
+      wg::named_sync(kWgProducerSync, kDerivers);
+      if (pt == 0) wg::bar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wgi, its warp w, lane (g, t4)
+  const int wgi = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3;
+  const int r0 = 64 * wgi, wr = r0 + 16 * w;  // the warpgroup's first row, the warp's
+
+  // the small parts of the warpgroup's 64 rows of q, beside q: every term of
+  // s reads its A operand from shared memory (held as register fragments,
+  // as the dq pass holds them, they and p's fragments of the tile before
+  // made the consumers spill)
+  wg::bar_wait(qbar, 0);
+#pragma unroll
+  for (int c = 0; c < HD / 16; ++c) {
+    const int at = c * kWgRows * 16 + r0 * 16;
+    small_tile(Qsm + at, Qs + at, 64 * 16, threadIdx.x & 127, 128);
+  }
+  wg::proxy_fence();
+  wg::named_sync(kWgFwdGroupSync + wgi, 128);
+
+  // the scores in log2 units (log2(e) in the scale, which multiplies s after
+  // the product): p = 2^(s - m), lse = ln 2 * m + ln l; lane (g, t4) keeps m
+  // and l of rows g and g + 8 of the warp's strip, and o's accumulator
+  const float qscale = sh.scale * kLog2e;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f}, corr[2], acc[HD / 2];
+#pragma unroll
+  for (int x = 0; x < HD / 2; ++x) acc[x] = 0.0f;
+  float sc[BK / 2], part[HD / 2];
+  uint32_t pb[BK / 8][4], ps[BK / 8][4];  // p of the tile before, A fragments
+
+  auto stage = [&](int t) -> const float* { return Ring + (t % NS) * 5 * TILE; };
+  auto live = [&](int t) { return !tile_empty(q0 + r0, 64, (j_lo + t) * BK, BK, sh); };
+  auto release = [&](int t) {  // the warp has read tile t's stage
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(&empty[t % NS]);
+  };
+  auto skip = [&](int t) {  // a tile that none of the warpgroup's rows sees
+    wg::bar_wait(&full[t % NS], (t / NS) & 1);
+    release(t);
+  };
+  // The descriptors of a product's k-steps are its tiles' first (the low
+  // word, opaque to the compiler, so it is not hoisted out of the kv loop
+  // once a k-step) plus a constant.
+  const uint32_t q_lo = wg::desc_lo(Qs + r0 * 16);
+  auto at = [](uint32_t lo, int floats) { return wg::desc_of(lo + floats / 4); };
+  // s = q k^T on the warpgroup's 64 rows x BK keys, 3xTF32 a k-step
+  auto issue_s = [&](const float* Ks) {
+    uint32_t q = q_lo, k_lo = wg::desc_lo(Ks);
+    wg::reg_fence(q);
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      const uint64_t qb = at(q, kstep(kk, kWgRows)), qs = at(q, kWgRows * HD + kstep(kk, kWgRows));
+      const uint64_t kb = at(k_lo, kstep(kk, BK)), ks = at(k_lo, 2 * TILE + kstep(kk, BK));
+      wg::mma_ss<BK>(sc, qs, kb, kk > 0);
+      wg::mma_ss<BK>(sc, qb, ks, 1);
+      wg::mma_ss<BK>(sc, qb, kb, 1);
+    }
+    wg::commit();
+  };
+  // the tile's p v, the keys as k, summed from 0 (added to o in f32 after)
+  auto issue_pv = [&](const float* Ks) {
+    const uint32_t v_lo = wg::desc_lo(Ks + 3 * TILE);
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const uint64_t tb = at(v_lo, kstep(n, HD)), ts = at(v_lo, TILE + kstep(n, HD));
+      wg::mma_rs<HD>(part, ps[n], tb, n > 0);
+      wg::mma_rs<HD>(part, pb[n], ts, 1);
+      wg::mma_rs<HD>(part, pb[n], tb, 1);
+    }
+    wg::commit();
+  };
+  auto softmax = [&](int t) {
+    const int c0 = (j_lo + t) * BK;
+    fwd_softmax<BK>(sc, m, l, corr, qscale, tile_masked(q0 + wr, 16, c0, BK, sh), q0 + wr, c0,
+                    sh);
+  };
+  auto p_fragments = [&]() {  // p as the A operand of the tile's p v
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) a_of(sc, n, pb[n], ps[n]);
+  };
+
+  int t = 0;
+  for (; t < n_t && !live(t); ++t) skip(t);
+  if (t < n_t) {
+    // the first tile the warpgroup's rows see: o is 0, nothing to rescale
+    wg::bar_wait(&full[t % NS], (t / NS) & 1);
+    wg::fence();
+    issue_s(stage(t));
+    wg::wait<0>();
+    reg_fence_all(sc);
+    softmax(t);
+    p_fragments();
+    int prev = t;
+    for (++t; t < n_t && live(t); ++t) {
+      // s of tile t beside p v of tile prev; the softmax of t under the latter
+      wg::bar_wait(&full[t % NS], (t / NS) & 1);
+      wg::fence();
+      issue_s(stage(t));
+      issue_pv(stage(prev));
+      wg::wait<1>();
+      reg_fence_all(sc);
+      softmax(t);
+      wg::wait<0>();
+      reg_fence_all(part);
+      reg_fence_all(pb);
+      reg_fence_all(ps);
+      release(prev);
+      // o = (o + p v of tile prev) * 2^(m_prev - m_t): the serial order
+      // (rescale, then add the tile's product) one tile later
+#pragma unroll
+      for (int x = 0; x < HD / 2; ++x) acc[x] = (acc[x] + part[x]) * corr[(x >> 1) & 1];
+      p_fragments();
+      prev = t;
+    }
+    wg::fence();
+    issue_pv(stage(prev));
+    wg::wait<0>();
+    reg_fence_all(part);
+    reg_fence_all(pb);
+    reg_fence_all(ps);
+    release(prev);
+#pragma unroll
+    for (int x = 0; x < HD / 2; ++x) acc[x] += part[x];
+  }
+  for (; t < n_t; ++t) skip(t);
+
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = q0 + wr + g + 8 * e2;
+    if (row >= sh.Sq) continue;
+    const float lr = fmaxf(l[e2], 1e-30f);
+    T* out = o + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) {
+      out[8 * c] = from_f32<T>(acc[4 * c + 2 * e2] / lr);
+      out[8 * c + 1] = from_f32<T>(acc[4 * c + 2 * e2 + 1] / lr);
+    }
+    if (t4 == 0) lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + row] = kLn2 * m[e2] + logf(lr);
+  }
 }
 
 // --------------------------------------------------------------------------
@@ -2024,6 +2326,7 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 
 // Dynamic shared memory of each pass's kernel at HD.
 template <int HD> constexpr size_t fwd_smem() {
+  if constexpr (HD <= kWgMaxHd) return fwd_wg_smem<HD>();
   constexpr int BQ = q_rows<HD>();
   return ((BQ + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
 }
@@ -2037,20 +2340,6 @@ template <int HD> constexpr size_t dkv_smem() {
   if constexpr (HD > 128) return wide_dkv_floats<HD>() * sizeof(float);
   // k and v with their split parts, and the q/do ring
   return ((4 * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
-}
-
-template <int HD, typename T>
-int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
-        cudaStream_t stream) {
-  constexpr int BQ = q_rows<HD>();
-  const size_t smem = fwd_smem<HD>();
-  cudaError_t e = allow_smem(swa_fwd_kernel<HD, T>, smem);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid(sh.B * sh.H, (sh.Sq + BQ - 1) / BQ);
-  swa_fwd_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, sh);
-  return static_cast<int>(cudaGetLastError());
 }
 
 // cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
@@ -2100,6 +2389,32 @@ bool wg_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v, c
          tensor_map(&m[1], k, sh.B, sh.Sk, sh.K, HD, kv_rows) &&
          tensor_map(&m[2], v, sh.B, sh.Sk, sh.K, HD, kv_rows) &&
          tensor_map(&m[3], dout, sh.B, sh.Sq, sh.H, HD, q_rows);
+}
+
+template <int HD, typename T>
+int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const Shape& sh,
+        cudaStream_t stream) {
+  const size_t smem = fwd_smem<HD>();
+  if constexpr (HD <= kWgMaxHd) {
+    CUtensorMap m[4];  // q, k, v (the fourth, do's, is unused)
+    if (!wg_maps<HD, T>(m, q, k, v, q, sh, kWgRows, kWgFwdKeys))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = allow_smem(swa_fwd_wg_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.H, (sh.Sq + kWgRows - 1) / kWgRows);
+    swa_fwd_wg_kernel<HD, T><<<grid, kWgThreads, smem, stream>>>(
+        m[0], m[1], m[2], static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+  } else {
+    constexpr int BQ = q_rows<HD>();
+    cudaError_t e = allow_smem(swa_fwd_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.H, (sh.Sq + BQ - 1) / BQ);
+    swa_fwd_kernel<HD, T><<<grid, kThreads, smem, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<T*>(o), lse, sh);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <int HD, typename T>
@@ -2203,7 +2518,8 @@ int occupancy(int pass, int* smem) {
   switch (pass) {
     case 0:
       *smem = static_cast<int>(fwd_smem<HD>());
-      return blocks_per_sm(swa_fwd_kernel<HD, T>, kThreads, fwd_smem<HD>());
+      if constexpr (HD <= kWgMaxHd) return blocks_per_sm(swa_fwd_wg_kernel<HD, T>, kWgThreads, fwd_smem<HD>());
+      else return blocks_per_sm(swa_fwd_kernel<HD, T>, kThreads, fwd_smem<HD>());
     case 1:
       *smem = static_cast<int>(dq_smem<HD>());
       if constexpr (HD <= kWgMaxHd) return blocks_per_sm(swa_bwd_dq_wg_kernel<HD, T>, kWgThreads, dq_smem<HD>());

@@ -1,6 +1,6 @@
 // Hopper's warpgroup products (wgmma) in TF32, the tensor memory
-// accelerator (TMA) and mbarriers, for B5's two backward passes at head
-// dim <= 64 (swa_attention.cu).
+// accelerator (TMA) and mbarriers, for the attention kernels at head dim
+// <= 64: B4, the forward, and B5's two backward passes (swa_attention.cu).
 //
 // Tiles in shared memory.  Every operand tile is f32, K-major (its product's
 // reduction dimension contiguous), cut into chunks of 16 floats: a tile of
@@ -59,6 +59,16 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 __device__ __forceinline__ uint64_t desc(const float* p) {
   const uint64_t addr = smem_addr(p);
   return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | (32ull << 32) | (2ull << 62);
+}
+
+// The same descriptor as two words: the low one, which holds the address
+// (a tile a k-step further is lo + its offset in 16-byte units), and the
+// high one, constant.
+__device__ __forceinline__ uint32_t desc_lo(const float* p) {
+  return ((smem_addr(p) & 0x3FFFF) >> 4) | (1u << 16);
+}
+__device__ __forceinline__ uint64_t desc_of(uint32_t lo) {
+  return (static_cast<uint64_t>(32u | (2u << 30)) << 32) | lo;
 }
 
 __device__ __forceinline__ void fence() {

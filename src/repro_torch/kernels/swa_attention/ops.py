@@ -16,18 +16,19 @@ their implementation from the device of the tensors they are given:
   on the current stream, or raise — there is no fallback;
 * CPU tensors run the plain versions in ``ref.py`` (the CPU tests).
 
-The kernels mask the ragged sequence tails and fold the 1/√hd scale into q
-as they load it, so nothing is padded or rescaled here; a window of at
-least Sq is full causal attention (window 0), as in the JAX wrapper, and a
-prefix of at least Sk lets every query see every key.  The C dispatch
-picks B5's kernels by head dim: at hd <= ``WG_HEAD_DIM`` (32, 64) both
+The kernels mask the ragged sequence tails and apply the 1/√hd scale
+themselves (to the scores after the product on wgmma, to q as they load it
+on mma.sync), so nothing is padded or rescaled here; a window of at least
+Sq is full causal attention (window 0), as in the JAX wrapper, and a prefix
+of at least Sk lets every query see every key.  The C dispatch picks the
+kernels by head dim: at hd <= ``WG_HEAD_DIM`` (32, 64) B4 and both B5
 passes run on wgmma, their tiles brought by TMA (16-byte aligned f32) or
 by a producer warp's plain loads (bf16, or f32 off alignment), with no
-workspace; at 80-128 on mma.sync; at 256 on the 8-warp kernels, whose
-dk/dv pass cuts each kv tile's (query head, q tile) iterations into
-``dkv_splits`` ranges, each a block, whose f32 sums go to a workspace
-allocated here and are added in split order by a second, merge launch;
-``launches`` counts one a call either way.
+workspace; above it on mma.sync, B5 at 80-128 in 4-warp kernels and at 256
+in the 8-warp kernels, whose dk/dv pass cuts each kv tile's (query head, q
+tile) iterations into ``dkv_splits`` ranges, each a block, whose f32 sums
+go to a workspace allocated here and are added in split order by a second,
+merge launch; ``launches`` counts one a call either way.
 
 Gradients go through two ``torch.autograd.Function``s in the functorch
 style (``setup_context`` and a ``vmap`` rule), so Engine A's
@@ -76,7 +77,7 @@ DECODE_MAX_GROUP = 16  # query heads a kv head that B4d takes
 DECODE_TILE = 32  # cache slots a B4d tile
 DECODE_MIN_SPLIT_TILES = 4  # tiles a split holds at the least
 DECODE_MAX_BLOCKS_PER_SM = 4  # the most that the split count plans for
-WG_HEAD_DIM = 64  # at and below it B5's two passes run on wgmma
+WG_HEAD_DIM = 64  # at and below it B4 and B5's two passes run on wgmma
 WIDE_HEAD_DIM = 128  # above it B5 runs the 8-warp kernels, the dk/dv pass split
 DKV_WIDE_KEYS = 32  # those kernels' dk/dv pass: its kv tile ...
 DKV_WIDE_ROWS = 16  # ... and the q tiles that it walks
@@ -468,8 +469,8 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def occupancy(pass_: str, dtype: torch.dtype, hd: int) -> Tuple[int, int]:
     """(resident blocks an SM, dynamic shared memory in bytes) of a pass's
-    kernel on the card ("fwd", "dq" or "dkv"; B5's wgmma kernels at hd <=
-    ``WG_HEAD_DIM``, its 8-warp kernels at hd 256): the occupancy
+    kernel on the card ("fwd", "dq" or "dkv"; the wgmma kernels at hd <=
+    ``WG_HEAD_DIM``, B5's 8-warp kernels at hd 256): the occupancy
     calculator, no launch."""
     smem = ctypes.c_int(0)
     blocks = _library().swa_attention_occupancy(("fwd", "dq", "dkv").index(pass_),

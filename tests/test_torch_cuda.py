@@ -521,6 +521,68 @@ def test_b4_f32_views_off_16_byte_alignment_match_plain(cuda):
     torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
 
 
+# B, Sq, Sk, H, K, hd, window, prefix: B4 on wgmma (hd 32, 64) at ragged Sq
+# and Sk (G 3 and 1), under a window of whole and of partial kv tiles, with
+# a prefix under a window, the encoder's prefix of S, a prefix of Sk with Sq
+# < Sk (cross-attention) and Sq > Sk, causal with Sq > Sk under a window
+# (every row still sees a key: the plain version has no value for one that
+# sees none)
+WG_FWD_CASES = [(2, 1000, 1000, 6, 2, 64, 0, 0), (1, 300, 300, 4, 4, 32, 0, 0),
+                (2, 333, 333, 6, 3, 64, 100, 0), (1, 300, 300, 4, 1, 64, 64, 100),
+                (2, 1500, 1500, 4, 4, 64, 0, 1500), (2, 130, 301, 4, 2, 32, 0, 301),
+                (2, 301, 130, 4, 2, 64, 0, 130), (1, 130, 97, 6, 2, 32, 48, 0)]
+
+
+def _wg_fwd_inputs(cuda, case, dtype):
+    B, Sq, Sk, H, K, hd = case[:6]
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q = torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype)
+    k, v = (torch.randn(B, Sk, K, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    return q, k, v
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", WG_FWD_CASES, ids=[str(c) for c in WG_FWD_CASES])
+def test_b4_wgmma_matches_plain_and_repeats_bit_for_bit(cuda, case, dtype):
+    """swa_fwd_wg_kernel against the plain version on the same inputs: o and
+    lse at rtol = atol 2e-5 (bf16: o within one bf16 ulp beyond it), every
+    output in its own shape; a second call equal bit for bit."""
+    B, Sq, Sk, H, K, hd, W, P = case
+    q, k, v = _wg_fwd_inputs(cuda, case, dtype)
+    swa.reset_launches()
+    o, lse = swa.swa_attention_fwd(q, k, v, W, P)
+    again = swa.swa_attention_fwd(q, k, v, W, P)
+    torch.cuda.synchronize()
+    assert swa.launches["swa_attention_fwd"] == 2
+    assert (o.shape, o.dtype, lse.shape) == (q.shape, dtype, (B, H, Sq))
+    assert torch.equal(o, again[0]) and torch.equal(lse, again[1])
+    ro, rlse = swa.swa_attention_ref(q.float(), k.float(), v.float(), W, P)
+    torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
+    if dtype == torch.float32:
+        torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    else:
+        _, exp = torch.frexp(ro)
+        ulp = torch.ldexp(torch.ones_like(ro), exp - 8)
+        bad = (o.float() - ro).abs() > 2e-5 + 2e-5 * ro.abs() + ulp
+        assert not bool(bad.any()), f"{int(bad.sum())} elements"
+
+
+@pytest.mark.parametrize("hd", [32, 64])
+def test_b4_wgmma_f32_views_off_16_byte_alignment_match_plain(cuda, hd):
+    """f32 views that TMA cannot read (one float into their storage) take the
+    producer's plain loads: the same results within the tolerance, with a
+    prefix of Sk and Sq != Sk."""
+    B, Sq, Sk, H, K, W, P = 2, 130, 301, 4, 2, 0, 301
+    q = _offset_view(cuda, B, Sq, H, hd, seed=1)
+    k, v = _offset_view(cuda, B, Sk, K, hd, seed=3), _offset_view(cuda, B, Sk, K, hd, seed=4)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    o, lse = swa.swa_attention_fwd(q, k, v, W, P)
+    torch.cuda.synchronize()
+    ro, rlse = swa.swa_attention_ref(q, k, v, W, P)
+    torch.testing.assert_close(o, ro, rtol=2e-5, atol=2e-5)
+    torch.testing.assert_close(lse, rlse, rtol=2e-5, atol=2e-5)
+
+
 def _b5_inputs(cuda, B, S, H, K, hd, W, dtype=torch.float32, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
     q, do = (torch.randn(B, S, H, hd, generator=g, device=cuda).to(dtype) for _ in range(2))

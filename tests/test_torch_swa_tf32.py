@@ -1,7 +1,7 @@
 """3xTF32, the arithmetic of the attention kernels on the tensor cores,
 emulated on the CPU and held to the f32 tolerances of the JAX package's tests.
 
-The card's forward (B4) and its dq and dk/dv passes (B5)
+The card's forward (B4) and its dq and dk/dv passes (B5) at hd 80-256
 (``csrc/swa_attention.cu`` on ``csrc/mma_tf32.cuh``) split every f32
 operand x of a product into big = tf32(x) and small = tf32(x - big),
 rounded to nearest with ties away (``cvt.rna.tf32.f32``), and take a.b as
@@ -73,6 +73,17 @@ in f32, dk and dv each (query head, 32-row q tile) in the kernels' order.
 Held at ATTN_TOL of max|ref| against the plain versions and ``jax.grad`` of
 the JAX package's attention, at hd 64 and 32, G 1 and 3, ragged lengths,
 windows, a prefix and Sq != Sk.
+
+The forward at head dim <= 64 runs on wgmma too (``swa_fwd_wg_kernel``),
+emulated apart (``wg_forward``): s = q.k^T through the same truncated parts
+and k-steps, then times the scale with log2(e) folded in (the kernel does
+not scale q first); an online softmax over 32-key kv tiles in log2 units;
+each tile's p.v summed from 0 and added to o, rescaled, in f32.  Held at
+rtol = atol 2e-5 against the plain version and the JAX package's forward
+(its Pallas ``_fwd`` in interpret mode, or ``_sdpa`` under ``_mask_bias``
+where ``_fwd`` does not take the case), at the JAX forward cases at hd 64,
+hd 32, windows, prefixes, the encoder's and the cross-attention's masks
+and Sq != Sk; big.big alone misses it more than 5x.
 """
 import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import math
@@ -439,3 +450,115 @@ def test_trunc_drops_the_low_bits_and_small_carries_the_rest():
     small = trunc(y - big)
     assert bool(((y.double() - big.double() - small.double()).abs()
                  <= y.abs().double() * 2.0 ** -19).all())
+
+
+# --------------------------------------------------------------------------
+# B4 on wgmma (head dim <= 64)
+# --------------------------------------------------------------------------
+WG_FWD_TILE = 32  # keys a kv tile of swa_fwd_wg_kernel
+# B, Sq, Sk, H, K, hd, window, prefix: the JAX package's forward cases at hd
+# 64 and causal hd 64 / 32 (Sq = Sk, no prefix: against its Pallas _fwd);
+# hd 32 under a window of 64 (which _fwd does not take); the prefix cases;
+# the bidirectional encoder (a prefix of S); cross-attention (Sq < Sk, a
+# prefix of Sk); Sq > Sk causal
+WG_FWD_CASES = [
+    (1, 256, 256, 4, 2, 64, 128, 0),
+    (1, 300, 300, 4, 1, 64, 128, 0),
+    (1, 640, 640, 4, 2, 64, 512, 0),
+    (1, 256, 256, 4, 2, 64, 0, 0),
+    (1, 160, 160, 4, 2, 32, 0, 0),
+    (1, 200, 200, 3, 3, 32, 64, 0),
+    (1, 300, 300, 4, 1, 64, 64, 100),
+    (1, 160, 160, 4, 2, 32, 0, 33),
+    (2, 150, 150, 2, 2, 64, 0, 150),
+    (1, 130, 300, 2, 2, 64, 0, 300),
+    (1, 300, 130, 6, 2, 32, 0, 0),
+]
+WG_FWD_IDS = [str(c) for c in WG_FWD_CASES]
+
+
+def one_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """wg_dot with big.big alone: one truncated TF32 product a k-step."""
+    return torch.einsum("...mk,...nk->...mn", trunc(a), trunc(b))
+
+
+def wg_forward(q, k, v, window, prefix, dot=None):
+    """(o, lse) as swa_fwd_wg_kernel computes them: s = q.k^T through
+    ``dot`` (wg_dot: truncated TF32 parts, k-steps of 8, small.big,
+    big.small, big.big), then times the scale with log2(e) folded in (f32);
+    an online softmax over WG_FWD_TILE-key kv tiles in log2 units, p = 2^(s -
+    m); each tile's p.v through ``dot`` from 0, added to o (rescaled first)
+    in f32; lse = ln(2) m + ln(l)."""
+    dot = wg_dot if dot is None else dot
+    B, Sq, H, hd = q.shape
+    Sk, K = k.shape[1], k.shape[2]
+    G = H // K
+    qscale = torch.tensor(1.0 / math.sqrt(hd)) * torch.tensor(math.log2(math.e))  # f32
+    ok = visible(torch.arange(Sq), torch.arange(Sk), True, window, prefix)  # [Sq, Sk]
+    qg = q.reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4)  # [B, K, G, Sq, hd]
+    kg, vg = (x.permute(0, 2, 1, 3)[:, :, None] for x in (k, v))  # [B, K, 1, Sk, hd]
+    s_all = qscale * dot(qg, kg)  # [B, K, G, Sq, Sk]
+    vt = vg.transpose(-1, -2)  # [B, K, 1, hd, Sk]
+    m = torch.full((B, K, G, Sq), -1e30)
+    l = torch.zeros(B, K, G, Sq)
+    o = torch.zeros(B, K, G, Sq, hd)
+    for j0 in range(0, Sk, WG_FWD_TILE):
+        keys = slice(j0, j0 + WG_FWD_TILE)
+        s = torch.where(ok[:, keys], s_all[..., keys], -1e30)
+        m_new = torch.maximum(m, s.amax(-1))
+        p = torch.where(ok[:, keys], torch.exp2(s - m_new[..., None]), 0.0)
+        corr = torch.exp2(m - m_new)
+        l = l * corr + p.sum(-1)
+        o = o * corr[..., None] + dot(p, vt[..., keys])
+        m = m_new
+    lr = l.clamp(min=1e-30)
+    o = (o / lr[..., None]).permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd)
+    return o, (math.log(2.0) * m + torch.log(lr)).reshape(B, H, Sq)
+
+
+def jax_forward(q, k, v, window, prefix):
+    """(o, lse) of the JAX package: its Pallas _fwd (interpret mode, as
+    tests/test_kernels_swa.py runs it) where it takes the case (Sq = Sk, no
+    prefix, a window of whole 128-row tiles), else o of _sdpa under
+    _mask_bias (the jnp attention it runs for the prefix and for
+    cross-attention) and no lse."""
+    from repro.kernels.swa_attention.ops import T, _swa_fwd_res
+
+    Sq, Sk = q.shape[1], k.shape[1]
+    jq, jk, jv = map(jnp.asarray, (q, k, v))
+    if prefix or Sq != Sk or window % T:
+        bias = JL._mask_bias(jnp.arange(Sq), jnp.arange(Sk), True, window, prefix)
+        return np.asarray(JL._sdpa(jq, jk, jv, bias)), None
+    o, res = _swa_fwd_res(jq, jk, jv, window, True)
+    return np.asarray(o), np.asarray(res[4])[:, :, :Sq]
+
+
+@pytest.mark.parametrize("case", WG_FWD_CASES, ids=WG_FWD_IDS)
+def test_wgmma_forward_emulated_holds_the_f32_tolerance(case):
+    """o and lse through truncated TF32 parts, the scale after s and each
+    kv tile's p.v from 0, within rtol = atol 2e-5 of the plain version and
+    of the JAX package's forward."""
+    B, Sq, Sk, H, K, hd, W, P = case
+    q, k, v, _ = wg_inputs(case)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    o, lse = wg_forward(tq, tk, tv, W, P)
+    ro, rlse = swa_attention_ref(tq, tk, tv, W, P)
+    torch.testing.assert_close(o, ro, rtol=FWD_TOL, atol=FWD_TOL)
+    torch.testing.assert_close(lse, rlse, rtol=FWD_TOL, atol=FWD_TOL)
+    jo, jlse = jax_forward(q, k, v, W, P)
+    np.testing.assert_allclose(o.numpy(), jo, rtol=FWD_TOL, atol=FWD_TOL)
+    if jlse is not None:
+        np.testing.assert_allclose(lse.numpy(), jlse, rtol=FWD_TOL, atol=FWD_TOL)
+
+
+@pytest.mark.parametrize("case", WG_FWD_CASES[:2] + WG_FWD_CASES[6:8] + WG_FWD_CASES[9:10],
+                         ids=WG_FWD_IDS[:2] + WG_FWD_IDS[6:8] + WG_FWD_IDS[9:10])
+def test_wgmma_forward_with_one_product_misses_the_f32_tolerance(case):
+    """The small terms are what holds it: big.big alone in s and p.v puts o
+    more than 5x outside its tolerance (rtol = atol 2e-5)."""
+    B, Sq, Sk, H, K, hd, W, P = case
+    q, k, v = map(torch.from_numpy, wg_inputs(case)[:3])
+    o, _ = wg_forward(q, k, v, W, P, dot=one_product)
+    ro, _ = swa_attention_ref(q, k, v, W, P)
+    err = float(((o - ro).abs() / (FWD_TOL + FWD_TOL * ro.abs())).max())
+    assert err > 5.0, err
