@@ -9,17 +9,19 @@ Each variant is ``csrc/swa_attention.cu`` with its headers
 package's nvcc flags into ``build/ablation/`` (all builds started together)
 and loaded through ctypes beside the package's own build; naming variants
 builds only those.  Every variant's forward (B4) and backward passes (B5
-dq, dk/dv) are timed with CUDA events at the full-width smollm-135m shape,
-f32 [8, 1024, 9, 3, 64], window 0, and at whisper-large-v3's encoder, f32
-[4, 1500, 20, 20, 64], prefix 1500 (bidirectional), in turns (the variants
-in order, then in reverse, one card), and held against the plain versions;
-ptxas's registers and spills of the forward and of both wgmma passes at
-<64, f32> are printed beside them.  A variant that changes the arithmetic
-says so: it is a measure of what a part of the kernels costs, not a kernel.
-
-Both shapes run at hd 64, where B4 and both B5 passes run on wgmma; the
-mma.sync kernels (``mma_tf32.cuh``) run only at hd 80-256, which no
-variant times.
+dq, dk/dv) are timed with CUDA events in turns (the variants in order, then
+in reverse, one card) and held against the plain versions: the "fwd" and
+"wg" variants at the full-width smollm-135m shape, f32 [8, 1024, 9, 3, 64],
+window 0, and at whisper-large-v3's encoder, f32 [4, 1500, 20, 20, 64],
+prefix 1500 (bidirectional), where B4 and both B5 passes run on wgmma; the
+"wide" variants at paligemma-3b's Engine-B shape, f32 [4, 512, 8, 1, 256],
+prefix 256, where B4 runs swa_fwd_wg_wide_kernel (B5 the 8-warp mma.sync
+kernels, unsplit here); "as built" at all three.  ptxas's registers and
+spills of the wgmma forwards and of both wgmma passes (<64, f32>, the wide
+forward <256, f32>) are printed beside them.  A variant that changes the
+arithmetic says so: it is a measure of what a part of the kernels costs,
+not a kernel.  The mma.sync kernels (``mma_tf32.cuh``: B4 at hd 80-128, B5
+at 80-256) are edited by no variant.
   as built            the package's source, unedited.
 Edits of the forward (B4) on wgmma (hd <= 64):
   fwd serial          no overlap: each consumer warpgroup waits for tile
@@ -58,6 +60,40 @@ Edits of B5's wgmma passes (hd <= 64):
                       it prices the two small terms);
   wg no setmaxnreg    the dq pass's register hand-over dropped: every warp
                       at the 168 registers that ptxas allots 12 warps.
+Edits of B4 at hd 256 (swa_fwd_wg_wide_kernel; its knobs, as built 32-key
+tiles, pieces of 64 columns, 4 in the ring, q's small parts in shared
+memory, the consumers at 224 registers):
+  wide 6 stages       a ring of 6 pieces (the depth; a ring is even, so
+                      that a slot's pieces are one warpgroup's, and 8 do
+                      not fit);
+  wide 32-column pieces
+                      pieces of 32 columns (8 KB with their small
+                      parts), 8 in the ring: the same bytes (the piece
+                      width);
+  wide q small in registers
+                      q's small parts as register A fragments (64
+                      registers a thread, the first term of s RS), the
+                      ring at 8 pieces;
+  wide 64-key tiles   kv tiles of 64 keys (pieces of 64 x 64, 32 KB), which
+                      fit only beside q's small parts in registers (as in
+                      the variant above): 4 pieces, twice the bytes;
+  wide 232 registers  the consumers at 232 registers and the producer at
+                      40 (as built 224 and 56);
+  wide no derive      the producer derives nothing (wrong: it prices the
+                      derivation's shared-memory passes);
+  wide roles by warp index
+                      the roles chosen by threadIdx.x / 32 (as built by a
+                      warpgroup index from __shfl_sync, which ptxas knows
+                      to be uniform; else it serialises the wgmma, C7520);
+  wide b held         the batch and head indices held from the consumers'
+                      start to the output (as built read again there: held,
+                      the batch index spilled);
+  wide waits polled in C++
+                      every mbarrier wait (of every wgmma kernel) polled in
+                      a C++ loop around one try_wait, as before PR 31 (as
+                      built, one PTX loop);
+  wide one product    one wgmma a k-step, big.big, in s and in p.v (wrong,
+                      1xTF32: it prices the two small terms).
 """
 from __future__ import annotations
 
@@ -82,8 +118,8 @@ FWD_S3 = ("      wg::mma_ss<BK>(sc, qs, kb, kk > 0);\n      wg::mma_ss<BK>(sc, q
 FWD_STAGES = "constexpr int kWgFwdStages = 4;"
 FWD_PV3 = ("      wg::mma_rs<HD>(part, ps[n], tb, n > 0);\n      wg::mma_rs<HD>(part, pb[n], ts, 1);\n"
            "      wg::mma_rs<HD>(part, pb[n], tb, 1);\n")
-FWD_DEALLOC = ("    if constexpr (HD > 32) wg::reg_dealloc<kWgProducerRegs>();\n"
-               "    constexpr int kDerivers")
+FWD_DEALLOC_LINE = "    if constexpr (HD > 32) wg::reg_dealloc<kWgProducerRegs>();\n"
+FWD_DEALLOC = "  if (warp >= kWgConsumers / 32) {\n" + FWD_DEALLOC_LINE + "    constexpr int kDerivers"
 # the consumers' q: its small part derived into shared memory, the
 # descriptors as low words, the kv loop's three parts (for "fwd turns")
 FWD_QSMEM = """  for (int c = 0; c < HD / 16; ++c) {
@@ -183,6 +219,53 @@ FWD_ALLOC = ("  if constexpr (HD > 32) wg::reg_alloc<kWgConsumerRegs>();\n"
              "  const int wgi = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3;\n"
              "  const int r0 = 64 * wgi, wr = r0 + 16 * w;  // the warpgroup's first row, the warp's\n"
              "\n  // the small parts of the warpgroup's 64 rows")
+# B4 at hd 256 (swa_fwd_wg_wide_kernel): its knobs, and the three terms of
+# s and of p.v
+WIDE_KEYS = "constexpr int kWideFwdKeys = 32;"
+WIDE_PIECE = "constexpr int kWideFwdPiece = 64;"
+WIDE_STAGES = "constexpr int kWideFwdStages = 4;"
+WIDE_QSM = "constexpr bool kWideFwdQsmRegs = false;"
+WIDE_REGS = "constexpr int kWideFwdConsumerRegs = 224;"
+WIDE_S3 = ("      if constexpr (QR) wg::mma_rs<BK>(sc, qsm[PW / 8 * x + kk], kb, more);\n"
+           "      else wg::mma_ss<BK>(sc, at(ql, BQ * HD + kstep(qk, BQ)), kb, more);\n"
+           "      wg::mma_ss<BK>(sc, qb, ks, 1);\n      wg::mma_ss<BK>(sc, qb, kb, 1);\n")
+WIDE_S3_ONE = "      wg::mma_ss<BK>(sc, qb, kb, more);\n"
+WIDE_PV3 = ("        wg::mma_rs<PW>(part, ps[n], tb, n > 0);\n"
+            "        wg::mma_rs<PW>(part, pb[n], ts, 1);\n        wg::mma_rs<PW>(part, pb[n], tb, 1);\n")
+WIDE_PV3_ONE = "        wg::mma_rs<PW>(part, pb[n], tb, n > 0);\n"
+WIDE_ROLES = ("  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == kWgConsumers / 128) {\n"
+              "    wg::reg_dealloc<kWideFwdProducerRegs>();")
+WIDE_WGI = ("  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0), w = warp & 3, "
+            "g = lane >> 2,\n            t4 = lane & 3, tid = threadIdx.x & 127;")
+WIDE_TOP = "  const int q0 = wh.q0, j_lo = wh.j_lo, n_t = wh.n_t;\n"
+WIDE_OUT_B = "  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H;\n"
+# mbarrier waits polled in a C++ loop (before PR 31's single PTX loop)
+WAIT_PTX = ('__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {\n'
+             '  asm volatile(\n'
+             '      "{\\n.reg .pred p;\\n.reg .u32 n;\\nmov.u32 n, 0;\\n"\n'
+             '      "WAIT:\\n"\n'
+             '      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\\n"\n'
+             '      "@p bra DONE;\\n"\n'
+             '      "add.u32 n, n, 1;\\nsetp.eq.u32 p, n, 67108864;\\n@p trap;\\n"\n'
+             '      "bra.uni WAIT;\\n"\n'
+             '      "DONE:\\n}\\n"\n'
+             '      :: "r"(smem_addr(bar)), "r"(parity) : "memory");\n'
+             '}\n')
+WAIT_LOOP = ('__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {\n'
+             '  const uint32_t addr = smem_addr(bar);\n'
+             '  uint32_t done = 0;\n'
+             '  for (uint32_t polls = 0; !done; ++polls) {\n'
+             '    if (polls == (1u << 26)) __trap();\n'
+             '    asm volatile(\n'
+             '        "{\\n.reg .pred p;\\n"\n'
+             '        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\\n"\n'
+             '        "selp.u32 %0, 1, 0, p;\\n}\\n"\n'
+             '        : "=r"(done) : "r"(addr), "r"(parity) : "memory");\n'
+             '  }\n'
+             '}\n')
+WIDE_DERIVE = ("      if (P % PIECES >= 2 * KP) {\n"
+               "        transpose_warp<PW, BK>(dst, dst + PART, lane);\n        __syncwarp();\n"
+               "      }\n      small_tile(dst + PART, dst, PART, lane, 32);\n")
 # the two small terms of every wgmma product (dq pass: s, dp, dq; dk/dv
 # pass: s^T, dp^T, then dv and dk in one loop)
 WG_SMALL = [
@@ -213,7 +296,8 @@ VARIANTS = {
     "fwd 64-key tiles": ([(CU, "constexpr int kWgFwdKeys = 32;", "constexpr int kWgFwdKeys = 64;"),
                           (CU, FWD_STAGES, FWD_STAGES.replace("4", "2"))], True),
     "fwd 3 stages": ([(CU, FWD_STAGES, FWD_STAGES.replace("4", "3"))], True),
-    "fwd setmaxnreg": ([(CU, x.split("\n", 1)[1], x) for x in (FWD_DEALLOC, FWD_ALLOC)], True),
+    "fwd setmaxnreg": ([(CU, FWD_DEALLOC.replace(FWD_DEALLOC_LINE, ""), FWD_DEALLOC),
+                        (CU, FWD_ALLOC.split("\n", 1)[1], FWD_ALLOC)], True),
     "fwd 2 stages": ([(CU, FWD_STAGES, FWD_STAGES.replace("4", "2"))], True),
     "fwd turns": ([
         (CU, "         (3 * kWgFwdStages + 1) * sizeof(uint64_t) + 1024;",
@@ -236,19 +320,41 @@ VARIANTS = {
     "wg one product": ([(CU, x, "") for x in WG_SMALL], False),
     "wg no setmaxnreg": ([(WG_HEADER, SETMAXNREG.format("inc"), ""),
                           (WG_HEADER, SETMAXNREG.format("dec"), "")], True),
+    "wide 6 stages": ([(CU, WIDE_STAGES, WIDE_STAGES.replace("4", "6"))], True),
+    "wide 32-column pieces": ([(CU, WIDE_PIECE, WIDE_PIECE.replace("64", "32")),
+                               (CU, WIDE_STAGES, WIDE_STAGES.replace("4", "8"))], True),
+    "wide q small in registers": ([(CU, WIDE_QSM, WIDE_QSM.replace("false", "true")),
+                                   (CU, WIDE_STAGES, WIDE_STAGES.replace("4", "8"))], True),
+    "wide 64-key tiles": ([(CU, WIDE_KEYS, WIDE_KEYS.replace("32", "64")),
+                           (CU, WIDE_QSM, WIDE_QSM.replace("false", "true"))], True),
+    "wide 232 registers": ([(CU, WIDE_REGS, WIDE_REGS.replace("224", "232"))], True),
+    "wide no derive": ([(CU, WIDE_DERIVE, "")], False),
+    "wide one product": ([(CU, WIDE_S3, WIDE_S3_ONE), (CU, WIDE_PV3, WIDE_PV3_ONE)], False),
+    "wide roles by warp index": ([
+        (CU, WIDE_ROLES, "  if (warp >= kWgConsumers / 32) {\n    wg::reg_dealloc<kWideFwdProducerRegs>();"),
+        (CU, WIDE_WGI, "  const int wgi = warp >> 2, w = warp & 3, g = lane >> 2, t4 = lane & 3, "
+                       "tid = threadIdx.x & 127;")], True),
+    "wide b held": ([(CU, WIDE_TOP, "  const int b = wh.b, h = wh.h, q0 = wh.q0, j_lo = wh.j_lo, "
+                                    "n_t = wh.n_t;\n"), (CU, WIDE_OUT_B, "")], True),
+    "wide waits polled in C++": ([(WG_HEADER, WAIT_PTX, WAIT_LOOP)], True),
 }
 
 
-REPORTED = ("swa_fwd_wg_kernel", "swa_bwd_dq_wg_kernel", "swa_bwd_dkv_wg_kernel")
+# the instances reported: name -> its mangled kernel, head dim and dtype
+REPORTED = {"swa_fwd_wg_kernel": "swa_fwd_wg_kernelILi64EfEE",
+            "swa_bwd_dq_wg_kernel": "swa_bwd_dq_wg_kernelILi64EfEE",
+            "swa_bwd_dkv_wg_kernel": "swa_bwd_dkv_wg_kernelILi64EfEE",
+            "swa_fwd_wg_wide_kernel": "swa_fwd_wg_wide_kernelILi256EfEE",
+            "swa_fwd_wg_wide_kernel bf16": "swa_fwd_wg_wide_kernelILi256E13__nv_bfloat16EE"}
 
 
 def fwd_build(log: str) -> dict:
-    """ptxas's registers and spills of REPORTED's kernels at <64, f32>."""
+    """ptxas's registers and spills of REPORTED's instances."""
     out, inside = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
-            inside = next((k for k in REPORTED if f"{k}ILi64EfEE" in m.group(1)), None)
+            inside = next((k for k, mangled in REPORTED.items() if mangled in m.group(1)), None)
         elif inside and "Used" in line:
             out.setdefault(inside, {})["registers"] = int(
                 re.search(r"Used (\d+) registers", line).group(1))
@@ -312,10 +418,20 @@ def cuda_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-# B, S, H, K, hd, window, prefix: smollm-135m's full-width path (causal)
-# and whisper-large-v3's encoder (bidirectional: a prefix of S)
+# B, S, H, K, hd, window, prefix: smollm-135m's full-width path (causal),
+# whisper-large-v3's encoder (bidirectional: a prefix of S) and
+# paligemma-3b's Engine-B tiers (hd 256, the prefix-LM mask)
 SHAPES = {"smollm-135m": (8, 1024, 9, 3, 64, 0, 0),
-          "whisper encoder": (4, 1500, 20, 20, 64, 0, 1500)}
+          "whisper encoder": (4, 1500, 20, 20, 64, 0, 1500),
+          "paligemma-3b": (4, 512, 8, 1, 256, 0, 256)}
+
+
+def shapes_of(name: str):
+    """The shapes at which a variant is timed: the "wide" ones at hd 256,
+    the others at hd 64, "as built" at all."""
+    if name == "as built":
+        return tuple(SHAPES)
+    return ("paligemma-3b",) if name.startswith("wide") else ("smollm-135m", "whisper encoder")
 
 
 def main(argv=None) -> int:
@@ -350,6 +466,9 @@ def main(argv=None) -> int:
     stream = torch.cuda.current_stream().cuda_stream
     rows = []
     for label, (B, S, H, K, hd, W, P) in SHAPES.items():
+        here = [name for name in libs if label in shapes_of(name)]
+        if not here:
+            continue
         gen = torch.Generator(device=dev).manual_seed(3)
         q, do = (torch.randn(B, S, H, hd, generator=gen, device=dev) for _ in range(2))
         k, v = (torch.randn(B, S, K, hd, generator=gen, device=dev) for _ in range(2))
@@ -360,9 +479,9 @@ def main(argv=None) -> int:
         rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, rlse, delta, do, W, P)
         dims = (0, B, S, S, H, K, hd, W, P, 1.0 / math.sqrt(hd), stream)
 
-        times = {name: [] for name in libs}
+        times = {name: [] for name in here}
         errs = {}
-        for name in list(libs) + list(libs)[::-1]:
+        for name in here + here[::-1]:
             lib, _ = libs[name]
             o, lse = torch.empty_like(q), torch.empty_like(rlse)
             dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
@@ -383,7 +502,7 @@ def main(argv=None) -> int:
                 if lib.swa_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                              do.data_ptr(), rlse.data_ptr(), delta.data_ptr(),
                                              dk.data_ptr(), dv.data_ptr(), None, 1,
-                                             *dims):  # hd 64: no split
+                                             *dims):  # no split (hd 256: one)
                     raise RuntimeError("dk/dv launch failed")
 
             times[name].append((cuda_ms(run_fwd), cuda_ms(run_dq), cuda_ms(run_dkv)))
@@ -399,12 +518,12 @@ def main(argv=None) -> int:
             build = libs[name][1]
             rows.append({"variant": name, "shape": label, "keeps_numerics": keeps,
                          "fwd_ms": [t[0] for t in ts], "dq_ms": [t[1] for t in ts],
-                         "dkv_ms": [t[2] for t in ts], "build_64_f32": build,
+                         "dkv_ms": [t[2] for t in ts], "build_f32": build,
                          "fwd_err_o_lse_of_tolerance": fwd_err,
                          "err_dq_dk_dv_of_max_ref": bwd_err})
             print(f"[ablation] {label} {name:16s} fwd {ts[0][0]:.4f}, {ts[1][0]:.4f} ms; dq "
                   f"{ts[0][1]:.4f}, {ts[1][1]:.4f} ms; dk/dv {ts[0][2]:.4f}, {ts[1][2]:.4f} ms; "
-                  f"<64, f32> registers and spill stores/loads bytes "
+                  "registers and spill stores/loads bytes "
                   + ", ".join(f"{k} {b.get('registers')} {b.get('spill_bytes')}"
                               for k, b in build.items())
                   + "; fwd |err| / tolerance (o, lse) " + ", ".join(f"{e:.2e}" for e in fwd_err)

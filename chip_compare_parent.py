@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Hold the attention kernels (B4, B5) of this tree against an earlier
-tree's on one GPU: bit for bit, except B4's o and lse at head dim <= 64,
-which this tree computes on wgmma, within the forward's tolerance there;
-then time both trees' B4 in turns.
+tree's on one GPU: bit for bit, except B4's o and lse at head dims 32, 64
+and 256, which this tree computes on wgmma, within the forward's tolerance
+there; then time both trees' B4 in turns.
 
     python3 chip_compare_parent.py PARENT_DIR
 
@@ -19,13 +19,15 @@ this tree's through the package's wrappers (which choose the dk/dv pass's
 split count), the parent's through its C entries.  Both trees' B5 passes
 read the parent's o and lse, so that they see the same inputs.  Every
 output (o, lse, dq, delta, dk, dv) must be equal bit for bit, except o and
-lse at hd <= 64, which this tree computes on wgmma (truncated TF32 parts,
-the scale after s): there they may differ within rtol = atol ATTN_TOL of
-the parent's (bf16 o one bf16 ulp of each value beyond it) and are printed
-as changed by design.  Then both trees' B4 is timed with CUDA events, in
-turns (parent, this tree, this tree, parent), at smollm-135m's full-width
-shape and whisper-large-v3's encoder and cross-attention, f32.  Prints the
-card, the counts, and exits non-zero on any other difference.
+lse at REDESIGNED_HD (32, 64 and 256), which this tree computes on wgmma
+(truncated TF32 parts, the scale after s; at 256 each score once, its two
+halves of hd added in f32): there they may differ within rtol = atol
+ATTN_TOL of the parent's (bf16 o one bf16 ulp of each value beyond it) and
+are printed as changed by design.  Then both trees' B4 is timed with CUDA
+events, in turns (parent, this tree, this tree, parent), at smollm-135m's
+full-width shape, whisper-large-v3's encoder and cross-attention and
+paligemma-3b's Engine-B shape (hd 256, prefix 256), f32.  Prints the card,
+the counts, and exits non-zero on any other difference.
 """
 from __future__ import annotations
 
@@ -40,12 +42,13 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 REL = Path("src/repro_torch/kernels/swa_attention/csrc/swa_attention.cu")
 ATTN_TOL = 2e-5  # chip_smoke.py's: the forward's rtol = atol
-REDESIGNED_HD = 64  # at and below it this tree's B4 runs on wgmma
+REDESIGNED_HD = (32, 64, 256)  # the head dims at which this tree's B4 runs on wgmma
 REDESIGNED = ("o", "lse")  # its outputs there
 # B, Sq, Sk, H, K, hd, window, prefix: the shapes whose B4 is timed
 TIMED = {"smollm-135m": (8, 1024, 1024, 9, 3, 64, 0, 0),
          "whisper-large-v3 encoder": (4, 1500, 1500, 20, 20, 64, 0, 1500),
-         "whisper-large-v3 cross": (4, 448, 1500, 20, 20, 64, 0, 1500)}
+         "whisper-large-v3 cross": (4, 448, 1500, 20, 20, 64, 0, 1500),
+         "paligemma-3b": (4, 512, 512, 8, 1, 256, 0, 256)}
 
 # B, S, H, K, hd, window, prefix
 CASES = [(8, 1024, 9, 3, 64, 0, 0), (8, 1024, 9, 3, 64, 128, 0), (1, 300, 4, 1, 64, 128, 0),
@@ -196,14 +199,14 @@ def main(argv=None) -> int:
                     continue
                 line = (f"{name} {case} {dtype}: {int((x != y).sum())} elements, max "
                         f"{float((x.float() - y.float()).abs().max()):.3e}")
-                rel = (within_tolerance(x, y) if hd <= REDESIGNED_HD and name in REDESIGNED
+                rel = (within_tolerance(x, y) if hd in REDESIGNED_HD and name in REDESIGNED
                        else None)
                 if rel is None:
                     differ.append(line)
                 else:
                     by_design.append(f"{line} ({rel:.3f} of the tolerance)")
     for line in by_design:
-        print(f"[parent] changed by design (B4's o, lse at hd <= {REDESIGNED_HD}, within rtol = "
+        print(f"[parent] changed by design (B4's o, lse at hd {REDESIGNED_HD}, within rtol = "
               f"atol {ATTN_TOL} of the parent's, bf16 one ulp beyond) {line}")
     for line in differ:
         print(f"[parent] DIFFERS {line}")
@@ -212,7 +215,7 @@ def main(argv=None) -> int:
     total = 6 * 2 * len(cases)
     print(f"[parent] {equal} of {total} outputs of B4, B5 dq and B5 dk/dv equal the parent's "
           f"kernels bit for bit (B5 fed the parent's o and lse), {len(by_design)} changed by "
-          f"design (B4's o, lse at hd <= {REDESIGNED_HD}) within tolerance, {len(differ)} differ "
+          f"design (B4's o, lse at hd {REDESIGNED_HD}) within tolerance, {len(differ)} differ "
           f"({len(cases)} shapes x f32, bf16; {len(cases) - len(CASES)} with Sq != Sk); "
           f"card {card}")
     print(json.dumps({"parent_timings": timed}))

@@ -9,8 +9,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build every CUDA kernel of the package with nvcc, in parallel; print
    ptxas's registers and spills and cuobjdump's count of tensor-core
    instructions of the attention kernels (B4, B5: HGMMA for the wgmma
-   kernels, B4's and B5's at hd <= 64, HMMA for the others), and fail if one
-   has none or if a wgmma kernel or B5's 8-warp (hd 256) kernels spill, with the
+   kernels, B4's and B5's at hd <= 64 and B4's at hd 256, HMMA for the
+   others), and fail if one has none or if a wgmma kernel or B5's 8-warp
+   (hd 256) kernels spill, with the
    occupancy calculator's shared memory and blocks an SM; B4d's registers
    and spills;
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -374,11 +375,12 @@ def check_kernels(spec):
 def _attention_kernel(mangled: str):
     """'swa_bwd_dq_kernel<64, f32>' for an attention kernel's mangled name
     (on wgmma at hd <= 64: B4's swa_fwd_wg_kernel, B5's swa_bwd_dq_wg_kernel
-    and swa_bwd_dkv_wg_kernel; on mma.sync above: B4's swa_fwd_kernel, B5's
-    swa_bwd_dq_kernel and swa_bwd_dkv_kernel at hd 80 to 128,
-    swa_bwd_dq_wide_kernel and swa_bwd_dkv_wide_kernel at hd 256), else None
-    (the dk/dv merge, which multiplies nothing)."""
-    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)(?:_wide|_wg)?_kernel)ILi(\d+)E"
+    and swa_bwd_dkv_wg_kernel, and B4's swa_fwd_wg_wide_kernel at hd 256; on
+    mma.sync: B4's swa_fwd_kernel, B5's swa_bwd_dq_kernel and
+    swa_bwd_dkv_kernel at hd 80 to 128, swa_bwd_dq_wide_kernel and
+    swa_bwd_dkv_wide_kernel at hd 256), else None (the dk/dv merge, which
+    multiplies nothing)."""
+    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)(?:_wg_wide|_wide|_wg)?_kernel)ILi(\d+)E"
                   r"(f|13__nv_bfloat16)", mangled)
     return m and f"{m.group(1)}<{m.group(2)}, {'f32' if m.group(3) == 'f' else 'bf16'}>"
 
@@ -390,7 +392,7 @@ def attention_kernel_name(name: str, hd: int) -> str:
     if hd <= WG_HEAD_DIM:
         return KERNEL_FN[name].replace("_kernel", "_wg_kernel")
     if name == "swa_attention_fwd":
-        return KERNEL_FN[name]
+        return KERNEL_FN[name].replace("_kernel", "_wg_wide_kernel") if hd > 128 else KERNEL_FN[name]
     return KERNEL_FN[name].replace("_kernel", "_wide_kernel") if hd > 128 else KERNEL_FN[name]
 
 
@@ -398,8 +400,8 @@ def attention_build_report(source) -> dict:
     """ptxas's registers and spills and cuobjdump's count of tensor-core
     instructions for every attention kernel of the built library (3 passes
     x 6 head dims x 2 dtypes): HGMMA (wgmma) for B4's and B5's kernels at
-    hd <= 64, HMMA (mma.sync) for the others; fails if one has none, or if
-    a wgmma or an 8-warp (hd 256) kernel spills.  For the kernels printed,
+    hd <= 64 and B4's at hd 256, HMMA (mma.sync) for the others; fails if
+    one has none, or if a wgmma or an 8-warp (hd 256) kernel spills.  For the kernels printed,
     the occupancy calculator's blocks an SM at the launch's dynamic shared
     memory."""
     import os
@@ -441,7 +443,7 @@ def attention_build_report(source) -> dict:
         raise AssertionError(f"attention kernels without tensor-core instructions: {report}")
     # hd 64: smollm-135m's, granite's and whisper's paths (on wgmma); hd 32:
     # the REDUCED paths' forward (on wgmma); hd 256: paligemma-3b's (the
-    # forward's column-split tiles, the backward's 8-warp kernels)
+    # forward on wgmma, the backward's 8-warp kernels)
     passes = dict(zip(ATTN, ("fwd", "dq", "dkv")))
     for hd in (32, 64, 256):
         for dt in ("f32", "bf16"):
@@ -460,9 +462,11 @@ def attention_build_report(source) -> dict:
     spilled = {k: r for k, r in report.items()
                if ("_wide_" in k or "_wg_" in k) and r["spill_stores"]}
     if spilled:
-        raise AssertionError(f"the wgmma (hd <= 64) or hd-256 backward kernels spill: {spilled}")
+        raise AssertionError(f"the wgmma (hd <= 64, B4 at 256) or hd-256 backward kernels spill: "
+                             f"{spilled}")
     print("[build] every attention kernel (B4 and B5, hd 32-256, f32 and bf16) has tensor-core "
-          "instructions (HGMMA for the wgmma kernels at hd <= 64, HMMA for the others): "
+          "instructions (HGMMA for the wgmma kernels at hd <= 64 and B4's at 256, HMMA for the "
+          "others): "
           + ", ".join(f"{k} {r['tc_count']}" for k, r in report.items()))
     return report
 
@@ -6623,8 +6627,8 @@ def main() -> int:
                        else "backward (dq, dk and dv together)")),
         **({} if name == "swa_attention_fwd" else {"library_ms_pair": b5_pair}),
         "timed_at": f"B={B} S={S} H={H} K={K} hd={hd} window=0 f32",
-        # paligemma-3b's Engine-B tiers: hd 256 (the forward's column-split
-        # tiles, the backward's 8-warp kernels and the dk/dv pass's splits),
+        # paligemma-3b's Engine-B tiers: hd 256 (the forward on wgmma, the
+        # backward's 8-warp kernels and the dk/dv pass's splits),
         # the prefix-LM mask; the library call is SDPA with a boolean mask
         "vlm": {**{k: vlm_out["attention"][name][k] for k in
                    ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "visible_pairs")},

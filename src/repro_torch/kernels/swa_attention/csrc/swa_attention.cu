@@ -5,7 +5,8 @@
 // Replaces the Pallas TPU kernels in
 //   src/repro/kernels/swa_attention/swa_attention.py
 //     B4  _fwd:122 (bodies _fwd_kernel:49 windowed, _full_fwd_wrapper:151)
-//                         -> swa_fwd_wg_kernel (hd <= 64), swa_fwd_kernel (80-256)
+//                         -> swa_fwd_wg_kernel (hd <= 64), swa_fwd_kernel (80-128),
+//                            swa_fwd_wg_wide_kernel (256)
 //     B5  _bwd:289, dq pass :312 (body _dq_kernel:198)
 //                         -> swa_bwd_dq_wg_kernel (hd <= 64), swa_bwd_dq_kernel
 //                            (80-128), swa_bwd_dq_wide_kernel (256); also delta
@@ -45,12 +46,12 @@
 // split into a TF32 big and small part and a.b = a_small.b_big +
 // a_big.b_small + a_big.b_big, which holds the f32 tolerance where one TF32
 // product misses it 8-63x (tests/test_torch_swa_tf32.py).  B4 and B5 at
-// hd <= 64 run on wgmma (below, "On wgmma"); at hd 80-256 both run on
-// mma.sync m16n8k8 (mma_tf32.cuh), as follows.  The scale is folded into q
-// as its fragments are loaded.  Blocks of 128 threads (4 warps; 8 for the
-// backward at hd 256, see below); tiles staged as f32 with a row pitch of
-// hd + 4 (hd + 8 for the forward's q and k), conflict-free for every
-// fragment load.
+// hd <= 64 and B4 at hd 256 run on wgmma (below, "On wgmma", and "Head dim
+// 256"); B4 at hd 80-128 and B5 at 80-256 run on mma.sync m16n8k8
+// (mma_tf32.cuh), as follows.  The scale is folded into q as its fragments
+// are loaded.  Blocks of 128 threads (4 warps; 8 for the backward at hd
+// 256, see below); tiles staged as f32 with a row pitch of hd + 4 (hd + 8
+// for the forward's q and k), conflict-free for every fragment load.
 // The scores and p (dp and ds) never leave registers: each warp computes
 // its strip of s (or s^T) as mma accumulators and feeds them straight back
 // as the A operand of the next product, with that product's B operand read
@@ -58,8 +59,8 @@
 // long sums (o and dq over the kv tiles, dk and dv over G query heads times
 // S rows) add each tile's partial product, summed from 0 on the tensor
 // cores, in f32.  No atomics: every result repeats bit for bit.
-//   forward: a block per (batch*head, 64-row q tile), the heaviest (last)
-//   first; warp w owns rows 16w..16w+15 and
+//   forward (hd 80-128): a block per (batch*head, 64-row q tile), the
+//   heaviest (last) first; warp w owns rows 16w..16w+15 and
 //   walks the kv tiles (32 keys) that the mask reaches, the next k/v tile
 //   in flight (cp.async, double-buffered) while the current one is
 //   multiplied.
@@ -188,13 +189,14 @@
 // all 256 dims holds 16 x 256 / 32 = 128 f32 accumulators a lane, and a
 // warp pair's dk and dv 256: past what a lane can hold beside its
 // fragments.
-//   forward: the output's columns are split in two; a block is 2 row
-//   strips x 2 column halves (32 q rows, 4 warps).  Warps w and w + 2 own
-//   the same 16 rows; each computes s over the full hd, the same values in
-//   the same order, and the online softmax of its rows, and keeps o for its
-//   128 columns: 64 accumulators a lane.  s is computed twice, 1.5x the
-//   forward's products; shared memory (32 + 2*32)*264 + 2*32*260 floats =
-//   164 KB, one block an SM.
+//   forward (swa_fwd_wg_wide_kernel, on wgmma): a block per (batch*head,
+//   64-row q tile), two consumer warpgroups on the same rows, each owning
+//   half of hd: s's k-steps over its 128 columns (the two partial sums
+//   added in f32 through shared memory, so both hold the same p) and o's
+//   128 columns (64 accumulators a lane, and 32 for a piece's p v).  q and
+//   its small parts take 128 KB, so the kv tiles stream through a 4-piece
+//   ring along hd (a piece: 32 keys x 64 columns of k or of v^T, beside its
+//   small parts: 16 KB); the note at the kernel has the rest.
 //   backward ("wide" kernels, blocks of 8 warps): every score product is
 //   computed once per (q tile, kv tile), its work spread over the 8 warps
 //   (each takes a part of the keys and of hd, the parts added through
@@ -249,13 +251,8 @@ constexpr int kWideDkvKeys = 32, kWideDkvRows = 16;  // dk/dv: kv tile, the q ti
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.44269504f, kLn2 = 0.693147181f;
 
-// The forward's column parts of o (1, or 2 at hd 256: see the note above),
-// and the q tile of the forward and of the 4-warp dq pass: 16 rows a warp
-// over the block's 4 / parts row strips.
-template <int HD> __host__ __device__ constexpr int col_parts() { return HD > 128 ? 2 : 1; }
-template <int HD> __host__ __device__ constexpr int q_rows() {
-  return 16 * (kThreads / 32) / col_parts<HD>();
-}
+// The q tile of the mma.sync forward and dq pass: 16 rows a warp.
+template <int HD> __host__ __device__ constexpr int q_rows() { return 16 * (kThreads / 32); }
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -402,19 +399,18 @@ __device__ __forceinline__ void mma3_terms(float (&d)[M][N][4], const uint32_t (
 }
 
 // --------------------------------------------------------------------------
-// B4: forward.  grid (B*H, nq) over q tiles of q_rows<HD>() rows, i = nq -
-// 1 - blockIdx.y; warp w owns rows 16(w % RW)..+15 of the tile and columns
-// (w / RW) * HD / CS.. of o (RW = 4 / CS row strips; CS = 1 below hd 256)
+// B4: forward, hd 80-128.  grid (B*H, nq) over q tiles of q_rows<HD>()
+// rows, i = nq - 1 - blockIdx.y; warp w owns rows 16w..16w+15 of the tile
 // and walks its 32-key kv tiles.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                T* __restrict__ o, float* __restrict__ lse, Shape sh) {
+  static_assert(HD <= 128, "hd 256 runs swa_fwd_wg_wide_kernel");
   // q and k rows at a pitch of hd + 8 (paired loads), v rows at hd + 4
-  constexpr int CS = col_parts<HD>(), RW = kThreads / 32 / CS;
-  constexpr int LDQ = HD + 8, LD = HD + 4, NT = HD / 8 / CS, BQ = q_rows<HD>(),
-                BK = kFwdKeys, NS = BK / 8;
+  constexpr int LDQ = HD + 8, LD = HD + 4, NT = HD / 8, BQ = q_rows<HD>(), BK = kFwdKeys,
+                NS = BK / 8;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][LDQ]
   float* KVs = Qs + BQ * LDQ;    // 2 stages x (k [BK][LDQ], v [BK][LD])
@@ -423,9 +419,7 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
   const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H, kh = h / sh.G;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  // the tile's first row, the warp's, and the warp's first column of o
-  const int q0 = i * BQ, wr = 16 * (CS == 1 ? warp : warp % RW);
-  const int col0 = CS == 1 ? 0 : (warp / RW) * (HD / CS);
+  const int q0 = i * BQ, wr = 16 * warp;  // the tile's first row, the warp's
   int j_lo = 0;  // the kv tiles that the tile's rows see
   if (sh.window > 0) j_lo = max(0, q0 - sh.window + 1) / BK;
   const int j_hi = last_kv_tile(q0 + BQ - 1, BK, sh);
@@ -545,8 +539,8 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 #pragma unroll
       for (int n = 0; n < NS; ++n) {
         uint32_t b0[2], s0[2], b1[2], s1[2];
-        tf32::load_b_kperm(Vs, LD, 8 * n, col0 + 8 * c, 1.0f, b0, s0);
-        tf32::load_b_kperm(Vs, LD, 8 * n, col0 + 8 * c + 8, 1.0f, b1, s1);
+        tf32::load_b_kperm(Vs, LD, 8 * n, 8 * c, 1.0f, b0, s0);
+        tf32::load_b_kperm(Vs, LD, 8 * n, 8 * c + 8, 1.0f, b1, s1);
         tf32::mma3(p0, pb[n], ps[n], b0, s0);
         tf32::mma3(p1, pb[n], ps[n], b1, s1);
       }
@@ -564,13 +558,13 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
     const int row = q0 + wr + g + 8 * e2;
     if (row >= sh.Sq) continue;
     const float lr = fmaxf(l[e2], 1e-30f);
-    T* out = o + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + col0 + 2 * t;
+    T* out = o + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + 2 * t;
 #pragma unroll
     for (int c = 0; c < NT; ++c) {
       out[8 * c] = from_f32<T>(acc[c][2 * e2] / lr);
       out[8 * c + 1] = from_f32<T>(acc[c][2 * e2 + 1] / lr);
     }
-    if (t == 0 && col0 == 0) {
+    if (t == 0) {
       lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + row] = kLn2 * m[e2] + logf(lr);
     }
   }
@@ -583,7 +577,7 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 // 32-key kv tiles.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, 1)
 swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                   const T* __restrict__ o, const T* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
@@ -737,7 +731,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 // each q tile; warps w and w + 2 add their sums in a fixed order at the end.
 // --------------------------------------------------------------------------
 template <int HD, typename T>
-__global__ void __launch_bounds__(kThreads, HD <= 64 ? 3 : 1)
+__global__ void __launch_bounds__(kThreads, 1)
 swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
@@ -938,29 +932,31 @@ __device__ __forceinline__ bool tile_empty(int r0, int nr, int c0, int nc, const
   return sh.window > 0 && c_last <= r0 - sh.window;
 }
 
-// The producer warp's load of rows [row0, row0 + ROWS) of head `head` of a
-// [B, rows, heads, HD] tensor into a [HD / 16][ROWS][16] tile (rows past
-// `rows` are 0): by TMA (lane 0 issues; the caller's `expect` counts the
-// bytes), or by the warp's plain loads.
-template <int ROWS, int HD, typename T>
+// The producer warp's load of rows [row0, row0 + ROWS) and columns [col0,
+// col0 + COLS) of head `head` of a [B, rows, heads, HD] tensor into a
+// [COLS / 16][ROWS][16] tile (rows past `rows` are 0): by TMA (lane 0
+// issues; the caller's `expect` counts the bytes), or by the warp's plain
+// loads.
+template <int ROWS, int HD, int COLS = HD, typename T>
 __device__ __forceinline__ void produce_rows(float* dst, const CUtensorMap* map, const T* src,
                                              int b, int row0, int rows, int heads, int head,
-                                             uint64_t* bar, bool tma) {
+                                             uint64_t* bar, bool tma, int col0 = 0) {
   const int lane = threadIdx.x & 31;
   if (tma) {
     if (lane == 0) {
 #pragma unroll
-      for (int c = 0; c < HD / 16; ++c)
-        wg::tma_load(dst + c * ROWS * 16, map, bar, head * HD + 16 * c, row0, b);
+      for (int c = 0; c < COLS / 16; ++c)
+        wg::tma_load(dst + c * ROWS * 16, map, bar, head * HD + col0 + 16 * c, row0, b);
     }
     return;
   }
-  for (int idx = lane; idx < ROWS * HD / 4; idx += 32) {
-    const int r = idx / (HD / 4), c = 4 * (idx % (HD / 4));
+#pragma unroll 2  // the wide forward's loader holds 40 registers
+  for (int idx = lane; idx < ROWS * COLS / 4; idx += 32) {
+    const int r = idx / (COLS / 4), c = 4 * (idx % (COLS / 4));
     const int s = row0 + r;
     float4 val = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
     if (s < rows) {
-      const T* p = src + ((static_cast<long long>(b) * rows + s) * heads + head) * HD + c;
+      const T* p = src + ((static_cast<long long>(b) * rows + s) * heads + head) * HD + col0 + c;
       val = make_float4(to_f32(p[0]), to_f32(p[1]), to_f32(p[2]), to_f32(p[3]));
     }
     *reinterpret_cast<float4*>(dst + wg::swz(r, c, ROWS)) = val;
@@ -1018,6 +1014,33 @@ __device__ __forceinline__ void transpose_tile(float* big, float* small, const f
           make_float4(wg::small_part(x[0][jj]), wg::small_part(x[1][jj]),
                       wg::small_part(x[2][jj]), wg::small_part(x[3][jj]));
     }
+  }
+}
+
+// One warp's transpose_tile of a [HD / 16][ROWS][16] tile at `src` into the
+// big parts at `big` only: lane (d4 & 7, key group, even or odd keys), so
+// that its loads take the 4 wavefronts of 512 bytes and its stores 8.
+template <int HD, int ROWS>
+__device__ __forceinline__ void transpose_warp(float* big, const float* src, int lane) {
+  constexpr int KGH = ROWS / 4;  // (8-key group, even / odd keys) pairs
+#pragma unroll 1  // one unit's 16 values live at a time (the producer's 40 registers)
+  for (int u = lane; u < HD / 4 * KGH; u += 32) {
+    const int kgh = (u >> 3) % KGH, d4 = (u & 7) + 8 * (u / (8 * KGH));
+    const int kg = kgh >> 1, h = kgh & 1;
+    float x[4][4];
+#pragma unroll
+    for (int s = 0; s < 4; ++s) {
+      const float4 v =
+          *reinterpret_cast<const float4*>(src + wg::swz(8 * kg + 2 * s + h, 4 * d4, ROWS));
+      x[s][0] = v.x;
+      x[s][1] = v.y;
+      x[s][2] = v.z;
+      x[s][3] = v.w;
+    }
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      *reinterpret_cast<float4*>(big + wg::swz(4 * d4 + jj, 8 * kg + 4 * h, HD)) =
+          make_float4(x[0][jj], x[1][jj], x[2][jj], x[3][jj]);
   }
 }
 
@@ -1349,6 +1372,318 @@ swa_fwd_wg_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
       out[8 * c + 1] = from_f32<T>(acc[4 * c + 2 * e2 + 1] / lr);
     }
     if (t4 == 0) lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + row] = kLn2 * m[e2] + logf(lr);
+  }
+}
+
+// --------------------------------------------------------------------------
+// B4 on wgmma at head dim 256: swa_fwd_wg_wide_kernel.  grid (B*H, nq) over
+// kWideFwdRows-row q tiles, i = nq - 1 - blockIdx.y, the heaviest first.
+// Both consumer warpgroups own the tile's 64 rows (warp w rows 16w..), and
+// warpgroup w owns hd's columns HALF w.. (HALF = hd / 2): the k-steps of s
+// over them and o's columns there.  q and its small parts stay resident
+// (128 KB: each warpgroup derives its own columns' once), so a kv tile (k,
+// its small parts, v^T's two parts: 128 KB at 32 keys) streams through a
+// ring of pieces along hd: a piece is the tile's keys x kWideFwdPiece
+// columns of k, or of v^T, beside its small parts (16 KB at 32 keys x 64
+// columns); a tile is 2 KP k pieces, then 2 KP v pieces, the two
+// warpgroups' alternating.  The loader warp only loads (v into a piece's
+// second part); each of the producer's three other warps derives whole
+// pieces (the slots s = its index mod 3): k's small parts, or v^T (keys in
+// kperm order) into the first part and then its small parts.  Per tile a
+// warpgroup issues s over its columns (m64nBKk8, 3xTF32 a k-step, a commit
+// group a piece), writes the partial sum into its last k piece and, once
+// both have, adds the other's: s0 + s1 in f32 (commutative, so both
+// warpgroups hold the same s bit for bit), releasing the other's piece.
+// Then the online softmax (log2 units, the scale after the product), p as
+// register A fragments, o rescaled, and for each v piece its columns' p v
+// (m64n64k8) summed from 0 and added to o in f32.  Every piece is released
+// as soon as its products have landed.  Every score is computed once.  The
+// knobs below are chip_ablate_attention.py's "wide" variants.
+// --------------------------------------------------------------------------
+constexpr int kWideFwdRows = 64;     // q rows a block: one wgmma M, both warpgroups'
+constexpr int kWideFwdKeys = 32;     // keys a kv tile
+constexpr int kWideFwdPiece = 64;    // columns a piece of k or v
+constexpr int kWideFwdStages = 4;    // pieces in the ring (6 no faster: PERF.md §6)
+constexpr bool kWideFwdQsmRegs = false;  // q's small parts as register A fragments
+constexpr int kWideFwdXSync = 5;     // the consumers' named barrier of the s exchange
+// Registers a thread (setmaxnreg moves them within the 168 x 384 that the
+// block holds from its launch): the consumers hold o, one v piece's p v
+// (64 + 32), p's fragments and s; the producer keeps the rest, 56 (232 and
+// 40 measured 4% slower).
+constexpr int kWideFwdConsumerRegs = 224;
+constexpr int kWideFwdProducerRegs =
+    ((65536 / kWgThreads / 8 * 8) * kWgThreads - kWgConsumers * kWideFwdConsumerRegs) / 128 / 8 * 8;
+static_assert(kWideFwdProducerRegs >= 24, "setmaxnreg's least");
+
+template <int HD> constexpr size_t fwd_wide_smem() {
+  return ((kWideFwdQsmRegs ? 1 : 2) * kWideFwdRows * HD +
+          kWideFwdStages * 2 * kWideFwdKeys * kWideFwdPiece) * sizeof(float) +
+         (3 * kWideFwdStages + 1) * sizeof(uint64_t) + 1024;
+}
+
+template <int HD, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+swa_fwd_wg_wide_kernel(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv, const T* __restrict__ q,
+                       const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
+                       float* __restrict__ lse, Shape sh) {
+  constexpr int BQ = kWideFwdRows, BK = kWideFwdKeys, PW = kWideFwdPiece, NS = kWideFwdStages;
+  constexpr int HALF = HD / 2;          // a consumer warpgroup's columns
+  constexpr int KP = HALF / PW;         // k pieces (and v pieces) of a warpgroup a tile
+  constexpr int PIECES = 4 * KP;        // pieces a tile
+  constexpr int PART = BK * PW;         // floats of one part of a piece
+  constexpr bool QR = kWideFwdQsmRegs;
+  static_assert(HD == 256 && HALF % PW == 0 && PW % 16 == 0, "hd 256, whole pieces");
+  static_assert(NS >= 2 * KP, "a tile's k pieces (and its v pieces) fit in the ring at once");
+  // A slot's pieces alternate neither between the warpgroups nor between
+  // the deriver warps, so that no one waits on a barrier's phase while the
+  // phase before it is still open (its parity would read as complete).
+  static_assert(NS % 2 == 0, "an even ring: a slot's pieces are one warpgroup's");
+  static_assert(BQ * BK <= 2 * PART, "a partial s fits in its k piece");
+  extern __shared__ float smem_raw[];
+  float* Qs = aligned_smem(smem_raw);  // [HD / 16][BQ][16]: q, then (QR: not) its small parts
+  float* Ring = Qs + (QR ? 1 : 2) * BQ * HD;  // NS pieces x (a part, its small parts)
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(Ring + NS * 2 * PART);
+  uint64_t* full = loaded + NS;
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool tma = std::is_same<T, float>::value && sh.vec;
+  // The block's head, q tile and kv tiles [j_lo, j_lo + n_t) (n_t may be
+  // <= 0), derived by each role after its setmaxnreg (the block index
+  // opaque to the compiler), so that none is held across it: one was, and
+  // spilled.
+  struct Where { int b, h, kh, q0, j_lo, n_t; };
+  auto where = [&]() {
+    uint32_t bx = blockIdx.x, by = gridDim.y - 1 - blockIdx.y;
+    wg::reg_fence(bx);
+    wg::reg_fence(by);
+    Where r;
+    r.b = bx / sh.H, r.h = bx % sh.H, r.kh = r.h / sh.G, r.q0 = by * BQ, r.j_lo = 0;
+    if (sh.window > 0) r.j_lo = max(0, r.q0 - sh.window + 1) / BK;
+    r.n_t = last_kv_tile(r.q0 + BQ - 1, BK, sh) - r.j_lo + 1;
+    return r;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      wg::bar_init(&loaded[s], 1);
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], 4);  // one warpgroup's warps read a piece
+    }
+    wg::bar_init(qbar, 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  // the roles by a warpgroup index that ptxas knows to be warp-uniform
+  // (__shfl_sync), else it serialised the wgmma (C7520)
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == kWgConsumers / 128) {
+    wg::reg_dealloc<kWideFwdProducerRegs>();
+    const Where wp = where();
+    const int b = wp.b, h = wp.h, kh = wp.kh, q0 = wp.q0, j_lo = wp.j_lo, n_t = wp.n_t;
+    constexpr int kDerivers = 96;  // the producer's warps but its first
+    const int pt = threadIdx.x - kWgConsumers - 32;
+    if (pt < 0) {
+      // the loader: q, then every piece once the consumers free its slot
+      expect(qbar, BQ * HD * sizeof(float), tma);
+      produce_rows<BQ, HD>(Qs, &tq, q, b, q0, sh.Sq, sh.H, h, qbar, tma);
+      produced(qbar);
+      for (int P = 0; P < n_t * PIECES; ++P) {
+        const int s = P % NS, p = P % PIECES, k0 = (j_lo + P / PIECES) * BK;
+        const int col = HALF * (p & 1) + PW * ((p % (2 * KP)) >> 1);  // the piece's columns
+        if (P >= NS) wg::bar_wait(&empty[s], ((P / NS) & 1) ^ 1);
+        float* dst = Ring + s * 2 * PART;
+        expect(&loaded[s], PART * sizeof(float), tma);
+        if (p < 2 * KP)  // k into the first part, v into the second
+          produce_rows<BK, HD, PW>(dst, &tk, k, b, k0, sh.Sk, sh.K, kh, &loaded[s], tma, col);
+        else
+          produce_rows<BK, HD, PW>(dst + PART, &tv, v, b, k0, sh.Sk, sh.K, kh, &loaded[s], tma,
+                                   col);
+        produced(&loaded[s]);
+      }
+      return;
+    }
+    // the derivers, a piece a warp (warp d takes the slots s = d mod 3):
+    // k's small parts; v^T's big parts, then its small parts
+    for (int P = 0; P < n_t * PIECES; ++P) {
+      const int s = P % NS;
+      if (s % (kDerivers / 32) != pt / 32) continue;
+      float* dst = Ring + s * 2 * PART;
+      wg::bar_wait(&loaded[s], (P / NS) & 1);
+      if (P % PIECES >= 2 * KP) {
+        transpose_warp<PW, BK>(dst, dst + PART, lane);
+        __syncwarp();
+      }
+      small_tile(dst + PART, dst, PART, lane, 32);
+      produced(&full[s]);
+    }
+    return;
+  }
+
+  // the consumers: warpgroup wgi (columns HALF wgi..), its warp w (rows
+  // 16w..), lane (g, t4)
+  wg::reg_alloc<kWideFwdConsumerRegs>();
+  const Where wh = where();
+  const int q0 = wh.q0, j_lo = wh.j_lo, n_t = wh.n_t;
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0), w = warp & 3, g = lane >> 2,
+            t4 = lane & 3, tid = threadIdx.x & 127;
+  const int wr = 16 * w;
+  constexpr int QK = HALF / 8;  // the warpgroup's k-steps of s
+  const int qk0 = QK * wgi;     // its first, in q's columns
+
+  wg::bar_wait(qbar, 0);
+  uint32_t qsm[QR ? QK : 1][4];
+  if constexpr (QR) {
+#pragma unroll
+    for (int kk = 0; kk < QK; ++kk)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        qsm[kk][e] = __float_as_uint(wg::small_part(
+            Qs[wg::swz(wr + g + 8 * (e & 1), 8 * (qk0 + kk) + t4 + 4 * (e >> 1), BQ)]));
+  } else {
+    const int at = qk0 * 8 * BQ;  // the warpgroup's columns: HALF / 16 chunks
+    small_tile(Qs + BQ * HD + at, Qs + at, HALF * BQ, tid, 128);
+    wg::proxy_fence();
+    wg::named_sync(kWgFwdGroupSync + wgi, 128);
+  }
+
+  // the scores in log2 units (log2(e) in the scale, which multiplies s after
+  // the product): p = 2^(s - m), lse = ln 2 * m + ln l; lane (g, t4) keeps m
+  // and l of rows g and g + 8 of the warp's strip, and o's accumulator over
+  // the warpgroup's columns
+  const float qscale = sh.scale * kLog2e;
+  float m[2] = {kNeg, kNeg}, l[2] = {0.0f, 0.0f}, corr[2], acc[HALF / 2];
+#pragma unroll
+  for (int x = 0; x < HALF / 2; ++x) acc[x] = 0.0f;
+  float sc[BK / 2], part[PW / 2];
+  uint32_t pb[BK / 8][4], ps[BK / 8][4];  // p, A fragments
+
+  auto slot = [&](int t, int p) { return (t * PIECES + p) % NS; };
+  auto piece = [&](int t, int p) -> float* {  // once derived
+    wg::bar_wait(&full[slot(t, p)], ((t * PIECES + p) / NS) & 1);
+    return Ring + slot(t, p) * 2 * PART;
+  };
+  auto release = [&](int t, int p) {  // the warp has read it
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(&empty[slot(t, p)]);
+  };
+  const uint32_t q_lo = wg::desc_lo(Qs);
+  auto at = [](uint32_t lo, int floats) { return wg::desc_of(lo + floats / 4); };
+
+  auto skip = [&](int t) {  // a tile that no row sees: release the warpgroup's pieces
+#pragma unroll
+    for (int x = 0; x < KP; ++x) {
+      piece(t, 2 * x + wgi);
+      release(t, 2 * x + wgi);
+      piece(t, 2 * KP + 2 * x + wgi);
+      release(t, 2 * KP + 2 * x + wgi);
+    }
+  };
+  // s of tile t over k piece x of the warpgroup's columns, 3xTF32 a k-step,
+  // a commit group
+  auto issue_s = [&](int t, int x) {
+    uint32_t ql = q_lo;
+    wg::reg_fence(ql);
+    const uint32_t k_lo = wg::desc_lo(piece(t, 2 * x + wgi));
+#pragma unroll
+    for (int kk = 0; kk < PW / 8; ++kk) {
+      const int qk = qk0 + PW / 8 * x + kk;
+      const uint64_t qb = at(ql, kstep(qk, BQ)), kb = at(k_lo, kstep(kk, BK)),
+                     ks = at(k_lo, PART + kstep(kk, BK));
+      const int more = x > 0 || kk > 0;
+      if constexpr (QR) wg::mma_rs<BK>(sc, qsm[PW / 8 * x + kk], kb, more);
+      else wg::mma_ss<BK>(sc, at(ql, BQ * HD + kstep(qk, BQ)), kb, more);
+      wg::mma_ss<BK>(sc, qb, ks, 1);
+      wg::mma_ss<BK>(sc, qb, kb, 1);
+    }
+    wg::commit();
+  };
+  // Each piece is released as soon as its products have landed (one commit
+  // group a piece), so that the loader refills its slot while the
+  // warpgroup's later pieces are multiplied: once piece x's products are
+  // issued (of a tile's k or v pieces from `first`), piece x - 1's are
+  // waited for and it is released.  The last k piece holds the exchange,
+  // the last v piece its tile's sum.
+  auto landed = [&](int t, int x, int first) {
+    if (x == 0) return;
+    wg::wait<1>();
+    release(t, first + 2 * (x - 1) + wgi);
+  };
+  int t = 0;
+  for (; t < n_t && tile_empty(q0, BQ, (j_lo + t) * BK, BK, sh); ++t) skip(t);
+  for (; t < n_t && !tile_empty(q0, BQ, (j_lo + t) * BK, BK, sh); ++t) {
+    wg::fence();
+#pragma unroll
+    for (int x = 0; x < KP; ++x) {
+      issue_s(t, x);
+      landed(t, x, 0);
+    }
+    wg::wait<0>();
+    reg_fence_all(sc);
+    // the exchange: the partial s into the warpgroup's last k piece; once
+    // both are there, s = s0 + s1 from the other's, whose piece is released
+    float* mine = Ring + slot(t, 2 * (KP - 1) + wgi) * 2 * PART;
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) mine[x * 128 + tid] = sc[x];
+    wg::proxy_fence();
+    wg::named_sync(kWideFwdXSync, kWgConsumers);
+    const float* theirs = Ring + slot(t, 2 * (KP - 1) + (wgi ^ 1)) * 2 * PART;
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) sc[x] += theirs[x * 128 + tid];
+    release(t, 2 * (KP - 1) + (wgi ^ 1));
+
+    const int c0 = (j_lo + t) * BK;
+    fwd_softmax<BK>(sc, m, l, corr, qscale, tile_masked(q0 + wr, 16, c0, BK, sh), q0 + wr, c0,
+                    sh);
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) a_of(sc, n, pb[n], ps[n]);
+    // o = o 2^(m_prev - m) + the tile's p v: the rescale now, then o's
+    // columns PW x.. of the warpgroup's from v piece x, summed from 0, added
+    // once its products have landed, the piece then released
+#pragma unroll
+    for (int x = 0; x < HALF / 2; ++x) acc[x] *= corr[(x >> 1) & 1];
+#pragma unroll
+    for (int x = 0; x < KP; ++x) {
+      const uint32_t v_lo = wg::desc_lo(piece(t, 2 * KP + 2 * x + wgi));
+      wg::fence();
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        const uint64_t tb = at(v_lo, kstep(n, PW)), ts = at(v_lo, PART + kstep(n, PW));
+        wg::mma_rs<PW>(part, ps[n], tb, n > 0);
+        wg::mma_rs<PW>(part, pb[n], ts, 1);
+        wg::mma_rs<PW>(part, pb[n], tb, 1);
+      }
+      wg::commit();
+      wg::wait<0>();
+      reg_fence_all(part);
+      release(t, 2 * KP + 2 * x + wgi);
+#pragma unroll
+      for (int y = 0; y < PW / 2; ++y) acc[PW / 2 * x + y] += part[y];
+    }
+    reg_fence_all(pb);
+    reg_fence_all(ps);
+  }
+  for (; t < n_t; ++t) skip(t);
+
+  // b and h read again (held through the tile loop at 232 registers, b
+  // spilled; from where() after its fence, the kernel ran 30% slower)
+  const int b = blockIdx.x / sh.H, h = blockIdx.x % sh.H;
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = q0 + wr + g + 8 * e2;
+    if (row >= sh.Sq) continue;
+    const float lr = fmaxf(l[e2], 1e-30f);
+    T* out = o + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + HALF * wgi + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < HALF / 8; ++c) {
+      out[8 * c] = from_f32<T>(acc[4 * c + 2 * e2] / lr);
+      out[8 * c + 1] = from_f32<T>(acc[4 * c + 2 * e2 + 1] / lr);
+    }
+    if (wgi == 0 && t4 == 0)
+      lse[(static_cast<long long>(b) * sh.H + h) * sh.Sq + row] = kLn2 * m[e2] + logf(lr);
   }
 }
 
@@ -2327,8 +2662,8 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 // Dynamic shared memory of each pass's kernel at HD.
 template <int HD> constexpr size_t fwd_smem() {
   if constexpr (HD <= kWgMaxHd) return fwd_wg_smem<HD>();
-  constexpr int BQ = q_rows<HD>();
-  return ((BQ + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
+  if constexpr (HD > 128) return fwd_wide_smem<HD>();
+  return ((q_rows<HD>() + 2 * kFwdKeys) * (HD + 8) + 2 * kFwdKeys * (HD + 4)) * sizeof(float);
 }
 template <int HD> constexpr size_t dq_smem() {
   if constexpr (HD <= kWgMaxHd) return dq_wg_smem<HD>();
@@ -2403,6 +2738,19 @@ int fwd(const void* q, const void* k, const void* v, void* o, float* lse, const 
     if (e != cudaSuccess) return static_cast<int>(e);
     const dim3 grid(sh.B * sh.H, (sh.Sq + kWgRows - 1) / kWgRows);
     swa_fwd_wg_kernel<HD, T><<<grid, kWgThreads, smem, stream>>>(
+        m[0], m[1], m[2], static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
+  } else if constexpr (HD > 128) {
+    CUtensorMap m[3] = {};  // q, k, v: zero (unused) unless sh.vec and f32
+    if (std::is_same<T, float>::value && sh.vec &&
+        !(tensor_map(&m[0], q, sh.B, sh.Sq, sh.H, HD, kWideFwdRows) &&
+          tensor_map(&m[1], k, sh.B, sh.Sk, sh.K, HD, kWideFwdKeys) &&
+          tensor_map(&m[2], v, sh.B, sh.Sk, sh.K, HD, kWideFwdKeys)))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = allow_smem(swa_fwd_wg_wide_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.H, (sh.Sq + kWideFwdRows - 1) / kWideFwdRows);
+    swa_fwd_wg_wide_kernel<HD, T><<<grid, kWgThreads, smem, stream>>>(
         m[0], m[1], m[2], static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<T*>(o), lse, sh);
   } else {
@@ -2519,6 +2867,7 @@ int occupancy(int pass, int* smem) {
     case 0:
       *smem = static_cast<int>(fwd_smem<HD>());
       if constexpr (HD <= kWgMaxHd) return blocks_per_sm(swa_fwd_wg_kernel<HD, T>, kWgThreads, fwd_smem<HD>());
+      else if constexpr (wide) return blocks_per_sm(swa_fwd_wg_wide_kernel<HD, T>, kWgThreads, fwd_smem<HD>());
       else return blocks_per_sm(swa_fwd_kernel<HD, T>, kThreads, fwd_smem<HD>());
     case 1:
       *smem = static_cast<int>(dq_smem<HD>());

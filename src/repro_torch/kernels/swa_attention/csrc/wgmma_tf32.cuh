@@ -1,6 +1,7 @@
 // Hopper's warpgroup products (wgmma) in TF32, the tensor memory
 // accelerator (TMA) and mbarriers, for the attention kernels at head dim
-// <= 64: B4, the forward, and B5's two backward passes (swa_attention.cu).
+// <= 64 (B4, the forward, and B5's two backward passes) and B4 at head dim
+// 256 (swa_fwd_wg_wide_kernel), in swa_attention.cu.
 //
 // Tiles in shared memory.  Every operand tile is f32, K-major (its product's
 // reduction dimension contiguous), cut into chunks of 16 floats: a tile of
@@ -163,18 +164,20 @@ __device__ __forceinline__ void bar_expect_tx(uint64_t* bar, uint32_t bytes) {
 }
 // Wait until the phase of parity `parity` has completed.  A phase that has
 // not completed after 2^26 polls (seconds, where a kernel takes
-// milliseconds) traps: the launch fails instead of hanging the card.
+// milliseconds) traps: the launch fails instead of hanging the card.  The
+// polling loop is one PTX block, so that no divergent C++ path precedes a
+// warpgroup's next wgmma (with the loop in C++, ptxas serialised the wide
+// forward's wgmma, C7520).
 __device__ __forceinline__ void bar_wait(uint64_t* bar, int parity) {
-  const uint32_t addr = smem_addr(bar);
-  uint32_t done = 0;
-  for (uint32_t polls = 0; !done; ++polls) {
-    if (polls == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(addr), "r"(parity) : "memory");
-  }
+  asm volatile(
+      "{\n.reg .pred p;\n.reg .u32 n;\nmov.u32 n, 0;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "add.u32 n, n, 1;\nsetp.eq.u32 p, n, 67108864;\n@p trap;\n"
+      "bra.uni WAIT;\n"
+      "DONE:\n}\n"
+      :: "r"(smem_addr(bar)), "r"(parity) : "memory");
 }
 
 // A box of the 3-D tensor map `map` at (c0, c1, c2) into shared memory at

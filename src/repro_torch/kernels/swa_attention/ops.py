@@ -24,11 +24,14 @@ of at least Sk lets every query see every key.  The C dispatch picks the
 kernels by head dim: at hd <= ``WG_HEAD_DIM`` (32, 64) B4 and both B5
 passes run on wgmma, their tiles brought by TMA (16-byte aligned f32) or
 by a producer warp's plain loads (bf16, or f32 off alignment), with no
-workspace; above it on mma.sync, B5 at 80-128 in 4-warp kernels and at 256
-in the 8-warp kernels, whose dk/dv pass cuts each kv tile's (query head, q
-tile) iterations into ``dkv_splits`` ranges, each a block, whose f32 sums
-go to a workspace allocated here and are added in split order by a second,
-merge launch; ``launches`` counts one a call either way.
+workspace; so does B4 at 256 (``swa_fwd_wg_wide_kernel``: two consumer
+warpgroups on one 64-row q tile, each over half of hd, the kv tiles
+streamed in pieces along hd); B4 at 80-128 and B5 above 64 run on
+mma.sync, B5 at 80-128 in 4-warp kernels and at 256 in the 8-warp kernels,
+whose dk/dv pass cuts each kv tile's (query head, q tile) iterations into
+``dkv_splits`` ranges, each a block, whose f32 sums go to a workspace
+allocated here and are added in split order by a second, merge launch;
+``launches`` counts one a call either way.
 
 Gradients go through two ``torch.autograd.Function``s in the functorch
 style (``setup_context`` and a ``vmap`` rule), so Engine A's
@@ -470,8 +473,8 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def occupancy(pass_: str, dtype: torch.dtype, hd: int) -> Tuple[int, int]:
     """(resident blocks an SM, dynamic shared memory in bytes) of a pass's
     kernel on the card ("fwd", "dq" or "dkv"; the wgmma kernels at hd <=
-    ``WG_HEAD_DIM``, B5's 8-warp kernels at hd 256): the occupancy
-    calculator, no launch."""
+    ``WG_HEAD_DIM`` and B4's at hd 256, B5's 8-warp kernels at hd 256): the
+    occupancy calculator, no launch."""
     smem = ctypes.c_int(0)
     blocks = _library().swa_attention_occupancy(("fwd", "dq", "dkv").index(pass_),
                                                 _DTYPES[dtype], hd, ctypes.byref(smem))

@@ -526,11 +526,16 @@ def test_b4_f32_views_off_16_byte_alignment_match_plain(cuda):
 # a prefix under a window, the encoder's prefix of S, a prefix of Sk with Sq
 # < Sk (cross-attention) and Sq > Sk, causal with Sq > Sk under a window
 # (every row still sees a key: the plain version has no value for one that
-# sees none)
+# sees none); then hd 256 (swa_fwd_wg_wide_kernel): paligemma-3b's Engine-B
+# shape (prefix 256), causal at a ragged S with G 3, windowed, a prefix of
+# Sk with Sq < Sk, Sq > Sk causal under a window, a prefix under a window
 WG_FWD_CASES = [(2, 1000, 1000, 6, 2, 64, 0, 0), (1, 300, 300, 4, 4, 32, 0, 0),
                 (2, 333, 333, 6, 3, 64, 100, 0), (1, 300, 300, 4, 1, 64, 64, 100),
                 (2, 1500, 1500, 4, 4, 64, 0, 1500), (2, 130, 301, 4, 2, 32, 0, 301),
-                (2, 301, 130, 4, 2, 64, 0, 130), (1, 130, 97, 6, 2, 32, 48, 0)]
+                (2, 301, 130, 4, 2, 64, 0, 130), (1, 130, 97, 6, 2, 32, 48, 0),
+                (4, 512, 512, 8, 1, 256, 0, 256), (2, 333, 333, 6, 2, 256, 0, 0),
+                (1, 300, 300, 4, 1, 256, 100, 0), (2, 130, 301, 4, 2, 256, 0, 301),
+                (1, 130, 97, 6, 2, 256, 48, 0), (1, 300, 300, 4, 1, 256, 64, 100)]
 
 
 def _wg_fwd_inputs(cuda, case, dtype):
@@ -544,9 +549,10 @@ def _wg_fwd_inputs(cuda, case, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
 @pytest.mark.parametrize("case", WG_FWD_CASES, ids=[str(c) for c in WG_FWD_CASES])
 def test_b4_wgmma_matches_plain_and_repeats_bit_for_bit(cuda, case, dtype):
-    """swa_fwd_wg_kernel against the plain version on the same inputs: o and
-    lse at rtol = atol 2e-5 (bf16: o within one bf16 ulp beyond it), every
-    output in its own shape; a second call equal bit for bit."""
+    """swa_fwd_wg_kernel (swa_fwd_wg_wide_kernel at hd 256) against the
+    plain version on the same inputs: o and lse at rtol = atol 2e-5 (bf16: o
+    within one bf16 ulp beyond it), every output in its own shape; a second
+    call equal bit for bit."""
     B, Sq, Sk, H, K, hd, W, P = case
     q, k, v = _wg_fwd_inputs(cuda, case, dtype)
     swa.reset_launches()
@@ -567,7 +573,7 @@ def test_b4_wgmma_matches_plain_and_repeats_bit_for_bit(cuda, case, dtype):
         assert not bool(bad.any()), f"{int(bad.sum())} elements"
 
 
-@pytest.mark.parametrize("hd", [32, 64])
+@pytest.mark.parametrize("hd", [32, 64, 256])
 def test_b4_wgmma_f32_views_off_16_byte_alignment_match_plain(cuda, hd):
     """f32 views that TMA cannot read (one float into their storage) take the
     producer's plain loads: the same results within the tolerance, with a

@@ -83,7 +83,13 @@ rtol = atol 2e-5 against the plain version and the JAX package's forward
 (its Pallas ``_fwd`` in interpret mode, or ``_sdpa`` under ``_mask_bias``
 where ``_fwd`` does not take the case), at the JAX forward cases at hd 64,
 hd 32, windows, prefixes, the encoder's and the cross-attention's masks
-and Sq != Sk; big.big alone misses it more than 5x.
+and Sq != Sk; big.big alone misses it more than 5x.  At head dim 256
+(``swa_fwd_wg_wide_kernel``) each of the kernel's two consumer warpgroups
+sums s over its half of hd (128 columns, 16 k-steps) and the two partial
+sums are added in f32, so ``wg_forward`` sums them so, at paligemma-3b's
+prefix-LM mask, causal, windowed, with Sq != Sk and ragged lengths: under
+truncation s now reduces over 256 columns, and the order holds the same
+tolerance.
 """
 import torch_threads  # noqa: F401  (intra-op threads under xdist)
 import math
@@ -455,12 +461,15 @@ def test_trunc_drops_the_low_bits_and_small_carries_the_rest():
 # --------------------------------------------------------------------------
 # B4 on wgmma (head dim <= 64)
 # --------------------------------------------------------------------------
-WG_FWD_TILE = 32  # keys a kv tile of swa_fwd_wg_kernel
+WG_FWD_TILE = 32  # keys a kv tile of swa_fwd_wg_kernel and swa_fwd_wg_wide_kernel
+WG_FWD_HALVES = {256: 2}  # hd -> the column parts of s that the kernel adds in f32
 # B, Sq, Sk, H, K, hd, window, prefix: the JAX package's forward cases at hd
 # 64 and causal hd 64 / 32 (Sq = Sk, no prefix: against its Pallas _fwd);
 # hd 32 under a window of 64 (which _fwd does not take); the prefix cases;
 # the bidirectional encoder (a prefix of S); cross-attention (Sq < Sk, a
-# prefix of Sk); Sq > Sk causal
+# prefix of Sk); Sq > Sk causal; then hd 256 (the wide kernel): paligemma's
+# prefix-LM mask at a small size, causal at a ragged S (against Pallas _fwd),
+# windowed, Sq < Sk under a prefix of Sk, and Sq > Sk causal
 WG_FWD_CASES = [
     (1, 256, 256, 4, 2, 64, 128, 0),
     (1, 300, 300, 4, 1, 64, 128, 0),
@@ -473,6 +482,11 @@ WG_FWD_CASES = [
     (2, 150, 150, 2, 2, 64, 0, 150),
     (1, 130, 300, 2, 2, 64, 0, 300),
     (1, 300, 130, 6, 2, 32, 0, 0),
+    (1, 160, 160, 8, 1, 256, 0, 64),
+    (1, 200, 200, 4, 1, 256, 0, 0),
+    (1, 200, 200, 4, 2, 256, 48, 0),
+    (1, 100, 260, 4, 1, 256, 0, 260),
+    (1, 260, 100, 6, 2, 256, 0, 0),
 ]
 WG_FWD_IDS = [str(c) for c in WG_FWD_CASES]
 
@@ -483,12 +497,13 @@ def one_product(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 def wg_forward(q, k, v, window, prefix, dot=None):
-    """(o, lse) as swa_fwd_wg_kernel computes them: s = q.k^T through
-    ``dot`` (wg_dot: truncated TF32 parts, k-steps of 8, small.big,
-    big.small, big.big), then times the scale with log2(e) folded in (f32);
-    an online softmax over WG_FWD_TILE-key kv tiles in log2 units, p = 2^(s -
-    m); each tile's p.v through ``dot`` from 0, added to o (rescaled first)
-    in f32; lse = ln(2) m + ln(l)."""
+    """(o, lse) as swa_fwd_wg_kernel (and at hd 256 swa_fwd_wg_wide_kernel)
+    computes them: s = q.k^T through ``dot`` (wg_dot: truncated TF32 parts,
+    k-steps of 8, small.big, big.small, big.big), at hd 256 over each half
+    of the columns apart, the halves added in f32, then times the scale with
+    log2(e) folded in (f32); an online softmax over WG_FWD_TILE-key kv tiles
+    in log2 units, p = 2^(s - m); each tile's p.v through ``dot`` from 0,
+    added to o (rescaled first) in f32; lse = ln(2) m + ln(l)."""
     dot = wg_dot if dot is None else dot
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -497,7 +512,12 @@ def wg_forward(q, k, v, window, prefix, dot=None):
     ok = visible(torch.arange(Sq), torch.arange(Sk), True, window, prefix)  # [Sq, Sk]
     qg = q.reshape(B, Sq, K, G, hd).permute(0, 2, 3, 1, 4)  # [B, K, G, Sq, hd]
     kg, vg = (x.permute(0, 2, 1, 3)[:, :, None] for x in (k, v))  # [B, K, 1, Sk, hd]
-    s_all = qscale * dot(qg, kg)  # [B, K, G, Sq, Sk]
+    parts = [slice(c, c + hd // WG_FWD_HALVES.get(hd, 1))
+             for c in range(0, hd, hd // WG_FWD_HALVES.get(hd, 1))]
+    s_all = dot(qg[..., parts[0]], kg[..., parts[0]])  # [B, K, G, Sq, Sk]
+    for c in parts[1:]:
+        s_all = s_all + dot(qg[..., c], kg[..., c])
+    s_all = qscale * s_all
     vt = vg.transpose(-1, -2)  # [B, K, 1, hd, Sk]
     m = torch.full((B, K, G, Sq), -1e30)
     l = torch.zeros(B, K, G, Sq)
@@ -551,8 +571,10 @@ def test_wgmma_forward_emulated_holds_the_f32_tolerance(case):
         np.testing.assert_allclose(lse.numpy(), jlse, rtol=FWD_TOL, atol=FWD_TOL)
 
 
-@pytest.mark.parametrize("case", WG_FWD_CASES[:2] + WG_FWD_CASES[6:8] + WG_FWD_CASES[9:10],
-                         ids=WG_FWD_IDS[:2] + WG_FWD_IDS[6:8] + WG_FWD_IDS[9:10])
+@pytest.mark.parametrize("case", WG_FWD_CASES[:2] + WG_FWD_CASES[6:8] + WG_FWD_CASES[9:10]
+                         + WG_FWD_CASES[11:12],
+                         ids=WG_FWD_IDS[:2] + WG_FWD_IDS[6:8] + WG_FWD_IDS[9:10]
+                         + WG_FWD_IDS[11:12])
 def test_wgmma_forward_with_one_product_misses_the_f32_tolerance(case):
     """The small terms are what holds it: big.big alone in s and p.v puts o
     more than 5x outside its tolerance (rtol = atol 2e-5)."""
