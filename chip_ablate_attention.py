@@ -16,9 +16,15 @@ window 0, and at whisper-large-v3's encoder, f32 [4, 1500, 20, 20, 64],
 prefix 1500 (bidirectional), where B4 and both B5 passes run on wgmma; the
 "wide" variants at paligemma-3b's Engine-B shape, f32 [4, 512, 8, 1, 256],
 prefix 256, where B4 runs swa_fwd_wg_wide_kernel (B5 the 8-warp mma.sync
-kernels, unsplit here); "as built" at all three.  ptxas's registers and
-spills of the wgmma forwards and of both wgmma passes (<64, f32>, the wide
-forward <256, f32>) are printed beside them.  A variant that changes the
+kernels, unsplit here); the "half" variants at qwen2-1.5b's Engine-B
+shape, f32 [4, 1024, 12, 2, 128], causal, where B5 runs the hd-128 wgmma
+kernels (swa_bwd_dq_wg_half_kernel, swa_bwd_dkv_wg_half_kernel; the dk/dv
+pass in the split count that the package's wrapper launches, unless the
+variant names one) and B4 mma.sync; "as built" at all four.  ptxas's
+registers and spills of the wgmma forwards and of the wgmma passes (<64,
+f32>, the wide forward <256, f32|bf16>, the half passes <128, f32|bf16>),
+and the serialisation notes ptxas gives them (C75xx), are printed beside
+them.  A variant that changes the
 arithmetic says so: it is a measure of what a part of the kernels costs,
 not a kernel.  The mma.sync kernels (``mma_tf32.cuh``: B4 at hd 80-128, B5
 at 80-256) are edited by no variant.
@@ -94,6 +100,36 @@ memory, the consumers at 224 registers):
                       built, one PTX loop);
   wide one product    one wgmma a k-step, big.big, in s and in p.v (wrong,
                       1xTF32: it prices the two small terms).
+Edits of B5 at hd 128 (the half kernels; their knobs, as built: 6 pieces
+in the dq pass's ring, 4 in the dk/dv pass's):
+  half dq 4 stages    the dq pass's ring at 4 pieces;
+  half dkv 6 stages   the dk/dv pass's ring at 6 pieces;
+  half k-step fence   each k-step's descriptors made just before its
+                      products (their low words opaque there), not all of
+                      a product's at once;
+  half no derive      the producer derives no small parts or transposes
+                      (wrong: it prices that shared-memory pass);
+  half one product    one wgmma a k-step, big.big, in every product of both
+                      passes (wrong, 1xTF32: it prices the two small terms);
+  half 232 registers, half 240 registers
+                      the consumers at 232 (the producer 40) or 240 (the
+                      producer 24: setmaxnreg's least) registers, as built
+                      224 (and 56);
+  half dq one commit group
+                      the dq pass's s and dp in one wgmma commit group (as
+                      built one each, as the dk/dv pass's s^T and dp^T);
+  half waits between  each tile's second piece awaited between its two score
+                      products, and the dk/dv pass's q piece released
+                      between their waits (the first build's order; as
+                      built both pieces are awaited first and nothing runs
+                      while the products fly);
+  half no exchange    no barrier and no sum between the two warpgroups'
+                      partial score products (wrong: it prices the
+                      exchange);
+  half dk/dv unsplit, half dk/dv in 3 splits, half dk/dv in 6 splits
+                      the dk/dv pass in one, three or six splits a kv tile
+                      (no edit: the split count the wrapper's dkv_splits
+                      would not choose here).
 """
 from __future__ import annotations
 
@@ -263,6 +299,87 @@ WAIT_LOOP = ('__device__ __forceinline__ void bar_wait(uint64_t* bar, int parity
              '        : "=r"(done) : "r"(addr), "r"(parity) : "memory");\n'
              '  }\n'
              '}\n')
+# B5 at hd 128 (the half kernels): their knobs, their three-term products
+HALF_DQ_STAGES = "constexpr int kHalfDqStages = 6;"
+HALF_DKV_STAGES = "constexpr int kHalfDkvStages = 4;"
+HALF_DERIVE = ("    if (P % PIECES >= 4) {\n"
+               "      transpose_warp<kHalfHd / 2, kHalfTile>(dst, dst + kHalfPiece, lane);\n"
+               "      __syncwarp();\n    }\n"
+               "    small_tile(dst + kHalfPiece, dst, kHalfPiece, lane, 32);\n")
+HALF_ONE = [
+    ("        wg::mma_ss<BK>(sc, at(ql, 2 * BQ * HD + kstep(qk, BQ)), bb, kk > 0);\n"
+     "        wg::mma_ss<BK>(sc, ab_, bs, 1);\n        wg::mma_ss<BK>(sc, ab_, bb, 1);\n",
+     "        wg::mma_ss<BK>(sc, ab_, bb, kk > 0);\n"),
+    ("        wg::mma_ss<BK>(dp, at(ql, 3 * BQ * HD + kstep(qk, BQ)), bb, kk > 0);\n"
+     "        wg::mma_ss<BK>(dp, ab_, bs, 1);\n        wg::mma_ss<BK>(dp, ab_, bb, 1);\n",
+     "        wg::mma_ss<BK>(dp, ab_, bb, kk > 0);\n"),
+    ("      wg::mma_rs<HALF>(part, as[n], tb, n > 0);\n      wg::mma_rs<HALF>(part, ab[n], ts, 1);\n"
+     "      wg::mma_rs<HALF>(part, ab[n], tb, 1);\n",
+     "      wg::mma_rs<HALF>(part, ab[n], tb, n > 0);\n"),
+    ("        wg::mma_ss<BQ>(st, ks, bb, kk > 0);\n        wg::mma_ss<BQ>(st, kb, bs, 1);\n"
+     "        wg::mma_ss<BQ>(st, kb, bb, 1);\n", "        wg::mma_ss<BQ>(st, kb, bb, kk > 0);\n"),
+    ("        wg::mma_ss<BQ>(dpt, vs, bb, kk > 0);\n        wg::mma_ss<BQ>(dpt, vb, bs, 1);\n"
+     "        wg::mma_ss<BQ>(dpt, vb, bb, 1);\n", "        wg::mma_ss<BQ>(dpt, vb, bb, kk > 0);\n"),
+    ("        wg::mma_rs<HALF>(part, as[n], tb, n > 0);\n        wg::mma_rs<HALF>(part, ab[n], ts, 1);\n"
+     "        wg::mma_rs<HALF>(part, ab[n], tb, 1);\n",
+     "        wg::mma_rs<HALF>(part, ab[n], tb, n > 0);\n"),
+]
+HALF_REGS = "constexpr int kHalfConsumerRegs = 224;"
+# each k-step's descriptors' low words opaque before its products
+HALF_KSTEP_FN = ("// The derivers of a half kernel's ring",
+                 "__device__ __forceinline__ void kstep_fence(uint32_t& a, uint32_t& b) {\n"
+                 "  wg::reg_fence(a);\n  wg::reg_fence(b);\n}\n\n"
+                 "// The derivers of a half kernel's ring")
+HALF_KSTEP = [
+    ("      const uint32_t b_lo = wg::desc_lo(kp);\n#pragma unroll\n"
+     "      for (int kk = 0; kk < KS; ++kk) {\n",
+     "      uint32_t b_lo = wg::desc_lo(kp);\n#pragma unroll\n"
+     "      for (int kk = 0; kk < KS; ++kk) {\n        kstep_fence(ql, b_lo);\n"),
+    ("      const uint32_t b_lo = wg::desc_lo(vp);\n#pragma unroll\n"
+     "      for (int kk = 0; kk < KS; ++kk) {\n",
+     "      uint32_t b_lo = wg::desc_lo(vp);\n#pragma unroll\n"
+     "      for (int kk = 0; kk < KS; ++kk) {\n        kstep_fence(ql, b_lo);\n"),
+    ("      const uint32_t b_lo = wg::desc_lo(qp);\n#pragma unroll\n"
+     "      for (int kk = 0; kk < KS; ++kk) {\n",
+     "      uint32_t b_lo = wg::desc_lo(qp);\n#pragma unroll\n"
+     "      for (int kk = 0; kk < KS; ++kk) {\n        kstep_fence(kl, b_lo);\n"),
+    ("      const uint32_t b_lo = wg::desc_lo(op);\n#pragma unroll\n"
+     "      for (int kk = 0; kk < KS; ++kk) {\n",
+     "      uint32_t b_lo = wg::desc_lo(op);\n#pragma unroll\n"
+     "      for (int kk = 0; kk < KS; ++kk) {\n        kstep_fence(kl, b_lo);\n"),
+]
+HALF_DQ_ONE_COMMIT = ("      wg::commit();\n    }\n    {\n      const uint32_t b_lo = wg::desc_lo(vp);\n",
+                      "    }\n    {\n      const uint32_t b_lo = wg::desc_lo(vp);\n")
+# each tile's second piece awaited between its two score products (the
+# first build's order, which ptxas serialised, C7511)
+HALF_WAIT_BETWEEN = [
+    ("    float* kp = piece(t, wgi);\n    float* vp = piece(t, 2 + wgi);\n    wg::fence();\n",
+     "    float* kp = piece(t, wgi);\n    wg::fence();\n"),
+    ("      wg::commit();\n    }\n    {\n      const uint32_t b_lo = wg::desc_lo(vp);\n",
+     "      wg::commit();\n    }\n    float* vp = piece(t, 2 + wgi);\n    {\n"
+     "      const uint32_t b_lo = wg::desc_lo(vp);\n"),
+    ("    float* qp = piece(t, wgi);\n    float* op = piece(t, 2 + wgi);\n    wg::fence();\n",
+     "    float* qp = piece(t, wgi);\n    wg::fence();\n"),
+    ("      wg::commit();\n    }\n    {\n      const uint32_t b_lo = wg::desc_lo(op);\n",
+     "      wg::commit();\n    }\n    float* op = piece(t, 2 + wgi);\n    {\n"
+     "      const uint32_t b_lo = wg::desc_lo(op);\n"),
+    ("    wg::wait<0>();\n    reg_fence_all(st);\n    reg_fence_all(dpt);\n"
+     "    release(t, wgi);  // the q piece\n",
+     "    wg::wait<1>();\n    reg_fence_all(st);\n    release(t, wgi);  // the q piece\n"
+     "    wg::wait<0>();\n    reg_fence_all(dpt);\n"),
+]
+HALF_EXCHANGE = [
+    ("    wg::named_sync(kHalfXSync, kWgConsumers);\n    const float* theirs = Ring + slot(t, wgi ^ 1) "
+     "* 2 * PART;\n#pragma unroll\n    for (int x = 0; x < BK / 2; ++x) {\n"
+     "      sc[x] += theirs[x * 128 + tid];\n      dp[x] += theirs[BQ * BK + x * 128 + tid];\n    }\n",
+     ""),
+    ("    wg::named_sync(kHalfXSync, kWgConsumers);\n    const float* theirs = Ring + slot(t, 2 + (wgi ^ 1)) "
+     "* 2 * PART;\n#pragma unroll\n    for (int x = 0; x < BQ / 2; ++x) {\n"
+     "      st[x] += theirs[x * 128 + tid];\n      dpt[x] += theirs[BK * BQ + x * 128 + tid];\n    }\n",
+     ""),
+]
+# the dk/dv pass's split count by variant (no edit); others: the wrapper's
+HALF_SPLITS = {"half dk/dv unsplit": 1, "half dk/dv in 3 splits": 3, "half dk/dv in 6 splits": 6}
 WIDE_DERIVE = ("      if (P % PIECES >= 2 * KP) {\n"
                "        transpose_warp<PW, BK>(dst, dst + PART, lane);\n        __syncwarp();\n"
                "      }\n      small_tile(dst + PART, dst, PART, lane, 32);\n")
@@ -337,6 +454,18 @@ VARIANTS = {
     "wide b held": ([(CU, WIDE_TOP, "  const int b = wh.b, h = wh.h, q0 = wh.q0, j_lo = wh.j_lo, "
                                     "n_t = wh.n_t;\n"), (CU, WIDE_OUT_B, "")], True),
     "wide waits polled in C++": ([(WG_HEADER, WAIT_PTX, WAIT_LOOP)], True),
+    "half dq 4 stages": ([(CU, HALF_DQ_STAGES, HALF_DQ_STAGES.replace("6", "4"))], True),
+    "half dkv 6 stages": ([(CU, HALF_DKV_STAGES, HALF_DKV_STAGES.replace("4", "6"))], True),
+    "half k-step fence": ([(CU, old, new) for old, new in HALF_KSTEP]
+                          + [(CU, HALF_KSTEP_FN[0], HALF_KSTEP_FN[1])], True),
+    "half no derive": ([(CU, HALF_DERIVE, "")], False),
+    "half one product": ([(CU, old, new) for old, new in HALF_ONE], False),
+    "half 232 registers": ([(CU, HALF_REGS, HALF_REGS.replace("224", "232"))], True),
+    "half 240 registers": ([(CU, HALF_REGS, HALF_REGS.replace("224", "240"))], True),
+    "half dq one commit group": ([(CU, *HALF_DQ_ONE_COMMIT)], True),
+    "half waits between": ([(CU, old, new) for old, new in HALF_WAIT_BETWEEN], True),
+    "half no exchange": ([(CU, old, new) for old, new in HALF_EXCHANGE], False),
+    **{name: ([], True) for name in HALF_SPLITS},
 }
 
 
@@ -345,14 +474,26 @@ REPORTED = {"swa_fwd_wg_kernel": "swa_fwd_wg_kernelILi64EfEE",
             "swa_bwd_dq_wg_kernel": "swa_bwd_dq_wg_kernelILi64EfEE",
             "swa_bwd_dkv_wg_kernel": "swa_bwd_dkv_wg_kernelILi64EfEE",
             "swa_fwd_wg_wide_kernel": "swa_fwd_wg_wide_kernelILi256EfEE",
-            "swa_fwd_wg_wide_kernel bf16": "swa_fwd_wg_wide_kernelILi256E13__nv_bfloat16EE"}
+            "swa_fwd_wg_wide_kernel bf16": "swa_fwd_wg_wide_kernelILi256E13__nv_bfloat16EE",
+            "swa_bwd_dq_wg_half_kernel": "swa_bwd_dq_wg_half_kernelILi128EfEE",
+            "swa_bwd_dq_wg_half_kernel bf16": "swa_bwd_dq_wg_half_kernelILi128E13__nv_bfloat16EE",
+            "swa_bwd_dkv_wg_half_kernel": "swa_bwd_dkv_wg_half_kernelILi128EfEE",
+            "swa_bwd_dkv_wg_half_kernel bf16":
+                "swa_bwd_dkv_wg_half_kernelILi128E13__nv_bfloat16EE"}
 
 
 def fwd_build(log: str) -> dict:
-    """ptxas's registers and spills of REPORTED's instances."""
+    """ptxas's registers and spills of REPORTED's instances, and the codes
+    of its notes that it serialised their wgmma (C75xx)."""
     out, inside = {}, None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
+        if "wgmma.mma_async instructions are serialized" in line:
+            code = re.search(r"\((C\d+)\)", line)
+            for k, mangled in REPORTED.items():
+                if mangled in line:
+                    out.setdefault(k, {}).setdefault("serialised", []).append(
+                        code.group(1) if code else "?")
         if m:
             inside = next((k for k, mangled in REPORTED.items() if mangled in m.group(1)), None)
         elif inside and "Used" in line:
@@ -423,14 +564,17 @@ def cuda_ms(fn, iters: int = 20) -> float:
 # paligemma-3b's Engine-B tiers (hd 256, the prefix-LM mask)
 SHAPES = {"smollm-135m": (8, 1024, 9, 3, 64, 0, 0),
           "whisper encoder": (4, 1500, 20, 20, 64, 0, 1500),
-          "paligemma-3b": (4, 512, 8, 1, 256, 0, 256)}
+          "paligemma-3b": (4, 512, 8, 1, 256, 0, 256),
+          "qwen2-1.5b": (4, 1024, 12, 2, 128, 0, 0)}
 
 
 def shapes_of(name: str):
     """The shapes at which a variant is timed: the "wide" ones at hd 256,
-    the others at hd 64, "as built" at all."""
+    the "half" ones at hd 128, the others at hd 64, "as built" at all."""
     if name == "as built":
         return tuple(SHAPES)
+    if name.startswith("half"):
+        return ("qwen2-1.5b",)
     return ("paligemma-3b",) if name.startswith("wide") else ("smollm-135m", "whisper encoder")
 
 
@@ -453,7 +597,7 @@ def main(argv=None) -> int:
         return 1
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.swa_attention import (
-        swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref,
+        dkv_launch_splits, swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref,
     )
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -478,6 +622,7 @@ def main(argv=None) -> int:
         rdq, delta = swa_attention_bwd_dq_ref(q, k, v, ro, rlse, do, W, P)
         rdk, rdv = swa_attention_bwd_dkv_ref(q, k, v, rlse, delta, do, W, P)
         dims = (0, B, S, S, H, K, hd, W, P, 1.0 / math.sqrt(hd), stream)
+        ws = torch.empty(H // K * 2 * k.numel(), device=dev)  # the split dk/dv's sums
 
         times = {name: [] for name in here}
         errs = {}
@@ -498,11 +643,15 @@ def main(argv=None) -> int:
                                             dl.data_ptr(), dq.data_ptr(), *dims):
                     raise RuntimeError("dq launch failed")
 
-            def run_dkv(lib=lib, dk=dk, dv=dv):
+            # hd 256: one split; hd 128: the variant's, else the wrapper's
+            splits = (HALF_SPLITS.get(name, dkv_launch_splits(q, k, W, P)) if hd == 128
+                      else 1)
+
+            def run_dkv(lib=lib, dk=dk, dv=dv, splits=splits):
                 if lib.swa_attention_bwd_dkv(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                                              do.data_ptr(), rlse.data_ptr(), delta.data_ptr(),
-                                             dk.data_ptr(), dv.data_ptr(), None, 1,
-                                             *dims):  # no split (hd 256: one)
+                                             dk.data_ptr(), dv.data_ptr(), ws.data_ptr(), splits,
+                                             *dims):
                     raise RuntimeError("dk/dv launch failed")
 
             times[name].append((cuda_ms(run_fwd), cuda_ms(run_dq), cuda_ms(run_dkv)))
@@ -517,6 +666,8 @@ def main(argv=None) -> int:
             fwd_err, bwd_err = errs[name]
             build = libs[name][1]
             rows.append({"variant": name, "shape": label, "keeps_numerics": keeps,
+                         "dkv_splits": (HALF_SPLITS.get(name, dkv_launch_splits(q, k, W, P))
+                                        if hd == 128 else 1),
                          "fwd_ms": [t[0] for t in ts], "dq_ms": [t[1] for t in ts],
                          "dkv_ms": [t[2] for t in ts], "build_f32": build,
                          "fwd_err_o_lse_of_tolerance": fwd_err,
@@ -525,6 +676,7 @@ def main(argv=None) -> int:
                   f"{ts[0][1]:.4f}, {ts[1][1]:.4f} ms; dk/dv {ts[0][2]:.4f}, {ts[1][2]:.4f} ms; "
                   "registers and spill stores/loads bytes "
                   + ", ".join(f"{k} {b.get('registers')} {b.get('spill_bytes')}"
+                              + (f" serialised {b['serialised']}" if b.get("serialised") else "")
                               for k, b in build.items())
                   + "; fwd |err| / tolerance (o, lse) " + ", ".join(f"{e:.2e}" for e in fwd_err)
                   + "; max err / max|ref| (dq, dk, dv) " + ", ".join(f"{e:.2e}" for e in bwd_err)
@@ -532,7 +684,7 @@ def main(argv=None) -> int:
                   + f"; f32 [{B}, {S}, {H}, {K}, {hd}] window {W} prefix {P}; card {card}")
             if keeps and (max(fwd_err) > 1.0 or max(bwd_err) > 2e-5):
                 raise AssertionError(f"variant {name!r} misses the tolerance: {errs[name]}")
-        del q, do, k, v, ro, rlse, rdq, delta, rdk, rdv
+        del q, do, k, v, ro, rlse, rdq, delta, rdk, rdv, ws
     print(json.dumps({"ablation": rows}))
     return 0
 

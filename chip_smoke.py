@@ -9,9 +9,11 @@ Phases, each printing its lines; any failure raises and exits non-zero:
 2. build every CUDA kernel of the package with nvcc, in parallel; print
    ptxas's registers and spills and cuobjdump's count of tensor-core
    instructions of the attention kernels (B4, B5: HGMMA for the wgmma
-   kernels, B4's and B5's at hd <= 64 and B4's at hd 256, HMMA for the
-   others), and fail if one has none or if a wgmma kernel or B5's 8-warp
-   (hd 256) kernels spill, with the
+   kernels, B4's and B5's at hd <= 64, B5's at 128 and B4's at 256, HMMA
+   for the others), and fail if one has none, if a wgmma kernel or B5's
+   8-warp (hd 256) kernels spill, or if ptxas notes C7520 (a wgmma
+   kernel's wgmma serialised after a divergent path; its other notes that
+   it serialised a kernel's wgmma, C7511, are printed), with the
    occupancy calculator's shared memory and blocks an SM; B4d's registers
    and spills;
 3. hold each kernel against its plain PyTorch version on the card: the
@@ -34,6 +36,9 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    it, hd 256 where the dk/dv pass's splits meet an edge (G not a multiple
    of the split count, kv tiles no q row sees, ragged Sq and Sk, batch 1),
    the causal shapes at prefix 0 and 1 equal and repeating bit for bit,
+   hd 128 (B5's half kernels: qwen2-1.5b's Engine-B shape and G 1 and 4,
+   causal, windowed, prefixes at a 64-key tile's edge and one past it,
+   Sq != Sk, ragged S) in f32 and bf16, each repeating bit for bit,
    bf16 (the forward and both backward passes, hd 64, paligemma's shape
    and hd 256 under a window), and under ``vmap(grad_and_value)``;
 4. the port on the card against the port on the CPU: VGG REDUCED (N=4, 3
@@ -169,7 +174,18 @@ Phases, each printing its lines; any failure raises and exits non-zero:
    params atol 5e-6 / rtol 1e-4); REDUCED whisper through both engines
    and 6 decode steps on the card against the CPU; whisper-large-v3
    decoding at full width (batch 8, cache 128, 64 timed steps; B4d 32
-   self + 32 cross a step); the ``[remat]`` phase (``remat_paths``):
+   self + 32 cross a step); the ``[qwen2]`` phase (``qwen2_paths``, after
+   ``[audio]``): B4 and both B5 passes timed at qwen2-1.5b's Engine-B shape
+   [4, 1024, 12, 2, 128], causal, beside their plain versions, the 3xTF32
+   bound and SDPA (``is_causal``), and the dk/dv pass at every split count
+   beside ``dkv_splits``' choice; qwen2-1.5b at full width and depth
+   through Engine B (N=4, J2=2, batch 1, 1024 tokens a client, cuts (1, 2),
+   intervals (2, 2, 1), SGD 5e-4, 4 rounds): B4/B5 28 a round, B1 by
+   ``engine_b_fed``, finite losses and params, peak at most 70 GB beside
+   the reckoning, the round's ms and the attention's share of it; REDUCED
+   qwen2-1.5b and qwen3-32b (qk_norm) at head_dim 128 through both engines
+   on the card against the CPU (losses rtol 1e-4, params atol 1e-5); the
+   ``[remat]`` phase (``remat_paths``):
    smollm-135m at full width through Engine A with every unit
    rematerialised (``spec.remat``) -- ``"full"`` against no remat at seq
    1024 from one init, bit for bit; at seq 4096, the train_4k length, 3
@@ -375,22 +391,25 @@ def check_kernels(spec):
 def _attention_kernel(mangled: str):
     """'swa_bwd_dq_kernel<64, f32>' for an attention kernel's mangled name
     (on wgmma at hd <= 64: B4's swa_fwd_wg_kernel, B5's swa_bwd_dq_wg_kernel
-    and swa_bwd_dkv_wg_kernel, and B4's swa_fwd_wg_wide_kernel at hd 256; on
-    mma.sync: B4's swa_fwd_kernel, B5's swa_bwd_dq_kernel and
-    swa_bwd_dkv_kernel at hd 80 to 128, swa_bwd_dq_wide_kernel and
-    swa_bwd_dkv_wide_kernel at hd 256), else None (the dk/dv merge, which
-    multiplies nothing)."""
-    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)(?:_wg_wide|_wide|_wg)?_kernel)ILi(\d+)E"
+    and swa_bwd_dkv_wg_kernel; B5's swa_bwd_dq_wg_half_kernel and
+    swa_bwd_dkv_wg_half_kernel at hd 128, and B4's swa_fwd_wg_wide_kernel at
+    hd 256; on mma.sync: B4's swa_fwd_kernel at hd 80 to 128, B5's
+    swa_bwd_dq_kernel and swa_bwd_dkv_kernel at hd 80 and 96,
+    swa_bwd_dq_wide_kernel and swa_bwd_dkv_wide_kernel at hd 256), else
+    None (the dk/dv merge, which multiplies nothing)."""
+    m = re.search(r"(swa_(?:fwd|bwd_dq|bwd_dkv)(?:_wg_wide|_wg_half|_wide|_wg)?_kernel)ILi(\d+)E"
                   r"(f|13__nv_bfloat16)", mangled)
     return m and f"{m.group(1)}<{m.group(2)}, {'f32' if m.group(3) == 'f' else 'bf16'}>"
 
 
 def attention_kernel_name(name: str, hd: int) -> str:
     """The kernel that a pass (a key of ATTN) runs at head dim hd."""
-    from repro_torch.kernels.swa_attention.ops import WG_HEAD_DIM
+    from repro_torch.kernels.swa_attention.ops import HALF_HEAD_DIM, WG_HEAD_DIM
 
     if hd <= WG_HEAD_DIM:
         return KERNEL_FN[name].replace("_kernel", "_wg_kernel")
+    if hd == HALF_HEAD_DIM and name != "swa_attention_fwd":
+        return KERNEL_FN[name].replace("_kernel", "_wg_half_kernel")
     if name == "swa_attention_fwd":
         return KERNEL_FN[name].replace("_kernel", "_wg_wide_kernel") if hd > 128 else KERNEL_FN[name]
     return KERNEL_FN[name].replace("_kernel", "_wide_kernel") if hd > 128 else KERNEL_FN[name]
@@ -400,9 +419,13 @@ def attention_build_report(source) -> dict:
     """ptxas's registers and spills and cuobjdump's count of tensor-core
     instructions for every attention kernel of the built library (3 passes
     x 6 head dims x 2 dtypes): HGMMA (wgmma) for B4's and B5's kernels at
-    hd <= 64 and B4's at hd 256, HMMA (mma.sync) for the others; fails if
-    one has none, or if a wgmma or an 8-warp (hd 256) kernel spills.  For the kernels printed,
-    the occupancy calculator's blocks an SM at the launch's dynamic shared
+    hd <= 64, B5's at 128 and B4's at 256, HMMA (mma.sync) for the others;
+    fails if one has none, if a wgmma or an 8-warp (hd 256) kernel spills,
+    or if ptxas notes C7520 for a wgmma kernel (its wgmma serialised after
+    a divergent path, which cost the hd-256 forward ~50%: PERF.md §6).
+    Every other note that ptxas serialised a kernel's wgmma (C7511: too few
+    registers for its pipeline) is printed.  For the kernels printed, the
+    occupancy calculator's blocks an SM at the launch's dynamic shared
     memory."""
     import os
 
@@ -411,9 +434,14 @@ def attention_build_report(source) -> dict:
     from repro_torch.kernels import build
     from repro_torch.kernels.swa_attention import ops
 
-    report, key = {}, None
+    report, key, serialised = {}, None, []
     for line in build.build_log(source).read_text().splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
+        if "wgmma.mma_async instructions are serialized" in line:
+            note = re.search(r"\((C\d+)\)", line)
+            fn = re.search(r"function '(\S+?)'", line)
+            serialised.append((_attention_kernel(fn.group(1)) if fn else None,
+                               note.group(1) if note else None, line.strip()))
         if m:
             key = _attention_kernel(m.group(1))
         elif key and "Used" in line:
@@ -442,10 +470,11 @@ def attention_build_report(source) -> dict:
     if len(report) != 36 or any(r["tc_count"] == 0 for r in report.values()):
         raise AssertionError(f"attention kernels without tensor-core instructions: {report}")
     # hd 64: smollm-135m's, granite's and whisper's paths (on wgmma); hd 32:
-    # the REDUCED paths' forward (on wgmma); hd 256: paligemma-3b's (the
-    # forward on wgmma, the backward's 8-warp kernels)
+    # the REDUCED paths' forward (on wgmma); hd 128: qwen2-1.5b's (the
+    # backward on wgmma, the forward on mma.sync); hd 256: paligemma-3b's
+    # (the forward on wgmma, the backward's 8-warp kernels)
     passes = dict(zip(ATTN, ("fwd", "dq", "dkv")))
-    for hd in (32, 64, 256):
+    for hd in (32, 64, 128, 256):
         for dt in ("f32", "bf16"):
             for name in ATTN:
                 if hd == 32 and name != "swa_attention_fwd":
@@ -462,11 +491,24 @@ def attention_build_report(source) -> dict:
     spilled = {k: r for k, r in report.items()
                if ("_wide_" in k or "_wg_" in k) and r["spill_stores"]}
     if spilled:
-        raise AssertionError(f"the wgmma (hd <= 64, B4 at 256) or hd-256 backward kernels spill: "
-                             f"{spilled}")
+        raise AssertionError(f"the wgmma (hd <= 64, B5 at 128, B4 at 256) or hd-256 backward "
+                             f"kernels spill: {spilled}")
+    # C7520 on a wgmma kernel (or on a kernel the note does not name) fails
+    wgmma = sorted(k for k in report if "_wg_" in k)
+    c7520 = [n for n in serialised if n[1] == "C7520" and (n[0] is None or "_wg_" in n[0])]
+    if c7520:
+        raise AssertionError(f"ptxas serialised the wgmma of {len(c7520)} kernels after a "
+                             f"divergent path (C7520): {c7520}")
+    print(f"[build] ptxas notes no C7520 in any of the {len(wgmma)} wgmma instantiations: "
+          f"{', '.join(wgmma)}")
+    for kernel, code, _ in serialised:
+        print(f"[build] ptxas serialised the wgmma of {kernel} ({code}: 'Potential Performance "
+              f"Loss', too few registers for the wgmma pipeline where C7511)")
+        if kernel in report:
+            report[kernel].setdefault("serialised", []).append(code)
     print("[build] every attention kernel (B4 and B5, hd 32-256, f32 and bf16) has tensor-core "
-          "instructions (HGMMA for the wgmma kernels at hd <= 64 and B4's at 256, HMMA for the "
-          "others): "
+          "instructions (HGMMA for the wgmma kernels at hd <= 64, B5's at 128 and B4's at 256, "
+          "HMMA for the others): "
           + ", ".join(f"{k} {r['tc_count']}" for k, r in report.items()))
     return report
 
@@ -1199,6 +1241,20 @@ WIDE_EDGE_CASES = [(4, 512, 512, 6, 1, 256, 0, 0), (2, 512, 512, 8, 2, 256, 0, 2
                    (1, 512, 512, 8, 1, 256, 0, 256)]
 
 
+# B5 at hd 128 (the half kernels), (B, Sq, Sk, H, K, hd, window, prefix):
+# qwen2-1.5b's Engine-B shape (G 6), causal at a ragged S with G 1 and 4, a
+# window, a prefix at a 64-key tile's edge and one past it, a prefix under a
+# window, the encoder's prefix of S, Sq != Sk under a prefix of Sk (one
+# query among them), causal with Sq > Sk, and a window with Sq > Sk: each in
+# f32 and bf16 against the plain version, repeating bit for bit
+HALF_CASES = [(4, 1024, 1024, 12, 2, 128, 0, 0), (2, 333, 333, 4, 4, 128, 0, 0),
+              (1, 300, 300, 8, 2, 128, 100, 0), (1, 256, 256, 6, 1, 128, 0, 64),
+              (1, 256, 256, 6, 1, 128, 0, 65), (1, 300, 300, 4, 1, 128, 64, 100),
+              (2, 500, 500, 4, 4, 128, 0, 500), (2, 130, 301, 12, 2, 128, 0, 301),
+              (2, 1, 300, 4, 4, 128, 0, 300), (2, 301, 130, 6, 1, 128, 0, 0),
+              (1, 130, 97, 6, 2, 128, 48, 0)]
+
+
 def attention_cases():
     """(B, Sq, Sk, H, K, hd, window, prefix) of every attention check."""
     cases = [(1, 256, 4, 2, 64, 128), (2, 384, 4, 4, 128, 256), (1, 512, 8, 2, 80, 0),
@@ -1224,7 +1280,8 @@ def attention_cases():
               (1, 300, 4, 1, 64, 64, 100), (1, 130, 4, 2, 256, 48, 70),
               (2, 256, 4, 2, 64, 0, 1), (1, 256, 4, 1, 128, 0, 32), (1, 256, 8, 1, 256, 0, 33),
               (1, 200, 4, 2, 64, 0, 199), (1, 200, 4, 2, 80, 0, 200), (1, 96, 4, 4, 32, 0, 1000)]
-    return [(B, S, S, H, K, hd, W, P) for B, S, H, K, hd, W, P in cases] + WIDE_EDGE_CASES
+    return ([(B, S, S, H, K, hd, W, P) for B, S, H, K, hd, W, P in cases] + WIDE_EDGE_CASES
+            + HALF_CASES)
 
 
 def normalised_err(out, ref) -> float:
@@ -1234,7 +1291,9 @@ def normalised_err(out, ref) -> float:
 def check_attention():
     """B4 and each B5 pass against its plain version, on the same inputs: on
     wgmma at hd 32 and 64 (``swa_fwd_wg_kernel``, ``swa_bwd_dq_wg_kernel``,
-    ``swa_bwd_dkv_wg_kernel``), on mma.sync at hd 80-256."""
+    ``swa_bwd_dkv_wg_kernel``), B5 at 128 (``swa_bwd_dq_wg_half_kernel``,
+    ``swa_bwd_dkv_wg_half_kernel``) and B4 at 256; the others on mma.sync.
+    At hd 128 every case also repeats bit for bit, in f32 and in bf16."""
     import torch
     from torch.func import grad_and_value, vmap
 
@@ -1251,7 +1310,7 @@ def check_attention():
         return torch.randn(*shape, generator=gen, device=dev).to(dtype)
 
     errs = dict.fromkeys(ATTN, 0.0)
-    n_bitwise = 0
+    n_bitwise = n_half = 0
     for B, Sq, Sk, H, K, hd, W, P in attention_cases():
         q, k, v = randn(B, Sq, H, hd), randn(B, Sk, K, hd), randn(B, Sk, K, hd)
         do = randn(B, Sq, H, hd)
@@ -1271,6 +1330,17 @@ def check_attention():
             if e > ATTN_TOL:
                 raise AssertionError(f"B5 {name} {what}: max error {e:.3e} of max|ref| "
                                      f"> {ATTN_TOL}")
+        if hd == 128:
+            # the half kernels (and the dk/dv pass's merge): a second call
+            # repeats every output bit for bit
+            twice = (swa_attention_fwd(q, k, v, W, P)
+                     + swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+                     + swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P))
+            for name, a, b in zip(("o", "lse", "dq", "delta", "dk", "dv"),
+                                  (o, lse, dq, delta, dk, dv), twice):
+                if not torch.equal(a, b):
+                    raise AssertionError(f"{name} {what}: two calls differ in some bit")
+            n_half += 1
         if W == 0 and P <= 1:
             # a prefix of 1 adds no visible key to the causal mask: its
             # kernels' other bounds must give the prefix-free results bit
@@ -1327,6 +1397,34 @@ def check_attention():
                     raise AssertionError(f"{name} bf16 hd {hd}: beyond one bf16 ulp of the f32 "
                                          "tolerance")
                 bf16_errs[name] = max(bf16_errs[name], float(err.max()))
+    # hd 128 in bf16: both B5 passes against the f32 plain version on the
+    # same bf16 inputs (one bf16 ulp beyond the f32 tolerance of max|ref|),
+    # a second call equal bit for bit
+    for B, Sq, Sk, H, K, hd, W, P in HALF_CASES:
+        q, do = (randn(B, Sq, H, hd, dtype=torch.bfloat16) for _ in range(2))
+        k, v = (randn(B, Sk, K, hd, dtype=torch.bfloat16) for _ in range(2))
+        o, lse = swa_attention_fwd(q, k, v, W, P)
+        dq, delta = swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+        dk, dv = swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P)
+        again = (swa_attention_bwd_dq(q, k, v, o, lse, do, W, P)
+                 + swa_attention_bwd_dkv(q, k, v, lse, delta, do, W, P))
+        torch.cuda.synchronize()
+        for a, b in zip((dq, delta, dk, dv), again):
+            if not torch.equal(a, b):
+                raise AssertionError(f"hd 128 bf16 {(B, Sq, Sk, H, K, hd, W, P)}: two calls "
+                                     "differ in some bit")
+        f = [x.float() for x in (q, k, v, o, do)]
+        rdq, _ = swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], W, P)
+        rdk, rdv = swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], W, P)
+        for name, pairs in (("swa_attention_bwd_dq", ((dq, rdq),)),
+                            ("swa_attention_bwd_dkv", ((dk, rdk), (dv, rdv)))):
+            for got, ref in pairs:
+                err = (got.float() - ref).abs()
+                if bool((err > ATTN_TOL * ref.abs().max() + bf16_ulp(ref)).any()):
+                    raise AssertionError(f"{name} bf16 hd 128 {(B, Sq, Sk, H, K, hd, W, P)}: "
+                                         "beyond one bf16 ulp of the f32 tolerance")
+                bf16_errs[name] = max(bf16_errs[name], float(err.max()))
+        n_half += 1
 
     # Engine A's transform: one launch of each kernel for all N clients
     N, B, S, H, K, hd, W = 4, 2, 256, 9, 3, 64, 128
@@ -1355,8 +1453,10 @@ def check_attention():
     print(f"[attention] {n_cases} shapes x (B4, B5 dq, B5 dk/dv) against the plain versions "
           f"passed (forward rtol=atol {ATTN_TOL}; backward {ATTN_TOL} of max|ref|; hd 32-256, "
           f"windows, prefixes 0 to past S, {len(WIDE_EDGE_CASES)} hd-256 edges of the dk/dv "
-          f"splits); {n_bitwise} causal shapes at prefix 0 and 1 equal "
-          f"bit for bit and repeating bit for bit; bf16 (hd 64, and hd 256 at prefix "
+          f"splits, {len(HALF_CASES)} hd-128 cases on the half kernels); {n_bitwise} causal "
+          f"shapes at prefix 0 and 1 equal bit for bit and repeating bit for bit; {n_half} "
+          f"hd-128 runs (f32 and bf16) repeating bit for bit; bf16 (hd 64, hd 128, and hd 256 "
+          f"at prefix "
           f"{VLM_PREFIX} and under a window of 48) forward within 3e-2 of f32 (max |err| {bf16_errs['swa_attention_fwd']:.3e}), bf16 "
           f"backward within one bf16 ulp of the f32 tolerance (max |err| dq "
           f"{bf16_errs['swa_attention_bwd_dq']:.3e}, dk/dv "
@@ -1625,9 +1725,19 @@ def attention_timings(card: str):
 
 def vlm_attention_timings(card: str):
     """B4 and both B5 passes at paligemma-3b's Engine-B shape (hd 256,
-    prefix 256): kernel, plain, the 3xTF32 bound over the prefix mask's
-    visible pairs, and SDPA (eager, the prefix mask as a boolean attn_mask,
-    enable_gqa) as the library yardstick, never called by the port."""
+    prefix 256): ``cell_attention_timings``, SDPA under the prefix mask as a
+    boolean attn_mask."""
+    return cell_attention_timings(card, "paligemma-3b", VLM_ATTN, VLM_PREFIX, seed=4)
+
+
+def cell_attention_timings(card: str, label: str, shape, P: int, seed: int):
+    """B4 and both B5 passes at an Engine-B cell's shape (B, S, H, K, hd),
+    causal under a prefix of P (0: none): kernel and plain in turns, the
+    3xTF32 bound over the mask's visible pairs, and SDPA (eager,
+    ``enable_gqa``, f32; ``is_causal`` at P = 0, else the prefix mask as a
+    boolean attn_mask) as the library yardstick, never called by the port;
+    then the dk/dv pass at every split count (its C entry, as the wrapper
+    calls it) beside ``dkv_splits``' choice and the modelled makespans."""
     import torch
     import torch.nn.functional as F
 
@@ -1640,9 +1750,8 @@ def vlm_attention_timings(card: str):
     from repro_torch.launch.dryrun_lib import attention_work, visible_pairs
 
     dev = torch.device("cuda", 0)
-    gen = torch.Generator(device=dev).manual_seed(4)
-    B, S, H, K, hd = VLM_ATTN
-    P = VLM_PREFIX
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    B, S, H, K, hd = shape
     q = torch.randn(B, S, H, hd, generator=gen, device=dev)
     k = torch.randn(B, S, K, hd, generator=gen, device=dev)
     v = torch.randn(B, S, K, hd, generator=gen, device=dev)
@@ -1659,16 +1768,18 @@ def vlm_attention_timings(card: str):
             lambda: swa_attention_bwd_dkv(q, k, v, lse, delta, do, 0, P)),
     }
     pos = torch.arange(S, device=dev)
-    mask = visible(pos, pos, True, 0, P)
+    mask = visible(pos, pos, True, 0, P) if P else None
     qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
     dot = do.transpose(1, 2).contiguous()
 
     def lib_fwd():
         with torch.no_grad():
-            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=not P,
+                                                  enable_gqa=True)
 
     def lib_fwd_bwd():
-        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
+        out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, is_causal=not P,
+                                             enable_gqa=True)
         torch.autograd.grad(out, (qt, kt, vt), dot)
 
     f_ms, fb_ms = cuda_ms(lib_fwd), cuda_ms(lib_fwd_bwd)
@@ -1683,12 +1794,13 @@ def vlm_attention_timings(card: str):
         r = dict(ms=km, plain_ms=pm, bound_ms=max(by_tc, by_bytes),
                  bound_by="operations" if by_tc >= by_bytes else "bytes", ops=ops, bytes=nbytes,
                  library_ms=f_ms if name == "swa_attention_fwd" else fb_ms - f_ms,
-                 visible_pairs=visible_pairs(S, 0, P))
+                 visible_pairs=visible_pairs(S, 0, P),
+                 kernel=attention_kernel_name(name, hd))
         if name == "swa_attention_bwd_dkv":
             r["splits"] = splits
         out[name] = r
-        print(f"[timing] {name} at paligemma-3b's B={B} S={S} H={H} K={K} hd={hd} prefix={P}: "
-              f"kernel {km:.4f} ms, plain {pm:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        print(f"[timing] {name} ({r['kernel']}) at {label}'s B={B} S={S} H={H} K={K} hd={hd} "
+              f"prefix={P}: kernel {km:.4f} ms, plain {pm:.4f} ms, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']}: 3 x {ops / 1e9:.2f} GFLOP at 495 TFLOP/s TF32 over "
               f"{r['visible_pairs']} visible pairs a head, {nbytes / 1e6:.1f} MB at 3.35 TB/s) "
               f"= {100 * r['bound_ms'] / km:.1f}% of the bound; card {card}")
@@ -1707,20 +1819,20 @@ def vlm_attention_timings(card: str):
                 raise RuntimeError("dk/dv launch failed")
         sweep[n] = cuda_ms(call)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    its = swa_ops.dkv_tile_iterations(S, S, H // K, 0, P)
+    its = swa_ops.dkv_tile_iterations(S, S, H // K, 0, P, hd)
     spans = {n: swa_ops.dkv_makespan(its, B * K, n, sms) for n in sweep}
     out["swa_attention_bwd_dkv"].update(split_sweep_ms=sweep, split_makespans=spans)
-    print(f"[timing] swa_attention_bwd_dkv at paligemma-3b's shape by split count: "
+    print(f"[timing] swa_attention_bwd_dkv at {label}'s shape by split count: "
           + ", ".join(f"{n} {ms:.4f}" for n, ms in sweep.items())
           + f" ms; dkv_splits chose {splits}; the busiest SM's block-iterations "
           + ", ".join(f"{n} {m}" for n, m in spans.items()) + f"; card {card}")
     b5 = out["swa_attention_bwd_dq"]["ms"] + out["swa_attention_bwd_dkv"]["ms"]
     print(f"[timing] library yardstick torch.nn.functional.scaled_dot_product_attention "
-          f"(enable_gqa, the prefix mask as a boolean attn_mask, f32, eager) at paligemma-3b's "
-          f"shape: forward {f_ms:.4f} ms, forward+backward {fb_ms:.4f} ms (backward "
-          f"{fb_ms - f_ms:.4f} against B5's two passes {b5:.4f}: dq + dk/dv over SDPA's "
-          f"backward = {b5 / (fb_ms - f_ms):.3f}; dk/dv in {splits} splits a kv tile, then "
-          f"the merge); card {card}")
+          f"(enable_gqa, {'the prefix mask as a boolean attn_mask' if P else 'is_causal'}, f32, "
+          f"eager) at {label}'s shape: forward {f_ms:.4f} ms, forward+backward {fb_ms:.4f} ms "
+          f"(backward {fb_ms - f_ms:.4f} against B5's two passes {b5:.4f}: dq + dk/dv over "
+          f"SDPA's backward = {b5 / (fb_ms - f_ms):.3f}; dk/dv in {splits} splits a kv tile"
+          f"{', then the merge' if splits > 1 else ''}); card {card}")
     reset_launches()
     return out
 
@@ -4191,16 +4303,17 @@ def vlm_unit_params(spec) -> int:
             + 2 * d)
 
 
-def vlm_reckoning(spec, plan, tokens: int, text: int) -> dict:
+def vlm_reckoning(spec, plan, tokens: int, text: int, unit=None, frontend=None) -> dict:
     """The memory an Engine-B step needs, reckoned before the run: the
     parameters each tier's entities hold (tier 1 also the padded embedding
-    and the projection).  The backward holds them, their gradients, the
-    MLP's four [tokens, d_ff] f32 intermediates a layer and the text's
-    tied logits with their softmax and gradient [text tokens,
-    padded_vocab] x 3; the SGD update the params, the gradients and the
-    new params, 3 x the params."""
-    unit = vlm_unit_params(spec)
-    frontend = spec.padded_vocab * spec.d_model + spec.d_model ** 2
+    and the projection; a dense LM's ``unit`` and ``frontend`` given).  The
+    backward holds them, their gradients, the MLP's four [tokens, d_ff] f32
+    intermediates a layer and the text's tied logits with their softmax and
+    gradient [text tokens, padded_vocab] x 3; the SGD update the params,
+    the gradients and the new params, 3 x the params."""
+    unit = vlm_unit_params(spec) if unit is None else unit
+    if frontend is None:
+        frontend = spec.padded_vocab * spec.d_model + spec.d_model ** 2
     bounds = [plan.tier_bounds(m) for m in range(plan.M)]
     held = sum(plan.entities[m] * ((hi - lo) * unit + (frontend if m == 0 else 0))
                for m, (lo, hi) in enumerate(bounds)) + spec.d_model
@@ -4371,11 +4484,13 @@ def engine_twin(tag: str, path: str, model, plan, opt, inits: list, batches, att
 
 
 def reduced_card_vs_cpu(tag: str, path: str, model, plan, p0, batches, attn_layers: int,
-                        rtol: float):
+                        rtol: float, params_atol=None):
     """Engine A and Engine B from one CPU init ``p0`` on NumPy ``batches``
     (leaves [N, b, ...]), SGD 0.1, on the card and on the CPU: losses within
-    ``rtol``; the card's launches as the plan implies.  Returns (losses
-    keyed (engine, device), launches keyed ``path``-a / -b)."""
+    ``rtol`` (and, given ``params_atol``, the final params within it and
+    rtol 1e-4, leaf by leaf); the card's launches as the plan implies.
+    Returns (losses keyed (engine, device), launches keyed ``path``-a /
+    -b)."""
     import numpy as np
     import torch
 
@@ -4388,6 +4503,7 @@ def reduced_card_vs_cpu(tag: str, path: str, model, plan, p0, batches, attn_laye
     opt, rounds = sgd(0.1), len(batches)
     losses, counts = {}, {}
     for engine in ("a", "b"):
+        finals = {}
         for name in ("cuda", "cpu"):
             device = torch.device(name)
             params = tree_map(lambda x: x.to(device), p0)
@@ -4414,7 +4530,12 @@ def reduced_card_vs_cpu(tag: str, path: str, model, plan, p0, batches, attn_laye
                 if {k: launched.get(k, 0) for k in want} != want:
                     raise AssertionError(f"{tag} REDUCED Engine {engine.upper()}: launches "
                                          f"{launched}, the plan implies {want}")
+            finals[name] = leaves_by_path(tree_map(lambda x: x.cpu(), state.params))
         np.testing.assert_allclose(losses[(engine, "cuda")], losses[(engine, "cpu")], rtol=rtol)
+        if params_atol is not None:
+            for leaf, x in finals["cpu"].items():
+                torch.testing.assert_close(finals["cuda"][leaf], x, atol=params_atol, rtol=1e-4,
+                                           msg=f"{tag} REDUCED Engine {engine.upper()}: {leaf}")
     return losses, counts
 
 
@@ -4613,6 +4734,136 @@ def vlm_paths(card: str):
           f"{out['vlm-paligemma-3b']['peak'] / 1e9:.2f} GB; phase "
           f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 1e9:.2f} GB "
           f"left allocated; card {card}")
+    return counts, out
+
+
+# --------------------------------------------------------------------------- #
+# [qwen2]: qwen2-1.5b trained at full width and depth, attention at hd 128
+# --------------------------------------------------------------------------- #
+
+QWEN2_ARCH = "qwen2-1.5b"
+# the cell (arXiv:2407.10671's widths and depth): N = 4 clients x batch 1,
+# J2 = 2 edges, 1024 tokens a client; the client tier holds the embedding
+# and unit 0, the edges unit 1, the cloud the other 26 and the head
+QWEN2_N, QWEN2_EDGES, QWEN2_BATCH, QWEN2_SEQ = 4, 2, 1, 1024
+QWEN2_CUTS, QWEN2_INTERVALS, QWEN2_ROUNDS, QWEN2_LR = (1, 2), (2, 2, 1), 4, 5e-4
+QWEN2_PEAK_LIMIT = 70e9
+# every Engine-B tier folds the clients into the batch: B = 4, S, H, K, hd
+QWEN2_ATTN = (QWEN2_N * QWEN2_BATCH, QWEN2_SEQ, 12, 2, 128)
+# REDUCED qwen2-1.5b (QKV bias) and qwen3-32b (qk_norm) at head_dim 128 on
+# the card against the CPU: N = 4, J2 = 2, batch 2, 160 tokens, 3 rounds
+QWEN2_REDUCED = ("qwen2-1.5b", "qwen3-32b")
+QWEN2_REDUCED_BATCH, QWEN2_REDUCED_SEQ, QWEN2_REDUCED_ROUNDS = 2, 160, 3
+QWEN2_CARD_RTOL, QWEN2_CARD_ATOL = 1e-4, 1e-5  # losses rtol; params atol (rtol 1e-4)
+
+
+def qwen2_cell(card: str, attn_times):
+    """qwen2-1.5b at full width and depth through Engine B: N=4, J2=2, batch
+    1, 1024 tokens a client, cuts (1, 2), intervals (2, 2, 1), SGD at 5e-4,
+    4 rounds from a seeded init drawn on the card (``engine_b_cell``): B4
+    and both B5 passes launch once a layer a round (28), B1 as
+    ``engine_b_fed`` predicts; the peak at most 70 GB, beside
+    ``vlm_reckoning`` (the unit with its QKV bias, the padded embedding);
+    the round's ms and the attention kernels' share of it (28 layers x
+    their time at the tiers' shape)."""
+    from repro_torch.configs import get_spec
+    from repro_torch.core import default_plan
+    from repro_torch.models import SplittableModel
+    from repro_torch.optim import sgd
+
+    spec = get_spec(QWEN2_ARCH)
+    model = SplittableModel(spec)
+    N, b, seq = QWEN2_N, QWEN2_BATCH, QWEN2_SEQ
+    plan = default_plan(spec.n_units, N, cuts=QWEN2_CUTS, intervals=QWEN2_INTERVALS,
+                        entities=(N, QWEN2_EDGES, 1))
+    reckoned = vlm_reckoning(spec, plan, N * b * seq, N * b * seq, unit=spec.unit_param_count(0),
+                             frontend=spec.padded_vocab * spec.d_model)
+    cell = dict(b=b, seq=seq, rounds=QWEN2_ROUNDS, init_seed=29, batch_seed=30)
+    got, out = engine_b_cell("[qwen2]", model, plan, sgd(QWEN2_LR), cell, reckoned,
+                             spec.n_units, QWEN2_PEAK_LIMIT)
+    attn_ms = spec.n_units * sum(attn_times[name]["ms"] for name in ATTN)
+    out.update(attention_ms=attn_ms, attention_share=attn_ms / out["round_ms"])
+    print(f"[qwen2] qwen2-1.5b at full width and depth through Engine B ({spec.num_layers} "
+          f"layers, d {spec.d_model}, {spec.num_heads} heads, {spec.num_kv_heads} kv heads, hd "
+          f"{spec.hd}, d_ff {spec.d_ff}, vocab {spec.vocab_size}, {spec.total_param_count()} "
+          f"params; N={N}, J2={QWEN2_EDGES}, batch {b}, {seq} tokens a client; cuts "
+          f"{plan.cuts}, intervals {plan.intervals}, SGD {QWEN2_LR}): launches {got} as the "
+          f"plan and depth imply; losses {[round(v, 4) for v in out['losses']]}; every param "
+          f"finite; Engine B holds {out['held']} params ({out['held'] * 4 / 1e9:.2f} GB f32); "
+          f"reckoned {reckoned['total'] / 1e9:.2f} GB, measured peak {out['peak'] / 1e9:.2f} GB "
+          f"(limit 70); rounds {[round(v, 1) for v in out['rounds_ms']]} ms, median (rounds 2 "
+          f"on) {out['round_ms']:.2f} ms, of which B4 + B5 {attn_ms:.2f} ms ({spec.n_units} "
+          f"layers x their time at the tiers' shape) = {100 * out['attention_share']:.1f}%; "
+          f"card {card}")
+    return got, out
+
+
+def qwen2_reduced_card_vs_cpu(rounds: int = QWEN2_REDUCED_ROUNDS):
+    """REDUCED qwen2-1.5b and qwen3-32b at head_dim 128, Engine A and
+    Engine B, N=4, J2=2, batch 2, 160 tokens, cuts (1, 1), 3 rounds from one
+    init and NumPy batches, on the card (B4 on mma.sync, B5 on the hd-128
+    wgmma kernels) and on the CPU (the plain versions), through
+    ``reduced_card_vs_cpu``: losses rtol 1e-4, params atol 1e-5 / rtol
+    1e-4; the card's launches as the plan implies."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_reduced
+    from repro_torch.core import default_plan
+    from repro_torch.models import SplittableModel
+
+    N, b, seq = QWEN2_N, QWEN2_REDUCED_BATCH, QWEN2_REDUCED_SEQ
+    counts = {}
+    for arch in QWEN2_REDUCED:
+        spec = dataclasses.replace(get_reduced(arch), head_dim=128)
+        model = SplittableModel(spec)
+        plan = default_plan(spec.n_units, N, cuts=(1, 1), intervals=(2, 2, 1),
+                            entities=(N, QWEN2_EDGES, 1))
+        p0 = model.init_params(torch.Generator().manual_seed(0), torch.device("cpu"))
+        rng = np.random.default_rng(1)
+        batches = [{k: rng.integers(0, spec.vocab_size, (N, b, seq)).astype(np.int32)
+                    for k in ("tokens", "labels")} for _ in range(rounds)]
+        losses, got = reduced_card_vs_cpu("[qwen2]", f"qwen2-{arch}-reduced-hd128", model, plan,
+                                          p0, batches, spec.n_units, QWEN2_CARD_RTOL,
+                                          params_atol=QWEN2_CARD_ATOL)
+        counts.update(got)
+        print(f"[qwen2] REDUCED {arch} at head_dim 128 ({spec.num_layers} layers, d "
+              f"{spec.d_model}, {spec.num_heads} heads, {spec.num_kv_heads} kv heads"
+              f"{', qk_norm' if spec.qk_norm else ''}{', QKV bias' if spec.qkv_bias else ''}; "
+              f"N={N}, batch {b}, {seq} tokens, {rounds} rounds) on the card against the CPU: "
+              + "; ".join(f"Engine {e.upper()} cuda {losses[(e, 'cuda')]} cpu "
+                          f"{losses[(e, 'cpu')]}" for e in ("a", "b"))
+              + f" (losses rtol {QWEN2_CARD_RTOL}, params atol {QWEN2_CARD_ATOL}); launches "
+              + ", ".join(f"{k} {v}" for k, v in got.items()))
+    return counts
+
+
+def qwen2_paths(card: str):
+    """The ``[qwen2]`` phase: B4/B5 timed at qwen2-1.5b's Engine-B shape
+    (hd 128, causal); the full-width, full-depth Engine-B cell; REDUCED
+    qwen2-1.5b and qwen3-32b at head_dim 128 on the card against the CPU."""
+    import torch
+
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    attn_times = cell_attention_timings(card, QWEN2_ARCH, QWEN2_ATTN, 0, seed=5)
+    counts, out = {}, {"attention": attn_times}
+    with expandable_segments():
+        counts["qwen2-1.5b"], out["qwen2-1.5b"] = qwen2_cell(card, attn_times)
+    counts.update(qwen2_reduced_card_vs_cpu())
+    for path in ("qwen2-1.5b",) + tuple(f"qwen2-{a}-reduced-hd128-b" for a in QWEN2_REDUCED):
+        for name in (AGG[0],) + ATTN:
+            if counts[path][name] == 0:
+                raise AssertionError(f"kernel {name} was not launched on {path}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"[timing] [qwen2] qwen2-1.5b through Engine B: median round "
+          f"{out['qwen2-1.5b']['round_ms']:.2f} ms, of which B4 + B5 "
+          f"{out['qwen2-1.5b']['attention_ms']:.2f} ms "
+          f"({100 * out['qwen2-1.5b']['attention_share']:.1f}%), peak "
+          f"{out['qwen2-1.5b']['peak'] / 1e9:.2f} GB; phase {time.perf_counter() - t0:.1f} s; "
+          f"card {card}")
     return counts, out
 
 
@@ -6503,6 +6754,8 @@ def main() -> int:
     clock = phase_boundary("[vlm]", locals(), clock)
     audio_counts, audio_out = audio_paths(card)
     clock = phase_boundary("[audio]", locals(), clock)
+    qwen2_counts, qwen2_out = qwen2_paths(card)
+    clock = phase_boundary("[qwen2]", locals(), clock)
     remat_counts, remat_out = remat_paths(card)
     for path, got in remat_counts.items():
         # Engine B's two rounds are due no fed mean: its B1 count is 0
@@ -6580,7 +6833,7 @@ def main() -> int:
     audio_train = {k: v for k, v in audio_counts.items() if k not in audio_decode}
     new_paths = {**storm_counts, **class_storm_by_run, **privacy_counts,
                  "async-staleness-2": async_launches, **control_counts, **engine_b_counts,
-                 **zoo_counts, **vlm_counts, **audio_train, **sharded_counts,
+                 **zoo_counts, **vlm_counts, **audio_train, **qwen2_counts, **sharded_counts,
                  **remat_counts}
     for row in kernels:
         row["launches_by_path"].update(
@@ -6649,6 +6902,23 @@ def main() -> int:
                   **{label: {k: audio_out["attention"][label][name][k] for k in
                              ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
                               "visible_pairs", "shape", "prefix")} for label in AUDIO_ATTN}},
+        # qwen2-1.5b's Engine-B tiers: hd 128, causal (B5 on the half wgmma
+        # kernels, the dk/dv pass in splits and a merge; B4 on mma.sync);
+        # the library call is SDPA (is_causal); launches on [qwen2]'s cell
+        "qwen2": {**{k: qwen2_out["attention"][name][k] for k in
+                     ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms", "visible_pairs",
+                      "kernel")},
+                  "timed_at": (f"B={QWEN2_ATTN[0]} S={QWEN2_ATTN[1]} H={QWEN2_ATTN[2]} "
+                               f"K={QWEN2_ATTN[3]} hd={QWEN2_ATTN[4]} causal f32"),
+                  "launches": qwen2_counts["qwen2-1.5b"][name],
+                  **({"splits": qwen2_out["attention"][name]["splits"],
+                      "split_sweep_ms": qwen2_out["attention"][name]["split_sweep_ms"]}
+                     if name == "swa_attention_bwd_dkv" else {}),
+                  **({} if name == "swa_attention_fwd" else {"library_ms_pair": {
+                      "ms": sum(qwen2_out["attention"][n]["ms"] for n in ATTN[1:]),
+                      "library_ms": qwen2_out["attention"][ATTN[1]]["library_ms"]}}),
+                  "build": attn_build[f"{attention_kernel_name(name, QWEN2_ATTN[4])}"
+                                      f"<{QWEN2_ATTN[4]}, f32>"]},
     } for name in ATTN]
     # B4d: decode attention, on the [serve] paths; its main path is the
     # trained smollm-135m served at batch 8, prompt 64, gen 64

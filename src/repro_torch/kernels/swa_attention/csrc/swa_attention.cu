@@ -9,10 +9,12 @@
 //                            swa_fwd_wg_wide_kernel (256)
 //     B5  _bwd:289, dq pass :312 (body _dq_kernel:198)
 //                         -> swa_bwd_dq_wg_kernel (hd <= 64), swa_bwd_dq_kernel
-//                            (80-128), swa_bwd_dq_wide_kernel (256); also delta
+//                            (80, 96), swa_bwd_dq_wg_half_kernel (128),
+//                            swa_bwd_dq_wide_kernel (256); also delta
 //         _bwd, dk/dv pass :346 (body _dkv_kernel:240)
 //                         -> swa_bwd_dkv_wg_kernel, swa_bwd_dkv_kernel,
-//                            swa_bwd_dkv_wide_kernel (+ its merge)
+//                            swa_bwd_dkv_wg_half_kernel, swa_bwd_dkv_wide_kernel
+//                            (the last two + their merge)
 //
 // What it computes.  q [B, Sq, H, hd], k and v [B, Sk, K, hd] (H = G*K, head
 // h reads kv head h / G), row-major, f32 or bf16, hd in {32, 64, 80, 96,
@@ -46,9 +48,10 @@
 // split into a TF32 big and small part and a.b = a_small.b_big +
 // a_big.b_small + a_big.b_big, which holds the f32 tolerance where one TF32
 // product misses it 8-63x (tests/test_torch_swa_tf32.py).  B4 and B5 at
-// hd <= 64 and B4 at hd 256 run on wgmma (below, "On wgmma", and "Head dim
-// 256"); B4 at hd 80-128 and B5 at 80-256 run on mma.sync m16n8k8
-// (mma_tf32.cuh), as follows.  The scale is folded into q as its fragments
+// hd <= 64, B5 at hd 128 and B4 at hd 256 run on wgmma (below, "On wgmma",
+// the note before swa_bwd_dq_wg_half_kernel, and "Head dim 256"); B4 at hd
+// 80-128 and B5 at 80, 96 and 256 run on mma.sync m16n8k8 (mma_tf32.cuh),
+// as follows.  The scale is folded into q as its fragments
 // are loaded.  Blocks of 128 threads (4 warps; 8 for the backward at hd
 // 256, see below); tiles staged as f32 with a row pitch of hd + 4 (hd + 8
 // for the forward's q and k), conflict-free for every fragment load.
@@ -72,9 +75,9 @@
 //   k are staged at a pitch of hd + 8, so the fragments of s, their k slots
 //   permuted, load 8 bytes a lane; s sums its small terms in a second
 //   accumulator.
-//   dq pass (hd 80-128): the same blocks and kv ring; delta is read from o
+//   dq pass (hd 80, 96): the same blocks and kv ring; delta is read from o
 //   and do in device memory while the first copies fly.
-//   dk/dv pass (hd 80-128): a block per (batch*kv head, 32-key kv tile), first kv tiles
+//   dk/dv pass (hd 80, 96): a block per (batch*kv head, 32-key kv tile), first kv tiles
 //   (the most q tiles) first.  32-key tiles make twice the blocks of
 //   64-key ones, so the blocks of unequal length (G * (S - k0) / 32 q tiles) even
 //   out over the card; the block walks every (query head, 32-row q tile)
@@ -171,7 +174,8 @@
 //   products.  No split and no workspace at these head dims; no atomics:
 //   results repeat bit for bit.  hd 80 and 96 do not fit (q's and do's
 //   small fragments in registers, k and v resident for 128 keys) and stay
-//   on mma.sync with hd 128.
+//   on mma.sync (no configuration of the repo has them); hd 128 runs the
+//   "half" kernels.
 // What bounds them: not the tensor cores (dropping two of the three
 // products saves 21-29% in B5), but each tile's serial chain of products,
 // waits and softmax in a consumer warpgroup, and in the forward the depth
@@ -571,7 +575,7 @@ swa_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __rest
 }
 
 // --------------------------------------------------------------------------
-// B5, q-parallel pass, hd <= 128: dq, and delta = rowsum(o * do) for the
+// B5, q-parallel pass, hd 80 and 96: dq, and delta = rowsum(o * do) for the
 // dk/dv pass.  grid (B*H, nq) over 64-row q tiles, i = nq - 1 -
 // blockIdx.y; warp w owns rows 16w..16w+15 of the tile and walks its
 // 32-key kv tiles.
@@ -582,7 +586,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
                   const T* __restrict__ o, const T* __restrict__ dout,
                   const float* __restrict__ lse, float* __restrict__ delta,
                   T* __restrict__ dq, Shape sh) {
-  static_assert(HD <= 128, "hd 256 runs swa_bwd_dq_wide_kernel");
+  static_assert(HD < 128, "hd 128 runs swa_bwd_dq_wg_half_kernel, 256 swa_bwd_dq_wide_kernel");
   constexpr int LD = HD + 4, NT = HD / 8, BQ = q_rows<HD>(), BK = kDqKeys, NS = BK / 8;
   extern __shared__ float smem[];
   float* Qs = smem;              // [BQ][LD]
@@ -724,7 +728,7 @@ swa_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __r
 }
 
 // --------------------------------------------------------------------------
-// B5, kv-parallel pass, hd <= 128: dk and dv, summed over the G query heads
+// B5, kv-parallel pass, hd 80 and 96: dk and dv, summed over the G query heads
 // of each kv head in the block.  grid (B*K, nk) over 32-key kv tiles, j =
 // blockIdx.y; the block walks every (query head, 32-row q tile) that sees
 // its keys.  Warp w computes keys 16(w % 2).. against rows 16(w / 2).. of
@@ -736,7 +740,7 @@ swa_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __
                    const T* __restrict__ dout, const float* __restrict__ lse,
                    const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
                    Shape sh) {
-  static_assert(HD <= 128, "hd 256 runs swa_bwd_dkv_wide_kernel");
+  static_assert(HD < 128, "hd 128 runs swa_bwd_dkv_wg_half_kernel, 256 swa_bwd_dkv_wide_kernel");
   constexpr int LD = HD + 4, NT = HD / 8, BK = kDkvKeys, BQ = kDkvRows;
   extern __shared__ float smem[];
   float* Ks = smem;              // [BK][LD] k, then its tf32 big parts
@@ -2165,6 +2169,660 @@ swa_bwd_dkv_wg_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // --------------------------------------------------------------------------
+// B5 on wgmma at head dim 128 (the "half" kernels).  The hd-64 passes'
+// layout (each consumer warpgroup over its own 64 rows or keys and all of
+// hd) does not fit at hd 128: the dq pass's resident q and do and its kv
+// ring would take 320 KB, the dk/dv pass's 449 KB.  So, as the forward at hd
+// 256 does (swa_fwd_wg_wide_kernel), both consumer warpgroups work on the
+// same 64 rows (dq pass) or 64 keys (dk/dv pass), and warpgroup w owns hd's
+// columns HALF w.. (HALF = 64): the k-steps of the score products over them
+// (s and dp, or s^T and dp^T: m64n32k8, 8 k-steps of three terms) and its
+// half of the output (dq: 32 accumulators a lane; dk and dv: 32 + 32).  The
+// two warpgroups' partial score products are added in f32 through shared
+// memory (s0 + s1 is s1 + s0: both hold the same p and ds bit for bit), and
+// each multiplies p or ds by its own columns (m64n64k8, A from the
+// accumulator in registers).  The operands of the whole block stay resident
+// in shared memory (dq: q, do and their small parts; dk/dv: k, v and
+// theirs; 128 KB: every term of the score products reads A there);
+// the rest streams through an even ring of pieces, each kHalfTile rows x
+// HALF columns beside its small parts (16 KB): a kv tile of the dq pass is
+// k (read by s), v (dp) and k^T (dq) of each warpgroup's columns, a (query
+// head, q tile) of the dk/dv pass q (s^T), do (dp^T), do^T (dv) and q^T (dk).
+// The producer's first warp only loads (TMA for 16-byte aligned f32, else
+// plain loads converted to f32; a piece to transpose into its second part);
+// each of its three other warps derives whole pieces (the slots s = its
+// index mod 3; a slot's pieces are one warpgroup's and one warp's, the ring
+// being even): the transpose first (keys or rows in kperm order), then the
+// small parts.  A warpgroup writes its partial score products into its own
+// consumed k (dq) or do (dk/dv) piece, and the other warpgroup releases
+// that piece once it has read them; every other piece is released once its
+// products have landed.  A tile's score products wait for both of their
+// pieces first, and nothing runs while they fly: a wait or a release there
+// made ptxas serialise the wgmma (its C7511 note, "too few registers for the
+// wgmma pipeline"; PERF.md §6).  Both warpgroups compute delta (the dq pass,
+// as swa_bwd_dq_kernel does, bit for bit; the first writes it).  The dk/dv
+// pass cuts a kv tile's (query head, q tile) iterations into `splits`
+// ranges over the grid's first dimension, as the hd-256 pass does, their
+// f32 sums merged by swa_bwd_dkv_merge_kernel: its 64-key tiles give
+// B*K*Sk/64 blocks of unequal length (128 at qwen2-1.5b's Engine-B shape,
+// which 2 splits run 1.8x faster than 1).  No atomics: results repeat bit
+// for bit.  What bounds them: not the tensor cores (one product a k-step
+// saves about a third), but each tile's serial chain in a consumer
+// warpgroup (its products, the exchange's barrier, the softmax), and the
+// serialised wgmma wherever ptxas notes C7511.  The knobs below are
+// chip_ablate_attention.py's "half" variants.
+// --------------------------------------------------------------------------
+constexpr int kHalfHd = 128;               // the head dim of these kernels
+constexpr int kHalfRows = 64;              // dq: q rows a block; dk/dv: keys a block
+constexpr int kHalfTile = 32;              // dq: keys a kv tile; dk/dv: rows a q tile
+constexpr int kHalfPiece = kHalfTile * kHalfHd / 2;  // floats of one part of a piece
+constexpr int kHalfDqStages = 6;           // pieces in the dq ring
+constexpr int kHalfDkvStages = 4;          // pieces in the dk/dv ring
+constexpr int kHalfStats = 4;              // dk/dv: the q tiles' (lse, delta) ring
+constexpr int kHalfGroupSync = 3;          // and 4: each consumer warpgroup's named barrier
+constexpr int kHalfXSync = 5;              // the consumers' named barrier of the exchange
+// Registers a thread (setmaxnreg moves them within the 168 x 384 that the
+// block holds from its launch): the consumers hold the output's 32 or 64
+// accumulators, a product's 32, s and dp, their A fragments and (dq) q's
+// and do's small parts; the producer keeps the rest.
+constexpr int kHalfConsumerRegs = 224;
+constexpr int kHalfProducerRegs =
+    ((65536 / kWgThreads / 8 * 8) * kWgThreads - kWgConsumers * kHalfConsumerRegs) / 128 / 8 * 8;
+static_assert(kHalfProducerRegs >= 24, "setmaxnreg's least");
+
+template <int HD> constexpr size_t dq_half_smem() {
+  return (4 * kHalfRows * HD + kHalfDqStages * 2 * kHalfPiece) * sizeof(float) +
+         (3 * kHalfDqStages + 1) * sizeof(uint64_t) + 1024;
+}
+template <int HD> constexpr size_t dkv_half_smem() {
+  return (4 * kHalfRows * HD + kHalfDkvStages * 2 * kHalfPiece + kHalfStats * 2 * kHalfTile) *
+             sizeof(float) +
+         (3 * kHalfDkvStages + 1) * sizeof(uint64_t) + 1024;
+}
+
+// The derivers of a half kernel's ring of NS slots, PIECES pieces a tile
+// (the producer's warps but its first; this one's thread pt of 96): piece
+// P < n once loaded, the pieces from the tile's fourth on transposed first
+// (their rows loaded into the second part), then every piece's small parts.
+template <int NS, int PIECES>
+__device__ __forceinline__ void half_derive(float* Ring, uint64_t* loaded, uint64_t* full, int n,
+                                            int pt) {
+  const int lane = threadIdx.x & 31;
+  for (int P = 0; P < n; ++P) {
+    const int s = P % NS;
+    if (s % 3 != pt / 32) continue;
+    float* dst = Ring + s * 2 * kHalfPiece;
+    wg::bar_wait(&loaded[s], (P / NS) & 1);
+    if (P % PIECES >= 4) {
+      transpose_warp<kHalfHd / 2, kHalfTile>(dst, dst + kHalfPiece, lane);
+      __syncwarp();
+    }
+    small_tile(dst + kHalfPiece, dst, kHalfPiece, lane, 32);
+    produced(&full[s]);
+  }
+}
+
+// --------------------------------------------------------------------------
+// B5, q-parallel pass at hd 128 on wgmma: dq and delta.  grid (B*H, nq) over
+// kHalfRows-row q tiles, i = nq - 1 - blockIdx.y, the heaviest first; both
+// consumer warpgroups own the tile's rows (warp w rows 16w..), warpgroup w
+// hd's columns HALF w..  A kv tile is six pieces: k of each warpgroup's
+// columns, v's, then k's again, transposed.
+// --------------------------------------------------------------------------
+template <int HD, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+swa_bwd_dq_wg_half_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const __grid_constant__ CUtensorMap tdo, const T* __restrict__ q,
+                          const T* __restrict__ k, const T* __restrict__ v,
+                          const T* __restrict__ o, const T* __restrict__ dout,
+                          const float* __restrict__ lse, float* __restrict__ delta,
+                          T* __restrict__ dq, Shape sh) {
+  constexpr int BQ = kHalfRows, BK = kHalfTile, HALF = HD / 2, PART = kHalfPiece;
+  constexpr int NS = kHalfDqStages, PIECES = 6;
+  constexpr int KS = HALF / 8;  // a warpgroup's k-steps of s and dp
+  static_assert(HD == kHalfHd && PART == BK * HALF, "hd 128");
+  static_assert(NS % 2 == 0 && NS >= 4, "an even ring that holds a tile's k and v pieces");
+  static_assert(2 * BQ * BK <= 2 * PART, "the partial s and dp fit in a k piece");
+  extern __shared__ float smem_raw[];
+  float* Qs = aligned_smem(smem_raw);  // [HD / 16][BQ][16]: q, do, their small parts
+  float* dOs = Qs + BQ * HD;
+  float* Ring = Qs + 4 * BQ * HD;      // NS pieces x (a part, its small parts)
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(Ring + NS * 2 * PART);
+  uint64_t* full = loaded + NS;
+  uint64_t* empty = full + NS;
+  uint64_t* qbar = empty + NS;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool tma = std::is_same<T, float>::value && sh.vec;
+  // The block's head, q tile and kv tiles [j_lo, j_lo + n_t), derived by
+  // each role after its setmaxnreg, so that none is held across it
+  struct Where { int b, h, kh, q0, j_lo, n_t; };
+  auto where = [&]() {
+    uint32_t bx = blockIdx.x, by = gridDim.y - 1 - blockIdx.y;
+    wg::reg_fence(bx);
+    wg::reg_fence(by);
+    Where r;
+    r.b = bx / sh.H, r.h = bx % sh.H, r.kh = r.h / sh.G, r.q0 = by * BQ, r.j_lo = 0;
+    if (sh.window > 0) r.j_lo = max(0, r.q0 - sh.window + 1) / BK;
+    r.n_t = max(last_kv_tile(r.q0 + BQ - 1, BK, sh) - r.j_lo + 1, 0);
+    return r;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      wg::bar_init(&loaded[s], 1);
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], 4);  // one warpgroup's warps read a piece
+    }
+    wg::bar_init(qbar, 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  // the roles by a warpgroup index that ptxas knows to be warp-uniform
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == kWgConsumers / 128) {
+    wg::reg_dealloc<kHalfProducerRegs>();
+    const Where wp = where();
+    const int n = wp.n_t * PIECES, pt = threadIdx.x - kWgConsumers - 32;
+    if (pt < 0) {
+      // the loader: q and do, then every piece once the consumers free its slot
+      expect(qbar, 2 * BQ * HD * sizeof(float), tma);
+      produce_rows<BQ, HD>(Qs, &tq, q, wp.b, wp.q0, sh.Sq, sh.H, wp.h, qbar, tma);
+      produce_rows<BQ, HD>(dOs, &tdo, dout, wp.b, wp.q0, sh.Sq, sh.H, wp.h, qbar, tma);
+      produced(qbar);
+      for (int P = 0; P < n; ++P) {
+        const int s = P % NS, p = P % PIECES, k0 = (wp.j_lo + P / PIECES) * BK;
+        if (P >= NS) wg::bar_wait(&empty[s], ((P / NS) & 1) ^ 1);
+        float* dst = Ring + s * 2 * PART;
+        const bool is_v = p == 2 || p == 3;
+        expect(&loaded[s], PART * sizeof(float), tma);
+        // k (pieces 0, 1) and v (2, 3) into the first part, k to transpose
+        // (4, 5) into the second
+        produce_rows<BK, HD, HALF>(dst + (p >= 4 ? PART : 0), is_v ? &tv : &tk, is_v ? v : k,
+                                   wp.b, k0, sh.Sk, sh.K, wp.kh, &loaded[s], tma, HALF * (p & 1));
+        produced(&loaded[s]);
+      }
+      return;
+    }
+    half_derive<NS, PIECES>(Ring, loaded, full, n, pt);
+    return;
+  }
+
+  // the consumers: warpgroup wgi (columns HALF wgi..), its warp w (rows
+  // 16w..), lane (g, t4)
+  wg::reg_alloc<kHalfConsumerRegs>();
+  const Where wh = where();
+  const int n_t = wh.n_t, j_lo = wh.j_lo, q0 = wh.q0;
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // uniform to ptxas
+  const int w = warp & 3, g = lane >> 2, t4 = lane & 3, tid = threadIdx.x & 127;
+  const int wr = 16 * w;
+  const int qk0 = KS * wgi;  // the warpgroup's first k-step of s and dp, in q's columns
+
+  // delta of the warp's 16 rows, as swa_bwd_dq_kernel takes it (each
+  // warpgroup computes it; the first writes it), read from o and do in
+  // device memory while q and do fly; lane (g, t4) keeps rows g and g + 8
+  float dl[2] = {0.0f, 0.0f}, lr[2] = {0.0f, 0.0f};
+  {
+    const int b = wh.b, h = wh.h;
+    const long long row_base = (static_cast<long long>(b) * sh.H + h) * sh.Sq;
+    for (int r = 0; r < 16; ++r) {
+      const int row = q0 + wr + r;
+      float part = 0.0f;
+      if (row < sh.Sq) {
+        const long long off = ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD;
+        for (int d = lane; d < HD; d += 32) part += to_f32(o[off + d]) * to_f32(dout[off + d]);
+      }
+#pragma unroll
+      for (int m = 16; m > 0; m >>= 1) part += __shfl_xor_sync(0xffffffffu, part, m);
+      if (wgi == 0 && lane == 0 && row < sh.Sq) delta[row_base + row] = part;
+      if (r == g) dl[0] = part;
+      if (r == g + 8) dl[1] = part;
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int row = q0 + wr + g + 8 * e;
+      if (row < sh.Sq) lr[e] = lse[row_base + row];
+    }
+  }
+
+  // the small parts of the warpgroup's columns of q and do, beside them (as
+  // register A fragments, 64 registers a thread, ptxas serialised the
+  // wgmma: PERF.md §6)
+  wg::bar_wait(qbar, 0);
+  {
+    const int at = qk0 * 8 * BQ;  // the warpgroup's columns: HALF / 16 chunks
+    small_tile(Qs + 2 * BQ * HD + at, Qs + at, HALF * BQ, tid, 128);
+    small_tile(Qs + 3 * BQ * HD + at, dOs + at, HALF * BQ, tid, 128);
+    wg::proxy_fence();
+    wg::named_sync(kHalfGroupSync + wgi, 128);
+  }
+
+  float acc[HALF / 2];
+#pragma unroll
+  for (int x = 0; x < HALF / 2; ++x) acc[x] = 0.0f;
+  float sc[BK / 2], dp[BK / 2], part[HALF / 2];
+  uint32_t ab[BK / 8][4], as[BK / 8][4];  // ds, A fragments
+
+  auto slot = [&](int t, int p) { return (t * PIECES + p) % NS; };
+  auto piece = [&](int t, int p) -> float* {  // once derived
+    wg::bar_wait(&full[slot(t, p)], ((t * PIECES + p) / NS) & 1);
+    return Ring + slot(t, p) * 2 * PART;
+  };
+  auto release = [&](int t, int p) {  // the warp has read it
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(&empty[slot(t, p)]);
+  };
+  const uint32_t q_lo = wg::desc_lo(Qs);
+  auto at = [](uint32_t lo, int floats) { return wg::desc_of(lo + floats / 4); };
+
+  for (int t = 0; t < n_t; ++t) {
+    const int c0 = (j_lo + t) * BK;
+    // s = q k^T and dp = do v^T over the warpgroup's columns, 3xTF32 a
+    // k-step, a commit group each
+    uint32_t ql = q_lo;  // opaque, so the k-steps' descriptors are not hoisted
+    wg::reg_fence(ql);
+    // both pieces before the products: a wait between them, inside the
+    // products' flight, made ptxas serialise the wgmma (C7511: PERF.md §6)
+    float* kp = piece(t, wgi);
+    float* vp = piece(t, 2 + wgi);
+    wg::fence();
+    {
+      const uint32_t b_lo = wg::desc_lo(kp);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int qk = qk0 + kk;
+        const uint64_t ab_ = at(ql, kstep(qk, BQ)), bb = at(b_lo, kstep(kk, BK)),
+                       bs = at(b_lo, PART + kstep(kk, BK));
+        wg::mma_ss<BK>(sc, at(ql, 2 * BQ * HD + kstep(qk, BQ)), bb, kk > 0);
+        wg::mma_ss<BK>(sc, ab_, bs, 1);
+        wg::mma_ss<BK>(sc, ab_, bb, 1);
+      }
+      wg::commit();
+    }
+    {
+      const uint32_t b_lo = wg::desc_lo(vp);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int qk = qk0 + kk;
+        const uint64_t ab_ = at(ql, BQ * HD + kstep(qk, BQ)), bb = at(b_lo, kstep(kk, BK)),
+                       bs = at(b_lo, PART + kstep(kk, BK));
+        wg::mma_ss<BK>(dp, at(ql, 3 * BQ * HD + kstep(qk, BQ)), bb, kk > 0);
+        wg::mma_ss<BK>(dp, ab_, bs, 1);
+        wg::mma_ss<BK>(dp, ab_, bb, 1);
+      }
+      wg::commit();
+    }
+    wg::wait<0>();
+    reg_fence_all(sc);
+    reg_fence_all(dp);
+    // the exchange: the partial s and dp into the warpgroup's k piece; once
+    // both are there, s = s0 + s1 and dp = dp0 + dp1 from the other's, whose
+    // piece is then released
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) {
+      kp[x * 128 + tid] = sc[x];
+      kp[BQ * BK + x * 128 + tid] = dp[x];
+    }
+    release(t, 2 + wgi);
+    wg::proxy_fence();
+    wg::named_sync(kHalfXSync, kWgConsumers);
+    const float* theirs = Ring + slot(t, wgi ^ 1) * 2 * PART;
+#pragma unroll
+    for (int x = 0; x < BK / 2; ++x) {
+      sc[x] += theirs[x * 128 + tid];
+      dp[x] += theirs[BQ * BK + x * 128 + tid];
+    }
+    release(t, wgi ^ 1);
+
+    // ds = p (dp - delta), p = exp(scale s - lse) where the mask allows;
+    // sc[4n + e] is (row g + 8 (e / 2), key 8n + 2 t4 + e % 2) of the warp's strip
+    const bool masked = tile_masked(q0 + wr, 16, c0, BK, sh);
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = e >> 1, x = 4 * n + e;
+        float p = expf(sh.scale * sc[x] - lr[r]);
+        if (masked && !allowed(q0 + wr + g + 8 * r, c0 + 8 * n + 2 * t4 + (e & 1), sh)) p = 0.0f;
+        sc[x] = p * (dp[x] - dl[r]);
+      }
+
+    // dq += ds k over the warpgroup's columns (the k^T piece), the keys as
+    // k: the tile's keys summed from 0, added to dq in f32
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) a_of(sc, n, ab[n], as[n]);
+    const uint32_t t_lo = wg::desc_lo(piece(t, 4 + wgi));
+    wg::fence();
+#pragma unroll
+    for (int n = 0; n < BK / 8; ++n) {
+      const uint64_t tb = at(t_lo, kstep(n, HALF)), ts = at(t_lo, PART + kstep(n, HALF));
+      wg::mma_rs<HALF>(part, as[n], tb, n > 0);
+      wg::mma_rs<HALF>(part, ab[n], ts, 1);
+      wg::mma_rs<HALF>(part, ab[n], tb, 1);
+    }
+    wg::commit();
+    wg::wait<0>();
+    reg_fence_all(part);
+    reg_fence_all(ab);
+    reg_fence_all(as);
+    release(t, 4 + wgi);
+#pragma unroll
+    for (int x = 0; x < HALF / 2; ++x) acc[x] += part[x];
+  }
+
+  // b and h read again, not held through the tile loop
+  const int h = blockIdx.x % sh.H, b = blockIdx.x / sh.H;
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = q0 + wr + g + 8 * e2;
+    if (row >= sh.Sq) continue;
+    T* out = dq + ((static_cast<long long>(b) * sh.Sq + row) * sh.H + h) * HD + HALF * wgi + 2 * t4;
+#pragma unroll
+    for (int c = 0; c < HALF / 8; ++c) {
+      out[8 * c] = from_f32<T>(acc[4 * c + 2 * e2] * sh.scale);
+      out[8 * c + 1] = from_f32<T>(acc[4 * c + 2 * e2 + 1] * sh.scale);
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
+// B5, kv-parallel pass at hd 128 on wgmma: dk and dv, summed over the G
+// query heads of each kv head.  grid (splits*B*K, nk): blockIdx.x = split +
+// splits * (batch*kv head), j = blockIdx.y over kHalfRows-key kv tiles, the
+// first (the most q tiles) first; both consumer warpgroups own the tile's
+// keys (warp w keys 16w..), warpgroup w hd's columns HALF w..  A split walks
+// its range of the kv tile's (query head, kHalfTile-row q tile)
+// iterations, heads outer; an iteration is eight pieces: q of each
+// warpgroup's columns, do's, then do's and q's again, transposed.  With one
+// split the block writes dk and dv; with more, its f32 sums (dk scaled) go
+// to ws [splits][2][B, Sk, K, hd] for swa_bwd_dkv_merge_kernel.
+// --------------------------------------------------------------------------
+template <int HD, typename T>
+__global__ void __launch_bounds__(kWgThreads, 1)
+swa_bwd_dkv_wg_half_kernel(const __grid_constant__ CUtensorMap tq,
+                           const __grid_constant__ CUtensorMap tk,
+                           const __grid_constant__ CUtensorMap tv,
+                           const __grid_constant__ CUtensorMap tdo, const T* __restrict__ q,
+                           const T* __restrict__ k, const T* __restrict__ v,
+                           const T* __restrict__ dout, const float* __restrict__ lse,
+                           const float* __restrict__ delta, T* __restrict__ dk,
+                           T* __restrict__ dv, float* __restrict__ ws, int splits, Shape sh) {
+  constexpr int BK = kHalfRows, BQ = kHalfTile, HALF = HD / 2, PART = kHalfPiece;
+  constexpr int NS = kHalfDkvStages, PIECES = 8, KV = BK * HD;
+  constexpr int KS = HALF / 8;  // a warpgroup's k-steps of s^T and dp^T
+  static_assert(HD == kHalfHd && PART == BQ * HALF, "hd 128");
+  static_assert(NS % 2 == 0 && NS >= 4 && NS <= 8,
+                "an even ring that holds an iteration's q and do pieces; the stats' ring "
+                "outlasts it");
+  static_assert(2 * BK * BQ <= 2 * PART, "the partial s^T and dp^T fit in a do piece");
+  extern __shared__ float smem_raw[];
+  float* Ks = aligned_smem(smem_raw);  // [HD / 16][BK][16]: k, its small parts, v, v's
+  float* Vs = Ks + 2 * KV;
+  float* Ring = Ks + 4 * KV;           // NS pieces x (a part, its small parts)
+  float* Stat = Ring + NS * 2 * PART;  // kHalfStats iterations x (lse [BQ], delta [BQ])
+  uint64_t* loaded = reinterpret_cast<uint64_t*>(Stat + kHalfStats * 2 * BQ);
+  uint64_t* full = loaded + NS;
+  uint64_t* empty = full + NS;
+  uint64_t* kbar = empty + NS;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const bool tma = std::is_same<T, float>::value && sh.vec;
+  // The block's kv head and keys, its q tiles i_lo.. (n_i a head) and its
+  // split's iterations [it_lo, it_lo + n_t), derived by each role after its
+  // setmaxnreg
+  struct Where { int b, kh, k0, i_lo, n_i, it_lo, n_t; };
+  auto where = [&]() {
+    uint32_t bx = blockIdx.x, j = blockIdx.y;
+    wg::reg_fence(bx);
+    wg::reg_fence(j);
+    Where r;
+    const int z = bx % splits, bk = bx / splits;
+    r.b = bk / sh.K, r.kh = bk % sh.K, r.k0 = j * BK;
+    const int nq = (sh.Sq + BQ - 1) / BQ;
+    r.i_lo = r.k0 < sh.prefix ? 0 : r.k0 / BQ;  // the prefix is seen from row 0
+    int i_hi = nq - 1;  // the last q tile whose rows see a key of this tile
+    if (sh.window > 0) i_hi = min(i_hi, (r.k0 + BK - 1 + sh.window - 1) / BQ);
+    // none when Sq < Sk leaves the tile's keys past every causal row
+    r.n_i = max(i_hi - r.i_lo + 1, 0);
+    const int n_it = sh.G * r.n_i;
+    r.it_lo = z * n_it / splits;
+    r.n_t = (z + 1) * n_it / splits - r.it_lo;
+    return r;
+  };
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < NS; ++s) {
+      wg::bar_init(&loaded[s], 1);
+      wg::bar_init(&full[s], 1);
+      wg::bar_init(&empty[s], 4);  // one warpgroup's warps read a piece
+    }
+    wg::bar_init(kbar, 1);
+    wg::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == kWgConsumers / 128) {
+    wg::reg_dealloc<kHalfProducerRegs>();
+    const Where wp = where();
+    const int n = wp.n_t * PIECES, pt = threadIdx.x - kWgConsumers - 32;
+    if (pt < 0) {
+      // the loader: k and v, then every piece once the consumers free its
+      // slot, each iteration's lse and delta with its first
+      if (wp.n_t > 0) {
+        expect(kbar, 2 * KV * sizeof(float), tma);
+        produce_rows<BK, HD>(Ks, &tk, k, wp.b, wp.k0, sh.Sk, sh.K, wp.kh, kbar, tma);
+        produce_rows<BK, HD>(Vs, &tv, v, wp.b, wp.k0, sh.Sk, sh.K, wp.kh, kbar, tma);
+        produced(kbar);
+      }
+      for (int P = 0; P < n; ++P) {
+        const int s = P % NS, p = P % PIECES, t = P / PIECES, it = wp.it_lo + t;
+        const int h = wp.kh * sh.G + it / wp.n_i, q0 = (wp.i_lo + it % wp.n_i) * BQ;
+        if (P >= NS) wg::bar_wait(&empty[s], ((P / NS) & 1) ^ 1);
+        if (p == 0) {  // 0 past Sq
+          const long long row_base = (static_cast<long long>(wp.b) * sh.H + h) * sh.Sq;
+          float* St = Stat + (t % kHalfStats) * 2 * BQ;
+          const bool ok = q0 + lane < sh.Sq;
+          St[lane] = ok ? lse[row_base + q0 + lane] : 0.0f;
+          St[BQ + lane] = ok ? delta[row_base + q0 + lane] : 0.0f;
+        }
+        float* dst = Ring + s * 2 * PART;
+        const bool is_do = p >= 2 && p < 6;
+        expect(&loaded[s], PART * sizeof(float), tma);
+        // q (pieces 0, 1) and do (2, 3) into the first part, do (4, 5) and
+        // q (6, 7) to transpose into the second
+        produce_rows<BQ, HD, HALF>(dst + (p >= 4 ? PART : 0), is_do ? &tdo : &tq,
+                                   is_do ? dout : q, wp.b, q0, sh.Sq, sh.H, h, &loaded[s], tma,
+                                   HALF * (p & 1));
+        produced(&loaded[s]);
+      }
+      return;
+    }
+    half_derive<NS, PIECES>(Ring, loaded, full, n, pt);
+    return;
+  }
+
+  // the consumers: warpgroup wgi (columns HALF wgi..), its warp w (keys
+  // 16w..), lane (g, t4)
+  wg::reg_alloc<kHalfConsumerRegs>();
+  const Where wh = where();
+  const int k0 = wh.k0, i_lo = wh.i_lo, n_i = wh.n_i, it_lo = wh.it_lo, n_t = wh.n_t;
+  const int wgi = __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);  // uniform to ptxas
+  const int w = warp & 3, g = lane >> 2, t4 = lane & 3, tid = threadIdx.x & 127;
+  const int wk = 16 * w;
+  const int kc0 = KS * wgi;  // the warpgroup's first k-step of s^T and dp^T, in k's columns
+  if (n_t > 0) {
+    // k and v are the A operands of every iteration: the small parts of the
+    // warpgroup's columns, once
+    wg::bar_wait(kbar, 0);
+    const int at = kc0 * 8 * BK;
+    small_tile(Ks + KV + at, Ks + at, HALF * BK, tid, 128);
+    small_tile(Vs + KV + at, Vs + at, HALF * BK, tid, 128);
+    wg::proxy_fence();
+    wg::named_sync(kHalfGroupSync + wgi, 128);
+  }
+
+  float dka[HALF / 2], dva[HALF / 2];
+#pragma unroll
+  for (int x = 0; x < HALF / 2; ++x) dka[x] = dva[x] = 0.0f;
+  float st[BQ / 2], dpt[BQ / 2], part[HALF / 2];
+  uint32_t ab[BQ / 8][4], as[BQ / 8][4];  // p^T or ds^T, A fragments
+
+  auto slot = [&](int t, int p) { return (t * PIECES + p) % NS; };
+  auto piece = [&](int t, int p) -> float* {  // once derived
+    wg::bar_wait(&full[slot(t, p)], ((t * PIECES + p) / NS) & 1);
+    return Ring + slot(t, p) * 2 * PART;
+  };
+  auto release = [&](int t, int p) {  // the warp has read it
+    __syncwarp();
+    if (lane == 0) wg::bar_arrive(&empty[slot(t, p)]);
+  };
+  const uint32_t k_lo = wg::desc_lo(Ks);
+  auto at = [](uint32_t lo, int floats) { return wg::desc_of(lo + floats / 4); };
+
+  for (int t = 0; t < n_t; ++t) {
+    const int q0 = (i_lo + (it_lo + t) % n_i) * BQ;
+    // s^T = k q^T and dp^T = v do^T over the warpgroup's columns, 3xTF32 a
+    // k-step, a commit group each
+    uint32_t kl = k_lo;  // opaque, so the k-steps' descriptors are not hoisted
+    wg::reg_fence(kl);
+    // both pieces before the products, and nothing between them and their
+    // wait: a wait or a release inside the products' flight made ptxas
+    // serialise the wgmma (C7511: PERF.md §6)
+    float* qp = piece(t, wgi);
+    float* op = piece(t, 2 + wgi);
+    wg::fence();
+    {
+      const uint32_t b_lo = wg::desc_lo(qp);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int kc = kc0 + kk;
+        const uint64_t kb = at(kl, kstep(kc, BK)), ks = at(kl, KV + kstep(kc, BK)),
+                       bb = at(b_lo, kstep(kk, BQ)), bs = at(b_lo, PART + kstep(kk, BQ));
+        wg::mma_ss<BQ>(st, ks, bb, kk > 0);
+        wg::mma_ss<BQ>(st, kb, bs, 1);
+        wg::mma_ss<BQ>(st, kb, bb, 1);
+      }
+      wg::commit();
+    }
+    {
+      const uint32_t b_lo = wg::desc_lo(op);
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const int kc = kc0 + kk;
+        const uint64_t vb = at(kl, 2 * KV + kstep(kc, BK)), vs = at(kl, 3 * KV + kstep(kc, BK)),
+                       bb = at(b_lo, kstep(kk, BQ)), bs = at(b_lo, PART + kstep(kk, BQ));
+        wg::mma_ss<BQ>(dpt, vs, bb, kk > 0);
+        wg::mma_ss<BQ>(dpt, vb, bs, 1);
+        wg::mma_ss<BQ>(dpt, vb, bb, 1);
+      }
+      wg::commit();
+    }
+    wg::wait<0>();
+    reg_fence_all(st);
+    reg_fence_all(dpt);
+    release(t, wgi);  // the q piece
+    // the exchange: the partial s^T and dp^T into the warpgroup's do piece;
+    // once both are there, the sums from the other's, whose piece is then
+    // released
+#pragma unroll
+    for (int x = 0; x < BQ / 2; ++x) {
+      op[x * 128 + tid] = st[x];
+      op[BK * BQ + x * 128 + tid] = dpt[x];
+    }
+    wg::proxy_fence();
+    wg::named_sync(kHalfXSync, kWgConsumers);
+    const float* theirs = Ring + slot(t, 2 + (wgi ^ 1)) * 2 * PART;
+#pragma unroll
+    for (int x = 0; x < BQ / 2; ++x) {
+      st[x] += theirs[x * 128 + tid];
+      dpt[x] += theirs[BK * BQ + x * 128 + tid];
+    }
+    release(t, 2 + (wgi ^ 1));
+
+    // p^T = exp(scale s^T - lse) where the mask allows, ds^T = p^T (dp^T -
+    // delta); st[4n + e] is (key g + 8 (e / 2), row 8n + 2 t4 + e % 2) of
+    // the warp's strip
+    const float* Ls = Stat + (t % kHalfStats) * 2 * BQ;
+    const float* Ds = Ls + BQ;
+    const bool masked = tile_masked(q0, BQ, k0 + wk, 16, sh);
+#pragma unroll
+    for (int n = 0; n < BQ / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int x = 4 * n + e, row = 8 * n + 2 * t4 + (e & 1);
+        float p = expf(sh.scale * st[x] - Ls[row]);
+        if (masked && !allowed(q0 + row, k0 + wk + g + 8 * (e >> 1), sh)) p = 0.0f;
+        st[x] = p;
+        dpt[x] = p * (dpt[x] - Ds[row]);
+      }
+
+    // dv += p^T do (the do^T piece), then dk += ds^T q (the q^T piece), the
+    // rows as k: each iteration's rows summed from 0, added in f32
+#pragma unroll
+    for (int pass = 0; pass < 2; ++pass) {
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        if (pass == 0) a_of(st, n, ab[n], as[n]);
+        else a_of(dpt, n, ab[n], as[n]);
+      }
+      const uint32_t t_lo = wg::desc_lo(piece(t, 4 + 2 * pass + wgi));
+      wg::fence();
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const uint64_t tb = at(t_lo, kstep(n, HALF)), ts = at(t_lo, PART + kstep(n, HALF));
+        wg::mma_rs<HALF>(part, as[n], tb, n > 0);
+        wg::mma_rs<HALF>(part, ab[n], ts, 1);
+        wg::mma_rs<HALF>(part, ab[n], tb, 1);
+      }
+      wg::commit();
+      wg::wait<0>();
+      reg_fence_all(part);
+      reg_fence_all(ab);
+      reg_fence_all(as);
+      release(t, 4 + 2 * pass + wgi);
+#pragma unroll
+      for (int x = 0; x < HALF / 2; ++x) {
+        if (pass == 0) dva[x] += part[x];
+        else dka[x] += part[x];
+      }
+    }
+  }
+
+  // the block's keys: dk and dv in T, or this split's f32 sums into ws (b
+  // and kh read again, not held through the loop)
+  const int bk = blockIdx.x / splits, z = blockIdx.x % splits;
+  const int b = bk / sh.K, kh = bk % sh.K;
+  const long long n_out = static_cast<long long>(sh.B) * sh.Sk * sh.K * HD;
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int key = k0 + wk + g + 8 * e2;
+    if (key >= sh.Sk) continue;
+    const long long off =
+        ((static_cast<long long>(b) * sh.Sk + key) * sh.K + kh) * HD + HALF * wgi + 2 * t4;
+    if (ws != nullptr) {
+      float* wp = ws + 2 * n_out * z + off;
+#pragma unroll
+      for (int c = 0; c < HALF / 8; ++c) {
+        *reinterpret_cast<float2*>(wp + 8 * c) = make_float2(
+            dka[4 * c + 2 * e2] * sh.scale, dka[4 * c + 2 * e2 + 1] * sh.scale);
+        *reinterpret_cast<float2*>(wp + n_out + 8 * c) =
+            make_float2(dva[4 * c + 2 * e2], dva[4 * c + 2 * e2 + 1]);
+      }
+    } else {
+#pragma unroll
+      for (int c = 0; c < HALF / 8; ++c)
+#pragma unroll
+        for (int e1 = 0; e1 < 2; ++e1) {
+          dk[off + 8 * c + e1] = from_f32<T>(dka[4 * c + 2 * e2 + e1] * sh.scale);
+          dv[off + 8 * c + e1] = from_f32<T>(dva[4 * c + 2 * e2 + e1]);
+        }
+    }
+  }
+}
+
+// --------------------------------------------------------------------------
 // B5 at hd 256, q-parallel pass: dq and delta, as swa_bwd_dq_kernel
 // computes them, in blocks of 8 warps (the note at the top).  grid (B*H,
 // nq) over 32-row q tiles, i = nq - 1 - blockIdx.y, walking 32-key kv
@@ -2667,11 +3325,13 @@ template <int HD> constexpr size_t fwd_smem() {
 }
 template <int HD> constexpr size_t dq_smem() {
   if constexpr (HD <= kWgMaxHd) return dq_wg_smem<HD>();
+  if constexpr (HD == kHalfHd) return dq_half_smem<HD>();
   if constexpr (HD > 128) return wide_dq_floats<HD>() * sizeof(float);
   return (2 * q_rows<HD>() + 4 * kDqKeys) * (HD + 4) * sizeof(float);
 }
 template <int HD> constexpr size_t dkv_smem() {
   if constexpr (HD <= kWgMaxHd) return dkv_wg_smem<HD>();
+  if constexpr (HD == kHalfHd) return dkv_half_smem<HD>();
   if constexpr (HD > 128) return wide_dkv_floats<HD>() * sizeof(float);
   // k and v with their split parts, and the q/do ring
   return ((4 * kDkvKeys + 4 * kDkvRows) * (HD + 4) + 4 * kDkvRows) * sizeof(float);
@@ -2780,6 +3440,17 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
         m[0], m[1], m[2], m[3], static_cast<const T*>(q), static_cast<const T*>(k),
         static_cast<const T*>(v), static_cast<const T*>(o), static_cast<const T*>(dout), lse,
         delta, static_cast<T*>(dq), sh);
+  } else if constexpr (HD == kHalfHd) {
+    CUtensorMap m[4];
+    if (!wg_maps<HD, T>(m, q, k, v, dout, sh, kHalfRows, kHalfTile))
+      return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t e = allow_smem(swa_bwd_dq_wg_half_kernel<HD, T>, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const dim3 grid(sh.B * sh.H, (sh.Sq + kHalfRows - 1) / kHalfRows);
+    swa_bwd_dq_wg_half_kernel<HD, T><<<grid, kWgThreads, smem, stream>>>(
+        m[0], m[1], m[2], m[3], static_cast<const T*>(q), static_cast<const T*>(k),
+        static_cast<const T*>(v), static_cast<const T*>(o), static_cast<const T*>(dout), lse,
+        delta, static_cast<T*>(dq), sh);
   } else if constexpr (HD > 128) {
     cudaError_t e = allow_smem(swa_bwd_dq_wide_kernel<HD, T>, smem);
     if (e != cudaSuccess) return static_cast<int>(e);
@@ -2801,24 +3472,39 @@ int bwd_dq(const void* q, const void* k, const void* v, const void* o, const voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// hd 256: the wide kernel over `splits` ranges of each kv tile's q tiles,
-// then (splits > 1) the merge of their sums from ws; below, one launch and
-// splits must be 1.
+// hd 128 and 256: the kernel over `splits` ranges of each kv tile's q
+// tiles, then (splits > 1) the merge of their sums from ws; below, one
+// launch and splits must be 1.
 template <int HD, typename T>
 int bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
             const float* delta, void* dk, void* dv, float* ws, int splits, const Shape& sh,
             cudaStream_t stream) {
   const size_t smem = dkv_smem<HD>();
-  if constexpr (HD > 128) {
+  if constexpr (HD >= kHalfHd) {
     if (splits < 1 || (splits > 1 && ws == nullptr))
       return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t e = allow_smem(swa_bwd_dkv_wide_kernel<HD, T>, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    const dim3 grid(splits * sh.B * sh.K, (sh.Sk + kWideDkvKeys - 1) / kWideDkvKeys);
-    swa_bwd_dkv_wide_kernel<HD, T><<<grid, kWideThreads, smem, stream>>>(
-        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
-        splits > 1 ? ws : nullptr, splits, sh);
+    float* part = splits > 1 ? ws : nullptr;
+    cudaError_t e;
+    if constexpr (HD == kHalfHd) {
+      CUtensorMap m[4];
+      if (!wg_maps<HD, T>(m, q, k, v, dout, sh, kHalfTile, kHalfRows))
+        return static_cast<int>(cudaErrorInvalidValue);
+      e = allow_smem(swa_bwd_dkv_wg_half_kernel<HD, T>, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      const dim3 grid(splits * sh.B * sh.K, (sh.Sk + kHalfRows - 1) / kHalfRows);
+      swa_bwd_dkv_wg_half_kernel<HD, T><<<grid, kWgThreads, smem, stream>>>(
+          m[0], m[1], m[2], m[3], static_cast<const T*>(q), static_cast<const T*>(k),
+          static_cast<const T*>(v), static_cast<const T*>(dout), lse, delta,
+          static_cast<T*>(dk), static_cast<T*>(dv), part, splits, sh);
+    } else {
+      e = allow_smem(swa_bwd_dkv_wide_kernel<HD, T>, smem);
+      if (e != cudaSuccess) return static_cast<int>(e);
+      const dim3 grid(splits * sh.B * sh.K, (sh.Sk + kWideDkvKeys - 1) / kWideDkvKeys);
+      swa_bwd_dkv_wide_kernel<HD, T><<<grid, kWideThreads, smem, stream>>>(
+          static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+          static_cast<const T*>(dout), lse, delta, static_cast<T*>(dk), static_cast<T*>(dv),
+          part, splits, sh);
+    }
     e = cudaGetLastError();
     if (e != cudaSuccess || splits == 1) return static_cast<int>(e);
     const long long n = static_cast<long long>(sh.B) * sh.Sk * sh.K * HD;
@@ -2872,11 +3558,13 @@ int occupancy(int pass, int* smem) {
     case 1:
       *smem = static_cast<int>(dq_smem<HD>());
       if constexpr (HD <= kWgMaxHd) return blocks_per_sm(swa_bwd_dq_wg_kernel<HD, T>, kWgThreads, dq_smem<HD>());
+      else if constexpr (HD == kHalfHd) return blocks_per_sm(swa_bwd_dq_wg_half_kernel<HD, T>, kWgThreads, dq_smem<HD>());
       else if constexpr (wide) return blocks_per_sm(swa_bwd_dq_wide_kernel<HD, T>, kWideThreads, dq_smem<HD>());
       else return blocks_per_sm(swa_bwd_dq_kernel<HD, T>, kThreads, dq_smem<HD>());
     case 2:
       *smem = static_cast<int>(dkv_smem<HD>());
       if constexpr (HD <= kWgMaxHd) return blocks_per_sm(swa_bwd_dkv_wg_kernel<HD, T>, kWgThreads, dkv_smem<HD>());
+      else if constexpr (HD == kHalfHd) return blocks_per_sm(swa_bwd_dkv_wg_half_kernel<HD, T>, kWgThreads, dkv_smem<HD>());
       else if constexpr (wide) return blocks_per_sm(swa_bwd_dkv_wide_kernel<HD, T>, kWideThreads, dkv_smem<HD>());
       else return blocks_per_sm(swa_bwd_dkv_kernel<HD, T>, kThreads, dkv_smem<HD>());
     default:
@@ -2933,8 +3621,9 @@ int swa_attention_bwd_dq(const void* q, const void* k, const void* v, const void
   SWA_DISPATCH(bwd_dq, q, k, v, o, dout, lse, delta, dq, sh, st)
 }
 
-// ws: f32 [splits][2][B, Sk, K, hd], the splits' partial dk and dv; hd 256
-// only (splits >= 1, ws unread at 1); below it splits is 1 and ws null.
+// ws: f32 [splits][2][B, Sk, K, hd], the splits' partial dk and dv; hd 128
+// and 256 only (splits >= 1, ws unread at 1); elsewhere splits is 1 and ws
+// null.
 int swa_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                           const float* lse, const float* delta, void* dk, void* dv,
                           float* ws, int splits, int dtype, int B, int Sq, int Sk, int H,
@@ -2947,7 +3636,7 @@ int swa_attention_bwd_dkv(const void* q, const void* k, const void* v, const voi
 }
 
 // The resident blocks an SM of a pass's kernel (0 forward, 1 dq, 2 dk/dv;
-// the wide kernels at hd 256), and its dynamic shared memory in bytes into
+// the half kernels at hd 128, the wide kernels at hd 256), and its dynamic shared memory in bytes into
 // *smem; a negated cudaError_t on failure.
 int swa_attention_occupancy(int pass, int dtype, int hd, int* smem) {
   if ((dtype != 0 && dtype != 1) ||

@@ -1,7 +1,8 @@
 // Hopper's warpgroup products (wgmma) in TF32, the tensor memory
 // accelerator (TMA) and mbarriers, for the attention kernels at head dim
-// <= 64 (B4, the forward, and B5's two backward passes) and B4 at head dim
-// 256 (swa_fwd_wg_wide_kernel), in swa_attention.cu.
+// <= 64 (B4, the forward, and B5's two backward passes), B5 at head dim 128
+// (the "half" kernels) and B4 at head dim 256 (swa_fwd_wg_wide_kernel), in
+// swa_attention.cu.
 //
 // Tiles in shared memory.  Every operand tile is f32, K-major (its product's
 // reduction dimension contiguous), cut into chunks of 16 floats: a tile of

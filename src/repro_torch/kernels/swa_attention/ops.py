@@ -24,14 +24,17 @@ of at least Sk lets every query see every key.  The C dispatch picks the
 kernels by head dim: at hd <= ``WG_HEAD_DIM`` (32, 64) B4 and both B5
 passes run on wgmma, their tiles brought by TMA (16-byte aligned f32) or
 by a producer warp's plain loads (bf16, or f32 off alignment), with no
-workspace; so does B4 at 256 (``swa_fwd_wg_wide_kernel``: two consumer
+workspace; so do B4 at 256 (``swa_fwd_wg_wide_kernel``: two consumer
 warpgroups on one 64-row q tile, each over half of hd, the kv tiles
-streamed in pieces along hd); B4 at 80-128 and B5 above 64 run on
-mma.sync, B5 at 80-128 in 4-warp kernels and at 256 in the 8-warp kernels,
-whose dk/dv pass cuts each kv tile's (query head, q tile) iterations into
-``dkv_splits`` ranges, each a block, whose f32 sums go to a workspace
-allocated here and are added in split order by a second, merge launch;
-``launches`` counts one a call either way.
+streamed in pieces along hd) and B5 at ``HALF_HEAD_DIM`` (128:
+``swa_bwd_dq_wg_half_kernel`` and ``swa_bwd_dkv_wg_half_kernel``, two
+consumer warpgroups on one 64-row q tile or 64-key kv tile, each over half
+of hd, the rest streamed in pieces); B4 at 80-128 and B5 at 80, 96 and 256
+run on mma.sync, B5 at 80 and 96 in 4-warp kernels and at 256 in the
+8-warp kernels.  The dk/dv pass at 128 and 256 cuts each kv tile's (query
+head, q tile) iterations into ``dkv_splits`` ranges, each a block, whose
+f32 sums go to a workspace allocated here and are added in split order by
+a second, merge launch; ``launches`` counts one a call either way.
 
 Gradients go through two ``torch.autograd.Function``s in the functorch
 style (``setup_context`` and a ``vmap`` rule), so Engine A's
@@ -81,9 +84,12 @@ DECODE_TILE = 32  # cache slots a B4d tile
 DECODE_MIN_SPLIT_TILES = 4  # tiles a split holds at the least
 DECODE_MAX_BLOCKS_PER_SM = 4  # the most that the split count plans for
 WG_HEAD_DIM = 64  # at and below it B4 and B5's two passes run on wgmma
-WIDE_HEAD_DIM = 128  # above it B5 runs the 8-warp kernels, the dk/dv pass split
+HALF_HEAD_DIM = 128  # at it B5's two passes run on wgmma, each warpgroup over half of hd
+WIDE_HEAD_DIM = 128  # above it B5 runs the 8-warp kernels
 DKV_WIDE_KEYS = 32  # those kernels' dk/dv pass: its kv tile ...
 DKV_WIDE_ROWS = 16  # ... and the q tiles that it walks
+# the head dims whose dk/dv pass is split: (its kv tile, the q tiles it walks)
+DKV_TILES = {HALF_HEAD_DIM: (64, 32), 256: (DKV_WIDE_KEYS, DKV_WIDE_ROWS)}
 DRYRUN_NUM_SMS = 132  # an H100 SXM's SMs: the split count reckoned on ``meta``
 # rows (B·K·Sk) whose workspace costs a split about one block-iteration:
 # 1.0–1.3 of one at paligemma-3b's [4, 512, 8, 1, 256] (B·K·Sk = 2048) on
@@ -273,20 +279,23 @@ def swa_attention_bwd_dq(q, k, v, o, lse, do, window: int = 0, prefix_len: int =
     return dq, delta
 
 
-def dkv_tile_iterations(Sq: int, Sk: int, G: int, window: int, prefix: int):
-    """The (query head, q tile) iterations of each 32-key kv tile of the
-    dk/dv pass at head dim 256, as ``swa_bwd_dkv_wide_kernel`` walks them:
-    G times the 16-row q tiles i_lo..i_hi whose rows see a key of the tile
-    (``window`` and ``prefix`` as the kernel takes them: ``effective_window``,
+def dkv_tile_iterations(Sq: int, Sk: int, G: int, window: int, prefix: int, hd: int = 256):
+    """The (query head, q tile) iterations of each kv tile of the dk/dv pass
+    at a split head dim (``DKV_TILES``: 32-key kv tiles over 16-row q tiles
+    at 256, ``swa_bwd_dkv_wide_kernel``; 64 over 32 at 128,
+    ``swa_bwd_dkv_wg_half_kernel``), as the kernel walks them: G times the
+    q tiles i_lo..i_hi whose rows see a key of the tile (``window`` and
+    ``prefix`` as the kernel takes them: ``effective_window``,
     ``effective_prefix``)."""
-    nq = -(-Sq // DKV_WIDE_ROWS)
+    keys, rows = DKV_TILES[hd]
+    nq = -(-Sq // rows)
     out = []
-    for j in range(-(-Sk // DKV_WIDE_KEYS)):
-        k0 = j * DKV_WIDE_KEYS
-        i_lo = 0 if k0 < prefix else k0 // DKV_WIDE_ROWS
+    for j in range(-(-Sk // keys)):
+        k0 = j * keys
+        i_lo = 0 if k0 < prefix else k0 // rows
         i_hi = nq - 1
         if window > 0:
-            i_hi = min(i_hi, (k0 + DKV_WIDE_KEYS - 1 + window - 1) // DKV_WIDE_ROWS)
+            i_hi = min(i_hi, (k0 + keys - 1 + window - 1) // rows)
         out.append(G * max(i_hi - i_lo + 1, 0))
     return out
 
@@ -306,9 +315,10 @@ def dkv_makespan(iterations, bk: int, splits: int, num_sms: int) -> int:
 def dkv_splits(B: int, Sq: int, Sk: int, K: int, G: int, hd: int, window: int, prefix: int,
                num_sms: int) -> int:
     """S, the ranges into which B5's dk/dv pass cuts each kv tile's
-    (query head, q tile) iterations at head dim 256, one block each (1 below
-    it, where the pass takes no split): a function of the shapes and the
-    card's SM count, so it reads nothing from the card.
+    (query head, q tile) iterations at head dims 128 and 256
+    (``DKV_TILES``), one block each (1 at the others, where the pass takes no
+    split): a function of the shapes and the card's SM count, so it reads
+    nothing from the card.
 
     The kernel takes one block an SM, and its kv tiles differ in length (a
     tile under the prefix is seen by every q tile, the last causal one by
@@ -320,9 +330,9 @@ def dkv_splits(B: int, Sq: int, Sk: int, K: int, G: int, hd: int, window: int, p
     least, at most G, whose B·K·⌈Sk/32⌉·S blocks reach ``num_sms``), up to
     four blocks an SM.  ``window`` and ``prefix`` are the kernel's
     (``effective_window``, ``effective_prefix``)."""
-    if hd <= WIDE_HEAD_DIM:
+    if hd not in DKV_TILES:
         return 1
-    iterations = dkv_tile_iterations(Sq, Sk, G, window, prefix)
+    iterations = dkv_tile_iterations(Sq, Sk, G, window, prefix, hd)
     blocks = max(B * K * len(iterations), 1)
     lo = min(G, -(-num_sms // blocks))
     hi = min(G, max(lo, -(-4 * num_sms // blocks)))
@@ -473,8 +483,8 @@ def swa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def occupancy(pass_: str, dtype: torch.dtype, hd: int) -> Tuple[int, int]:
     """(resident blocks an SM, dynamic shared memory in bytes) of a pass's
     kernel on the card ("fwd", "dq" or "dkv"; the wgmma kernels at hd <=
-    ``WG_HEAD_DIM`` and B4's at hd 256, B5's 8-warp kernels at hd 256): the
-    occupancy calculator, no launch."""
+    ``WG_HEAD_DIM``, B5's at ``HALF_HEAD_DIM`` and B4's at hd 256, B5's
+    8-warp kernels at hd 256): the occupancy calculator, no launch."""
     smem = ctypes.c_int(0)
     blocks = _library().swa_attention_occupancy(("fwd", "dq", "dkv").index(pass_),
                                                 _DTYPES[dtype], hd, ctypes.byref(smem))

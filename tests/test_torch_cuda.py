@@ -872,6 +872,68 @@ def test_wide_b5_at_the_split_edges_matches_plain_and_repeats(cuda, case, dtype)
         assert not bool(bad.any()), f"{name}: {int(bad.sum())} elements"
 
 
+# B5 at hd 128 on wgmma (swa_bwd_dq_wg_half_kernel, swa_bwd_dkv_wg_half_kernel
+# in the split count the wrapper launches), (B, Sq, Sk, H, K, hd, window,
+# prefix): qwen2-1.5b's Engine-B shape (G 6), causal at a ragged S with G 1
+# and 4, a window, a prefix at a kv tile's edge and one past it, a prefix
+# under a window, the encoder's prefix of S, Sq != Sk under a prefix of Sk
+# (one query among them) and causal with Sq > Sk, and a window with Sq > Sk
+HALF_CASES = [(4, 1024, 1024, 12, 2, 128, 0, 0), (2, 333, 333, 4, 4, 128, 0, 0),
+              (1, 300, 300, 8, 2, 128, 100, 0), (1, 256, 256, 6, 1, 128, 0, 64),
+              (1, 256, 256, 6, 1, 128, 0, 65), (1, 300, 300, 4, 1, 128, 64, 100),
+              (2, 500, 500, 4, 4, 128, 0, 500), (2, 130, 301, 12, 2, 128, 0, 301),
+              (2, 1, 300, 4, 4, 128, 0, 300), (2, 301, 130, 6, 1, 128, 0, 0),
+              (1, 130, 97, 6, 2, 128, 48, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", HALF_CASES, ids=[str(c) for c in HALF_CASES])
+def test_half_b5_at_hd_128_matches_plain_and_repeats(cuda, case, dtype):
+    """Both hd-128 passes against the plain versions on the same inputs
+    (f32: within 2e-5 of max|ref|; bf16: against the f32 plain version, one
+    bf16 ulp of each value beyond that), delta within 2e-5, one launch a
+    call each, and a second call equal bit for bit."""
+    B, Sq, Sk, H, K, hd, W, P = case
+    g = torch.Generator(device=cuda).manual_seed(sum(case))
+    q, do = (torch.randn(B, Sq, H, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    k, v = (torch.randn(B, Sk, K, hd, generator=g, device=cuda).to(dtype) for _ in range(2))
+    swa.reset_launches()
+    first = _prefix_passes(q, k, v, do, W, P)
+    second = _prefix_passes(q, k, v, do, W, P)
+    torch.cuda.synchronize()
+    assert swa.launches["swa_attention_bwd_dq"] == swa.launches["swa_attention_bwd_dkv"] == 2
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+    o, lse, dq, delta, dk, dv = first
+    f = [x.float() for x in (q, k, v, o, do)]
+    rdq, rdelta = swa.swa_attention_bwd_dq_ref(f[0], f[1], f[2], f[3], lse, f[4], W, P)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(f[0], f[1], f[2], lse, delta, f[4], W, P)
+    assert _normalised_err(delta, rdelta) <= 2e-5
+    for name, a, b in (("dq", dq, rdq), ("dk", dk, rdk), ("dv", dv, rdv)):
+        assert a.dtype == dtype and a.shape == b.shape
+        tol = 2e-5 * float(b.abs().max())
+        if dtype == torch.bfloat16:
+            _, exp = torch.frexp(b)
+            tol = tol + torch.ldexp(torch.ones_like(b), exp - 8)  # one bf16 ulp of each value
+        bad = (a.float() - b).abs() > tol
+        assert not bool(bad.any()), f"{name}: {int(bad.sum())} elements"
+
+
+def test_half_b5_f32_views_off_16_byte_alignment_match_plain(cuda):
+    """f32 views that TMA cannot read take the producer's plain loads at hd
+    128 too: within the tolerance, with a prefix of Sk and Sq != Sk."""
+    B, Sq, Sk, H, K, hd, W, P = 2, 130, 301, 4, 2, 128, 0, 301
+    q, do = _offset_view(cuda, B, Sq, H, hd, seed=1), _offset_view(cuda, B, Sq, H, hd, seed=2)
+    k, v = _offset_view(cuda, B, Sk, K, hd, seed=3), _offset_view(cuda, B, Sk, K, hd, seed=4)
+    assert q.data_ptr() % 16 and q.is_contiguous()
+    o, lse, dq, delta, dk, dv = _prefix_passes(q, k, v, do, W, P)
+    torch.cuda.synchronize()
+    rdq, rdelta = swa.swa_attention_bwd_dq_ref(q, k, v, o, lse, do, W, P)
+    rdk, rdv = swa.swa_attention_bwd_dkv_ref(q, k, v, lse, delta, do, W, P)
+    for a, b in ((dq, rdq), (delta, rdelta), (dk, rdk), (dv, rdv)):
+        assert _normalised_err(a, b) <= 2e-5
+
+
 # --------------------------------------------------------------------------- #
 # costs and robustness: B3m, the guarded step, DP, async
 # --------------------------------------------------------------------------- #

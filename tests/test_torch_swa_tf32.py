@@ -72,7 +72,17 @@ not scaled first); dq sums each 32-key kv tile's product from 0 and adds it
 in f32, dk and dv each (query head, 32-row q tile) in the kernels' order.
 Held at ATTN_TOL of max|ref| against the plain versions and ``jax.grad`` of
 the JAX package's attention, at hd 64 and 32, G 1 and 3, ragged lengths,
-windows, a prefix and Sq != Sk.
+windows, a prefix and Sq != Sk.  At head dim 128 both passes run the "half"
+kernels (``swa_bwd_dq_wg_half_kernel``, ``swa_bwd_dkv_wg_half_kernel``):
+two warpgroups on one 64-row q tile or 64-key kv tile, each over half of
+hd, so every score product (s, dp, s^T, dp^T) is summed k-step by k-step
+over each half's 64 columns apart and the two partial sums added in f32;
+the dk/dv pass cuts each 64-key kv tile's (query head, 32-row q tile)
+iterations into ``dkv_splits`` ranges, each summed from 0 and scaled (dk),
+the ranges added in split order.  ``wg_backward`` emulates that at qwen2's
+G 6 and at G 1 and 4, causal, windowed, with a prefix at a tile edge and
+one past it, under a window, and with Sq != Sk, in the split counts an
+H100's 132 SMs give.
 
 The forward at head dim <= 64 runs on wgmma too (``swa_fwd_wg_kernel``),
 emulated apart (``wg_forward``): s = q.k^T through the same truncated parts
@@ -103,6 +113,7 @@ import torch
 from repro.kernels.swa_attention.ref import swa_attention_ref as jax_swa_ref
 from repro.models import layers as JL
 from repro_torch.kernels import build
+from repro_torch.kernels.swa_attention import ops
 from repro_torch.kernels.swa_attention import (
     swa_attention_bwd_dkv_ref, swa_attention_bwd_dq_ref, swa_attention_ref,
 )
@@ -316,6 +327,20 @@ WG_CASES = [
     (1, 130, 300, 2, 2, 64, 0, 300),
     (1, 300, 130, 6, 2, 32, 0, 0),
 ]
+# hd 128 (the half kernels): qwen2-1.5b's G 6 causal at a ragged S, G 1
+# windowed, G 4 with a prefix at a 64-key tile's edge and one past it, a
+# prefix under a window, the encoder's prefix of S, Sq < Sk under a prefix
+# of Sk, Sq > Sk causal
+WG_CASES += [
+    (1, 200, 200, 6, 1, 128, 0, 0),
+    (1, 230, 230, 2, 2, 128, 100, 0),
+    (1, 160, 160, 8, 2, 128, 0, 64),
+    (1, 160, 160, 8, 2, 128, 0, 65),
+    (1, 200, 200, 4, 1, 128, 64, 100),
+    (1, 130, 130, 4, 4, 128, 0, 130),
+    (1, 100, 230, 6, 1, 128, 0, 230),
+    (1, 230, 100, 6, 2, 128, 0, 0),
+]
 WG_IDS = [str(c) for c in WG_CASES]
 
 
@@ -339,8 +364,24 @@ def wg_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out
 
 
+WG_HALVES = {128: 2}  # hd -> the column parts of the score products added in f32
+H100_SMS = 132  # the SMs that dkv_splits plans for
+
+
+def wg_scores(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """A score product a.b^T as the kernels sum it: wg_dot over each part of
+    hd's columns (WG_HALVES), the parts' sums added in f32 in column order."""
+    hd = a.shape[-1]
+    w = hd // WG_HALVES.get(hd, 1)
+    out = wg_dot(a[..., :w], b[..., :w])
+    for c in range(w, hd, w):
+        out = out + wg_dot(a[..., c:c + w], b[..., c:c + w])
+    return out
+
+
 def wg_backward(q, k, v, o, lse, do, window, prefix):
-    """(dq, dk, dv) as swa_bwd_dq_wg_kernel and swa_bwd_dkv_wg_kernel compute
+    """(dq, dk, dv) as swa_bwd_dq_wg_kernel and swa_bwd_dkv_wg_kernel (at hd
+    128 swa_bwd_dq_wg_half_kernel and swa_bwd_dkv_wg_half_kernel) compute
     them (``window`` and ``prefix`` as the kernels take them)."""
     B, Sq, H, hd = q.shape
     Sk, K = k.shape[1], k.shape[2]
@@ -354,9 +395,9 @@ def wg_backward(q, k, v, o, lse, do, window, prefix):
     delta = (o * do).sum(-1).permute(0, 2, 1).reshape(B, K, G, Sq)
 
     # the dq pass: rows x keys; each kv tile's ds.k from 0, added in f32
-    s = scale * wg_dot(qg, kg)
+    s = scale * wg_scores(qg, kg)
     p = torch.where(ok, torch.exp(s - lse_g[..., None]), 0.0)
-    ds = p * (wg_dot(dog, vg) - delta[..., None])
+    ds = p * (wg_scores(dog, vg) - delta[..., None])
     kt = kg.transpose(-1, -2)  # [B, K, 1, hd, Sk]
     dq = torch.zeros(B, K, G, Sq, hd)
     for j0 in range(0, Sk, WG_TILE):
@@ -365,18 +406,40 @@ def wg_backward(q, k, v, o, lse, do, window, prefix):
 
     # the dk/dv pass: keys x rows; each (query head, q tile)'s product from
     # 0, added in f32, heads outer, q tiles inner
-    st = scale * wg_dot(kg, qg)  # [B, K, G, Sk, Sq]
+    st = scale * wg_scores(kg, qg)  # [B, K, G, Sk, Sq]
     pt = torch.where(ok.T, torch.exp(st - lse_g[..., None, :]), 0.0)
-    dst = pt * (wg_dot(vg, dog) - delta[..., None, :])
+    dst = pt * (wg_scores(vg, dog) - delta[..., None, :])
     qt, dot = qg.transpose(-1, -2), dog.transpose(-1, -2)  # [B, K, G, hd, Sq]
-    dk = dv = torch.zeros(B, K, Sk, hd)
-    for g in range(G):
-        for i0 in range(0, Sq, WG_TILE):
-            rows = slice(i0, i0 + WG_TILE)
-            dv = dv + wg_dot(pt[:, :, g, :, rows], dot[:, :, g, :, rows])
-            dk = dk + wg_dot(dst[:, :, g, :, rows], qt[:, :, g, :, rows])
-    dk, dv = (x.permute(0, 2, 1, 3) for x in (scale * dk, dv))
-    return dq, dk, dv
+    if hd != ops.HALF_HEAD_DIM:
+        dk = dv = torch.zeros(B, K, Sk, hd)
+        for g in range(G):
+            for i0 in range(0, Sq, WG_TILE):
+                rows = slice(i0, i0 + WG_TILE)
+                dv = dv + wg_dot(pt[:, :, g, :, rows], dot[:, :, g, :, rows])
+                dk = dk + wg_dot(dst[:, :, g, :, rows], qt[:, :, g, :, rows])
+        dk, dv = (x.permute(0, 2, 1, 3) for x in (scale * dk, dv))
+        return dq, dk, dv
+    # hd 128: each kv tile's iterations (the q tiles that see its keys) cut
+    # into the splits' ranges, each summed from 0 (dk then scaled), the
+    # ranges added in split order (the merge)
+    keys, rows = ops.DKV_TILES[hd]
+    splits = ops.dkv_splits(B, Sq, Sk, K, G, hd, window, prefix, H100_SMS)
+    dk, dv = torch.zeros(B, K, Sk, hd), torch.zeros(B, K, Sk, hd)
+    nq = -(-Sq // rows)
+    for k0 in range(0, Sk, keys):
+        kt = slice(k0, k0 + keys)
+        i_lo = 0 if k0 < prefix else k0 // rows
+        i_hi = nq - 1 if window == 0 else min(nq - 1, (k0 + keys - 1 + window - 1) // rows)
+        its = [(g, i) for g in range(G) for i in range(i_lo, i_hi + 1)]
+        for z in range(splits):
+            part_k = part_v = torch.zeros(B, K, min(k0 + keys, Sk) - k0, hd)
+            for g, i in its[z * len(its) // splits:(z + 1) * len(its) // splits]:
+                r = slice(i * rows, (i + 1) * rows)
+                part_v = part_v + wg_dot(pt[:, :, g, kt, r], dot[:, :, g, :, r])
+                part_k = part_k + wg_dot(dst[:, :, g, kt, r], qt[:, :, g, :, r])
+            dk[:, :, kt] = dk[:, :, kt] + scale * part_k
+            dv[:, :, kt] = dv[:, :, kt] + part_v
+    return dq, dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
 
 
 def wg_inputs(case):
